@@ -1,0 +1,11 @@
+"""clipself_tpu_torch — the PyTorch / CUDA port of `clipself_tpu` for NVIDIA
+Hopper (H100).
+
+It keeps the JAX package's layout (`core/`, `ops/`, `models/`, `eval/`,
+`data/`) and names, imports `torch` and never `jax`, and runs every kernel
+the JAX package ran through Pallas as a hand-written CUDA kernel
+(`csrc/`, built at first use by `ops/_build.py`). Ported so far: the dense
+zero-shot evaluator of the EVA02 towers (`eval/zero_shot.py`).
+"""
+
+__version__ = "0.1.0"

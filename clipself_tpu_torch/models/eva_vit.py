@@ -1,0 +1,276 @@
+"""EVA02 vision transformer with the dense-prediction protocol, in PyTorch.
+
+A port of `clipself_tpu/models/eva_vit.py` for the EVA02 configurations
+(pre-norm blocks, sub-LN q/k/v projections with an inner attention LN, SwiGLU
+with `ffn_ln`, 2-D RoPE on the patch tokens):
+
+  - parameters live in float32 and are cast to the compute dtype at each
+    matmul, as flax `Dense(dtype=...)` does; LayerNorms compute in float32
+    with the fast-variance association of the JAX tower and are cast back at
+    the call site;
+  - images are channels-last [B, H, W, 3], tokens [B, N, W];
+  - module and parameter names follow the reference torch state dict
+    (`visual.blocks.{i}.attn.q_proj.weight`, `q_bias`, ...), so
+    `models/torch_io.py` loads reference checkpoints with `strict=True`;
+  - RoPE and attention run the hand-written kernels of `ops/`; the sequence
+    is never padded (the kernels mask the ragged 4097- and 197-token tails).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from clipself_tpu_torch.core.config import VisionConfig
+from clipself_tpu_torch.models.common import l2_normalize
+from clipself_tpu_torch.models.rope import apply_rope_flat
+from clipself_tpu_torch.ops.attention import multi_head_attention
+from clipself_tpu_torch.ops.interpolate import resize_2d
+from clipself_tpu_torch.ops.patchify import patchify
+
+_ROADMAP = "ROADMAP.md queue 1 item 8"
+
+
+def _unsupported(cfg: VisionConfig) -> Optional[str]:
+    """Name the first config flag this port does not implement yet."""
+    flags = (
+        ("use_rel_pos_bias", cfg.use_rel_pos_bias),
+        ("use_shared_rel_pos_bias", cfg.use_shared_rel_pos_bias),
+        ("postnorm", cfg.postnorm),
+        ("subln=False", not cfg.subln),
+        ("naiveswiglu=False (GELU Mlp)", not cfg.naiveswiglu),
+        ("rope=False", not cfg.rope),
+        ("patch_dropout", cfg.patch_dropout > 0.0),
+    )
+    for name, on in flags:
+        if on:
+            return name
+    return None
+
+
+def _trunc_normal(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """flax `truncated_normal(std)`: a normal cut at two standard deviations."""
+    nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def _lecun_normal(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax `lecun_normal`: variance 1/fan_in from a normal truncated at two
+    standard deviations (0.8796 is the truncated unit normal's std)."""
+    _trunc_normal(t, (1.0 / fan_in) ** 0.5 / 0.87962566103423978, generator)
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` with float32 parameters, computed in the input's dtype.
+    Built zero-filled; `EvaViT.init_weights` draws the weights."""
+
+    def reset_parameters(self) -> None:
+        nn.init.zeros_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.Module):
+    """Row LayerNorm in float32 (fast variance, y = (x-mu)*(rstd*w)+b);
+    returns float32, the caller casts."""
+
+    def __init__(self, width: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+        return (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class EvaAttention(nn.Module):
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.q_proj = Dense(w, w, bias=False)
+        self.k_proj = Dense(w, w, bias=False)
+        self.v_proj = Dense(w, w, bias=False)
+        # the reference keeps the q/v biases as standalone parameters
+        self.q_bias = nn.Parameter(torch.zeros(w)) if cfg.qkv_bias else None
+        self.v_bias = nn.Parameter(torch.zeros(w)) if cfg.qkv_bias else None
+        self.inner_attn_ln = LayerNorm(w, cfg.ln_eps)
+        self.proj = Dense(w, w)
+
+    def _v(self, x: torch.Tensor) -> torch.Tensor:
+        v = self.v_proj(x)
+        return v if self.v_bias is None else v + self.v_bias.to(v.dtype)
+
+    def forward(self, x: torch.Tensor, grid_hw: tuple[int, int]) -> torch.Tensor:
+        c = self.cfg
+        b, n, w = x.shape
+        q = self.q_proj(x)
+        if self.q_bias is not None:
+            q = q + self.q_bias.to(q.dtype)
+        k = self.k_proj(x)
+        v = self._v(x)
+        gh, gw = grid_hw
+        q = apply_rope_flat(q, gh, gw, c.head_width, 1, c.pt_hw_seq_len)
+        k = apply_rope_flat(k, gh, gw, c.head_width, 1, c.pt_hw_seq_len)
+        heads = (b, n, c.num_heads, c.head_width)
+        out = multi_head_attention(
+            q.view(heads), k.view(heads), v.view(heads), c.head_width ** -0.5
+        )
+        out = self.inner_attn_ln(out.reshape(b, n, w)).to(x.dtype)
+        return self.proj(out)
+
+    def value_path(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention branch without token mixing: v-projection, inner LN
+        and output projection (reference `proj_without_attn`)."""
+        return self.proj(self.inner_attn_ln(self._v(x)).to(x.dtype))
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        hidden = int(cfg.width * cfg.mlp_ratio)
+        self.w1 = Dense(cfg.width, hidden)
+        self.w2 = Dense(cfg.width, hidden)
+        self.ffn_ln = LayerNorm(hidden, cfg.ln_eps)
+        self.w3 = Dense(hidden, cfg.width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.silu(self.w1(x)) * self.w2(x)
+        return self.w3(self.ffn_ln(h).to(x.dtype))
+
+
+class EvaBlock(nn.Module):
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        self.norm1 = LayerNorm(cfg.width, cfg.ln_eps)
+        self.attn = EvaAttention(cfg)
+        self.norm2 = LayerNorm(cfg.width, cfg.ln_eps)
+        self.mlp = SwiGLU(cfg)
+        if cfg.ls_init_value is not None:
+            self.gamma_1 = nn.Parameter(torch.full((cfg.width,), float(cfg.ls_init_value)))
+            self.gamma_2 = nn.Parameter(torch.full((cfg.width,), float(cfg.ls_init_value)))
+        else:
+            self.gamma_1 = self.gamma_2 = None
+
+    @staticmethod
+    def _scaled(y: torch.Tensor, gamma: Optional[torch.Tensor]) -> torch.Tensor:
+        return y if gamma is None else y * gamma.to(y.dtype)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self._scaled(self.mlp(self.norm2(x).to(x.dtype)), self.gamma_2)
+
+    def forward(self, x: torch.Tensor, grid_hw: tuple[int, int]) -> torch.Tensor:
+        x = x + self._scaled(self.attn(self.norm1(x).to(x.dtype), grid_hw), self.gamma_1)
+        return self._mlp(x)
+
+    def forward_without_attn(self, x: torch.Tensor) -> torch.Tensor:
+        """Final-block value path (reference `forward_without_attn`)."""
+        x = x + self._scaled(self.attn.value_path(self.norm1(x).to(x.dtype)), self.gamma_1)
+        return self._mlp(x)
+
+
+class PatchEmbed(nn.Module):
+    """Holds the OIHW patch-embedding weight and bias under the reference
+    names `patch_embed.proj.{weight,bias}`; computed as reshape + matmul
+    (`ops/patchify.py`)."""
+
+    def __init__(self, width: int, patch_size: int):
+        super().__init__()
+        self.proj = nn.ParameterDict(
+            {
+                "weight": nn.Parameter(torch.zeros(width, 3, patch_size, patch_size)),
+                "bias": nn.Parameter(torch.zeros(width)),
+            }
+        )
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return patchify(x, self.proj["weight"], self.proj["bias"], dtype)
+
+
+class EvaViT(nn.Module):
+    def __init__(self, cfg: VisionConfig, embed_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        missing = _unsupported(cfg)
+        if missing is not None:
+            raise NotImplementedError(f"EvaViT port: {missing} is not ported yet ({_ROADMAP})")
+        self.cfg = cfg
+        self.dtype = dtype
+        base = cfg.grid_size
+        self.patch_embed = PatchEmbed(cfg.width, cfg.patch_size)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.width))
+        self.pos_embed = nn.Parameter(torch.zeros(1, base * base + 1, cfg.width))
+        self.blocks = nn.ModuleList(EvaBlock(cfg) for _ in range(cfg.layers))
+        self.norm = LayerNorm(cfg.width, cfg.ln_eps)
+        self.head = Dense(cfg.width, embed_dim)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw the initial weights with the JAX tower's distributions:
+        truncated normal(0.02) for cls_token/pos_embed, lecun-normal
+        (truncated) kernels, zero biases, unit LayerNorm scales. Parameters
+        must lie on the generator's device."""
+        _trunc_normal(self.cls_token, 0.02, generator)
+        _trunc_normal(self.pos_embed, 0.02, generator)
+        w = self.patch_embed.proj["weight"]
+        _lecun_normal(w, w[0].numel(), generator)
+        self.patch_embed.proj["bias"].zero_()
+        for m in self.modules():
+            if isinstance(m, Dense):
+                _lecun_normal(m.weight, m.in_features, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+    def _resized_pos_embed(self, grid_hw: tuple[int, int]) -> torch.Tensor:
+        """Bicubic-resize the absolute pos-embed grid to the input grid."""
+        c = self.cfg
+        base = c.grid_size
+        gh, gw = grid_hw
+        pe = self.pos_embed
+        if (gh, gw) == (base, base):
+            return pe
+        grid_pe = pe[:, 1:].reshape(1, base, base, c.width).permute(0, 3, 1, 2)
+        grid_pe = resize_2d(grid_pe, (gh, gw), method="bicubic")
+        grid_pe = grid_pe.permute(0, 2, 3, 1).reshape(1, gh * gw, c.width)
+        return torch.cat([pe[:, :1], grid_pe], dim=1)
+
+    def embed(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
+        """Patchify [B, H, W, 3] -> tokens [B, 1 + gh*gw, width] with CLS+pos."""
+        c = self.cfg
+        b = x.shape[0]
+        t = self.patch_embed(x, self.dtype)
+        gh, gw = t.shape[1], t.shape[2]
+        t = t.reshape(b, gh * gw, c.width)
+        cls = self.cls_token.to(self.dtype).expand(b, 1, c.width)
+        t = torch.cat([cls, t], dim=1)
+        t = t + self._resized_pos_embed((gh, gw)).to(self.dtype)
+        return t, (gh, gw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Image embedding from the CLS token [B, embed_dim]."""
+        t, grid = self.embed(x)
+        for blk in self.blocks:
+            t = blk(t, grid)
+        t = self.norm(t[:, 0]).to(self.dtype)
+        return self.head(t)
+
+    def encode_dense(self, x: torch.Tensor, keep_shape: bool = True) -> torch.Tensor:
+        """Dense patch features: blocks[:-1], the final block without
+        attention, drop CLS, norm + head, L2-normalize. Returns
+        [B, gh, gw, C] if keep_shape else [B, gh*gw, C]."""
+        t, (gh, gw) = self.embed(x)
+        for blk in self.blocks[:-1]:
+            t = blk(t, (gh, gw))
+        t = self.blocks[-1].forward_without_attn(t)[:, 1:]
+        t = self.head(self.norm(t).to(self.dtype))
+        t = l2_normalize(t)
+        return t.reshape(x.shape[0], gh, gw, -1) if keep_shape else t

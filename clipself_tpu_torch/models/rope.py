@@ -1,0 +1,138 @@
+"""2-D axial rotary position embeddings for the EVA vision tower.
+
+The table functions are NumPy copies of `clipself_tpu/models/rope.py`
+(`rope_tables_np`, `_split_sin_np`, `rope_tables_padded_np`,
+`rope_tables_flat_np`); `tests/test_torch_rope.py` pins them equal to the
+originals. `apply_rope_flat` rotates the flat [B, N, H * head_dim] q/k
+projection through the rolled-RoPE kernel (`ops/rope_roll.py`), with
+[N, head_dim] float32 tables: identity rows for the CLS prefix, and no pad
+tail, since the port never pads the sequence.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from clipself_tpu_torch.ops.rope_roll import rolled_rope
+
+
+@functools.lru_cache(maxsize=64)
+def rope_tables_np(
+    grid_h: int,
+    grid_w: int,
+    rope_dim: int,
+    pt_seq_len: int = 16,
+    theta: float = 10000.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Build (cos, sin) tables of shape [grid_h * grid_w, 2 * rope_dim].
+
+    ``rope_dim`` is half the head dim (each spatial axis rotates half).
+    """
+    freqs = 1.0 / (
+        theta ** (np.arange(0, rope_dim, 2)[: rope_dim // 2].astype(np.float64) / rope_dim)
+    )
+
+    def axis_freqs(size: int) -> np.ndarray:
+        t = np.arange(size, dtype=np.float64) / size * pt_seq_len
+        f = np.outer(t, freqs)
+        return np.repeat(f, 2, axis=-1)
+
+    fh = axis_freqs(grid_h)
+    fw = axis_freqs(grid_w)
+    full = np.concatenate(
+        [
+            np.broadcast_to(fh[:, None, :], (grid_h, grid_w, rope_dim)),
+            np.broadcast_to(fw[None, :, :], (grid_h, grid_w, rope_dim)),
+        ],
+        axis=-1,
+    ).reshape(grid_h * grid_w, 2 * rope_dim)
+    return np.cos(full).astype(np.float32), np.sin(full).astype(np.float32)
+
+
+def _split_sin_np(sin: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Fold the pairwise-rotation signs and lane parity into two sin tables:
+    ``x*cos + rotate_half(x)*sin == x*cos + roll(x,-1)*sin_a + roll(x,+1)*sin_b``
+    with sin_a = -sin on even lanes (0 on odd) and sin_b = +sin on odd lanes
+    (0 on even)."""
+    parity = np.arange(sin.shape[-1]) % 2
+    sin_a = np.where(parity == 0, -sin, 0.0).astype(sin.dtype)
+    sin_b = np.where(parity == 1, sin, 0.0).astype(sin.dtype)
+    return sin_a, sin_b
+
+
+@functools.lru_cache(maxsize=64)
+def rope_tables_padded_np(
+    grid_h: int,
+    grid_w: int,
+    rope_dim: int,
+    n_prefix: int,
+    n_total: int,
+    pt_seq_len: int = 16,
+    theta: float = 10000.0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Full-sequence (cos, sin_a, sin_b) tables of shape [n_total, 2*rope_dim]
+    with identity rows (cos=1, sin=0) outside [n_prefix, n_prefix + H*W)."""
+    cos_p, sin_p = rope_tables_np(grid_h, grid_w, rope_dim, pt_seq_len, theta)
+    d = 2 * rope_dim
+    n_patch = grid_h * grid_w
+    if n_prefix + n_patch > n_total:
+        raise ValueError(f"rope table: {n_prefix}+{n_patch} patches > {n_total} tokens")
+    cos = np.ones((n_total, d), np.float32)
+    sin = np.zeros((n_total, d), np.float32)
+    cos[n_prefix : n_prefix + n_patch] = cos_p
+    sin[n_prefix : n_prefix + n_patch] = sin_p
+    sin_a, sin_b = _split_sin_np(sin)
+    return cos, sin_a, sin_b
+
+
+@functools.lru_cache(maxsize=64)
+def rope_tables_flat_np(
+    grid_h: int,
+    grid_w: int,
+    head_dim: int,
+    n_heads: int,
+    n_prefix: int,
+    n_total: int,
+    pt_seq_len: int = 16,
+    theta: float = 10000.0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Padded rolled tables tiled across heads: shape [n_total, n_heads*head_dim]."""
+    cos, sin_a, sin_b = rope_tables_padded_np(
+        grid_h, grid_w, head_dim // 2, n_prefix, n_total, pt_seq_len, theta
+    )
+    tile = lambda t: np.tile(t, (1, n_heads))  # noqa: E731
+    return tile(cos), tile(sin_a), tile(sin_b)
+
+
+@functools.lru_cache(maxsize=16)
+def rope_tables(
+    grid_h: int,
+    grid_w: int,
+    head_dim: int,
+    n_prefix: int,
+    pt_seq_len: int,
+    device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(cos, sin_a, sin_b) float32 [n_prefix + grid_h*grid_w, head_dim] on
+    ``device``, built once per grid and device. Callers must not write to
+    them."""
+    n_total = n_prefix + grid_h * grid_w
+    tables = rope_tables_padded_np(grid_h, grid_w, head_dim // 2, n_prefix, n_total, pt_seq_len)
+    return tuple(torch.tensor(t, device=device) for t in tables)
+
+
+def apply_rope_flat(
+    x: torch.Tensor,
+    grid_h: int,
+    grid_w: int,
+    head_dim: int,
+    n_prefix: int = 1,
+    pt_seq_len: int = 16,
+) -> torch.Tensor:
+    """Rotate a [CLS; patches] sequence in flat layout ``x[B, N, H*head_dim]``
+    (N = n_prefix + grid_h*grid_w); the prefix tokens are not rotated."""
+    cos, sin_a, sin_b = rope_tables(grid_h, grid_w, head_dim, n_prefix, pt_seq_len, x.device)
+    return rolled_rope(x, cos, sin_a, sin_b)

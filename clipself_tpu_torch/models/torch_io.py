@@ -1,0 +1,133 @@
+"""Weights in the reference PyTorch state-dict layout.
+
+`state_dict_from_jax` turns the JAX package's param tree (nested dicts of
+NumPy arrays) into the state dict of the reference `CustomCLIP` for the
+visual tower and `logit_scale`, with the key map of the EVA branch of
+`clipself_tpu/models/torch_io.py::_vision_key_map` copied here; `load_weights`
+loads such a dict, or a reference `.pt` checkpoint, with `strict=True`.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _eva_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """Map a flax param path under `visual` of an EVA tower to
+    (torch_key, transform); transform is 'linear' (transpose 2-D),
+    'conv' (HWIO -> OIHW) or None (verbatim)."""
+    k = list(flax_key)
+    if k == ["patch_embed", "kernel"]:
+        return "visual.patch_embed.proj.weight", "conv"
+    if k == ["patch_embed", "bias"]:
+        return "visual.patch_embed.proj.bias", None
+    if k == ["cls_token"]:
+        return "visual.cls_token", None
+    if k == ["pos_embed"]:
+        return "visual.pos_embed", None
+    if k == ["rel_pos_bias", "relative_position_bias_table"]:
+        return "visual.rel_pos_bias.relative_position_bias_table", None
+    if k == ["norm", "scale"]:
+        return "visual.norm.weight", None
+    if k == ["norm", "bias"]:
+        return "visual.norm.bias", None
+    if k == ["head", "kernel"]:
+        return "visual.head.weight", "linear"
+    if k == ["head", "bias"]:
+        return "visual.head.bias", None
+    m = re.match(r"blocks_(\d+)", k[0])
+    if m:
+        base = f"visual.blocks.{m.group(1)}"
+        rest = k[1:]
+        ln = {"scale": "weight", "bias": "bias"}
+        if rest[0] in ("norm1", "norm2"):
+            return f"{base}.{rest[0]}.{ln[rest[1]]}", None
+        if rest[0] == "attn":
+            sub = rest[1]
+            if sub in ("q_proj", "k_proj", "v_proj"):
+                if rest[2] == "kernel":
+                    return f"{base}.attn.{sub}.weight", "linear"
+                # torch stores q/v biases as standalone parameters
+                return f"{base}.attn.{sub[0]}_bias", None
+            if sub == "qkv":
+                return f"{base}.attn.qkv.weight", "linear"
+            if sub in ("q_bias", "v_bias"):
+                return f"{base}.attn.{sub}", None
+            if sub == "inner_attn_ln":
+                return f"{base}.attn.inner_attn_ln.{ln[rest[2]]}", None
+            if sub == "rel_pos_bias":
+                return f"{base}.attn.relative_position_bias_table", None
+            if sub == "proj":
+                t = "linear" if rest[2] == "kernel" else None
+                return f"{base}.attn.proj.{'weight' if t else 'bias'}", t
+        if rest[0] == "mlp":
+            sub = rest[1]
+            if sub == "ffn_ln":
+                return f"{base}.mlp.ffn_ln.{ln[rest[2]]}", None
+            t = "linear" if rest[2] == "kernel" else None
+            return f"{base}.mlp.{sub}.{'weight' if t else 'bias'}", t
+        if rest[0] in ("gamma_1", "gamma_2"):
+            return f"{base}.{rest[0]}", None
+    raise KeyError(f"unmapped EVA vision param: {flax_key}")
+
+
+def _flatten(tree: Any, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], Any]:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def state_dict_from_jax(params: Any) -> dict[str, torch.Tensor]:
+    """JAX param tree (nested dicts of arrays, with `visual` and
+    `logit_scale`) -> float32 torch state dict in the reference layout
+    (linear weights transposed, the HWIO patch kernel made OIHW)."""
+    out = {}
+    for path, val in _flatten(params["visual"]).items():
+        key, transform = _eva_vision_key_map(path)
+        arr = np.asarray(val, dtype=np.float32)
+        if transform == "linear":
+            arr = arr.T
+        elif transform == "conv":
+            arr = arr.transpose(3, 2, 0, 1)
+        out[key] = torch.tensor(arr)
+    out["logit_scale"] = torch.tensor(np.asarray(params["logit_scale"], dtype=np.float32))
+    return out
+
+
+def unwrap_state_dict(sd: dict) -> dict:
+    """Probe `state_dict|model|module` containers, strip `module.` prefixes
+    and drop RoPE buffers (reference `eva_clip/factory.py:80-106`)."""
+    for key in ("state_dict", "model", "module"):
+        if key in sd and isinstance(sd[key], dict):
+            sd = sd[key]
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    return {
+        k: v
+        for k, v in sd.items()
+        if "rope.freqs" not in k
+        and ".rope." not in k
+        and not k.endswith(("freqs_cos", "freqs_sin", "rope.flag"))
+    }
+
+
+def load_weights(model: nn.Module, source: Union[str, dict]) -> None:
+    """Load a reference-layout state dict, or a `.pt` checkpoint path, into
+    a port `CLIP` with `strict=True`. Keys of parts the port does not build
+    (the text tower) are dropped first; every visual key must match."""
+    if isinstance(source, str):
+        source = torch.load(source, map_location="cpu", weights_only=True)
+    sd = unwrap_state_dict(source)
+    sd = {
+        k: torch.as_tensor(v, dtype=torch.float32)
+        for k, v in sd.items()
+        if k.startswith("visual.") or k == "logit_scale"
+    }
+    model.load_state_dict(sd, strict=True)
