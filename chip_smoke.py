@@ -8,13 +8,21 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. card and build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels built from `clipself_tpu_torch/csrc/` with the build time;
 2. each kernel against its plain PyTorch version at the shapes of the
-   EVA02-CLIP-B/16 evaluator (dense 1024^2 pass: 4097 tokens, batch 2; crop
-   pass: 197 tokens, 50 crops), in float32 and bfloat16, with CUDA-event
-   times of both;
-3. the slice: `evaluate_zero_shot` of EVA02-CLIP-B/16 (seeded random
-   weights, bf16) over 4 synthetic panoptic batches, with images/s, the mAcc
-   dict and the kernel launch counts of that run;
-4. whole-path parity of the dense map against the plain float32 path.
+   EVA02-CLIP-B/16 evaluator and distill step (dense 1024^2 pass: 4097
+   tokens, batch 2; crop pass: 197 tokens, 50 crops), in float32 and
+   bfloat16, with CUDA-event times of both: the RoPE forward and backward,
+   the flash-attention forward with and without its LSE, and the flash
+   backward;
+3. the evaluator slice: `evaluate_zero_shot` of EVA02-CLIP-B/16 (seeded
+   random weights, bf16) over 4 synthetic panoptic batches, with images/s,
+   the mAcc dict and the kernel launch counts of that run;
+4. whole-path parity of the dense map against the plain float32 path;
+5. the train slice: `clipself_tpu_torch.train.main` on EVA02-CLIP-B/16, bf16,
+   synthetic data, batch 2 at 1024^2, 20 boxes, 224^2 teacher crops, all 12
+   blocks unlocked: 1 warm-up step and 5 timed steps, with images/s, the
+   per-step losses, peak device memory and the launch counts of the run;
+6. train parity: one step's loss and trainable gradients at batch 1 on f32
+   kernels, bf16 kernels and the f32 plain path.
 
 The second-to-last line is one JSON object with a row per kernel; the last
 line is `{"ok": true, "device": {...}}`. Without a CUDA card it exits 1
@@ -23,8 +31,12 @@ before printing either.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -49,11 +61,73 @@ PATH_F32_MAX_ABS = 1e-4
 # Whole path bf16 vs f32: the bar of PARITY_CHIP.md for the JAX tower's
 # bf16 chip path against float32.
 PATH_BF16_MIN_COS = 0.9996
+# LSE: a sum of f32 exponentials in another order, values of ~log(N) ~ 8.
+LSE_MAX_ABS = 1e-4
+# Flash backward f32: up to N = 4097 products per entry summed in another
+# order, dQ through f32 atomics in a run-dependent order; relative to the
+# largest gradient entry, since the gradients' scale depends on the inputs.
+BWD_F32_MAX_REL = 1e-4
+# Flash backward bf16: P and dS are rounded to bf16 before their products.
+BWD_BF16_MIN_COS = 0.999
+# Train parity, one step at batch 1: f32 kernels vs f32 plain differ by
+# summation order only; bf16 kernels vs f32 plain by bf16 rounding through
+# 12 blocks and their backward. Tightened from 1e-3 and 0.99 after the
+# first run on an H100 measured a max relative gradient error of 2.6e-6
+# and a min gradient cosine of 0.99976.
+STEP_LOSS_MAX_ABS = 1e-5
+STEP_GRAD_F32_MAX_REL = 1e-4
+STEP_GRAD_BF16_MIN_COS = 0.999
+# train slice: 1 warm-up step, then 5 timed steps
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BOXES = 1, 5, 20
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def _counters():
+    from clipself_tpu_torch.ops import attention, rope_roll
+
+    return {
+        "flash_attention": attention.LAUNCHES,
+        "flash_attention_bwd": attention.BWD_LAUNCHES,
+        "rope_roll": rope_roll.LAUNCHES,
+        "rope_roll_bwd": rope_roll.BWD_LAUNCHES,
+    }
+
+
+def reset_counts() -> None:
+    for counter in _counters().values():
+        counter.reset()
+
+
+def read_counts() -> dict:
+    return {name: counter.count for name, counter in _counters().items()}
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Swap the kernels' plain versions in where the tower calls the kernel
+    wrappers (`eva_vit.multi_head_attention`, `rope.rolled_rope`); autograd
+    differentiates them. Fails if any kernel launched inside, so a swap that
+    misses a call site cannot compare the kernels with themselves."""
+    from clipself_tpu_torch.models import eva_vit, rope
+    from clipself_tpu_torch.ops.attention import attention_plain
+    from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain
+
+    def rope_plain(x, cos, sin_a, sin_b, a_bwd, b_bwd):
+        return rolled_rope_plain(x, cos, sin_a, sin_b)
+
+    saved = eva_vit.multi_head_attention, rope.rolled_rope
+    eva_vit.multi_head_attention, rope.rolled_rope = attention_plain, rope_plain
+    reset_counts()
+    try:
+        yield
+    finally:
+        eva_vit.multi_head_attention, rope.rolled_rope = saved
+    if any(read_counts().values()):
+        fail(f"the plain path launched kernels: {read_counts()}")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -91,21 +165,22 @@ def ulp(t, dtype):
 
 
 def phase_kernels(torch, dev, results):
-    from clipself_tpu_torch.models.rope import rope_tables
+    from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
     from clipself_tpu_torch.ops import attention, rope_roll
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     # RoPE, with the tables of the model's grids (64x64 dense, 14x14 crops)
     for (b, n, w), grid in (((BATCH, 4097, 768), 64), ((BATCH * BUCKET, 197, 768), 14)):
         tables = rope_tables(grid, grid, 64, 1, 16, dev)
+        a_bwd, b_bwd = rope_tables_bwd(grid, grid, 64, 1, 16, dev)
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(b, n, w, generator=gen).to(dev, dt)
-            got = rope_roll.rolled_rope(x, *tables).float()
+            got = rope_roll.rolled_rope_fwd(x, *tables).float()
             want = rope_roll.rolled_rope_plain(x, *tables).float()
             mag = rope_roll.rolled_rope_plain(x.float().abs(), *(t.abs() for t in tables))
             err_ulp = ((got - want).abs() / ulp(mag, dt)).max().item()
             max_abs = (got - want).abs().max().item()
-            ms = cuda_ms(lambda: rope_roll.rolled_rope(x, *tables))
+            ms = cuda_ms(lambda: rope_roll.rolled_rope_fwd(x, *tables))
             plain_ms = cuda_ms(lambda: rope_roll.rolled_rope_plain(x, *tables))
             print(
                 f"kernel rope_roll [{b},{n},{w}] {str(dt)[6:]}: max_abs {max_abs:.3e} "
@@ -116,6 +191,34 @@ def phase_kernels(torch, dev, results):
                 fail(f"rope_roll {dt} [{b},{n},{w}] off by {err_ulp} ULP")
             if dt == torch.bfloat16 and n == 4097:
                 results["rope_roll"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+            if n != 4097:
+                continue
+            # the backward: the same kernel on dy with the rolled tables,
+            # against autograd of the plain forward; the plain backward's
+            # time is the same composition in plain PyTorch
+            dy = torch.randn(b, n, w, generator=gen).to(dev, dt)
+            got = rope_roll.rolled_rope_bwd(dy, tables[0], a_bwd, b_bwd).float()
+            xr = torch.zeros(b, n, w, device=dev, dtype=dt, requires_grad=True)
+            (want,) = torch.autograd.grad(rope_roll.rolled_rope_plain(xr, *tables), xr, dy)
+            want = want.float()
+            mag = rope_roll.rolled_rope_plain(
+                dy.float().abs(), tables[0].abs(), b_bwd.abs(), a_bwd.abs()
+            )
+            err_ulp = ((got - want).abs() / ulp(mag, dt)).max().item()
+            max_abs = (got - want).abs().max().item()
+            ms = cuda_ms(lambda: rope_roll.rolled_rope_bwd(dy, tables[0], a_bwd, b_bwd))
+            plain_ms = cuda_ms(lambda: rope_roll.rolled_rope_plain(dy, tables[0], b_bwd, a_bwd))
+            print(
+                f"kernel rope_roll backward [{b},{n},{w}] {str(dt)[6:]}: max_abs {max_abs:.3e} "
+                f"max_ulp {err_ulp:.2f} (bar {ROPE_MAX_ULP}) ms {ms:.4f} plain_ms {plain_ms:.4f}",
+                flush=True,
+            )
+            if not err_ulp <= ROPE_MAX_ULP:
+                fail(f"rope_roll backward {dt} [{b},{n},{w}] off by {err_ulp} ULP")
+            if dt == torch.bfloat16:
+                results["rope_roll"]["backward"] = dict(
+                    max_abs_err=max_abs, ms=ms, plain_ms=plain_ms
+                )
     # attention on [B, N, H, D] per-head views of the [B, N, W] projections
     for b, n in ((BATCH, 4097), (BATCH * BUCKET, 197)):
         scale = 64 ** -0.5
@@ -124,11 +227,11 @@ def phase_kernels(torch, dev, results):
                 torch.randn(b, n, 768, generator=gen).to(dev, dt).view(b, n, 12, 64)
                 for _ in range(3)
             )
-            got = attention.flash_attention(q, k, v, scale).float()
+            got = attention.flash_attention_fwd(q, k, v, scale).float()
             want = attention.attention_plain(q.float(), k.float(), v.float(), scale)
             max_abs = (got - want).abs().max().item()
             cos = min_row_cos(got, want)
-            ms = cuda_ms(lambda: attention.flash_attention(q, k, v, scale), iters=10)
+            ms = cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale), iters=10)
             plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, scale), iters=10)
             print(
                 f"kernel flash_attention [{b},{n},12,64] {str(dt)[6:]}: max_abs {max_abs:.3e} "
@@ -141,6 +244,61 @@ def phase_kernels(torch, dev, results):
                 fail(f"flash_attention bf16 [{b},{n}] min row cosine {cos}")
             if dt == torch.bfloat16 and n == 4097:
                 results["flash_attention"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+            if n != 4097:
+                continue
+            check_flash_train_kernels(torch, dev, attention, q, k, v, scale, results, gen)
+
+
+def check_flash_train_kernels(torch, dev, attention, q, k, v, scale, results, gen):
+    """The training kernels at the student's [2, 4097, 12, 64]: the forward
+    with its LSE, and the one-pass backward, against their plain versions on
+    the same inputs (plain float32 on the bf16-valued inputs for bf16)."""
+    dt = q.dtype
+    out, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    f = [t.float() for t in (q, k, v)]
+    out32, lse32 = attention.attention_lse_plain(*f, scale)
+    lse_err = (lse - lse32).abs().max().item()
+    ms = cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale, return_lse=True), iters=10)
+    plain_ms = cuda_ms(lambda: attention.attention_lse_plain(q, k, v, scale), iters=10)
+    tag = f"[{q.shape[0]},{q.shape[1]},12,64] {str(dt)[6:]}"
+    print(
+        f"kernel flash_attention with lse {tag}: lse max_abs {lse_err:.3e} (bar {LSE_MAX_ABS}) "
+        f"ms {ms:.4f} plain_ms {plain_ms:.4f}",
+        flush=True,
+    )
+    if not lse_err <= LSE_MAX_ABS:
+        fail(f"flash_attention lse {dt} max abs {lse_err}")
+    do = torch.randn(q.shape, generator=gen).to(dev, dt)
+    got = attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    want = attention.attention_bwd_plain(*f, out32, lse32, do.float(), scale)
+    del out32, lse32
+    errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+    rels = [e / w.abs().max().item() for e, w in zip(errs, want)]
+    coss = [min_row_cos(g, w) for g, w in zip(got, want)]
+    finite = all(torch.isfinite(g).all().item() for g in got)
+    del want
+    bwd_ms = cuda_ms(lambda: attention.flash_attention_bwd(q, k, v, out, lse, do, scale), iters=10)
+    bwd_plain_ms = cuda_ms(
+        lambda: attention.attention_bwd_plain(q, k, v, out, lse, do, scale), iters=5
+    )
+    print(
+        f"kernel flash_attention_bwd {tag}: dq/dk/dv max_abs "
+        f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} rel {max(rels):.3e} "
+        f"min_row_cos {coss[0]:.6f}/{coss[1]:.6f}/{coss[2]:.6f} "
+        f"ms {bwd_ms:.4f} plain_ms {bwd_plain_ms:.4f}",
+        flush=True,
+    )
+    if not finite:
+        fail(f"flash_attention_bwd {dt}: non-finite gradient")
+    if dt == torch.float32 and not max(rels) <= BWD_F32_MAX_REL:
+        fail(f"flash_attention_bwd f32 relative error {max(rels)} (bar {BWD_F32_MAX_REL})")
+    if dt == torch.bfloat16 and not min(coss) >= BWD_BF16_MIN_COS:
+        fail(f"flash_attention_bwd bf16 min row cosine {min(coss)} (bar {BWD_BF16_MIN_COS})")
+    if dt == torch.bfloat16:
+        results["flash_attention"]["lse"] = dict(max_abs_err=lse_err, ms=ms, plain_ms=plain_ms)
+        results["flash_attention_bwd"] = dict(
+            max_abs_err=max(errs), min_row_cos=min(coss), ms=bwd_ms, plain_ms=bwd_plain_ms
+        )
 
 
 def phase_slice(torch, dev):
@@ -149,7 +307,6 @@ def phase_slice(torch, dev):
     from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
     from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
     from clipself_tpu_torch.models.factory import create_model
-    from clipself_tpu_torch.ops import attention, rope_roll
 
     model = create_model(MODEL, device=dev, dtype=torch.bfloat16, seed=SEED)
     cfg = model.cfg
@@ -169,13 +326,12 @@ def phase_slice(torch, dev):
     evaluate_zero_shot(model, [warm], emb, device=dev, ann_bucket=BUCKET)  # warm-up
     torch.cuda.synchronize()
 
-    for counter in (attention.LAUNCHES, rope_roll.LAUNCHES):
-        counter.reset()
+    reset_counts()
     t0 = time.perf_counter()
     res = evaluate_zero_shot(model, batches, emb, device=dev, ann_bucket=BUCKET)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"flash_attention": attention.LAUNCHES.count, "rope_roll": rope_roll.LAUNCHES.count}
+    launches = read_counts()
 
     ips = BATCH * N_BATCHES / dt
     print(
@@ -192,17 +348,17 @@ def phase_slice(torch, dev):
     # takes the value path), the crop pass all 12, crops in one call; two
     # RoPE launches (q and k) per attention block
     per_batch = (cfg.vision.layers - 1) + cfg.vision.layers
-    expect = {"flash_attention": N_BATCHES * per_batch, "rope_roll": 2 * N_BATCHES * per_batch}
+    expect = {
+        "flash_attention": N_BATCHES * per_batch, "flash_attention_bwd": 0,
+        "rope_roll": 2 * N_BATCHES * per_batch, "rope_roll_bwd": 0,
+    }
     if launches != expect:
         fail(f"launch counts {launches}, expected {expect}")
     return model, batches[0], launches
 
 
 def phase_parity(torch, dev, model_bf16, batch):
-    from clipself_tpu_torch.models import eva_vit, rope
     from clipself_tpu_torch.models.factory import create_model
-    from clipself_tpu_torch.ops.attention import attention_plain
-    from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain
 
     images = batch["images"]
     model_f32 = create_model(MODEL, device=dev, dtype=torch.float32, seed=SEED)
@@ -210,13 +366,8 @@ def phase_parity(torch, dev, model_bf16, batch):
         dense_k32 = model_f32.encode_dense(images, keep_shape=True)
         dense_k16 = model_bf16.encode_dense(images, keep_shape=True)
         # the plain path: the same model with the kernels' plain versions
-        # swapped in where the tower calls the kernel wrappers
-        saved = eva_vit.multi_head_attention, rope.rolled_rope
-        eva_vit.multi_head_attention, rope.rolled_rope = attention_plain, rolled_rope_plain
-        try:
+        with plain_path():
             dense_p32 = model_f32.encode_dense(images, keep_shape=True)
-        finally:
-            eva_vit.multi_head_attention, rope.rolled_rope = saved
     torch.cuda.synchronize()
     f32_abs = (dense_k32 - dense_p32).abs().max().item()
     f32_cos = min_row_cos(dense_k32, dense_p32)
@@ -240,6 +391,142 @@ def phase_parity(torch, dev, model_bf16, batch):
         fail(f"f32 kernel path off the plain path by {f32_abs}")
     if not bf16_cos >= PATH_BF16_MIN_COS:
         fail(f"bf16 kernel path min row cosine {bf16_cos}")
+
+
+def phase_train(torch, dev, logs_dir):
+    """The distill step through the trainer's entry point."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.train import main as train_main
+    from clipself_tpu_torch.train.optim import trainable_labels
+
+    layers = get_model_config(MODEL).vision.layers
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    argv = [
+        "--synthetic", "--model", MODEL, "--precision", "bf16", "--device", "cuda",
+        "--batch-size", str(BATCH), "--det-image-size", str(IMAGE),
+        "--max-boxes", str(TRAIN_BOXES), "--lock-image-unlocked-groups", str(layers),
+        "--steps-per-epoch", str(steps), "--epochs", "1", "--log-every-n-steps", "1",
+        "--lr", "1e-5", "--warmup", "1", "--seed", str(SEED),
+        "--logs", logs_dir, "--name", "train_slice",
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train_main.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    timed = hist[TRAIN_WARMUP:]
+    seconds = sum(BATCH / h["images_per_sec"] for h in timed)
+    ips = BATCH * len(timed) / seconds
+    print(
+        f"train {MODEL} distill step: batch {BATCH} at {IMAGE}px, {TRAIN_BOXES} boxes, "
+        f"crops {CROP}px, {layers} blocks unlocked, bf16: {TRAIN_TIMED} timed steps after "
+        f"{TRAIN_WARMUP} warm-up in {seconds:.3f} s, {ips:.3f} images/s "
+        f"(per step {[round(h['images_per_sec'], 3) for h in timed]})",
+        flush=True,
+    )
+    print(f"train losses {json.dumps([round(x, 6) for x in losses])}", flush=True)
+    print(f"train peak memory {peak_gib:.3f} GiB (max_memory_allocated)", flush=True)
+    print(f"train launches {json.dumps(launches)}", flush=True)
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"train losses {losses}")
+    # per step: the teacher's 12 blocks and the student's 11 attention
+    # blocks run the forward, the student's 11 the backward; RoPE twice each
+    fwd, bwd = layers + (layers - 1), layers - 1
+    expect = {
+        "flash_attention": steps * fwd, "flash_attention_bwd": steps * bwd,
+        "rope_roll": 2 * steps * fwd, "rope_roll_bwd": 2 * steps * bwd,
+    }
+    if launches != expect:
+        fail(f"train launch counts {launches}, expected {expect}")
+    student, teacher = run["state"].model, run["teacher"]
+    labels = trainable_labels((n for n, _ in student.named_parameters()), layers, layers)
+    t_params = dict(teacher.named_parameters())
+    moved = set()
+    for name, p in student.named_parameters():
+        if not torch.isfinite(p).all():
+            fail(f"non-finite parameter {name} after training")
+        same = torch.equal(p, t_params[name])
+        if labels[name] == "freeze" and not same:
+            fail(f"frozen parameter {name} moved")
+        if labels[name] == "train" and not same:
+            moved.add(name.split(".")[2])
+    if moved != {str(i) for i in range(layers)}:
+        fail(f"unlocked blocks that moved: {sorted(moved)}")
+    print(f"train checks: losses finite, {layers} unlocked blocks moved, frozen unchanged", flush=True)
+    del run, student, teacher
+    return dict(images_per_sec=ips, losses=losses, peak_gib=peak_gib, launches=launches)
+
+
+def phase_train_parity(torch, dev):
+    """One step's loss and trainable gradients from the same weights and
+    batch (batch 1) on f32 kernels, bf16 kernels and the f32 plain path."""
+    from clipself_tpu_torch.data.loader import SyntheticDistillData
+    from clipself_tpu_torch.models.factory import create_model
+    from clipself_tpu_torch.train.methods import clipself_loss
+    from clipself_tpu_torch.train.optim import trainable_labels
+
+    host = SyntheticDistillData(
+        batch_size=1, det_size=IMAGE, crop_size=CROP, max_anns=TRAIN_BOXES, seed=SEED
+    ).batch
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+
+    def one_step(dtype, plain):
+        model = create_model(MODEL, device=dev, dtype=dtype, seed=SEED)
+        teacher = copy.deepcopy(model).requires_grad_(False)
+        layers = model.cfg.vision.layers
+        named = list(model.named_parameters())
+        labels = trainable_labels((n for n, _ in named), layers, layers)
+        for name, p in named:
+            p.requires_grad_(labels[name] == "train")
+        reset_counts()
+        with plain_path() if plain else contextlib.nullcontext():
+            loss, _ = clipself_loss(model, teacher, batch)
+            loss.backward()
+        if not plain and not all(read_counts().values()):
+            fail(f"kernel path missed a kernel: {read_counts()}")
+        grads = {n: p.grad.float() for n, p in named if p.grad is not None}
+        out = loss.item()
+        del model, teacher, loss
+        torch.cuda.empty_cache()
+        return out, grads
+
+    loss_p, g_p = one_step(torch.float32, plain=True)
+    loss_k, g_k = one_step(torch.float32, plain=False)
+    loss_h, g_h = one_step(torch.bfloat16, plain=False)
+    if not (g_p.keys() == g_k.keys() == g_h.keys()) or not g_p:
+        fail("the three paths produced gradients for different parameters")
+    rel, cos = {}, {}
+    for name, w in g_p.items():
+        rel[name] = (g_k[name] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        cos[name] = torch.nn.functional.cosine_similarity(
+            g_h[name].flatten(), w.flatten(), dim=0
+        ).item()
+    worst_rel = max(rel, key=rel.get)
+    worst_cos = min(cos, key=cos.get)
+    print(
+        f"train parity {MODEL} batch 1, {len(g_p)} trainable gradients: loss f32 plain "
+        f"{loss_p:.7f}, f32 kernels {loss_k:.7f} (|d| {abs(loss_k - loss_p):.3e}, bar "
+        f"{STEP_LOSS_MAX_ABS}), bf16 kernels {loss_h:.7f}",
+        flush=True,
+    )
+    print(
+        f"train parity gradients: f32 kernels vs f32 plain max rel {rel[worst_rel]:.3e} "
+        f"({worst_rel}; bar {STEP_GRAD_F32_MAX_REL}); bf16 kernels vs f32 plain min cosine "
+        f"{cos[worst_cos]:.6f} ({worst_cos}; bar {STEP_GRAD_BF16_MIN_COS})",
+        flush=True,
+    )
+    finite = all(torch.isfinite(g).all().item() for d in (g_p, g_k, g_h) for g in d.values())
+    if not finite or not all(map(math.isfinite, (loss_p, loss_k, loss_h))):
+        fail("non-finite loss or gradient in train parity")
+    if not abs(loss_k - loss_p) <= STEP_LOSS_MAX_ABS:
+        fail(f"f32 kernel loss off the plain loss by {abs(loss_k - loss_p)}")
+    if not rel[worst_rel] <= STEP_GRAD_F32_MAX_REL:
+        fail(f"f32 kernel gradient {worst_rel} off by {rel[worst_rel]} of its max")
+    if not cos[worst_cos] >= STEP_GRAD_BF16_MIN_COS:
+        fail(f"bf16 kernel gradient {worst_cos} cosine {cos[worst_cos]}")
 
 
 def main() -> int:
@@ -273,19 +560,39 @@ def main() -> int:
 
     results = {}
     phase_kernels(torch, dev, results)
-    model_bf16, batch0, launches = phase_slice(torch, dev)
+    model_bf16, batch0, eval_launches = phase_slice(torch, dev)
     phase_parity(torch, dev, model_bf16, batch0)
+    del model_bf16, batch0
+    torch.cuda.empty_cache()
+    logs_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_logs")
+    try:
+        train = phase_train(torch, dev, logs_dir)
+    finally:
+        shutil.rmtree(logs_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_train_parity(torch, dev)
 
-    rows = {
+    # launches: the two main paths, each counted from 0 (the evaluator and
+    # the train slice); the backward rows launch on the train path only
+    paths = {"eval": eval_launches, "train": train["launches"]}
+    # the RoPE backward is the same kernel on the rolled tables
+    results["rope_roll"]["backward"]["launches"] = paths["train"]["rope_roll_bwd"]
+    rows = {  # name (and launch counter): source, the TPU kernel it replaces
         "rope_roll": ("clipself_tpu_torch/csrc/rope_roll.cu", "clipself_tpu/ops/rope_roll.py:105"),
         "flash_attention": (
             "clipself_tpu_torch/csrc/flash_attention.cu",
             "clipself_tpu/ops/attention.py:288",
         ),
+        "flash_attention_bwd": (
+            "clipself_tpu_torch/csrc/flash_attention_bwd.cu",
+            "clipself_tpu/ops/flash_bwd.py:208",
+        ),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
+         "launches": sum(p[name] for p in paths.values()),
+         "launches_by_path": {k: p[name] for k, p in paths.items()},
+         **results[name]}
         for name, (src, rep) in rows.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,10 +2,12 @@
 Hopper (H100).
 
 It keeps the JAX package's layout (`core/`, `ops/`, `models/`, `eval/`,
-`data/`) and names, imports `torch` and never `jax`, and runs every kernel
-the JAX package ran through Pallas as a hand-written CUDA kernel
-(`csrc/`, built at first use by `ops/_build.py`). Ported so far: the dense
-zero-shot evaluator of the EVA02 towers (`eval/zero_shot.py`).
+`data/`, `train/`, `utils/`) and names, imports `torch` and never `jax`, and
+runs every kernel the JAX package ran through Pallas as a hand-written CUDA
+kernel (`csrc/`, built at first use by `ops/_build.py`). Ported so far: the
+dense zero-shot evaluator of the EVA02 towers (`eval/zero_shot.py`) and the
+CLIPSelf distillation trainer on one device (`train/main.py`, synthetic
+data).
 """
 
 __version__ = "0.1.0"

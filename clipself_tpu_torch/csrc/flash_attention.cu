@@ -16,6 +16,13 @@
 // of attention.py:494-496 disappear; the output is written as a contiguous
 // [B, N, H, D].
 //
+// Training also asks for the row log-sum-exp, lse [B, H, N] f32, the
+// residual of the one-pass backward (csrc/flash_attention_bwd.cu) in place
+// of the Pallas kernel's (l, m) pair. It is a NATURAL-log value: the running
+// max m is kept in the log2 domain (the scale carries log2(e), exp is exp2),
+// so the kernel stores lse = (m + log2(l)) * ln(2). A null lse pointer (the
+// no-grad teacher and evaluator) skips the write.
+//
 // Bound on the H100: at N = 4097, D = 64 the block does 4 * 64 * D flops per
 // key against 2 * D * sizeof(T) bytes of K/V, so it is bound by math issue
 // and by shared-memory traffic, not by device memory. bf16 runs both
@@ -24,6 +31,9 @@
 // f32 precision (WMMA on f32 inputs would round them to TF32). This first
 // version stages tiles with plain vector loads and no double buffering;
 // wgmma, TMA and a pipelined K/V ring are the known next steps.
+//
+// The shared-memory tile loader and the Pad/Plan conventions are repeated in
+// flash_attention_bwd.cu: each .cu file is compiled on its own.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,7 +185,8 @@ struct Products<float, D> {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int n,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int n,
                      int heads, long long qsb, long long qsn, long long qsh,
                      long long ksb, long long ksn, long long ksh,
                      long long vsb, long long vsn, long long vsh,
@@ -267,12 +278,17 @@ __global__ void __launch_bounds__(THREADS)
     T* og = o + (((long long)b * n + row) * heads + h) * D + half * (D / 2);
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) og[j] = to_out(acc[j] * inv, T());
+    if (lse != nullptr && half == 0) {
+      lse[((long long)b * heads + h) * n + row] =
+          (m + log2f(l)) * 0.6931471805599453f;
+    }
   }
 }
 
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int batch, n, heads;
   long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh;
   float scale_log2;
@@ -289,7 +305,7 @@ cudaError_t launch(const Args& a) {
   const dim3 grid((a.n + BQ - 1) / BQ, a.heads, a.batch);
   kern<<<grid, THREADS, P::total, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.n, a.heads, a.qsb,
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.n, a.heads, a.qsb,
       a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale_log2);
   return cudaGetLastError();
 }
@@ -314,17 +330,20 @@ cudaError_t dispatch(int head_dim, const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, n, heads, head_dim]
 // with unit stride on head_dim and the given element strides for batch,
 // token and head (16-byte aligned rows); o: contiguous [batch, n, heads,
-// head_dim]. Returns the launch's cudaError_t.
+// head_dim]; lse: null, or contiguous float32 [batch, heads, n] for the
+// natural-log row log-sum-exp of the scaled logits. Returns the launch's
+// cudaError_t.
 extern "C" int clipself_flash_fwd(int dtype, const void* q, const void* k,
-                                  const void* v, void* o, int batch, int n,
+                                  const void* v, void* o, void* lse,
+                                  int batch, int n,
                                   int heads, int head_dim, long long qsb,
                                   long long qsn, long long qsh, long long ksb,
                                   long long ksn, long long ksh, long long vsb,
                                   long long vsn, long long vsh, float scale,
                                   void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0) return (int)cudaSuccess;
-  const Args a{q,   k,   v,   o,   batch, n,   heads, qsb, qsn,
-               qsh, ksb, ksn, ksh, vsb,   vsn, vsh,
+  const Args a{q,   k,   v,   o,   static_cast<float*>(lse), batch, n,
+               heads, qsb, qsn, qsh, ksb, ksn, ksh, vsb,   vsn, vsh,
                scale * 1.4426950408889634f,  // fold log2(e): exp -> exp2
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)dispatch<float>(head_dim, a);

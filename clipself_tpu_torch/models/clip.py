@@ -37,6 +37,15 @@ class CLIP(nn.Module):
         [B, gh, gw, C] (keep_shape) or [B, gh*gw, C]."""
         return self.visual.encode_dense(image, keep_shape=keep_shape)
 
+    def encode_pseudo_boxes(
+        self, image: torch.Tensor, normed_boxes: torch.Tensor, normalize: bool = False
+    ) -> torch.Tensor:
+        """image [B, H, W, 3]; normed_boxes [B, M, 4] xyxy in [0, 1] ->
+        RoI features [B, M, C] (`clipself_tpu/models/clip.py:132-145`; the
+        EVA tower has one extract type, so it takes no ``extract_type``)."""
+        feats = self.visual.extract_roi_features(image, normed_boxes)
+        return l2_normalize(feats) if normalize else feats
+
     def encode_rois_and_masks(
         self,
         image: torch.Tensor,

@@ -30,6 +30,7 @@ from clipself_tpu_torch.models.rope import apply_rope_flat
 from clipself_tpu_torch.ops.attention import multi_head_attention
 from clipself_tpu_torch.ops.interpolate import resize_2d
 from clipself_tpu_torch.ops.patchify import patchify
+from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
 
 _ROADMAP = "ROADMAP.md queue 1 item 8"
 
@@ -274,3 +275,11 @@ class EvaViT(nn.Module):
         t = self.head(self.norm(t).to(self.dtype))
         t = l2_normalize(t)
         return t.reshape(x.shape[0], gh, gw, -1) if keep_shape else t
+
+    def extract_roi_features(self, x: torch.Tensor, normed_boxes: torch.Tensor) -> torch.Tensor:
+        """RoI features [B, M, C] by 1x1 aligned RoI-align over the dense map;
+        ``normed_boxes`` [B, M, 4] xyxy in [0, 1], padded rows allowed
+        (`clipself_tpu/models/eva_vit.py:620-634`)."""
+        dense = self.encode_dense(x, keep_shape=True)
+        _, gh, gw, _ = dense.shape
+        return roi_align_1x1(dense, denormalize_boxes(normed_boxes, gh, gw))

@@ -6,7 +6,9 @@ The table functions are NumPy copies of `clipself_tpu/models/rope.py`
 originals. `apply_rope_flat` rotates the flat [B, N, H * head_dim] q/k
 projection through the rolled-RoPE kernel (`ops/rope_roll.py`), with
 [N, head_dim] float32 tables: identity rows for the CLS prefix, and no pad
-tail, since the port never pads the sequence.
+tail, since the port never pads the sequence. Its backward runs the same
+kernel on the rolled tables of `rope_tables_bwd` (the `a_bwd`/`b_bwd` of
+`clipself_tpu/models/rope.py:216-217`).
 """
 
 from __future__ import annotations
@@ -121,7 +123,33 @@ def rope_tables(
     them."""
     n_total = n_prefix + grid_h * grid_w
     tables = rope_tables_padded_np(grid_h, grid_w, head_dim // 2, n_prefix, n_total, pt_seq_len)
-    return tuple(torch.tensor(t, device=device) for t in tables)
+    return _cached_tensors(tables, device)
+
+
+def _cached_tensors(arrays, device: torch.device) -> tuple[torch.Tensor, ...]:
+    # normal tensors even when the first caller runs under inference_mode
+    # (the evaluator): a later training step saves them for its backward
+    with torch.inference_mode(False):
+        return tuple(torch.tensor(a, device=device) for a in arrays)
+
+
+@functools.lru_cache(maxsize=16)
+def rope_tables_bwd(
+    grid_h: int,
+    grid_w: int,
+    head_dim: int,
+    n_prefix: int,
+    pt_seq_len: int,
+    device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a_bwd, b_bwd) = (roll(sin_a, +1), roll(sin_b, -1)) along the head
+    axis, float32 [N, head_dim] on ``device``: the backward tables of
+    `rope_tables`. Callers must not write to them."""
+    n_total = n_prefix + grid_h * grid_w
+    _, sin_a, sin_b = rope_tables_padded_np(
+        grid_h, grid_w, head_dim // 2, n_prefix, n_total, pt_seq_len
+    )
+    return _cached_tensors((np.roll(sin_a, 1, axis=-1), np.roll(sin_b, -1, axis=-1)), device)
 
 
 def apply_rope_flat(
@@ -134,5 +162,5 @@ def apply_rope_flat(
 ) -> torch.Tensor:
     """Rotate a [CLS; patches] sequence in flat layout ``x[B, N, H*head_dim]``
     (N = n_prefix + grid_h*grid_w); the prefix tokens are not rotated."""
-    cos, sin_a, sin_b = rope_tables(grid_h, grid_w, head_dim, n_prefix, pt_seq_len, x.device)
-    return rolled_rope(x, cos, sin_a, sin_b)
+    key = (grid_h, grid_w, head_dim, n_prefix, pt_seq_len, x.device)
+    return rolled_rope(x, *rope_tables(*key), *rope_tables_bwd(*key))

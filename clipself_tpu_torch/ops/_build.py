@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, which is loaded with `ctypes`. The
-build happens at first use, into `build/kernels/<hash>/` at the root of the
-checkout (listed in `.gitignore`), and is reused while the sources and flags
-hash the same. Nothing here runs at import time: the CPU tests import every
+Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`),
+all of them at once, and the objects are linked into one shared library
+with a plain C interface, which is loaded with `ctypes`. The build happens
+at first use, into `build/kernels/<hash>/` at the root of the checkout
+(listed in `.gitignore`), and is reused while the sources and flags hash
+the same. Nothing here runs at import time: the CPU tests import every
 module of the port on a machine without `nvcc`.
 """
 
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 _LIB_NAME = "libclipself_kernels.so"
 
@@ -37,7 +38,11 @@ _SIGNATURES = {
     # name: (argtypes, restype)
     "clipself_rope_roll": ((_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "clipself_flash_fwd": (
-        (_I, _P, _P, _P, _P, _I, _I, _I, _I) + (_L,) * 9 + (ctypes.c_float, _P),
+        (_I,) + (_P,) * 5 + (_I,) * 4 + (_L,) * 9 + (ctypes.c_float, _P),
+        _I,
+    ),
+    "clipself_flash_bwd": (
+        (_I,) + (_P,) * 11 + (_I,) * 4 + (_L,) * 9 + (ctypes.c_float, _P),
         _I,
     ),
     "clipself_cuda_error_string": ((_I,), ctypes.c_char_p),
@@ -100,23 +105,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
 def _compile(sources, out_dir: Path, lib_path: Path) -> float:
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename, so that a cut-off build never
-    # leaves a library that a later run would load
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
-    return seconds
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs = [str(Path(tmp_dir) / f"{src.stem}.o") for src in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)] for src, o in zip(sources, objs)])
+        # link under a temporary name and rename, so that a cut-off build
+        # never leaves a library that a later run would load
+        tmp = str(Path(tmp_dir) / _LIB_NAME)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, lib_path)
+    return time.perf_counter() - t0
 
 
 LIBRARY = _Library()

@@ -1,0 +1,202 @@
+"""Optimizer and LR schedules (a port of `clipself_tpu/train/optim.py`).
+
+Reference semantics reproduced:
+  - AdamW with two parameter groups: no weight decay for 1-D parameters and
+    names holding bn/ln_/norm/bias/logit_scale (`src/training/main.py:198-213`);
+  - image-tower locking with the last N blocks unlocked
+    (`eva_vit_model.py:500-516`); logit_scale is always frozen;
+  - warmup + {cosine, const, const-cooldown} per-step schedules
+    (`src/training/scheduler.py:13-53`), evaluated at the update count
+    before the update (0 for the first), as optax's `scale_by_learning_rate`
+    counts.
+
+Freezing is `requires_grad=False` on the frozen parameters: autograd then
+computes no gradient for them, the counterpart of the stop-gradient the JAX
+step applies at its freeze mask (`clipself_tpu/train/step.py:85-91`).
+Parameter names are the port's reference layout (`visual.blocks.{i}....`).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Callable, Iterable, Optional
+
+import torch
+from torch import nn
+
+# ---------------------------------------------------------------------------
+# schedules (per-step closures, matching the reference formulas)
+
+
+def warmup_cosine(base_lr: float, warmup: int, total_steps: int) -> Callable[[int], float]:
+    def lr(step: int) -> float:
+        if step < warmup:
+            return base_lr * (step + 1.0) / max(warmup, 1)
+        e = step - warmup
+        es = max(total_steps - warmup, 1)
+        return 0.5 * (1.0 + math.cos(math.pi * e / es)) * base_lr
+
+    return lr
+
+
+def warmup_const(base_lr: float, warmup: int, total_steps: int) -> Callable[[int], float]:
+    def lr(step: int) -> float:
+        if step < warmup:
+            return base_lr * (step + 1.0) / max(warmup, 1)
+        return base_lr
+
+    return lr
+
+
+def warmup_const_cooldown(
+    base_lr: float,
+    warmup: int,
+    total_steps: int,
+    cooldown_steps: int,
+    cooldown_power: float = 1.0,
+    cooldown_end_lr: float = 0.0,
+) -> Callable[[int], float]:
+    def lr(step: int) -> float:
+        if step < warmup:
+            return base_lr * (step + 1.0) / max(warmup, 1)
+        start = total_steps - cooldown_steps
+        if step < start:
+            return base_lr
+        decay = (1.0 - (step - start) / max(cooldown_steps, 1)) ** cooldown_power
+        return decay * (base_lr - cooldown_end_lr) + cooldown_end_lr
+
+    return lr
+
+
+def make_schedule(
+    name: str, base_lr: float, warmup: int, total_steps: int, **kw
+) -> Callable[[int], float]:
+    if name == "cosine":
+        return warmup_cosine(base_lr, warmup, total_steps)
+    if name == "const":
+        return warmup_const(base_lr, warmup, total_steps)
+    if name == "const-cooldown":
+        return warmup_const_cooldown(base_lr, warmup, total_steps, **kw)
+    raise ValueError(f"unknown scheduler: {name}")
+
+
+# ---------------------------------------------------------------------------
+# parameter labeling
+
+_BLOCK = re.compile(r"visual\.blocks\.(\d+)\.")
+
+
+def trainable_labels(
+    names: Iterable[str], unlocked_groups: int, num_layers: int, lock_image: bool = True
+) -> dict[str, str]:
+    """Label each parameter name 'train' or 'freeze'. logit_scale is always
+    frozen; under ``lock_image`` only the last ``unlocked_groups`` blocks of
+    the EVA tower train (stem, pos-embed, final norm and head stay frozen)."""
+    first_trainable = num_layers - unlocked_groups
+    labels = {}
+    for name in names:
+        if name == "logit_scale" or name.startswith("text."):
+            labels[name] = "freeze"
+        elif not lock_image:
+            labels[name] = "train"
+        else:
+            m = _BLOCK.match(name)
+            labels[name] = "train" if m and int(m.group(1)) >= first_trainable else "freeze"
+    return labels
+
+
+def no_decay_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[str, bool]:
+    """True where weight decay applies. Reference exclude rule: ndim < 2 or
+    the name holds bn/ln_/norm/bias/logit_scale (`main.py:200-204`)."""
+    excluded = ("bn", "ln_", "norm", "bias", "logit_scale")
+    return {
+        name: p.ndim >= 2 and not any(s in name.lower() for s in excluded)
+        for name, p in named_params
+    }
+
+
+# ---------------------------------------------------------------------------
+# the optimizer
+
+
+def clip_by_global_norm(params: list[torch.Tensor], max_norm: float) -> None:
+    """Scale the gradients of ``params`` in place so that their global norm is
+    at most ``max_norm`` (optax `clip_by_global_norm`). No host sync."""
+    grads = [p.grad for p in params]
+    scale = torch.clamp(max_norm / global_norm(grads), max=1.0)
+    for g in grads:
+        g.mul_(scale)
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
+    )
+
+
+class Optimizer:
+    """AdamW over the trainable parameters of a model in a decay and a
+    no-decay group, with optional global-norm clipping of the trainable
+    gradients and the learning rate taken from the schedule at each step."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        schedule: Callable[[int], float],
+        *,
+        wd: float = 0.1,
+        beta1: float = 0.9,
+        beta2: float = 0.999,
+        eps: float = 1e-8,
+        grad_clip_norm: Optional[float] = None,
+        unlocked_groups: int = 0,
+        num_layers: int = 12,
+        lock_image: bool = True,
+    ):
+        named = list(model.named_parameters())
+        labels = trainable_labels(
+            (n for n, _ in named), unlocked_groups, num_layers, lock_image
+        )
+        decay = no_decay_mask(named)
+        for name, p in named:
+            p.requires_grad_(labels[name] == "train")
+        trainable = [(n, p) for n, p in named if p.requires_grad]
+        groups = [
+            {"params": [p for n, p in trainable if decay[n]], "weight_decay": wd},
+            {"params": [p for n, p in trainable if not decay[n]], "weight_decay": 0.0},
+        ]
+        self.params = [p for _, p in trainable]
+        # gradients stay allocated and are zeroed, never None: a trainable
+        # parameter outside the loss's graph (the last block's q/k
+        # projections, which the dense value path skips) still gets its
+        # weight decay, as optax applies it to a zero gradient; AdamW skips
+        # a parameter whose .grad is None
+        for p in self.params:
+            p.grad = torch.zeros_like(p)
+        self.schedule = schedule
+        self.grad_clip_norm = grad_clip_norm
+        self.opt = torch.optim.AdamW(
+            [g for g in groups if g["params"]], lr=schedule(0), betas=(beta1, beta2), eps=eps
+        )
+
+    def step(self, count: int) -> None:
+        """Apply update number ``count`` (0-based) and clear the gradients."""
+        if self.grad_clip_norm is not None:
+            clip_by_global_norm(self.params, self.grad_clip_norm)
+        lr = float(self.schedule(count))
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=False)
+
+    def state_dict(self) -> dict:
+        return self.opt.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state)
+
+
+# the JAX package's name: AdamW with the reference decay mask and image-tower
+# locking; sets ``requires_grad`` on every parameter of the model
+build_optimizer = Optimizer

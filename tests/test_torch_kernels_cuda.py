@@ -5,15 +5,24 @@ card. Marked `cuda`: they skip where no card is present. Run on the card:
 
 Tolerances: RoPE float32 differs from the plain version by the kernel's FMA
 (one rounding, 1e-6 at |x| <= ~5), bfloat16 by at most one bf16 ULP of the
-result after that (rtol 1.6e-2 is 2 ULP); attention float32 by
-summation order (1e-4), bfloat16 by the bf16 rounding of the probabilities
-(min row cosine 0.9999 against float32).
+result after that (rtol 1.6e-2 is 2 ULP); the backward is the same kernel on
+dy with the rolled tables, so it keeps the forward's bars. Attention float32
+differs by summation order (1e-4), bfloat16 by the bf16 rounding of the
+probabilities (min row cosine 0.9999 against float32). The LSE is a sum of
+f32 exponentials in another order: 1e-4 absolute on values of ~log(N). The
+flash backward float32 sums up to N products per entry in another order,
+and dQ through f32 atomics in a run-dependent order: max abs error 1e-4 of
+the largest gradient entry, plus 1e-5: at N = 1 the exact dq and dk vanish
+and both sides return the f32 rounding noise of dP - di, whose terms are of
+size |dO| |V| ~ D (measured 1.0e-6 at D = 128); bfloat16
+rounds P and dS to bf16 before their products: min row cosine 0.999 against
+float32 on the same bf16-valued inputs.
 """
 
 import pytest
 import torch
 
-from clipself_tpu_torch.models.rope import rope_tables
+from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
 from clipself_tpu_torch.ops import attention, rope_roll
 
 pytestmark = pytest.mark.cuda
@@ -26,6 +35,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _min_row_cos(a, b):
+    a = a.float().reshape(-1, a.shape[-1])
+    b = b.float().reshape(-1, b.shape[-1])
+    return torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+
+
 @pytest.mark.parametrize(
     "dtype,rtol,atol", [(torch.float32, 0.0, 1e-6), (torch.bfloat16, 1.6e-2, 1e-5)]
 )
@@ -35,9 +50,30 @@ def test_rope_kernel_matches_plain(dev, dtype, rtol, atol, b, grid, heads):
     n = 1 + grid * grid
     x = torch.randn(b, n, heads * 64, generator=torch.Generator().manual_seed(0)).to(dev, dtype)
     before = rope_roll.LAUNCHES.count
-    got = rope_roll.rolled_rope(x, *tables)
+    got = rope_roll.rolled_rope_fwd(x, *tables)
     assert rope_roll.LAUNCHES.count == before + 1
     want = rope_roll.rolled_rope_plain(x, *tables)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize(
+    "dtype,rtol,atol", [(torch.float32, 0.0, 1e-6), (torch.bfloat16, 1.6e-2, 1e-5)]
+)
+@pytest.mark.parametrize("b,grid,heads", [(2, 8, 12), (3, 14, 2)])
+def test_rope_backward_kernel_matches_plain(dev, dtype, rtol, atol, b, grid, heads):
+    key = (grid, grid, 64, 1, 16, dev)
+    tables, bwd = rope_tables(*key), rope_tables_bwd(*key)
+    n = 1 + grid * grid
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(b, n, heads * 64, generator=gen).to(dev, dtype).requires_grad_()
+    dy = torch.randn(b, n, heads * 64, generator=gen).to(dev, dtype)
+    y = rope_roll.rolled_rope(x, *tables, *bwd)
+    assert type(y.grad_fn).__name__ == "RolledRopeFnBackward"
+    before = rope_roll.BWD_LAUNCHES.count
+    (got,) = torch.autograd.grad(y, x, dy)
+    assert rope_roll.BWD_LAUNCHES.count == before + 1
+    x2 = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(rope_roll.rolled_rope_plain(x2, *tables), x2, dy)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
@@ -56,6 +92,78 @@ def test_attention_kernel_matches_plain(dev, n, d):
     want32 = attention.attention_plain(*(t.bfloat16().float() for t in (q, k, v)), d ** -0.5)
     cos = torch.nn.functional.cosine_similarity(got16.float(), want32, dim=-1)
     assert cos.min().item() >= 0.9999
+
+
+@pytest.mark.parametrize("n", [1, 65, 197, 4097])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_lse_matches_plain(dev, n, dtype):
+    d = 64
+    gen = torch.Generator().manual_seed(n)
+    q, k, v = (torch.randn(1, n, 2, d, generator=gen).to(dev, dtype) for _ in range(3))
+    out, lse = attention.flash_attention_fwd(q, k, v, d ** -0.5, return_lse=True)
+    want_out, want_lse = attention.attention_lse_plain(
+        q.float(), k.float(), v.float(), d ** -0.5
+    )
+    assert lse.shape == (1, 2, n) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    assert _min_row_cos(out, want_out) >= 0.9999
+
+
+def _bwd_inputs(dev, b, n, h, d, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, n, 3, h, d, generator=gen).to(dev, dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views
+    do = torch.randn(b, n, h, d, generator=gen).to(dev, dtype)
+    return q, k, v, do
+
+
+# ragged lengths at three head widths; the full 4097-token length at the
+# model's head_dim
+_BWD_CASES = [(n, d) for n in (1, 63, 65, 197) for d in (32, 64, 128)] + [(4097, 64)]
+
+
+@pytest.mark.parametrize("n,d", _BWD_CASES)
+def test_flash_backward_f32_matches_plain(dev, n, d):
+    scale = d ** -0.5
+    q, k, v, do = _bwd_inputs(dev, 2 if n < 4097 else 1, n, 3, d, torch.float32, n + d)
+    o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    before = attention.BWD_LAUNCHES.count
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    assert attention.BWD_LAUNCHES.count == before + 1
+    want = attention.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and g.shape == q.shape
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("n,d", [c for c in _BWD_CASES if c[0] > 1])
+def test_flash_backward_bf16_matches_f32(dev, n, d):
+    scale = d ** -0.5
+    q, k, v, do = _bwd_inputs(dev, 2 if n < 4097 else 1, n, 3, d, torch.bfloat16, n * d)
+    o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    f = [t.float() for t in (q, k, v)]
+    o32, lse32 = attention.attention_lse_plain(*f, scale)
+    want = attention.attention_bwd_plain(*f, o32, lse32, do.float(), scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        assert _min_row_cos(g, w) >= 0.999
+
+
+def test_flash_attention_function_on_card(dev):
+    """A gradient through `flash_attention` on the card comes from the
+    Function's backward kernel and equals autograd of the plain version."""
+    q, k, v, do = _bwd_inputs(dev, 2, 197, 2, 64, torch.float32, 7)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = attention.flash_attention(q, k, v, 0.125)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    before = attention.BWD_LAUNCHES.count
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert attention.BWD_LAUNCHES.count == before + 1
+    p = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention.attention_plain(*p, 0.125), p, do)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(dev):

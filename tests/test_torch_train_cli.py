@@ -1,0 +1,84 @@
+"""The port's trainer CLI (`python -m clipself_tpu_torch.train.main`) on the
+CPU with synthetic data on `EVA02-CLIP-Tiny-Test`: train, save, resume, the
+alpha-ensemble on save, and the refusals. A resumed run must end where an
+uninterrupted run ends (same ops in the same order on the CPU: 1e-6)."""
+
+import os
+
+import pytest
+import torch
+
+from clipself_tpu_torch.train import checkpoint as ckpt
+from clipself_tpu_torch.train import main as train_main
+
+ALPHA = 0.7
+
+
+def _argv(logs, name, epochs, *extra):
+    return [
+        "--device", "cpu", "--synthetic", "--model", "EVA02-CLIP-Tiny-Test",
+        "--precision", "fp32", "--batch-size", "2", "--det-image-size", "48",
+        "--max-boxes", "3", "--steps-per-epoch", "2", "--epochs", str(epochs),
+        "--lr", "1e-3", "--warmup", "1", "--log-every-n-steps", "1",
+        "--alpha", str(ALPHA), "--logs", str(logs), "--name", name, *extra,
+    ]
+
+
+def test_train_save_resume_and_ensemble(tmp_path):
+    run1 = train_main.main(_argv(tmp_path, "run", 1))
+    hist = run1["history"]
+    assert [h["step"] for h in hist] == [1, 2]
+    assert all(torch.isfinite(torch.tensor(h["loss"])) for h in hist)
+    ckpt_dir = os.path.join(tmp_path, "run", "checkpoints")
+    assert ckpt.latest_epoch(ckpt_dir) == 1
+    assert os.path.isfile(os.path.join(tmp_path, "run", "params.txt"))
+
+    # the saved params are alpha * student + (1 - alpha) * teacher
+    saved = ckpt.load_params(ckpt_dir)
+    student = run1["state"].model.state_dict()
+    teacher = run1["teacher"].state_dict()
+    assert saved.keys() == student.keys()
+    moved = 0
+    for k, v in saved.items():
+        torch.testing.assert_close(v, ALPHA * student[k] + (1 - ALPHA) * teacher[k], rtol=0, atol=1e-7)
+        moved += not torch.equal(student[k], teacher[k])
+    assert moved > 0
+
+    # resume continues at epoch 1, step 2, and ends where one run of 2 epochs ends
+    run2 = train_main.main(_argv(tmp_path, "run", 2, "--resume", "auto"))
+    assert [h["epoch"] for h in run2["history"]] == [1, 1]
+    assert run2["state"].step == 4 and ckpt.latest_epoch(ckpt_dir) == 2
+    whole = train_main.main(_argv(tmp_path, "whole", 2))
+    for k, v in whole["state"].model.state_dict().items():
+        torch.testing.assert_close(run2["state"].model.state_dict()[k], v, rtol=0, atol=1e-6)
+    assert run2["history"][-1]["loss"] == pytest.approx(whole["history"][-1]["loss"], abs=1e-6)
+
+    # the export is a reference-layout checkpoint the port's loader takes
+    path = os.path.join(tmp_path, "export.pt")
+    ckpt.export_torch(path, saved, epoch=1, name="run")
+    from clipself_tpu_torch.models.factory import create_model
+    from clipself_tpu_torch.models.torch_io import load_weights
+
+    model = create_model("EVA02-CLIP-Tiny-Test", device="cpu", dtype=torch.float32, seed=9)
+    load_weights(model, path)
+    assert torch.equal(model.visual.head.weight, saved["visual.head.weight"])
+
+
+def test_cuda_device_without_a_card_is_an_error(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a if a != "cpu" else "cuda" for a in _argv(tmp_path, "cuda", 1)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main.main(argv)
+    assert not os.path.exists(os.path.join(tmp_path, "cuda"))
+
+
+def test_real_data_and_missing_steps_are_refused(tmp_path):
+    argv = [a for a in _argv(tmp_path, "x", 1) if a != "--synthetic"]
+    with pytest.raises(NotImplementedError, match="synthetic"):
+        train_main.main(argv)
+    argv = _argv(tmp_path, "x", 1)
+    i = argv.index("--steps-per-epoch")
+    with pytest.raises(ValueError, match="steps-per-epoch"):
+        train_main.main(argv[:i] + argv[i + 2:])
+    with pytest.raises(SystemExit):
+        train_main.parse_args(["--accum-freq", "2"])  # not carried by this slice
