@@ -7,22 +7,35 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels built from `clipself_tpu_torch/csrc/` with the build time;
-2. each kernel against its plain PyTorch version at the shapes of the
-   EVA02-CLIP-B/16 evaluator and distill step (dense 1024^2 pass: 4097
-   tokens, batch 2; crop pass: 197 tokens, 50 crops), in float32 and
-   bfloat16, with CUDA-event times of both: the RoPE forward and backward,
-   the flash-attention forward with and without its LSE, and the flash
-   backward;
-3. the evaluator slice: `evaluate_zero_shot` of EVA02-CLIP-B/16 (seeded
-   random weights, bf16) over 4 synthetic panoptic batches, with images/s,
-   the mAcc dict and the kernel launch counts of that run;
+2. each kernel against its plain PyTorch version at the shapes the two
+   models give it (EVA02-CLIP-B/16 at 1024^2: 4097 and 197 tokens, 12 heads,
+   widths 768 and 2048; EVA02-CLIP-L-14-336 at 896^2: 4097 and 577 tokens,
+   16 heads, widths 1024 and 2730), in float32 and bfloat16: the RoPE
+   forward and backward, the flash-attention forward with and without its
+   LSE, the flash backward, and the fused LayerNorm forward (with and
+   without statistics) and backward, also on the two strided views of the
+   final norm. Each with CUDA-event times of the kernel, of its plain
+   version and, where one PyTorch call computes the same function
+   (`scaled_dot_product_attention` and autograd of it, `F.layer_norm` and
+   `aten.native_layer_norm_backward`), of that call (the RoPE and LayerNorm
+   launches replayed from a CUDA graph, so that the host's launch pace does
+   not hide their ten-microsecond times), and with
+   the least time the card could take (bytes moved once over 3.35 TB/s, or
+   operations over the peak rate of their type);
+then for each model, B/16 first:
+3. the evaluator: `evaluate_zero_shot` (seeded random weights, bf16) over 4
+   synthetic panoptic batches, with images/s, the mAcc dict and the kernel
+   launch counts of that run;
 4. whole-path parity of the dense map against the plain float32 path;
-5. the train slice: `clipself_tpu_torch.train.main` on EVA02-CLIP-B/16, bf16,
-   synthetic data, batch 2 at 1024^2, 20 boxes, 224^2 teacher crops, all 12
-   blocks unlocked: 1 warm-up step and 5 timed steps, with images/s, the
-   per-step losses, peak device memory and the launch counts of the run;
+5. the trainer: `clipself_tpu_torch.train.main`, bf16, synthetic data, batch
+   2, 20 boxes, teacher crops at the model's own size, every block unlocked:
+   1 warm-up step and 5 timed steps, with images/s, the per-step losses,
+   peak device memory and the launch counts of the run; for L/14 then 2
+   steps with `--grad-checkpointing`;
 6. train parity: one step's loss and trainable gradients at batch 1 on f32
-   kernels, bf16 kernels and the f32 plain path.
+   kernels, bf16 kernels and the f32 plain path (L/14: at full width and a
+   depth of 6 blocks, since the plain path keeps every block's
+   [1, 16, 4097, 4097] float32 attention maps for its backward).
 
 The second-to-last line is one JSON object with a row per kernel; the last
 line is `{"ok": true, "device": {...}}`. Without a CUDA card it exits 1
@@ -33,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -41,9 +55,55 @@ import subprocess
 import sys
 import time
 
-MODEL = "EVA02-CLIP-B-16"
-BATCH, IMAGE, MAX_ANNS, VALID_ANNS, CROP, BUCKET = 2, 1024, 100, 13, 224, 25
+MAX_ANNS, VALID_ANNS, BUCKET = 100, 13, 25
 N_BATCHES, N_CLASSES, SEED = 4, 133, 0
+# trainer: 1 warm-up step, then 5 timed steps; 2 steps when recomputing
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BOXES, RECOMPUTE_STEPS = 2, 1, 5, 20, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """One model at the image size and evaluator batch of its recipe."""
+
+    key: str
+    model: str
+    image: int
+    eval_batch: int
+    parity_layers: int | None = None  # depth of the train-parity phase; None: all
+
+    @property
+    def vision(self):
+        from clipself_tpu_torch.core.config import get_model_config
+
+        return get_model_config(self.model).vision
+
+    @property
+    def heads(self) -> int:
+        return self.vision.width // self.vision.head_width
+
+    @property
+    def hidden(self) -> int:
+        return int(self.vision.width * self.vision.mlp_ratio)
+
+    @property
+    def crop(self) -> int:
+        return self.vision.image_size
+
+    def grid(self, size: int) -> int:
+        return size // self.vision.patch_size
+
+    def tokens(self, size: int) -> int:
+        return 1 + self.grid(size) ** 2
+
+
+MODELS = (
+    Model("b16", "EVA02-CLIP-B-16", image=1024, eval_batch=2),
+    Model("l14", "EVA02-CLIP-L-14-336", image=896, eval_batch=1, parity_layers=6),
+)
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# device memory, dense bf16 tensor cores, float32 outside the tensor cores.
+PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
 
 # Tolerances, each with its reason:
 # RoPE: kernel and plain version compute the same two products in float32;
@@ -69,16 +129,30 @@ LSE_MAX_ABS = 1e-4
 BWD_F32_MAX_REL = 1e-4
 # Flash backward bf16: P and dS are rounded to bf16 before their products.
 BWD_BF16_MIN_COS = 0.999
+# LayerNorm y and dx: kernel and plain version compute the same float32
+# formulas; only the order of the row sums differs (and an FMA where the
+# plain version rounds twice). Measured in float32 ULPs of the magnitude at
+# which the terms round: (|x| + mean|x|) * rstd * |w| + |b| for y,
+# rstd * (|g| + mean|g| + |xhat| * mean|g * xhat|) for dx (an ULP of the
+# result would blow up where the terms cancel). bfloat16 rounds that float32
+# value once on both sides, so a result may also land on the neighbouring
+# bfloat16: one bfloat16 ULP of the plain result is allowed on top. The first
+# run on an H100 measured at most 5 ULP (float32 forward at width 2730).
+LN_MAX_ULP = 8.0
+# LayerNorm dweight, dbias: float32 sums over all rows (8194 or 23080) in
+# another order, relative to their largest entry.
+LN_SUM_MAX_REL = 1e-5
 # Train parity, one step at batch 1: f32 kernels vs f32 plain differ by
 # summation order only; bf16 kernels vs f32 plain by bf16 rounding through
-# 12 blocks and their backward. Tightened from 1e-3 and 0.99 after the
+# the blocks and their backward. Tightened from 1e-3 and 0.99 after the
 # first run on an H100 measured a max relative gradient error of 2.6e-6
-# and a min gradient cosine of 0.99976.
+# and a min gradient cosine of 0.99976 on B/16.
 STEP_LOSS_MAX_ABS = 1e-5
 STEP_GRAD_F32_MAX_REL = 1e-4
 STEP_GRAD_BF16_MIN_COS = 0.999
-# train slice: 1 warm-up step, then 5 timed steps
-TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BOXES = 1, 5, 20
+# Recomputation: the first step's loss comes from the same forward kernels
+# on the same weights and batch, with or without it.
+RECOMPUTE_LOSS_MAX_ABS = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -87,13 +161,15 @@ def fail(msg: str) -> None:
 
 
 def _counters():
-    from clipself_tpu_torch.ops import attention, rope_roll
+    from clipself_tpu_torch.ops import attention, layer_norm, rope_roll
 
     return {
         "flash_attention": attention.LAUNCHES,
         "flash_attention_bwd": attention.BWD_LAUNCHES,
         "rope_roll": rope_roll.LAUNCHES,
         "rope_roll_bwd": rope_roll.BWD_LAUNCHES,
+        "layer_norm": layer_norm.LAUNCHES,
+        "layer_norm_bwd": layer_norm.BWD_LAUNCHES,
     }
 
 
@@ -106,44 +182,87 @@ def read_counts() -> dict:
     return {name: counter.count for name, counter in _counters().items()}
 
 
+def expected_launches(layers: int, *, evals: int = 0, steps: int = 0, recompute: bool = False) -> dict:
+    """Launches of ``evals`` evaluator batches plus ``steps`` train steps of
+    a tower of ``layers`` blocks. A dense pass runs layers - 1 attention
+    blocks (the last block takes the value path), a crop pass all of them;
+    RoPE runs twice (q and k) per attention block; every block has four
+    LayerNorms and the tower a final one. An evaluator batch is one dense and
+    one crop pass; a train step is the teacher's crop pass, the student's
+    dense pass and its backward; with recomputation the student's blocks
+    (not its final norm) run their forward once more."""
+    dense, crop, norms = layers - 1, layers, 4 * layers + 1
+    again = steps if recompute else 0
+    flash = evals * (dense + crop) + steps * (crop + dense) + again * dense
+    return {
+        "flash_attention": flash,
+        "flash_attention_bwd": steps * dense,
+        "rope_roll": 2 * flash,
+        "rope_roll_bwd": 2 * steps * dense,
+        "layer_norm": (2 * evals + 2 * steps) * norms + again * 4 * layers,
+        "layer_norm_bwd": steps * norms,
+    }
+
+
 @contextlib.contextmanager
 def plain_path():
     """Swap the kernels' plain versions in where the tower calls the kernel
-    wrappers (`eva_vit.multi_head_attention`, `rope.rolled_rope`); autograd
-    differentiates them. Fails if any kernel launched inside, so a swap that
-    misses a call site cannot compare the kernels with themselves."""
+    wrappers (`eva_vit.multi_head_attention`, `eva_vit.layer_norm`,
+    `rope.rolled_rope`); autograd differentiates them. Fails if any kernel
+    launched inside, so a swap that misses a call site cannot compare the
+    kernels with themselves."""
     from clipself_tpu_torch.models import eva_vit, rope
     from clipself_tpu_torch.ops.attention import attention_plain
+    from clipself_tpu_torch.ops.layer_norm import layer_norm_plain
     from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain
 
     def rope_plain(x, cos, sin_a, sin_b, a_bwd, b_bwd):
         return rolled_rope_plain(x, cos, sin_a, sin_b)
 
-    saved = eva_vit.multi_head_attention, rope.rolled_rope
-    eva_vit.multi_head_attention, rope.rolled_rope = attention_plain, rope_plain
+    saved = eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope
+    eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope = (
+        attention_plain, layer_norm_plain, rope_plain
+    )
     reset_counts()
     try:
         yield
     finally:
-        eva_vit.multi_head_attention, rope.rolled_rope = saved
+        eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope = saved
     if any(read_counts().values()):
         fail(f"the plain path launched kernels: {read_counts()}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
+    """Mean device time of one ``fn()`` between two CUDA events. With
+    ``graph`` the ``iters`` calls are captured into one CUDA graph and
+    replayed: a kernel of some ten microseconds is otherwise timed at the
+    pace of the host's launches, not at its own."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    reps = 1
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            for _ in range(iters):
+                fn()
+        captured.replay()
+        torch.cuda.synchronize()
+        reps = 5
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        if graph:
+            captured.replay()
+        else:
+            for _ in range(iters):
+                fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def min_row_cos(a, b) -> float:
@@ -164,159 +283,318 @@ def ulp(t, dtype):
     return torch.exp2(torch.floor(torch.log2(mag)) - mant)
 
 
-def phase_kernels(torch, dev, results):
-    from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
-    from clipself_tpu_torch.ops import attention, rope_roll
-
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    # RoPE, with the tables of the model's grids (64x64 dense, 14x14 crops)
-    for (b, n, w), grid in (((BATCH, 4097, 768), 64), ((BATCH * BUCKET, 197, 768), 14)):
-        tables = rope_tables(grid, grid, 64, 1, 16, dev)
-        a_bwd, b_bwd = rope_tables_bwd(grid, grid, 64, 1, 16, dev)
-        for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn(b, n, w, generator=gen).to(dev, dt)
-            got = rope_roll.rolled_rope_fwd(x, *tables).float()
-            want = rope_roll.rolled_rope_plain(x, *tables).float()
-            mag = rope_roll.rolled_rope_plain(x.float().abs(), *(t.abs() for t in tables))
-            err_ulp = ((got - want).abs() / ulp(mag, dt)).max().item()
-            max_abs = (got - want).abs().max().item()
-            ms = cuda_ms(lambda: rope_roll.rolled_rope_fwd(x, *tables))
-            plain_ms = cuda_ms(lambda: rope_roll.rolled_rope_plain(x, *tables))
-            print(
-                f"kernel rope_roll [{b},{n},{w}] {str(dt)[6:]}: max_abs {max_abs:.3e} "
-                f"max_ulp {err_ulp:.2f} (bar {ROPE_MAX_ULP}) ms {ms:.4f} plain_ms {plain_ms:.4f}",
-                flush=True,
-            )
-            if not err_ulp <= ROPE_MAX_ULP:
-                fail(f"rope_roll {dt} [{b},{n},{w}] off by {err_ulp} ULP")
-            if dt == torch.bfloat16 and n == 4097:
-                results["rope_roll"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
-            if n != 4097:
-                continue
-            # the backward: the same kernel on dy with the rolled tables,
-            # against autograd of the plain forward; the plain backward's
-            # time is the same composition in plain PyTorch
-            dy = torch.randn(b, n, w, generator=gen).to(dev, dt)
-            got = rope_roll.rolled_rope_bwd(dy, tables[0], a_bwd, b_bwd).float()
-            xr = torch.zeros(b, n, w, device=dev, dtype=dt, requires_grad=True)
-            (want,) = torch.autograd.grad(rope_roll.rolled_rope_plain(xr, *tables), xr, dy)
-            want = want.float()
-            mag = rope_roll.rolled_rope_plain(
-                dy.float().abs(), tables[0].abs(), b_bwd.abs(), a_bwd.abs()
-            )
-            err_ulp = ((got - want).abs() / ulp(mag, dt)).max().item()
-            max_abs = (got - want).abs().max().item()
-            ms = cuda_ms(lambda: rope_roll.rolled_rope_bwd(dy, tables[0], a_bwd, b_bwd))
-            plain_ms = cuda_ms(lambda: rope_roll.rolled_rope_plain(dy, tables[0], b_bwd, a_bwd))
-            print(
-                f"kernel rope_roll backward [{b},{n},{w}] {str(dt)[6:]}: max_abs {max_abs:.3e} "
-                f"max_ulp {err_ulp:.2f} (bar {ROPE_MAX_ULP}) ms {ms:.4f} plain_ms {plain_ms:.4f}",
-                flush=True,
-            )
-            if not err_ulp <= ROPE_MAX_ULP:
-                fail(f"rope_roll backward {dt} [{b},{n},{w}] off by {err_ulp} ULP")
-            if dt == torch.bfloat16:
-                results["rope_roll"]["backward"] = dict(
-                    max_abs_err=max_abs, ms=ms, plain_ms=plain_ms
-                )
-    # attention on [B, N, H, D] per-head views of the [B, N, W] projections
-    for b, n in ((BATCH, 4097), (BATCH * BUCKET, 197)):
-        scale = 64 ** -0.5
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = (
-                torch.randn(b, n, 768, generator=gen).to(dev, dt).view(b, n, 12, 64)
-                for _ in range(3)
-            )
-            got = attention.flash_attention_fwd(q, k, v, scale).float()
-            want = attention.attention_plain(q.float(), k.float(), v.float(), scale)
-            max_abs = (got - want).abs().max().item()
-            cos = min_row_cos(got, want)
-            ms = cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale), iters=10)
-            plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, scale), iters=10)
-            print(
-                f"kernel flash_attention [{b},{n},12,64] {str(dt)[6:]}: max_abs {max_abs:.3e} "
-                f"min_row_cos {cos:.7f} ms {ms:.4f} plain_ms {plain_ms:.4f}",
-                flush=True,
-            )
-            if dt == torch.float32 and not max_abs <= ATTN_F32_MAX_ABS:
-                fail(f"flash_attention f32 [{b},{n}] max abs {max_abs}")
-            if dt == torch.bfloat16 and not cos >= ATTN_BF16_MIN_COS:
-                fail(f"flash_attention bf16 [{b},{n}] min row cosine {cos}")
-            if dt == torch.bfloat16 and n == 4097:
-                results["flash_attention"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
-            if n != 4097:
-                continue
-            check_flash_train_kernels(torch, dev, attention, q, k, v, scale, results, gen)
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_flash_train_kernels(torch, dev, attention, q, k, v, scale, results, gen):
-    """The training kernels at the student's [2, 4097, 12, 64]: the forward
-    with its LSE, and the one-pass backward, against their plain versions on
-    the same inputs (plain float32 on the bf16-valued inputs for bf16)."""
-    dt = q.dtype
-    out, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
-    f = [t.float() for t in (q, k, v)]
-    out32, lse32 = attention.attention_lse_plain(*f, scale)
-    lse_err = (lse - lse32).abs().max().item()
-    ms = cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale, return_lse=True), iters=10)
-    plain_ms = cuda_ms(lambda: attention.attention_lse_plain(q, k, v, scale), iters=10)
-    tag = f"[{q.shape[0]},{q.shape[1]},12,64] {str(dt)[6:]}"
-    print(
-        f"kernel flash_attention with lse {tag}: lse max_abs {lse_err:.3e} (bar {LSE_MAX_ABS}) "
-        f"ms {ms:.4f} plain_ms {plain_ms:.4f}",
-        flush=True,
-    )
-    if not lse_err <= LSE_MAX_ABS:
-        fail(f"flash_attention lse {dt} max abs {lse_err}")
-    do = torch.randn(q.shape, generator=gen).to(dev, dt)
-    got = attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
-    want = attention.attention_bwd_plain(*f, out32, lse32, do.float(), scale)
-    del out32, lse32
-    errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
-    rels = [e / w.abs().max().item() for e, w in zip(errs, want)]
-    coss = [min_row_cos(g, w) for g, w in zip(got, want)]
-    finite = all(torch.isfinite(g).all().item() for g in got)
-    del want
-    bwd_ms = cuda_ms(lambda: attention.flash_attention_bwd(q, k, v, out, lse, do, scale), iters=10)
-    bwd_plain_ms = cuda_ms(
-        lambda: attention.attention_bwd_plain(q, k, v, out, lse, do, scale), iters=5
-    )
-    print(
-        f"kernel flash_attention_bwd {tag}: dq/dk/dv max_abs "
-        f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} rel {max(rels):.3e} "
-        f"min_row_cos {coss[0]:.6f}/{coss[1]:.6f}/{coss[2]:.6f} "
-        f"ms {bwd_ms:.4f} plain_ms {bwd_plain_ms:.4f}",
-        flush=True,
-    )
-    if not finite:
-        fail(f"flash_attention_bwd {dt}: non-finite gradient")
-    if dt == torch.float32 and not max(rels) <= BWD_F32_MAX_REL:
-        fail(f"flash_attention_bwd f32 relative error {max(rels)} (bar {BWD_F32_MAX_REL})")
-    if dt == torch.bfloat16 and not min(coss) >= BWD_BF16_MIN_COS:
-        fail(f"flash_attention_bwd bf16 min row cosine {min(coss)} (bar {BWD_BF16_MIN_COS})")
-    if dt == torch.bfloat16:
-        results["flash_attention"]["lse"] = dict(max_abs_err=lse_err, ms=ms, plain_ms=plain_ms)
-        results["flash_attention_bwd"] = dict(
-            max_abs_err=max(errs), min_row_cos=min(coss), ms=bwd_ms, plain_ms=bwd_plain_ms
+class Records:
+    """Per kernel, one record for each shape and type it was checked at:
+    error, kernel / plain / library times and the card's bound."""
+
+    def __init__(self):
+        self.rows: dict[str, list[dict]] = {}
+
+    def add(self, name, what, shape, dtype, *, err, ms, plain_ms, library_ms, moved, flops, note=""):
+        """``moved``: bytes of every input read once and every output written
+        once; ``flops``: operations on these inputs."""
+        import torch
+
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        by_bytes, by_ops = moved / PEAK_BYTES_S * 1e3, flops / peak * 1e3
+        rec = dict(
+            what=what, shape=list(shape), dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=library_ms,
+        )
+        self.rows.setdefault(name, []).append(rec)
+        lib = "none" if library_ms is None else f"{library_ms:.4f}"
+        print(
+            f"kernel {name} {what} {list(shape)} {rec['dtype']}: max_abs {err:.3e} {note}"
+            f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
+            f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})",
+            flush=True,
         )
 
+    def primary(self, name: str, what: str, shape) -> dict:
+        """The bfloat16 record of one shape: the row's own numbers."""
+        for rec in self.rows[name]:
+            if (rec["what"], rec["shape"], rec["dtype"]) == (what, list(shape), "bfloat16"):
+                return rec
+        fail(f"no bfloat16 record of {name} {what} at {list(shape)}")
 
-def phase_slice(torch, dev):
+
+def check_rope(torch, dev, records, gen, shape, grid, head_dim, backward):
+    from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
+    from clipself_tpu_torch.ops import rope_roll
+
+    b, n, w = shape
+    tables = rope_tables(grid, grid, head_dim, 1, 16, dev)
+    a_bwd, b_bwd = rope_tables_bwd(grid, grid, head_dim, 1, 16, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(b, n, w, generator=gen).to(dev, dt)
+        # y = x*cos + roll*sin_a + roll*sin_b: five operations an element
+        cost = dict(moved=2 * nbytes(x) + nbytes(*tables), flops=5 * x.numel(), library_ms=None)
+        got = rope_roll.rolled_rope_fwd(x, *tables).float()
+        want = rope_roll.rolled_rope_plain(x, *tables).float()
+        mag = rope_roll.rolled_rope_plain(x.float().abs(), *(t.abs() for t in tables))
+        err_ulp = ((got - want).abs() / ulp(mag, dt)).max().item()
+        records.add(
+            "rope_roll", "forward", shape, dt, err=(got - want).abs().max().item(),
+            ms=cuda_ms(lambda: rope_roll.rolled_rope_fwd(x, *tables), graph=True),
+            plain_ms=cuda_ms(lambda: rope_roll.rolled_rope_plain(x, *tables), graph=True),
+            note=f"max_ulp {err_ulp:.2f} (bar {ROPE_MAX_ULP}) ", **cost,
+        )
+        if not err_ulp <= ROPE_MAX_ULP:
+            fail(f"rope_roll {dt} {shape} off by {err_ulp} ULP")
+        if not backward:
+            continue
+        # the backward: the same kernel on dy with the rolled tables,
+        # against autograd of the plain forward; the plain backward's
+        # time is the same composition in plain PyTorch
+        dy = torch.randn(b, n, w, generator=gen).to(dev, dt)
+        got = rope_roll.rolled_rope_bwd(dy, tables[0], a_bwd, b_bwd).float()
+        xr = torch.zeros(b, n, w, device=dev, dtype=dt, requires_grad=True)
+        (want,) = torch.autograd.grad(rope_roll.rolled_rope_plain(xr, *tables), xr, dy)
+        want = want.float()
+        mag = rope_roll.rolled_rope_plain(
+            dy.float().abs(), tables[0].abs(), b_bwd.abs(), a_bwd.abs()
+        )
+        err_ulp = ((got - want).abs() / ulp(mag, dt)).max().item()
+        records.add(
+            "rope_roll", "backward", shape, dt, err=(got - want).abs().max().item(),
+            ms=cuda_ms(lambda: rope_roll.rolled_rope_bwd(dy, tables[0], a_bwd, b_bwd), graph=True),
+            plain_ms=cuda_ms(lambda: rope_roll.rolled_rope_plain(dy, tables[0], b_bwd, a_bwd), graph=True),
+            note=f"max_ulp {err_ulp:.2f} (bar {ROPE_MAX_ULP}) ", **cost,
+        )
+        if not err_ulp <= ROPE_MAX_ULP:
+            fail(f"rope_roll backward {dt} {shape} off by {err_ulp} ULP")
+
+
+def sdpa(torch, q, k, v, scale):
+    """The library's attention on the same [B, N, H, D] tensors."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale
+    )
+    return out.transpose(1, 2)
+
+
+def check_attention(torch, dev, records, gen, shape, train):
+    """The forward on [B, N, H, D] per-head views of [B, N, W] projections;
+    with ``train`` also the forward with its LSE and the one-pass backward
+    (plain float32 on the bf16-valued inputs is the bar for bf16)."""
+    from clipself_tpu_torch.ops import attention
+
+    b, n, h, d = shape
+    scale = d ** -0.5
+    flops = 4 * b * h * n * n * d  # the two products Q K^T and P V
+    for dt in (torch.float32, torch.bfloat16):
+        iters = 5 if dt == torch.float32 else 10
+        q, k, v = (
+            torch.randn(b, n, h * d, generator=gen).to(dev, dt).view(b, n, h, d) for _ in range(3)
+        )
+        got = attention.flash_attention_fwd(q, k, v, scale).float()
+        f = [t.float() for t in (q, k, v)]
+        want = attention.attention_plain(*f, scale)
+        max_abs = (got - want).abs().max().item()
+        cos = min_row_cos(got, want)
+        del got, want
+        records.add(
+            "flash_attention", "forward", shape, dt, err=max_abs,
+            ms=cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale), iters),
+            plain_ms=cuda_ms(lambda: attention.attention_plain(q, k, v, scale), iters),
+            library_ms=cuda_ms(lambda: sdpa(torch, q, k, v, scale), iters),
+            moved=4 * nbytes(q), flops=flops, note=f"min_row_cos {cos:.7f} ",
+        )
+        if dt == torch.float32 and not max_abs <= ATTN_F32_MAX_ABS:
+            fail(f"flash_attention f32 {shape} max abs {max_abs}")
+        if dt == torch.bfloat16 and not cos >= ATTN_BF16_MIN_COS:
+            fail(f"flash_attention bf16 {shape} min row cosine {cos}")
+        if not train:
+            continue
+        out, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+        out32, lse32 = attention.attention_lse_plain(*f, scale)
+        lse_err = (lse - lse32).abs().max().item()
+        records.add(
+            "flash_attention", "forward with lse", shape, dt, err=lse_err,
+            ms=cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale, return_lse=True), iters),
+            plain_ms=cuda_ms(lambda: attention.attention_lse_plain(q, k, v, scale), iters),
+            library_ms=None, moved=4 * nbytes(q) + nbytes(lse), flops=flops,
+            note=f"(of the lse, bar {LSE_MAX_ABS}) ",
+        )
+        if not lse_err <= LSE_MAX_ABS:
+            fail(f"flash_attention lse {dt} {shape} max abs {lse_err}")
+        do = torch.randn(q.shape, generator=gen).to(dev, dt)
+        got = attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+        want = attention.attention_bwd_plain(*f, out32, lse32, do.float(), scale)
+        del out32, lse32
+        errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+        rel = max(e / w.abs().max().item() for e, w in zip(errs, want))
+        coss = [min_row_cos(g, w) for g, w in zip(got, want)]
+        finite = all(torch.isfinite(g).all().item() for g in got)
+        del got, want, f
+        # the library's backward alone: autograd of its forward, kept graph
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = sdpa(torch, *leaves, scale)
+        records.add(
+            "flash_attention_bwd", "backward", shape, dt, err=max(errs),
+            ms=cuda_ms(lambda: attention.flash_attention_bwd(q, k, v, out, lse, do, scale), iters),
+            plain_ms=cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, out, lse, do, scale), 5),
+            library_ms=cuda_ms(
+                lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters
+            ),
+            # q, k, v, out, dO and the lse read, dq, dk, dv written; five
+            # products (S, dP, dV, dK, dQ)
+            moved=8 * nbytes(q) + nbytes(lse), flops=flops * 5 // 2,
+            note=f"rel {rel:.3e} min_row_cos {min(coss):.6f} ",
+        )
+        del lib_out, leaves
+        if not finite:
+            fail(f"flash_attention_bwd {dt} {shape}: non-finite gradient")
+        if dt == torch.float32 and not rel <= BWD_F32_MAX_REL:
+            fail(f"flash_attention_bwd f32 {shape} relative error {rel} (bar {BWD_F32_MAX_REL})")
+        if dt == torch.bfloat16 and not min(coss) >= BWD_BF16_MIN_COS:
+            fail(f"flash_attention_bwd bf16 {shape} min row cosine {min(coss)}")
+
+
+# the views of a [B, N, W] tensor that the tower's LayerNorms see
+LN_VIEWS = {
+    "": lambda t: t,
+    " rows 1: of": lambda t: t[:, 1:],  # the dense pass's final norm
+    " row 0 of": lambda t: t[:, 0],     # the CLS pass's final norm
+}
+
+
+def check_layer_norm(torch, dev, records, gen, shape, view, backward):
+    from clipself_tpu_torch.ops import layer_norm as ln
+
+    eps, w = 1e-6, shape[-1]
+    for dt in (torch.float32, torch.bfloat16):
+        x = LN_VIEWS[view]((torch.randn(shape, generator=gen) * 3 + 0.5).to(dev, dt))
+        dy = LN_VIEWS[view](torch.randn(shape, generator=gen).to(dev, dt)).contiguous()
+        weight = (torch.randn(w, generator=gen) * 0.2 + 1.0).to(dev)
+        bias = (torch.randn(w, generator=gen) * 0.1).to(dev)
+        # the library call takes the affine in x's type
+        lib_w, lib_b = weight.to(dt), bias.to(dt)
+        what = f"{view} {list(shape)}:" if view else ""
+
+        def err_ulps(got, want, mag):
+            diff = (got.float() - want.float()).abs()
+            if dt == torch.bfloat16:
+                diff = torch.clamp(diff - ulp(want.float(), dt), min=0.0)
+            return (diff / ulp(mag, torch.float32)).max().item()
+
+        want, mu, rstd = ln.layer_norm_stats_plain(x, weight, bias, eps)
+        xf = x.float()
+        mag = (xf.abs() + xf.abs().mean(-1, keepdim=True)) * (rstd[..., None] * weight.abs())
+        mag = mag + bias.abs()
+        for stats in (False, True):
+            out = ln.layer_norm_fwd(x, weight, bias, eps, return_stats=stats)
+            got = out[0] if stats else out
+            err = err_ulps(got, want, mag)
+            if stats:
+                stat_err = max(
+                    ((out[1] - mu).abs() / ulp(xf.abs().mean(-1), torch.float32)).max().item(),
+                    ((out[2] - rstd).abs() / ulp(rstd, torch.float32)).max().item(),
+                )
+                err = max(err, stat_err)
+            records.add(
+                "layer_norm", f"forward{' with stats' if stats else ''}{what}", x.shape, dt,
+                err=(got.float() - want.float()).abs().max().item(),
+                ms=cuda_ms(lambda: ln.layer_norm_fwd(x, weight, bias, eps, return_stats=stats), graph=True),
+                plain_ms=cuda_ms(lambda: ln.layer_norm_plain(x, weight, bias, eps), graph=True),
+                library_ms=cuda_ms(
+                    lambda: torch.nn.functional.layer_norm(x, (w,), lib_w, lib_b, eps), graph=True
+                ),
+                # x read, y written, the affine read, the statistics written
+                moved=2 * nbytes(x) + nbytes(weight, bias) + (nbytes(mu, rstd) if stats else 0),
+                flops=8 * x.numel(), note=f"max_ulp {err:.2f} (bar {LN_MAX_ULP}) ",
+            )
+            if not err <= LN_MAX_ULP:
+                fail(f"layer_norm {dt} {what} {tuple(x.shape)} stats={stats} off by {err} ULP")
+        if not backward:
+            continue
+        # both sides take the kernel forward's statistics
+        _, mu, rstd = ln.layer_norm_fwd(x, weight, bias, eps, return_stats=True)
+        got = ln.layer_norm_bwd(x, dy, mu, rstd, weight)
+        want = ln.layer_norm_bwd_plain(x, dy, mu, rstd, weight)
+        g = dy.float() * weight
+        xhat = (xf - mu[..., None]) * rstd[..., None]
+        mag = rstd[..., None] * (
+            g.abs() + g.abs().mean(-1, keepdim=True)
+            + xhat.abs() * (g * xhat).abs().mean(-1, keepdim=True)
+        )
+        err = err_ulps(got[0], want[0], mag)
+        sum_rel = max(
+            ((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got[1:], want[1:])
+        )
+        # the library's backward as one call, on its own forward's statistics
+        _, lib_mean, lib_rstd = torch.ops.aten.native_layer_norm(x, [w], lib_w, lib_b, eps)
+        records.add(
+            "layer_norm_bwd", f"backward{what}", x.shape, dt,
+            err=(got[0].float() - want[0].float()).abs().max().item(),
+            ms=cuda_ms(lambda: ln.layer_norm_bwd(x, dy, mu, rstd, weight), graph=True),
+            plain_ms=cuda_ms(lambda: ln.layer_norm_bwd_plain(x, dy, mu, rstd, weight), graph=True),
+            library_ms=cuda_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [w], lib_mean, lib_rstd, lib_w, lib_b, [True, True, True]
+                ),
+                graph=True,
+            ),
+            # x, dy, the statistics and the weight read; dx, dweight, dbias
+            # written (the per-block partial sums are scratch, not counted)
+            moved=3 * nbytes(x) + nbytes(mu, rstd) + 3 * nbytes(weight),
+            flops=14 * x.numel(),
+            note=f"max_ulp {err:.2f} (bar {LN_MAX_ULP}) sums rel {sum_rel:.3e} (bar {LN_SUM_MAX_REL}) ",
+        )
+        if not err <= LN_MAX_ULP:
+            fail(f"layer_norm_bwd {dt} {what} {tuple(x.shape)} dx off by {err} ULP")
+        if not sum_rel <= LN_SUM_MAX_REL:
+            fail(f"layer_norm_bwd {dt} {what} {tuple(x.shape)} dweight/dbias off by {sum_rel}")
+
+
+def phase_kernels(torch, dev, records):
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    for s in MODELS:
+        v = s.vision
+        student = (TRAIN_BATCH, s.tokens(s.image), v.width)
+        # the crop pass: the evaluator's bucket of crops for B/16 (as the
+        # earlier runs), the teacher's 40 crops for L/14
+        n_crops = 2 * BUCKET if s.key == "b16" else TRAIN_BATCH * TRAIN_BOXES
+        crops = (n_crops, s.tokens(s.crop), v.width)
+        heads = (s.heads, v.head_width)
+        check_rope(torch, dev, records, gen, student, s.grid(s.image), heads[1], backward=True)
+        check_rope(torch, dev, records, gen, crops, s.grid(s.crop), heads[1], backward=False)
+        check_attention(torch, dev, records, gen, student[:2] + heads, train=True)
+        check_attention(torch, dev, records, gen, crops[:2] + heads, train=False)
+        if s.key == "l14":  # the evaluator's own shapes: one image, one bucket
+            check_attention(torch, dev, records, gen, (1, student[1]) + heads, train=False)
+            check_attention(torch, dev, records, gen, (BUCKET, crops[1]) + heads, train=False)
+        torch.cuda.empty_cache()
+        for width in (v.width, s.hidden):
+            check_layer_norm(torch, dev, records, gen, student[:2] + (width,), "", backward=True)
+        if s.key == "l14":
+            teacher = (TRAIN_BATCH * TRAIN_BOXES, s.tokens(s.crop))
+            for width in (v.width, s.hidden):
+                check_layer_norm(torch, dev, records, gen, teacher + (width,), "", backward=False)
+            check_layer_norm(torch, dev, records, gen, student, " rows 1: of", backward=True)
+            check_layer_norm(torch, dev, records, gen, teacher + (v.width,), " row 0 of", backward=True)
+
+
+def phase_eval(torch, dev, s: Model):
     import numpy as np
 
     from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
     from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
     from clipself_tpu_torch.models.factory import create_model
 
-    model = create_model(MODEL, device=dev, dtype=torch.bfloat16, seed=SEED)
+    model = create_model(s.model, device=dev, dtype=torch.bfloat16, seed=SEED)
     cfg = model.cfg
-    mask_hw = IMAGE // cfg.vision.patch_size
 
     def batch(i):
         # staged on the card, as the JAX evaluator bench stages them
         host = synthetic_panoptic_batch(
-            i, batch=BATCH, image_size=IMAGE, max_anns=MAX_ANNS, valid_anns=VALID_ANNS,
-            crop_size=CROP, mask_hw=mask_hw, n_classes=N_CLASSES, seed=SEED,
+            i, batch=s.eval_batch, image_size=s.image, max_anns=MAX_ANNS, valid_anns=VALID_ANNS,
+            crop_size=s.crop, mask_hw=s.grid(s.image), n_classes=N_CLASSES, seed=SEED,
         )
         return {k: (v if k == "boxes" else torch.as_tensor(v, device=dev)) for k, v in host.items()}
 
@@ -326,6 +604,7 @@ def phase_slice(torch, dev):
     evaluate_zero_shot(model, [warm], emb, device=dev, ann_bucket=BUCKET)  # warm-up
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     res = evaluate_zero_shot(model, batches, emb, device=dev, ann_bucket=BUCKET)
@@ -333,35 +612,29 @@ def phase_slice(torch, dev):
     dt = time.perf_counter() - t0
     launches = read_counts()
 
-    ips = BATCH * N_BATCHES / dt
+    ips = s.eval_batch * N_BATCHES / dt
     print(
-        f"slice {MODEL} zero-shot eval: {N_BATCHES} batches x {BATCH} images {IMAGE}px, "
-        f"{VALID_ANNS} valid of {MAX_ANNS} anns (bucket {BUCKET}), crops {CROP}px: "
-        f"{dt:.3f} s, {ips:.3f} images/s",
+        f"{s.key} eval {s.model} zero-shot: {N_BATCHES} batches x {s.eval_batch} images "
+        f"{s.image}px, {VALID_ANNS} valid of {MAX_ANNS} anns (bucket {BUCKET}), crops "
+        f"{s.crop}px, {cfg.vision.layers} blocks: {dt:.3f} s, {ips:.3f} images/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
         flush=True,
     )
-    print("slice mAcc " + json.dumps(res, sort_keys=True), flush=True)
-    print("slice launches " + json.dumps(launches), flush=True)
+    print(f"{s.key} eval mAcc " + json.dumps(res, sort_keys=True), flush=True)
+    print(f"{s.key} eval launches " + json.dumps(launches), flush=True)
     if not res or not all(np.isfinite(v) for v in res.values()):
         fail(f"evaluator result not finite: {res}")
-    # per batch: the dense pass runs 11 attention blocks (the last block
-    # takes the value path), the crop pass all 12, crops in one call; two
-    # RoPE launches (q and k) per attention block
-    per_batch = (cfg.vision.layers - 1) + cfg.vision.layers
-    expect = {
-        "flash_attention": N_BATCHES * per_batch, "flash_attention_bwd": 0,
-        "rope_roll": 2 * N_BATCHES * per_batch, "rope_roll_bwd": 0,
-    }
+    expect = expected_launches(cfg.vision.layers, evals=N_BATCHES)
     if launches != expect:
-        fail(f"launch counts {launches}, expected {expect}")
+        fail(f"{s.key} eval launch counts {launches}, expected {expect}")
     return model, batches[0], launches
 
 
-def phase_parity(torch, dev, model_bf16, batch):
+def phase_parity(torch, dev, s: Model, model_bf16, batch):
     from clipself_tpu_torch.models.factory import create_model
 
     images = batch["images"]
-    model_f32 = create_model(MODEL, device=dev, dtype=torch.float32, seed=SEED)
+    model_f32 = create_model(s.model, device=dev, dtype=torch.float32, seed=SEED)
     with torch.inference_mode():
         dense_k32 = model_f32.encode_dense(images, keep_shape=True)
         dense_k16 = model_bf16.encode_dense(images, keep_shape=True)
@@ -375,12 +648,12 @@ def phase_parity(torch, dev, model_bf16, batch):
     bf16_cos = min_row_cos(dense_k16, dense_p32)
     shape = list(dense_p32.shape)
     print(
-        f"parity dense map {shape} f32 kernels vs f32 plain: max_abs {f32_abs:.3e} "
+        f"{s.key} parity dense map {shape} f32 kernels vs f32 plain: max_abs {f32_abs:.3e} "
         f"min_row_cos {f32_cos:.7f} (bar max_abs {PATH_F32_MAX_ABS})",
         flush=True,
     )
     print(
-        f"parity dense map {shape} bf16 kernels vs f32 plain: max_abs {bf16_abs:.3e} "
+        f"{s.key} parity dense map {shape} bf16 kernels vs f32 plain: max_abs {bf16_abs:.3e} "
         f"min_row_cos {bf16_cos:.7f} (bar min_row_cos {PATH_BF16_MIN_COS})",
         flush=True,
     )
@@ -388,27 +661,28 @@ def phase_parity(torch, dev, model_bf16, batch):
         if not torch.isfinite(t).all():
             fail("non-finite dense map")
     if not f32_abs <= PATH_F32_MAX_ABS:
-        fail(f"f32 kernel path off the plain path by {f32_abs}")
+        fail(f"{s.key} f32 kernel path off the plain path by {f32_abs}")
     if not bf16_cos >= PATH_BF16_MIN_COS:
-        fail(f"bf16 kernel path min row cosine {bf16_cos}")
+        fail(f"{s.key} bf16 kernel path min row cosine {bf16_cos}")
 
 
-def phase_train(torch, dev, logs_dir):
+def phase_train(torch, dev, s: Model, logs_dir, recompute=False):
     """The distill step through the trainer's entry point."""
-    from clipself_tpu_torch.core.config import get_model_config
     from clipself_tpu_torch.train import main as train_main
     from clipself_tpu_torch.train.optim import trainable_labels
 
-    layers = get_model_config(MODEL).vision.layers
-    steps = TRAIN_WARMUP + TRAIN_TIMED
+    layers = s.vision.layers
+    warmup = 0 if recompute else TRAIN_WARMUP
+    steps = RECOMPUTE_STEPS if recompute else TRAIN_WARMUP + TRAIN_TIMED
+    tag = f"{s.key} train" + (" recompute" if recompute else "")
     argv = [
-        "--synthetic", "--model", MODEL, "--precision", "bf16", "--device", "cuda",
-        "--batch-size", str(BATCH), "--det-image-size", str(IMAGE),
+        "--synthetic", "--model", s.model, "--precision", "bf16", "--device", str(dev),
+        "--batch-size", str(TRAIN_BATCH), "--det-image-size", str(s.image),
         "--max-boxes", str(TRAIN_BOXES), "--lock-image-unlocked-groups", str(layers),
         "--steps-per-epoch", str(steps), "--epochs", "1", "--log-every-n-steps", "1",
         "--lr", "1e-5", "--warmup", "1", "--seed", str(SEED),
-        "--logs", logs_dir, "--name", "train_slice",
-    ]
+        "--logs", logs_dir, "--name", tag.replace(" ", "_"),
+    ] + (["--grad-checkpointing"] if recompute else [])
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     run = train_main.main(argv)
@@ -417,31 +691,27 @@ def phase_train(torch, dev, logs_dir):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     hist = run["history"]
     losses = [h["loss"] for h in hist]
-    timed = hist[TRAIN_WARMUP:]
-    seconds = sum(BATCH / h["images_per_sec"] for h in timed)
-    ips = BATCH * len(timed) / seconds
+    timed = hist[warmup:]
+    seconds = sum(TRAIN_BATCH / h["images_per_sec"] for h in timed)
+    ips = TRAIN_BATCH * len(timed) / seconds
     print(
-        f"train {MODEL} distill step: batch {BATCH} at {IMAGE}px, {TRAIN_BOXES} boxes, "
-        f"crops {CROP}px, {layers} blocks unlocked, bf16: {TRAIN_TIMED} timed steps after "
-        f"{TRAIN_WARMUP} warm-up in {seconds:.3f} s, {ips:.3f} images/s "
+        f"{tag} {s.model} distill step: batch {TRAIN_BATCH} at {s.image}px, {TRAIN_BOXES} boxes, "
+        f"crops {s.crop}px, {layers} blocks unlocked, bf16: {len(timed)} timed steps after "
+        f"{warmup} warm-up in {seconds:.3f} s, {ips:.3f} images/s "
         f"(per step {[round(h['images_per_sec'], 3) for h in timed]})",
         flush=True,
     )
-    print(f"train losses {json.dumps([round(x, 6) for x in losses])}", flush=True)
-    print(f"train peak memory {peak_gib:.3f} GiB (max_memory_allocated)", flush=True)
-    print(f"train launches {json.dumps(launches)}", flush=True)
+    print(f"{tag} losses {json.dumps([round(x, 6) for x in losses])}", flush=True)
+    print(f"{tag} peak memory {peak_gib:.3f} GiB (max_memory_allocated)", flush=True)
+    print(f"{tag} launches {json.dumps(launches)}", flush=True)
     if len(losses) != steps or not all(map(math.isfinite, losses)):
-        fail(f"train losses {losses}")
-    # per step: the teacher's 12 blocks and the student's 11 attention
-    # blocks run the forward, the student's 11 the backward; RoPE twice each
-    fwd, bwd = layers + (layers - 1), layers - 1
-    expect = {
-        "flash_attention": steps * fwd, "flash_attention_bwd": steps * bwd,
-        "rope_roll": 2 * steps * fwd, "rope_roll_bwd": 2 * steps * bwd,
-    }
+        fail(f"{tag} losses {losses}")
+    expect = expected_launches(layers, steps=steps, recompute=recompute)
     if launches != expect:
-        fail(f"train launch counts {launches}, expected {expect}")
+        fail(f"{tag} launch counts {launches}, expected {expect}")
     student, teacher = run["state"].model, run["teacher"]
+    if student.visual.grad_checkpointing != recompute:
+        fail(f"{tag}: the student's grad_checkpointing is {student.visual.grad_checkpointing}")
     labels = trainable_labels((n for n, _ in student.named_parameters()), layers, layers)
     t_params = dict(teacher.named_parameters())
     moved = set()
@@ -454,29 +724,35 @@ def phase_train(torch, dev, logs_dir):
         if labels[name] == "train" and not same:
             moved.add(name.split(".")[2])
     if moved != {str(i) for i in range(layers)}:
-        fail(f"unlocked blocks that moved: {sorted(moved)}")
-    print(f"train checks: losses finite, {layers} unlocked blocks moved, frozen unchanged", flush=True)
+        fail(f"{tag}: unlocked blocks that moved: {sorted(moved)}")
+    print(f"{tag} checks: losses finite, {layers} unlocked blocks moved, frozen unchanged", flush=True)
     del run, student, teacher
     return dict(images_per_sec=ips, losses=losses, peak_gib=peak_gib, launches=launches)
 
 
-def phase_train_parity(torch, dev):
+def phase_train_parity(torch, dev, s: Model):
     """One step's loss and trainable gradients from the same weights and
     batch (batch 1) on f32 kernels, bf16 kernels and the f32 plain path."""
+    from clipself_tpu_torch.core.config import get_model_config
     from clipself_tpu_torch.data.loader import SyntheticDistillData
     from clipself_tpu_torch.models.factory import create_model
     from clipself_tpu_torch.train.methods import clipself_loss
     from clipself_tpu_torch.train.optim import trainable_labels
 
+    cfg = get_model_config(s.model)
+    if s.parity_layers is not None:
+        cfg = dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, layers=s.parity_layers)
+        )
+    layers = cfg.vision.layers
     host = SyntheticDistillData(
-        batch_size=1, det_size=IMAGE, crop_size=CROP, max_anns=TRAIN_BOXES, seed=SEED
+        batch_size=1, det_size=s.image, crop_size=s.crop, max_anns=TRAIN_BOXES, seed=SEED
     ).batch
     batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
 
     def one_step(dtype, plain):
-        model = create_model(MODEL, device=dev, dtype=dtype, seed=SEED)
+        model = create_model(cfg, device=dev, dtype=dtype, seed=SEED)
         teacher = copy.deepcopy(model).requires_grad_(False)
-        layers = model.cfg.vision.layers
         named = list(model.named_parameters())
         labels = trainable_labels((n for n, _ in named), layers, layers)
         for name, p in named:
@@ -507,13 +783,13 @@ def phase_train_parity(torch, dev):
     worst_rel = max(rel, key=rel.get)
     worst_cos = min(cos, key=cos.get)
     print(
-        f"train parity {MODEL} batch 1, {len(g_p)} trainable gradients: loss f32 plain "
-        f"{loss_p:.7f}, f32 kernels {loss_k:.7f} (|d| {abs(loss_k - loss_p):.3e}, bar "
-        f"{STEP_LOSS_MAX_ABS}), bf16 kernels {loss_h:.7f}",
+        f"{s.key} train parity {s.model}, {layers} of {s.vision.layers} blocks, batch 1, "
+        f"{len(g_p)} trainable gradients: loss f32 plain {loss_p:.7f}, f32 kernels {loss_k:.7f} "
+        f"(|d| {abs(loss_k - loss_p):.3e}, bar {STEP_LOSS_MAX_ABS}), bf16 kernels {loss_h:.7f}",
         flush=True,
     )
     print(
-        f"train parity gradients: f32 kernels vs f32 plain max rel {rel[worst_rel]:.3e} "
+        f"{s.key} train parity gradients: f32 kernels vs f32 plain max rel {rel[worst_rel]:.3e} "
         f"({worst_rel}; bar {STEP_GRAD_F32_MAX_REL}); bf16 kernels vs f32 plain min cosine "
         f"{cos[worst_cos]:.6f} ({worst_cos}; bar {STEP_GRAD_BF16_MIN_COS})",
         flush=True,
@@ -527,6 +803,82 @@ def phase_train_parity(torch, dev):
         fail(f"f32 kernel gradient {worst_rel} off by {rel[worst_rel]} of its max")
     if not cos[worst_cos] >= STEP_GRAD_BF16_MIN_COS:
         fail(f"bf16 kernel gradient {worst_cos} cosine {cos[worst_cos]}")
+
+
+def phase_model(torch, dev, s: Model, logs_dir) -> dict:
+    """Phases 3 to 6 for one model; returns the launch counts by main path."""
+    model_bf16, batch0, eval_launches = phase_eval(torch, dev, s)
+    phase_parity(torch, dev, s, model_bf16, batch0)
+    del model_bf16, batch0
+    torch.cuda.empty_cache()
+    paths = {f"{s.key}_eval": eval_launches}
+    try:
+        train = phase_train(torch, dev, s, logs_dir)
+        paths[f"{s.key}_train"] = train["launches"]
+        torch.cuda.empty_cache()
+        if s.key == "l14":
+            again = phase_train(torch, dev, s, logs_dir, recompute=True)
+            paths[f"{s.key}_train_recompute"] = again["launches"]
+            delta = abs(again["losses"][0] - train["losses"][0])
+            print(
+                f"{s.key} train recompute vs not: first loss |d| {delta:.3e} (bar "
+                f"{RECOMPUTE_LOSS_MAX_ABS}), peak memory {again['peak_gib']:.3f} GiB vs "
+                f"{train['peak_gib']:.3f} GiB, images/s {again['images_per_sec']:.3f} "
+                f"(first steps, not warmed up) vs {train['images_per_sec']:.3f}",
+                flush=True,
+            )
+            if not delta <= RECOMPUTE_LOSS_MAX_ABS:
+                fail(f"{s.key}: the recomputing run's first loss is off by {delta}")
+    finally:
+        shutil.rmtree(logs_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_train_parity(torch, dev, s)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def kernel_rows(records: Records, paths: dict) -> list:
+    """One row per kernel: its launches on the main paths and its numbers
+    at the L/14 student's shape in bfloat16, then every record."""
+    l14 = MODELS[-1]
+    student = (TRAIN_BATCH, l14.tokens(l14.image))
+    rows = {  # name and launch counter: source, the TPU kernel it replaces, the row's own record
+        "rope_roll": (
+            "rope_roll.cu", "clipself_tpu/ops/rope_roll.py:105",
+            ("forward", student + (l14.vision.width,)),
+        ),
+        "flash_attention": (
+            "flash_attention.cu", "clipself_tpu/ops/attention.py:288",
+            ("forward", student + (l14.heads, l14.vision.head_width)),
+        ),
+        "flash_attention_bwd": (
+            "flash_attention_bwd.cu", "clipself_tpu/ops/flash_bwd.py:208",
+            ("backward", student + (l14.heads, l14.vision.head_width)),
+        ),
+        "layer_norm": (
+            "layer_norm.cu", "clipself_tpu/ops/layer_norm.py:139",
+            ("forward", student + (l14.vision.width,)),
+        ),
+        "layer_norm_bwd": (
+            "layer_norm.cu", "clipself_tpu/ops/layer_norm.py:171",
+            ("backward", student + (l14.vision.width,)),
+        ),
+    }
+    kernels = []
+    for name, (src, replaces, primary) in rows.items():
+        row = {
+            "name": name, "route": "cuda", "source": f"clipself_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": sum(p[name] for p in paths.values()),
+            "launches_by_path": {k: p[name] for k, p in paths.items()},
+            **{k: v for k, v in records.primary(name, *primary).items() if k != "what"},
+            "checked_at": records.rows[name],
+        }
+        if name == "rope_roll":  # its backward is the same kernel on the rolled tables
+            row["backward_launches_by_path"] = {k: p["rope_roll_bwd"] for k, p in paths.items()}
+        if row["launches"] == 0:
+            fail(f"no main path launched {name}")
+        kernels.append(row)
+    return kernels
 
 
 def main() -> int:
@@ -558,43 +910,17 @@ def main() -> int:
         flush=True,
     )
 
-    results = {}
-    phase_kernels(torch, dev, results)
-    model_bf16, batch0, eval_launches = phase_slice(torch, dev)
-    phase_parity(torch, dev, model_bf16, batch0)
-    del model_bf16, batch0
-    torch.cuda.empty_cache()
+    records = Records()
+    phase_kernels(torch, dev, records)
     logs_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_logs")
-    try:
-        train = phase_train(torch, dev, logs_dir)
-    finally:
-        shutil.rmtree(logs_dir, ignore_errors=True)
-    torch.cuda.empty_cache()
-    phase_train_parity(torch, dev)
+    # launches: every main path counted from 0 (each model's evaluator and
+    # train runs); the backward rows launch on the train paths only
+    paths = {}
+    for s in MODELS:
+        paths.update(phase_model(torch, dev, s, logs_dir))
+        print(f"{s.key} done at {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # launches: the two main paths, each counted from 0 (the evaluator and
-    # the train slice); the backward rows launch on the train path only
-    paths = {"eval": eval_launches, "train": train["launches"]}
-    # the RoPE backward is the same kernel on the rolled tables
-    results["rope_roll"]["backward"]["launches"] = paths["train"]["rope_roll_bwd"]
-    rows = {  # name (and launch counter): source, the TPU kernel it replaces
-        "rope_roll": ("clipself_tpu_torch/csrc/rope_roll.cu", "clipself_tpu/ops/rope_roll.py:105"),
-        "flash_attention": (
-            "clipself_tpu_torch/csrc/flash_attention.cu",
-            "clipself_tpu/ops/attention.py:288",
-        ),
-        "flash_attention_bwd": (
-            "clipself_tpu_torch/csrc/flash_attention_bwd.cu",
-            "clipself_tpu/ops/flash_bwd.py:208",
-        ),
-    }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(p[name] for p in paths.values()),
-         "launches_by_path": {k: p[name] for k, p in paths.items()},
-         **results[name]}
-        for name, (src, rep) in rows.items()
-    ]
+    kernels = kernel_rows(records, paths)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -17,14 +17,16 @@ from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
 
 
 class CLIP(nn.Module):
-    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False
+    ):
         super().__init__()
         if not cfg.vision.eva_model_name:
             raise NotImplementedError(
                 f"{cfg.name}: only the EVA vision towers are ported (ROADMAP.md queue 1 item 8)"
             )
         self.cfg = cfg
-        self.visual = EvaViT(cfg.vision, cfg.embed_dim, dtype)
+        self.visual = EvaViT(cfg.vision, cfg.embed_dim, dtype, grad_checkpointing)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     def encode_image(self, image: torch.Tensor, normalize: bool = False) -> torch.Tensor:

@@ -6,14 +6,16 @@ with `ffn_ln`, 2-D RoPE on the patch tokens):
 
   - parameters live in float32 and are cast to the compute dtype at each
     matmul, as flax `Dense(dtype=...)` does; LayerNorms compute in float32
-    with the fast-variance association of the JAX tower and are cast back at
-    the call site;
+    with the fast-variance association of the JAX tower and return the
+    input's dtype (`ops/layer_norm.py`, a hand-written kernel on the card);
   - images are channels-last [B, H, W, 3], tokens [B, N, W];
   - module and parameter names follow the reference torch state dict
     (`visual.blocks.{i}.attn.q_proj.weight`, `q_bias`, ...), so
     `models/torch_io.py` loads reference checkpoints with `strict=True`;
   - RoPE and attention run the hand-written kernels of `ops/`; the sequence
-    is never padded (the kernels mask the ragged 4097- and 197-token tails).
+    is never padded (the kernels mask the ragged 4097- and 197-token tails);
+  - `grad_checkpointing` recomputes each block in the backward pass, the
+    counterpart of the JAX tower's `remat`.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from clipself_tpu_torch.core.config import VisionConfig
 from clipself_tpu_torch.models.common import l2_normalize
 from clipself_tpu_torch.models.rope import apply_rope_flat
 from clipself_tpu_torch.ops.attention import multi_head_attention
 from clipself_tpu_torch.ops.interpolate import resize_2d
+from clipself_tpu_torch.ops.layer_norm import layer_norm
 from clipself_tpu_torch.ops.patchify import patchify
 from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
 
@@ -78,8 +82,9 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.Module):
-    """Row LayerNorm in float32 (fast variance, y = (x-mu)*(rstd*w)+b);
-    returns float32, the caller casts."""
+    """Row LayerNorm computed in float32 (fast variance,
+    y = (x-mu)*(rstd*w)+b) and returned in x's dtype: one rounding of the
+    float32 value, as the cast at the JAX tower's call sites."""
 
     def __init__(self, width: int, eps: float):
         super().__init__()
@@ -88,10 +93,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-        return (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class EvaAttention(nn.Module):
@@ -127,13 +129,12 @@ class EvaAttention(nn.Module):
         out = multi_head_attention(
             q.view(heads), k.view(heads), v.view(heads), c.head_width ** -0.5
         )
-        out = self.inner_attn_ln(out.reshape(b, n, w)).to(x.dtype)
-        return self.proj(out)
+        return self.proj(self.inner_attn_ln(out.reshape(b, n, w)))
 
     def value_path(self, x: torch.Tensor) -> torch.Tensor:
         """The attention branch without token mixing: v-projection, inner LN
         and output projection (reference `proj_without_attn`)."""
-        return self.proj(self.inner_attn_ln(self._v(x)).to(x.dtype))
+        return self.proj(self.inner_attn_ln(self._v(x)))
 
 
 class SwiGLU(nn.Module):
@@ -147,7 +148,7 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(self.w1(x)) * self.w2(x)
-        return self.w3(self.ffn_ln(h).to(x.dtype))
+        return self.w3(self.ffn_ln(h))
 
 
 class EvaBlock(nn.Module):
@@ -168,15 +169,15 @@ class EvaBlock(nn.Module):
         return y if gamma is None else y * gamma.to(y.dtype)
 
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self._scaled(self.mlp(self.norm2(x).to(x.dtype)), self.gamma_2)
+        return x + self._scaled(self.mlp(self.norm2(x)), self.gamma_2)
 
     def forward(self, x: torch.Tensor, grid_hw: tuple[int, int]) -> torch.Tensor:
-        x = x + self._scaled(self.attn(self.norm1(x).to(x.dtype), grid_hw), self.gamma_1)
+        x = x + self._scaled(self.attn(self.norm1(x), grid_hw), self.gamma_1)
         return self._mlp(x)
 
     def forward_without_attn(self, x: torch.Tensor) -> torch.Tensor:
         """Final-block value path (reference `forward_without_attn`)."""
-        x = x + self._scaled(self.attn.value_path(self.norm1(x).to(x.dtype)), self.gamma_1)
+        x = x + self._scaled(self.attn.value_path(self.norm1(x)), self.gamma_1)
         return self._mlp(x)
 
 
@@ -199,13 +200,20 @@ class PatchEmbed(nn.Module):
 
 
 class EvaViT(nn.Module):
-    def __init__(self, cfg: VisionConfig, embed_dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self,
+        cfg: VisionConfig,
+        embed_dim: int,
+        dtype: torch.dtype = torch.float32,
+        grad_checkpointing: bool = False,
+    ):
         super().__init__()
         missing = _unsupported(cfg)
         if missing is not None:
             raise NotImplementedError(f"EvaViT port: {missing} is not ported yet ({_ROADMAP})")
         self.cfg = cfg
         self.dtype = dtype
+        self.grad_checkpointing = grad_checkpointing
         base = cfg.grid_size
         self.patch_embed = PatchEmbed(cfg.width, cfg.patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.width))
@@ -256,13 +264,20 @@ class EvaViT(nn.Module):
         t = t + self._resized_pos_embed((gh, gw)).to(self.dtype)
         return t, (gh, gw)
 
+    def _run(self, fn, *args) -> torch.Tensor:
+        """Call a block; under `grad_checkpointing`, with gradients on, keep
+        only its inputs and run it again in the backward pass."""
+        if self.grad_checkpointing and torch.is_grad_enabled():
+            # the blocks draw no random numbers: no generator state to keep
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Image embedding from the CLS token [B, embed_dim]."""
         t, grid = self.embed(x)
         for blk in self.blocks:
-            t = blk(t, grid)
-        t = self.norm(t[:, 0]).to(self.dtype)
-        return self.head(t)
+            t = self._run(blk, t, grid)
+        return self.head(self.norm(t[:, 0]))
 
     def encode_dense(self, x: torch.Tensor, keep_shape: bool = True) -> torch.Tensor:
         """Dense patch features: blocks[:-1], the final block without
@@ -270,9 +285,9 @@ class EvaViT(nn.Module):
         [B, gh, gw, C] if keep_shape else [B, gh*gw, C]."""
         t, (gh, gw) = self.embed(x)
         for blk in self.blocks[:-1]:
-            t = blk(t, (gh, gw))
-        t = self.blocks[-1].forward_without_attn(t)[:, 1:]
-        t = self.head(self.norm(t).to(self.dtype))
+            t = self._run(blk, t, (gh, gw))
+        t = self._run(self.blocks[-1].forward_without_attn, t)[:, 1:]
+        t = self.head(self.norm(t))
         t = l2_normalize(t)
         return t.reshape(x.shape[0], gh, gw, -1) if keep_shape else t
 

@@ -16,6 +16,7 @@ def create_model(
     device: Union[str, torch.device],
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
+    grad_checkpointing: bool = False,
 ) -> CLIP:
     """Build a CLIP with seeded random weights, in eval mode on ``device``.
 
@@ -23,9 +24,11 @@ def create_model(
     drawn on the CPU from ``torch.Generator().manual_seed(seed)`` with the
     JAX package's init distributions (they are not the JAX package's values:
     the two generators differ); load real weights with
-    `models.torch_io.load_weights`.
+    `models.torch_io.load_weights`. ``grad_checkpointing`` recomputes each
+    block of the visual tower in the backward pass (the JAX package's
+    ``remat``).
     """
     cfg = get_model_config(name_or_cfg) if isinstance(name_or_cfg, str) else name_or_cfg
-    model = CLIP(cfg, dtype=dtype)
+    model = CLIP(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
     model.visual.init_weights(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

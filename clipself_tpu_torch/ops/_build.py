@@ -45,6 +45,14 @@ _SIGNATURES = {
         (_I,) + (_P,) * 11 + (_I,) * 4 + (_L,) * 9 + (ctypes.c_float, _P),
         _I,
     ),
+    "clipself_layer_norm_fwd": (
+        (_I,) + (_P,) * 6 + (_L, _I, _L, _L, _I, ctypes.c_float, _P),
+        _I,
+    ),
+    "clipself_layer_norm_bwd": (
+        (_I,) + (_P,) * 9 + (_L, _I, _L, _L, _I, _I, _P),
+        _I,
+    ),
     "clipself_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

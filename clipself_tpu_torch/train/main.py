@@ -13,7 +13,7 @@ required: the COCO datasets are not ported yet). `--device` defaults to
 
 Not carried by this slice (ROADMAP.md queue 1): real datasets and the
 native loader, `--pretrained`, zero-shot eval during training,
-`--accum-freq`, `--grad-checkpointing`, fsdp/tp meshes, the RegionCLIP and
+`--accum-freq`, fsdp/tp meshes, the RegionCLIP and
 proposal methods, and profiling. Their flags are absent.
 """
 
@@ -53,6 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     p.add_argument("--lock-image", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--lock-image-unlocked-groups", type=int, default=12)
+    p.add_argument("--grad-checkpointing", action="store_true",
+                   help="recompute each block in the backward pass")
     # method
     p.add_argument("--cosine-weight", type=float, default=1.0)
     p.add_argument("--multiscale", action="store_true")
@@ -140,7 +142,10 @@ def train(args) -> dict:
         for k in sorted(vars(args)):
             f.write(f"{k}: {getattr(args, k)}\n")
 
-    model = create_model(cfg, device=device, dtype=dtype, seed=args.seed)
+    model = create_model(
+        cfg, device=device, dtype=dtype, seed=args.seed,
+        grad_checkpointing=args.grad_checkpointing,
+    )
     teacher = copy.deepcopy(model).requires_grad_(False)  # the initial weights, frozen
 
     steps_per_epoch = args.steps_per_epoch

@@ -16,14 +16,20 @@ the largest gradient entry, plus 1e-5: at N = 1 the exact dq and dk vanish
 and both sides return the f32 rounding noise of dP - di, whose terms are of
 size |dO| |V| ~ D (measured 1.0e-6 at D = 128); bfloat16
 rounds P and dS to bf16 before their products: min row cosine 0.999 against
-float32 on the same bf16-valued inputs.
+float32 on the same bf16-valued inputs. LayerNorm: kernel and plain version
+compute the same float32 formulas from the same inputs, the row sums in
+another order: float32 y and dx within 1e-5 absolute (values of order 1 to
+10); bfloat16 rounds that float32 value once on both sides, so y and dx
+agree within one bfloat16 ULP (2^-7 relative) plus the float32 slack;
+dweight and dbias are float32 sums over the rows on both sides, within 1e-5
+of their largest entry.
 """
 
 import pytest
 import torch
 
 from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
-from clipself_tpu_torch.ops import attention, rope_roll
+from clipself_tpu_torch.ops import attention, layer_norm, rope_roll
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +179,111 @@ def test_attention_kernel_rejects_what_it_does_not_take(dev):
     q = torch.randn(1, 8, 2, 16, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):
         attention.flash_attention(q, q, q, 0.2)
+
+
+# (shape of the tensor, view of it that the op sees): the widths of the B/16
+# and L/14 towers (768, 1024, the SwiGLU hiddens 2048 and 2730, whose bf16
+# rows are only 4-byte aligned), odd widths, and the two strided views of
+# the final norm (`t[:, 1:]` of the dense pass, `t[:, 0]` of the CLS pass)
+_LN_VIEWS = {"all": lambda t: t, "drop_cls": lambda t: t[:, 1:], "cls_rows": lambda t: t[:, 0]}
+_LN_CASES = [
+    ((2, 257, 768), "all"), ((2, 257, 1024), "all"), ((2, 257, 2048), "all"),
+    ((2, 257, 2730), "all"), ((3, 50, 341), "all"), ((5, 7, 170), "all"), ((1, 1, 2), "all"),
+    ((1000, 1024), "all"), ((2, 4097, 1024), "drop_cls"), ((3, 65, 2730), "drop_cls"),
+    ((40, 577, 1024), "cls_rows"), ((7, 5, 341), "cls_rows"),
+]
+_LN_EPS = 1e-6
+
+
+def _ln_inputs(dev, shape, view, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = _LN_VIEWS[view]((torch.randn(shape, generator=gen) * 3 + 0.5).to(dev, dtype))
+    dy = _LN_VIEWS[view](torch.randn(shape, generator=gen).to(dev, dtype)).contiguous()
+    weight = (torch.randn(shape[-1], generator=gen) * 0.2 + 1.0).to(dev)
+    bias = (torch.randn(shape[-1], generator=gen) * 0.1).to(dev)
+    return x, dy, weight, bias
+
+
+def _assert_ln_close(got, want, dtype):
+    assert got.dtype == dtype and got.is_contiguous() and got.shape == want.shape
+    got, want = got.float(), want.float()
+    slack = 2.0 ** -7 * want.abs() if dtype == torch.bfloat16 else 0.0
+    assert ((got - want).abs() <= slack + 1e-5).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,view", _LN_CASES, ids=lambda v: v if isinstance(v, str) else "x".join(map(str, v)))
+def test_layer_norm_kernels_match_plain(dev, shape, view, dtype):
+    """The forward with and without statistics and the backward (all three
+    gradients, dx alone, the sums alone), each one launch, against the plain
+    versions on the same inputs and the same statistics."""
+    x, dy, weight, bias = _ln_inputs(dev, shape, view, dtype, seed=sum(shape))
+    assert x.is_contiguous() == (view == "all" or x.shape[0] == 1)
+    want_y, want_mu, want_rstd = layer_norm.layer_norm_stats_plain(x, weight, bias, _LN_EPS)
+    before = layer_norm.LAUNCHES.count
+    y = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS)
+    y2, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
+    assert layer_norm.LAUNCHES.count == before + 2
+    torch.cuda.synchronize()
+    _assert_ln_close(y, want_y, dtype)
+    assert torch.equal(y, y2)
+    assert mu.shape == rstd.shape == x.shape[:-1] and mu.dtype == rstd.dtype == torch.float32
+    torch.testing.assert_close(mu, want_mu, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+
+    want_dx, want_dw, want_db = layer_norm.layer_norm_bwd_plain(x, dy, mu, rstd, weight)
+    before = layer_norm.BWD_LAUNCHES.count
+    dx, dw, db = layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
+    dx_only = layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight, need_dwb=False)
+    sums_only = layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight, need_dx=False)
+    assert layer_norm.BWD_LAUNCHES.count == before + 3
+    torch.cuda.synchronize()
+    _assert_ln_close(dx, want_dx, dtype)
+    for got, want in ((dw, want_dw), (db, want_db)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item() + 1e-6
+    assert torch.equal(dx_only[0], dx) and dx_only[1] is None and dx_only[2] is None
+    assert sums_only[0] is None
+    assert torch.equal(sums_only[1], dw) and torch.equal(sums_only[2], db)
+    # no atomics: a second launch gives the same bits
+    again = layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dw, db)))
+
+
+@pytest.mark.parametrize("recompute", [False, True], ids=["plain", "recompute"])
+def test_layer_norm_function_on_card(dev, recompute):
+    """A gradient through `layer_norm` on the card comes from the Function's
+    backward kernel, also when the forward is run again under
+    `torch.utils.checkpoint`, and equals autograd of the plain version."""
+    from torch.utils.checkpoint import checkpoint
+
+    x, dy, weight, bias = _ln_inputs(dev, (2, 65, 341), "drop_cls", torch.float32, seed=3)
+    leaves = [t.detach().requires_grad_() for t in (x, weight, bias)]
+    fwd_before, bwd_before = layer_norm.LAUNCHES.count, layer_norm.BWD_LAUNCHES.count
+    if recompute:
+        y = checkpoint(layer_norm.layer_norm, *leaves, _LN_EPS, use_reentrant=False)
+    else:
+        y = layer_norm.layer_norm(*leaves, _LN_EPS)
+        assert type(y.grad_fn).__name__ == "LayerNormFnBackward"
+    got = torch.autograd.grad(y, leaves, dy)
+    assert layer_norm.LAUNCHES.count == fwd_before + (2 if recompute else 1)
+    assert layer_norm.BWD_LAUNCHES.count == bwd_before + 1
+    p = [t.detach().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(layer_norm.layer_norm_plain(*p, _LN_EPS), p, dy)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item() + 1e-6
+    with torch.no_grad():
+        assert layer_norm.layer_norm(*leaves, _LN_EPS).grad_fn is None
+
+
+def test_layer_norm_kernel_rejects_what_it_does_not_take(dev):
+    x = torch.randn(2, 8, 16, device=dev)
+    w = torch.ones(16, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        layer_norm.layer_norm(x.half(), w, w, _LN_EPS)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        layer_norm.layer_norm(x, w.bfloat16(), w, _LN_EPS)
+    with pytest.raises(ValueError, match="unit stride"):
+        layer_norm.layer_norm(x.transpose(1, 2), torch.ones(8, device=dev), torch.ones(8, device=dev), _LN_EPS)
+    with pytest.raises(ValueError, match="weight on"):
+        layer_norm.layer_norm(x, w.cpu(), w, _LN_EPS)

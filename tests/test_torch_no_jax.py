@@ -18,8 +18,10 @@ import clipself_tpu_torch.models.factory as factory
 import clipself_tpu_torch.models.torch_io
 import clipself_tpu_torch.ops._build
 import clipself_tpu_torch.ops.attention
+import clipself_tpu_torch.ops.layer_norm
 import clipself_tpu_torch.ops.rope_roll
 import clipself_tpu_torch.data.loader
+import clipself_tpu_torch.tools.profile_paths
 import clipself_tpu_torch.train.checkpoint
 import clipself_tpu_torch.train.ensemble
 import clipself_tpu_torch.train.main as train_main
@@ -38,6 +40,7 @@ res = zero_shot.evaluate_zero_shot(
 run = train_main.main([
     "--device", "cpu", "--synthetic", "--model", "EVA02-CLIP-Tiny-Test", "--batch-size", "1",
     "--det-image-size", "32", "--max-boxes", "2", "--steps-per-epoch", "1", "--epochs", "1",
+    "--grad-checkpointing",
     "--logs", sys.argv[1], "--name", "no_jax",
 ])
 loss = run["history"][-1]["loss"]

@@ -1,0 +1,41 @@
+"""`clipself_tpu_torch.tools.profile_paths` on the CPU: the kernel classes it
+sorts names into, and the control flow of a run at the tiny test size, which
+reports host time only and says that no device time was measured."""
+
+import pytest
+
+from clipself_tpu_torch.tools import profile_paths
+
+
+@pytest.mark.parametrize(
+    "name,label",
+    [
+        ("void (anonymous namespace)::flash_bwd_kernel<__nv_bfloat16, 64>(...)", "flash_attention_bwd kernel"),
+        ("void (anonymous namespace)::flash_bwd_di_kernel<float>(...)", "flash backward di pass, dQ cast"),
+        ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(...)", "flash_attention forward kernel"),
+        ("void (anonymous namespace)::layer_norm_fwd_kernel<__nv_bfloat16, 8>(...)", "layer_norm forward kernel"),
+        ("void (anonymous namespace)::layer_norm_bwd_kernel<float, 4>(...)", "layer_norm backward kernel and its reduce"),
+        ("(anonymous namespace)::layer_norm_bwd_reduce_kernel(...)", "layer_norm backward kernel and its reduce"),
+        ("void rope_roll_kernel<float>(...)", "rope_roll kernel"),
+        ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "GEMMs (cuBLAS)"),
+        ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<...>", "AdamW multi-tensor kernels"),
+        ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<...>>", "reductions"),
+        ("Memcpy DtoD (Device -> Device)", "dtype casts and copies"),
+        ("void at::native::vectorized_elementwise_kernel<4, at::native::silu_kernel...>", "elementwise"),
+        ("something_else", "other"),
+    ],
+)
+def test_kernel_names_fall_into_their_class(name, label):
+    assert profile_paths.classify(name) == label
+
+
+def test_cpu_run_reports_no_device_time(capsys):
+    out = profile_paths.main([
+        "--device", "cpu", "--model", "EVA02-CLIP-Tiny-Test", "--det-image-size", "64",
+        "--max-boxes", "3", "--max-anns", "8", "--valid-anns", "3", "--steps", "1",
+    ])
+    for path in ("train", "eval"):
+        assert out[path]["device"].startswith("not measured")
+        assert "classes" not in out[path] and "kernel_ms" not in out[path]
+    printed = capsys.readouterr().out
+    assert printed.count("not measured") == 2 and "images/s" not in printed

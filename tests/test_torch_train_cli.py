@@ -64,6 +64,22 @@ def test_train_save_resume_and_ensemble(tmp_path):
     assert torch.equal(model.visual.head.weight, saved["visual.head.weight"])
 
 
+def test_grad_checkpointing_flag_recomputes_and_ends_where_the_plain_run_ends(tmp_path):
+    """`--grad-checkpointing` builds the student with block recomputation;
+    the same float32 operations run again in the backward pass, so the run
+    ends where the run without it ends."""
+    plain = train_main.main(_argv(tmp_path, "plain", 1))
+    remat = train_main.main(_argv(tmp_path, "remat", 1, "--grad-checkpointing"))
+    assert remat["state"].model.visual.grad_checkpointing
+    assert not plain["state"].model.visual.grad_checkpointing
+    for a, b in zip(remat["history"], plain["history"]):
+        assert a["loss"] == pytest.approx(b["loss"], abs=1e-6)
+    for k, v in plain["state"].model.state_dict().items():
+        torch.testing.assert_close(remat["state"].model.state_dict()[k], v, rtol=0, atol=1e-6)
+    with open(os.path.join(tmp_path, "remat", "params.txt")) as f:
+        assert "grad_checkpointing: True" in f.read()
+
+
 def test_cuda_device_without_a_card_is_an_error(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = [a if a != "cpu" else "cuda" for a in _argv(tmp_path, "cuda", 1)]
