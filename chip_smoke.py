@@ -21,7 +21,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    launches replayed from a CUDA graph, so that the host's launch pace does
    not hide their ten-microsecond times), and with
    the least time the card could take (bytes moved once over 3.35 TB/s, or
-   operations over the peak rate of their type);
+   operations over the peak rate of their type); then the greedy-NMS kernel
+   against its plain version, masks equal flag for flag, at the detector's
+   shapes ([8, 2000] RPN candidates at IoU 0.7, class-offset candidates at
+   0.4, one image, an invalid tail) and at the edge cases (one box, no valid
+   box, identical boxes, zero-area boxes, duplicates, a negative threshold);
 then for each model, B/16 first:
 3. the evaluator: `evaluate_zero_shot` (seeded random weights, bf16) over 4
    synthetic panoptic batches, with images/s, the mAcc dict and the kernel
@@ -35,7 +39,20 @@ then for each model, B/16 first:
 6. train parity: one step's loss and trainable gradients at batch 1 on f32
    kernels, bf16 kernels and the f32 plain path (L/14: at full width and a
    depth of 6 blocks, since the plain path keeps every block's
-   [1, 16, 4097, 4097] float32 attention maps for its backward).
+   [1, 16, 4097, 4097] float32 attention maps for its backward);
+then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
+640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
+7. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
+   unit-norm class embeddings) over two batches of 8 synthetic images after a
+   warm-up batch, with images/s, peak memory, the metrics and the launch
+   counts of that run;
+8. detector parity on two images: the bf16 kernel path against the plain
+   float32 path on the backbone taps, the dense VLM map, the RPN objectness
+   maps and the bbox head's logits and deltas on 32 fixed rois; the float32
+   kernel path against the float32 plain path on the same tensors and on the
+   detections; and, on the same float32 taps, `predict` with the NMS kernel
+   against `predict` with the plain NMS: proposals and detections equal bit
+   for bit.
 
 The second-to-last line is one JSON object with a row per kernel; the last
 line is `{"ok": true, "device": {...}}`. Without a CUDA card it exits 1
@@ -101,6 +118,10 @@ MODELS = (
     Model("l14", "EVA02-CLIP-L-14-336", image=896, eval_batch=1, parity_layers=6),
 )
 
+# the detector phase: preset, images a batch (the reference's 8 a GPU), timed
+# batches, images of the parity phase, fixed rois of its head rows
+DET_PRESET, DET_BATCH, DET_BATCHES, DET_PARITY_IMAGES, DET_FIXED_ROIS = "ov_coco_vitb16", 8, 2, 2, 32
+
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory, dense bf16 tensor cores, float32 outside the tensor cores.
 PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -153,6 +174,20 @@ STEP_GRAD_BF16_MIN_COS = 0.999
 # Recomputation: the first step's loss comes from the same forward kernels
 # on the same weights and batch, with or without it.
 RECOMPUTE_LOSS_MAX_ABS = 1e-5
+# NMS: the keep mask is discrete; the kernel's arithmetic is pinned to the
+# plain version's single rounded operations, so no flag may differ.
+# Detector, bf16 kernels vs f32 plain: the dense VLM map keeps the bar of
+# PARITY_CHIP.md; the other rows of its "fvit_detector_predict" table (taps,
+# RPN maps, bbox-head logits and deltas on fixed rois) are reported, with a
+# floor that only a broken path falls below: the first run on an H100
+# measured 0.99984 (taps), 0.99957 (RPN maps), 0.99973 (logits) and 0.99905
+# (deltas, rows of four small values).
+DET_BF16_MIN_COS_FLOOR = 0.998
+# Detector, f32 kernels vs f32 plain: the towers differ by summation order
+# (1e-4 on the dense map, as above); taps are unnormalised values of order
+# 10 and the heads stack convolutions on them: 1e-3 (the first run measured
+# 4.3e-5 on the taps and 2.5e-5 on the logits).
+DET_F32_MAX_ABS = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -161,9 +196,10 @@ def fail(msg: str) -> None:
 
 
 def _counters():
-    from clipself_tpu_torch.ops import attention, layer_norm, rope_roll
+    from clipself_tpu_torch.ops import attention, layer_norm, nms, rope_roll
 
     return {
+        "nms": nms.LAUNCHES,
         "flash_attention": attention.LAUNCHES,
         "flash_attention_bwd": attention.BWD_LAUNCHES,
         "rope_roll": rope_roll.LAUNCHES,
@@ -182,24 +218,29 @@ def read_counts() -> dict:
     return {name: counter.count for name, counter in _counters().items()}
 
 
-def expected_launches(layers: int, *, evals: int = 0, steps: int = 0, recompute: bool = False) -> dict:
-    """Launches of ``evals`` evaluator batches plus ``steps`` train steps of
-    a tower of ``layers`` blocks. A dense pass runs layers - 1 attention
+def expected_launches(
+    layers: int, *, evals: int = 0, steps: int = 0, recompute: bool = False, dets: int = 0
+) -> dict:
+    """Launches of ``evals`` evaluator batches plus ``steps`` train steps
+    plus ``dets`` detector batches of a tower of ``layers`` blocks. A dense pass runs layers - 1 attention
     blocks (the last block takes the value path), a crop pass all of them;
     RoPE runs twice (q and k) per attention block; every block has four
     LayerNorms and the tower a final one. An evaluator batch is one dense and
     one crop pass; a train step is the teacher's crop pass, the student's
     dense pass and its backward; with recomputation the student's blocks
-    (not its final norm) run their forward once more."""
+    (not its final norm) run their forward once more. A detector batch is
+    one dense pass (the taps) and two NMS launches, all images at once: the
+    RPN's proposals and the final class-wise NMS."""
     dense, crop, norms = layers - 1, layers, 4 * layers + 1
     again = steps if recompute else 0
-    flash = evals * (dense + crop) + steps * (crop + dense) + again * dense
+    flash = evals * (dense + crop) + steps * (crop + dense) + again * dense + dets * dense
     return {
+        "nms": 2 * dets,
         "flash_attention": flash,
         "flash_attention_bwd": steps * dense,
         "rope_roll": 2 * flash,
         "rope_roll_bwd": 2 * steps * dense,
-        "layer_norm": (2 * evals + 2 * steps) * norms + again * 4 * layers,
+        "layer_norm": (2 * evals + 2 * steps + dets) * norms + again * 4 * layers,
         "layer_norm_bwd": steps * norms,
     }
 
@@ -208,7 +249,8 @@ def expected_launches(layers: int, *, evals: int = 0, steps: int = 0, recompute:
 def plain_path():
     """Swap the kernels' plain versions in where the tower calls the kernel
     wrappers (`eva_vit.multi_head_attention`, `eva_vit.layer_norm`,
-    `rope.rolled_rope`); autograd differentiates them. Fails if any kernel
+    `rope.rolled_rope`, the detector's `nms.nms_keep_mask`); autograd
+    differentiates them. Fails if any kernel
     launched inside, so a swap that misses a call site cannot compare the
     kernels with themselves."""
     from clipself_tpu_torch.models import eva_vit, rope
@@ -225,11 +267,29 @@ def plain_path():
     )
     reset_counts()
     try:
-        yield
+        with plain_nms():
+            yield
     finally:
         eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope = saved
     if any(read_counts().values()):
         fail(f"the plain path launched kernels: {read_counts()}")
+
+
+@contextlib.contextmanager
+def plain_nms():
+    """Swap the plain NMS in where `detector/nms.py` calls the kernel's
+    wrapper; fails if the NMS kernel launched inside."""
+    from clipself_tpu_torch.detector import nms as det_nms
+    from clipself_tpu_torch.ops import nms as ops_nms
+
+    saved, before = det_nms.nms_keep_mask, ops_nms.LAUNCHES.count
+    det_nms.nms_keep_mask = ops_nms.nms_keep_mask_plain
+    try:
+        yield
+    finally:
+        det_nms.nms_keep_mask = saved
+    if ops_nms.LAUNCHES.count != before:
+        fail("the plain NMS path launched the NMS kernel")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
@@ -315,12 +375,12 @@ class Records:
             flush=True,
         )
 
-    def primary(self, name: str, what: str, shape) -> dict:
-        """The bfloat16 record of one shape: the row's own numbers."""
+    def primary(self, name: str, what: str, shape, dtype: str = "bfloat16") -> dict:
+        """The record of one shape (bfloat16 unless told): the row's own numbers."""
         for rec in self.rows[name]:
-            if (rec["what"], rec["shape"], rec["dtype"]) == (what, list(shape), "bfloat16"):
+            if (rec["what"], rec["shape"], rec["dtype"]) == (what, list(shape), dtype):
                 return rec
-        fail(f"no bfloat16 record of {name} {what} at {list(shape)}")
+        fail(f"no {dtype} record of {name} {what} at {list(shape)}")
 
 
 def check_rope(torch, dev, records, gen, shape, grid, head_dim, backward):
@@ -552,6 +612,58 @@ def check_layer_norm(torch, dev, records, gen, shape, view, backward):
             fail(f"layer_norm_bwd {dt} {what} {tuple(x.shape)} dweight/dbias off by {sum_rel}")
 
 
+# (kind, images, boxes, IoU threshold, timed): the detector's own shapes
+# first (RPN candidates, final class-wise NMS, one image), then edge cases
+NMS_CASES = (
+    ("anchors", 8, 2000, 0.7, True), ("class_offset", 8, 2000, 0.4, True),
+    ("anchors", 1, 2000, 0.7, True), ("invalid_tail", 8, 1999, 0.7, False),
+    ("plain", 2, 1, 0.5, False), ("none_valid", 2, 300, 0.5, False),
+    ("identical", 2, 300, 0.5, False), ("zero_area", 2, 515, 0.5, False),
+    ("duplicates", 2, 300, 0.4, False),
+    # below zero even disjoint pairs suppress: the kernel's shortcut for empty
+    # intersections must be off
+    ("plain", 2, 300, -0.5, False),
+)
+
+
+def check_nms(torch, dev, records):
+    """The kernel's keep mask against the plain version's, flag for flag."""
+    from clipself_tpu_torch.detector.data import synthetic_nms_case
+    from clipself_tpu_torch.ops import nms
+
+    for seed, (kind, b, n, thr, timed) in enumerate(NMS_CASES):
+        boxes, valid = (t.to(dev) for t in synthetic_nms_case(kind, b, n, seed))
+        got = nms.nms_keep_mask(boxes, valid, thr)
+        torch.cuda.synchronize()
+        want = nms.nms_keep_mask_plain(boxes, valid, thr)
+        differ = (got != want).sum().item()
+        kept = got.sum(dim=1)
+        what = f"keep mask {kind} thr {thr}"
+        if not timed:
+            print(
+                f"kernel nms {what} [{b}, {n}, 4]: {differ} flags differ, kept {kept.tolist()}",
+                flush=True,
+            )
+        else:
+            # what this data needs: each kept box against every later box,
+            # ~14 float operations an IoU and its test; boxes and validity
+            # read once, the mask written once
+            ranks = torch.arange(n, device=dev)
+            ious = ((n - 1 - ranks) * got).sum().item()
+            records.add(
+                "nms", what, boxes.shape, torch.float32, err=float(differ),
+                ms=cuda_ms(lambda: nms.nms_keep_mask(boxes, valid, thr)),
+                plain_ms=cuda_ms(lambda: nms.nms_keep_mask_plain(boxes, valid, thr), iters=2, warmup=1),
+                library_ms=None, moved=nbytes(boxes, valid, got), flops=14 * ious,
+                note=f"(flags that differ) kept {kept.tolist()}, dependent chain "
+                f"{kept.max().item()} kept boxes (one barrier each) ",
+            )
+        if differ:
+            fail(f"nms {what} [{b}, {n}]: {differ} flags differ from the plain version")
+        if got[~valid].any():
+            fail(f"nms {what}: an invalid slot was kept")
+
+
 def phase_kernels(torch, dev, records):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     for s in MODELS:
@@ -578,6 +690,7 @@ def phase_kernels(torch, dev, records):
                 check_layer_norm(torch, dev, records, gen, teacher + (width,), "", backward=False)
             check_layer_norm(torch, dev, records, gen, student, " rows 1: of", backward=True)
             check_layer_norm(torch, dev, records, gen, teacher + (v.width,), " row 0 of", backward=True)
+    check_nms(torch, dev, records)
 
 
 def phase_eval(torch, dev, s: Model):
@@ -761,7 +874,9 @@ def phase_train_parity(torch, dev, s: Model):
         with plain_path() if plain else contextlib.nullcontext():
             loss, _ = clipself_loss(model, teacher, batch)
             loss.backward()
-        if not plain and not all(read_counts().values()):
+        # every kernel of the tower, forward and backward (the NMS kernel
+        # belongs to the detector)
+        if not plain and not all(v for k, v in read_counts().items() if k != "nms"):
             fail(f"kernel path missed a kernel: {read_counts()}")
         grads = {n: p.grad.float() for n, p in named if p.grad is not None}
         out = loss.item()
@@ -837,9 +952,231 @@ def phase_model(torch, dev, s: Model, logs_dir) -> dict:
     return paths
 
 
+def stats(got, want, width=None) -> dict:
+    """max abs, mean abs and min row cosine of two tensors; ``width`` cuts
+    both into rows of that many values first (a last axis of 3 anchors is
+    too narrow for a row cosine to mean anything)."""
+    got, want = got.float(), want.float()
+    if width is not None:
+        n = got.numel() // width * width
+        got, want = got.reshape(-1)[:n].reshape(-1, width), want.reshape(-1)[:n].reshape(-1, width)
+    diff = (got - want).abs()
+    return dict(max_abs=diff.max().item(), mean_abs=diff.mean().item(), min_cos=min_row_cos(got, want))
+
+
+def matched(torch, ref, other, top=None):
+    """One-to-one greedy matching at IoU > 0.5 of the reference's positive
+    detections (the ``top`` best by score, or all) to the other leg's, per
+    image: (reference detections, matched, matched with the same label, max
+    score difference of a matched pair)."""
+    from clipself_tpu_torch.detector.boxes import box_iou
+
+    n_ref = n_match = same = 0
+    drift = 0.0
+    for (rb, rs, rl), (ob, os_, ol) in zip(zip(*ref), zip(*other)):
+        order = torch.argsort(rs, descending=True, stable=True)
+        order = order[rs[order] > 0][:top]
+        iou = box_iou(rb[order].float(), ob.float())
+        iou[:, os_ <= 0] = -1.0
+        for j, row in zip(order.tolist(), iou):
+            n_ref += 1
+            m = int(row.argmax())
+            if row[m] > 0.5:
+                iou[:, m] = -1.0
+                n_match += 1
+                same += int(ol[m] == rl[j])
+                drift = max(drift, abs(float(os_[m] - rs[j])))
+    return n_ref, n_match, same, drift
+
+
+def phase_detector(torch, dev):
+    """`evaluate_detector` at the full preset; returns what the parity phase
+    reuses and the launch counts of the timed run."""
+    import numpy as np
+
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.data.synthetic import class_embeddings
+    from clipself_tpu_torch.detector.classes import base_novel_mask
+    from clipself_tpu_torch.detector.config import PRESETS
+    from clipself_tpu_torch.detector.data import SyntheticDetectionData, collate, synthetic_eval_items
+    from clipself_tpu_torch.detector.evaluate import evaluate_detector, make_predict_fn, metrics_json
+    from clipself_tpu_torch.detector.fvit import create_detector
+    from clipself_tpu_torch.models.factory import create_model
+
+    cfg = PRESETS[DET_PRESET]
+    layers = get_model_config(cfg.clip_model).vision.layers
+    clip = create_model(cfg.clip_model, device=dev, dtype=torch.bfloat16, seed=SEED)
+    det = create_detector(cfg, device=dev, seed=SEED + 1)
+    emb = class_embeddings(cfg.num_classes + 1, cfg.embed_dim, seed=SEED)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    data = SyntheticDetectionData(cfg.num_classes, cfg.image_size, cfg.max_gt, seed=SEED)
+    warm = synthetic_eval_items(data.batch(DET_BATCH))
+    items = [it for _ in range(DET_BATCHES) for it in synthetic_eval_items(data.batch(DET_BATCH))]
+    evaluate_detector(det, clip, warm, cfg, emb, device=dev, batch_size=DET_BATCH)  # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = evaluate_detector(det, clip, items, cfg, emb, device=dev, batch_size=DET_BATCH)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    n_anchors = sum(3 * math.ceil(cfg.image_size / s) ** 2 for s in cfg.anchors.strides)
+    print(
+        f"detector eval {DET_PRESET} ({cfg.clip_model}, {layers} blocks): {DET_BATCHES} batches x "
+        f"{DET_BATCH} images {cfg.image_size}px, {n_anchors} anchors, "
+        f"{cfg.test_proposals.nms_pre} -> {cfg.test_proposals.max_per_img} proposals, "
+        f"{cfg.num_classes} classes, bf16: {dt:.3f} s, {len(items) / dt:.3f} images/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
+        flush=True,
+    )
+    print("detector eval metrics " + metrics_json(metrics, sort_keys=True), flush=True)
+    print(f"detector eval launches {json.dumps(launches)}", flush=True)
+    if set(metrics) != {"mAP", "AP50", "AP75", "AP50_base", "AP50_novel"}:
+        fail(f"detector metrics {metrics}")
+    # every synthetic image has ground truth of base and novel classes, so
+    # no group is empty: each metric is a number in [0, 1]
+    if not all(0.0 <= v <= 1.0 for v in metrics.values()):
+        fail(f"detector metrics out of range: {metrics}")
+    expect = expected_launches(layers, dets=DET_BATCHES)
+    if launches != expect:
+        fail(f"detector eval launch counts {launches}, expected {expect}")
+    # one batch's raw outputs (after the counts were read)
+    batch = collate(items[:DET_BATCH])
+    boxes, scores, labels = make_predict_fn(
+        det, clip, cfg, torch.as_tensor(emb, device=dev),
+        torch.as_tensor(base_novel_mask("coco"), device=dev),
+    )(torch.as_tensor(batch["images"], device=dev), torch.as_tensor(batch["valid_hw"], device=dev))
+    want = (DET_BATCH, cfg.rcnn_test.max_per_img)
+    live = scores > 0
+    print(
+        f"detector predict outputs: boxes {list(boxes.shape)}, scores {list(scores.shape)}, labels "
+        f"{list(labels.shape)}; detections an image {live.sum(dim=1).tolist()}, best score "
+        f"{scores.max().item():.4f}",
+        flush=True,
+    )
+    if boxes.shape != want + (4,) or scores.shape != want or labels.shape != want:
+        fail(f"detections of shape {boxes.shape}, {scores.shape}, {labels.shape}")
+    if not (torch.isfinite(boxes).all() and torch.isfinite(scores[live]).all() and live.any()):
+        fail("non-finite or no detections")
+    if not ((labels[live] >= 0) & (labels[live] < cfg.num_classes)).all() or (labels[~live] != -1).any():
+        fail("detection labels out of range")
+    return cfg, clip, det, emb, items, launches
+
+
+def phase_detector_parity(torch, dev, cfg, clip_bf16, det, emb, items):
+    from clipself_tpu_torch.detector.classes import base_novel_mask
+    from clipself_tpu_torch.detector.data import collate
+    from clipself_tpu_torch.detector.fvit import backbone_taps
+    from clipself_tpu_torch.models.factory import create_model
+
+    batch = collate(items[:DET_PARITY_IMAGES])
+    images = torch.as_tensor(batch["images"], device=dev)
+    ce = torch.as_tensor(emb, device=dev)
+    bm = torch.as_tensor(base_novel_mask("coco"), device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    shape = (DET_PARITY_IMAGES, DET_FIXED_ROIS, 2)
+    lo = torch.rand(shape, generator=gen) * 0.6 * cfg.image_size
+    ext = (0.1 + 0.25 * torch.rand(shape, generator=gen)) * cfg.image_size
+    rois = torch.cat([lo, torch.clamp(lo + ext, max=cfg.image_size)], -1).to(dev)
+    clip_f32 = create_model(cfg.clip_model, device=dev, dtype=torch.float32, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+
+    def leg(clip):
+        """Every compared tensor of one path, and its detections."""
+        reset_counts()
+        with torch.inference_mode():
+            taps, dense = backbone_taps(clip, images, cfg, True)
+            _, smap, _ = det.features(taps)
+            logits, deltas = det(taps, rois, ce)
+            _, props, pscores = det.proposals(taps)
+            dets = det.predict(taps, dense, ce, bm)
+        torch.cuda.synchronize()
+        out = dict(
+            taps=torch.cat([t.reshape(-1, t.shape[-1]) for t in taps]),
+            dense=dense.reshape(-1, dense.shape[-1]),
+            rpn=torch.cat([m.reshape(-1) for m in smap]),
+            logits=logits, deltas=deltas, props=props, pscores=pscores, dets=dets,
+        )
+        return out, (taps, dense), read_counts()
+
+    k16, _, counts16 = leg(clip_bf16)
+    k32, (taps32, dense32), counts32 = leg(clip_f32)
+    for name, counts in (("bf16", counts16), ("f32", counts32)):
+        if counts["nms"] != 3 or not counts["flash_attention"]:  # proposals, then predict's two
+            fail(f"detector {name} kernel leg launches {counts}")
+    with plain_path():
+        p32, _, _ = leg(clip_f32)
+    del clip_f32
+
+    shapes = f"{DET_PARITY_IMAGES} images"
+    rows = (
+        (f"backbone taps {cfg.image_size}", "taps", None), ("dense vlm map", "dense", None),
+        ("rpn objectness maps", "rpn", 1024),
+        (f"bbox-head cls logits ({DET_FIXED_ROIS} fixed rois an image)", "logits", None),
+        (f"bbox-head box deltas ({DET_FIXED_ROIS} fixed rois an image)", "deltas", None),
+    )
+    for tag, leg_out in (("bf16 kernels", k16), ("f32 kernels", k32)):
+        for title, key, width in rows:
+            st = stats(leg_out[key], p32[key], width)
+            print(
+                f"detector parity {shapes}, {tag} vs f32 plain: {title}: max_abs "
+                f"{st['max_abs']:.3e} mean_abs {st['mean_abs']:.3e} min_cos {st['min_cos']:.6f}",
+                flush=True,
+            )
+            if not all(map(math.isfinite, st.values())):
+                fail(f"detector parity {tag} {title}: non-finite")
+            if tag == "bf16 kernels":
+                bar = PATH_BF16_MIN_COS if key == "dense" else DET_BF16_MIN_COS_FLOOR
+                if not st["min_cos"] >= bar:
+                    fail(f"detector {tag} {title}: min cosine {st['min_cos']} (bar {bar})")
+            else:
+                bar = PATH_F32_MAX_ABS if key == "dense" else DET_F32_MAX_ABS
+                if not st["max_abs"] <= bar:
+                    fail(f"detector {tag} {title}: max abs {st['max_abs']} (bar {bar})")
+
+    for tag, leg_out in (("bf16 kernels", k16), ("f32 kernels", k32)):
+        for top in (10, None):
+            n_ref, n_match, same, drift = matched(torch, p32["dets"], leg_out["dets"], top)
+            print(
+                f"detector parity detections, f32 plain vs {tag}: "
+                f"{'top %d an image' % top if top else 'all positive'}: {n_match}/{n_ref} matched "
+                f"one to one at IoU > 0.5, {same}/{n_match} same label, max score drift {drift:.4f}",
+                flush=True,
+            )
+            if tag == "f32 kernels" and top and not n_match == same == n_ref:
+                fail("the f32 kernel path lost one of the plain path's top detections")
+
+    # the NMS kernel alone: the same float32 taps through `predict` with the
+    # kernel and with the plain NMS; everything else is the same code on
+    # the same values, so proposals and detections must be equal bit for bit
+    with torch.inference_mode():
+        with plain_nms():
+            _, props_p, pscores_p = det.proposals(taps32)
+            dets_p = det.predict(taps32, dense32, ce, bm)
+    pairs = zip((k32["props"], k32["pscores"], *k32["dets"]), (props_p, pscores_p, *dets_p))
+    equal = [torch.equal(a, b) for a, b in pairs]
+    n_props = (pscores_p > -1e9).sum(dim=1).tolist()
+    n_dets = (dets_p[1] > 0).sum(dim=1).tolist()
+    print(
+        f"detector parity, f32 taps, NMS kernel vs plain NMS: proposals, scores, detections' boxes, "
+        f"scores, labels equal bit for bit: {equal} ({n_props} proposals, {n_dets} detections)",
+        flush=True,
+    )
+    if not all(equal):
+        fail("predict with the NMS kernel differs from predict with the plain NMS")
+    print(
+        f"detector parity peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+        f"({DET_PARITY_IMAGES} images; the float32 legs keep the RoI-align's y-stage in float32)",
+        flush=True,
+    )
+
+
 def kernel_rows(records: Records, paths: dict) -> list:
     """One row per kernel: its launches on the main paths and its numbers
-    at the L/14 student's shape in bfloat16, then every record."""
+    at the L/14 student's shape in bfloat16 (the NMS kernel: the detector's
+    RPN candidates, float32), then every record."""
     l14 = MODELS[-1]
     student = (TRAIN_BATCH, l14.tokens(l14.image))
     rows = {  # name and launch counter: source, the TPU kernel it replaces, the row's own record
@@ -862,6 +1199,10 @@ def kernel_rows(records: Records, paths: dict) -> list:
         "layer_norm_bwd": (
             "layer_norm.cu", "clipself_tpu/ops/layer_norm.py:171",
             ("backward", student + (l14.vision.width,)),
+        ),
+        "nms": (
+            "nms.cu", "clipself_tpu/ops/nms_pallas.py:87",
+            ("keep mask anchors thr 0.7", (DET_BATCH, 2000, 4), "float32"),
         ),
     }
     kernels = []
@@ -919,6 +1260,10 @@ def main() -> int:
     for s in MODELS:
         paths.update(phase_model(torch, dev, s, logs_dir))
         print(f"{s.key} done at {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev)
+    phase_detector_parity(torch, dev, cfg, clip, det, emb, items)
+    del clip, det
+    print(f"detector done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernel_rows(records, paths)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,176 @@
+"""F-ViT detector assembly: frozen CLIP backbone + detection heads.
+
+A port of the inference path of `clipself_tpu/detector/fvit.py` (reference
+architecture `F-ViT/models/fvit.py`, `F-ViT/models/evaclip_vit.py`): a frozen
+distilled EVA-CLIP ViT is tapped at 4 depths, expanded into a feature
+pyramid, fed through FPN + RPN + RoI head; at test time the dense VLM feature
+map (final block value path) scores each detection against the class
+embeddings and is geometrically fused with the detector scores.
+
+`FViTDetector` holds the head stack only; the backbone is a port `CLIP`
+(`backbone_taps`). Module names follow the flax param tree, so
+`models/torch_io.py::detector_state_dict_from_jax` maps it key for key. The
+loss is not ported yet (ROADMAP.md queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from clipself_tpu_torch.detector.config import FViTConfig
+from clipself_tpu_torch.detector.layers import Conv2d, Deconv2x2
+from clipself_tpu_torch.detector.neck import FPN, SimpleFeaturePyramid
+from clipself_tpu_torch.detector.nms import is_live
+from clipself_tpu_torch.detector.roi_head import (
+    FViTBBoxHead,
+    MaskHead,
+    _ClassConv1x1,
+    fuse_vlm_scores,
+    multilevel_roi_align,
+    rcnn_detections,
+)
+from clipself_tpu_torch.detector.rpn import RPNHead, flatten_rpn_outputs, rpn_proposals
+from clipself_tpu_torch.models.eva_vit import Dense, _lecun_normal
+from clipself_tpu_torch.ops.roi_align import roi_align_1x1
+
+
+class FViTDetector(nn.Module):
+    """Detector head stack (pyramid + FPN + RPN + RoI heads). Parameters are
+    float32; activations follow the dtype of the taps it is given."""
+
+    def __init__(self, cfg: FViTConfig):
+        super().__init__()
+        c = self.cfg = cfg
+        num_anchors = len(c.anchors.scales) * len(c.anchors.ratios)
+        self.pyramid = SimpleFeaturePyramid(c.backbone_width, norm=c.norm)
+        self.fpn = FPN(
+            c.backbone_width, num_ins=4, out_channels=c.fpn_channels,
+            num_outs=c.num_fpn_outs, norm=c.norm,
+        )
+        self.rpn = RPNHead(num_anchors, feat_channels=c.fpn_channels, num_convs=c.rpn_convs)
+        self.bbox_head = FViTBBoxHead(c)
+        if c.with_mask:
+            self.mask_head = MaskHead(c)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw the initial weights with flax's default distributions:
+        lecun-normal (truncated) kernels with fan-in = inputs x kernel area,
+        zero biases, unit norm scales, `temperature` = learned_temperature.
+        Parameters must lie on the generator's device."""
+        for m in self.modules():
+            if isinstance(m, (Conv2d, _ClassConv1x1)):
+                _lecun_normal(m.weight, m.weight[0].numel(), generator)
+            elif isinstance(m, Deconv2x2):  # weight [in, out, 2, 2]
+                _lecun_normal(m.weight, m.weight.shape[0] * 4, generator)
+            elif isinstance(m, Dense):
+                _lecun_normal(m.weight, m.in_features, generator)
+            else:
+                continue
+            if m.bias is not None:
+                m.bias.zero_()
+        self.bbox_head.temperature.fill_(float(self.cfg.learned_temperature))
+
+    def _pool(self, feats, rois: torch.Tensor, out_size: int) -> torch.Tensor:
+        """[B, P, 4] rois -> [B * P, out, out, C] from the first four levels."""
+        c = self.cfg
+        pooled = multilevel_roi_align(
+            feats[:4], rois, c.anchors.strides[:4], out_size, c.finest_scale
+        )
+        return pooled.flatten(0, 1)
+
+    def features(self, taps):
+        """Backbone taps -> (fpn feats list, rpn score / delta maps)."""
+        feats = self.fpn(self.pyramid(taps))
+        scores, deltas = self.rpn(feats)
+        return feats, scores, deltas
+
+    def forward(self, taps, rois, class_embed):
+        """Features + bbox head on given rois [B, P, 4]: (cls logits
+        [B * P, K+1], box deltas [B * P, 4])."""
+        feats, _, _ = self.features(taps)
+        logits, box_deltas, _ = self.bbox_head(
+            self._pool(feats, rois, self.cfg.roi_feat_size), class_embed
+        )
+        return logits, box_deltas
+
+    def proposals(self, taps, image_hw=None, valid_hw: Optional[torch.Tensor] = None):
+        """Backbone taps -> (fpn feats, proposals [B, P, 4], scores [B, P])
+        under the test-time proposal settings."""
+        c = self.cfg
+        image_hw = image_hw or (c.image_size, c.image_size)
+        feats, smap, dmap = self.features(taps)
+        p = c.test_proposals
+        props, pscores = rpn_proposals(
+            flatten_rpn_outputs(smap, dmap, c), image_hw,
+            p.nms_pre, p.max_per_img, p.iou_threshold, p.min_bbox_size, valid_hw=valid_hw,
+        )
+        return feats, props, pscores
+
+    def predict(
+        self,
+        taps,
+        dense_vlm: Optional[torch.Tensor],
+        class_embed: torch.Tensor,
+        base_mask: torch.Tensor,
+        image_hw=None,
+        valid_hw: Optional[torch.Tensor] = None,
+    ):
+        """Test-time detection with VLM score fusion.
+
+        dense_vlm: [B, gh, gw, D] normalized dense CLIP map (None disables
+        fusion). valid_hw: optional [B, 2] per-image pre-padding (h, w) to
+        clip detections to. Returns (boxes [B, D, 4], scores [B, D],
+        labels [B, D] [, mask probs [B, D, 2s, 2s]])."""
+        c = self.cfg
+        image_hw = image_hw or (c.image_size, c.image_size)
+        feats, props, pscores = self.proposals(taps, image_hw, valid_hw)
+        b, r = props.shape[:2]
+        logits, deltas, _ = self.bbox_head(self._pool(feats, props, c.roi_feat_size), class_embed)
+        logits = logits.reshape(b, r, -1)
+        deltas = deltas.reshape(b, r, 4)
+
+        if dense_vlm is not None:
+            # 1x1 RoI-align on the dense map; boxes in feature coordinates
+            patch = float(c.image_size) / float(dense_vlm.shape[1])
+            vlm_feats = roi_align_1x1(dense_vlm, props / patch)  # [B, R, D]
+            fused = fuse_vlm_scores(logits, vlm_feats, class_embed, base_mask, c)
+        else:
+            fused = torch.softmax(logits, dim=-1)
+        # empty NMS slots (score NEG_INF) must not become detections: zero
+        # their probabilities so the score threshold removes them
+        fused = torch.where(is_live(pscores)[..., None], fused, torch.zeros_like(fused))
+        if valid_hw is not None:
+            valid_hw = valid_hw.float()
+        boxes, scores, labels = rcnn_detections(props, fused, deltas, image_hw, c, valid_hw)
+
+        if not c.with_mask:
+            return boxes, scores, labels
+        nd = boxes.shape[1]
+        lab = torch.clamp(labels.reshape(-1), 0, c.num_classes - 1)
+        # each detection evaluates only its own class channel (exact
+        # weight-gather, see MaskHead)
+        ml = self.mask_head(self._pool(feats, boxes, c.mask_roi_size), lab)
+        probs = torch.sigmoid(ml).reshape(b, nd, ml.shape[1], ml.shape[2])
+        return boxes, scores, labels, probs
+
+
+def create_detector(
+    cfg: FViTConfig, *, device, seed: int = 0
+) -> FViTDetector:
+    """An `FViTDetector` with seeded random weights, in eval mode on
+    ``device`` (drawn on the CPU from ``torch.Generator().manual_seed(seed)``;
+    `load_state_dict` a converted checkpoint over them)."""
+    det = FViTDetector(cfg)
+    det.init_weights(torch.Generator().manual_seed(seed))
+    return det.to(device).eval()
+
+
+def backbone_taps(clip_model, images: torch.Tensor, cfg: FViTConfig, with_dense: bool):
+    """Run the frozen CLIP visual trunk without gradients and return the
+    taps [+ dense VLM map] (reference `EvaCLIPViT.forward`)."""
+    with torch.no_grad():
+        return clip_model.visual_taps(images, tuple(cfg.out_indices), with_dense)

@@ -1,0 +1,110 @@
+"""Region proposal network: head module and proposal decoding.
+
+A port of the inference half of `clipself_tpu/detector/rpn.py` (mmdet
+`RPNHead`): a small conv tower shared across levels, per-anchor sigmoid
+objectness + box deltas, and top-k -> decode -> NMS proposal generation,
+batched over images. The targets and the loss are not ported yet
+(ROADMAP.md queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from clipself_tpu_torch.detector.anchors import multi_level_anchors
+from clipself_tpu_torch.detector.boxes import decode_boxes
+from clipself_tpu_torch.detector.config import AnchorCfg, FViTConfig
+from clipself_tpu_torch.detector.layers import Conv2d, ConvNorm
+from clipself_tpu_torch.detector.nms import nms, sorted_desc, take
+
+
+class RPNHead(nn.Module):
+    """Shared conv tower + objectness / delta 1x1 heads, applied per level.
+    mmdet RPNHead convs are norm-free by default."""
+
+    def __init__(self, num_anchors: int, feat_channels: int = 256, num_convs: int = 2,
+                 norm: str = "none"):
+        super().__init__()
+        self.num_convs = num_convs
+        for i in range(num_convs):
+            setattr(
+                self, f"conv_{i}",
+                ConvNorm(feat_channels, feat_channels, kernel=3, norm=norm, act=True),
+            )
+        self.cls = Conv2d(feat_channels, num_anchors, 1)
+        self.reg = Conv2d(feat_channels, num_anchors * 4, 1)
+
+    def forward(
+        self, feats: Sequence[torch.Tensor]
+    ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        scores, deltas = [], []
+        for x in feats:
+            for i in range(self.num_convs):
+                x = getattr(self, f"conv_{i}")(x)
+            scores.append(self.cls(x))
+            deltas.append(self.reg(x))
+        return scores, deltas
+
+
+class RPNOut(NamedTuple):
+    scores: torch.Tensor  # [B, N] objectness logits over all levels' anchors
+    deltas: torch.Tensor  # [B, N, 4]
+    anchors: torch.Tensor  # [N, 4] float32 (shared across the batch)
+
+
+@functools.lru_cache(maxsize=16)
+def _anchors(feat_shapes: tuple, anchors: AnchorCfg, device: torch.device) -> torch.Tensor:
+    per_level = multi_level_anchors(
+        list(feat_shapes), anchors.strides[: len(feat_shapes)], anchors.scales, anchors.ratios,
+        anchors.center_offset,
+    )
+    return torch.from_numpy(np.concatenate(per_level, axis=0)).to(device)
+
+
+def flatten_rpn_outputs(
+    score_maps: Sequence[torch.Tensor],
+    delta_maps: Sequence[torch.Tensor],
+    cfg: FViTConfig,
+) -> RPNOut:
+    """Concatenate per-level map outputs [B, h, w, A(*4)] into flat
+    per-anchor tensors, with the matching anchors."""
+    feat_shapes = tuple(tuple(s.shape[1:3]) for s in score_maps)
+    b = score_maps[0].shape[0]
+    scores = torch.cat([s.reshape(b, -1) for s in score_maps], dim=1)
+    deltas = torch.cat([d.reshape(b, -1, 4) for d in delta_maps], dim=1)
+    return RPNOut(scores, deltas, _anchors(feat_shapes, cfg.anchors, scores.device))
+
+
+def rpn_proposals(
+    rpn: RPNOut,
+    image_hw: tuple[int, int],
+    nms_pre: int,
+    max_per_img: int,
+    iou_threshold: float,
+    min_bbox_size: float = 0.0,
+    valid_hw: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode + NMS proposals for every image.
+
+    valid_hw: optional [B, 2] per-image pre-padding (h, w); proposals are
+    clipped to it (mmdet clips to `img_shape`, not the padded batch square).
+    Returns (boxes [B, P, 4], scores [B, P]); empty slots have score NEG_INF.
+    """
+    b, n = rpn.scores.shape
+    if valid_hw is None:
+        valid_hw = torch.tensor(image_hw, dtype=torch.float32, device=rpn.scores.device).expand(b, 2)
+    top_s, top_i = sorted_desc(rpn.scores, min(nms_pre, n))
+    boxes = decode_boxes(rpn.anchors[top_i], take(rpn.deltas, top_i), max_shape=image_hw)
+    lim = valid_hw[:, [1, 0, 1, 0]].to(boxes.dtype)  # x, y, x, y
+    boxes = torch.minimum(boxes, lim[:, None, :])
+    wh = boxes[..., 2:] - boxes[..., :2]
+    ok = (wh[..., 0] > min_bbox_size) & (wh[..., 1] > min_bbox_size)
+    out_boxes, out_scores, _ = nms(
+        boxes, torch.sigmoid(top_s), iou_threshold, max_per_img, valid=ok
+    )
+    return out_boxes, out_scores

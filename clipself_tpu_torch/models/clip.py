@@ -66,3 +66,8 @@ class CLIP(nn.Module):
             rois = l2_normalize(rois)
             mp = l2_normalize(mp)
         return rois, mp
+
+    def visual_taps(self, image: torch.Tensor, out_indices: tuple, with_dense: bool = False):
+        """Intermediate visual-trunk taps for detection backbones
+        (`EvaViT.forward_taps`)."""
+        return self.visual.forward_taps(image, out_indices, with_dense=with_dense)

@@ -291,6 +291,37 @@ class EvaViT(nn.Module):
         t = l2_normalize(t)
         return t.reshape(x.shape[0], gh, gw, -1) if keep_shape else t
 
+    def forward_taps(
+        self, x: torch.Tensor, out_indices: tuple[int, ...], with_dense: bool = False
+    ) -> tuple[list[torch.Tensor], Optional[torch.Tensor]]:
+        """Intermediate block outputs for detection backbones, one trunk pass
+        (`clipself_tpu/models/eva_vit.py::forward_taps`, the reference F-ViT
+        backbone protocol): blocks 0..N-2 run normally and are tapped at
+        ``out_indices``; the final block runs WITHOUT attention (value path),
+        and if index N-1 is requested its tap is that value-path output. With
+        ``with_dense`` also the L2-normalized dense VLM map (norm + head over
+        the value-path tokens).
+
+        Returns ([B, gh, gw, width] per tap, dense [B, gh, gw, embed] | None)."""
+        t, (gh, gw) = self.embed(x)
+        b, width = x.shape[0], self.cfg.width
+
+        def to_map(tokens):
+            return tokens[:, 1:].reshape(b, gh, gw, width)
+
+        taps = []
+        for i, blk in enumerate(self.blocks[:-1]):
+            t = self._run(blk, t, (gh, gw))
+            if i in out_indices:
+                taps.append(to_map(t))
+        t = self._run(self.blocks[-1].forward_without_attn, t)
+        if (len(self.blocks) - 1) in out_indices:
+            taps.append(to_map(t))
+        dense = None
+        if with_dense:
+            dense = l2_normalize(self.head(self.norm(t[:, 1:]))).reshape(b, gh, gw, -1)
+        return taps, dense
+
     def extract_roi_features(self, x: torch.Tensor, normed_boxes: torch.Tensor) -> torch.Tensor:
         """RoI features [B, M, C] by 1x1 aligned RoI-align over the dense map;
         ``normed_boxes`` [B, M, 4] xyxy in [0, 1], padded rows allowed

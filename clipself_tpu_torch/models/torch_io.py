@@ -5,6 +5,8 @@ NumPy arrays) into the state dict of the reference `CustomCLIP` for the
 visual tower and `logit_scale`, with the key map of the EVA branch of
 `clipself_tpu/models/torch_io.py::_vision_key_map` copied here; `load_weights`
 loads such a dict, or a reference `.pt` checkpoint, with `strict=True`.
+`detector_state_dict_from_jax` does the same for the flax tree of the F-ViT
+detector heads, whose port keeps the tree's own names.
 """
 
 from __future__ import annotations
@@ -99,6 +101,35 @@ def state_dict_from_jax(params: Any) -> dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1)
         out[key] = torch.tensor(arr)
     out["logit_scale"] = torch.tensor(np.asarray(params["logit_scale"], dtype=np.float32))
+    return out
+
+
+# flax module names of the detector's 2x2 stride-2 transposed convolutions
+_DECONV_NAMES = ("deconv", "upsample")
+
+
+def detector_state_dict_from_jax(det_params: Any) -> dict[str, torch.Tensor]:
+    """The flax param tree of `clipself_tpu.detector.fvit.FViTDetector`
+    (nested dicts of arrays) -> float32 state dict of the port's
+    `FViTDetector`. Keys are the tree paths joined by '.', with `kernel` and
+    `scale` named `weight`. Layouts: conv kernels HWIO -> OIHW; dense kernels
+    transposed; a transposed-conv kernel [kh, kw, in, out] -> [in, out, kh,
+    kw] with both spatial axes reversed (flax `ConvTranspose` correlates the
+    dilated input with the kernel as stored, `torch.conv_transpose2d`
+    scatters it, which mirrors it). The bbox head's first fc needs no row
+    permutation: the port flattens pooled rois channels-last, as flax does."""
+    out = {}
+    for path, val in _flatten(det_params).items():
+        arr = np.asarray(val, dtype=np.float32)
+        leaf = {"kernel": "weight", "scale": "weight"}.get(path[-1], path[-1])
+        if path[-1] == "kernel" and arr.ndim == 4:
+            if path[-2] in _DECONV_NAMES:
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                arr = arr.transpose(3, 2, 0, 1)
+        elif path[-1] == "kernel" and arr.ndim == 2:
+            arr = arr.T
+        out[".".join(path[:-1] + (leaf,))] = torch.tensor(arr.copy())
     return out
 
 

@@ -53,6 +53,8 @@ _SIGNATURES = {
         (_I,) + (_P,) * 9 + (_L, _I, _L, _L, _I, _I, _P),
         _I,
     ),
+    "clipself_nms": ((_P, _P, ctypes.c_float, _P, _I, _I, _I, _P), _I),
+    "clipself_nms_max_boxes": ((), _I),
     "clipself_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

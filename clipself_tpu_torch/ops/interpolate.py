@@ -1,4 +1,5 @@
-"""Separable 2-D resizing as two float32 matmuls.
+"""Separable 2-D resizing as two float32 matmuls; nearest resizing of
+channels-last maps as an index selection.
 
 `resize_weight_matrix` is a NumPy copy of `clipself_tpu/ops/interpolate.py`
 (torch `interpolate(align_corners=False)` sampling, bicubic with A=-0.75);
@@ -75,3 +76,21 @@ def resize_2d(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bicubic")
     y = torch.einsum("oh,...hw->...ow", wh, x.float())
     y = torch.einsum("pw,...ow->...op", ww, y)
     return y.to(x.dtype)
+
+
+def resize_nhwc(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """Resize ``x[B, H, W, C]`` to ``[B, h, w, C]`` (channels-last), the
+    counterpart of `clipself_tpu/ops/interpolate.py::resize_nhwc`. 'nearest'
+    (source index floor(dst * in / out), as torch and mmdet) selects rows and
+    columns, which is what the JAX package's one-hot weight matrices compute."""
+    h_in, w_in = x.shape[1], x.shape[2]
+    h_out, w_out = out_hw
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    if method == "nearest":
+        rows, cols = (
+            torch.from_numpy(resize_weight_matrix(i, o, "nearest").argmax(axis=1)).to(x.device)
+            for i, o in ((h_in, h_out), (w_in, w_out))
+        )
+        return x[:, rows][:, :, cols]
+    return resize_2d(x.permute(0, 3, 1, 2), out_hw, method).permute(0, 2, 3, 1)

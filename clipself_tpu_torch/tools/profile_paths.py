@@ -1,9 +1,10 @@
-"""Where the device time of the two main paths goes, by kernel class.
+"""Where the device time of the main paths goes, by kernel class.
 
     python -m clipself_tpu_torch.tools.profile_paths \\
         --model EVA02-CLIP-L-14-336 --det-image-size 896 --eval-batch 1
+    python -m clipself_tpu_torch.tools.profile_paths --path detector
 
-Runs the distill step (batch 2, 20 boxes, every block unlocked, bf16, AdamW,
+``--path clip`` (the default) runs the distill step (batch 2, 20 boxes, every block unlocked, bf16, AdamW,
 seeded random weights, one synthetic batch staged on the device) and the
 zero-shot evaluator (13 valid of 100 annotations, bucket 25) of one model,
 each first without the profiler (host clock around a synchronised window:
@@ -15,6 +16,13 @@ under the profiler and derived for the unprofiled run). The first line
 names the card and its power limit; with ``--json`` the last line is the
 tables as one JSON object. `--device cpu` rehearses the control flow at a
 small model; it has no device time to report and says so.
+
+``--path detector`` runs the F-ViT detector of ``--preset`` (default
+`ov_coco_vitb16`: EVA02-CLIP-B/16 at 640^2) on one synthetic batch of
+``--det-batch`` images the same way, twice: `predict` alone on images staged
+on the device (backbone taps, heads, both NMS passes), and
+`evaluate_detector` over the same images as host items (adds the copy to
+the device and the NumPy COCO matching).
 """
 
 from __future__ import annotations
@@ -25,11 +33,17 @@ import subprocess
 import time
 from functools import partial
 
+import numpy as np
 import torch
 
 from clipself_tpu_torch.core.config import get_model_config
 from clipself_tpu_torch.data.loader import SyntheticDistillData
 from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
+from clipself_tpu_torch.detector.classes import base_novel_mask
+from clipself_tpu_torch.detector.config import PRESETS
+from clipself_tpu_torch.detector.data import SyntheticDetectionData, synthetic_eval_items
+from clipself_tpu_torch.detector.evaluate import evaluate_detector, make_predict_fn
+from clipself_tpu_torch.detector.fvit import create_detector
 from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.train.methods import clipself_loss
@@ -44,6 +58,11 @@ CLASSES = (
     ("layer_norm forward kernel", ("layer_norm_fwd_kernel",)),
     ("layer_norm backward kernel and its reduce", ("layer_norm_bwd",)),
     ("rope_roll kernel", ("rope_roll_kernel",)),
+    ("nms kernel", ("nms_kernel",)),
+    ("convolutions (cuDNN)", ("cudnn", "conv2d", "fprop", "dgrad", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),
+    ("GroupNorm", ("GroupNorm", "group_norm", "RowwiseMoments")),
+    ("sorts", ("sort", "Sort", "radix", "Radix")),
+    ("gathers and index selections", ("gather", "index", "scatter")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas", "gemv")),
     ("AdamW multi-tensor kernels", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),
@@ -149,6 +168,9 @@ def report(title: str, unit: str, res: dict) -> None:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser("clipself_tpu_torch path profiler")
+    p.add_argument("--path", default="clip", choices=["clip", "detector"])
+    p.add_argument("--preset", default="ov_coco_vitb16", choices=sorted(PRESETS))
+    p.add_argument("--det-batch", type=int, default=8)
     p.add_argument("--model", default="EVA02-CLIP-B-16")
     p.add_argument("--det-image-size", type=int, default=1024)
     p.add_argument("--batch-size", type=int, default=2)
@@ -170,6 +192,16 @@ def main(argv=None) -> dict:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()[0], flush=True)
+    if args.path == "detector":
+        out = profile_detector(args, device)
+    else:
+        out = profile_clip(args, device)
+    if args.json:
+        print(json.dumps(out), flush=True)
+    return out
+
+
+def profile_clip(args, device: torch.device) -> dict:
     cfg = get_model_config(args.model)
     v = cfg.vision
     out = {"model": args.model, "image": args.det_image_size}
@@ -218,8 +250,40 @@ def main(argv=None) -> dict:
         f"{v.image_size}px",
         "batch", out["eval"],
     )
-    if args.json:
-        print(json.dumps(out), flush=True)
+    return out
+
+
+def profile_detector(args, device: torch.device) -> dict:
+    cfg = PRESETS[args.preset]
+    clip = create_model(cfg.clip_model, device=device, dtype=torch.bfloat16, seed=args.seed)
+    det = create_detector(cfg, device=device, seed=args.seed + 1)
+    emb = class_embeddings(cfg.num_classes + 1, cfg.embed_dim, seed=args.seed)
+    emb /= (emb ** 2).sum(-1, keepdims=True) ** 0.5
+    host = SyntheticDetectionData(
+        cfg.num_classes, cfg.image_size, cfg.max_gt, seed=args.seed, with_mask=cfg.with_mask
+    ).batch(args.det_batch)
+    items = synthetic_eval_items(host)
+    images = torch.as_tensor(host["images"], device=device)
+    valid_hw = torch.as_tensor(host["valid_hw"], device=device)
+    # the OV-COCO base / novel split where the preset has its 65 classes;
+    # any other vocabulary fuses every class with the base exponent
+    coco = cfg.num_classes == 65
+    bm = base_novel_mask("coco") if coco else np.ones(cfg.num_classes + 1, bool)
+    predict = make_predict_fn(
+        det, clip, cfg, torch.as_tensor(emb, device=device), torch.as_tensor(bm, device=device)
+    )
+    what = (f"F-ViT {args.preset} ({cfg.clip_model}), {args.det_batch} images a batch at "
+            f"{cfg.image_size}px, {cfg.test_proposals.max_per_img} proposals, bf16")
+    out = {"preset": args.preset, "image": cfg.image_size}
+    out["predict"] = measure(lambda: predict(images, valid_hw), args.steps, device, args.det_batch)
+    report(f"{what}: predict on staged images", "batch", out["predict"])
+    if coco:  # `evaluate_detector` scores with the COCO protocol
+        out["evaluate"] = measure(
+            lambda: evaluate_detector(det, clip, items, cfg, emb, device=device,
+                                      batch_size=args.det_batch),
+            args.steps, device, args.det_batch,
+        )
+        report(f"{what}: evaluate_detector from host items", "batch", out["evaluate"])
     return out
 
 

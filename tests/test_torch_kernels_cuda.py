@@ -22,14 +22,17 @@ another order: float32 y and dx within 1e-5 absolute (values of order 1 to
 10); bfloat16 rounds that float32 value once on both sides, so y and dx
 agree within one bfloat16 ULP (2^-7 relative) plus the float32 slack;
 dweight and dbias are float32 sums over the rows on both sides, within 1e-5
-of their largest entry.
+of their largest entry. Greedy NMS: the keep mask is discrete and the kernel's
+arithmetic is pinned to single round-to-nearest operations in the plain
+version's order, so the two masks must be equal.
 """
 
 import pytest
 import torch
 
 from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
-from clipself_tpu_torch.ops import attention, layer_norm, rope_roll
+from clipself_tpu_torch.detector.data import synthetic_nms_case
+from clipself_tpu_torch.ops import attention, layer_norm, nms, rope_roll
 
 pytestmark = pytest.mark.cuda
 
@@ -287,3 +290,60 @@ def test_layer_norm_kernel_rejects_what_it_does_not_take(dev):
         layer_norm.layer_norm(x.transpose(1, 2), torch.ones(8, device=dev), torch.ones(8, device=dev), _LN_EPS)
     with pytest.raises(ValueError, match="weight on"):
         layer_norm.layer_norm(x, w.cpu(), w, _LN_EPS)
+
+
+@pytest.mark.parametrize("kind,b,n,thr", [
+    ("anchors", 8, 2000, 0.7), ("class_offset", 8, 2000, 0.4), ("anchors", 1, 2000, 0.7),
+    ("invalid_tail", 8, 1999, 0.7), ("invalid_any", 3, 777, 0.5), ("plain", 2, 1, 0.5),
+    ("none_valid", 2, 300, 0.5), ("identical", 2, 300, 0.5), ("zero_area", 2, 515, 0.5),
+    ("duplicates", 2, 300, 0.4), ("plain", 5, 31, 0.3), ("plain", 1, 4096, 0.5),
+    ("plain", 2, 300, -0.5),  # even disjoint pairs suppress: no shortcut for empty intersections
+])
+def test_nms_kernel_equals_plain(dev, kind, b, n, thr):
+    boxes, valid = synthetic_nms_case(kind, b, n, seed=n)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    before = nms.LAUNCHES.count
+    got = nms.nms_keep_mask(boxes, valid, thr)
+    torch.cuda.synchronize()
+    assert nms.LAUNCHES.count == before + 1
+    assert got.dtype == torch.bool and got.shape == (b, n)
+    want = nms.nms_keep_mask_plain(boxes, valid, thr)
+    assert torch.equal(got, want), f"{(got != want).sum().item()} of {b * n} flags differ"
+    assert torch.equal(want.cpu(), nms.nms_keep_mask_plain(boxes.cpu(), valid.cpu(), thr))
+    assert not got[~valid].any()
+    if kind in ("plain", "anchors", "class_offset"):
+        assert got[:, 0].all()  # the best box of an image is always kept
+    if thr < 0:
+        assert got.sum().item() == b  # and below zero it suppresses every other
+    assert nms.LAUNCHES.count == before + 1  # the plain version launched nothing
+
+
+def test_nms_kernel_single_image_and_views(dev):
+    boxes, valid = synthetic_nms_case("anchors", 2, 500, seed=3)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    want = nms.nms_keep_mask_plain(boxes, valid, 0.7)
+    assert torch.equal(nms.nms_keep_mask(boxes[1], valid[1], 0.7), want[1])  # [N, 4]
+    wide = torch.zeros(2, 500, 6, device=dev)
+    wide[..., 1:5] = boxes
+    assert torch.equal(nms.nms_keep_mask(wide[..., 1:5], valid, 0.7), want)  # a strided view
+    assert torch.equal(nms.nms_keep_mask(boxes.double(), valid, 0.7), want)  # read as float32
+    assert nms.nms_keep_mask(boxes[:, :0], valid[:, :0], 0.7).shape == (2, 0)
+
+
+def test_nms_kernel_rejects_what_it_does_not_take(dev):
+    boxes, valid = synthetic_nms_case("plain", 1, 64, seed=0)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    with pytest.raises(TypeError, match="bool"):
+        nms.nms_keep_mask(boxes, valid.float(), 0.5)
+    with pytest.raises(ValueError, match="valid on"):
+        nms.nms_keep_mask(boxes, valid.cpu(), 0.5)
+    with pytest.raises(ValueError, match="leading dims"):
+        nms.nms_keep_mask(boxes, valid[:, :-1], 0.5)
+    before = nms.LAUNCHES.count
+    with pytest.raises(ValueError, match="shared memory"):
+        nms.nms_keep_mask(torch.zeros(1, 20000, 4, device=dev), torch.ones(1, 20000, dtype=torch.bool, device=dev), 0.5)
+    assert nms.LAUNCHES.count == before
+    big = torch.rand(1, 11000, 4, device=dev)  # above 48 KB of shared memory, below the limit
+    big[..., 2:] += big[..., :2]
+    ok = torch.ones(1, 11000, dtype=torch.bool, device=dev)
+    assert torch.equal(nms.nms_keep_mask(big, ok, 0.5), nms.nms_keep_mask_plain(big, ok, 0.5))

@@ -1,6 +1,7 @@
 """The port imports no JAX, Flax, PIL or JAX-package module: in a fresh
 interpreter (this test process has JAX loaded by conftest), import every
-module of the port, run the tiny evaluator and one train step on the CPU."""
+module of the port, run the tiny evaluator, one train step and the tiny
+detector evaluation on the CPU."""
 
 import json
 import math
@@ -21,6 +22,7 @@ import clipself_tpu_torch.ops.attention
 import clipself_tpu_torch.ops.layer_norm
 import clipself_tpu_torch.ops.rope_roll
 import clipself_tpu_torch.data.loader
+import clipself_tpu_torch.tools.nms_times
 import clipself_tpu_torch.tools.profile_paths
 import clipself_tpu_torch.train.checkpoint
 import clipself_tpu_torch.train.ensemble
@@ -29,6 +31,22 @@ import clipself_tpu_torch.train.methods
 import clipself_tpu_torch.train.optim
 import clipself_tpu_torch.train.step
 import clipself_tpu_torch.utils.meters
+import clipself_tpu_torch.ops.nms
+import clipself_tpu_torch.ops.roi_align
+import clipself_tpu_torch.ops.interpolate
+import clipself_tpu_torch.detector.anchors
+import clipself_tpu_torch.detector.boxes
+import clipself_tpu_torch.detector.classes
+import clipself_tpu_torch.detector.config as det_config
+import clipself_tpu_torch.detector.data as det_data
+import clipself_tpu_torch.detector.eval_ap
+import clipself_tpu_torch.detector.evaluate as det_evaluate
+import clipself_tpu_torch.detector.fvit as fvit
+import clipself_tpu_torch.detector.layers
+import clipself_tpu_torch.detector.neck
+import clipself_tpu_torch.detector.nms
+import clipself_tpu_torch.detector.roi_head
+import clipself_tpu_torch.detector.rpn
 
 model = factory.create_model("EVA02-CLIP-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
 batch = synthetic.synthetic_panoptic_batch(
@@ -44,9 +62,20 @@ run = train_main.main([
     "--logs", sys.argv[1], "--name", "no_jax",
 ])
 loss = run["history"][-1]["loss"]
-banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "clipself_tpu")
+
+det_cfg = det_config.PRESETS["tiny_test"]
+clip = factory.create_model(det_cfg.clip_model, device="cpu", dtype=torch.float32, seed=0)
+det = fvit.create_detector(det_cfg, device="cpu", seed=1)
+items = det_data.synthetic_eval_items(
+    det_data.SyntheticDetectionData(det_cfg.num_classes, det_cfg.image_size, det_cfg.max_gt).batch(3)
+)
+emb = synthetic.class_embeddings(det_cfg.num_classes + 1, det_cfg.embed_dim)
+emb /= (emb ** 2).sum(-1, keepdims=True) ** 0.5
+metrics = det_evaluate.evaluate_detector(det, clip, items, det_cfg, emb, device="cpu", batch_size=2)
+banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "clipself_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-print(json.dumps({"n_results": len(res), "loss": loss, "loaded": loaded}))
+print(json.dumps({"n_results": len(res), "loss": loss, "loaded": loaded,
+                  "metrics": json.loads(det_evaluate.metrics_json(metrics))}))
 """
 
 
@@ -63,3 +92,5 @@ def test_port_runs_without_jax(tmp_path):
     assert out["n_results"] == 12
     assert math.isfinite(out["loss"])
     assert out["loaded"] == []
+    assert sorted(out["metrics"]) == ["AP50", "AP50_base", "AP50_novel", "AP75", "mAP"]
+    assert all(v is None or 0.0 <= v <= 1.0 for v in out["metrics"].values())

@@ -22,6 +22,11 @@ from clipself_tpu_torch.tools import profile_paths
         ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<...>>", "reductions"),
         ("Memcpy DtoD (Device -> Device)", "dtype casts and copies"),
         ("void at::native::vectorized_elementwise_kernel<4, at::native::silu_kernel...>", "elementwise"),
+        ("(anonymous namespace)::nms_kernel(float4 const*, unsigned char const*, float, unsigned char*, int)", "nms kernel"),
+        ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64_cudnn", "convolutions (cuDNN)"),
+        ("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float>(...)", "GroupNorm"),
+        ("void at::native::radixSortKVInPlace<2, -1, 128, 32, float, long, unsigned int>(...)", "sorts"),
+        ("void at::native::_scatter_gather_elementwise_kernel<128, 8, ...>", "gathers and index selections"),
         ("something_else", "other"),
     ],
 )
@@ -37,5 +42,18 @@ def test_cpu_run_reports_no_device_time(capsys):
     for path in ("train", "eval"):
         assert out[path]["device"].startswith("not measured")
         assert "classes" not in out[path] and "kernel_ms" not in out[path]
+    printed = capsys.readouterr().out
+    assert printed.count("not measured") == 2 and "images/s" not in printed
+
+
+def test_cpu_detector_run_reports_no_device_time(capsys):
+    out = profile_paths.main([
+        "--device", "cpu", "--path", "detector", "--preset", "tiny_test", "--det-batch", "2",
+        "--steps", "1",
+    ])
+    assert out["preset"] == "tiny_test" and out["image"] == 64
+    for path in ("predict", "evaluate"):
+        assert out[path]["device"].startswith("not measured")
+        assert "classes" not in out[path]
     printed = capsys.readouterr().out
     assert printed.count("not measured") == 2 and "images/s" not in printed
