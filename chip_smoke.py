@@ -12,7 +12,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    widths 768 and 2048; EVA02-CLIP-L-14-336 at 896^2: 4097 and 577 tokens,
    16 heads, widths 1024 and 2730), in float32 and bfloat16: the RoPE
    forward and backward, the flash-attention forward with and without its
-   LSE, the flash backward, and the fused LayerNorm forward (with and
+   LSE (also at the detector's [8, 1601, 12, 64]), the flash backward (each
+   row says which of the kernel's designs its shape and type took: "wgmma"
+   for bfloat16 at head_dim 64, "fma" for float32), and the fused LayerNorm
+   forward (with and
    without statistics) and backward, also on the two strided views of the
    final norm. Each with CUDA-event times of the kernel, of its plain
    version and, where one PyTorch call computes the same function
@@ -354,9 +357,11 @@ class Records:
     def __init__(self):
         self.rows: dict[str, list[dict]] = {}
 
-    def add(self, name, what, shape, dtype, *, err, ms, plain_ms, library_ms, moved, flops, note=""):
+    def add(self, name, what, shape, dtype, *, err, ms, plain_ms, library_ms, moved, flops,
+            note="", design=None):
         """``moved``: bytes of every input read once and every output written
-        once; ``flops``: operations on these inputs."""
+        once; ``flops``: operations on these inputs; ``design``: which of a
+        kernel's hand-written designs the shape and type took."""
         import torch
 
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
@@ -366,6 +371,9 @@ class Records:
             plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=library_ms,
         )
+        if design is not None:
+            rec["design"] = design
+            note += f"design {design} "
         self.rows.setdefault(name, []).append(rec)
         lib = "none" if library_ms is None else f"{library_ms:.4f}"
         print(
@@ -464,6 +472,7 @@ def check_attention(torch, dev, records, gen, shape, train):
             plain_ms=cuda_ms(lambda: attention.attention_plain(q, k, v, scale), iters),
             library_ms=cuda_ms(lambda: sdpa(torch, q, k, v, scale), iters),
             moved=4 * nbytes(q), flops=flops, note=f"min_row_cos {cos:.7f} ",
+            design=attention.kernel_design(dt, d),
         )
         if dt == torch.float32 and not max_abs <= ATTN_F32_MAX_ABS:
             fail(f"flash_attention f32 {shape} max abs {max_abs}")
@@ -479,7 +488,7 @@ def check_attention(torch, dev, records, gen, shape, train):
             ms=cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale, return_lse=True), iters),
             plain_ms=cuda_ms(lambda: attention.attention_lse_plain(q, k, v, scale), iters),
             library_ms=None, moved=4 * nbytes(q) + nbytes(lse), flops=flops,
-            note=f"(of the lse, bar {LSE_MAX_ABS}) ",
+            note=f"(of the lse, bar {LSE_MAX_ABS}) ", design=attention.kernel_design(dt, d),
         )
         if not lse_err <= LSE_MAX_ABS:
             fail(f"flash_attention lse {dt} {shape} max abs {lse_err}")
@@ -506,6 +515,7 @@ def check_attention(torch, dev, records, gen, shape, train):
             # products (S, dP, dV, dK, dQ)
             moved=8 * nbytes(q) + nbytes(lse), flops=flops * 5 // 2,
             note=f"rel {rel:.3e} min_row_cos {min(coss):.6f} ",
+            design=attention.kernel_design(dt, d, backward=True),
         )
         del lib_out, leaves
         if not finite:
@@ -678,6 +688,11 @@ def phase_kernels(torch, dev, records):
         check_rope(torch, dev, records, gen, crops, s.grid(s.crop), heads[1], backward=False)
         check_attention(torch, dev, records, gen, student[:2] + heads, train=True)
         check_attention(torch, dev, records, gen, crops[:2] + heads, train=False)
+        if s.key == "b16":  # the detector's dense pass: 8 images at 640^2
+            from clipself_tpu_torch.detector.config import PRESETS
+
+            side = PRESETS[DET_PRESET].image_size
+            check_attention(torch, dev, records, gen, (DET_BATCH, s.tokens(side)) + heads, train=False)
         if s.key == "l14":  # the evaluator's own shapes: one image, one bucket
             check_attention(torch, dev, records, gen, (1, student[1]) + heads, train=False)
             check_attention(torch, dev, records, gen, (BUCKET, crops[1]) + heads, train=False)

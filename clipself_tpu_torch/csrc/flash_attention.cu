@@ -5,40 +5,58 @@
 // feed [B, H, N, D] copies padded to a block multiple (4097 -> 4224) with a
 // segment row masking the pad tail.
 //
-// Here one block of 4 warps owns 64 query rows of one (batch, head); each
-// warp owns 16 of them. The block loops over 64-key K/V tiles staged in
-// shared memory, keeping the running row max and row sum in f32 registers
-// (online softmax) and the 16 x D output accumulator split across each
-// warp's lane pairs. The ragged tail is masked inside the kernel: keys at or
-// past N get -inf before exp, query rows past N are never stored, so there
-// is neither padding nor a segment tensor. Q, K and V are read through their
-// strides from the [B, N, H * D] projection layout, so the head transposes
-// of attention.py:494-496 disappear; the output is written as a contiguous
-// [B, N, H, D].
+// What every design here shares: a block owns a tile of query rows of one
+// (batch, head) and loops over 64-key K/V tiles in shared memory, keeping
+// the running row max and row sum in f32 registers (online softmax). The
+// ragged tail is masked inside the kernel: keys at or past N get -inf before
+// the exp, query rows past N are never stored, so there is neither padding
+// nor a segment tensor. Q, K and V are read through their strides from the
+// [B, N, H * D] projection layout, so the head transposes of
+// attention.py:494-496 disappear; the output is written as a contiguous
+// [B, N, H, D]. Training also asks for the row log-sum-exp, lse [B, H, N]
+// f32, the residual of the one-pass backward (csrc/flash_attention_bwd.cu)
+// in place of the Pallas kernel's (l, m) pair. It is a NATURAL-log value:
+// the running max m is kept in the log2 domain (the scale carries log2(e),
+// exp is exp2), so the kernel stores lse = (m + log2(l)) * ln(2). A null lse
+// pointer (the no-grad teacher and evaluator) skips the write.
 //
-// Training also asks for the row log-sum-exp, lse [B, H, N] f32, the
-// residual of the one-pass backward (csrc/flash_attention_bwd.cu) in place
-// of the Pallas kernel's (l, m) pair. It is a NATURAL-log value: the running
-// max m is kept in the log2 domain (the scale carries log2(e), exp is exp2),
-// so the kernel stores lse = (m + log2(l)) * ln(2). A null lse pointer (the
-// no-grad teacher and evaluator) skips the write.
+// Bound on the H100: at N = 4097, D = 64 a query row does 4 * D flops per key
+// against K/V tiles that every query tile of the head reads again from the
+// L2, so the kernel is bound by operations (the card's bound is the products
+// at the bf16 tensor-core peak), and on the way there by what feeds the
+// tensor cores: shared-memory traffic, the exponentials (one SFU result per
+// score against 4 * D tensor-core flops: at D = 64 the two take about as
+// long) and the waits between a product and the code that needs it.
 //
-// Bound on the H100: at N = 4097, D = 64 the block does 4 * 64 * D flops per
-// key against 2 * D * sizeof(T) bytes of K/V, so it is bound by math issue
-// and by shared-memory traffic, not by device memory. bf16 runs both
-// products (QK^T and PV) on the tensor cores through WMMA 16x16x16 tiles
-// with f32 accumulation; float32 runs them as f32 FMAs so that it keeps full
-// f32 precision (WMMA on f32 inputs would round them to TF32). This first
-// version stages tiles with plain vector loads and no double buffering;
-// wgmma, TMA and a pipelined K/V ring are the known next steps.
+// Three designs, picked by dtype and head_dim alone (clipself_flash_fwd_design):
 //
-// The shared-memory tile loader and the Pad/Plan conventions are repeated in
-// flash_attention_bwd.cu: each .cu file is compiled on its own.
+//  * bfloat16 at head_dim 64, every attention call of the EVA02 towers: the
+//    warpgroup design in namespace `wg` below. Both products run as wgmma
+//    (csrc/hopper_mma.cuh); K/V tiles arrive through a
+//    three-stage cp.async ring in the tensor cores' 128-byte-swizzled layout,
+//    one block barrier a tile; the scores stay in the accumulator registers,
+//    the softmax runs there (a row lives in a quad of lanes) with ex2.approx,
+//    and P goes to the second product as a register operand, never through
+//    shared memory. One or two warpgroups (64 or 128 query rows) a block,
+//    by N.
+//  * bfloat16 at the other head dims (16-48, 80-128): 4 warps of 16 rows,
+//    WMMA 16x16x16 tiles with f32 accumulation, scores and P staged in
+//    shared memory, tiles loaded with plain vector loads, one buffer.
+//  * float32 (the parity path): the same blocking with f32 FMAs, so that it
+//    keeps full f32 precision (tensor cores would round the inputs to TF32).
+//
+// The shared-memory tile loader and the Pad/Plan conventions of the two older
+// designs are repeated in flash_attention_bwd.cu: each .cu file is compiled
+// on its own.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
+
+#include <type_traits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -47,6 +65,8 @@ constexpr int BK = 64;  // keys per K/V tile
 constexpr int WARPS = 4;
 constexpr int WROWS = BQ / WARPS;  // query rows per warp
 constexpr int THREADS = WARPS * 32;
+// bf16 head_dim 64: sequences up to this length take one warpgroup a block
+constexpr int WGMMA_ONE_WARPGROUP_MAX_N = 384;
 
 template <typename T>
 struct Pad;  // shared-memory row padding, in elements (keeps 16-byte rows)
@@ -285,6 +305,213 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---- bf16, head_dim 64: the warpgroup design --------------------------------
+//
+// A block owns NWG * 64 query rows of one (batch, head), 64 for each of its
+// NWG warpgroups. Q is loaded once; 64-key K and V tiles come through a ring
+// of STAGES swizzled shared-memory stages filled by cp.async, tile
+// t + STAGES - 1 in flight while tile t is computed, with one block barrier a
+// tile (it publishes tile t and frees the stage of tile t - 1). S = Q K^T is
+// one wgmma group with both operands in shared memory and the scores in
+// registers; the online softmax runs on the accumulator fragment (a row
+// lives in the four lanes of a quad: two shuffles for its max, the sum is
+// reduced once at the end); P is packed to bf16 in registers and is the
+// register A operand of O += P V, with V read as an MN-major tile.
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int STAGES = 3;
+constexpr int KV_STAGE_BYTES = 2 * TILE64_BYTES;  // one K and one V tile
+
+template <int NWG>
+constexpr int smem_bytes() {
+  return ATOM_BYTES + NWG * TILE64_BYTES + STAGES * KV_STAGE_BYTES;
+}
+
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128)
+    flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int n, int heads,
+                           long long qsb, long long qsn, long long qsh,
+                           long long ksb, long long ksn, long long ksh,
+                           long long vsb, long long vsn, long long vsh,
+                           float scale_log2) {
+  constexpr int THREADS = NWG * 128;
+  extern __shared__ unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int wgi = tid >> 7;   // warpgroup of the block
+  const int t128 = tid & 127;  // thread of the warpgroup
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * (NWG * 64);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const __nv_bfloat16* qg = q + b * qsb + h * qsh;
+  const __nv_bfloat16* kg = k + b * ksb + h * ksh;
+  const __nv_bfloat16* vg = v + b * vsb + h * vsh;
+
+  const uint32_t q_s = align_1024(smem_u32(smem));
+  const uint32_t kv_s = q_s + NWG * TILE64_BYTES;
+  const int n_tiles = (n + 63) / 64;
+
+  load_tile_async<NWG * 64, THREADS>(q_s, qg, qsn, q0, n, tid);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) {
+      load_tile_async<64, THREADS>(kv_s + s * KV_STAGE_BYTES, kg, ksn, s * 64, n, tid);
+      load_tile_async<64, THREADS>(kv_s + s * KV_STAGE_BYTES + TILE64_BYTES, vg, vsn,
+                                   s * 64, n, tid);
+    }
+    cp_async_commit();
+  }
+
+  const uint64_t q_desc = tile_desc(q_s + wgi * TILE64_BYTES);
+  // this thread's rows of the warpgroup's 64: r0 and r0 + 8
+  float m0 = -INFINITY, m1 = -INFINITY;  // running row max, log2 domain
+  float l0 = 0.0f, l1 = 0.0f;            // this thread's share of the row sums
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // this thread's part of tile t has landed
+    fence_async_proxy();
+    __syncthreads();  // tile t complete; every warp is done with tile t - 1
+    {
+      const int tn = t + STAGES - 1;
+      if (tn < n_tiles) {
+        const uint32_t st = kv_s + (tn % STAGES) * KV_STAGE_BYTES;
+        load_tile_async<64, THREADS>(st, kg, ksn, tn * 64, n, tid);
+        load_tile_async<64, THREADS>(st + TILE64_BYTES, vg, vsn, tn * 64, n, tid);
+      }
+      cp_async_commit();
+    }
+    const uint32_t stage = kv_s + (t % STAGES) * KV_STAGE_BYTES;
+    const uint64_t k_desc = tile_desc(stage);
+    const uint64_t v_desc = tile_desc(stage + TILE64_BYTES);
+    const int k0 = t * 64;
+
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16_ss<0, 0>(s, q_desc + kk * K_SLICE_K_MAJOR,
+                               k_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // scaled logits in the log2 domain; keys at or past n get -inf. Every
+    // tile holds at least one key below n, so the new max is finite and the
+    // first tile's alpha is exp2(-inf) = 0.
+    const bool ragged = k0 + 64 > n;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (ragged && k0 + frag_col(t128, i) >= n) x = -INFINITY;
+      s[i] = x;
+      if ((i >> 1) & 1) {
+        mx1 = fmaxf(mx1, x);
+      } else {
+        mx0 = fmaxf(mx0, x);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2_approx(m0 - mn0);
+    const float alpha1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    uint32_t p[16];
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p00 = exp2_approx(s[4 * j] - mn0);
+      const float p01 = exp2_approx(s[4 * j + 1] - mn0);
+      const float p10 = exp2_approx(s[4 * j + 2] - mn1);
+      const float p11 = exp2_approx(s[4 * j + 3] - mn1);
+      ps0 += p00 + p01;
+      ps1 += p10 + p11;
+      p[2 * j] = pack_bf16(p00, p01);
+      p[2 * j + 1] = pack_bf16(p10, p11);
+    }
+    l0 = l0 * alpha0 + ps0;
+    l1 = l1 * alpha1 + ps1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[4 * j] *= alpha0;
+      acc[4 * j + 1] *= alpha0;
+      acc[4 * j + 2] *= alpha1;
+      acc[4 * j + 3] *= alpha1;
+    }
+
+    fence_regs(acc);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16_rs<1>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                            p[4 * kk + 3], v_desc + kk * K_SLICE_MN_MAJOR, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+  }
+  cp_async_wait<0>();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0;
+  const float inv1 = 1.0f / l1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc[4 * j] *= inv0;
+    acc[4 * j + 1] *= inv0;
+    acc[4 * j + 2] *= inv1;
+    acc[4 * j + 3] *= inv1;
+  }
+  // each warp stages its 16 rows in its own rows of the Q tile, which only
+  // its own (finished) products read
+  const int row0 = q0 + wgi * 64;  // first row of the warpgroup
+  store_acc_rows(acc, q_s + wgi * TILE64_BYTES,
+                 o + (((long long)b * n + row0) * heads + h) * 64,
+                 (long long)heads * 64, n - row0);
+  if (lse != nullptr && (lane & 3) == 0) {
+    const int r = row0 + frag_row(t128, 0);
+    float* lse_bh = lse + ((long long)b * heads + h) * n;
+    if (r < n) lse_bh[r] = (m0 + log2f(l0)) * 0.6931471805599453f;
+    if (r + 8 < n) lse_bh[r + 8] = (m1 + log2f(l1)) * 0.6931471805599453f;
+  }
+}
+
+}  // namespace wg
+
+// Which design a call takes: fixed by dtype and head_dim.
+enum Design { DESIGN_FMA = 0, DESIGN_WMMA = 1, DESIGN_WGMMA = 2 };
+
+constexpr Design design_rule(bool is_f32, int head_dim) {
+  return is_f32 ? DESIGN_FMA : head_dim == 64 ? DESIGN_WGMMA : DESIGN_WMMA;
+}
+
+template <typename T, int D>
+constexpr Design design_of() {
+  return design_rule(std::is_same<T, float>::value, D);
+}
+
 struct Args {
   const void *q, *k, *v;
   void* o;
@@ -295,19 +522,40 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int NWG>
+cudaError_t launch_wgmma(const Args& a) {
+  auto kern = wg::flash_fwd_wgmma_kernel<NWG>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::smem_bytes<NWG>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + NWG * 64 - 1) / (NWG * 64), a.heads, a.batch);
+  kern<<<grid, NWG * 128, wg::smem_bytes<NWG>(), a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse,
+      a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh,
+      a.scale_log2);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
-  using P = Plan<T, D>;
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.n + BQ - 1) / BQ, a.heads, a.batch);
-  kern<<<grid, THREADS, P::total, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.n, a.heads, a.qsb,
-      a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale_log2);
-  return cudaGetLastError();
+  if constexpr (design_of<T, D>() == DESIGN_WGMMA) {
+    // rows a block, from the shape: short sequences (the crop passes) give
+    // few blocks a (batch, head), so they take 64-row blocks
+    return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_wgmma<2>(a) : launch_wgmma<1>(a);
+  } else {
+    using P = Plan<T, D>;
+    auto kern = flash_fwd_kernel<T, D>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((a.n + BQ - 1) / BQ, a.heads, a.batch);
+    kern<<<grid, THREADS, P::total, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.n, a.heads, a.qsb,
+        a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale_log2);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -349,6 +597,15 @@ extern "C" int clipself_flash_fwd(int dtype, const void* q, const void* k,
   if (dtype == 0) return (int)dispatch<float>(head_dim, a);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(head_dim, a);
   return (int)cudaErrorInvalidValue;
+}
+
+// The design that clipself_flash_fwd runs for this dtype and head_dim:
+// 0 = f32 FMA, 1 = WMMA tiles, 2 = wgmma (bf16 at head_dim 64); -1 if the
+// pair is not taken.
+extern "C" int clipself_flash_fwd_design(int dtype, int head_dim) {
+  if (head_dim % 16 || head_dim < 16 || head_dim > 128) return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  return design_rule(dtype == 0, head_dim);
 }
 
 extern "C" const char* clipself_cuda_error_string(int err) {

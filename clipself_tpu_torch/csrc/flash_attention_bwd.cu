@@ -17,31 +17,40 @@
 // no order, so the accumulation across key blocks takes one of two forms: a
 // dK/dV pass followed by a dQ pass that recomputes S and dP, or atomics.
 // This kernel takes the atomics: one pass, five products per tile pair
-// instead of eight. dQ accumulates in a zeroed f32 buffer through
-// atomicAdd, and a last pass rounds it to bf16 (a float32 dq is its own
-// accumulator). The order of the f32 additions into dQ changes from run to
-// run, so dQ is not bitwise repeatable; the checks use tolerances.
+// instead of eight. dQ accumulates in a zeroed f32 buffer through f32
+// additions in the L2, and a last pass rounds it to bf16 (a float32 dq is
+// its own accumulator). The order of the f32 additions into dQ changes from
+// run to run, so dQ is not bitwise repeatable; the checks use tolerances.
 //
-// Blocking: one block of 4 warps owns 64 keys of one (batch, head) and keeps
-// their dK and dV in f32 (WMMA accumulator fragments for bf16, registers for
-// float32); each warp owns 16 of the keys. The block loops over 64-row query
-// tiles: it stages Q and dO (rows past N zero-filled, so 0 * garbage cannot
-// make a NaN) with lse and di, each warp forms S^T and dP^T for its 16 keys,
-// the probabilities and dS^T, and adds P^T dO and dS^T Q into its
-// accumulators; then each warp takes 16 query rows of dS K and adds them
-// into dQ with atomics. di = rowsum(dO * O) is one small pass before the
-// main kernel instead of being recomputed for every key block. K, V, Q and
-// dO are read through the [B, N, H, D] strides the forward takes; dK and dV
-// are written as contiguous [B, N, H, D].
+// Three designs, picked by dtype and head_dim alone
+// (clipself_flash_bwd_design); all read K, V, Q and dO through the
+// [B, N, H, D] strides the forward takes, write dK and dV as contiguous
+// [B, N, H, D], mask the ragged tail (-inf before the exp) and run the small
+// di = rowsum(dO * O) pass first instead of recomputing it for every key block:
 //
-// Bound on the H100: at N = 4097, D = 64 the block does 10 * 64 * D flops
-// per (key, query tile row) pair against the Q/dO tile loads, which are
-// reused by 64 keys, so it is bound by math throughput and shared-memory
-// traffic, plus the f32 atomics of dQ (N / 64 partial sums per dQ element,
-// served by the L2). bf16 runs all five products on the tensor cores through WMMA
-// 16x16x16 tiles with f32 accumulation; float32 runs them as f32 FMAs so
-// that it keeps full f32 precision (WMMA on f32 inputs would round them to
-// TF32). wgmma, TMA and a pipelined Q/dO ring are later work.
+//  * bfloat16 at head_dim 64, every backward of the EVA02 towers: the
+//    warpgroup design in namespace `wg` below (its own note says how). All
+//    five products run as wgmma (csrc/hopper_mma.cuh), S^T, dP^T,
+//    P^T and dS^T live in registers, Q/dO tiles arrive through a four-stage
+//    cp.async ring, and the f32 dQ accumulator is fed by bulk reductions.
+//  * bfloat16 at the other head dims: one block of 4 warps owns 64 keys and
+//    keeps their dK and dV in WMMA accumulator fragments; it loops over
+//    64-row query tiles staged with plain loads, every product's result
+//    passes through shared memory in f32, and dQ leaves by scalar atomicAdd.
+//  * float32 (the parity path): the same blocking with f32 FMAs, so that it
+//    keeps full f32 precision (tensor cores would round the inputs to TF32);
+//    dq is its own accumulator.
+//
+// Bound on the H100: at N = 4097, D = 64 a (key, query) pair costs 10 * D
+// flops against Q/dO tiles that every key block reads again from the L2, so
+// the kernel is bound by operations. What holds the warpgroup design below
+// the tensor cores' rate is the elementwise work between the products (a
+// warpgroup's exponentials, dS and bf16 packing take about as long as its 20
+// wgmma operations a tile, at two warps a scheduler), shared-memory
+// bandwidth (m64n64k16 with both operands in shared memory reads 4 KB for 32
+// tensor-core cycles) and the 254 registers a thread that leave one block of
+// 8 warps an SM. The dQ additions, 33 partial sums an element at N = 4097,
+// cost nothing visible once the copy engine does them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +58,8 @@
 #include <mma.h>
 
 #include <type_traits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -403,6 +414,342 @@ __global__ void __launch_bounds__(THREADS)
   dv_acc.store(outw, dv + head_off, row_stride, k0 + wk, n);
 }
 
+// ---- bf16, head_dim 64: the warpgroup design --------------------------------
+//
+// A block of two warpgroups owns 128 keys of one (batch, head), 64 a
+// warpgroup, and keeps their dK and dV in wgmma accumulators for the whole
+// kernel. 64-row Q and dO tiles with their lse and di come through a ring of
+// STAGES shared-memory stages filled by cp.async, tile t + AHEAD in flight
+// while tile t is computed, with one block barrier a tile. A warpgroup's work
+// on a tile has two phases:
+//
+//   phase 1: S^T = K Q^T and dP^T = V dO^T in registers (one wgmma group),
+//            P^T and dS^T formed there and rounded to bf16, dS^T also
+//            written to shared memory;
+//   phase 2: dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A
+//            operands against the dO and Q tiles read MN-major, and the
+//            warpgroup's 64-key partial of dQ = dS K, with the stored dS^T
+//            as a transposed A operand (one wgmma group).
+//
+// The tensor cores idle while a warpgroup does phase 1's elementwise work, so
+// the two warpgroups run half a tile apart: between two block barriers
+// warpgroup 0 runs phase 1 then phase 2 of tile t, warpgroup 1 phase 2 of
+// tile t - 1 then phase 1 of tile t, and one's products overlap the other's
+// exponentials. The same lag halves the dQ additions: warpgroup 0 leaves its
+// partial dQ tile in shared memory, and warpgroup 1, a barrier later, adds
+// its own partial of that tile on top and sends the 128-key sum to the f32
+// accumulator with one bulk reduction (cp.reduce.async.bulk: the copy engine
+// and the L2 do the 16 KB of additions, no thread waits for them). The
+// accumulator therefore holds dQ tile by tile in the fragment's own order,
+// and the last pass rounds it to bf16 rows.
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int STAGES = 4;  // tiles t - 1 (warpgroup 1), t, t + 1, t + 2
+constexpr int AHEAD = 2;   // tiles in flight beyond the current one
+constexpr int THREADS = 256;
+constexpr int KEYS = 128;                           // keys a block
+constexpr int QDO_STAGE_BYTES = 2 * TILE64_BYTES;   // one Q and one dO tile
+constexpr int ROWVEC_BYTES = 2 * 64 * 4;            // lse and di of a tile
+constexpr int DQ_TILE_BYTES = 64 * 64 * 4;          // a partial dQ tile, f32
+constexpr int O_K = 0;
+constexpr int O_V = O_K + KEYS * ROW_BYTES;
+constexpr int O_RING = O_V + KEYS * ROW_BYTES;
+constexpr int O_DS = O_RING + STAGES * QDO_STAGE_BYTES;  // [warpgroup][2] tiles
+constexpr int O_DQ = O_DS + 4 * TILE64_BYTES;            // [2] partial dQ tiles
+constexpr int O_VEC = O_DQ + 2 * DQ_TILE_BYTES;
+constexpr int SMEM_BYTES = ATOM_BYTES + O_VEC + STAGES * ROWVEC_BYTES;
+static_assert(SMEM_BYTES <= SMEM_LIMIT, "shared-memory plan too large");
+
+__device__ __forceinline__ void block_barrier() {
+  // by number, not by place in the code: the two warpgroups meet it from
+  // different loops
+  asm volatile("bar.sync 0, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void warpgroup_barrier(int wgi) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           float* __restrict__ dq_acc,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int n, int heads,
+                           long long qsb, long long qsn, long long qsh,
+                           long long ksb, long long ksn, long long ksh,
+                           long long vsb, long long vsn, long long vsh,
+                           float scale) {
+  extern __shared__ unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int wgi = tid >> 7;
+  const int t128 = tid & 127;
+  const int lane = tid & 31;
+  const int k0 = blockIdx.x * KEYS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float scale_log2 = scale * LOG2E;
+  const long long row_stride = (long long)heads * 64;  // contiguous tensors
+  const long long head_off = ((long long)b * n * heads + h) * 64;
+  const __nv_bfloat16* qg = q + b * qsb + h * qsh;
+  const __nv_bfloat16* dog = dout + head_off;
+  const float* lse_bh = lse + ((long long)b * heads + h) * n;
+  const float* di_bh = di + ((long long)b * heads + h) * n;
+
+  const uint32_t base = align_1024(smem_u32(smem));
+  const uint32_t ring_s = base + O_RING;
+  const uint32_t vec_s = base + O_VEC;
+  const unsigned char* smem_base = smem + (base - smem_u32(smem));
+  const int n_tiles = (n + 63) / 64;
+
+  // Tile `tile` of Q, dO, lse and di into stage `st`. Warpgroup 0 starts
+  // the ring's copies alone: warpgroup 1 has the longer tile (it sums and
+  // sends the dQ tiles).
+  auto load_stage = [&](int tile, int st) {
+    if (wgi == 0) {
+      const int row0 = tile * 64;
+      load_tile_async<64, 128>(ring_s + st * QDO_STAGE_BYTES, qg, qsn, row0, n, tid);
+      load_tile_async<64, 128>(ring_s + st * QDO_STAGE_BYTES + TILE64_BYTES, dog,
+                               row_stride, row0, n, tid);
+      const int r = row0 + (tid & 63);
+      const bool ok = r < n;
+      const float* src = tid < 64 ? lse_bh : di_bh;
+      cp_async_4(vec_s + st * ROWVEC_BYTES + tid * 4, ok ? src + r : src, ok);
+    }
+  };
+  // The block barrier of the ring; it also frees the dQ tile that a bulk
+  // reduction started before it may still be reading.
+  auto ring_barrier = [&]() {
+    if (t128 == 0) bulk_wait_read();
+    block_barrier();
+  };
+  // Tile t has landed for every thread, and every warp is done with what the
+  // barrier before it allowed; then tile t + AHEAD starts into the stage that
+  // tile t - 2 left (warpgroup 1 was done with it before this barrier).
+  auto ring_step = [&](int t) {
+    cp_async_wait<AHEAD - 1>();
+    fence_async_proxy();
+    ring_barrier();
+    const int tn = t + AHEAD;
+    if (tn < n_tiles) load_stage(tn, tn % STAGES);
+    cp_async_commit();
+  };
+
+  load_tile_async<KEYS, THREADS>(base + O_K, k + b * ksb + h * ksh, ksn, k0, n, tid);
+  load_tile_async<KEYS, THREADS>(base + O_V, v + b * vsb + h * vsh, vsn, k0, n, tid);
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < n_tiles) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  const int key_base = k0 + wgi * 64;  // the warpgroup's first key
+  const bool pair = k0 + 64 < n;       // warpgroup 1 holds keys too
+  const uint32_t k_s = base + O_K + wgi * TILE64_BYTES;
+  const uint32_t v_s = base + O_V + wgi * TILE64_BYTES;
+  const uint64_t k_desc = tile_desc(k_s);
+  const uint64_t v_desc = tile_desc(v_s);
+  const uint32_t ds_s = base + O_DS + wgi * 2 * TILE64_BYTES;
+  // this thread's key rows of the warpgroup's 64: r0 and r0 + 8
+  const int r0 = frag_row(t128, 0);
+  const bool key_ok0 = key_base + r0 < n;
+  const bool key_ok1 = key_base + r0 + 8 < n;
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dk_acc[i] = 0.0f;
+    dv_acc[i] = 0.0f;
+  }
+
+  // Phase 1 of tile t: P^T and dS^T of [64 keys, 64 queries] as bf16 pairs
+  // in the A-fragment order, dS^T also in shared memory.
+  auto phase1 = [&](int t, uint32_t (&pt)[16], uint32_t (&dst)[16]) {
+    const int st = t % STAGES;
+    const int q0 = t * 64;
+    const uint64_t q_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES);
+    const uint64_t do_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES + TILE64_BYTES);
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem_base + O_VEC + st * ROWVEC_BYTES);
+    const float* di_s = lse_s + 64;
+
+    float st_acc[32], dp_acc[32];  // S^T and dP^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16_ss<0, 0>(st_acc, k_desc + kk * K_SLICE_K_MAJOR,
+                               q_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16_ss<0, 0>(dp_acc, v_desc + kk * K_SLICE_K_MAJOR,
+                               do_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st_acc);
+    fence_regs(dp_acc);
+
+    // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) and
+    // dS^T = P^T * (dP^T - di) * scale
+    const bool ragged = q0 + 64 > n || key_base + 64 > n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);  // query column of the tile
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 dd = *reinterpret_cast<const float2*>(di_s + c);
+      const float nl0 = -ls.x * LOG2E;
+      const float nl1 = -ls.y * LOG2E;
+      float x00 = fmaf(st_acc[4 * j], scale_log2, nl0);      // key r0
+      float x01 = fmaf(st_acc[4 * j + 1], scale_log2, nl1);
+      float x10 = fmaf(st_acc[4 * j + 2], scale_log2, nl0);  // key r0 + 8
+      float x11 = fmaf(st_acc[4 * j + 3], scale_log2, nl1);
+      if (ragged) {
+        // masked pairs get -inf BEFORE the exp: exp of a logit without its
+        // row's lse could be inf, and inf * 0 is NaN
+        const bool q_ok0 = q0 + c < n;
+        const bool q_ok1 = q0 + c + 1 < n;
+        if (!(key_ok0 && q_ok0)) x00 = -INFINITY;
+        if (!(key_ok0 && q_ok1)) x01 = -INFINITY;
+        if (!(key_ok1 && q_ok0)) x10 = -INFINITY;
+        if (!(key_ok1 && q_ok1)) x11 = -INFINITY;
+      }
+      const float p00 = exp2_approx(x00), p01 = exp2_approx(x01);
+      const float p10 = exp2_approx(x10), p11 = exp2_approx(x11);
+      pt[2 * j] = pack_bf16(p00, p01);
+      pt[2 * j + 1] = pack_bf16(p10, p11);
+      dst[2 * j] = pack_bf16(p00 * (dp_acc[4 * j] - dd.x) * scale,
+                             p01 * (dp_acc[4 * j + 1] - dd.y) * scale);
+      dst[2 * j + 1] = pack_bf16(p10 * (dp_acc[4 * j + 2] - dd.x) * scale,
+                                 p11 * (dp_acc[4 * j + 3] - dd.y) * scale);
+    }
+
+    // Two dS^T buffers in turn: a warp may write tile t + 1's while another
+    // warp's share of tile t's dQ product still reads.
+    const uint32_t ds_buf = ds_s + (t & 1) * TILE64_BYTES;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      st_shared_u32(ds_buf + swizzle_offset(r0, j) + 4 * (lane & 3), dst[2 * j]);
+      st_shared_u32(ds_buf + swizzle_offset(r0 + 8, j) + 4 * (lane & 3), dst[2 * j + 1]);
+    }
+    fence_async_proxy();
+  };
+
+  // Phase 2 of tile t: dV and dK grow, dq is the warpgroup's partial tile.
+  auto phase2 = [&](int t, uint32_t (&pt)[16], uint32_t (&dst)[16], float (&dq)[32]) {
+    const int st = t % STAGES;
+    const uint64_t q_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES);
+    const uint64_t do_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES + TILE64_BYTES);
+    const uint64_t ds_desc = tile_desc(ds_s + (t & 1) * TILE64_BYTES);
+    warpgroup_barrier(wgi);  // every warp's rows of dS^T are in shared memory
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pt);
+    fence_regs(dst);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dV += P^T dO
+      wgmma_m64n64k16_rs<1>(dv_acc, pt[4 * kk], pt[4 * kk + 1], pt[4 * kk + 2],
+                            pt[4 * kk + 3], do_desc + kk * K_SLICE_MN_MAJOR, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dK += dS^T Q
+      wgmma_m64n64k16_rs<1>(dk_acc, dst[4 * kk], dst[4 * kk + 1], dst[4 * kk + 2],
+                            dst[4 * kk + 3], q_desc + kk * K_SLICE_MN_MAJOR, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dQ = dS K
+      wgmma_m64n64k16_ss<1, 1>(dq, ds_desc + kk * K_SLICE_MN_MAJOR,
+                               k_desc + kk * K_SLICE_MN_MAJOR, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(dq);
+    fence_regs(pt);
+    fence_regs(dst);
+  };
+
+  // A dQ tile in shared memory and in the f32 accumulator: [8][128] slots of
+  // four floats, slot [i][t128] holding registers 4 i .. 4 i + 3 of thread
+  // t128, so the same thread of both warpgroups meets the same entries and
+  // one bulk reduction adds the whole 16 KB tile.
+  auto dq_slot = [&](int t, int i) {
+    return base + O_DQ + (t & 1) * DQ_TILE_BYTES + (i * 128 + t128) * 16;
+  };
+  float* dq_tiles = dq_acc + ((long long)b * heads + h) * n_tiles * (64 * 64);
+  auto send_dq = [&](int t) {
+    fence_async_proxy();
+    warpgroup_barrier(wgi);
+    if (t128 == 0) {
+      bulk_reduce_add_f32(dq_tiles + (long long)t * (64 * 64),
+                          base + O_DQ + (t & 1) * DQ_TILE_BYTES, DQ_TILE_BYTES);
+      bulk_commit();
+    }
+  };
+
+  if (wgi == 0) {
+    for (int t = 0; t < n_tiles; ++t) {
+      ring_step(t);
+      uint32_t pt[16], dst[16];
+      float dq[32];
+      phase1(t, pt, dst);
+      phase2(t, pt, dst, dq);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        st_shared_f32x4(dq_slot(t, i), dq[4 * i], dq[4 * i + 1], dq[4 * i + 2],
+                        dq[4 * i + 3]);
+      }
+      // with keys in warpgroup 1, that one adds its partial a barrier later
+      if (!pair) send_dq(t);
+    }
+    ring_barrier();
+  } else {
+    uint32_t pt[16], dst[16];
+    float dq[32];
+    // tile t's dQ: this warpgroup's partial on top of warpgroup 0's
+    auto finish = [&](int t) {
+      phase2(t, pt, dst, dq);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 o = ld_shared_f32x4(dq_slot(t, i));
+        st_shared_f32x4(dq_slot(t, i), dq[4 * i] + o.x, dq[4 * i + 1] + o.y,
+                        dq[4 * i + 2] + o.z, dq[4 * i + 3] + o.w);
+      }
+      send_dq(t);
+    };
+    for (int t = 0; t < n_tiles; ++t) {
+      ring_step(t);
+      if (pair) {
+        if (t > 0) finish(t - 1);
+        phase1(t, pt, dst);
+      }
+    }
+    ring_barrier();
+    if (pair) finish(n_tiles - 1);
+  }
+  if (t128 == 0) bulk_wait_read();
+  cp_async_wait<0>();
+  warpgroup_barrier(wgi);  // every product that reads this warpgroup's K and V is done
+
+  if (key_base < n) {  // each warp stages its 16 keys in its own rows of K, then V
+    store_acc_rows(dk_acc, k_s, dk + head_off + (long long)key_base * row_stride,
+                   row_stride, n - key_base);
+    store_acc_rows(dv_acc, v_s, dv + head_off + (long long)key_base * row_stride,
+                   row_stride, n - key_base);
+  }
+}
+
+}  // namespace wg
+
 // di[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] in f32; one warp per
 // (b, t, h) row of the contiguous [B, N, H, D] tensors.
 template <typename T>
@@ -442,6 +789,49 @@ __global__ void f32_to_bf16_kernel(const float* __restrict__ src,
   }
 }
 
+// Which design a call takes: fixed by dtype and head_dim.
+enum Design { DESIGN_FMA = 0, DESIGN_WMMA = 1, DESIGN_WGMMA = 2 };
+
+constexpr Design design_rule(bool is_f32, int head_dim) {
+  return is_f32 ? DESIGN_FMA : head_dim == 64 ? DESIGN_WGMMA : DESIGN_WMMA;
+}
+
+template <typename T, int D>
+constexpr Design design_of() {
+  return design_rule(std::is_same<T, float>::value, D);
+}
+
+// The wgmma design's dQ accumulator, [B, H, tiles, 8, 128] slots of four
+// floats (slot [i][t] = accumulator registers 4 i .. 4 i + 3 of warpgroup
+// thread t of a [64, 64] tile), to bf16 rows of dq [B, N, H, 64].
+__global__ void dq_tiles_to_bf16_kernel(const float4* __restrict__ tiles,
+                                        __nv_bfloat16* __restrict__ dq,
+                                        long long slots, int n, int heads,
+                                        int n_tiles) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < slots;
+       s += stride) {
+    const int t128 = (int)(s & 127);
+    const int i = (int)((s >> 7) & 7);
+    const long long tile = s >> 10;
+    const int t = (int)(tile % n_tiles);
+    const long long bh = tile / n_tiles;
+    const int h = (int)(bh % heads);
+    const long long b = bh / heads;
+    const int row = t * 64 + hopper::frag_row(t128, 0);
+    const int col = hopper::frag_col(t128, 4 * i);
+    const float4 v = tiles[s];
+    __nv_bfloat16* out = dq + ((b * n + row) * heads + h) * 64 + col;
+    if (row < n) {
+      *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v.x, v.y);
+    }
+    if (row + 8 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8LL * heads * 64) =
+          __floats2bfloat162_rn(v.z, v.w);
+    }
+  }
+}
+
 int grid_for(long long work, int threads) {
   const long long want = (work + threads - 1) / threads;
   return (int)(want < (1LL << 30) ? want : (1LL << 30));
@@ -456,12 +846,24 @@ struct Args {
   cudaStream_t stream;
 };
 
+// Floats of the dQ accumulator: [B, N, H, D] for the WMMA design, whole
+// [64, 64] tiles for the wgmma design, none for float32 (dq accumulates in
+// place).
+long long scratch_floats(Design design, long long batch, long long n,
+                         long long heads, long long head_dim) {
+  if (design == DESIGN_FMA) return 0;
+  if (design == DESIGN_WGMMA) return batch * heads * ((n + 63) / 64) * 64 * 64;
+  return batch * n * heads * head_dim;
+}
+
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
-  using P = Plan<T, D>;
+  constexpr Design design = design_of<T, D>();
   const long long rows = (long long)a.batch * a.n * a.heads;
-  cudaError_t e =
-      cudaMemsetAsync(a.dq_acc, 0, sizeof(float) * rows * D, a.stream);
+  const long long acc_floats = design == DESIGN_FMA
+                                   ? rows * D
+                                   : scratch_floats(design, a.batch, a.n, a.heads, D);
+  cudaError_t e = cudaMemsetAsync(a.dq_acc, 0, sizeof(float) * acc_floats, a.stream);
   if (e != cudaSuccess) return e;
   flash_bwd_di_kernel<T><<<grid_for(rows * 32, 256), 256, 0, a.stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
@@ -469,28 +871,49 @@ cudaError_t launch(const Args& a) {
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  auto kern = flash_bwd_kernel<T, D>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)P::total);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.n + BK - 1) / BK, a.heads, a.batch);
-  kern<<<grid, THREADS, P::total, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn,
-      a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
-  if (!std::is_same<T, float>::value) {
-    f32_to_bf16_kernel<<<grid_for(rows * D, 256), 256, 0, a.stream>>>(
-        static_cast<const float*>(a.dq_acc),
-        static_cast<__nv_bfloat16*>(a.dq), rows * D);
+  if constexpr (design == DESIGN_WGMMA) {
+    auto kern = wg::flash_bwd_wgmma_kernel;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((a.n + wg::KEYS - 1) / wg::KEYS, a.heads, a.batch);
+    kern<<<grid, wg::THREADS, wg::SMEM_BYTES, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+        static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb,
+        a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
     e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    dq_tiles_to_bf16_kernel<<<grid_for(acc_floats / 4, 256), 256, 0, a.stream>>>(
+        static_cast<const float4*>(a.dq_acc), static_cast<__nv_bfloat16*>(a.dq),
+        acc_floats / 4, a.n, a.heads, (a.n + 63) / 64);
+    return cudaGetLastError();
+  } else {
+    using P = Plan<T, D>;
+    auto kern = flash_bwd_kernel<T, D>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)P::total);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((a.n + BK - 1) / BK, a.heads, a.batch);
+    kern<<<grid, THREADS, P::total, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+        static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb,
+        a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    if (design == DESIGN_WMMA) {
+      f32_to_bf16_kernel<<<grid_for(rows * D, 256), 256, 0, a.stream>>>(
+          static_cast<const float*>(a.dq_acc),
+          static_cast<__nv_bfloat16*>(a.dq), rows * D);
+      e = cudaGetLastError();
+    }
+    return e;
   }
-  return e;
 }
 
 template <typename T>
@@ -510,14 +933,32 @@ cudaError_t dispatch(int head_dim, const Args& a) {
 
 }  // namespace
 
+// The design that clipself_flash_bwd runs for this dtype and head_dim:
+// 0 = f32 FMA, 1 = WMMA tiles, 2 = wgmma (bf16 at head_dim 64); -1 if the
+// pair is not taken.
+extern "C" int clipself_flash_bwd_design(int dtype, int head_dim) {
+  if (head_dim % 16 || head_dim < 16 || head_dim > 128) return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  return design_rule(dtype == 0, head_dim);
+}
+
+// Floats of the dq_acc scratch that clipself_flash_bwd needs for this call;
+// 0 where dq is its own accumulator (float32), -1 for a pair not taken.
+extern "C" long long clipself_flash_bwd_scratch_floats(int dtype, int batch, int n,
+                                                       int heads, int head_dim) {
+  const int design = clipself_flash_bwd_design(dtype, head_dim);
+  if (design < 0) return -1;
+  return scratch_floats(static_cast<Design>(design), batch, n, heads, head_dim);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, n, heads, head_dim]
 // with unit stride on head_dim and the given element strides for batch,
 // token and head (16-byte aligned rows); o, dout: contiguous [batch, n,
 // heads, head_dim]; lse: contiguous float32 [batch, heads, n], natural-log
 // row log-sum-exp of the scaled logits (clipself_flash_fwd writes it).
 // Outputs dq, dk, dv: contiguous [batch, n, heads, head_dim] in dtype.
-// Scratch: dq_acc, float32 [batch, n, heads, head_dim] (dq itself for
-// float32), and di, float32 [batch, heads, n]. Returns the first failing
+// Scratch: dq_acc, float32 of clipself_flash_bwd_scratch_floats elements (dq
+// itself for float32), and di, float32 [batch, heads, n]. Returns the first failing
 // launch's cudaError_t.
 extern "C" int clipself_flash_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* o,

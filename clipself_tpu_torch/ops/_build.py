@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`),
-all of them at once, and the objects are linked into one shared library
+all of them at once (`csrc/*.cuh` are headers they include: hashed, not
+compiled), and the objects are linked into one shared library
 with a plain C interface, which is loaded with `ctypes`. The build happens
 at first use, into `build/kernels/<hash>/` at the root of the checkout
 (listed in `.gitignore`), and is reused while the sources and flags hash
@@ -45,6 +46,10 @@ _SIGNATURES = {
         (_I,) + (_P,) * 11 + (_I,) * 4 + (_L,) * 9 + (ctypes.c_float, _P),
         _I,
     ),
+    "clipself_flash_fwd_design": ((_I, _I), _I),
+    "clipself_flash_bwd_design": ((_I, _I), _I),
+    "clipself_flash_bwd_scratch_floats": ((_I,) * 5, _L),
+    "clipself_wgmma_probe": ((_I, _P, _P, _P, _P), _I),
     "clipself_layer_norm_fwd": (
         (_I,) + (_P,) * 6 + (_L, _I, _L, _L, _I, ctypes.c_float, _P),
         _I,

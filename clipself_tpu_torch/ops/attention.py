@@ -13,7 +13,13 @@ flash forward that `_bundled_fwd` reaches) and `flash_attention_bwd` runs
 `csrc/flash_attention_bwd.cu` (replaces `clipself_tpu/ops/flash_bwd.py`).
 Both mask the ragged tail in the kernel (no padding to a block multiple, no
 segment row) and read q, k and v through their strides, so the per-head
-views of a [B, N, H * D] projection need no copy.
+views of a [B, N, H * D] projection need no copy. Each file holds three
+designs and its C entry point picks one from dtype and head_dim alone
+(`kernel_design` reports which): bfloat16 at head_dim 64, every attention
+call of the EVA02 towers, runs `wgmma` products on swizzled tiles fed by a
+`cp.async` ring with the softmax, P and dS in registers
+(`csrc/hopper_mma.cuh` holds the shared pieces); bfloat16 at the other head
+dims runs WMMA tiles; float32, the parity path, f32 FMAs.
 
 On CPU tensors they run the plain versions below: `attention_plain` (the
 f32-softmax semantics of `_xla_attention`), `attention_lse_plain`, and
@@ -112,6 +118,22 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> 
             )
 
 
+_DESIGNS = {0: "fma", 1: "wmma", 2: "wgmma"}
+
+
+def kernel_design(dtype: torch.dtype, head_dim: int, backward: bool = False) -> str:
+    """Which hand-written kernel the C entry point runs for this dtype and
+    head_dim, as the library itself reports it: "wgmma" (bfloat16 at
+    head_dim 64), "wmma" (bfloat16 at the other head dims) or "fma"
+    (float32). The shape fixes it; no argument chooses."""
+    lib = _build.LIBRARY.get()
+    fn = lib.clipself_flash_bwd_design if backward else lib.clipself_flash_fwd_design
+    code = fn(_DTYPES.get(dtype, -1), int(head_dim))
+    if code not in _DESIGNS:
+        raise ValueError(f"no flash-attention kernel for {dtype} at head_dim {head_dim}")
+    return _DESIGNS[code]
+
+
 def _strides(*ts: torch.Tensor) -> list[int]:
     return [s for t in ts for s in t.stride()[:3]]
 
@@ -168,13 +190,14 @@ def flash_attention_bwd(
     if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous float32 [{b}, {h}, {n}]")
     dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    # dQ accumulates in f32 across the key blocks; a float32 dq is its own
-    # accumulator
-    dq_acc = dq if q.dtype == torch.float32 else torch.empty(
-        (b, n, h, d), dtype=torch.float32, device=q.device
-    )
-    di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     lib = _build.LIBRARY.get()
+    # dQ accumulates in f32 across the key blocks, in a scratch whose size
+    # and layout are the kernel's own; a float32 dq is its own accumulator
+    floats = lib.clipself_flash_bwd_scratch_floats(_DTYPES[q.dtype], b, n, h, d)
+    if floats < 0:
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.dtype} at head_dim {d}")
+    dq_acc = dq if floats == 0 else torch.empty(floats, dtype=torch.float32, device=q.device)
+    di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.clipself_flash_bwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -52,9 +52,12 @@ from clipself_tpu_torch.train.step import TrainState, make_train_step
 
 # kernel class: substrings of the kernel's name, first match wins
 CLASSES = (
-    ("flash_attention_bwd kernel", ("flash_bwd_kernel",)),
-    ("flash backward di pass, dQ cast", ("flash_bwd_di_kernel", "f32_to_bf16_kernel")),
-    ("flash_attention forward kernel", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd kernel", ("flash_bwd_kernel", "flash_bwd_wgmma_kernel")),
+    (
+        "flash backward di pass, dQ cast",
+        ("flash_bwd_di_kernel", "f32_to_bf16_kernel", "dq_tiles_to_bf16_kernel"),
+    ),
+    ("flash_attention forward kernel", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
     ("layer_norm forward kernel", ("layer_norm_fwd_kernel",)),
     ("layer_norm backward kernel and its reduce", ("layer_norm_bwd",)),
     ("rope_roll kernel", ("rope_roll_kernel",)),

@@ -14,7 +14,9 @@ from clipself_tpu_torch.ops import attention
 TOL = 1e-5
 
 
-@pytest.mark.parametrize("n", [65, 197, 257])
+# 127, 128, 129: the edges of the CUDA kernels' 128-row blocks, where the
+# plain version is the bar they are held to on the card
+@pytest.mark.parametrize("n", [65, 127, 128, 129, 197, 257])
 @pytest.mark.parametrize("d", [32, 64])
 def test_plain_matches_xla_attention(n, d):
     rng = np.random.default_rng(n + d)
@@ -23,6 +25,22 @@ def test_plain_matches_xla_attention(n, d):
     want = np.asarray(jattention._xla_attention(*(jnp.asarray(t) for t in (q, k, v)), scale))
     got = attention.attention_plain(*(torch.from_numpy(t) for t in (q, k, v)), scale).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n", [127, 128, 129])
+def test_lse_plain_matches_xla_attention_and_numpy(n):
+    """The forward that keeps its LSE (the bar of the training forward on the
+    card) at the 128-row block edges: the output against `_xla_attention`,
+    the LSE against a float64 log-sum-exp."""
+    d, scale = 64, 0.125
+    rng = np.random.default_rng(n)
+    q, k, v = (rng.standard_normal((2, n, 3, d)).astype(np.float32) for _ in range(3))
+    want = np.asarray(jattention._xla_attention(*(jnp.asarray(t) for t in (q, k, v)), scale))
+    got, lse = attention.attention_lse_plain(*(torch.from_numpy(t) for t in (q, k, v)), scale)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64)) * scale
+    want_lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=TOL)
 
 
 def test_multi_head_attention_on_cpu_takes_the_plain_version():

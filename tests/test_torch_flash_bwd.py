@@ -71,14 +71,13 @@ def test_plain_backward_matches_pallas_interpret_unsegmented(d):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("d", [32, 64])
-def test_plain_backward_ragged_matches_pallas_interpret_segmented(d):
-    """The TPU path pads 200 tokens to 256 with a segment row (pad queries
-    attend pad keys, dO zero on pad rows); the port runs the 200 tokens
-    as they are. The first 200 rows must agree."""
-    b, n, h, valid = 2, 256, 2, 200
+def _check_ragged(d, n, valid, seed):
+    """The TPU path pads ``valid`` tokens to ``n`` with a segment row (pad
+    queries attend pad keys, dO zero on pad rows); the port runs the valid
+    tokens as they are. The first ``valid`` rows must agree."""
+    b, h = 2, 2
     scale = d ** -0.5
-    rng = np.random.default_rng(d + 1)
+    rng = np.random.default_rng(seed)
     q, k, v, do = (rng.standard_normal((b, n, h, d)).astype(np.float32) for _ in range(4))
     do[:, valid:] = 0.0
     seg = np.broadcast_to((np.arange(n) < valid).astype(np.int32), (b, n)).copy()
@@ -95,6 +94,33 @@ def test_plain_backward_ragged_matches_pallas_interpret_segmented(d):
         np.testing.assert_allclose(g.numpy(), w[:, :valid], rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("d", [32, 64])
+def test_plain_backward_ragged_matches_pallas_interpret_segmented(d):
+    _check_ragged(d, n=256, valid=200, seed=d + 1)
+
+
+@pytest.mark.parametrize("valid", [127, 128, 129])
+def test_plain_backward_at_block_edges_matches_pallas_interpret(valid):
+    """head_dim 64 at the edges of the CUDA backward's 128-key blocks, where
+    the plain version is the bar the kernel is held to on the card: one token
+    short of a block, a whole block (no padding, no segment row), one token
+    into the next."""
+    if valid == 128:
+        d, scale = 64, 0.125
+        rng = np.random.default_rng(valid)
+        q, k, v, do = (rng.standard_normal((2, 128, 2, d)).astype(np.float32) for _ in range(4))
+        m, l, lse = _stats(q, k, scale)
+        o = _out(q, k, v, scale)
+        want = _jax_bwd(q, k, v, o, m, l, do, scale)
+        got = attention.attention_bwd_plain(
+            *(torch.from_numpy(a) for a in (q, k, v, o, lse, do)), scale
+        )
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=TOL)
+    else:
+        _check_ragged(64, n=256, valid=valid, seed=valid)
+
+
 def test_lse_plain_matches_numpy_and_the_plain_forward():
     rng = np.random.default_rng(5)
     q, k, v = (rng.standard_normal((2, 65, 3, 32)).astype(np.float32) for _ in range(3))
@@ -107,7 +133,7 @@ def test_lse_plain_matches_numpy_and_the_plain_forward():
     )
 
 
-@pytest.mark.parametrize("n", [65, 197])
+@pytest.mark.parametrize("n", [65, 127, 128, 129, 197])
 @pytest.mark.parametrize("d", [32, 64])
 def test_function_gradients_match_jax_vjp(monkeypatch, n, d):
     """On the CPU the gradient through `flash_attention` is produced by

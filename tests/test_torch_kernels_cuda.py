@@ -8,7 +8,13 @@ Tolerances: RoPE float32 differs from the plain version by the kernel's FMA
 result after that (rtol 1.6e-2 is 2 ULP); the backward is the same kernel on
 dy with the rolled tables, so it keeps the forward's bars. Attention float32
 differs by summation order (1e-4), bfloat16 by the bf16 rounding of the
-probabilities (min row cosine 0.9999 against float32). The LSE is a sum of
+probabilities (min row cosine 0.9999 against float32); bfloat16 at head_dim
+64 runs the wgmma kernels (the other head dims the WMMA ones, float32 the FMA
+ones), whose exponentials are `ex2.approx` (two ULP of float32, far below a
+bfloat16 rounding), held to the same bars at their tile edges: 64-row
+warpgroups, 128-row and 128-key blocks. The header's 64 x 64 x 64 probe sums
+64 exact products of bfloat16 values in float32 in another order than
+`torch.matmul`: 1e-4 absolute on sums of ~8. The LSE is a sum of
 f32 exponentials in another order: 1e-4 absolute on values of ~log(N). The
 flash backward float32 sums up to N products per entry in another order,
 and dQ through f32 atomics in a run-dependent order: max abs error 1e-4 of
@@ -32,7 +38,7 @@ import torch
 
 from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
 from clipself_tpu_torch.detector.data import synthetic_nms_case
-from clipself_tpu_torch.ops import attention, layer_norm, nms, rope_roll
+from clipself_tpu_torch.ops import attention, hopper_mma_probe, layer_norm, nms, rope_roll
 
 pytestmark = pytest.mark.cuda
 
@@ -156,6 +162,127 @@ def test_flash_backward_bf16_matches_f32(dev, n, d):
     want = attention.attention_bwd_plain(*f, o32, lse32, do.float(), scale)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        assert _min_row_cos(g, w) >= 0.999
+
+
+# bfloat16 at head_dim 64: the wgmma kernels at the edges of their tiles (a
+# warpgroup's 64 rows, the forward's 128-row and the backward's 128-key
+# blocks), the towers' lengths, an odd B * H, and three layouts of q, k, v
+_WG_NS = [1, 63, 64, 65, 127, 128, 129, 197, 577, 1601, 4097]
+_WG_LAYOUTS = ["separate", "fused", "offset"]
+
+
+def _wg_qkv(dev, layout, b, n, h, seed):
+    """bfloat16 [B, N, H, 64] q, k, v: per-head views of three separate
+    [B, N, W] projections (the towers' layout), slices of one fused
+    [B, N, 3 W] projection (other strides), or views into one buffer at a
+    non-zero storage offset."""
+    d, gen = 64, torch.Generator().manual_seed(seed)
+    w = h * d
+    if layout == "separate":
+        return tuple(
+            torch.randn(b, n, w, generator=gen).to(dev, torch.bfloat16).view(b, n, h, d)
+            for _ in range(3)
+        )
+    if layout == "fused":
+        qkv = torch.randn(b, n, 3 * w, generator=gen).to(dev, torch.bfloat16)
+        return tuple(qkv[..., i * w:(i + 1) * w].unflatten(-1, (h, d)) for i in range(3))
+    buf = torch.randn(8 + 3 * b * n * w, generator=gen).to(dev, torch.bfloat16)
+    out = tuple(
+        buf[8 + i * b * n * w: 8 + (i + 1) * b * n * w].view(b, n, h, d) for i in range(3)
+    )
+    assert out[0].storage_offset() == 8
+    return out
+
+
+@pytest.mark.parametrize("layout", _WG_LAYOUTS)
+@pytest.mark.parametrize("n", _WG_NS)
+def test_wgmma_forward_and_lse_match_plain(dev, n, layout):
+    b, h = (3, 5) if n < 4097 else (1, 3)
+    scale = 0.125
+    q, k, v = _wg_qkv(dev, layout, b, n, h, seed=n)
+    assert attention.kernel_design(q.dtype, 64) == "wgmma"
+    before = attention.LAUNCHES.count
+    out, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    alone = attention.flash_attention_fwd(q, k, v, scale)
+    assert attention.LAUNCHES.count == before + 2
+    want, want_lse = attention.attention_lse_plain(q.float(), k.float(), v.float(), scale)
+    assert out.is_contiguous() and out.dtype == torch.bfloat16 and torch.equal(out, alone)
+    assert _min_row_cos(out, want) >= 0.9999
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", _WG_LAYOUTS)
+@pytest.mark.parametrize("n", _WG_NS)
+def test_wgmma_backward_matches_f32(dev, n, layout):
+    b, h = (3, 5) if n < 4097 else (1, 3)
+    scale = 0.125
+    q, k, v = _wg_qkv(dev, layout, b, n, h, seed=2 * n)
+    do = torch.randn(b, n, h, 64, generator=torch.Generator().manual_seed(n)).to(dev, torch.bfloat16)
+    assert attention.kernel_design(q.dtype, 64, backward=True) == "wgmma"
+    o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    f = [t.float() for t in (q, k, v)]
+    o32, lse32 = attention.attention_lse_plain(*f, scale)
+    want = attention.attention_bwd_plain(*f, o32, lse32, do.float(), scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous() and torch.isfinite(g).all()
+    if n == 1:  # P = 1: dv = dO, and dq, dk are the rounding noise of dP - di
+        assert got[0].abs().max().item() <= 1e-3 and got[1].abs().max().item() <= 1e-3
+        assert _min_row_cos(got[2], want[2]) >= 0.999
+    else:
+        for g, w in zip(got, want):
+            assert _min_row_cos(g, w) >= 0.999
+
+
+def test_wgmma_backward_twice_bounds_the_dq_difference(dev):
+    """dQ sums its key blocks' partial tiles in the L2 in whatever order they
+    arrive: two runs on the same inputs may differ in the last bits of the f32
+    sum, so by at most one bfloat16 rounding of the result; dK and dV have
+    no such sum and repeat bit for bit."""
+    q, k, v = _wg_qkv(dev, "separate", 2, 4097, 3, seed=11)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(12)).to(dev, torch.bfloat16)
+    o, lse = attention.flash_attention_fwd(q, k, v, 0.125, return_lse=True)
+    first = attention.flash_attention_bwd(q, k, v, o, lse, do, 0.125)
+    second = attention.flash_attention_bwd(q, k, v, o, lse, do, 0.125)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    a, b = first[0].float(), second[0].float()
+    assert ((a - b).abs() <= 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-6).all()
+
+
+@pytest.mark.parametrize("mode", sorted(hopper_mma_probe.MODES))
+def test_hopper_mma_header_product_matches_matmul(dev, mode):
+    """One 64 x 64 x 64 product through each operand form of
+    `csrc/hopper_mma.cuh`: descriptors, transpose flags, the swizzled loader
+    and the fragment map, apart from any attention logic."""
+    gen = torch.Generator().manual_seed(mode)
+    a, b = (torch.randn(64, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    got = hopper_mma_probe.wgmma_probe(a, b, mode)
+    a32, b32 = a.float(), b.float()
+    want = torch.matmul(*((a32, b32.T), (a32, b32), (a32.T, b32))[mode])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(hopper_mma_probe.wgmma_probe_plain(a, b, mode), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,design", [(torch.bfloat16, 32, "wmma"), (torch.bfloat16, 128, "wmma"), (torch.float32, 64, "fma")]
+)
+def test_other_head_dims_and_float32_keep_their_kernels(dev, dtype, d, design):
+    """The shape alone picks the kernel: bfloat16 away from head_dim 64 and
+    float32 go on through the WMMA and FMA kernels, forward, LSE and
+    backward."""
+    assert attention.kernel_design(dtype, d) == design
+    assert attention.kernel_design(dtype, d, backward=True) == design
+    scale = d ** -0.5
+    q, k, v, do = _bwd_inputs(dev, 2, 129, 3, d, dtype, seed=d)
+    o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    f = [t.float() for t in (q, k, v)]
+    o32, lse32 = attention.attention_lse_plain(*f, scale)
+    want = attention.attention_bwd_plain(*f, o32, lse32, do.float(), scale)
+    torch.testing.assert_close(lse, lse32, rtol=0, atol=1e-4)
+    assert _min_row_cos(o, o32) >= 0.9999
+    for g, w in zip(got, want):
         assert _min_row_cos(g, w) >= 0.999
 
 
