@@ -11,7 +11,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    models give it (EVA02-CLIP-B/16 at 1024^2: 4097 and 197 tokens, 12 heads,
    widths 768 and 2048; EVA02-CLIP-L-14-336 at 896^2: 4097 and 577 tokens,
    16 heads, widths 1024 and 2730), in float32 and bfloat16: the RoPE
-   forward and backward, the flash-attention forward with and without its
+   forward and backward on one tensor and on two in one launch (q and k, as
+   the towers call it; also at the detector's [8, 1601, 768]), the
+   flash-attention forward with and without its
    LSE (also at the detector's [8, 1601, 12, 64]), the flash backward (each
    row says which of the kernel's designs its shape and type took: "wgmma"
    for bfloat16 at head_dim 64, "fma" for float32), and the fused LayerNorm
@@ -24,21 +26,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    launches replayed from a CUDA graph, so that the host's launch pace does
    not hide their ten-microsecond times), and with
    the least time the card could take (bytes moved once over 3.35 TB/s, or
-   operations over the peak rate of their type); then the greedy-NMS kernel
-   against its plain version, masks equal flag for flag, at the detector's
+   operations over the peak rate of their type); then the greedy-NMS kernels
+   (bit matrix, then block-wise scan) against the plain version and against
+   the plain mirror of their two phases, masks equal flag for flag, at the detector's
    shapes ([8, 2000] RPN candidates at IoU 0.7, class-offset candidates at
    0.4, one image, an invalid tail) and at the edge cases (one box, no valid
    box, identical boxes, zero-area boxes, duplicates, a negative threshold);
 then for each model, B/16 first:
-3. the evaluator: `evaluate_zero_shot` (seeded random weights, bf16) over 4
-   synthetic panoptic batches, with images/s, the mAcc dict and the kernel
-   launch counts of that run;
+3. the evaluator: `evaluate_zero_shot` (seeded random weights, bf16) over 8
+   synthetic panoptic batches after 2 warm-up batches, with ms a batch,
+   images/s, the mAcc dict and the kernel launch counts of that run;
 4. whole-path parity of the dense map against the plain float32 path;
 5. the trainer: `clipself_tpu_torch.train.main`, bf16, synthetic data, batch
    2, 20 boxes, teacher crops at the model's own size, every block unlocked:
-   1 warm-up step and 5 timed steps, with images/s, the per-step losses,
-   peak device memory and the launch counts of the run; for L/14 then 2
-   steps with `--grad-checkpointing`;
+   3 warm-up steps and 5 timed steps, with every step's ms, the median
+   step's images/s, the per-step losses, peak device memory and the launch
+   counts of the run; for L/14 then 1 warm-up and 2 timed steps with
+   `--grad-checkpointing`;
 6. train parity: one step's loss and trainable gradients at batch 1 on f32
    kernels, bf16 kernels and the f32 plain path (L/14: at full width and a
    depth of 6 blocks, since the plain path keeps every block's
@@ -46,8 +50,8 @@ then for each model, B/16 first:
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
 7. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
-   unit-norm class embeddings) over two batches of 8 synthetic images after a
-   warm-up batch, with images/s, peak memory, the metrics and the launch
+   unit-norm class embeddings) over four batches of 8 synthetic images after
+   two warm-up batches, with ms a batch, images/s, peak memory, the metrics and the launch
    counts of that run;
 8. detector parity on two images: the bf16 kernel path against the plain
    float32 path on the backbone taps, the dense VLM map, the RPN objectness
@@ -71,14 +75,18 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
 
 MAX_ANNS, VALID_ANNS, BUCKET = 100, 13, 25
-N_BATCHES, N_CLASSES, SEED = 4, 133, 0
-# trainer: 1 warm-up step, then 5 timed steps; 2 steps when recomputing
-TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BOXES, RECOMPUTE_STEPS = 2, 1, 5, 20, 2
+# evaluator: 2 warm-up batches, then 8 timed ones
+EVAL_WARMUP, N_BATCHES, N_CLASSES, SEED = 2, 8, 133, 0
+# trainer: 3 warm-up steps, then 5 timed steps (the median step is reported);
+# when recomputing, 1 warm-up step and 2 timed ones
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BOXES = 2, 3, 5, 20
+RECOMPUTE_WARMUP, RECOMPUTE_STEPS = 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,13 +129,18 @@ MODELS = (
     Model("l14", "EVA02-CLIP-L-14-336", image=896, eval_batch=1, parity_layers=6),
 )
 
-# the detector phase: preset, images a batch (the reference's 8 a GPU), timed
-# batches, images of the parity phase, fixed rois of its head rows
-DET_PRESET, DET_BATCH, DET_BATCHES, DET_PARITY_IMAGES, DET_FIXED_ROIS = "ov_coco_vitb16", 8, 2, 2, 32
+# the detector phase: preset, images a batch (the reference's 8 a GPU), warm-up
+# and timed batches, images of the parity phase, fixed rois of its head rows
+DET_PRESET, DET_BATCH, DET_WARMUP, DET_BATCHES = "ov_coco_vitb16", 8, 2, 4
+DET_PARITY_IMAGES, DET_FIXED_ROIS = 2, 32
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory, dense bf16 tensor cores, float32 outside the tensor cores.
 PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
+# Its L2 cache: a timing loop repeats on the same tensors, so a kernel whose
+# bytes fit here is fed from the L2 after the first call and may read under
+# its device-memory bound; such records say "l2_resident".
+L2_BYTES = 50 * 2 ** 20
 
 # Tolerances, each with its reason:
 # RoPE: kernel and plain version compute the same two products in float32;
@@ -227,7 +240,7 @@ def expected_launches(
     """Launches of ``evals`` evaluator batches plus ``steps`` train steps
     plus ``dets`` detector batches of a tower of ``layers`` blocks. A dense pass runs layers - 1 attention
     blocks (the last block takes the value path), a crop pass all of them;
-    RoPE runs twice (q and k) per attention block; every block has four
+    RoPE runs once per attention block (q and k in one launch); every block has four
     LayerNorms and the tower a final one. An evaluator batch is one dense and
     one crop pass; a train step is the teacher's crop pass, the student's
     dense pass and its backward; with recomputation the student's blocks
@@ -241,8 +254,8 @@ def expected_launches(
         "nms": 2 * dets,
         "flash_attention": flash,
         "flash_attention_bwd": steps * dense,
-        "rope_roll": 2 * flash,
-        "rope_roll_bwd": 2 * steps * dense,
+        "rope_roll": flash,
+        "rope_roll_bwd": steps * dense,
         "layer_norm": (2 * evals + 2 * steps + dets) * norms + again * 4 * layers,
         "layer_norm_bwd": steps * norms,
     }
@@ -252,28 +265,31 @@ def expected_launches(
 def plain_path():
     """Swap the kernels' plain versions in where the tower calls the kernel
     wrappers (`eva_vit.multi_head_attention`, `eva_vit.layer_norm`,
-    `rope.rolled_rope`, the detector's `nms.nms_keep_mask`); autograd
-    differentiates them. Fails if any kernel
+    `rope.rolled_rope` and `rope.rolled_rope_qk`, the detector's
+    `nms.nms_keep_mask`); autograd differentiates them. Fails if any kernel
     launched inside, so a swap that misses a call site cannot compare the
     kernels with themselves."""
     from clipself_tpu_torch.models import eva_vit, rope
     from clipself_tpu_torch.ops.attention import attention_plain
     from clipself_tpu_torch.ops.layer_norm import layer_norm_plain
-    from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain
+    from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain, unpack_tables
 
-    def rope_plain(x, cos, sin_a, sin_b, a_bwd, b_bwd):
-        return rolled_rope_plain(x, cos, sin_a, sin_b)
+    def rope_plain(x, packed, packed_bwd):
+        return rolled_rope_plain(x, *unpack_tables(packed))
 
-    saved = eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope
-    eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope = (
-        attention_plain, layer_norm_plain, rope_plain
-    )
+    def rope_qk_plain(q, k, packed, packed_bwd):
+        tables = unpack_tables(packed)
+        return rolled_rope_plain(q, *tables), rolled_rope_plain(k, *tables)
+
+    saved = eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk
+    eva_vit.multi_head_attention, eva_vit.layer_norm = attention_plain, layer_norm_plain
+    rope.rolled_rope, rope.rolled_rope_qk = rope_plain, rope_qk_plain
     reset_counts()
     try:
         with plain_nms():
             yield
     finally:
-        eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope = saved
+        eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk = saved
     if any(read_counts().values()):
         fail(f"the plain path launched kernels: {read_counts()}")
 
@@ -361,7 +377,8 @@ class Records:
             note="", design=None):
         """``moved``: bytes of every input read once and every output written
         once; ``flops``: operations on these inputs; ``design``: which of a
-        kernel's hand-written designs the shape and type took."""
+        kernel's hand-written designs the shape and type took. ``bound_ms``
+        is the function's, whatever the design does on top."""
         import torch
 
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
@@ -370,6 +387,7 @@ class Records:
             what=what, shape=list(shape), dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=library_ms,
+            l2_resident=moved < L2_BYTES,
         )
         if design is not None:
             rec["design"] = design
@@ -379,7 +397,8 @@ class Records:
         print(
             f"kernel {name} {what} {list(shape)} {rec['dtype']}: max_abs {err:.3e} {note}"
             f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
-            f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})",
+            f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}"
+            f"{'; the timed calls repeat on bytes that fit the L2' if rec['l2_resident'] else ''})",
             flush=True,
         )
 
@@ -392,50 +411,55 @@ class Records:
 
 
 def check_rope(torch, dev, records, gen, shape, grid, head_dim, backward):
-    from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
+    """The kernel on one tensor and on two (q and k in one launch, as the
+    towers call it), forward and, with ``backward``, on the gradients with
+    the packed backward table, against the plain version on the same
+    inputs."""
+    from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd, rope_tables_packed
     from clipself_tpu_torch.ops import rope_roll
 
     b, n, w = shape
-    tables = rope_tables(grid, grid, head_dim, 1, 16, dev)
-    a_bwd, b_bwd = rope_tables_bwd(grid, grid, head_dim, 1, 16, dev)
+    key = (grid, grid, head_dim, 1, 16, dev)
+    tables = rope_tables(*key)
+    a_bwd, b_bwd = rope_tables_bwd(*key)
+    packed, packed_bwd = rope_tables_packed(*key)
+    directions = [("forward", packed, tables)]
+    if backward:
+        # the backward: the same kernel on dy with the rolled tables in
+        # swapped slots, against autograd of the plain forward
+        directions.append(("backward", packed_bwd, (tables[0], b_bwd, a_bwd)))
     for dt in (torch.float32, torch.bfloat16):
-        x = torch.randn(b, n, w, generator=gen).to(dev, dt)
-        # y = x*cos + roll*sin_a + roll*sin_b: five operations an element
-        cost = dict(moved=2 * nbytes(x) + nbytes(*tables), flops=5 * x.numel(), library_ms=None)
-        got = rope_roll.rolled_rope_fwd(x, *tables).float()
-        want = rope_roll.rolled_rope_plain(x, *tables).float()
-        mag = rope_roll.rolled_rope_plain(x.float().abs(), *(t.abs() for t in tables))
-        err_ulp = ((got - want).abs() / ulp(mag, dt)).max().item()
-        records.add(
-            "rope_roll", "forward", shape, dt, err=(got - want).abs().max().item(),
-            ms=cuda_ms(lambda: rope_roll.rolled_rope_fwd(x, *tables), graph=True),
-            plain_ms=cuda_ms(lambda: rope_roll.rolled_rope_plain(x, *tables), graph=True),
-            note=f"max_ulp {err_ulp:.2f} (bar {ROPE_MAX_ULP}) ", **cost,
-        )
-        if not err_ulp <= ROPE_MAX_ULP:
-            fail(f"rope_roll {dt} {shape} off by {err_ulp} ULP")
-        if not backward:
-            continue
-        # the backward: the same kernel on dy with the rolled tables,
-        # against autograd of the plain forward; the plain backward's
-        # time is the same composition in plain PyTorch
-        dy = torch.randn(b, n, w, generator=gen).to(dev, dt)
-        got = rope_roll.rolled_rope_bwd(dy, tables[0], a_bwd, b_bwd).float()
-        xr = torch.zeros(b, n, w, device=dev, dtype=dt, requires_grad=True)
-        (want,) = torch.autograd.grad(rope_roll.rolled_rope_plain(xr, *tables), xr, dy)
-        want = want.float()
-        mag = rope_roll.rolled_rope_plain(
-            dy.float().abs(), tables[0].abs(), b_bwd.abs(), a_bwd.abs()
-        )
-        err_ulp = ((got - want).abs() / ulp(mag, dt)).max().item()
-        records.add(
-            "rope_roll", "backward", shape, dt, err=(got - want).abs().max().item(),
-            ms=cuda_ms(lambda: rope_roll.rolled_rope_bwd(dy, tables[0], a_bwd, b_bwd), graph=True),
-            plain_ms=cuda_ms(lambda: rope_roll.rolled_rope_plain(dy, tables[0], b_bwd, a_bwd), graph=True),
-            note=f"max_ulp {err_ulp:.2f} (bar {ROPE_MAX_ULP}) ", **cost,
-        )
-        if not err_ulp <= ROPE_MAX_ULP:
-            fail(f"rope_roll backward {dt} {shape} off by {err_ulp} ULP")
+        design = rope_roll.kernel_design(dt, head_dim)
+        for what, table, plain_tables in directions:
+            back = what == "backward"
+            q, k = (torch.randn(b, n, w, generator=gen).to(dev, dt) for _ in range(2))
+            if back:
+                leaves = [torch.zeros_like(t, requires_grad=True) for t in (q, k)]
+                want = [
+                    torch.autograd.grad(rope_roll.rolled_rope_plain(x, *tables), x, dy)[0].float()
+                    for x, dy in zip(leaves, (q, k))
+                ]
+            else:
+                want = [rope_roll.rolled_rope_plain(x, *tables).float() for x in (q, k)]
+            mags = [rope_roll.rolled_rope_plain(x.float().abs(), *(t.abs() for t in plain_tables)) for x in (q, k)]
+            for xs, label in (((q,), what), ((q, k), f"{what} q,k")):
+                got = rope_roll.rolled_rope_packed(xs, table, backward=back)
+                torch.cuda.synchronize()
+                diffs = [(g.float() - wnt).abs() for g, wnt in zip(got, want)]
+                err_ulp = max((d / ulp(m, dt)).max().item() for d, m in zip(diffs, mags))
+                records.add(
+                    "rope_roll", label, shape, dt, err=max(d.max().item() for d in diffs),
+                    ms=cuda_ms(lambda: rope_roll.rolled_rope_packed(xs, table, backward=back), graph=True),
+                    plain_ms=cuda_ms(
+                        lambda: [rope_roll.rolled_rope_plain(x, *plain_tables) for x in xs], graph=True
+                    ),
+                    note=f"max_ulp {err_ulp:.2f} (bar {ROPE_MAX_ULP}) ", design=design, library_ms=None,
+                    # every tensor read and written once, the packed table read
+                    # once; y = x*cos + roll*sin: four operations an element
+                    moved=2 * nbytes(*xs) + nbytes(table), flops=4 * len(xs) * q.numel(),
+                )
+                if not err_ulp <= ROPE_MAX_ULP:
+                    fail(f"rope_roll {label} {dt} {shape} off by {err_ulp} ULP")
 
 
 def sdpa(torch, q, k, v, scale):
@@ -637,7 +661,8 @@ NMS_CASES = (
 
 
 def check_nms(torch, dev, records):
-    """The kernel's keep mask against the plain version's, flag for flag."""
+    """The kernels' keep mask against the plain version's, flag for flag,
+    and against the plain mirror of their two phases."""
     from clipself_tpu_torch.detector.data import synthetic_nms_case
     from clipself_tpu_torch.ops import nms
 
@@ -647,29 +672,46 @@ def check_nms(torch, dev, records):
         torch.cuda.synchronize()
         want = nms.nms_keep_mask_plain(boxes, valid, thr)
         differ = (got != want).sum().item()
+        mirror_differs = (nms.nms_keep_mask_blockwise_plain(boxes, valid, thr) != want).sum().item()
         kept = got.sum(dim=1)
         what = f"keep mask {kind} thr {thr}"
         if not timed:
             print(
-                f"kernel nms {what} [{b}, {n}, 4]: {differ} flags differ, kept {kept.tolist()}",
+                f"kernel nms {what} [{b}, {n}, 4]: {differ} flags differ (the block-wise plain "
+                f"mirror: {mirror_differs}), kept {kept.tolist()}",
                 flush=True,
             )
         else:
-            # what this data needs: each kept box against every later box,
-            # ~14 float operations an IoU and its test; boxes and validity
-            # read once, the mask written once
+            # the bound is the function's, what this data needs: each kept
+            # box against every later box, ~14 float operations an IoU and
+            # its test; boxes and validity read once, the mask written once
             ranks = torch.arange(n, device=dev)
             ious = ((n - 1 - ranks) * got).sum().item()
+            # what the design does on top (in the note, not in the bound):
+            # every pair i < j, and the bit matrix (the words from each row's
+            # diagonal word on) written once and read once
+            words = (n + nms.BLOCK - 1) // nms.BLOCK
+            all_pairs = b * n * (n - 1) // 2
+            matrix_bytes = 8 * b * sum(words - i // nms.BLOCK for i in range(n))
+            mirror_ms = cuda_ms(
+                lambda: nms.nms_keep_mask_blockwise_plain(boxes, valid, thr), iters=2, warmup=1
+            )
             records.add(
                 "nms", what, boxes.shape, torch.float32, err=float(differ),
                 ms=cuda_ms(lambda: nms.nms_keep_mask(boxes, valid, thr)),
                 plain_ms=cuda_ms(lambda: nms.nms_keep_mask_plain(boxes, valid, thr), iters=2, warmup=1),
                 library_ms=None, moved=nbytes(boxes, valid, got), flops=14 * ious,
-                note=f"(flags that differ) kept {kept.tolist()}, dependent chain "
-                f"{kept.max().item()} kept boxes (one barrier each) ",
+                design="bit matrix, block-wise scan",
+                note=f"(flags that differ; the block-wise plain mirror: {mirror_differs}, "
+                f"{mirror_ms:.4f} ms) kept {kept.tolist()}, the function's {ious} IoUs; the design: "
+                f"{all_pairs} IoUs, {2 * matrix_bytes} bytes of bit matrix written and read, "
+                f"dependent chain {words} blocks of {nms.BLOCK} boxes an image ",
             )
-        if differ:
-            fail(f"nms {what} [{b}, {n}]: {differ} flags differ from the plain version")
+        if differ or mirror_differs:
+            fail(
+                f"nms {what} [{b}, {n}]: {differ} flags of the kernel and {mirror_differs} of the "
+                "block-wise plain mirror differ from the plain version"
+            )
         if got[~valid].any():
             fail(f"nms {what}: an invalid slot was kept")
 
@@ -692,6 +734,8 @@ def phase_kernels(torch, dev, records):
             from clipself_tpu_torch.detector.config import PRESETS
 
             side = PRESETS[DET_PRESET].image_size
+            det_shape = (DET_BATCH, s.tokens(side), v.width)
+            check_rope(torch, dev, records, gen, det_shape, s.grid(side), heads[1], backward=False)
             check_attention(torch, dev, records, gen, (DET_BATCH, s.tokens(side)) + heads, train=False)
         if s.key == "l14":  # the evaluator's own shapes: one image, one bucket
             check_attention(torch, dev, records, gen, (1, student[1]) + heads, train=False)
@@ -726,10 +770,10 @@ def phase_eval(torch, dev, s: Model):
         )
         return {k: (v if k == "boxes" else torch.as_tensor(v, device=dev)) for k, v in host.items()}
 
-    warm = batch(N_BATCHES)
+    warm = [batch(N_BATCHES + i) for i in range(EVAL_WARMUP)]
     batches = [batch(i) for i in range(N_BATCHES)]
     emb = class_embeddings(N_CLASSES, cfg.embed_dim, seed=SEED)
-    evaluate_zero_shot(model, [warm], emb, device=dev, ann_bucket=BUCKET)  # warm-up
+    evaluate_zero_shot(model, warm, emb, device=dev, ann_bucket=BUCKET)  # warm-up
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
@@ -744,7 +788,8 @@ def phase_eval(torch, dev, s: Model):
     print(
         f"{s.key} eval {s.model} zero-shot: {N_BATCHES} batches x {s.eval_batch} images "
         f"{s.image}px, {VALID_ANNS} valid of {MAX_ANNS} anns (bucket {BUCKET}), crops "
-        f"{s.crop}px, {cfg.vision.layers} blocks: {dt:.3f} s, {ips:.3f} images/s, peak "
+        f"{s.crop}px, {cfg.vision.layers} blocks: {dt:.3f} s after {EVAL_WARMUP} warm-up batches, "
+        f"{dt / N_BATCHES * 1e3:.3f} ms a batch, {ips:.3f} images/s, peak "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
         flush=True,
     )
@@ -800,8 +845,8 @@ def phase_train(torch, dev, s: Model, logs_dir, recompute=False):
     from clipself_tpu_torch.train.optim import trainable_labels
 
     layers = s.vision.layers
-    warmup = 0 if recompute else TRAIN_WARMUP
-    steps = RECOMPUTE_STEPS if recompute else TRAIN_WARMUP + TRAIN_TIMED
+    warmup = RECOMPUTE_WARMUP if recompute else TRAIN_WARMUP
+    steps = warmup + (RECOMPUTE_STEPS if recompute else TRAIN_TIMED)
     tag = f"{s.key} train" + (" recompute" if recompute else "")
     argv = [
         "--synthetic", "--model", s.model, "--precision", "bf16", "--device", str(dev),
@@ -819,14 +864,17 @@ def phase_train(torch, dev, s: Model, logs_dir, recompute=False):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     hist = run["history"]
     losses = [h["loss"] for h in hist]
-    timed = hist[warmup:]
-    seconds = sum(TRAIN_BATCH / h["images_per_sec"] for h in timed)
-    ips = TRAIN_BATCH * len(timed) / seconds
+    # the median step of the timed window: a step that the host delayed
+    # does not move it
+    step_ms = [TRAIN_BATCH / h["images_per_sec"] * 1e3 for h in hist[warmup:]]
+    median_ms = statistics.median(step_ms)
+    ips = TRAIN_BATCH / median_ms * 1e3
     print(
         f"{tag} {s.model} distill step: batch {TRAIN_BATCH} at {s.image}px, {TRAIN_BOXES} boxes, "
-        f"crops {s.crop}px, {layers} blocks unlocked, bf16: {len(timed)} timed steps after "
-        f"{warmup} warm-up in {seconds:.3f} s, {ips:.3f} images/s "
-        f"(per step {[round(h['images_per_sec'], 3) for h in timed]})",
+        f"crops {s.crop}px, {layers} blocks unlocked, bf16: {len(step_ms)} timed steps after "
+        f"{warmup} warm-up, median step {median_ms:.3f} ms, {ips:.3f} images/s "
+        f"(ms per step {[round(t, 3) for t in step_ms]}; warm-up "
+        f"{[round(TRAIN_BATCH / h['images_per_sec'] * 1e3, 3) for h in hist[:warmup]]})",
         flush=True,
     )
     print(f"{tag} losses {json.dumps([round(x, 6) for x in losses])}", flush=True)
@@ -953,8 +1001,8 @@ def phase_model(torch, dev, s: Model, logs_dir) -> dict:
             print(
                 f"{s.key} train recompute vs not: first loss |d| {delta:.3e} (bar "
                 f"{RECOMPUTE_LOSS_MAX_ABS}), peak memory {again['peak_gib']:.3f} GiB vs "
-                f"{train['peak_gib']:.3f} GiB, images/s {again['images_per_sec']:.3f} "
-                f"(first steps, not warmed up) vs {train['images_per_sec']:.3f}",
+                f"{train['peak_gib']:.3f} GiB, images/s of the median step "
+                f"{again['images_per_sec']:.3f} vs {train['images_per_sec']:.3f}",
                 flush=True,
             )
             if not delta <= RECOMPUTE_LOSS_MAX_ABS:
@@ -1025,7 +1073,7 @@ def phase_detector(torch, dev):
     emb = class_embeddings(cfg.num_classes + 1, cfg.embed_dim, seed=SEED)
     emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
     data = SyntheticDetectionData(cfg.num_classes, cfg.image_size, cfg.max_gt, seed=SEED)
-    warm = synthetic_eval_items(data.batch(DET_BATCH))
+    warm = [it for _ in range(DET_WARMUP) for it in synthetic_eval_items(data.batch(DET_BATCH))]
     items = [it for _ in range(DET_BATCHES) for it in synthetic_eval_items(data.batch(DET_BATCH))]
     evaluate_detector(det, clip, warm, cfg, emb, device=dev, batch_size=DET_BATCH)  # warm-up
     torch.cuda.synchronize()
@@ -1042,7 +1090,8 @@ def phase_detector(torch, dev):
         f"detector eval {DET_PRESET} ({cfg.clip_model}, {layers} blocks): {DET_BATCHES} batches x "
         f"{DET_BATCH} images {cfg.image_size}px, {n_anchors} anchors, "
         f"{cfg.test_proposals.nms_pre} -> {cfg.test_proposals.max_per_img} proposals, "
-        f"{cfg.num_classes} classes, bf16: {dt:.3f} s, {len(items) / dt:.3f} images/s, peak "
+        f"{cfg.num_classes} classes, bf16: {dt:.3f} s after {DET_WARMUP} warm-up batches, "
+        f"{dt / DET_BATCHES * 1e3:.3f} ms a batch, {len(items) / dt:.3f} images/s, peak "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
         flush=True,
     )
@@ -1190,14 +1239,15 @@ def phase_detector_parity(torch, dev, cfg, clip_bf16, det, emb, items):
 
 def kernel_rows(records: Records, paths: dict) -> list:
     """One row per kernel: its launches on the main paths and its numbers
-    at the L/14 student's shape in bfloat16 (the NMS kernel: the detector's
-    RPN candidates, float32), then every record."""
+    at the L/14 student's shape in bfloat16 (RoPE: q and k in one launch, as
+    the towers call it; the NMS kernels: the detector's RPN candidates,
+    float32), then every record."""
     l14 = MODELS[-1]
     student = (TRAIN_BATCH, l14.tokens(l14.image))
     rows = {  # name and launch counter: source, the TPU kernel it replaces, the row's own record
         "rope_roll": (
             "rope_roll.cu", "clipself_tpu/ops/rope_roll.py:105",
-            ("forward", student + (l14.vision.width,)),
+            ("forward q,k", student + (l14.vision.width,)),
         ),
         "flash_attention": (
             "flash_attention.cu", "clipself_tpu/ops/attention.py:288",
@@ -1229,7 +1279,7 @@ def kernel_rows(records: Records, paths: dict) -> list:
             **{k: v for k, v in records.primary(name, *primary).items() if k != "what"},
             "checked_at": records.rows[name],
         }
-        if name == "rope_roll":  # its backward is the same kernel on the rolled tables
+        if name == "rope_roll":  # its backward is the same kernel on the packed backward table
             row["backward_launches_by_path"] = {k: p["rope_roll_bwd"] for k, p in paths.items()}
         if row["launches"] == 0:
             fail(f"no main path launched {name}")

@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from clipself_tpu_torch.core.config import VisionConfig
 from clipself_tpu_torch.models.common import l2_normalize
-from clipself_tpu_torch.models.rope import apply_rope_flat
+from clipself_tpu_torch.models.rope import apply_rope_flat_qk
 from clipself_tpu_torch.ops.attention import multi_head_attention
 from clipself_tpu_torch.ops.interpolate import resize_2d
 from clipself_tpu_torch.ops.layer_norm import layer_norm
@@ -123,8 +123,7 @@ class EvaAttention(nn.Module):
         k = self.k_proj(x)
         v = self._v(x)
         gh, gw = grid_hw
-        q = apply_rope_flat(q, gh, gw, c.head_width, 1, c.pt_hw_seq_len)
-        k = apply_rope_flat(k, gh, gw, c.head_width, 1, c.pt_hw_seq_len)
+        q, k = apply_rope_flat_qk(q, k, gh, gw, c.head_width, 1, c.pt_hw_seq_len)
         heads = (b, n, c.num_heads, c.head_width)
         out = multi_head_attention(
             q.view(heads), k.view(heads), v.view(heads), c.head_width ** -0.5

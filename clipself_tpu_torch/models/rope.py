@@ -3,10 +3,12 @@
 The table functions are NumPy copies of `clipself_tpu/models/rope.py`
 (`rope_tables_np`, `_split_sin_np`, `rope_tables_padded_np`,
 `rope_tables_flat_np`); `tests/test_torch_rope.py` pins them equal to the
-originals. `apply_rope_flat` rotates the flat [B, N, H * head_dim] q/k
-projection through the rolled-RoPE kernel (`ops/rope_roll.py`), with
-[N, head_dim] float32 tables: identity rows for the CLS prefix, and no pad
-tail, since the port never pads the sequence. Its backward runs the same
+originals. `apply_rope_flat_qk` rotates the flat [B, N, H * head_dim] q and
+k projections of an attention block in one launch of the rolled-RoPE kernel
+(`ops/rope_roll.py`), `apply_rope_flat` one such tensor. The tables are
+[N, head_dim] float32 (identity rows for the CLS prefix, and no pad tail,
+since the port never pads the sequence), packed once per grid and device as
+the kernel reads them (`rope_tables_packed`); the backward runs the same
 kernel on the rolled tables of `rope_tables_bwd` (the `a_bwd`/`b_bwd` of
 `clipself_tpu/models/rope.py:216-217`).
 """
@@ -18,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from clipself_tpu_torch.ops.rope_roll import rolled_rope
+from clipself_tpu_torch.ops.rope_roll import pack_tables, rolled_rope, rolled_rope_qk
 
 
 @functools.lru_cache(maxsize=64)
@@ -152,6 +154,27 @@ def rope_tables_bwd(
     return _cached_tensors((np.roll(sin_a, 1, axis=-1), np.roll(sin_b, -1, axis=-1)), device)
 
 
+@functools.lru_cache(maxsize=16)
+def rope_tables_packed(
+    grid_h: int,
+    grid_w: int,
+    head_dim: int,
+    n_prefix: int,
+    pt_seq_len: int,
+    device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(forward, backward) tables packed for the kernel, each float32
+    [N, head_dim / 2, 4] on ``device``: `pack_tables(cos, sin_a, sin_b)` and,
+    for the backward, `pack_tables(cos, b_bwd, a_bwd)`: the rolled tables in
+    swapped slots, which keeps the parity folding (b_bwd is zero on odd
+    lanes, a_bwd on even lanes). Callers must not write to them."""
+    key = (grid_h, grid_w, head_dim, n_prefix, pt_seq_len, device)
+    cos, sin_a, sin_b = rope_tables(*key)
+    a_bwd, b_bwd = rope_tables_bwd(*key)
+    with torch.inference_mode(False):
+        return pack_tables(cos, sin_a, sin_b), pack_tables(cos, b_bwd, a_bwd)
+
+
 def apply_rope_flat(
     x: torch.Tensor,
     grid_h: int,
@@ -163,4 +186,19 @@ def apply_rope_flat(
     """Rotate a [CLS; patches] sequence in flat layout ``x[B, N, H*head_dim]``
     (N = n_prefix + grid_h*grid_w); the prefix tokens are not rotated."""
     key = (grid_h, grid_w, head_dim, n_prefix, pt_seq_len, x.device)
-    return rolled_rope(x, *rope_tables(*key), *rope_tables_bwd(*key))
+    return rolled_rope(x, *rope_tables_packed(*key))
+
+
+def apply_rope_flat_qk(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    grid_h: int,
+    grid_w: int,
+    head_dim: int,
+    n_prefix: int = 1,
+    pt_seq_len: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`apply_rope_flat` of q and of k, both [B, N, H*head_dim], in one
+    launch of the kernel (forward and backward)."""
+    key = (grid_h, grid_w, head_dim, n_prefix, pt_seq_len, q.device)
+    return rolled_rope_qk(q, k, *rope_tables_packed(*key))

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "clipself_rope_roll": ((_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "clipself_rope_roll": ((_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "clipself_flash_fwd": (
         (_I,) + (_P,) * 5 + (_I,) * 4 + (_L,) * 9 + (ctypes.c_float, _P),
         _I,
@@ -58,8 +58,7 @@ _SIGNATURES = {
         (_I,) + (_P,) * 9 + (_L, _I, _L, _L, _I, _I, _P),
         _I,
     ),
-    "clipself_nms": ((_P, _P, ctypes.c_float, _P, _I, _I, _I, _P), _I),
-    "clipself_nms_max_boxes": ((), _I),
+    "clipself_nms": ((_P, _P, ctypes.c_float, _P, _P, _I, _I, _P), _I),
     "clipself_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -61,7 +61,8 @@ CLASSES = (
     ("layer_norm forward kernel", ("layer_norm_fwd_kernel",)),
     ("layer_norm backward kernel and its reduce", ("layer_norm_bwd",)),
     ("rope_roll kernel", ("rope_roll_kernel",)),
-    ("nms kernel", ("nms_kernel",)),
+    ("nms bit-matrix kernel", ("nms_matrix_kernel",)),
+    ("nms scan kernel", ("nms_scan_kernel",)),
     ("convolutions (cuDNN)", ("cudnn", "conv2d", "fprop", "dgrad", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),
     ("GroupNorm", ("GroupNorm", "group_norm", "RowwiseMoments")),
     ("sorts", ("sort", "Sort", "radix", "Radix")),

@@ -1,0 +1,119 @@
+"""The greedy-NMS and rolled-RoPE kernels of one tree, timed at the shapes
+the main paths give them, on one CUDA card: for comparing two trees (an
+older commit unpacked with `git archive` beside the working tree) in one
+run on one card.
+
+    python clipself_tpu_torch/tools/side_by_side.py --root build/parent
+    python clipself_tpu_torch/tools/side_by_side.py --root .
+
+Run as a file, not with `-m`: the package is imported from ``--root``, so the
+same script times either tree: the NMS through `ops.nms.nms_keep_mask`, the
+RoPE through `ops.rope_roll.rolled_rope_packed` where the tree has it (one
+tensor, and q and k in one launch, the table packed beforehand), else
+through its `rolled_rope_fwd` on the three tables ("q,k" is then two
+launches of the one-tensor kernel). Times are CUDA-event
+means of 20 calls replayed from a CUDA graph after a warm-up (the NMS also
+as 20 eager calls: its wrapper allocates, which a graph hides). The first
+line names the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+CALLS = 20
+# (kind, images, boxes, IoU threshold): the detector's RPN candidates, its
+# class-offset candidates, one image
+NMS_SHAPES = (("anchors", 8, 2000, 0.7), ("class_offset", 8, 2000, 0.4), ("anchors", 1, 2000, 0.7))
+# (images, grid side, width) at head_dim 64, bfloat16: the B/16 and L/14
+# students, the L/14 teacher's crops, the detector's batch, the B/16 crops
+ROPE_SHAPES = ((2, 64, 768), (2, 64, 1024), (40, 24, 1024), (8, 40, 768), (50, 14, 768))
+HEAD_DIM = 64
+
+
+def device_ms(torch, fn, graph: bool) -> float:
+    """Mean device time of one ``fn()`` of CALLS, eager or from a graph."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(CALLS):
+            fn()
+
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        captured.replay()
+        torch.cuda.synchronize()
+        run = captured.replay
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / CALLS
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=".", help="the tree whose package is timed")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("side_by_side: no CUDA device is available")
+    from clipself_tpu_torch.detector.data import synthetic_nms_case
+    from clipself_tpu_torch.models.rope import rope_tables
+    from clipself_tpu_torch.ops import nms, rope_roll
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"{card}; tree {args.root}", flush=True)
+    out = {}
+    for seed, (kind, b, n, thr) in enumerate(NMS_SHAPES):
+        boxes, valid = (t.to(dev) for t in synthetic_nms_case(kind, b, n, seed))
+        keep = nms.nms_keep_mask(boxes, valid, thr)
+        ms = [device_ms(torch, lambda: nms.nms_keep_mask(boxes, valid, thr), graph) for graph in (True, False)]
+        out[f"nms {kind} [{b}, {n}] thr {thr}"] = ms
+        print(
+            f"nms {kind} [{b}, {n}, 4] thr {thr}: {ms[0]:.4f} ms from a graph, {ms[1]:.4f} ms eager, "
+            f"kept {keep.sum(dim=1).tolist()}",
+            flush=True,
+        )
+    packed_form = hasattr(rope_roll, "rolled_rope_packed")
+    gen = torch.Generator().manual_seed(0)
+    for b, grid, w in ROPE_SHAPES:
+        n = 1 + grid * grid
+        tables = rope_tables(grid, grid, HEAD_DIM, 1, 16, dev)
+        q, k = (torch.randn(b, n, w, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+        if packed_form:
+            packed = rope_roll.pack_tables(*tables)
+            one = device_ms(torch, lambda: rope_roll.rolled_rope_packed((q,), packed), graph=True)
+            two = device_ms(torch, lambda: rope_roll.rolled_rope_packed((q, k), packed), graph=True)
+            how = "one launch"
+        else:
+            one = device_ms(torch, lambda: rope_roll.rolled_rope_fwd(q, *tables), graph=True)
+            two = device_ms(
+                torch, lambda: (rope_roll.rolled_rope_fwd(q, *tables), rope_roll.rolled_rope_fwd(k, *tables)),
+                graph=True,
+            )
+            how = "two launches"
+        out[f"rope_roll [{b}, {n}, {w}] bf16"] = [one, two]
+        print(
+            f"rope_roll [{b}, {n}, {w}] bf16: one tensor {one:.4f} ms, q,k {two:.4f} ms ({how})",
+            flush=True,
+        )
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,8 @@ card. Marked `cuda`: they skip where no card is present. Run on the card:
 Tolerances: RoPE float32 differs from the plain version by the kernel's FMA
 (one rounding, 1e-6 at |x| <= ~5), bfloat16 by at most one bf16 ULP of the
 result after that (rtol 1.6e-2 is 2 ULP); the backward is the same kernel on
-dy with the rolled tables, so it keeps the forward's bars. Attention float32
+dy with the rolled tables, so it keeps the forward's bars; one launch on two
+tensors (q and k) must give each the bits of a launch of its own. Attention float32
 differs by summation order (1e-4), bfloat16 by the bf16 rounding of the
 probabilities (min row cosine 0.9999 against float32); bfloat16 at head_dim
 64 runs the wgmma kernels (the other head dims the WMMA ones, float32 the FMA
@@ -30,13 +31,16 @@ agree within one bfloat16 ULP (2^-7 relative) plus the float32 slack;
 dweight and dbias are float32 sums over the rows on both sides, within 1e-5
 of their largest entry. Greedy NMS: the keep mask is discrete and the kernel's
 arithmetic is pinned to single round-to-nearest operations in the plain
-version's order, so the two masks must be equal.
+version's order, so the two masks must be equal, and equal to the plain
+mirror of the kernels' two phases (bit matrix, block-wise scan).
 """
 
 import pytest
 import torch
 
-from clipself_tpu_torch.models.rope import rope_tables, rope_tables_bwd
+from clipself_tpu_torch.models.rope import (
+    apply_rope_flat_qk, rope_tables, rope_tables_bwd, rope_tables_packed,
+)
 from clipself_tpu_torch.detector.data import synthetic_nms_case
 from clipself_tpu_torch.ops import attention, hopper_mma_probe, layer_norm, nms, rope_roll
 
@@ -65,7 +69,7 @@ def test_rope_kernel_matches_plain(dev, dtype, rtol, atol, b, grid, heads):
     n = 1 + grid * grid
     x = torch.randn(b, n, heads * 64, generator=torch.Generator().manual_seed(0)).to(dev, dtype)
     before = rope_roll.LAUNCHES.count
-    got = rope_roll.rolled_rope_fwd(x, *tables)
+    (got,) = rope_roll.rolled_rope_packed((x,), rope_roll.pack_tables(*tables))
     assert rope_roll.LAUNCHES.count == before + 1
     want = rope_roll.rolled_rope_plain(x, *tables)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
@@ -77,12 +81,12 @@ def test_rope_kernel_matches_plain(dev, dtype, rtol, atol, b, grid, heads):
 @pytest.mark.parametrize("b,grid,heads", [(2, 8, 12), (3, 14, 2)])
 def test_rope_backward_kernel_matches_plain(dev, dtype, rtol, atol, b, grid, heads):
     key = (grid, grid, 64, 1, 16, dev)
-    tables, bwd = rope_tables(*key), rope_tables_bwd(*key)
+    tables = rope_tables(*key)
     n = 1 + grid * grid
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(b, n, heads * 64, generator=gen).to(dev, dtype).requires_grad_()
     dy = torch.randn(b, n, heads * 64, generator=gen).to(dev, dtype)
-    y = rope_roll.rolled_rope(x, *tables, *bwd)
+    y = rope_roll.rolled_rope(x, *rope_tables_packed(*key))
     assert type(y.grad_fn).__name__ == "RolledRopeFnBackward"
     before = rope_roll.BWD_LAUNCHES.count
     (got,) = torch.autograd.grad(y, x, dy)
@@ -90,6 +94,110 @@ def test_rope_backward_kernel_matches_plain(dev, dtype, rtol, atol, b, grid, hea
     x2 = x.detach().requires_grad_()
     (want,) = torch.autograd.grad(rope_roll.rolled_rope_plain(x2, *tables), x2, dy)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+_ROPE_TOL = {torch.float32: dict(rtol=0.0, atol=1e-6), torch.bfloat16: dict(rtol=1.6e-2, atol=1e-5)}
+# [B, grid, heads, head_dim]: the B/16 and L/14 students, the L/14 teacher's
+# and the B/16 crops, the detector's batch; then head dims whose bytes do
+# not split into 16-byte spans in one type (20: bfloat16) or in both (6, 10)
+_ROPE_SHAPES = [
+    (2, 64, 12, 64), (2, 64, 16, 64), (40, 24, 16, 64), (50, 14, 12, 64), (8, 40, 12, 64),
+    (3, 5, 3, 20), (2, 7, 5, 6), (1, 4, 2, 10), (2, 3, 1, 16),
+]
+
+
+def _rope_all_tables(dev, grid, head_dim):
+    """(cos, sin_a, sin_b), (a_bwd, b_bwd), packed, packed_bwd. The model's
+    tables exist for head dims that are multiples of 4; the others get
+    the cosines and sines of random angles with the same parity folding."""
+    if head_dim % 4 == 0:
+        key = (grid, grid, head_dim, 1, 16, dev)
+        return rope_tables(*key), rope_tables_bwd(*key), *rope_tables_packed(*key)
+    gen = torch.Generator().manual_seed(head_dim)
+    theta = (6.2832 * torch.rand(1 + grid * grid, head_dim, generator=gen)).to(dev)
+    cos, sin_a, sin_b = torch.cos(theta), -torch.sin(theta), torch.sin(theta)
+    sin_a[:, 1::2] = 0.0
+    sin_b[:, 0::2] = 0.0
+    a_bwd, b_bwd = torch.roll(sin_a, 1, -1), torch.roll(sin_b, -1, -1)
+    packed, packed_bwd = rope_roll.pack_tables(cos, sin_a, sin_b), rope_roll.pack_tables(cos, b_bwd, a_bwd)
+    return (cos, sin_a, sin_b), (a_bwd, b_bwd), packed, packed_bwd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,grid,heads,head_dim", _ROPE_SHAPES)
+def test_rope_one_and_two_tensors_match_plain(dev, dtype, b, grid, heads, head_dim):
+    """Forward and backward tables, one tensor and q and k in one launch."""
+    tables, (a_bwd, b_bwd), packed, packed_bwd = _rope_all_tables(dev, grid, head_dim)
+    n = 1 + grid * grid
+    gen = torch.Generator().manual_seed(2)
+    q, k = (torch.randn(b, n, heads * head_dim, generator=gen).to(dev, dtype) for _ in range(2))
+    for table, plain_tables, back in ((packed, tables, False), (packed_bwd, (tables[0], b_bwd, a_bwd), True)):
+        counter = rope_roll.BWD_LAUNCHES if back else rope_roll.LAUNCHES
+        before = counter.count
+        (one_q,) = rope_roll.rolled_rope_packed((q,), table, backward=back)
+        (one_k,) = rope_roll.rolled_rope_packed((k,), table, backward=back)
+        two = rope_roll.rolled_rope_packed((q, k), table, backward=back)
+        assert counter.count == before + 3  # a launch a call, whatever it holds
+        assert torch.equal(two[0], one_q) and torch.equal(two[1], one_k)
+        for x, got in zip((q, k), two):
+            want = rope_roll.rolled_rope_plain(x, *plain_tables)
+            torch.testing.assert_close(got.float(), want.float(), **_ROPE_TOL[dtype])
+    wide = 128 // torch.finfo(dtype).bits
+    assert rope_roll.kernel_design(dtype, head_dim) == (
+        "row-tiled, 16-byte spans" if head_dim % wide == 0 else "row-tiled, pair spans"
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,grid,heads,head_dim", [(2, 14, 12, 64), (8, 40, 12, 64), (3, 5, 3, 20)])
+def test_rope_qk_function_on_card(dev, dtype, b, grid, heads, head_dim):
+    """`apply_rope_flat_qk` under autograd: one forward and one backward
+    launch, the gradients handed over as non-contiguous views."""
+    n = 1 + grid * grid
+    w = heads * head_dim
+    gen = torch.Generator().manual_seed(3)
+    q, k = (torch.randn(b, n, w, generator=gen).to(dev, dtype).requires_grad_() for _ in range(2))
+    d = torch.randn(b, n, 2, w, generator=gen).to(dev, dtype)
+    dq, dk = d[:, :, 0], d[:, :, 1]
+    assert not dq.is_contiguous()
+    fwd, bwd = rope_roll.LAUNCHES.count, rope_roll.BWD_LAUNCHES.count
+    yq, yk = apply_rope_flat_qk(q, k, grid, grid, head_dim, 1, 16)
+    assert type(yq.grad_fn).__name__ == type(yk.grad_fn).__name__ == "RolledRopeFnBackward"
+    gq, gk = torch.autograd.grad((yq, yk), (q, k), (dq, dk))
+    assert (rope_roll.LAUNCHES.count, rope_roll.BWD_LAUNCHES.count) == (fwd + 1, bwd + 1)
+    tables = rope_tables(grid, grid, head_dim, 1, 16, dev)
+    for x, y, dy, g in ((q, yq, dq, gq), (k, yk, dk, gk)):
+        x2 = x.detach().requires_grad_()
+        want = rope_roll.rolled_rope_plain(x2, *tables)
+        (want_g,) = torch.autograd.grad(want, x2, dy)
+        torch.testing.assert_close(y.float(), want.float(), **_ROPE_TOL[dtype])
+        torch.testing.assert_close(g.float(), want_g.float(), **_ROPE_TOL[dtype])
+    # the one-tensor backward takes a view too
+    x = q.detach().requires_grad_()
+    y = rope_roll.rolled_rope(x, *rope_tables_packed(grid, grid, head_dim, 1, 16, dev))
+    (got,) = torch.autograd.grad(y, x, dq)
+    torch.testing.assert_close(got.float(), gq.float(), rtol=0.0, atol=0.0)
+
+
+def test_rope_kernel_rejects_what_it_does_not_take(dev):
+    packed, _ = rope_tables_packed(3, 3, 16, 1, 16, dev)
+    x = torch.randn(2, 10, 32, device=dev)
+    before = rope_roll.LAUNCHES.count
+    with pytest.raises(ValueError, match="contiguous"):
+        rope_roll.rolled_rope_packed((x.transpose(0, 1),), packed)
+    with pytest.raises(ValueError, match="agree"):
+        rope_roll.rolled_rope_packed((x, x.bfloat16()), packed)
+    with pytest.raises(ValueError, match="one or two"):
+        rope_roll.rolled_rope_packed((x, x, x), packed)
+    with pytest.raises(ValueError, match="packed table"):
+        rope_roll.rolled_rope_packed((x,), packed[:-1])
+    with pytest.raises(ValueError, match="table on"):
+        rope_roll.rolled_rope_packed((x,), packed.cpu())
+    with pytest.raises(ValueError, match="must divide"):
+        rope_roll.rolled_rope_packed((x[..., :24].contiguous(),), packed)
+    with pytest.raises(TypeError, match="dtype"):
+        rope_roll.rolled_rope_packed((x.half(),), packed)
+    assert rope_roll.LAUNCHES.count == before
 
 
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 197, 300])
@@ -425,6 +533,9 @@ def test_layer_norm_kernel_rejects_what_it_does_not_take(dev):
     ("none_valid", 2, 300, 0.5), ("identical", 2, 300, 0.5), ("zero_area", 2, 515, 0.5),
     ("duplicates", 2, 300, 0.4), ("plain", 5, 31, 0.3), ("plain", 1, 4096, 0.5),
     ("plain", 2, 300, -0.5),  # even disjoint pairs suppress: no shortcut for empty intersections
+    ("plain", 3, 63, 0.5), ("plain", 3, 64, 0.5), ("plain", 3, 65, 0.5), ("invalid_any", 2, 2049, 0.5),
+    # more boxes than one block's shared memory could hold: the scan keeps a bit a box
+    ("plain", 1, 11068, 0.5), ("class_offset", 1, 20000, 0.4),
 ])
 def test_nms_kernel_equals_plain(dev, kind, b, n, thr):
     boxes, valid = synthetic_nms_case(kind, b, n, seed=n)
@@ -436,7 +547,9 @@ def test_nms_kernel_equals_plain(dev, kind, b, n, thr):
     assert got.dtype == torch.bool and got.shape == (b, n)
     want = nms.nms_keep_mask_plain(boxes, valid, thr)
     assert torch.equal(got, want), f"{(got != want).sum().item()} of {b * n} flags differ"
-    assert torch.equal(want.cpu(), nms.nms_keep_mask_plain(boxes.cpu(), valid.cpu(), thr))
+    if n <= 4096:  # the CPU's plain version and the mirror's [B, N, N] matrices: small cases
+        assert torch.equal(want.cpu(), nms.nms_keep_mask_plain(boxes.cpu(), valid.cpu(), thr))
+        assert torch.equal(nms.nms_keep_mask_blockwise_plain(boxes, valid, thr), want)
     assert not got[~valid].any()
     if kind in ("plain", "anchors", "class_offset"):
         assert got[:, 0].all()  # the best box of an image is always kept
@@ -467,10 +580,7 @@ def test_nms_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="leading dims"):
         nms.nms_keep_mask(boxes, valid[:, :-1], 0.5)
     before = nms.LAUNCHES.count
-    with pytest.raises(ValueError, match="shared memory"):
-        nms.nms_keep_mask(torch.zeros(1, 20000, 4, device=dev), torch.ones(1, 20000, dtype=torch.bool, device=dev), 0.5)
+    many = nms.MAX_BOXES + 1
+    with pytest.raises(ValueError, match="exceed"):
+        nms.nms_keep_mask(torch.zeros(1, many, 4, device=dev), torch.ones(1, many, dtype=torch.bool, device=dev), 0.5)
     assert nms.LAUNCHES.count == before
-    big = torch.rand(1, 11000, 4, device=dev)  # above 48 KB of shared memory, below the limit
-    big[..., 2:] += big[..., :2]
-    ok = torch.ones(1, 11000, dtype=torch.bool, device=dev)
-    assert torch.equal(nms.nms_keep_mask(big, ok, 0.5), nms.nms_keep_mask_plain(big, ok, 0.5))

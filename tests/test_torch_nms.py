@@ -4,7 +4,10 @@ the JAX package: the Pallas kernel `nms_keep_mask` in interpret mode and the
 dense-IoU loop of `clipself_tpu.detector.nms.nms`. The same NumPy boxes from
 a seed go through both. The keep mask is discrete: masks, indices and labels
 are compared for equality; scores and boxes are copies of the inputs and so
-equal too.
+equal too. `nms_keep_mask_blockwise_plain` mirrors the two phases of the CUDA
+kernels (the suppression bit matrix, then the scan a block of 64 boxes at a
+time) in plain PyTorch: it is held equal to the one-step-a-box plain version
+and to the Pallas kernel, at the sizes around a word of 64 bits too.
 """
 
 import numpy as np
@@ -74,6 +77,81 @@ def test_keep_mask_negative_threshold_equals_pallas_interpret():
     assert got.sum().item() == 1
 
 
+@pytest.mark.parametrize("thr", [0.4, 0.5, 0.7])
+@pytest.mark.parametrize("kind,n", CASES)
+def test_blockwise_plain_equals_plain_and_pallas_interpret(kind, n, thr):
+    boxes, valid = _case(kind, n, seed=n)
+    tb, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
+    got = ops_nms.nms_keep_mask_blockwise_plain(tb, tv, thr)
+    assert got.dtype == torch.bool and got.shape == (n,)
+    assert torch.equal(got, ops_nms.nms_keep_mask_plain(tb, tv, thr))
+    want = np.asarray(pallas_keep_mask(jnp.asarray(boxes), jnp.asarray(valid), thr, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["plain", "invalid", "dense", "zero_area"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 128, 515, 1999])
+def test_blockwise_plain_at_word_edges(kind, n):
+    """Sizes around the 64 boxes of a word and a block of the scan: a lone
+    box, one word short of full, full, one box into the second, a ragged
+    tail of many words."""
+    boxes, valid = _case(kind, n, seed=1000 + n)
+    if kind == "dense":  # more than 8 clusters, so that kept boxes reach into later blocks
+        boxes = np.concatenate([boxes[: n // 2], _boxes(np.random.default_rng(n), n - n // 2)])
+    tb, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
+    got = ops_nms.nms_keep_mask_blockwise_plain(tb, tv, 0.5)
+    assert torch.equal(got, ops_nms.nms_keep_mask_plain(tb, tv, 0.5))
+    want = np.asarray(pallas_keep_mask(jnp.asarray(boxes), jnp.asarray(valid), 0.5, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got.numpy()[~valid].any()
+
+
+def test_blockwise_plain_negative_threshold_equals_pallas_interpret():
+    """Below zero every pair suppresses, across blocks of 64 too."""
+    boxes, valid = _case("plain", 150, seed=2)
+    valid[0] = False  # the first valid box is the one that stays
+    want = np.asarray(pallas_keep_mask(jnp.asarray(boxes), jnp.asarray(valid), -0.5, interpret=True))
+    got = ops_nms.nms_keep_mask_blockwise_plain(torch.from_numpy(boxes), torch.from_numpy(valid), -0.5)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.tolist() == [False, True] + [False] * 148
+
+
+def test_blockwise_plain_batched_with_an_invalid_tail():
+    """Every image of a batch at once, each with its own invalid tail that
+    ends inside a word."""
+    cases = [_case(kind, 200, seed=20 + i) for i, kind in enumerate(("plain", "dense", "duplicates"))]
+    boxes = torch.from_numpy(np.stack([c[0] for c in cases]))
+    valid = torch.from_numpy(np.stack([c[1] for c in cases]))
+    for i, tail in enumerate((0, 70, 137)):
+        valid[i, 200 - tail :] = False
+    got = ops_nms.nms_keep_mask_blockwise_plain(boxes, valid, 0.5)
+    assert torch.equal(got, ops_nms.nms_keep_mask_plain(boxes, valid, 0.5))
+    for i in range(3):
+        assert torch.equal(got[i], ops_nms.nms_keep_mask_blockwise_plain(boxes[i], valid[i], 0.5))
+        want = pallas_keep_mask(jnp.asarray(boxes[i].numpy()), jnp.asarray(valid[i].numpy()), 0.5, interpret=True)
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("thr", [0.5, -0.5])
+def test_suppression_matrix_holds_later_pairs_only(thr):
+    """over[i, j] is the plain version's own test of the pair, for j > i
+    alone; validity is not folded in."""
+    boxes, _ = _case("dense", 70, seed=5)
+    tb = torch.from_numpy(boxes)
+    over = ops_nms.suppression_matrix_plain(tb[None], thr)[0]
+    assert over.shape == (70, 70) and over.dtype == torch.bool
+    assert not over.tril().any()
+    for i in (0, 1, 63, 64, 68):
+        # the plain version on the two-box set (i, j), one set per later j:
+        # box j is kept iff box i does not suppress it
+        later = 70 - i - 1
+        pairs = torch.stack([tb[i].expand(later, 4), tb[i + 1 :]], dim=1)  # [later, 2, 4]
+        keep = ops_nms.nms_keep_mask_plain(pairs, torch.ones(later, 2, dtype=torch.bool), thr)
+        assert torch.equal(over[i, i + 1 :], ~keep[:, 1])
+    if thr < 0:
+        assert over.triu(1).sum().item() == 70 * 69 // 2
+
+
 def test_keep_mask_batched_equals_per_image():
     cases = [_case(kind, 200, seed=i) for i, kind in enumerate(("plain", "invalid", "dense"))]
     boxes = torch.from_numpy(np.stack([c[0] for c in cases]))
@@ -108,6 +186,28 @@ def test_keep_mask_hypothesis(n, seed, thr, grid):
     want = np.asarray(pallas_keep_mask(jnp.asarray(boxes), jnp.asarray(valid), thr, interpret=True))
     got = ops_nms.nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(valid), thr)
     np.testing.assert_array_equal(got.numpy(), want)
+    mirror = ops_nms.nms_keep_mask_blockwise_plain(torch.from_numpy(boxes), torch.from_numpy(valid), thr)
+    np.testing.assert_array_equal(mirror.numpy(), want)
+
+
+@settings(max_examples=15, deadline=None)
+@given(
+    n=st.integers(60, 200),
+    seed=st.integers(0, 2**31 - 1),
+    thr=st.sampled_from([0.3, 0.5, 0.7]),
+    grid=st.sampled_from([0.0, 4.0]),
+)
+def test_blockwise_plain_hypothesis_across_blocks(n, seed, thr, grid):
+    """Random sets of one to four blocks of 64, optionally on a coarse grid,
+    with invalid slots: the block-wise mirror against the plain version."""
+    rng = np.random.default_rng(seed)
+    boxes = _boxes(rng, n, size=32.0, lo_wh=0.0)
+    if grid:
+        boxes = (np.round(boxes / grid) * grid).astype(np.float32)
+    tb, tv = torch.from_numpy(boxes), torch.from_numpy(rng.uniform(size=n) < 0.8)
+    assert torch.equal(
+        ops_nms.nms_keep_mask_blockwise_plain(tb, tv, thr), ops_nms.nms_keep_mask_plain(tb, tv, thr)
+    )
 
 
 def _scores(rng, n, tied):

@@ -22,8 +22,8 @@ import clipself_tpu_torch.ops.attention
 import clipself_tpu_torch.ops.layer_norm
 import clipself_tpu_torch.ops.rope_roll
 import clipself_tpu_torch.data.loader
-import clipself_tpu_torch.tools.nms_times
 import clipself_tpu_torch.tools.profile_paths
+import clipself_tpu_torch.tools.side_by_side
 import clipself_tpu_torch.train.checkpoint
 import clipself_tpu_torch.train.ensemble
 import clipself_tpu_torch.train.main as train_main

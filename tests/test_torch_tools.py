@@ -1,10 +1,13 @@
 """`clipself_tpu_torch.tools.profile_paths` on the CPU: the kernel classes it
 sorts names into, and the control flow of a run at the tiny test size, which
-reports host time only and says that no device time was measured."""
+reports host time only and says that no device time was measured. The
+kernels' timing tool (`side_by_side`) measures nothing without a card and
+says so."""
 
 import pytest
+import torch
 
-from clipself_tpu_torch.tools import profile_paths
+from clipself_tpu_torch.tools import profile_paths, side_by_side
 
 
 @pytest.mark.parametrize(
@@ -22,7 +25,9 @@ from clipself_tpu_torch.tools import profile_paths
         ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<...>>", "reductions"),
         ("Memcpy DtoD (Device -> Device)", "dtype casts and copies"),
         ("void at::native::vectorized_elementwise_kernel<4, at::native::silu_kernel...>", "elementwise"),
-        ("(anonymous namespace)::nms_kernel(float4 const*, unsigned char const*, float, unsigned char*, int)", "nms kernel"),
+        ("(anonymous namespace)::nms_matrix_kernel(float4 const*, float, unsigned long long*, int, int)", "nms bit-matrix kernel"),
+        ("void (anonymous namespace)::nms_scan_kernel(unsigned long long const*, unsigned char const*, unsigned char*, int, int)", "nms scan kernel"),
+        ("void (anonymous namespace)::rope_roll_kernel<__nv_bfloat16, 8>(...)", "rope_roll kernel"),
         ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64_cudnn", "convolutions (cuDNN)"),
         ("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float>(...)", "GroupNorm"),
         ("void at::native::radixSortKVInPlace<2, -1, 128, 32, float, long, unsigned int>(...)", "sorts"),
@@ -57,3 +62,20 @@ def test_cpu_detector_run_reports_no_device_time(capsys):
         assert "classes" not in out[path]
     printed = capsys.readouterr().out
     assert printed.count("not measured") == 2 and "images/s" not in printed
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the refusal is for a machine without a card")
+def test_kernel_timing_tools_refuse_to_run_without_a_card(capsys):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        side_by_side.main(["--root", "."])
+    assert "ms" not in capsys.readouterr().out
+
+
+def test_side_by_side_times_the_main_paths_shapes():
+    """The shapes it times are the ones `chip_smoke.py` checks the two
+    kernels at: 2000 candidates an image, and the towers' token counts and
+    widths at head_dim 64."""
+    assert {(b, n) for _, b, n, _ in side_by_side.NMS_SHAPES} == {(8, 2000), (1, 2000)}
+    tokens = {(b, 1 + g * g, w) for b, g, w in side_by_side.ROPE_SHAPES}
+    assert {(2, 4097, 768), (2, 4097, 1024), (40, 577, 1024), (8, 1601, 768)} <= tokens
+    assert all(w % side_by_side.HEAD_DIM == 0 for _, _, w in side_by_side.ROPE_SHAPES)
