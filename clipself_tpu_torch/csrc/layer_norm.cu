@@ -13,9 +13,7 @@
 //     dgamma = sum_rows dy * xhat, dbeta = sum_rows dy   f32
 //
 // Bound on the H100: device-memory bytes (a handful of operations per element
-// against 2 or 3 elements moved). So each kernel reads x (and dy) once: a warp
-// owns a row, keeps it in shared memory between the reduction pass and the
-// output pass, and reduces its two sums with warp shuffles.
+// against 2 or 3 elements moved), so each kernel reads x (and dy) once.
 //
 // The Pallas block plan (VMEM tiles of [block_n, W] rows, 128-aligned row
 // blocks, widths that are multiples of 128, a sequential grid that revisits
@@ -25,20 +23,52 @@
 //     [B, N, W] tensor need no copy;
 //   - any width runs: loads are VEC elements wide, VEC the largest of
 //     16 / sizeof(T), ..., 2, 1 that divides the width and every row's
-//     address (W = 2730 in bf16 has 4-byte aligned rows: VEC = 2);
+//     address (W = 2730 in bf16 has 4-byte aligned rows: VEC = 2; 32 lanes
+//     on neighbouring 4-byte words still coalesce fully);
 //   - blocks run in no order, so dgamma and dbeta go through per-block
-//     partial sums [blocks, W] in f32: a persistent block of R warps takes R
-//     rows at a time, each column is owned by one thread that adds the R
-//     rows' terms in a fixed order into a shared-memory accumulator, and a
-//     second small kernel adds the blocks' partials in a fixed order. No
-//     atomics: the result is repeatable.
+//     partial rows [blocks, W] in f32 that a second small kernel adds in a
+//     fixed order. No atomics: the result is repeatable.
+//
+// The forward: one warp a row, staged in shared memory between the
+// reduction pass and the output pass.
+//
+// The backward: a row group of G warps takes one row at a time, and each of
+// its lanes owns the same VEC-wide column chunks in every row (at most
+// kBwdLaneBytes of x and as many of dy, so G grows with the width). A lane
+// issues all its loads of a row before it uses any, keeps them in registers
+// for both passes (the two row sums, by warp shuffles and, when G > 1, one
+// exchange under a named barrier of the group; then dx), and adds the row's
+// dgamma and dbeta terms into registers of its own. A persistent grid walks
+// the rows, the groups strided by their global index; at the end the block
+// adds its groups' sums in group order into one partial row. The plan (G,
+// groups a block, shared bytes) comes from ops/layer_norm.py:bwd_plan, which
+// this file checks. The shared-memory attribute, the occupancy and the SM
+// count are looked up once a process for each kernel and shared size.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#ifndef CLIPSELF_LN_BWD_LANE_BYTES
+#define CLIPSELF_LN_BWD_LANE_BYTES 64
+#endif
+#ifndef CLIPSELF_LN_BWD_MAX_THREADS
+#define CLIPSELF_LN_BWD_MAX_THREADS 512
+#endif
+
 namespace {
 
 constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
+// bytes of x (and of dy) of one row that a backward lane holds in registers
+constexpr int kBwdLaneBytes = CLIPSELF_LN_BWD_LANE_BYTES;
+// threads of a backward block: 16 warps at <= 128 registers fill an SM
+constexpr int kBwdMaxThreads = CLIPSELF_LN_BWD_MAX_THREADS;
+// blocks of the partial-sum reduce: (32 columns, 8 strided sums)
+constexpr int kReduceLanes = 8;
 
 // VEC consecutive elements moved by one aligned load or store
 template <typename T, int VEC>
@@ -73,6 +103,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// the `threads` threads of one row group meet at barrier `id` (1..15; 0 is
+// __syncthreads)
+__device__ __forceinline__ void group_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ long long row_offset(long long row, int n_inner,
@@ -137,121 +173,150 @@ __global__ void layer_norm_fwd_kernel(
   }
 }
 
-// A persistent block of R = blockDim.x / 32 warps takes R rows at a time.
-// Shared memory: acc_g[W], acc_b[W], mu[R], rstd[R] in f32, then (from a
-// 16-byte boundary) R rows of x and R rows of dy, row_bytes each.
-// dx and partial may each be null: that output is then not computed.
-// partial is [2, partial_stride / W, W]: block b writes its dgamma sums to
-// row b of the first half and its dbeta sums to row b of the second.
-template <typename T, int VEC>
-__global__ void layer_norm_bwd_kernel(
+// The backward. blockDim.x = groups * G * 32; MAXC = the most VEC-wide
+// chunks a lane holds of a row (kBwdLaneBytes of x). Shared memory, f32:
+// gamma [round_up4(W)], the groups' row-sum exchange [2][groups][G][2]
+// (double-buffered by row, so one barrier a row suffices), the groups'
+// dgamma and dbeta sums [groups][2][W]. dx and partial may each be null:
+// that output is then not computed. partial is [2, partial_stride / W, W]:
+// block b writes its dgamma sums to row b of the first half and its dbeta
+// sums to row b of the second.
+template <typename T, int VEC, int MAXC>
+__global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ dy,
     const float* __restrict__ mu_in, const float* __restrict__ rstd_in,
     const float* __restrict__ gamma, T* __restrict__ dx,
     float* __restrict__ partial, long long partial_stride, long long rows,
     int n_inner, long long stride_outer, long long stride_inner, int width,
-    int row_bytes, int stage_offset) {
+    int group_warps) {
   using P = Pack<T, VEC>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int n_warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* acc_g = reinterpret_cast<float*>(smem);
-  float* acc_b = acc_g + width;
-  float* stat = acc_b + width;  // mu[R], rstd[R] of the rows in flight
-  unsigned char* stage_x = smem + stage_offset;
-  unsigned char* stage_dy = stage_x + (size_t)n_warps * row_bytes;
+  const int gthreads = group_warps * 32;
+  const int groups = blockDim.x / gthreads;
+  const int group = threadIdx.x / gthreads, gt = threadIdx.x % gthreads;
+  const int lane = threadIdx.x & 31, gwarp = gt >> 5;
   const int nvec = width / VEC;
+  const bool sums = partial != nullptr;
   const float inv_w = 1.f / (float)width;
+  float* gamma_s = reinterpret_cast<float*>(smem);
+  float* xchg = gamma_s + ((width + 3) & ~3);
+  float* red = xchg + 4 * groups * group_warps;
 
-  if (partial != nullptr) {
-    for (int c = threadIdx.x; c < width; c += blockDim.x) {
-      acc_g[c] = 0.f;
-      acc_b[c] = 0.f;
-    }
-    // the first barrier of the loop below orders this against the adds
+  for (int c = threadIdx.x; c < width; c += blockDim.x) gamma_s[c] = gamma[c];
+  __syncthreads();
+
+  float ag[MAXC][VEC], ab[MAXC][VEC];
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) ag[c][j] = ab[c][j] = 0.f;
   }
 
-  for (long long base = (long long)blockIdx.x * n_warps; base < rows;
-       base += (long long)gridDim.x * n_warps) {
-    const long long row = base + warp;
-    if (row < rows) {
-      P* sx = reinterpret_cast<P*>(stage_x + (size_t)warp * row_bytes);
-      P* sdy = reinterpret_cast<P*>(stage_dy + (size_t)warp * row_bytes);
-      const P* xv = reinterpret_cast<const P*>(
-          x + row_offset(row, n_inner, stride_outer, stride_inner));
-      const P* dyv = reinterpret_cast<const P*>(dy + row * width);
-      const float mu = mu_in[row], rstd = rstd_in[row];
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll 2
-      for (int i = lane; i < nvec; i += 32) {
-        const P px = xv[i];
-        const P pd = dyv[i];
-        sx[i] = px;
-        sdy[i] = pd;
+  const long long stride_rows = (long long)gridDim.x * groups;
+  int parity = 0;
+  for (long long row = (long long)blockIdx.x * groups + group; row < rows;
+       row += stride_rows) {
+    const P* xv = reinterpret_cast<const P*>(
+        x + row_offset(row, n_inner, stride_outer, stride_inner));
+    const P* dyv = reinterpret_cast<const P*>(dy + row * width);
+    P px[MAXC], pd[MAXC];
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      const int i = gt + c * gthreads;
+      if (i < nvec) {
+        px[c] = xv[i];
+        pd[c] = dyv[i];
+      }
+    }
+    const float mu = mu_in[row], rstd = rstd_in[row];
+
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      const int i = gt + c * gthreads;
+      if (i < nvec) {
         float gm[VEC];
-        load_f32<VEC>(gamma + (size_t)i * VEC, gm);
+        load_f32<VEC>(gamma_s + i * VEC, gm);
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          const float g = to_f32(pd.v[j]) * gm[j];
-          const float xhat = (to_f32(px.v[j]) - mu) * rstd;
+          const float d = to_f32(pd[c].v[j]);
+          const float xhat = (to_f32(px[c].v[j]) - mu) * rstd;
+          const float g = d * gm[j];
           s1 += g;
           s2 = fmaf(g, xhat, s2);
+          if (sums) {
+            ag[c][j] = fmaf(d, xhat, ag[c][j]);
+            ab[c][j] += d;
+          }
         }
       }
-      const float m1 = warp_sum(s1) * inv_w;
-      const float m2 = warp_sum(s2) * inv_w;
-      if (dx != nullptr) {
-        P* dxv = reinterpret_cast<P*>(dx + row * width);
-#pragma unroll 2
-        for (int i = lane; i < nvec; i += 32) {
-          const P px = sx[i];  // written by this lane
-          const P pd = sdy[i];
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (group_warps > 1) {  // the group's warps add their sums in warp order
+      float* slot = xchg + 2 * group_warps * (parity * groups + group);
+      if (lane == 0) {
+        slot[2 * gwarp] = s1;
+        slot[2 * gwarp + 1] = s2;
+      }
+      group_barrier(1 + group, gthreads);
+      s1 = slot[0];
+      s2 = slot[1];
+      for (int w = 1; w < group_warps; ++w) {
+        s1 += slot[2 * w];
+        s2 += slot[2 * w + 1];
+      }
+      parity ^= 1;
+    }
+    const float m1 = s1 * inv_w, m2 = s2 * inv_w;
+
+    if (dx != nullptr) {
+      P* dxv = reinterpret_cast<P*>(dx + row * width);
+#pragma unroll
+      for (int c = 0; c < MAXC; ++c) {
+        const int i = gt + c * gthreads;
+        if (i < nvec) {
           float gm[VEC];
-          load_f32<VEC>(gamma + (size_t)i * VEC, gm);
+          load_f32<VEC>(gamma_s + i * VEC, gm);
           P o;
 #pragma unroll
           for (int j = 0; j < VEC; ++j) {
-            const float g = to_f32(pd.v[j]) * gm[j];
-            const float xhat = (to_f32(px.v[j]) - mu) * rstd;
+            const float g = to_f32(pd[c].v[j]) * gm[j];
+            const float xhat = (to_f32(px[c].v[j]) - mu) * rstd;
             from_f32(rstd * (g - m1 - xhat * m2), &o.v[j]);
           }
           dxv[i] = o;
         }
       }
-      if (lane == 0) {
-        stat[warp] = mu;
-        stat[n_warps + warp] = rstd;
-      }
-    }
-    if (partial != nullptr) {
-      __syncthreads();  // the R staged rows and their stats are complete
-      const long long left = rows - base;
-      const int n_rows = left < n_warps ? (int)left : n_warps;
-      for (int c = threadIdx.x; c < width; c += blockDim.x) {
-        float ag = 0.f, ab = 0.f;
-        for (int r = 0; r < n_rows; ++r) {
-          const T* xs = reinterpret_cast<const T*>(stage_x + (size_t)r * row_bytes);
-          const T* ds = reinterpret_cast<const T*>(stage_dy + (size_t)r * row_bytes);
-          const float d = to_f32(ds[c]);
-          const float xhat = (to_f32(xs[c]) - stat[r]) * stat[n_warps + r];
-          ag = fmaf(d, xhat, ag);
-          ab += d;
-        }
-        acc_g[c] += ag;  // column c belongs to this thread alone
-        acc_b[c] += ab;
-      }
-      __syncthreads();  // before the next rows overwrite the stage
     }
   }
 
-  if (partial != nullptr) {
-    // a block that took no rows still writes its zeros
+  if (sums) {
+    // a group covers every column, so each group writes all W of its sums
+    float* red_g = red + (size_t)group * 2 * width;
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      const int i = gt + c * gthreads;
+      if (i < nvec) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          red_g[i * VEC + j] = ag[c][j];
+          red_g[width + i * VEC + j] = ab[c][j];
+        }
+      }
+    }
     __syncthreads();
+    // a block that took no rows still writes its zeros
     float* out_g = partial + (long long)blockIdx.x * width;
-    float* out_b = partial + partial_stride + (long long)blockIdx.x * width;
-    for (int c = threadIdx.x; c < width; c += blockDim.x) {
-      out_g[c] = acc_g[c];
-      out_b[c] = acc_b[c];
+    float* out_b = out_g + partial_stride;
+    for (int col = threadIdx.x; col < width; col += blockDim.x) {
+      float tg = red[col], tb = red[width + col];
+      for (int g = 1; g < groups; ++g) {
+        tg += red[(size_t)g * 2 * width + col];
+        tb += red[(size_t)g * 2 * width + width + col];
+      }
+      out_g[col] = tg;
+      out_b[col] = tb;
     }
   }
 }
@@ -264,12 +329,13 @@ __global__ void layer_norm_bwd_reduce_kernel(const float* __restrict__ partial,
                                              int n_blocks, int width,
                                              float* __restrict__ dgamma,
                                              float* __restrict__ dbeta) {
-  __shared__ float sums[8][32];
+  __shared__ float sums[kReduceLanes][32];
   const int c = blockIdx.x * 32 + threadIdx.x;
   const float* src = partial + (long long)blockIdx.y * partial_stride;
   float s = 0.f;
   if (c < width) {
-    for (int b = threadIdx.y; b < n_blocks; b += 8) {
+#pragma unroll 4
+    for (int b = threadIdx.y; b < n_blocks; b += kReduceLanes) {
       s += src[(long long)b * width + c];
     }
   }
@@ -278,12 +344,63 @@ __global__ void layer_norm_bwd_reduce_kernel(const float* __restrict__ partial,
   if (threadIdx.y == 0 && c < width) {
     float total = sums[0][threadIdx.x];
 #pragma unroll
-    for (int j = 1; j < 8; ++j) total += sums[j][threadIdx.x];
+    for (int j = 1; j < kReduceLanes; ++j) total += sums[j][threadIdx.x];
     (blockIdx.y == 0 ? dgamma : dbeta)[c] = total;
   }
 }
 
 inline int round_up16(long long v) { return (int)((v + 15) / 16 * 16); }
+
+// What a kernel needs before its first launch at one shared size on one
+// device, looked up once a process: the shared-memory attribute (above 48
+// KB), the blocks of `threads` an SM holds, and the device's SM count.
+struct Setup {
+  cudaError_t err;
+  int blocks_per_sm;
+  int sms;
+};
+
+std::mutex g_setup_mutex;
+std::map<std::tuple<const void*, int, int, int>, Setup> g_setups;
+std::atomic<int> g_setup_calls{0};
+
+Setup setup_once(const void* kernel, int threads, int shared) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return {err, 0, 0};
+  const auto key = std::make_tuple(kernel, threads, shared, device);
+  std::lock_guard<std::mutex> lock(g_setup_mutex);
+  const auto found = g_setups.find(key);
+  if (found != g_setups.end()) return found->second;
+  g_setup_calls.fetch_add(1);
+  Setup s{cudaSuccess, 0, 0};
+  if (shared > 48 * 1024) {
+    s.err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  }
+  if (s.err == cudaSuccess) {
+    s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.blocks_per_sm,
+                                                          kernel, threads, shared);
+  }
+  if (s.err == cudaSuccess) {
+    s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (s.err == cudaSuccess && s.blocks_per_sm < 1) s.err = cudaErrorInvalidConfiguration;
+  if (s.err == cudaSuccess) g_setups.emplace(key, s);
+  return s;
+}
+
+// Whether every row of these tensors allows loads of `vec` elements.
+bool vec_fits(int vec, size_t elem, int width, long long stride_outer,
+              long long stride_inner, const void* const* ptrs, int n_ptrs) {
+  if (width % vec != 0 || stride_outer % vec != 0 || stride_inner % vec != 0) {
+    return false;
+  }
+  for (int i = 0; i < n_ptrs; ++i) {
+    if (reinterpret_cast<size_t>(ptrs[i]) % (elem * vec) != 0) return false;
+  }
+  return true;
+}
 
 // The widest load, in elements, that every row of these tensors allows.
 template <typename T>
@@ -291,26 +408,14 @@ int pick_vec(int width, long long stride_outer, long long stride_inner,
              const void* const* ptrs, int n_ptrs, const void* const* f32_ptrs,
              int n_f32_ptrs) {
   for (int vec = 16 / (int)sizeof(T); vec > 1; vec /= 2) {
-    const size_t bytes = sizeof(T) * vec;
     const size_t f32_bytes = vec < 4 ? 4 * vec : 16;
-    bool ok = width % vec == 0 && stride_outer % vec == 0 &&
-              stride_inner % vec == 0;
-    for (int i = 0; ok && i < n_ptrs; ++i) {
-      ok = reinterpret_cast<size_t>(ptrs[i]) % bytes == 0;
-    }
+    bool ok = vec_fits(vec, sizeof(T), width, stride_outer, stride_inner, ptrs, n_ptrs);
     for (int i = 0; ok && i < n_f32_ptrs; ++i) {
       ok = reinterpret_cast<size_t>(f32_ptrs[i]) % f32_bytes == 0;
     }
     if (ok) return vec;
   }
   return 1;
-}
-
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <typename T, int VEC>
@@ -325,8 +430,8 @@ cudaError_t launch_fwd_vec(const void* x, const void* gamma, const void* beta,
   const long long shared = (long long)warps * row_bytes;
   if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
   auto kernel = layer_norm_fwd_kernel<T, VEC>;
-  cudaError_t err = allow_shared(kernel, (int)shared);
-  if (err != cudaSuccess) return err;
+  const Setup setup = setup_once((const void*)kernel, warps * 32, (int)shared);
+  if (setup.err != cudaSuccess) return setup.err;
   const long long blocks = (rows + warps - 1) / warps;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, warps * 32, (size_t)shared, stream>>>(
@@ -359,12 +464,11 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta,
 #undef CLIPSELF_LN_FWD
 }
 
-// Shared-memory bytes of the backward kernel with `warps` rows in flight.
-template <typename T>
-long long bwd_shared(int warps, int width, int* stage_offset, int* row_bytes) {
-  *row_bytes = round_up16((long long)width * sizeof(T));
-  *stage_offset = round_up16((2LL * width + 2LL * warps) * sizeof(float));
-  return *stage_offset + 2LL * warps * *row_bytes;
+// Shared-memory bytes of the backward block (ops/layer_norm.py:bwd_plan
+// computes the same).
+long long bwd_shared_bytes(int width, int group_warps, int groups) {
+  return 4LL * ((width + 3) & ~3) + 16LL * groups * group_warps +
+         8LL * groups * width;
 }
 
 template <typename T, int VEC>
@@ -372,32 +476,38 @@ cudaError_t launch_bwd_vec(const void* x, const void* dy, const void* mu,
                            const void* rstd, const void* gamma, void* dx,
                            void* partial, void* dgamma, void* dbeta,
                            long long rows, int n_inner, long long stride_outer,
-                           long long stride_inner, int width, int max_blocks,
+                           long long stride_inner, int width, int group_warps,
+                           int groups, int shared, int max_blocks,
                            cudaStream_t stream) {
-  // the most rows in flight that leave room for two blocks on an SM; fewer
-  // if even one block would not fit
-  int warps = 8, stage_offset = 0, row_bytes = 0;
-  while (warps > 1 &&
-         bwd_shared<T>(warps, width, &stage_offset, &row_bytes) > kMaxSharedBytes / 2) {
-    warps /= 2;
+  constexpr int kMaxChunks = kBwdLaneBytes / (int)(sizeof(T) * VEC);
+  static_assert(kMaxChunks >= 1, "a lane holds at least one load of a row");
+  const int nvec = width / VEC;
+  const int threads = groups * group_warps * 32;
+  if (group_warps < 1 || groups < 1 || threads > kBwdMaxThreads ||
+      (group_warps > 1 && groups > 15) ||
+      (nvec + group_warps * 32 - 1) / (group_warps * 32) > kMaxChunks ||
+      shared != bwd_shared_bytes(width, group_warps, groups) ||
+      shared > kMaxSharedBytes) {
+    return cudaErrorInvalidValue;
   }
-  const long long shared = bwd_shared<T>(warps, width, &stage_offset, &row_bytes);
-  if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
-  auto kernel = layer_norm_bwd_kernel<T, VEC>;
-  cudaError_t err = allow_shared(kernel, (int)shared);
-  if (err != cudaSuccess) return err;
-  long long blocks = (rows + warps - 1) / warps;
+  auto kernel = layer_norm_bwd_kernel<T, VEC, kMaxChunks>;
+  const Setup setup = setup_once((const void*)kernel, threads, shared);
+  if (setup.err != cudaSuccess) return setup.err;
+  long long blocks = (rows + groups - 1) / groups;
   if (blocks > max_blocks) blocks = max_blocks;
+  if (blocks > (long long)setup.blocks_per_sm * setup.sms) {
+    blocks = (long long)setup.blocks_per_sm * setup.sms;
+  }
   const long long partial_stride = (long long)max_blocks * width;
-  kernel<<<(unsigned)blocks, warps * 32, (size_t)shared, stream>>>(
+  kernel<<<(unsigned)blocks, threads, (size_t)shared, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy),
       static_cast<const float*>(mu), static_cast<const float*>(rstd),
       static_cast<const float*>(gamma), static_cast<T*>(dx),
       static_cast<float*>(partial), partial_stride, rows, n_inner,
-      stride_outer, stride_inner, width, row_bytes, stage_offset);
-  err = cudaGetLastError();
+      stride_outer, stride_inner, width, group_warps);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return err;
-  const dim3 grid((width + 31) / 32, 2), block(32, 8);
+  const dim3 grid((width + 31) / 32, 2), block(32, kReduceLanes);
   layer_norm_bwd_reduce_kernel<<<grid, block, 0, stream>>>(
       static_cast<const float*>(partial), partial_stride, (int)blocks, width,
       static_cast<float*>(dgamma), static_cast<float*>(dbeta));
@@ -409,23 +519,27 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* mu,
                        const void* rstd, const void* gamma, void* dx,
                        void* partial, void* dgamma, void* dbeta, long long rows,
                        int n_inner, long long stride_outer,
-                       long long stride_inner, int width, int max_blocks,
+                       long long stride_inner, int width, int vec,
+                       int group_warps, int groups, int shared, int max_blocks,
                        cudaStream_t stream) {
   const void* ptrs[] = {x, dy, dx};  // a null dx is aligned to anything
-  const void* f32_ptrs[] = {gamma};
-  const int vec = pick_vec<T>(width, stride_outer, stride_inner, ptrs, 3,
-                              f32_ptrs, 1);
+  if (vec < 1 || vec > 16 / (int)sizeof(T) ||
+      !vec_fits(vec, sizeof(T), width, stride_outer, stride_inner, ptrs, 3)) {
+    return cudaErrorInvalidValue;
+  }
 #define CLIPSELF_LN_BWD(V)                                                    \
   return launch_bwd_vec<T, V>(x, dy, mu, rstd, gamma, dx, partial, dgamma,    \
                               dbeta, rows, n_inner, stride_outer,             \
-                              stride_inner, width, max_blocks, stream)
+                              stride_inner, width, group_warps, groups,       \
+                              shared, max_blocks, stream)
   if constexpr (sizeof(T) == 2) {
     if (vec == 8) CLIPSELF_LN_BWD(8);
   }
   if (vec == 4) CLIPSELF_LN_BWD(4);
   if (vec == 2) CLIPSELF_LN_BWD(2);
-  CLIPSELF_LN_BWD(1);
+  if (vec == 1) CLIPSELF_LN_BWD(1);
 #undef CLIPSELF_LN_BWD
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -463,8 +577,10 @@ extern "C" int clipself_layer_norm_fwd(int dtype, const void* x,
 // x as in the forward; dy: contiguous [rows, width] of x's type; mu, rstd:
 // the forward's float32 [rows]; dx: contiguous [rows, width] of x's type, or
 // null. partial: float32 scratch [2, max_blocks, width] with dgamma, dbeta
-// float32 [width], or all three null when neither is wanted. At most
-// max_blocks blocks run.
+// float32 [width], or all three null when neither is wanted. The plan of
+// ops/layer_norm.py:bwd_plan: loads of `vec` elements (x, dy and dx must
+// allow them), `group_warps` warps a row, `groups` rows a block in flight,
+// `shared` bytes of shared memory; at most max_blocks blocks run.
 extern "C" int clipself_layer_norm_bwd(int dtype, const void* x, const void* dy,
                                        const void* mu, const void* rstd,
                                        const void* gamma, void* dx,
@@ -472,7 +588,9 @@ extern "C" int clipself_layer_norm_bwd(int dtype, const void* x, const void* dy,
                                        void* dbeta, long long rows, int n_inner,
                                        long long stride_outer,
                                        long long stride_inner, int width,
-                                       int max_blocks, void* stream) {
+                                       int vec, int group_warps, int groups,
+                                       int shared, int max_blocks,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool sums = partial != nullptr;
   if (width <= 0 || n_inner <= 0 || rows <= 0 || max_blocks <= 0 ||
@@ -483,13 +601,19 @@ extern "C" int clipself_layer_norm_bwd(int dtype, const void* x, const void* dy,
   if (dtype == 0) {
     return (int)launch_bwd<float>(x, dy, mu, rstd, gamma, dx, partial, dgamma,
                                   dbeta, rows, n_inner, stride_outer,
-                                  stride_inner, width, max_blocks, s);
+                                  stride_inner, width, vec, group_warps, groups,
+                                  shared, max_blocks, s);
   }
   if (dtype == 1) {
     return (int)launch_bwd<__nv_bfloat16>(x, dy, mu, rstd, gamma, dx, partial,
                                           dgamma, dbeta, rows, n_inner,
                                           stride_outer, stride_inner, width,
+                                          vec, group_warps, groups, shared,
                                           max_blocks, s);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// Kernel set-ups (shared-memory attribute, occupancy) this process has made:
+// one for each LayerNorm kernel instantiation, shared size and device.
+extern "C" int clipself_layer_norm_setup_calls() { return g_setup_calls.load(); }

@@ -55,9 +55,10 @@ _SIGNATURES = {
         _I,
     ),
     "clipself_layer_norm_bwd": (
-        (_I,) + (_P,) * 9 + (_L, _I, _L, _L, _I, _I, _P),
+        (_I,) + (_P,) * 9 + (_L, _I, _L, _L) + (_I,) * 6 + (_P,),
         _I,
     ),
+    "clipself_layer_norm_setup_calls": ((), _I),
     "clipself_nms": ((_P, _P, ctypes.c_float, _P, _P, _I, _I, _P), _I),
     "clipself_cuda_error_string": ((_I,), ctypes.c_char_p),
 }

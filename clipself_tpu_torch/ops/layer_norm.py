@@ -21,11 +21,19 @@ view like `t[:, 1:]` or `t[:, 0]` of a [B, N, W] tensor is not copied.
 backward is the one-pass kernel. Where no input needs a gradient it runs the
 forward alone, which writes no statistics.
 
+The backward kernel holds rows in registers: a row group of G warps takes
+one row at a time, each lane the same column chunks of every row, and sums
+its dweight and dbias terms in registers; `bwd_plan` sizes it from the
+width, and `layer_norm_bwd_plan_plain` adds the sums in the kernel's order.
+
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,8 +42,85 @@ from clipself_tpu_torch.ops import _build
 LAUNCHES = _build.LaunchCounter()      # forward launches, with or without stats
 BWD_LAUNCHES = _build.LaunchCounter()  # backward launches
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# blocks of the backward kernel per SM: each writes a [2, W] partial sum
-_BWD_BLOCKS_PER_SM = 2
+# The backward's plan, as `csrc/layer_norm.cu` takes it: a lane holds at most
+# BWD_LANE_BYTES of x (and as many of dy) of a row in registers; a block runs
+# at most BWD_BLOCK_WARPS warps; at most BWD_BLOCKS_PER_SM blocks an SM run,
+# each writing one [2, W] partial row that the second launch adds up.
+BWD_LANE_BYTES = 64
+BWD_BLOCK_WARPS = 16
+BWD_BLOCKS_PER_SM = 2
+BWD_MAX_ROW_BYTES = BWD_LANE_BYTES * 32 * BWD_BLOCK_WARPS
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel cuts a row and a block."""
+
+    vec: int           # elements a load
+    group_warps: int   # G: the warps of a row group, which takes one row at a time
+    chunks: int        # loads of x (and of dy) a lane holds of a row, at most
+    groups: int        # row groups a block
+    threads: int       # threads a block
+    shared_bytes: int  # gamma, the groups' row-sum exchange, their dweight and dbias sums
+
+
+def bwd_plan(dtype: torch.dtype, width: int, vec: int) -> BwdPlan:
+    """The backward kernel's plan for rows of ``width`` elements of ``dtype``
+    read ``vec`` at a time: the fewest warps a row that keep a lane within
+    BWD_LANE_BYTES of x, and as many row groups as fit BWD_BLOCK_WARPS.
+    Raises for rows wider than BWD_MAX_ROW_BYTES."""
+    size = dtype.itemsize
+    if width * size > BWD_MAX_ROW_BYTES:
+        raise ValueError(
+            f"layer_norm_bwd: a row of {width} {dtype} is {width * size} bytes, wider than "
+            f"the {BWD_MAX_ROW_BYTES} the kernel holds in registers"
+        )
+    if vec < 1 or vec * size > 16 or width % vec:
+        raise ValueError(f"layer_norm_bwd: loads of {vec} {dtype} do not fit rows of {width}")
+    nvec = width // vec
+    lane_chunks = BWD_LANE_BYTES // (vec * size)
+    group_warps = -(-nvec // (32 * lane_chunks))
+    groups = BWD_BLOCK_WARPS // group_warps
+    shared = 4 * (-(-width // 4) * 4) + 16 * groups * group_warps + 8 * groups * width
+    return BwdPlan(
+        vec, group_warps, -(-nvec // (32 * group_warps)), groups, 32 * groups * group_warps, shared
+    )
+
+
+def bwd_max_blocks(sms: int) -> int:
+    """Blocks of the backward kernel on a card of ``sms`` SMs, at most: the
+    rows of its partial-sum scratch."""
+    return BWD_BLOCKS_PER_SM * sms
+
+
+def bwd_design(plan: BwdPlan) -> str:
+    """The backward kernel's design at this plan, as `chip_smoke.py` names it."""
+    def n(count, noun):
+        return f"{count} {noun}{'s' if count > 1 else ''}"
+
+    return (
+        f"rows in registers, {n(plan.group_warps, 'warp')} a row, {n(plan.groups, 'row')} a block, "
+        f"{plan.vec}-element loads"
+    )
+
+
+def bwd_vec(x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor | None) -> int:
+    """The widest load, in elements (16 bytes at most), that every row of x
+    (through its two strides, `_rows`), dy and dx allows."""
+    rows, n_inner, stride_outer, stride_inner = _rows(x, "layer_norm_bwd")
+    size, w = x.element_size(), x.shape[-1]
+    ptrs = [t.data_ptr() for t in (x, dy, dx) if t is not None]
+    vec = 16 // size
+    while vec > 1 and not (
+        w % vec == 0 and stride_outer % vec == 0 and stride_inner % vec == 0
+        and all(p % (vec * size) == 0 for p in ptrs)
+    ):
+        vec //= 2
+    return vec
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def layer_norm_stats_plain(
@@ -77,6 +162,44 @@ def layer_norm_bwd_plain(
     dx = (rstd * (g - m1 - xhat * m2)).to(x.dtype)
     rows = tuple(range(x.dim() - 1))
     return dx, (dyf * xhat).sum(dim=rows), dyf.sum(dim=rows)
+
+
+def layer_norm_bwd_plan_plain(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    mu: torch.Tensor,
+    rstd: torch.Tensor,
+    weight: torch.Tensor,
+    blocks: int,
+    plan: BwdPlan,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`layer_norm_bwd_plain` with dweight and dbias added in the kernel's
+    order on ``blocks`` blocks of ``plan``: row group q of the grid takes rows
+    q, q + Q, q + 2Q, ... (Q = blocks * plan.groups), a block adds its groups'
+    sums in group order into its partial row, and the second launch adds
+    blocks j, j + 8, ... for each j < 8, then the eight sums in order."""
+    w = x.shape[-1]
+    dx = layer_norm_bwd_plain(x, dy, mu, rstd, weight)[0]
+    xf, dyf = x.float().reshape(-1, w), dy.float().reshape(-1, w)
+    xhat = (xf - mu.reshape(-1, 1)) * rstd.reshape(-1, 1)
+    terms = torch.stack((dyf * xhat, dyf))  # [2, rows, W]: dweight's and dbias's
+    n_groups = blocks * plan.groups
+    acc = terms.new_zeros(2, n_groups, w)
+    for start in range(0, terms.shape[1], n_groups):  # each group's next row
+        step = terms[:, start:start + n_groups]
+        acc[:, : step.shape[1]] += step
+    acc = acc.reshape(2, blocks, plan.groups, w)
+    partial = acc[:, :, 0].clone()
+    for g in range(1, plan.groups):
+        partial += acc[:, :, g]
+    lanes = terms.new_zeros(2, 8, w)
+    for start in range(0, blocks, 8):
+        step = partial[:, start:start + 8]
+        lanes[:, : step.shape[1]] += step
+    total = lanes[:, 0].clone()
+    for j in range(1, 8):
+        total += lanes[:, j]
+    return dx, total[0], total[1]
 
 
 def _check_device(t: torch.Tensor, what: str) -> None:
@@ -164,7 +287,8 @@ def layer_norm_bwd(
     ``dy`` (contiguous, x's shape and dtype) and the forward's statistics;
     dx is contiguous in x's dtype, dweight and dbias float32 [W]. An output
     that is not needed (``need_dx``, ``need_dwb`` for the pair) is None and is
-    not computed on the card."""
+    not computed on the card. On the card, rows wider than BWD_MAX_ROW_BYTES
+    raise (`bwd_plan`)."""
     _check_device(x, "layer_norm_bwd")
     if not (need_dx or need_dwb):
         return None, None, None
@@ -184,8 +308,9 @@ def layer_norm_bwd(
             raise ValueError(f"{what}: {name} must be a contiguous float32 {tuple(x.shape[:-1])}")
     w = x.shape[-1]
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device) if need_dx else None
+    plan = bwd_plan(x.dtype, w, bwd_vec(x, dy, dx))
     dw = db = partial = None
-    max_blocks = _BWD_BLOCKS_PER_SM * torch.cuda.get_device_properties(x.device).multi_processor_count
+    max_blocks = bwd_max_blocks(_sm_count(x.device.index))
     if need_dwb:
         dw = torch.empty(w, dtype=torch.float32, device=x.device)
         db = torch.empty_like(dw)
@@ -198,12 +323,19 @@ def layer_norm_bwd(
             weight.data_ptr(), None if dx is None else dx.data_ptr(),
             None if partial is None else partial.data_ptr(),
             None if dw is None else dw.data_ptr(), None if db is None else db.data_ptr(),
-            rows, n_inner, stride_outer, stride_inner, w, max_blocks,
-            _build.stream_handle(x),
+            rows, n_inner, stride_outer, stride_inner, w, plan.vec, plan.group_warps, plan.groups,
+            plan.shared_bytes, max_blocks, _build.stream_handle(x),
         )
     _build.check(err, "layer_norm_bwd launch")
     BWD_LAUNCHES.add()
     return dx, dw, db
+
+
+def setup_calls() -> int:
+    """Kernel set-ups (the shared-memory attribute and the occupancy query)
+    this process has made: one for each LayerNorm kernel instantiation,
+    shared size and device, never one a launch."""
+    return _build.LIBRARY.get().clipself_layer_norm_setup_calls()
 
 
 class LayerNormFn(torch.autograd.Function):

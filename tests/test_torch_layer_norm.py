@@ -269,3 +269,91 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
         ln._rows(t.transpose(-1, -2), "test")
     with pytest.raises(ValueError, match="2-D or 3-D view"):
         ln._rows(t[:, :, 1:], "test")
+
+
+@pytest.mark.parametrize(
+    "width,vec,group_warps,chunks",
+    [(768, 8, 1, 3), (1024, 8, 1, 4), (2048, 8, 2, 4), (2730, 2, 3, 15), (2731, 1, 3, 29)],
+)
+def test_backward_plan_at_the_towers_widths(width, vec, group_warps, chunks):
+    """bfloat16 rows of the B/16 and L/14 towers (and a ragged width): the
+    fewest warps a row that keep a lane within 64 bytes of x, as many row
+    groups as fill 16 warps, and shared memory a block can have."""
+    plan = ln.bwd_plan(torch.bfloat16, width, vec)
+    assert (plan.vec, plan.group_warps, plan.chunks) == (vec, group_warps, chunks)
+    assert plan.chunks * vec * 2 <= ln.BWD_LANE_BYTES
+    assert plan.chunks * 32 * group_warps * vec >= width > (plan.chunks - 1) * 32 * group_warps * vec
+    assert plan.groups == 16 // group_warps and plan.threads == 32 * group_warps * plan.groups <= 512
+    assert plan.shared_bytes <= 232448
+    assert ln.bwd_design(plan).startswith(f"rows in registers, {group_warps} warp")
+
+
+def test_backward_plan_blocks_and_width_limit():
+    assert ln.bwd_max_blocks(132) == 264
+    widest = ln.BWD_MAX_ROW_BYTES // 2
+    assert ln.bwd_plan(torch.bfloat16, widest, 8).group_warps == 16
+    assert ln.bwd_plan(torch.float32, ln.BWD_MAX_ROW_BYTES // 4, 1).threads == 512
+    with pytest.raises(ValueError, match="wider than"):
+        ln.bwd_plan(torch.bfloat16, widest + 1, 1)
+    with pytest.raises(ValueError, match="wider than"):
+        ln.bwd_plan(torch.float32, ln.BWD_MAX_ROW_BYTES // 4 + 4, 4)
+    with pytest.raises(ValueError, match="do not fit"):
+        ln.bwd_plan(torch.bfloat16, 2730, 8)
+
+
+def test_backward_vec_follows_rows_and_addresses():
+    t = torch.zeros(2, 5, 1024, dtype=torch.bfloat16)
+    assert ln.bwd_vec(t, t, t) == 8
+    assert ln.bwd_vec(t[:, 1:], t[:, 1:].contiguous(), None) == 8
+    odd = torch.zeros(2, 5, 2730, dtype=torch.bfloat16)
+    assert ln.bwd_vec(odd, odd, odd) == 2
+    assert ln.bwd_vec(t.view(-1)[1:1 + 4 * 1024].view(4, 1024), t[0, :4], None) == 1
+    assert ln.bwd_vec(t.float(), t.float(), None) == 4
+
+
+# (shape, view, blocks): one row; fewer rows than one block's row groups;
+# more blocks than rows; many rows a group; the two strided views; two and
+# four warps a row (float32 widths 1024 and 2048)
+_MIRROR_CASES = [
+    ((1, 1, 128), "contiguous", 1),
+    ((1, 7, 128), "contiguous", 1),
+    ((1, 7, 256), "contiguous", 10),
+    ((4, 300, 128), "contiguous", 2),
+    ((3, 9, 256), "drop_cls", 3),
+    ((6, 5, 128), "cls_rows", 2),
+    ((2, 9, 1024), "contiguous", 3),
+    ((1, 37, 2048), "contiguous", 2),
+]
+
+
+@pytest.mark.parametrize("shape,view,blocks", _MIRROR_CASES, ids=lambda v: str(v))
+def test_plan_mirror_matches_plain_and_jax_pallas_kernel(monkeypatch, shape, view, blocks):
+    """The backward with its sums added in the kernel's order (rows strided
+    over the grid's row groups, the groups of a block, then the blocks'
+    partials eight ways) against the plain backward and the Pallas backward
+    in the interpreter, float32: dx within 1e-6, dweight and dbias within
+    1e-6 of their largest entry."""
+    monkeypatch.setattr(jln, "_INTERPRET", True)
+    x, dy, weight, bias = _inputs(shape, torch.float32, seed=sum(shape) + blocks)
+    cut = _VIEWS[view] or (lambda t: t)
+    xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
+    xt, dyt = cut(xt), cut(dyt).contiguous()
+    wt = torch.from_numpy(weight)
+    _, mu, rstd = ln.layer_norm_stats_plain(xt, wt, torch.from_numpy(bias), EPS)
+    plan = ln.bwd_plan(torch.float32, shape[-1], ln.bwd_vec(xt, dyt, None))
+    got = ln.layer_norm_bwd_plan_plain(xt, dyt, mu, rstd, wt, blocks, plan)
+    want = ln.layer_norm_bwd_plain(xt, dyt, mu, rstd, wt)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=0, atol=1e-6)
+    for g, w_ in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=0, atol=1e-6 * w_.abs().max().item())
+
+    # the Pallas kernel on the same rows, as [B, N, W] (the CLS rows as [1, B, W])
+    jx, jdy = (jnp.asarray(cut(a)[None] if view == "cls_rows" else cut(a)) for a in (x, dy))
+    assert jln.supported(jx.shape[1], jx.shape[2])
+    _, vjp = jax.vjp(
+        lambda x_, s_, b_: jln.fused_layer_norm(x_, s_, b_, EPS), jx, jnp.asarray(weight), jnp.asarray(bias)
+    )
+    jdx, jdw, jdb = (np.asarray(a, np.float32) for a in vjp(jdy))
+    np.testing.assert_allclose(got[0].numpy(), jdx.reshape(got[0].shape), rtol=0, atol=1e-6)
+    for g, w_ in zip(got[1:], (jdw, jdb)):
+        np.testing.assert_allclose(g.numpy(), w_, rtol=0, atol=1e-6 * np.abs(w_).max())
