@@ -19,14 +19,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    for bfloat16 at head_dim 64, "fma" for float32), and the fused LayerNorm
    forward (with and
    without statistics) and backward, also on the two strided views of the
-   final norm. Each with CUDA-event times of the kernel, of its plain
+   final norm (each backward row names its plan: warps a row, rows a
+   block). Each with CUDA-event times of the kernel, of its plain
    version and, where one PyTorch call computes the same function
    (`scaled_dot_product_attention` and autograd of it, `F.layer_norm` and
    `aten.native_layer_norm_backward`), of that call (the RoPE and LayerNorm
    launches replayed from a CUDA graph, so that the host's launch pace does
    not hide their ten-microsecond times), and with
    the least time the card could take (bytes moved once over 3.35 TB/s, or
-   operations over the peak rate of their type); then the greedy-NMS kernels
+   operations over the peak rate of their type) and the time as a multiple
+   of it; then the greedy-NMS kernels
    (bit matrix, then block-wise scan) against the plain version and against
    the plain mirror of their two phases, masks equal flag for flag, at the detector's
    shapes ([8, 2000] RPN candidates at IoU 0.7, class-offset candidates at
@@ -397,7 +399,7 @@ class Records:
         print(
             f"kernel {name} {what} {list(shape)} {rec['dtype']}: max_abs {err:.3e} {note}"
             f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
-            f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}"
+            f"bound_ms {rec['bound_ms']:.4f} ({ms / rec['bound_ms']:.2f}x, {rec['bound_by']}"
             f"{'; the timed calls repeat on bytes that fit the L2' if rec['l2_resident'] else ''})",
             flush=True,
         )
@@ -610,6 +612,7 @@ def check_layer_norm(torch, dev, records, gen, shape, view, backward):
         # both sides take the kernel forward's statistics
         _, mu, rstd = ln.layer_norm_fwd(x, weight, bias, eps, return_stats=True)
         got = ln.layer_norm_bwd(x, dy, mu, rstd, weight)
+        design = ln.bwd_design(ln.bwd_plan(dt, w, ln.bwd_vec(x, dy, got[0])))
         want = ln.layer_norm_bwd_plain(x, dy, mu, rstd, weight)
         g = dy.float() * weight
         xhat = (xf - mu[..., None]) * rstd[..., None]
@@ -639,6 +642,7 @@ def check_layer_norm(torch, dev, records, gen, shape, view, backward):
             moved=3 * nbytes(x) + nbytes(mu, rstd) + 3 * nbytes(weight),
             flops=14 * x.numel(),
             note=f"max_ulp {err:.2f} (bar {LN_MAX_ULP}) sums rel {sum_rel:.3e} (bar {LN_SUM_MAX_REL}) ",
+            design=design,
         )
         if not err <= LN_MAX_ULP:
             fail(f"layer_norm_bwd {dt} {what} {tuple(x.shape)} dx off by {err} ULP")

@@ -34,11 +34,14 @@
 //
 // The backward: a row group of G warps takes one row at a time, and each of
 // its lanes owns the same VEC-wide column chunks in every row (at most
-// kBwdLaneBytes of x and as many of dy, so G grows with the width). A lane
-// issues all its loads of a row before it uses any, keeps them in registers
-// for both passes (the two row sums, by warp shuffles and, when G > 1, one
-// exchange under a named barrier of the group; then dx), and adds the row's
-// dgamma and dbeta terms into registers of its own. A persistent grid walks
+// kBwdLaneElems elements of x and as many of dy, so G grows with the width:
+// 16 elements keep the bf16 kernels within 128 registers, where 32 spilled).
+// A lane issues all its loads of kBwdRows rows before it uses any (the
+// bytes in flight, not the width of a load, are what the wide bf16 rows
+// lacked), keeps them in registers for both passes (the two row sums, by
+// warp shuffles and, when G > 1, one exchange under a named barrier of the
+// group; then dx), and adds each row's dgamma and dbeta terms into
+// registers of its own. A persistent grid walks
 // the rows, the groups strided by their global index; at the end the block
 // adds its groups' sums in group order into one partial row. The plan (G,
 // groups a block, shared bytes) comes from ops/layer_norm.py:bwd_plan, which
@@ -53,22 +56,30 @@
 #include <mutex>
 #include <tuple>
 
-#ifndef CLIPSELF_LN_BWD_LANE_BYTES
-#define CLIPSELF_LN_BWD_LANE_BYTES 64
+#ifndef CLIPSELF_LN_BWD_LANE_ELEMS
+#define CLIPSELF_LN_BWD_LANE_ELEMS 16
 #endif
 #ifndef CLIPSELF_LN_BWD_MAX_THREADS
 #define CLIPSELF_LN_BWD_MAX_THREADS 512
+#endif
+#ifndef CLIPSELF_LN_BWD_ROWS
+#define CLIPSELF_LN_BWD_ROWS 2
 #endif
 
 namespace {
 
 constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
-// bytes of x (and of dy) of one row that a backward lane holds in registers
-constexpr int kBwdLaneBytes = CLIPSELF_LN_BWD_LANE_BYTES;
+// elements of x (and of dy) of one row that a backward lane holds in
+// registers, beside their dgamma and dbeta sums
+constexpr int kBwdLaneElems = CLIPSELF_LN_BWD_LANE_ELEMS;
 // threads of a backward block: 16 warps at <= 128 registers fill an SM
 constexpr int kBwdMaxThreads = CLIPSELF_LN_BWD_MAX_THREADS;
 // blocks of the partial-sum reduce: (32 columns, 8 strided sums)
 constexpr int kReduceLanes = 8;
+// rows a backward row group holds in flight at once (the row-sum exchange
+// is sized for up to 4)
+constexpr int kBwdRows = CLIPSELF_LN_BWD_ROWS;
+static_assert(kBwdRows >= 1 && kBwdRows <= 4, "1 to 4 rows a group in flight");
 
 // VEC consecutive elements moved by one aligned load or store
 template <typename T, int VEC>
@@ -173,11 +184,42 @@ __global__ void layer_norm_fwd_kernel(
   }
 }
 
+// One row of x and dy as a lane of a row group holds it (chunks gt,
+// gt + gthreads, ...), with its statistics: every load issued before any use.
+template <typename T, int VEC, int MAXC>
+__device__ __forceinline__ void load_row(
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ mu_in, const float* __restrict__ rstd_in,
+    long long row, int n_inner, long long stride_outer, long long stride_inner,
+    int width, int gt, int gthreads, Pack<T, VEC> (&px)[MAXC],
+    Pack<T, VEC> (&pd)[MAXC], float& mu, float& rstd) {
+  using P = Pack<T, VEC>;
+  // rows < 2^31 (checked at the launch): 32-bit division
+  const unsigned r = (unsigned)row, inner = (unsigned)n_inner;
+  const P* xv = reinterpret_cast<const P*>(
+      x + (long long)(r / inner) * stride_outer + (long long)(r % inner) * stride_inner);
+  const P* dyv = reinterpret_cast<const P*>(dy + row * width);
+  const int nvec = width / VEC;
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    const int i = gt + c * gthreads;
+    if (i < nvec) {
+      px[c] = xv[i];
+      pd[c] = dyv[i];
+    }
+  }
+  mu = mu_in[row];
+  rstd = rstd_in[row];
+}
+
 // The backward. blockDim.x = groups * G * 32; MAXC = the most VEC-wide
-// chunks a lane holds of a row (kBwdLaneBytes of x). Shared memory, f32:
-// gamma [round_up4(W)], the groups' row-sum exchange [2][groups][G][2]
-// (double-buffered by row, so one barrier a row suffices), the groups'
-// dgamma and dbeta sums [groups][2][W]. dx and partial may each be null:
+// chunks a lane holds of a row (kBwdLaneElems of x). A group takes kBwdRows
+// rows an iteration (rows q, q + S, ... of its stride S), with all their
+// loads in flight together and one exchange for all of them. Shared memory,
+// f32: gamma [round_up4(W)], the groups' row-sum exchange
+// [2][groups][G][2 * 4] (double-buffered by iteration, so one barrier an
+// iteration suffices), the groups' dgamma and dbeta sums [groups][2][W].
+// dx and partial may each be null:
 // that output is then not computed. partial is [2, partial_stride / W, W]:
 // block b writes its dgamma sums to row b of the first half and its dbeta
 // sums to row b of the second.
@@ -200,8 +242,22 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
   const float inv_w = 1.f / (float)width;
   float* gamma_s = reinterpret_cast<float*>(smem);
   float* xchg = gamma_s + ((width + 3) & ~3);
-  float* red = xchg + 4 * groups * group_warps;
+  float* red = xchg + 16 * groups * group_warps;
 
+  // the group's first rows are in flight while gamma is staged
+  const long long stride_rows = (long long)gridDim.x * groups;
+  long long row0 = (long long)blockIdx.x * groups + group;
+  P px[kBwdRows][MAXC], pd[kBwdRows][MAXC];
+  float mu[kBwdRows], rstd[kBwdRows];
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r) {
+    const long long row = row0 + r * stride_rows;
+    if (row < rows) {
+      load_row<T, VEC, MAXC>(x, dy, mu_in, rstd_in, row, n_inner, stride_outer,
+                             stride_inner, width, gt, gthreads, px[r], pd[r],
+                             mu[r], rstd[r]);
+    }
+  }
   for (int c = threadIdx.x; c < width; c += blockDim.x) gamma_s[c] = gamma[c];
   __syncthreads();
 
@@ -212,81 +268,95 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
     for (int j = 0; j < VEC; ++j) ag[c][j] = ab[c][j] = 0.f;
   }
 
-  const long long stride_rows = (long long)gridDim.x * groups;
   int parity = 0;
-  for (long long row = (long long)blockIdx.x * groups + group; row < rows;
-       row += stride_rows) {
-    const P* xv = reinterpret_cast<const P*>(
-        x + row_offset(row, n_inner, stride_outer, stride_inner));
-    const P* dyv = reinterpret_cast<const P*>(dy + row * width);
-    P px[MAXC], pd[MAXC];
+  for (; row0 < rows; row0 += kBwdRows * stride_rows) {
+    // the row sums of the kBwdRows rows, each added into dgamma and dbeta
+    // in row order
+    float s1[kBwdRows], s2[kBwdRows];
 #pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      const int i = gt + c * gthreads;
-      if (i < nvec) {
-        px[c] = xv[i];
-        pd[c] = dyv[i];
-      }
-    }
-    const float mu = mu_in[row], rstd = rstd_in[row];
-
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      const int i = gt + c * gthreads;
-      if (i < nvec) {
-        float gm[VEC];
-        load_f32<VEC>(gamma_s + i * VEC, gm);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float d = to_f32(pd[c].v[j]);
-          const float xhat = (to_f32(px[c].v[j]) - mu) * rstd;
-          const float g = d * gm[j];
-          s1 += g;
-          s2 = fmaf(g, xhat, s2);
-          if (sums) {
-            ag[c][j] = fmaf(d, xhat, ag[c][j]);
-            ab[c][j] += d;
-          }
-        }
-      }
-    }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (group_warps > 1) {  // the group's warps add their sums in warp order
-      float* slot = xchg + 2 * group_warps * (parity * groups + group);
-      if (lane == 0) {
-        slot[2 * gwarp] = s1;
-        slot[2 * gwarp + 1] = s2;
-      }
-      group_barrier(1 + group, gthreads);
-      s1 = slot[0];
-      s2 = slot[1];
-      for (int w = 1; w < group_warps; ++w) {
-        s1 += slot[2 * w];
-        s2 += slot[2 * w + 1];
-      }
-      parity ^= 1;
-    }
-    const float m1 = s1 * inv_w, m2 = s2 * inv_w;
-
-    if (dx != nullptr) {
-      P* dxv = reinterpret_cast<P*>(dx + row * width);
+    for (int r = 0; r < kBwdRows; ++r) {
+      s1[r] = s2[r] = 0.f;
+      if (row0 + r * stride_rows >= rows) continue;  // uniform in the group
 #pragma unroll
       for (int c = 0; c < MAXC; ++c) {
         const int i = gt + c * gthreads;
         if (i < nvec) {
           float gm[VEC];
           load_f32<VEC>(gamma_s + i * VEC, gm);
-          P o;
 #pragma unroll
           for (int j = 0; j < VEC; ++j) {
-            const float g = to_f32(pd[c].v[j]) * gm[j];
-            const float xhat = (to_f32(px[c].v[j]) - mu) * rstd;
-            from_f32(rstd * (g - m1 - xhat * m2), &o.v[j]);
+            const float d = to_f32(pd[r][c].v[j]);
+            const float xhat = (to_f32(px[r][c].v[j]) - mu[r]) * rstd[r];
+            const float g = d * gm[j];
+            s1[r] += g;
+            s2[r] = fmaf(g, xhat, s2[r]);
+            if (sums) {
+              ag[c][j] = fmaf(d, xhat, ag[c][j]);
+              ab[c][j] += d;
+            }
           }
-          dxv[i] = o;
         }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      s1[r] = warp_sum(s1[r]);
+      s2[r] = warp_sum(s2[r]);
+    }
+    if (group_warps > 1) {  // the group's warps add their sums in warp order
+      float* slot = xchg + 2 * kBwdRows * group_warps * (parity * groups + group);
+      if (lane == 0) {
+#pragma unroll
+        for (int r = 0; r < kBwdRows; ++r) {
+          slot[2 * (kBwdRows * gwarp + r)] = s1[r];
+          slot[2 * (kBwdRows * gwarp + r) + 1] = s2[r];
+        }
+      }
+      group_barrier(1 + group, gthreads);
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) {
+        s1[r] = slot[2 * r];
+        s2[r] = slot[2 * r + 1];
+        for (int w = 1; w < group_warps; ++w) {
+          s1[r] += slot[2 * (kBwdRows * w + r)];
+          s2[r] += slot[2 * (kBwdRows * w + r) + 1];
+        }
+      }
+      parity ^= 1;
+    }
+
+    if (dx != nullptr) {
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) {
+        const long long row = row0 + r * stride_rows;
+        if (row >= rows) continue;
+        const float m1 = s1[r] * inv_w, m2 = s2[r] * inv_w;
+        P* dxv = reinterpret_cast<P*>(dx + row * width);
+#pragma unroll
+        for (int c = 0; c < MAXC; ++c) {
+          const int i = gt + c * gthreads;
+          if (i < nvec) {
+            float gm[VEC];
+            load_f32<VEC>(gamma_s + i * VEC, gm);
+            P o;
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) {
+              const float g = to_f32(pd[r][c].v[j]) * gm[j];
+              const float xhat = (to_f32(px[r][c].v[j]) - mu[r]) * rstd[r];
+              from_f32(rstd[r] * (g - m1 - xhat * m2), &o.v[j]);
+            }
+            dxv[i] = o;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      const long long row = row0 + (kBwdRows + r) * stride_rows;
+      if (row < rows) {
+        load_row<T, VEC, MAXC>(x, dy, mu_in, rstd_in, row, n_inner, stride_outer,
+                               stride_inner, width, gt, gthreads, px[r], pd[r],
+                               mu[r], rstd[r]);
       }
     }
   }
@@ -467,7 +537,7 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta,
 // Shared-memory bytes of the backward block (ops/layer_norm.py:bwd_plan
 // computes the same).
 long long bwd_shared_bytes(int width, int group_warps, int groups) {
-  return 4LL * ((width + 3) & ~3) + 16LL * groups * group_warps +
+  return 4LL * ((width + 3) & ~3) + 64LL * groups * group_warps +
          8LL * groups * width;
 }
 
@@ -479,7 +549,7 @@ cudaError_t launch_bwd_vec(const void* x, const void* dy, const void* mu,
                            long long stride_inner, int width, int group_warps,
                            int groups, int shared, int max_blocks,
                            cudaStream_t stream) {
-  constexpr int kMaxChunks = kBwdLaneBytes / (int)(sizeof(T) * VEC);
+  constexpr int kMaxChunks = kBwdLaneElems / VEC;
   static_assert(kMaxChunks >= 1, "a lane holds at least one load of a row");
   const int nvec = width / VEC;
   const int threads = groups * group_warps * 32;
@@ -593,7 +663,7 @@ extern "C" int clipself_layer_norm_bwd(int dtype, const void* x, const void* dy,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool sums = partial != nullptr;
-  if (width <= 0 || n_inner <= 0 || rows <= 0 || max_blocks <= 0 ||
+  if (width <= 0 || n_inner <= 0 || rows <= 0 || rows > 0x7fffffffLL || max_blocks <= 0 ||
       sums != (dgamma != nullptr) || sums != (dbeta != nullptr) ||
       (!sums && dx == nullptr)) {
     return (int)cudaErrorInvalidValue;

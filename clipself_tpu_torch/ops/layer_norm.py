@@ -22,7 +22,7 @@ backward is the one-pass kernel. Where no input needs a gradient it runs the
 forward alone, which writes no statistics.
 
 The backward kernel holds rows in registers: a row group of G warps takes
-one row at a time, each lane the same column chunks of every row, and sums
+two rows at a time, each lane the same column chunks of every row, and sums
 its dweight and dbias terms in registers; `bwd_plan` sizes it from the
 width, and `layer_norm_bwd_plan_plain` adds the sums in the kernel's order.
 
@@ -43,20 +43,22 @@ LAUNCHES = _build.LaunchCounter()      # forward launches, with or without stats
 BWD_LAUNCHES = _build.LaunchCounter()  # backward launches
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The backward's plan, as `csrc/layer_norm.cu` takes it: a lane holds at most
-# BWD_LANE_BYTES of x (and as many of dy) of a row in registers; a block runs
-# at most BWD_BLOCK_WARPS warps; at most BWD_BLOCKS_PER_SM blocks an SM run,
-# each writing one [2, W] partial row that the second launch adds up.
-BWD_LANE_BYTES = 64
+# BWD_LANE_ELEMS elements of x (and as many of dy) of a row in registers,
+# beside their float32 dweight and dbias sums (32 spilled in bfloat16 on an
+# H100); a block runs at most BWD_BLOCK_WARPS warps; at most
+# BWD_BLOCKS_PER_SM blocks an SM run, each writing one [2, W] partial row
+# that the second launch adds up.
+BWD_LANE_ELEMS = 16
 BWD_BLOCK_WARPS = 16
 BWD_BLOCKS_PER_SM = 2
-BWD_MAX_ROW_BYTES = BWD_LANE_BYTES * 32 * BWD_BLOCK_WARPS
+BWD_MAX_WIDTH = BWD_LANE_ELEMS * 32 * BWD_BLOCK_WARPS
 
 
 class BwdPlan(NamedTuple):
     """How the backward kernel cuts a row and a block."""
 
     vec: int           # elements a load
-    group_warps: int   # G: the warps of a row group, which takes one row at a time
+    group_warps: int   # G: the warps that share a row
     chunks: int        # loads of x (and of dy) a lane holds of a row, at most
     groups: int        # row groups a block
     threads: int       # threads a block
@@ -66,21 +68,22 @@ class BwdPlan(NamedTuple):
 def bwd_plan(dtype: torch.dtype, width: int, vec: int) -> BwdPlan:
     """The backward kernel's plan for rows of ``width`` elements of ``dtype``
     read ``vec`` at a time: the fewest warps a row that keep a lane within
-    BWD_LANE_BYTES of x, and as many row groups as fit BWD_BLOCK_WARPS.
-    Raises for rows wider than BWD_MAX_ROW_BYTES."""
-    size = dtype.itemsize
-    if width * size > BWD_MAX_ROW_BYTES:
+    BWD_LANE_ELEMS of x, and as many row groups as fit BWD_BLOCK_WARPS.
+    Raises for rows wider than BWD_MAX_WIDTH."""
+    if width > BWD_MAX_WIDTH:
         raise ValueError(
-            f"layer_norm_bwd: a row of {width} {dtype} is {width * size} bytes, wider than "
-            f"the {BWD_MAX_ROW_BYTES} the kernel holds in registers"
+            f"layer_norm_bwd: a row of {width} is wider than the {BWD_MAX_WIDTH} elements "
+            "the kernel holds in registers"
         )
-    if vec < 1 or vec * size > 16 or width % vec:
+    if vec < 1 or vec * dtype.itemsize > 16 or width % vec:
         raise ValueError(f"layer_norm_bwd: loads of {vec} {dtype} do not fit rows of {width}")
     nvec = width // vec
-    lane_chunks = BWD_LANE_BYTES // (vec * size)
+    lane_chunks = BWD_LANE_ELEMS // vec
     group_warps = -(-nvec // (32 * lane_chunks))
     groups = BWD_BLOCK_WARPS // group_warps
-    shared = 4 * (-(-width // 4) * 4) + 16 * groups * group_warps + 8 * groups * width
+    if group_warps > 1:  # a group of several warps meets at one of the barriers 1..15
+        groups = min(groups, 15)
+    shared = 4 * (-(-width // 4) * 4) + 64 * groups * group_warps + 8 * groups * width
     return BwdPlan(
         vec, group_warps, -(-nvec // (32 * group_warps)), groups, 32 * groups * group_warps, shared
     )
@@ -98,15 +101,15 @@ def bwd_design(plan: BwdPlan) -> str:
         return f"{count} {noun}{'s' if count > 1 else ''}"
 
     return (
-        f"rows in registers, {n(plan.group_warps, 'warp')} a row, {n(plan.groups, 'row')} a block, "
-        f"{plan.vec}-element loads"
+        f"rows in registers, {n(plan.group_warps, 'warp')} a row, {n(plan.groups, 'row group')} "
+        f"a block, {plan.vec}-element loads"
     )
 
 
 def bwd_vec(x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor | None) -> int:
     """The widest load, in elements (16 bytes at most), that every row of x
     (through its two strides, `_rows`), dy and dx allows."""
-    rows, n_inner, stride_outer, stride_inner = _rows(x, "layer_norm_bwd")
+    _, _, stride_outer, stride_inner = _rows(x, "layer_norm_bwd")
     size, w = x.element_size(), x.shape[-1]
     ptrs = [t.data_ptr() for t in (x, dy, dx) if t is not None]
     vec = 16 // size
@@ -287,7 +290,7 @@ def layer_norm_bwd(
     ``dy`` (contiguous, x's shape and dtype) and the forward's statistics;
     dx is contiguous in x's dtype, dweight and dbias float32 [W]. An output
     that is not needed (``need_dx``, ``need_dwb`` for the pair) is None and is
-    not computed on the card. On the card, rows wider than BWD_MAX_ROW_BYTES
+    not computed on the card. On the card, rows wider than BWD_MAX_WIDTH
     raise (`bwd_plan`)."""
     _check_device(x, "layer_norm_bwd")
     if not (need_dx or need_dwb):

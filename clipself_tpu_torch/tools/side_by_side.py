@@ -1,7 +1,7 @@
-"""The greedy-NMS and rolled-RoPE kernels of one tree, timed at the shapes
-the main paths give them, on one CUDA card: for comparing two trees (an
-older commit unpacked with `git archive` beside the working tree) in one
-run on one card.
+"""The greedy-NMS, rolled-RoPE and LayerNorm-backward kernels of one tree,
+timed at the shapes the main paths give them, on one CUDA card: for
+comparing two trees (an older commit unpacked with `git archive` beside the
+working tree) in one run on one card.
 
     python clipself_tpu_torch/tools/side_by_side.py --root build/parent
     python clipself_tpu_torch/tools/side_by_side.py --root .
@@ -11,7 +11,9 @@ same script times either tree: the NMS through `ops.nms.nms_keep_mask`, the
 RoPE through `ops.rope_roll.rolled_rope_packed` where the tree has it (one
 tensor, and q and k in one launch, the table packed beforehand), else
 through its `rolled_rope_fwd` on the three tables ("q,k" is then two
-launches of the one-tensor kernel). Times are CUDA-event
+launches of the one-tensor kernel), the LayerNorm backward through
+`ops.layer_norm.layer_norm_bwd` on the forward's statistics (float32 and
+bfloat16, with its time as a multiple of its bytes bound). Times are CUDA-event
 means of 20 calls replayed from a CUDA graph after a warm-up (the NMS also
 as 20 eager calls: its wrapper allocates, which a graph hides). The first
 line names the card and its power limit.
@@ -32,6 +34,15 @@ NMS_SHAPES = (("anchors", 8, 2000, 0.7), ("class_offset", 8, 2000, 0.4), ("ancho
 # students, the L/14 teacher's crops, the detector's batch, the B/16 crops
 ROPE_SHAPES = ((2, 64, 768), (2, 64, 1024), (40, 24, 1024), (8, 40, 768), (50, 14, 768))
 HEAD_DIM = 64
+# (shape, view) of the LayerNorm backward: the B/16 student's widths 768 and
+# 2048, the L/14 student's 1024 and 2730, the L/14 teacher's crops, and the
+# two strided views of the final norm that `chip_smoke.py` times
+LN_SHAPES = (
+    ((2, 4097, 768), ""), ((2, 4097, 2048), ""), ((2, 4097, 1024), ""), ((2, 4097, 2730), ""),
+    ((40, 577, 1024), ""), ((2, 4097, 1024), "rows 1:"), ((40, 577, 1024), "row 0"),
+)
+LN_VIEWS = {"": lambda t: t, "rows 1:": lambda t: t[:, 1:], "row 0": lambda t: t[:, 0]}
+PEAK_BYTES_S = 3.35e12  # one H100 SXM's device memory
 
 
 def device_ms(torch, fn, graph: bool) -> float:
@@ -70,7 +81,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("side_by_side: no CUDA device is available")
     from clipself_tpu_torch.detector.data import synthetic_nms_case
     from clipself_tpu_torch.models.rope import rope_tables
-    from clipself_tpu_torch.ops import nms, rope_roll
+    from clipself_tpu_torch.ops import layer_norm, nms, rope_roll
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -112,6 +123,21 @@ def main(argv=None) -> dict:
             f"rope_roll [{b}, {n}, {w}] bf16: one tensor {one:.4f} ms, q,k {two:.4f} ms ({how})",
             flush=True,
         )
+    for shape, view in LN_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = LN_VIEWS[view]((torch.randn(shape, generator=gen) * 3 + 0.5).to(dev, dt))
+            dy = LN_VIEWS[view](torch.randn(shape, generator=gen).to(dev, dt)).contiguous()
+            weight = (torch.randn(shape[-1], generator=gen) * 0.2 + 1.0).to(dev)
+            bias = (torch.randn(shape[-1], generator=gen) * 0.1).to(dev)
+            _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, 1e-6, return_stats=True)
+            ms = device_ms(torch, lambda: layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight), graph=True)
+            # x, dy and the statistics read, dx written, the weight read and
+            # dweight, dbias written once
+            moved = 3 * x.numel() * x.element_size() + 8 * mu.numel() + 12 * shape[-1]
+            bound = moved / PEAK_BYTES_S * 1e3
+            label = f"layer_norm_bwd {view + ' of ' if view else ''}{list(shape)} -> {list(x.shape)} {str(dt)[6:]}"
+            out[label] = [ms, bound]
+            print(f"{label}: {ms:.4f} ms, bound {bound:.4f} ms ({ms / bound:.2f}x)", flush=True)
     return out
 
 

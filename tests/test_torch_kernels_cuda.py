@@ -29,7 +29,8 @@ another order: float32 y and dx within 1e-5 absolute (values of order 1 to
 10); bfloat16 rounds that float32 value once on both sides, so y and dx
 agree within one bfloat16 ULP (2^-7 relative) plus the float32 slack;
 dweight and dbias are float32 sums over the rows on both sides, within 1e-5
-of their largest entry. Greedy NMS: the keep mask is discrete and the kernel's
+of their largest entry, and two backward calls give the same bits (no
+atomics). Greedy NMS: the keep mask is discrete and the kernel's
 arithmetic is pinned to single round-to-nearest operations in the plain
 version's order, so the two masks must be equal, and equal to the plain
 mirror of the kernels' two phases (bit matrix, block-wise scan).
@@ -422,13 +423,17 @@ def test_attention_kernel_rejects_what_it_does_not_take(dev):
 # (shape of the tensor, view of it that the op sees): the widths of the B/16
 # and L/14 towers (768, 1024, the SwiGLU hiddens 2048 and 2730, whose bf16
 # rows are only 4-byte aligned), odd widths, and the two strided views of
-# the final norm (`t[:, 1:]` of the dense pass, `t[:, 0]` of the CLS pass)
+# the final norm (`t[:, 1:]` of the dense pass, `t[:, 0]` of the CLS pass);
+# for the backward's plan also one row, 8193 rows, fewer rows than one
+# block's row groups, and a ragged width that takes six warps a row in
+# bf16 (2731: one element a load)
 _LN_VIEWS = {"all": lambda t: t, "drop_cls": lambda t: t[:, 1:], "cls_rows": lambda t: t[:, 0]}
 _LN_CASES = [
     ((2, 257, 768), "all"), ((2, 257, 1024), "all"), ((2, 257, 2048), "all"),
     ((2, 257, 2730), "all"), ((3, 50, 341), "all"), ((5, 7, 170), "all"), ((1, 1, 2), "all"),
     ((1000, 1024), "all"), ((2, 4097, 1024), "drop_cls"), ((3, 65, 2730), "drop_cls"),
     ((40, 577, 1024), "cls_rows"), ((7, 5, 341), "cls_rows"),
+    ((1, 1, 1024), "all"), ((8193, 768), "all"), ((3, 2730), "all"), ((2, 9, 2731), "all"),
 ]
 _LN_EPS = 1e-6
 
@@ -512,6 +517,55 @@ def test_layer_norm_function_on_card(dev, recompute):
         assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item() + 1e-6
     with torch.no_grad():
         assert layer_norm.layer_norm(*leaves, _LN_EPS).grad_fn is None
+
+
+def test_layer_norm_backward_plan_of_the_ragged_width(dev):
+    x, dy, _, _ = _ln_inputs(dev, (2, 9, 2731), "all", torch.bfloat16, seed=0)
+    plan = layer_norm.bwd_plan(x.dtype, 2731, layer_norm.bwd_vec(x, dy, None))
+    assert (plan.vec, plan.group_warps) == (1, 6)
+
+
+def test_layer_norm_backward_replays_from_a_cuda_graph(dev):
+    """Captured once and replayed, the backward (both launches) gives the
+    bits of an eager call; the set-up of its kernels happens once, outside
+    the launches that follow."""
+    x, dy, weight, bias = _ln_inputs(dev, (2, 257, 2730), "all", torch.bfloat16, seed=11)
+    _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
+    eager = layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+def test_layer_norm_kernels_set_up_once(dev):
+    """The shared-memory attribute and the occupancy query run once for each
+    kernel and shared size, never on every launch, forward or backward."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy, weight, bias = _ln_inputs(dev, (2, 33, 2048), "all", dtype, seed=5)
+        _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
+        layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
+        before = layer_norm.setup_calls()
+        for _ in range(3):
+            layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS)
+            _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
+            layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
+            layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight, need_dx=False)
+        assert layer_norm.setup_calls() == before
+
+
+def test_layer_norm_backward_rejects_rows_past_its_width_limit(dev):
+    w = layer_norm.BWD_MAX_WIDTH + 1
+    x, dy, weight, bias = _ln_inputs(dev, (2, w), "all", torch.bfloat16, seed=1)
+    _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
+    before = layer_norm.BWD_LAUNCHES.count
+    with pytest.raises(ValueError, match="wider than"):
+        layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
+    assert layer_norm.BWD_LAUNCHES.count == before
 
 
 def test_layer_norm_kernel_rejects_what_it_does_not_take(dev):

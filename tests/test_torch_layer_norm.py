@@ -273,30 +273,33 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 
 @pytest.mark.parametrize(
     "width,vec,group_warps,chunks",
-    [(768, 8, 1, 3), (1024, 8, 1, 4), (2048, 8, 2, 4), (2730, 2, 3, 15), (2731, 1, 3, 29)],
+    [(768, 8, 2, 2), (1024, 8, 2, 2), (2048, 8, 4, 2), (2730, 2, 6, 8), (2731, 1, 6, 15)],
 )
 def test_backward_plan_at_the_towers_widths(width, vec, group_warps, chunks):
     """bfloat16 rows of the B/16 and L/14 towers (and a ragged width): the
-    fewest warps a row that keep a lane within 64 bytes of x, as many row
+    fewest warps a row that keep a lane within 16 elements of x, as many row
     groups as fill 16 warps, and shared memory a block can have."""
     plan = ln.bwd_plan(torch.bfloat16, width, vec)
     assert (plan.vec, plan.group_warps, plan.chunks) == (vec, group_warps, chunks)
-    assert plan.chunks * vec * 2 <= ln.BWD_LANE_BYTES
+    assert plan.chunks * vec <= ln.BWD_LANE_ELEMS
     assert plan.chunks * 32 * group_warps * vec >= width > (plan.chunks - 1) * 32 * group_warps * vec
     assert plan.groups == 16 // group_warps and plan.threads == 32 * group_warps * plan.groups <= 512
+    # the budget is in elements: float32 rows take as many warps
+    assert ln.bwd_plan(torch.float32, width, min(vec, 4)).group_warps == group_warps
     assert plan.shared_bytes <= 232448
     assert ln.bwd_design(plan).startswith(f"rows in registers, {group_warps} warp")
 
 
 def test_backward_plan_blocks_and_width_limit():
     assert ln.bwd_max_blocks(132) == 264
-    widest = ln.BWD_MAX_ROW_BYTES // 2
+    widest = ln.BWD_MAX_WIDTH
+    assert widest >= 3 * 2730
     assert ln.bwd_plan(torch.bfloat16, widest, 8).group_warps == 16
-    assert ln.bwd_plan(torch.float32, ln.BWD_MAX_ROW_BYTES // 4, 1).threads == 512
+    assert ln.bwd_plan(torch.float32, widest, 1).threads == 512
     with pytest.raises(ValueError, match="wider than"):
         ln.bwd_plan(torch.bfloat16, widest + 1, 1)
     with pytest.raises(ValueError, match="wider than"):
-        ln.bwd_plan(torch.float32, ln.BWD_MAX_ROW_BYTES // 4 + 4, 4)
+        ln.bwd_plan(torch.float32, widest + 4, 4)
     with pytest.raises(ValueError, match="do not fit"):
         ln.bwd_plan(torch.bfloat16, 2730, 8)
 
