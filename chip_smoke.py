@@ -612,7 +612,7 @@ def check_layer_norm(torch, dev, records, gen, shape, view, backward):
         # both sides take the kernel forward's statistics
         _, mu, rstd = ln.layer_norm_fwd(x, weight, bias, eps, return_stats=True)
         got = ln.layer_norm_bwd(x, dy, mu, rstd, weight)
-        design = ln.bwd_design(ln.bwd_plan(dt, w, ln.bwd_vec(x, dy, got[0])))
+        design = ln.describe_bwd(x, dy, got[0])
         want = ln.layer_norm_bwd_plain(x, dy, mu, rstd, weight)
         g = dy.float() * weight
         xhat = (xf - mu[..., None]) * rstd[..., None]

@@ -36,17 +36,22 @@
 // its lanes owns the same VEC-wide column chunks in every row (at most
 // kBwdLaneElems elements of x and as many of dy, so G grows with the width:
 // 16 elements keep the bf16 kernels within 128 registers, where 32 spilled).
-// A lane issues all its loads of kBwdRows rows before it uses any (the
-// bytes in flight, not the width of a load, are what the wide bf16 rows
-// lacked), keeps them in registers for both passes (the two row sums, by
-// warp shuffles and, when G > 1, one exchange under a named barrier of the
-// group; then dx), and adds each row's dgamma and dbeta terms into
-// registers of its own. A persistent grid walks
+// A lane issues all its loads of a row before it uses any, keeps them in
+// registers for both passes (the two row sums, by warp shuffles and, when
+// G > 1, one exchange under a named barrier of the group; then dx), and adds
+// the row's dgamma and dbeta terms into registers of its own. A persistent
+// grid walks
 // the rows, the groups strided by their global index; at the end the block
 // adds its groups' sums in group order into one partial row. The plan (G,
 // groups a block, shared bytes) comes from ops/layer_norm.py:bwd_plan, which
-// this file checks. The shared-memory attribute, the occupancy and the SM
-// count are looked up once a process for each kernel and shared size.
+// this file checks. That is the "registers" design. The "staged" design (the
+// first port's) stays for the rows where the H100 measured it faster
+// (ops/layer_norm.py:bwd_design: bf16 rows read 4 bytes or less at a time,
+// and fewer rows than SMs): a persistent block of R warps stages R rows of
+// x and dy in shared memory, a warp a row, and a thread a column adds the R
+// rows' dgamma and dbeta terms into a shared-memory accumulator. The
+// shared-memory attribute, the occupancy and the SM count are looked up
+// once a process for each kernel (and shared size).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,9 +67,7 @@
 #ifndef CLIPSELF_LN_BWD_MAX_THREADS
 #define CLIPSELF_LN_BWD_MAX_THREADS 512
 #endif
-#ifndef CLIPSELF_LN_BWD_ROWS
-#define CLIPSELF_LN_BWD_ROWS 2
-#endif
+
 
 namespace {
 
@@ -76,10 +79,6 @@ constexpr int kBwdLaneElems = CLIPSELF_LN_BWD_LANE_ELEMS;
 constexpr int kBwdMaxThreads = CLIPSELF_LN_BWD_MAX_THREADS;
 // blocks of the partial-sum reduce: (32 columns, 8 strided sums)
 constexpr int kReduceLanes = 8;
-// rows a backward row group holds in flight at once (the row-sum exchange
-// is sized for up to 4)
-constexpr int kBwdRows = CLIPSELF_LN_BWD_ROWS;
-static_assert(kBwdRows >= 1 && kBwdRows <= 4, "1 to 4 rows a group in flight");
 
 // VEC consecutive elements moved by one aligned load or store
 template <typename T, int VEC>
@@ -212,14 +211,12 @@ __device__ __forceinline__ void load_row(
   rstd = rstd_in[row];
 }
 
-// The backward. blockDim.x = groups * G * 32; MAXC = the most VEC-wide
-// chunks a lane holds of a row (kBwdLaneElems of x). A group takes kBwdRows
-// rows an iteration (rows q, q + S, ... of its stride S), with all their
-// loads in flight together and one exchange for all of them. Shared memory,
-// f32: gamma [round_up4(W)], the groups' row-sum exchange
-// [2][groups][G][2 * 4] (double-buffered by iteration, so one barrier an
-// iteration suffices), the groups' dgamma and dbeta sums [groups][2][W].
-// dx and partial may each be null:
+// The backward's "registers" design. blockDim.x = groups * G * 32; MAXC =
+// the most VEC-wide chunks a lane holds of a row (kBwdLaneElems of x); a
+// group takes rows q, q + S, ... of its stride S. Shared memory, f32: gamma
+// [round_up4(W)], the groups' row-sum exchange [2][groups][G][2]
+// (double-buffered by row, so one barrier a row suffices), the groups'
+// dgamma and dbeta sums [groups][2][W]. dx and partial may each be null:
 // that output is then not computed. partial is [2, partial_stride / W, W]:
 // block b writes its dgamma sums to row b of the first half and its dbeta
 // sums to row b of the second.
@@ -242,22 +239,8 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
   const float inv_w = 1.f / (float)width;
   float* gamma_s = reinterpret_cast<float*>(smem);
   float* xchg = gamma_s + ((width + 3) & ~3);
-  float* red = xchg + 16 * groups * group_warps;
+  float* red = xchg + 4 * groups * group_warps;
 
-  // the group's first rows are in flight while gamma is staged
-  const long long stride_rows = (long long)gridDim.x * groups;
-  long long row0 = (long long)blockIdx.x * groups + group;
-  P px[kBwdRows][MAXC], pd[kBwdRows][MAXC];
-  float mu[kBwdRows], rstd[kBwdRows];
-#pragma unroll
-  for (int r = 0; r < kBwdRows; ++r) {
-    const long long row = row0 + r * stride_rows;
-    if (row < rows) {
-      load_row<T, VEC, MAXC>(x, dy, mu_in, rstd_in, row, n_inner, stride_outer,
-                             stride_inner, width, gt, gthreads, px[r], pd[r],
-                             mu[r], rstd[r]);
-    }
-  }
   for (int c = threadIdx.x; c < width; c += blockDim.x) gamma_s[c] = gamma[c];
   __syncthreads();
 
@@ -268,96 +251,79 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
     for (int j = 0; j < VEC; ++j) ag[c][j] = ab[c][j] = 0.f;
   }
 
+  const long long stride_rows = (long long)gridDim.x * groups;
   int parity = 0;
-  for (; row0 < rows; row0 += kBwdRows * stride_rows) {
-    // the row sums of the kBwdRows rows, each added into dgamma and dbeta
-    // in row order
-    float s1[kBwdRows], s2[kBwdRows];
+  long long row = (long long)blockIdx.x * groups + group;
+  P px[MAXC], pd[MAXC];
+  float mu = 0.f, rstd = 0.f;
+  if (row < rows) {
+    load_row<T, VEC, MAXC>(x, dy, mu_in, rstd_in, row, n_inner, stride_outer,
+                           stride_inner, width, gt, gthreads, px, pd, mu, rstd);
+  }
+  for (; row < rows; row += stride_rows) {
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int r = 0; r < kBwdRows; ++r) {
-      s1[r] = s2[r] = 0.f;
-      if (row0 + r * stride_rows >= rows) continue;  // uniform in the group
+    for (int c = 0; c < MAXC; ++c) {
+      const int i = gt + c * gthreads;
+      if (i < nvec) {
+        float gm[VEC];
+        load_f32<VEC>(gamma_s + i * VEC, gm);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float d = to_f32(pd[c].v[j]);
+          const float xhat = (to_f32(px[c].v[j]) - mu) * rstd;
+          const float g = d * gm[j];
+          s1 += g;
+          s2 = fmaf(g, xhat, s2);
+          if (sums) {
+            ag[c][j] = fmaf(d, xhat, ag[c][j]);
+            ab[c][j] += d;
+          }
+        }
+      }
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (group_warps > 1) {  // the group's warps add their sums in warp order
+      float* slot = xchg + 2 * group_warps * (parity * groups + group);
+      if (lane == 0) {
+        slot[2 * gwarp] = s1;
+        slot[2 * gwarp + 1] = s2;
+      }
+      group_barrier(1 + group, gthreads);
+      s1 = slot[0];
+      s2 = slot[1];
+      for (int w = 1; w < group_warps; ++w) {
+        s1 += slot[2 * w];
+        s2 += slot[2 * w + 1];
+      }
+      parity ^= 1;
+    }
+    const float m1 = s1 * inv_w, m2 = s2 * inv_w;
+
+    if (dx != nullptr) {
+      P* dxv = reinterpret_cast<P*>(dx + row * width);
 #pragma unroll
       for (int c = 0; c < MAXC; ++c) {
         const int i = gt + c * gthreads;
         if (i < nvec) {
           float gm[VEC];
           load_f32<VEC>(gamma_s + i * VEC, gm);
+          P o;
 #pragma unroll
           for (int j = 0; j < VEC; ++j) {
-            const float d = to_f32(pd[r][c].v[j]);
-            const float xhat = (to_f32(px[r][c].v[j]) - mu[r]) * rstd[r];
-            const float g = d * gm[j];
-            s1[r] += g;
-            s2[r] = fmaf(g, xhat, s2[r]);
-            if (sums) {
-              ag[c][j] = fmaf(d, xhat, ag[c][j]);
-              ab[c][j] += d;
-            }
+            const float g = to_f32(pd[c].v[j]) * gm[j];
+            const float xhat = (to_f32(px[c].v[j]) - mu) * rstd;
+            from_f32(rstd * (g - m1 - xhat * m2), &o.v[j]);
           }
+          dxv[i] = o;
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < kBwdRows; ++r) {
-      s1[r] = warp_sum(s1[r]);
-      s2[r] = warp_sum(s2[r]);
-    }
-    if (group_warps > 1) {  // the group's warps add their sums in warp order
-      float* slot = xchg + 2 * kBwdRows * group_warps * (parity * groups + group);
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kBwdRows; ++r) {
-          slot[2 * (kBwdRows * gwarp + r)] = s1[r];
-          slot[2 * (kBwdRows * gwarp + r) + 1] = s2[r];
-        }
-      }
-      group_barrier(1 + group, gthreads);
-#pragma unroll
-      for (int r = 0; r < kBwdRows; ++r) {
-        s1[r] = slot[2 * r];
-        s2[r] = slot[2 * r + 1];
-        for (int w = 1; w < group_warps; ++w) {
-          s1[r] += slot[2 * (kBwdRows * w + r)];
-          s2[r] += slot[2 * (kBwdRows * w + r) + 1];
-        }
-      }
-      parity ^= 1;
-    }
-
-    if (dx != nullptr) {
-#pragma unroll
-      for (int r = 0; r < kBwdRows; ++r) {
-        const long long row = row0 + r * stride_rows;
-        if (row >= rows) continue;
-        const float m1 = s1[r] * inv_w, m2 = s2[r] * inv_w;
-        P* dxv = reinterpret_cast<P*>(dx + row * width);
-#pragma unroll
-        for (int c = 0; c < MAXC; ++c) {
-          const int i = gt + c * gthreads;
-          if (i < nvec) {
-            float gm[VEC];
-            load_f32<VEC>(gamma_s + i * VEC, gm);
-            P o;
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) {
-              const float g = to_f32(pd[r][c].v[j]) * gm[j];
-              const float xhat = (to_f32(px[r][c].v[j]) - mu[r]) * rstd[r];
-              from_f32(rstd[r] * (g - m1 - xhat * m2), &o.v[j]);
-            }
-            dxv[i] = o;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kBwdRows; ++r) {
-      const long long row = row0 + (kBwdRows + r) * stride_rows;
-      if (row < rows) {
-        load_row<T, VEC, MAXC>(x, dy, mu_in, rstd_in, row, n_inner, stride_outer,
-                               stride_inner, width, gt, gthreads, px[r], pd[r],
-                               mu[r], rstd[r]);
-      }
+    if (row + stride_rows < rows) {
+      load_row<T, VEC, MAXC>(x, dy, mu_in, rstd_in, row + stride_rows, n_inner,
+                             stride_outer, stride_inner, width, gt, gthreads, px,
+                             pd, mu, rstd);
     }
   }
 
@@ -387,6 +353,126 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
       }
       out_g[col] = tg;
       out_b[col] = tb;
+    }
+  }
+}
+
+// The backward's "staged" design: a persistent block of R = blockDim.x / 32
+// warps takes R rows at a time.
+// Shared memory: acc_g[W], acc_b[W], mu[R], rstd[R] in f32, then (from a
+// 16-byte boundary) R rows of x and R rows of dy, row_bytes each.
+// dx and partial may each be null: that output is then not computed.
+// partial is [2, partial_stride / W, W]: block b writes its dgamma sums to
+// row b of the first half and its dbeta sums to row b of the second.
+template <typename T, int VEC>
+__global__ void layer_norm_bwd_staged_kernel(
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ mu_in, const float* __restrict__ rstd_in,
+    const float* __restrict__ gamma, T* __restrict__ dx,
+    float* __restrict__ partial, long long partial_stride, long long rows,
+    int n_inner, long long stride_outer, long long stride_inner, int width,
+    int row_bytes, int stage_offset) {
+  using P = Pack<T, VEC>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* acc_g = reinterpret_cast<float*>(smem);
+  float* acc_b = acc_g + width;
+  float* stat = acc_b + width;  // mu[R], rstd[R] of the rows in flight
+  unsigned char* stage_x = smem + stage_offset;
+  unsigned char* stage_dy = stage_x + (size_t)n_warps * row_bytes;
+  const int nvec = width / VEC;
+  const float inv_w = 1.f / (float)width;
+
+  if (partial != nullptr) {
+    for (int c = threadIdx.x; c < width; c += blockDim.x) {
+      acc_g[c] = 0.f;
+      acc_b[c] = 0.f;
+    }
+    // the first barrier of the loop below orders this against the adds
+  }
+
+  for (long long base = (long long)blockIdx.x * n_warps; base < rows;
+       base += (long long)gridDim.x * n_warps) {
+    const long long row = base + warp;
+    if (row < rows) {
+      P* sx = reinterpret_cast<P*>(stage_x + (size_t)warp * row_bytes);
+      P* sdy = reinterpret_cast<P*>(stage_dy + (size_t)warp * row_bytes);
+      const P* xv = reinterpret_cast<const P*>(
+          x + row_offset(row, n_inner, stride_outer, stride_inner));
+      const P* dyv = reinterpret_cast<const P*>(dy + row * width);
+      const float mu = mu_in[row], rstd = rstd_in[row];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll 2
+      for (int i = lane; i < nvec; i += 32) {
+        const P px = xv[i];
+        const P pd = dyv[i];
+        sx[i] = px;
+        sdy[i] = pd;
+        float gm[VEC];
+        load_f32<VEC>(gamma + (size_t)i * VEC, gm);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float g = to_f32(pd.v[j]) * gm[j];
+          const float xhat = (to_f32(px.v[j]) - mu) * rstd;
+          s1 += g;
+          s2 = fmaf(g, xhat, s2);
+        }
+      }
+      const float m1 = warp_sum(s1) * inv_w;
+      const float m2 = warp_sum(s2) * inv_w;
+      if (dx != nullptr) {
+        P* dxv = reinterpret_cast<P*>(dx + row * width);
+#pragma unroll 2
+        for (int i = lane; i < nvec; i += 32) {
+          const P px = sx[i];  // written by this lane
+          const P pd = sdy[i];
+          float gm[VEC];
+          load_f32<VEC>(gamma + (size_t)i * VEC, gm);
+          P o;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float g = to_f32(pd.v[j]) * gm[j];
+            const float xhat = (to_f32(px.v[j]) - mu) * rstd;
+            from_f32(rstd * (g - m1 - xhat * m2), &o.v[j]);
+          }
+          dxv[i] = o;
+        }
+      }
+      if (lane == 0) {
+        stat[warp] = mu;
+        stat[n_warps + warp] = rstd;
+      }
+    }
+    if (partial != nullptr) {
+      __syncthreads();  // the R staged rows and their stats are complete
+      const long long left = rows - base;
+      const int n_rows = left < n_warps ? (int)left : n_warps;
+      for (int c = threadIdx.x; c < width; c += blockDim.x) {
+        float ag = 0.f, ab = 0.f;
+        for (int r = 0; r < n_rows; ++r) {
+          const T* xs = reinterpret_cast<const T*>(stage_x + (size_t)r * row_bytes);
+          const T* ds = reinterpret_cast<const T*>(stage_dy + (size_t)r * row_bytes);
+          const float d = to_f32(ds[c]);
+          const float xhat = (to_f32(xs[c]) - stat[r]) * stat[n_warps + r];
+          ag = fmaf(d, xhat, ag);
+          ab += d;
+        }
+        acc_g[c] += ag;  // column c belongs to this thread alone
+        acc_b[c] += ab;
+      }
+      __syncthreads();  // before the next rows overwrite the stage
+    }
+  }
+
+  if (partial != nullptr) {
+    // a block that took no rows still writes its zeros
+    __syncthreads();
+    float* out_g = partial + (long long)blockIdx.x * width;
+    float* out_b = partial + partial_stride + (long long)blockIdx.x * width;
+    for (int c = threadIdx.x; c < width; c += blockDim.x) {
+      out_g[c] = acc_g[c];
+      out_b[c] = acc_b[c];
     }
   }
 }
@@ -421,9 +507,10 @@ __global__ void layer_norm_bwd_reduce_kernel(const float* __restrict__ partial,
 
 inline int round_up16(long long v) { return (int)((v + 15) / 16 * 16); }
 
-// What a kernel needs before its first launch at one shared size on one
+// What a kernel needs before its first launch at one block shape on one
 // device, looked up once a process: the shared-memory attribute (above 48
-// KB), the blocks of `threads` an SM holds, and the device's SM count.
+// KB), the blocks of `threads` with `shared` bytes an SM holds, and the
+// device's SM count.
 struct Setup {
   cudaError_t err;
   int blocks_per_sm;
@@ -445,8 +532,10 @@ Setup setup_once(const void* kernel, int threads, int shared) {
   g_setup_calls.fetch_add(1);
   Setup s{cudaSuccess, 0, 0};
   if (shared > 48 * 1024) {
+    // the most any launch may ask for: a set-up at a smaller size must not
+    // lower what an earlier set-up of the same kernel allowed
     s.err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
   }
   if (s.err == cudaSuccess) {
     s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.blocks_per_sm,
@@ -534,10 +623,89 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta,
 #undef CLIPSELF_LN_FWD
 }
 
-// Shared-memory bytes of the backward block (ops/layer_norm.py:bwd_plan
-// computes the same).
+// The second launch of either design: dgamma and dbeta from the blocks'
+// partial rows, if they are wanted (the first launch's error, if any, first).
+cudaError_t launch_bwd_reduce(void* partial, void* dgamma, void* dbeta,
+                              long long partial_stride, int blocks, int width,
+                              cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || partial == nullptr) return err;
+  const dim3 grid((width + 31) / 32, 2), block(32, kReduceLanes);
+  layer_norm_bwd_reduce_kernel<<<grid, block, 0, stream>>>(
+      static_cast<const float*>(partial), partial_stride, blocks, width,
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta));
+  return cudaGetLastError();
+}
+
+// Shared-memory bytes of the staged design with `warps` rows in flight.
+template <typename T>
+long long staged_shared(int warps, int width, int* stage_offset, int* row_bytes) {
+  *row_bytes = round_up16((long long)width * sizeof(T));
+  *stage_offset = round_up16((2LL * width + 2LL * warps) * sizeof(float));
+  return *stage_offset + 2LL * warps * *row_bytes;
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd_staged_vec(const void* x, const void* dy, const void* mu,
+                                  const void* rstd, const void* gamma, void* dx,
+                                  void* partial, void* dgamma, void* dbeta,
+                                  long long rows, int n_inner,
+                                  long long stride_outer, long long stride_inner,
+                                  int width, int max_blocks, cudaStream_t stream) {
+  // the most rows in flight that leave room for two blocks on an SM; fewer
+  // if even one block would not fit
+  int warps = 8, stage_offset = 0, row_bytes = 0;
+  while (warps > 1 &&
+         staged_shared<T>(warps, width, &stage_offset, &row_bytes) > kMaxSharedBytes / 2) {
+    warps /= 2;
+  }
+  const long long shared = staged_shared<T>(warps, width, &stage_offset, &row_bytes);
+  if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
+  auto kernel = layer_norm_bwd_staged_kernel<T, VEC>;
+  const Setup setup = setup_once((const void*)kernel, warps * 32, (int)shared);
+  if (setup.err != cudaSuccess) return setup.err;
+  long long blocks = (rows + warps - 1) / warps;
+  if (blocks > max_blocks) blocks = max_blocks;
+  const long long partial_stride = (long long)max_blocks * width;
+  kernel<<<(unsigned)blocks, warps * 32, (size_t)shared, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const float*>(mu), static_cast<const float*>(rstd),
+      static_cast<const float*>(gamma), static_cast<T*>(dx),
+      static_cast<float*>(partial), partial_stride, rows, n_inner,
+      stride_outer, stride_inner, width, row_bytes, stage_offset);
+  return launch_bwd_reduce(partial, dgamma, dbeta, partial_stride, (int)blocks,
+                           width, stream);
+}
+
+template <typename T>
+cudaError_t launch_bwd_staged(const void* x, const void* dy, const void* mu,
+                              const void* rstd, const void* gamma, void* dx,
+                              void* partial, void* dgamma, void* dbeta,
+                              long long rows, int n_inner, long long stride_outer,
+                              long long stride_inner, int width, int max_blocks,
+                              cudaStream_t stream) {
+  const void* ptrs[] = {x, dy, dx};  // a null dx is aligned to anything
+  const void* f32_ptrs[] = {gamma};
+  const int vec = pick_vec<T>(width, stride_outer, stride_inner, ptrs, 3,
+                              f32_ptrs, 1);
+#define CLIPSELF_LN_BWD_STAGED(V)                                             \
+  return launch_bwd_staged_vec<T, V>(x, dy, mu, rstd, gamma, dx, partial,     \
+                                     dgamma, dbeta, rows, n_inner,            \
+                                     stride_outer, stride_inner, width,       \
+                                     max_blocks, stream)
+  if constexpr (sizeof(T) == 2) {
+    if (vec == 8) CLIPSELF_LN_BWD_STAGED(8);
+  }
+  if (vec == 4) CLIPSELF_LN_BWD_STAGED(4);
+  if (vec == 2) CLIPSELF_LN_BWD_STAGED(2);
+  CLIPSELF_LN_BWD_STAGED(1);
+#undef CLIPSELF_LN_BWD_STAGED
+}
+
+// Shared-memory bytes of the registers design's block (ops/layer_norm.py:
+// bwd_plan computes the same).
 long long bwd_shared_bytes(int width, int group_warps, int groups) {
-  return 4LL * ((width + 3) & ~3) + 64LL * groups * group_warps +
+  return 4LL * ((width + 3) & ~3) + 16LL * groups * group_warps +
          8LL * groups * width;
 }
 
@@ -575,13 +743,8 @@ cudaError_t launch_bwd_vec(const void* x, const void* dy, const void* mu,
       static_cast<const float*>(gamma), static_cast<T*>(dx),
       static_cast<float*>(partial), partial_stride, rows, n_inner,
       stride_outer, stride_inner, width, group_warps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || partial == nullptr) return err;
-  const dim3 grid((width + 31) / 32, 2), block(32, kReduceLanes);
-  layer_norm_bwd_reduce_kernel<<<grid, block, 0, stream>>>(
-      static_cast<const float*>(partial), partial_stride, (int)blocks, width,
-      static_cast<float*>(dgamma), static_cast<float*>(dbeta));
-  return cudaGetLastError();
+  return launch_bwd_reduce(partial, dgamma, dbeta, partial_stride, (int)blocks,
+                           width, stream);
 }
 
 template <typename T>
@@ -647,10 +810,12 @@ extern "C" int clipself_layer_norm_fwd(int dtype, const void* x,
 // x as in the forward; dy: contiguous [rows, width] of x's type; mu, rstd:
 // the forward's float32 [rows]; dx: contiguous [rows, width] of x's type, or
 // null. partial: float32 scratch [2, max_blocks, width] with dgamma, dbeta
-// float32 [width], or all three null when neither is wanted. The plan of
-// ops/layer_norm.py:bwd_plan: loads of `vec` elements (x, dy and dx must
-// allow them), `group_warps` warps a row, `groups` rows a block in flight,
-// `shared` bytes of shared memory; at most max_blocks blocks run.
+// float32 [width], or all three null when neither is wanted. design: 0 =
+// "registers" with the plan of ops/layer_norm.py:bwd_plan (loads of `vec`
+// elements, which x, dy and dx must allow; `group_warps` warps a row,
+// `groups` row groups a block, `shared` bytes of shared memory), 1 =
+// "staged" (picks its own loads and block; the plan is not read). At most
+// max_blocks blocks run.
 extern "C" int clipself_layer_norm_bwd(int dtype, const void* x, const void* dy,
                                        const void* mu, const void* rstd,
                                        const void* gamma, void* dx,
@@ -658,15 +823,26 @@ extern "C" int clipself_layer_norm_bwd(int dtype, const void* x, const void* dy,
                                        void* dbeta, long long rows, int n_inner,
                                        long long stride_outer,
                                        long long stride_inner, int width,
-                                       int vec, int group_warps, int groups,
-                                       int shared, int max_blocks,
+                                       int design, int vec, int group_warps,
+                                       int groups, int shared, int max_blocks,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool sums = partial != nullptr;
   if (width <= 0 || n_inner <= 0 || rows <= 0 || rows > 0x7fffffffLL || max_blocks <= 0 ||
       sums != (dgamma != nullptr) || sums != (dbeta != nullptr) ||
-      (!sums && dx == nullptr)) {
+      (!sums && dx == nullptr) || (design != 0 && design != 1)) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (design == 1 && dtype == 0) {
+    return (int)launch_bwd_staged<float>(x, dy, mu, rstd, gamma, dx, partial,
+                                         dgamma, dbeta, rows, n_inner,
+                                         stride_outer, stride_inner, width,
+                                         max_blocks, s);
+  }
+  if (design == 1 && dtype == 1) {
+    return (int)launch_bwd_staged<__nv_bfloat16>(
+        x, dy, mu, rstd, gamma, dx, partial, dgamma, dbeta, rows, n_inner,
+        stride_outer, stride_inner, width, max_blocks, s);
   }
   if (dtype == 0) {
     return (int)launch_bwd<float>(x, dy, mu, rstd, gamma, dx, partial, dgamma,

@@ -55,7 +55,7 @@ _SIGNATURES = {
         _I,
     ),
     "clipself_layer_norm_bwd": (
-        (_I,) + (_P,) * 9 + (_L, _I, _L, _L) + (_I,) * 6 + (_P,),
+        (_I,) + (_P,) * 9 + (_L, _I, _L, _L) + (_I,) * 7 + (_P,),
         _I,
     ),
     "clipself_layer_norm_setup_calls": ((), _I),

@@ -21,10 +21,12 @@ view like `t[:, 1:]` or `t[:, 0]` of a [B, N, W] tensor is not copied.
 backward is the one-pass kernel. Where no input needs a gradient it runs the
 forward alone, which writes no statistics.
 
-The backward kernel holds rows in registers: a row group of G warps takes
-two rows at a time, each lane the same column chunks of every row, and sums
-its dweight and dbias terms in registers; `bwd_plan` sizes it from the
-width, and `layer_norm_bwd_plan_plain` adds the sums in the kernel's order.
+The backward kernel has two designs, and `bwd_design` picks one from what
+the H100 measured. "registers": a row group of G warps takes one row at a
+time, each lane the same column chunks of every row, and sums its dweight
+and dbias terms in registers; `bwd_plan` sizes it from the width, and
+`layer_norm_bwd_plan_plain` adds the sums in its order. "staged" (the first
+port's): a warp a row, rows staged in shared memory, column sums there.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.
@@ -95,14 +97,34 @@ def bwd_max_blocks(sms: int) -> int:
     return BWD_BLOCKS_PER_SM * sms
 
 
-def bwd_design(plan: BwdPlan) -> str:
-    """The backward kernel's design at this plan, as `chip_smoke.py` names it."""
+_BWD_DESIGNS = {"registers": 0, "staged": 1}
+
+
+def bwd_design(dtype: torch.dtype, vec: int, rows: int, sms: int) -> str:
+    """Which backward design runs: "staged" where the H100 measured it
+    faster than "registers" (PERF.md, PR 8): bfloat16 rows read 4 bytes or
+    less at a time (the L/14 hidden width 2730), where too few bytes are in
+    flight a row group; and fewer rows than the card has SMs, where a call's
+    fixed cost is all there is. Else "registers"."""
+    if (dtype == torch.bfloat16 and vec <= 2) or rows < sms:
+        return "staged"
+    return "registers"
+
+
+def describe_bwd(x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor | None) -> str:
+    """The design (and plan) that `layer_norm_bwd` takes on these CUDA
+    tensors, as `chip_smoke.py` names it."""
+    vec = bwd_vec(x, dy, dx)
+    if bwd_design(x.dtype, vec, _rows(x, "layer_norm_bwd")[0], _sm_count(x.device.index)) == "staged":
+        return "staged: a warp a row in shared memory"
+    plan = bwd_plan(x.dtype, x.shape[-1], vec)
+
     def n(count, noun):
         return f"{count} {noun}{'s' if count > 1 else ''}"
 
     return (
-        f"rows in registers, {n(plan.group_warps, 'warp')} a row, {n(plan.groups, 'row group')} "
-        f"a block, {plan.vec}-element loads"
+        f"registers: {n(plan.group_warps, 'warp')} a row, {n(plan.groups, 'row group')} a block, "
+        f"{plan.vec}-element loads"
     )
 
 
@@ -291,7 +313,7 @@ def layer_norm_bwd(
     dx is contiguous in x's dtype, dweight and dbias float32 [W]. An output
     that is not needed (``need_dx``, ``need_dwb`` for the pair) is None and is
     not computed on the card. On the card, rows wider than BWD_MAX_WIDTH
-    raise (`bwd_plan`)."""
+    raise (`bwd_plan`), whichever design runs."""
     _check_device(x, "layer_norm_bwd")
     if not (need_dx or need_dwb):
         return None, None, None
@@ -311,9 +333,11 @@ def layer_norm_bwd(
             raise ValueError(f"{what}: {name} must be a contiguous float32 {tuple(x.shape[:-1])}")
     w = x.shape[-1]
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device) if need_dx else None
-    plan = bwd_plan(x.dtype, w, bwd_vec(x, dy, dx))
+    vec, sms = bwd_vec(x, dy, dx), _sm_count(x.device.index)
+    plan = bwd_plan(x.dtype, w, vec)
+    design = _BWD_DESIGNS[bwd_design(x.dtype, vec, rows, sms)]
     dw = db = partial = None
-    max_blocks = bwd_max_blocks(_sm_count(x.device.index))
+    max_blocks = bwd_max_blocks(sms)
     if need_dwb:
         dw = torch.empty(w, dtype=torch.float32, device=x.device)
         db = torch.empty_like(dw)
@@ -326,8 +350,8 @@ def layer_norm_bwd(
             weight.data_ptr(), None if dx is None else dx.data_ptr(),
             None if partial is None else partial.data_ptr(),
             None if dw is None else dw.data_ptr(), None if db is None else db.data_ptr(),
-            rows, n_inner, stride_outer, stride_inner, w, plan.vec, plan.group_warps, plan.groups,
-            plan.shared_bytes, max_blocks, _build.stream_handle(x),
+            rows, n_inner, stride_outer, stride_inner, w, design, plan.vec, plan.group_warps,
+            plan.groups, plan.shared_bytes, max_blocks, _build.stream_handle(x),
         )
     _build.check(err, "layer_norm_bwd launch")
     BWD_LAUNCHES.add()

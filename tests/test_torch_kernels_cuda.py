@@ -424,16 +424,17 @@ def test_attention_kernel_rejects_what_it_does_not_take(dev):
 # and L/14 towers (768, 1024, the SwiGLU hiddens 2048 and 2730, whose bf16
 # rows are only 4-byte aligned), odd widths, and the two strided views of
 # the final norm (`t[:, 1:]` of the dense pass, `t[:, 0]` of the CLS pass);
-# for the backward's plan also one row, 8193 rows, fewer rows than one
-# block's row groups, and a ragged width that takes six warps a row in
-# bf16 (2731: one element a load)
+# for the backward also one row, 8193 rows, fewer rows than one block's row
+# groups, and a ragged width (2731: one element a load) that takes six warps
+# a row in the registers design (float32; bfloat16 runs the staged design
+# there, as at 2730 and below one row an SM)
 _LN_VIEWS = {"all": lambda t: t, "drop_cls": lambda t: t[:, 1:], "cls_rows": lambda t: t[:, 0]}
 _LN_CASES = [
     ((2, 257, 768), "all"), ((2, 257, 1024), "all"), ((2, 257, 2048), "all"),
     ((2, 257, 2730), "all"), ((3, 50, 341), "all"), ((5, 7, 170), "all"), ((1, 1, 2), "all"),
     ((1000, 1024), "all"), ((2, 4097, 1024), "drop_cls"), ((3, 65, 2730), "drop_cls"),
     ((40, 577, 1024), "cls_rows"), ((7, 5, 341), "cls_rows"),
-    ((1, 1, 1024), "all"), ((8193, 768), "all"), ((3, 2730), "all"), ((2, 9, 2731), "all"),
+    ((1, 1, 1024), "all"), ((8193, 768), "all"), ((3, 2730), "all"), ((2, 150, 2731), "all"),
 ]
 _LN_EPS = 1e-6
 
@@ -519,17 +520,34 @@ def test_layer_norm_function_on_card(dev, recompute):
         assert layer_norm.layer_norm(*leaves, _LN_EPS).grad_fn is None
 
 
-def test_layer_norm_backward_plan_of_the_ragged_width(dev):
-    x, dy, _, _ = _ln_inputs(dev, (2, 9, 2731), "all", torch.bfloat16, seed=0)
+@pytest.mark.parametrize("dtype,design", [(torch.float32, "registers"), (torch.bfloat16, "staged")])
+def test_layer_norm_backward_design_of_the_ragged_width(dev, dtype, design):
+    x, dy, _, _ = _ln_inputs(dev, (2, 150, 2731), "all", dtype, seed=0)
     plan = layer_norm.bwd_plan(x.dtype, 2731, layer_norm.bwd_vec(x, dy, None))
     assert (plan.vec, plan.group_warps) == (1, 6)
+    assert layer_norm.describe_bwd(x, dy, None).startswith(design)
+
+
+def test_layer_norm_backward_launches_after_a_smaller_set_up(dev):
+    """One kernel instantiation set up at a larger shared size, then at a
+    smaller one: the larger launch must still be allowed (bf16, 8-element
+    loads: 1536 wide takes ~66 KB of shared memory, 1280 ~55 KB)."""
+    outs = []
+    for width in (1536, 1280, 1536):
+        x, dy, weight, bias = _ln_inputs(dev, (2, 100, width), "all", torch.bfloat16, seed=width)
+        assert layer_norm.describe_bwd(x, dy, None).startswith("registers")
+        _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
+        outs.append(layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))
 
 
 def test_layer_norm_backward_replays_from_a_cuda_graph(dev):
     """Captured once and replayed, the backward (both launches) gives the
     bits of an eager call; the set-up of its kernels happens once, outside
     the launches that follow."""
-    x, dy, weight, bias = _ln_inputs(dev, (2, 257, 2730), "all", torch.bfloat16, seed=11)
+    x, dy, weight, bias = _ln_inputs(dev, (2, 257, 2048), "all", torch.bfloat16, seed=11)
+    assert layer_norm.describe_bwd(x, dy, None).startswith("registers")
     _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
     eager = layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
     torch.cuda.synchronize()
@@ -546,7 +564,7 @@ def test_layer_norm_kernels_set_up_once(dev):
     """The shared-memory attribute and the occupancy query run once for each
     kernel and shared size, never on every launch, forward or backward."""
     for dtype in (torch.float32, torch.bfloat16):
-        x, dy, weight, bias = _ln_inputs(dev, (2, 33, 2048), "all", dtype, seed=5)
+        x, dy, weight, bias = _ln_inputs(dev, (2, 100, 2048), "all", dtype, seed=5)
         _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
         layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
         before = layer_norm.setup_calls()
