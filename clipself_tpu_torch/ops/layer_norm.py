@@ -85,7 +85,7 @@ def bwd_plan(dtype: torch.dtype, width: int, vec: int) -> BwdPlan:
     groups = BWD_BLOCK_WARPS // group_warps
     if group_warps > 1:  # a group of several warps meets at one of the barriers 1..15
         groups = min(groups, 15)
-    shared = 4 * (-(-width // 4) * 4) + 64 * groups * group_warps + 8 * groups * width
+    shared = 4 * (-(-width // 4) * 4) + 16 * groups * group_warps + 8 * groups * width
     return BwdPlan(
         vec, group_warps, -(-nvec // (32 * group_warps)), groups, 32 * groups * group_warps, shared
     )
