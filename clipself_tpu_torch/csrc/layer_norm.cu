@@ -519,6 +519,9 @@ struct Setup {
 
 std::mutex g_setup_mutex;
 std::map<std::tuple<const void*, int, int, int>, Setup> g_setups;
+// the shared-memory attribute each kernel has on each device: it only grows,
+// so a set-up at a smaller size never lowers what an earlier one allowed
+std::map<std::tuple<const void*, int>, int> g_shared_allowed;
 std::atomic<int> g_setup_calls{0};
 
 Setup setup_once(const void* kernel, int threads, int shared) {
@@ -531,11 +534,11 @@ Setup setup_once(const void* kernel, int threads, int shared) {
   if (found != g_setups.end()) return found->second;
   g_setup_calls.fetch_add(1);
   Setup s{cudaSuccess, 0, 0};
-  if (shared > 48 * 1024) {
-    // the most any launch may ask for: a set-up at a smaller size must not
-    // lower what an earlier set-up of the same kernel allowed
+  int& allowed = g_shared_allowed[std::make_tuple(kernel, device)];
+  if (shared > 48 * 1024 && shared > allowed) {
     s.err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (s.err == cudaSuccess) allowed = shared;
   }
   if (s.err == cudaSuccess) {
     s.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.blocks_per_sm,
