@@ -40,18 +40,18 @@
 // registers for both passes (the two row sums, by warp shuffles and, when
 // G > 1, one exchange under a named barrier of the group; then dx), and adds
 // the row's dgamma and dbeta terms into registers of its own. A persistent
-// grid walks
-// the rows, the groups strided by their global index; at the end the block
-// adds its groups' sums in group order into one partial row. The plan (G,
-// groups a block, shared bytes) comes from ops/layer_norm.py:bwd_plan, which
-// this file checks. That is the "registers" design. The "staged" design (the
-// first port's) stays for the rows where the H100 measured it faster
-// (ops/layer_norm.py:bwd_design: bf16 rows read 4 bytes or less at a time,
-// and fewer rows than SMs): a persistent block of R warps stages R rows of
+// grid walks the rows, the groups strided by their global index; at the end
+// the block adds its groups' sums in group order into one partial row. The
+// plan (G, groups a block, shared bytes) comes from
+// ops/layer_norm.py:bwd_plan, which this file checks. That is the
+// "registers" design. The "staged" design (the first port's) stays for the
+// rows where the H100 measured it faster (ops/layer_norm.py:bwd_design: bf16
+// rows read 4 bytes or less at a time, and fewer rows than SMs): a
+// persistent block of R warps stages R rows of
 // x and dy in shared memory, a warp a row, and a thread a column adds the R
 // rows' dgamma and dbeta terms into a shared-memory accumulator. The
 // shared-memory attribute, the occupancy and the SM count are looked up
-// once a process for each kernel (and shared size).
+// once a process for each kernel and block shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +67,6 @@
 #ifndef CLIPSELF_LN_BWD_MAX_THREADS
 #define CLIPSELF_LN_BWD_MAX_THREADS 512
 #endif
-
 
 namespace {
 

@@ -102,7 +102,7 @@ _BWD_DESIGNS = {"registers": 0, "staged": 1}
 
 def bwd_design(dtype: torch.dtype, vec: int, rows: int, sms: int) -> str:
     """Which backward design runs: "staged" where the H100 measured it
-    faster than "registers" (PERF.md, PR 8): bfloat16 rows read 4 bytes or
+    faster than "registers" (PERF.md, section 6): bfloat16 rows read 4 bytes or
     less at a time (the L/14 hidden width 2730), where too few bytes are in
     flight a row group; and fewer rows than the card has SMs, where a call's
     fixed cost is all there is. Else "registers"."""
