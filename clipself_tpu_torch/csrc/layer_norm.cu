@@ -36,22 +36,26 @@
 // its lanes owns the same VEC-wide column chunks in every row (at most
 // kBwdLaneElems elements of x and as many of dy, so G grows with the width:
 // 16 elements keep the bf16 kernels within 128 registers, where 32 spilled).
-// A lane issues all its loads of a row before it uses any, keeps them in
-// registers for both passes (the two row sums, by warp shuffles and, when
-// G > 1, one exchange under a named barrier of the group; then dx), and adds
-// the row's dgamma and dbeta terms into registers of its own. A persistent
-// grid walks the rows, the groups strided by their global index; at the end
-// the block adds its groups' sums in group order into one partial row. The
-// plan (G, groups a block, shared bytes) comes from
-// ops/layer_norm.py:bwd_plan, which this file checks. That is the
-// "registers" design. The "staged" design (the first port's) stays for the
-// rows where the H100 measured it faster (ops/layer_norm.py:bwd_design: bf16
-// rows read 4 bytes or less at a time, and fewer rows than SMs): a
-// persistent block of R warps stages R rows of
-// x and dy in shared memory, a warp a row, and a thread a column adds the R
-// rows' dgamma and dbeta terms into a shared-memory accumulator. The
-// shared-memory attribute, the occupancy and the SM count are looked up
-// once a process for each kernel and block shape.
+// A lane copies its chunks of the group's next row into a ring in shared
+// memory (cp.async) while it works on the current one, which it reads back
+// into registers for both passes (the two row sums, by warp shuffles and,
+// when G > 1, one exchange under a named barrier of the group; then dx); it
+// adds the row's dgamma and dbeta terms into registers of its own. A lane
+// reads only what it copied, so the ring needs no barrier. The ring is what
+// keeps enough bytes in flight: with one 512-thread block an SM (the
+// registers allow no more) a group that held one row in registers waited out
+// a load's latency every row. A persistent grid walks the rows, the groups
+// strided by their global index; at the end the block adds its groups' sums
+// in group order into one partial row. The plan (G, groups a block, shared
+// bytes) comes from ops/layer_norm.py:bwd_plan, which this file checks.
+// That is the "registers" design. The "staged" design (the first port's)
+// takes the rows the registers design cannot (bf16 rows read one element at
+// a time, rows wider than it holds) and fewer rows than SMs, where the H100
+// measured it faster (ops/layer_norm.py:bwd_design): a persistent block of R
+// warps stages R rows of x and dy in shared memory, a warp a row, and a
+// thread a column adds the R rows' dgamma and dbeta terms into a
+// shared-memory accumulator. The shared-memory attribute, the occupancy and
+// the SM count are looked up once a process for each kernel and block shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,21 +65,19 @@
 #include <mutex>
 #include <tuple>
 
-#ifndef CLIPSELF_LN_BWD_LANE_ELEMS
-#define CLIPSELF_LN_BWD_LANE_ELEMS 16
-#endif
-#ifndef CLIPSELF_LN_BWD_MAX_THREADS
-#define CLIPSELF_LN_BWD_MAX_THREADS 512
-#endif
-
 namespace {
 
+// ops/layer_norm.py reads the four constants below from this file, so they
+// are set here alone.
 constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
 // elements of x (and of dy) of one row that a backward lane holds in
 // registers, beside their dgamma and dbeta sums
-constexpr int kBwdLaneElems = CLIPSELF_LN_BWD_LANE_ELEMS;
+constexpr int kBwdLaneElems = 16;
 // threads of a backward block: 16 warps at <= 128 registers fill an SM
-constexpr int kBwdMaxThreads = CLIPSELF_LN_BWD_MAX_THREADS;
+constexpr int kBwdMaxThreads = 512;
+// rows a backward row group has in its ring: one it works on, the next in
+// flight (three or four read no faster on the H100)
+constexpr int kBwdStages = 2;
 // blocks of the partial-sum reduce: (32 columns, 8 strided sums)
 constexpr int kReduceLanes = 8;
 
@@ -182,43 +184,73 @@ __global__ void layer_norm_fwd_kernel(
   }
 }
 
-// One row of x and dy as a lane of a row group holds it (chunks gt,
-// gt + gthreads, ...), with its statistics: every load issued before any use.
+// Asynchronous copies of BYTES (4, 8 or 16) from global to shared memory. A
+// thread commits its copies in groups and waits for its own groups; what it
+// copied itself it then reads without a barrier.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(d), "l"(src), "n"(BYTES)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// until at most N of this thread's newest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The chunks of one row of x and dy that a lane of a row group owns (gt,
+// gt + gthreads, ...), copied into a slot of the group's ring (x, then dy at
+// row_bytes), as one commit group; past the last row the group is empty.
 template <typename T, int VEC, int MAXC>
-__device__ __forceinline__ void load_row(
-    const T* __restrict__ x, const T* __restrict__ dy,
-    const float* __restrict__ mu_in, const float* __restrict__ rstd_in,
-    long long row, int n_inner, long long stride_outer, long long stride_inner,
-    int width, int gt, int gthreads, Pack<T, VEC> (&px)[MAXC],
-    Pack<T, VEC> (&pd)[MAXC], float& mu, float& rstd) {
+__device__ __forceinline__ void copy_row(const T* __restrict__ x, const T* __restrict__ dy,
+                                         long long row, long long rows, int n_inner,
+                                         long long stride_outer, long long stride_inner,
+                                         int width, int gt, int gthreads,
+                                         unsigned char* slot, int row_bytes) {
   using P = Pack<T, VEC>;
-  // rows < 2^31 (checked at the launch): 32-bit division
-  const unsigned r = (unsigned)row, inner = (unsigned)n_inner;
-  const P* xv = reinterpret_cast<const P*>(
-      x + (long long)(r / inner) * stride_outer + (long long)(r % inner) * stride_inner);
-  const P* dyv = reinterpret_cast<const P*>(dy + row * width);
-  const int nvec = width / VEC;
+  if (row < rows) {
+    // rows < 2^31 (checked at the launch): 32-bit division
+    const unsigned r = (unsigned)row, inner = (unsigned)n_inner;
+    const P* xv = reinterpret_cast<const P*>(
+        x + (long long)(r / inner) * stride_outer + (long long)(r % inner) * stride_inner);
+    const P* dyv = reinterpret_cast<const P*>(dy + row * width);
+    P* sx = reinterpret_cast<P*>(slot);
+    P* sd = reinterpret_cast<P*>(slot + row_bytes);
+    const int nvec = width / VEC;
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    const int i = gt + c * gthreads;
-    if (i < nvec) {
-      px[c] = xv[i];
-      pd[c] = dyv[i];
+    for (int c = 0; c < MAXC; ++c) {
+      const int i = gt + c * gthreads;
+      if (i < nvec) {
+        cp_async<sizeof(P)>(sx + i, xv + i);
+        cp_async<sizeof(P)>(sd + i, dyv + i);
+      }
     }
   }
-  mu = mu_in[row];
-  rstd = rstd_in[row];
+  cp_async_commit();
 }
 
 // The backward's "registers" design. blockDim.x = groups * G * 32; MAXC =
 // the most VEC-wide chunks a lane holds of a row (kBwdLaneElems of x); a
-// group takes rows q, q + S, ... of its stride S. Shared memory, f32: gamma
-// [round_up4(W)], the groups' row-sum exchange [2][groups][G][2]
-// (double-buffered by row, so one barrier a row suffices), the groups'
-// dgamma and dbeta sums [groups][2][W]. dx and partial may each be null:
-// that output is then not computed. partial is [2, partial_stride / W, W]:
-// block b writes its dgamma sums to row b of the first half and its dbeta
-// sums to row b of the second.
+// group takes rows q, q + S, ... of its stride S, with the next
+// kBwdStages - 1 of them in flight in its ring while it works on one.
+// Shared memory: gamma
+// [round_up4(W)] f32, the groups' row-sum exchange [2][groups][G][2] f32
+// (double-buffered by row, so one barrier a row suffices), then the groups'
+// rings [groups][kBwdStages][x, dy] of row_bytes each, which the groups' dgamma
+// and dbeta sums [groups][2][W] f32 overlay once the rows are done. dx and
+// partial may each be null: that output is then not computed. partial is
+// [2, partial_stride / W, W]: block b writes its dgamma sums to row b of the
+// first half and its dbeta sums to row b of the second.
 template <typename T, int VEC, int MAXC>
 __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ dy,
@@ -228,6 +260,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
     int n_inner, long long stride_outer, long long stride_inner, int width,
     int group_warps) {
   using P = Pack<T, VEC>;
+  static_assert(sizeof(P) >= 4, "cp.async moves 4 bytes or more");
   extern __shared__ __align__(16) unsigned char smem[];
   const int gthreads = group_warps * 32;
   const int groups = blockDim.x / gthreads;
@@ -236,10 +269,20 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
   const int nvec = width / VEC;
   const bool sums = partial != nullptr;
   const float inv_w = 1.f / (float)width;
+  const int row_bytes = (width * (int)sizeof(T) + 15) & ~15;
   float* gamma_s = reinterpret_cast<float*>(smem);
   float* xchg = gamma_s + ((width + 3) & ~3);
-  float* red = xchg + 4 * groups * group_warps;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(xchg + 4 * groups * group_warps);
+  unsigned char* own = ring + (size_t)group * kBwdStages * 2 * row_bytes;
+  float* red = reinterpret_cast<float*>(ring);
 
+  const long long stride_rows = (long long)gridDim.x * groups;
+  const long long first = (long long)blockIdx.x * groups + group;
+  for (int s = 0; s + 1 < kBwdStages; ++s) {
+    copy_row<T, VEC, MAXC>(x, dy, first + s * stride_rows, rows, n_inner, stride_outer,
+                           stride_inner, width, gt, gthreads, own + (size_t)s * 2 * row_bytes,
+                           row_bytes);
+  }
   for (int c = threadIdx.x; c < width; c += blockDim.x) gamma_s[c] = gamma[c];
   __syncthreads();
 
@@ -250,16 +293,36 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
     for (int j = 0; j < VEC; ++j) ag[c][j] = ab[c][j] = 0.f;
   }
 
-  const long long stride_rows = (long long)gridDim.x * groups;
-  int parity = 0;
-  long long row = (long long)blockIdx.x * groups + group;
-  P px[MAXC], pd[MAXC];
-  float mu = 0.f, rstd = 0.f;
-  if (row < rows) {
-    load_row<T, VEC, MAXC>(x, dy, mu_in, rstd_in, row, n_inner, stride_outer,
-                           stride_inner, width, gt, gthreads, px, pd, mu, rstd);
+  float mu_next = 0.f, rstd_next = 0.f;
+  if (first < rows) {
+    mu_next = mu_in[first];
+    rstd_next = rstd_in[first];
   }
-  for (; row < rows; row += stride_rows) {
+  int parity = 0, slot = 0;
+  for (long long row = first; row < rows; row += stride_rows) {
+    // the row kBwdStages - 1 ahead goes into the slot this lane read last
+    const int ahead = slot > 0 ? slot - 1 : kBwdStages - 1;
+    copy_row<T, VEC, MAXC>(x, dy, row + (kBwdStages - 1) * stride_rows, rows, n_inner,
+                           stride_outer, stride_inner, width, gt, gthreads,
+                           own + (size_t)ahead * 2 * row_bytes, row_bytes);
+    const float mu = mu_next, rstd = rstd_next;
+    if (row + stride_rows < rows) {
+      mu_next = mu_in[row + stride_rows];
+      rstd_next = rstd_in[row + stride_rows];
+    }
+    cp_async_wait<kBwdStages - 1>();  // this row's copies, all made by this lane
+    const P* sx = reinterpret_cast<const P*>(own + (size_t)slot * 2 * row_bytes);
+    const P* sd = reinterpret_cast<const P*>(own + (size_t)slot * 2 * row_bytes + row_bytes);
+    P px[MAXC], pd[MAXC];
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      const int i = gt + c * gthreads;
+      if (i < nvec) {
+        px[c] = sx[i];
+        pd[c] = sd[i];
+      }
+    }
+
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c) {
@@ -284,17 +347,17 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
     if (group_warps > 1) {  // the group's warps add their sums in warp order
-      float* slot = xchg + 2 * group_warps * (parity * groups + group);
+      float* xs = xchg + 2 * group_warps * (parity * groups + group);
       if (lane == 0) {
-        slot[2 * gwarp] = s1;
-        slot[2 * gwarp + 1] = s2;
+        xs[2 * gwarp] = s1;
+        xs[2 * gwarp + 1] = s2;
       }
       group_barrier(1 + group, gthreads);
-      s1 = slot[0];
-      s2 = slot[1];
+      s1 = xs[0];
+      s2 = xs[1];
       for (int w = 1; w < group_warps; ++w) {
-        s1 += slot[2 * w];
-        s2 += slot[2 * w + 1];
+        s1 += xs[2 * w];
+        s2 += xs[2 * w + 1];
       }
       parity ^= 1;
     }
@@ -319,14 +382,12 @@ __global__ void __launch_bounds__(kBwdMaxThreads) layer_norm_bwd_kernel(
         }
       }
     }
-    if (row + stride_rows < rows) {
-      load_row<T, VEC, MAXC>(x, dy, mu_in, rstd_in, row + stride_rows, n_inner,
-                             stride_outer, stride_inner, width, gt, gthreads, px,
-                             pd, mu, rstd);
-    }
+    slot = slot + 1 < kBwdStages ? slot + 1 : 0;
   }
 
   if (sums) {
+    cp_async_wait<0>();  // the empty groups past the last row
+    __syncthreads();   // every group is done with its ring, which red overlays
     // a group covers every column, so each group writes all W of its sums
     float* red_g = red + (size_t)group * 2 * width;
 #pragma unroll
@@ -705,10 +766,12 @@ cudaError_t launch_bwd_staged(const void* x, const void* dy, const void* mu,
 }
 
 // Shared-memory bytes of the registers design's block (ops/layer_norm.py:
-// bwd_plan computes the same).
-long long bwd_shared_bytes(int width, int group_warps, int groups) {
-  return 4LL * ((width + 3) & ~3) + 16LL * groups * group_warps +
-         8LL * groups * width;
+// bwd_plan computes the same): gamma, the row-sum exchange, then the rings
+// or, overlaying them, the groups' sums, whichever is larger.
+long long bwd_shared_bytes(int width, int elem, int group_warps, int groups) {
+  const long long rings = 2LL * groups * kBwdStages * ((width * elem + 15) & ~15);
+  const long long sums = 8LL * groups * width;
+  return 4LL * ((width + 3) & ~3) + 16LL * groups * group_warps + (rings > sums ? rings : sums);
 }
 
 template <typename T, int VEC>
@@ -726,7 +789,7 @@ cudaError_t launch_bwd_vec(const void* x, const void* dy, const void* mu,
   if (group_warps < 1 || groups < 1 || threads > kBwdMaxThreads ||
       (group_warps > 1 && groups > 15) ||
       (nvec + group_warps * 32 - 1) / (group_warps * 32) > kMaxChunks ||
-      shared != bwd_shared_bytes(width, group_warps, groups) ||
+      shared != bwd_shared_bytes(width, sizeof(T), group_warps, groups) ||
       shared > kMaxSharedBytes) {
     return cudaErrorInvalidValue;
   }
@@ -749,6 +812,9 @@ cudaError_t launch_bwd_vec(const void* x, const void* dy, const void* mu,
                            width, stream);
 }
 
+// The registers design copies whole loads of 4 bytes or more; a bfloat16 row
+// read one element at a time takes the staged design (ops/layer_norm.py:
+// bwd_design).
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* dy, const void* mu,
                        const void* rstd, const void* gamma, void* dx,
@@ -769,10 +835,13 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* mu,
                               shared, max_blocks, stream)
   if constexpr (sizeof(T) == 2) {
     if (vec == 8) CLIPSELF_LN_BWD(8);
+    if (vec == 4) CLIPSELF_LN_BWD(4);
+    if (vec == 2) CLIPSELF_LN_BWD(2);
+  } else {
+    if (vec == 4) CLIPSELF_LN_BWD(4);
+    if (vec == 2) CLIPSELF_LN_BWD(2);
+    if (vec == 1) CLIPSELF_LN_BWD(1);
   }
-  if (vec == 4) CLIPSELF_LN_BWD(4);
-  if (vec == 2) CLIPSELF_LN_BWD(2);
-  if (vec == 1) CLIPSELF_LN_BWD(1);
 #undef CLIPSELF_LN_BWD
   return cudaErrorInvalidValue;
 }

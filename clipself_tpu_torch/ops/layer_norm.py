@@ -21,12 +21,15 @@ view like `t[:, 1:]` or `t[:, 0]` of a [B, N, W] tensor is not copied.
 backward is the one-pass kernel. Where no input needs a gradient it runs the
 forward alone, which writes no statistics.
 
-The backward kernel has two designs, and `bwd_design` picks one from what
-the H100 measured. "registers": a row group of G warps takes one row at a
-time, each lane the same column chunks of every row, and sums its dweight
-and dbias terms in registers; `bwd_plan` sizes it from the width, and
+The backward kernel has two designs, and `bwd_design` picks one from the
+input. "registers": a row group of G warps takes one row at a time, each
+lane the same column chunks of every row (copied a row ahead into a ring in
+shared memory, read into registers), and sums its dweight and dbias terms in
+registers; `bwd_plan` sizes it from the width, and
 `layer_norm_bwd_plan_plain` adds the sums in its order. "staged" (the first
-port's): a warp a row, rows staged in shared memory, column sums there.
+port's): a warp a row, rows staged in shared memory, column sums there; it
+takes bfloat16 rows read one element at a time, rows wider than
+BWD_MAX_WIDTH and fewer rows than SMs.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel or raises.
@@ -35,6 +38,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import functools
+import re
 from typing import NamedTuple
 
 import torch
@@ -44,16 +48,29 @@ from clipself_tpu_torch.ops import _build
 LAUNCHES = _build.LaunchCounter()      # forward launches, with or without stats
 BWD_LAUNCHES = _build.LaunchCounter()  # backward launches
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel_constant(name: str) -> int:
+    """A ``constexpr int`` of `csrc/layer_norm.cu`, the one place it is set."""
+    found = re.search(rf"constexpr int {name} = (\d+);", (_build.CSRC / "layer_norm.cu").read_text())
+    if found is None:
+        raise RuntimeError(f"csrc/layer_norm.cu sets no constexpr int {name}")
+    return int(found.group(1))
+
+
 # The backward's plan, as `csrc/layer_norm.cu` takes it: a lane holds at most
 # BWD_LANE_ELEMS elements of x (and as many of dy) of a row in registers,
 # beside their float32 dweight and dbias sums (32 spilled in bfloat16 on an
-# H100); a block runs at most BWD_BLOCK_WARPS warps; at most
-# BWD_BLOCKS_PER_SM blocks an SM run, each writing one [2, W] partial row
-# that the second launch adds up.
-BWD_LANE_ELEMS = 16
-BWD_BLOCK_WARPS = 16
+# H100); a block runs at most BWD_BLOCK_WARPS warps; a row group's ring in
+# shared memory holds BWD_STAGES rows (one it works on, the next in flight);
+# at most BWD_BLOCKS_PER_SM blocks an SM run, each writing one [2, W]
+# partial row that the second launch adds up.
+MAX_SHARED_BYTES = _kernel_constant("kMaxSharedBytes")
+BWD_LANE_ELEMS = _kernel_constant("kBwdLaneElems")
+BWD_BLOCK_WARPS = _kernel_constant("kBwdMaxThreads") // 32
+BWD_STAGES = _kernel_constant("kBwdStages")
 BWD_BLOCKS_PER_SM = 2
-BWD_MAX_WIDTH = BWD_LANE_ELEMS * 32 * BWD_BLOCK_WARPS
+BWD_MAX_WIDTH = BWD_LANE_ELEMS * 32 * BWD_BLOCK_WARPS  # of the registers design
 
 
 class BwdPlan(NamedTuple):
@@ -64,13 +81,17 @@ class BwdPlan(NamedTuple):
     chunks: int        # loads of x (and of dy) a lane holds of a row, at most
     groups: int        # row groups a block
     threads: int       # threads a block
-    shared_bytes: int  # gamma, the groups' row-sum exchange, their dweight and dbias sums
+    shared_bytes: int  # gamma, the row-sum exchange, the rings (later the groups' sums)
+
+
+def _round_up(n: int, to: int) -> int:
+    return -(-n // to) * to
 
 
 def bwd_plan(dtype: torch.dtype, width: int, vec: int) -> BwdPlan:
-    """The backward kernel's plan for rows of ``width`` elements of ``dtype``
-    read ``vec`` at a time: the fewest warps a row that keep a lane within
-    BWD_LANE_ELEMS of x, and as many row groups as fit BWD_BLOCK_WARPS.
+    """The registers design's plan for rows of ``width`` elements of
+    ``dtype`` read ``vec`` at a time: the fewest warps a row that keep a lane
+    within BWD_LANE_ELEMS of x, and as many row groups as fit BWD_BLOCK_WARPS.
     Raises for rows wider than BWD_MAX_WIDTH."""
     if width > BWD_MAX_WIDTH:
         raise ValueError(
@@ -85,7 +106,8 @@ def bwd_plan(dtype: torch.dtype, width: int, vec: int) -> BwdPlan:
     groups = BWD_BLOCK_WARPS // group_warps
     if group_warps > 1:  # a group of several warps meets at one of the barriers 1..15
         groups = min(groups, 15)
-    shared = 4 * (-(-width // 4) * 4) + 16 * groups * group_warps + 8 * groups * width
+    rings = 2 * groups * BWD_STAGES * _round_up(width * dtype.itemsize, 16)
+    shared = 4 * _round_up(width, 4) + 16 * groups * group_warps + max(rings, 8 * groups * width)
     return BwdPlan(
         vec, group_warps, -(-nvec // (32 * group_warps)), groups, 32 * groups * group_warps, shared
     )
@@ -97,16 +119,30 @@ def bwd_max_blocks(sms: int) -> int:
     return BWD_BLOCKS_PER_SM * sms
 
 
+def _staged_shared_bytes(width: int, itemsize: int, warps: int) -> int:
+    return _round_up((2 * width + 2 * warps) * 4, 16) + 2 * warps * _round_up(width * itemsize, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_max_width(dtype: torch.dtype) -> int:
+    """The widest row the backward takes: the staged design's, with one row
+    of x and dy in its shared memory."""
+    width = MAX_SHARED_BYTES // (8 + 2 * dtype.itemsize)
+    while _staged_shared_bytes(width, dtype.itemsize, 1) > MAX_SHARED_BYTES:
+        width -= 1
+    return width
+
+
 _BWD_DESIGNS = {"registers": 0, "staged": 1}
 
 
-def bwd_design(dtype: torch.dtype, vec: int, rows: int, sms: int) -> str:
-    """Which backward design runs: "staged" where the H100 measured it
-    faster than "registers" (PERF.md, section 6): bfloat16 rows read 4 bytes or
-    less at a time (the L/14 hidden width 2730), where too few bytes are in
-    flight a row group; and fewer rows than the card has SMs, where a call's
-    fixed cost is all there is. Else "registers"."""
-    if (dtype == torch.bfloat16 and vec <= 2) or rows < sms:
+def bwd_design(dtype: torch.dtype, width: int, vec: int, rows: int, sms: int) -> str:
+    """Which backward design runs. "staged" where the registers design
+    cannot run: bfloat16 rows read one element at a time (its copies move 4
+    bytes or more), rows wider than BWD_MAX_WIDTH; and where the H100
+    measured it faster (PERF.md, section 6): fewer rows than the card has
+    SMs, where a call's fixed cost is all there is. Else "registers"."""
+    if (dtype == torch.bfloat16 and vec == 1) or width > BWD_MAX_WIDTH or rows < sms:
         return "staged"
     return "registers"
 
@@ -114,17 +150,17 @@ def bwd_design(dtype: torch.dtype, vec: int, rows: int, sms: int) -> str:
 def describe_bwd(x: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor | None) -> str:
     """The design (and plan) that `layer_norm_bwd` takes on these CUDA
     tensors, as `chip_smoke.py` names it."""
-    vec = bwd_vec(x, dy, dx)
-    if bwd_design(x.dtype, vec, _rows(x, "layer_norm_bwd")[0], _sm_count(x.device.index)) == "staged":
+    vec, w = bwd_vec(x, dy, dx), x.shape[-1]
+    if bwd_design(x.dtype, w, vec, _rows(x, "layer_norm_bwd")[0], _sm_count(x.device.index)) == "staged":
         return "staged: a warp a row in shared memory"
-    plan = bwd_plan(x.dtype, x.shape[-1], vec)
+    plan = bwd_plan(x.dtype, w, vec)
 
     def n(count, noun):
         return f"{count} {noun}{'s' if count > 1 else ''}"
 
     return (
         f"registers: {n(plan.group_warps, 'warp')} a row, {n(plan.groups, 'row group')} a block, "
-        f"{plan.vec}-element loads"
+        f"{plan.vec}-element loads, {n(BWD_STAGES, 'row')} a ring"
     )
 
 
@@ -312,8 +348,8 @@ def layer_norm_bwd(
     ``dy`` (contiguous, x's shape and dtype) and the forward's statistics;
     dx is contiguous in x's dtype, dweight and dbias float32 [W]. An output
     that is not needed (``need_dx``, ``need_dwb`` for the pair) is None and is
-    not computed on the card. On the card, rows wider than BWD_MAX_WIDTH
-    raise (`bwd_plan`), whichever design runs."""
+    not computed on the card. On the card, rows wider than
+    `bwd_max_width(x.dtype)` raise."""
     _check_device(x, "layer_norm_bwd")
     if not (need_dx or need_dwb):
         return None, None, None
@@ -331,11 +367,17 @@ def layer_norm_bwd(
             or t.device != x.device or not t.is_contiguous()
         ):
             raise ValueError(f"{what}: {name} must be a contiguous float32 {tuple(x.shape[:-1])}")
-    w = x.shape[-1]
+    w, widest = x.shape[-1], bwd_max_width(x.dtype)
+    if w > widest:
+        raise ValueError(
+            f"{what}: a row of {w} is wider than the {widest} elements of {x.dtype} "
+            "the kernel holds in shared memory"
+        )
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device) if need_dx else None
     vec, sms = bwd_vec(x, dy, dx), _sm_count(x.device.index)
-    plan = bwd_plan(x.dtype, w, vec)
-    design = _BWD_DESIGNS[bwd_design(x.dtype, vec, rows, sms)]
+    design = bwd_design(x.dtype, w, vec, rows, sms)
+    # the staged design picks its own loads and block
+    plan = bwd_plan(x.dtype, w, vec) if design == "registers" else BwdPlan(0, 0, 0, 0, 0, 0)
     dw = db = partial = None
     max_blocks = bwd_max_blocks(sms)
     if need_dwb:
@@ -350,8 +392,8 @@ def layer_norm_bwd(
             weight.data_ptr(), None if dx is None else dx.data_ptr(),
             None if partial is None else partial.data_ptr(),
             None if dw is None else dw.data_ptr(), None if db is None else db.data_ptr(),
-            rows, n_inner, stride_outer, stride_inner, w, design, plan.vec, plan.group_warps,
-            plan.groups, plan.shared_bytes, max_blocks, _build.stream_handle(x),
+            rows, n_inner, stride_outer, stride_inner, w, _BWD_DESIGNS[design], plan.vec,
+            plan.group_warps, plan.groups, plan.shared_bytes, max_blocks, _build.stream_handle(x),
         )
     _build.check(err, "layer_norm_bwd launch")
     BWD_LAUNCHES.add()

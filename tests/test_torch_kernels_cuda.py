@@ -426,8 +426,9 @@ def test_attention_kernel_rejects_what_it_does_not_take(dev):
 # the final norm (`t[:, 1:]` of the dense pass, `t[:, 0]` of the CLS pass);
 # for the backward also one row, 8193 rows, fewer rows than one block's row
 # groups, and a ragged width (2731: one element a load) that takes six warps
-# a row in the registers design (float32; bfloat16 runs the staged design
-# there, as at 2730 and below one row an SM)
+# a row in the registers design (float32; a bfloat16 element is too small
+# for its copies, so bfloat16 runs the staged design there, as below one row
+# an SM)
 _LN_VIEWS = {"all": lambda t: t, "drop_cls": lambda t: t[:, 1:], "cls_rows": lambda t: t[:, 0]}
 _LN_CASES = [
     ((2, 257, 768), "all"), ((2, 257, 1024), "all"), ((2, 257, 2048), "all"),
@@ -576,9 +577,27 @@ def test_layer_norm_kernels_set_up_once(dev):
         assert layer_norm.setup_calls() == before
 
 
-def test_layer_norm_backward_rejects_rows_past_its_width_limit(dev):
-    w = layer_norm.BWD_MAX_WIDTH + 1
-    x, dy, weight, bias = _ln_inputs(dev, (2, w), "all", torch.bfloat16, seed=1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_layer_norm_backward_takes_rows_wider_than_the_registers_plan(dev, dtype):
+    """Rows past BWD_MAX_WIDTH (and more rows than SMs) take the staged
+    design, up to its own shared-memory limit, and match the plain version."""
+    w = 12000
+    assert layer_norm.BWD_MAX_WIDTH < w <= layer_norm.bwd_max_width(dtype)
+    x, dy, weight, bias = _ln_inputs(dev, (200, w), "all", dtype, seed=2)
+    assert layer_norm.describe_bwd(x, dy, None).startswith("staged")
+    _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
+    dx, dw, db = layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight)
+    want_dx, want_dw, want_db = layer_norm.layer_norm_bwd_plain(x, dy, mu, rstd, weight)
+    torch.cuda.synchronize()
+    _assert_ln_close(dx, want_dx, dtype)
+    for got, want in ((dw, want_dw), (db, want_db)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_layer_norm_backward_rejects_rows_past_its_width_limit(dev, dtype):
+    w = layer_norm.bwd_max_width(dtype) + 1
+    x, dy, weight, bias = _ln_inputs(dev, (2, w), "all", dtype, seed=1)
     _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, _LN_EPS, return_stats=True)
     before = layer_norm.BWD_LAUNCHES.count
     with pytest.raises(ValueError, match="wider than"):

@@ -287,10 +287,11 @@ def test_backward_plan_at_the_towers_widths(width, vec, group_warps, chunks):
     # the budget is in elements: float32 rows take as many warps
     assert ln.bwd_plan(torch.float32, width, min(vec, 4)).group_warps == group_warps
     assert plan.shared_bytes <= 232448
-    # the design that runs: "staged" for bfloat16 rows read 4 bytes or less at a time
-    assert ln.bwd_design(torch.bfloat16, vec, 8194, 132) == ("staged" if vec <= 2 else "registers")
-    assert ln.bwd_design(torch.float32, min(vec, 4), 8194, 132) == "registers"
-    assert ln.bwd_design(torch.bfloat16, vec, 131, 132) == "staged"  # fewer rows than SMs
+    # the design that runs: "staged" where a bfloat16 load is 2 bytes, too
+    # small for the registers design's copies, and below one row an SM
+    assert ln.bwd_design(torch.bfloat16, width, vec, 8194, 132) == ("staged" if vec == 1 else "registers")
+    assert ln.bwd_design(torch.float32, width, min(vec, 4), 8194, 132) == "registers"
+    assert ln.bwd_design(torch.bfloat16, width, vec, 131, 132) == "staged"  # fewer rows than SMs
 
 
 def test_backward_plan_blocks_and_width_limit():
@@ -298,13 +299,39 @@ def test_backward_plan_blocks_and_width_limit():
     widest = ln.BWD_MAX_WIDTH
     assert widest >= 3 * 2730
     assert ln.bwd_plan(torch.bfloat16, widest, 8).group_warps == 16
-    assert ln.bwd_plan(torch.float32, widest, 1).threads == 512
+    wide = ln.bwd_plan(torch.float32, widest, 4)
+    assert wide.threads == 512 and wide.shared_bytes <= ln.MAX_SHARED_BYTES
     with pytest.raises(ValueError, match="wider than"):
         ln.bwd_plan(torch.bfloat16, widest + 1, 1)
     with pytest.raises(ValueError, match="wider than"):
         ln.bwd_plan(torch.float32, widest + 4, 4)
     with pytest.raises(ValueError, match="do not fit"):
         ln.bwd_plan(torch.bfloat16, 2730, 8)
+    # wider rows take the staged design, up to one row of x and dy in its
+    # shared memory (the wrapper raises past that)
+    assert ln.bwd_design(torch.float32, widest + 4, 4, 8194, 132) == "staged"
+    assert (ln.bwd_max_width(torch.float32), ln.bwd_max_width(torch.bfloat16)) == (14527, 19368)
+
+
+@pytest.mark.parametrize("dtype,vec", [(torch.float32, 4), (torch.float32, 1), (torch.bfloat16, 8), (torch.bfloat16, 2)])
+def test_backward_plan_fits_a_block_at_every_width(dtype, vec):
+    """Every width the registers design takes (its rings of two rows a group
+    and, overlaying them, the groups' sums) fits the shared memory of one
+    block, and threads and chunks stay within the kernel's limits."""
+    for width in range(vec, ln.BWD_MAX_WIDTH + 1, vec):
+        plan = ln.bwd_plan(dtype, width, vec)
+        assert plan.shared_bytes <= ln.MAX_SHARED_BYTES
+        assert plan.threads <= 32 * ln.BWD_BLOCK_WARPS and plan.chunks * vec <= ln.BWD_LANE_ELEMS
+        assert plan.group_warps == 1 or plan.groups <= 15
+
+
+def test_backward_constants_come_from_the_kernel_source():
+    """The plan's constants are read from `csrc/layer_norm.cu`, where the
+    kernel sets them, so the two sides cannot disagree."""
+    assert (ln.BWD_LANE_ELEMS, ln.BWD_BLOCK_WARPS, ln.BWD_STAGES) == (16, 16, 2)
+    assert ln.MAX_SHARED_BYTES == 232448
+    with pytest.raises(RuntimeError, match="no constexpr int kNoSuchConstant"):
+        ln._kernel_constant("kNoSuchConstant")
 
 
 def test_backward_vec_follows_rows_and_addresses():
