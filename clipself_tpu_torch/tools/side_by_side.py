@@ -13,7 +13,8 @@ tensor, and q and k in one launch, the table packed beforehand), else
 through its `rolled_rope_fwd` on the three tables ("q,k" is then two
 launches of the one-tensor kernel), the LayerNorm backward through
 `ops.layer_norm.layer_norm_bwd` on the forward's statistics (float32 and
-bfloat16, with its time as a multiple of its bytes bound). Times are CUDA-event
+bfloat16, with its time as a multiple of its bytes bound, and the times of
+dx alone and of the sums alone). Times are CUDA-event
 means of 20 calls replayed from a CUDA graph after a warm-up (the NMS also
 as 20 eager calls: its wrapper allocates, which a graph hides). The first
 line names the card and its power limit.
@@ -130,14 +131,21 @@ def main(argv=None) -> dict:
             weight = (torch.randn(shape[-1], generator=gen) * 0.2 + 1.0).to(dev)
             bias = (torch.randn(shape[-1], generator=gen) * 0.1).to(dev)
             _, mu, rstd = layer_norm.layer_norm_fwd(x, weight, bias, 1e-6, return_stats=True)
-            ms = device_ms(torch, lambda: layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight), graph=True)
+            ms, dx_ms, sums_ms = (
+                device_ms(torch, lambda: layer_norm.layer_norm_bwd(x, dy, mu, rstd, weight, **only), graph=True)
+                for only in ({}, {"need_dwb": False}, {"need_dx": False})
+            )
             # x, dy and the statistics read, dx written, the weight read and
             # dweight, dbias written once
             moved = 3 * x.numel() * x.element_size() + 8 * mu.numel() + 12 * shape[-1]
             bound = moved / PEAK_BYTES_S * 1e3
             label = f"layer_norm_bwd {view + ' of ' if view else ''}{list(shape)} -> {list(x.shape)} {str(dt)[6:]}"
-            out[label] = [ms, bound]
-            print(f"{label}: {ms:.4f} ms, bound {bound:.4f} ms ({ms / bound:.2f}x)", flush=True)
+            out[label] = [ms, bound, dx_ms, sums_ms]
+            print(
+                f"{label}: {ms:.4f} ms, bound {bound:.4f} ms ({ms / bound:.2f}x); "
+                f"dx alone {dx_ms:.4f} ms, sums alone {sums_ms:.4f} ms",
+                flush=True,
+            )
     return out
 
 
