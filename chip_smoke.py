@@ -61,7 +61,18 @@ then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
    kernel path against the float32 plain path on the same tensors and on the
    detections; and, on the same float32 taps, `predict` with the NMS kernel
    against `predict` with the plain NMS: proposals and detections equal bit
-   for bit.
+   for bit;
+9. detector training through `python -m clipself_tpu_torch.detector.train`'s
+   `main`, `ov_coco_vitb16`, batch 8, bf16, the recipe's AdamW: 2 warm-up
+   and 5 timed steps with every step's ms, the median step's images/s, peak
+   memory, the last step's loss metrics and the launch counts (the frozen
+   trunk: no backward kernel);
+10. detector training parity, one step at batch 2 from the same weights,
+   batch and sampler noise: f32 kernels and bf16 kernels against the plain
+   f32 path (loss, proposals, trainable gradients; the RoI stage of every
+   leg on the plain leg's proposals);
+11. the mask branch: `ov_lvis_vitb16` (1203 classes, 14x14 mask rois),
+   batch 8, 1 warm-up and 2 steps, every loss and gradient finite.
 
 The second-to-last line is one JSON object with a row per kernel; the last
 line is `{"ok": true, "device": {...}}`. Without a CUDA card it exits 1
@@ -135,6 +146,10 @@ MODELS = (
 # and timed batches, images of the parity phase, fixed rois of its head rows
 DET_PRESET, DET_BATCH, DET_WARMUP, DET_BATCHES = "ov_coco_vitb16", 8, 2, 4
 DET_PARITY_IMAGES, DET_FIXED_ROIS = 2, 32
+# detector training: warm-up and timed steps of the recipe's run; the mask
+# branch's preset, warm-up and timed steps
+DET_TRAIN_WARMUP, DET_TRAIN_TIMED = 2, 5
+DET_MASK_PRESET, DET_MASK_WARMUP, DET_MASK_TIMED = "ov_lvis_vitb16", 1, 2
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory, dense bf16 tensor cores, float32 outside the tensor cores.
@@ -206,6 +221,18 @@ DET_BF16_MIN_COS_FLOOR = 0.998
 # 10 and the heads stack convolutions on them: 1e-3 (the first run measured
 # 4.3e-5 on the taps and 2.5e-5 on the logits).
 DET_F32_MAX_ABS = 1e-3
+# Detector training, one step at batch 2, the RoI stage of every leg on the
+# plain leg's proposals: f32 kernels vs f32 plain differ by the trunk's
+# summation order (taps within 1e-3 above), so the proposal sets are equal
+# (no box without a counterpart within 0.01 px; the first run on an H100
+# found none of 2000), the loss within 1e-4 relative (read 1.1e-7) and the
+# whole trainable gradient at cosine >= 0.9999 (read 1.0000000); bf16
+# kernels vs f32 plain, each parameter group's gradient at cosine >= 0.99
+# (read 0.99223 for the pyramid, 0.99692 FPN, 0.99845 RPN, 0.99982 bbox head).
+DET_TRAIN_LOSS_MAX_REL = 1e-4
+DET_TRAIN_F32_MIN_COS = 0.9999
+DET_TRAIN_BF16_MIN_COS = 0.99
+DET_TRAIN_GROUPS = ("pyramid", "fpn", "rpn", "bbox_head")
 
 
 def fail(msg: str) -> None:
@@ -237,10 +264,12 @@ def read_counts() -> dict:
 
 
 def expected_launches(
-    layers: int, *, evals: int = 0, steps: int = 0, recompute: bool = False, dets: int = 0
+    layers: int, *, evals: int = 0, steps: int = 0, recompute: bool = False, dets: int = 0,
+    det_steps: int = 0,
 ) -> dict:
     """Launches of ``evals`` evaluator batches plus ``steps`` train steps
-    plus ``dets`` detector batches of a tower of ``layers`` blocks. A dense pass runs layers - 1 attention
+    plus ``dets`` detector batches plus ``det_steps`` detector train steps
+    of a tower of ``layers`` blocks. A dense pass runs layers - 1 attention
     blocks (the last block takes the value path), a crop pass all of them;
     RoPE runs once per attention block (q and k in one launch); every block has four
     LayerNorms and the tower a final one. An evaluator batch is one dense and
@@ -248,17 +277,22 @@ def expected_launches(
     dense pass and its backward; with recomputation the student's blocks
     (not its final norm) run their forward once more. A detector batch is
     one dense pass (the taps) and two NMS launches, all images at once: the
-    RPN's proposals and the final class-wise NMS."""
+    RPN's proposals and the final class-wise NMS. A detector train step is
+    the taps without the dense map (the blocks' four norms each, the value
+    path's included, no final norm; `models/eva_vit.py::forward_taps`) and
+    one NMS launch (the train proposals); the trunk is frozen, so nothing of
+    it runs backward."""
     dense, crop, norms = layers - 1, layers, 4 * layers + 1
     again = steps if recompute else 0
-    flash = evals * (dense + crop) + steps * (crop + dense) + again * dense + dets * dense
+    flash = evals * (dense + crop) + steps * (crop + dense) + again * dense + (dets + det_steps) * dense
     return {
-        "nms": 2 * dets,
+        "nms": 2 * dets + det_steps,
         "flash_attention": flash,
         "flash_attention_bwd": steps * dense,
         "rope_roll": flash,
         "rope_roll_bwd": steps * dense,
-        "layer_norm": (2 * evals + 2 * steps + dets) * norms + again * 4 * layers,
+        "layer_norm": (2 * evals + 2 * steps + dets) * norms + again * 4 * layers
+        + det_steps * 4 * layers,
         "layer_norm_bwd": steps * norms,
     }
 
@@ -741,6 +775,8 @@ def phase_kernels(torch, dev, records):
             det_shape = (DET_BATCH, s.tokens(side), v.width)
             check_rope(torch, dev, records, gen, det_shape, s.grid(side), heads[1], backward=False)
             check_attention(torch, dev, records, gen, (DET_BATCH, s.tokens(side)) + heads, train=False)
+            for width in (v.width, s.hidden):
+                check_layer_norm(torch, dev, records, gen, det_shape[:2] + (width,), "", backward=False)
         if s.key == "l14":  # the evaluator's own shapes: one image, one bucket
             check_attention(torch, dev, records, gen, (1, student[1]) + heads, train=False)
             check_attention(torch, dev, records, gen, (BUCKET, crops[1]) + heads, train=False)
@@ -1241,6 +1277,201 @@ def phase_detector_parity(torch, dev, cfg, clip_bf16, det, emb, items):
     )
 
 
+def phase_detector_train(torch, dev, preset, warmup, timed, logs_dir) -> dict:
+    """The detector's training entry point, `detector.train.main`, at a full
+    preset: batch 8, bf16, the recipe's AdamW, synthetic batches."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.detector import train as det_train
+    from clipself_tpu_torch.detector.config import PRESETS
+    from clipself_tpu_torch.detector.fvit import create_detector
+    from clipself_tpu_torch.detector.rpn import num_anchors
+
+    cfg = PRESETS[preset]
+    layers = get_model_config(cfg.clip_model).vision.layers
+    steps = warmup + timed
+    tag = f"detector train {preset}"
+    argv = [
+        "--synthetic", "--preset", preset, "--device", str(dev), "--batch-size", str(DET_BATCH),
+        "--epochs", "1", "--steps-per-epoch", str(steps), "--log-every", "1", "--seed", str(SEED),
+        "--output", os.path.join(logs_dir, preset),
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        run = det_train.main(argv)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        saved = os.path.isfile(os.path.join(logs_dir, preset, "detector_epoch0.pkl"))
+    finally:
+        shutil.rmtree(logs_dir, ignore_errors=True)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = run["history"]
+    step_ms = [h["step_ms"] for h in hist]
+    median_ms = statistics.median(step_ms[warmup:])
+    ips = DET_BATCH / median_ms * 1e3
+    last = hist[-1]["metrics"]
+    print(
+        f"{tag} ({cfg.clip_model} frozen, {layers} blocks; {cfg.image_size}px, "
+        f"{num_anchors(cfg)} anchors, {cfg.rpn_sample.num} anchors and {cfg.rcnn_sample.num} rois sampled an image, "
+        f"{cfg.num_classes} classes{', mask head' if cfg.with_mask else ''}): batch {DET_BATCH}, bf16, "
+        f"AdamW: {timed} timed steps after {warmup} warm-up, median step {median_ms:.3f} ms, "
+        f"{ips:.3f} images/s (ms per step {[round(t, 3) for t in step_ms[warmup:]]}; warm-up "
+        f"{[round(t, 3) for t in step_ms[:warmup]]}; a step: batch copied in, taps, loss, "
+        "backward, AdamW, metrics read back)",
+        flush=True,
+    )
+    print(f"{tag} last step's metrics {json.dumps({k: round(v, 6) for k, v in last.items()})}", flush=True)
+    print(f"{tag} peak memory {peak_gib:.3f} GiB (max_memory_allocated)", flush=True)
+    print(f"{tag} launches {json.dumps(launches)}", flush=True)
+    if len(hist) != steps or not saved:
+        fail(f"{tag}: {len(hist)} logged steps of {steps}, checkpoint written: {saved}")
+    for h in hist:
+        # a non-finite gradient entry makes the global norm non-finite
+        if not all(map(math.isfinite, h["metrics"].values())) or not h["metrics"]["grad_norm"] > 0:
+            fail(f"{tag} step {h['step']} metrics {h['metrics']}")
+        if cfg.with_mask and "loss_mask" not in h["metrics"]:
+            fail(f"{tag} step {h['step']}: no mask loss")
+    expect = expected_launches(layers, det_steps=steps)
+    if launches != expect:
+        fail(f"{tag} launch counts {launches}, expected {expect}")
+    init = create_detector(cfg, device=dev, seed=SEED).state_dict()
+    for name, p in run["state"].model.state_dict().items():
+        if not torch.isfinite(p).all() or torch.equal(p, init[name]):
+            fail(f"{tag}: parameter {name} is not finite or did not move")
+    print(f"{tag} checks: metrics finite every step, every parameter moved, the trunk ran no backward", flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return dict(median_ms=median_ms, images_per_sec=ips, peak_gib=peak_gib, launches=launches)
+
+
+def phase_detector_train_parity(torch, dev):
+    """One detector train step at batch 2 on three legs from the same
+    detector weights, batch and sampler noise: the plain f32 path, f32
+    kernels and bf16 kernels. Each leg's RoI stage takes the plain leg's
+    proposals, so that a proposal that flips at the top-k cut cannot hide a
+    fault behind another sampling of the rois."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.data.synthetic import class_embeddings
+    from clipself_tpu_torch.detector.classes import class_weights
+    from clipself_tpu_torch.detector.config import PRESETS
+    from clipself_tpu_torch.detector.data import SyntheticDetectionData
+    from clipself_tpu_torch.detector.fvit import backbone_taps, create_detector
+    from clipself_tpu_torch.detector.rpn import RPNOut, flatten_rpn_outputs, num_anchors, rpn_proposals
+    from clipself_tpu_torch.detector.targets import draw_noise
+    from clipself_tpu_torch.models.factory import create_model
+
+    cfg = PRESETS[DET_PRESET]
+    layers = get_model_config(cfg.clip_model).vision.layers
+    host = SyntheticDetectionData(cfg.num_classes, cfg.image_size, cfg.max_gt, seed=SEED).batch(DET_PARITY_IMAGES)
+    bt = {k: torch.as_tensor(v, device=dev) for k, v in host.items() if k not in ("scale", "image_id")}
+    emb = class_embeddings(cfg.num_classes + 1, cfg.embed_dim, seed=SEED)
+    emb /= (emb ** 2).sum(-1, keepdims=True) ** 0.5
+    ce = torch.as_tensor(emb, device=dev)
+    cw = torch.as_tensor(class_weights("coco", cfg.bg_weight), device=dev)
+    det = create_detector(cfg, device=dev, seed=SEED + 1)
+    noise = draw_noise(
+        torch.Generator(device=dev).manual_seed(SEED), DET_PARITY_IMAGES, num_anchors(cfg),
+        cfg.train_proposals.max_per_img + cfg.max_gt,
+    )
+
+    def leg(clip, plain, props=None):
+        """loss, trainable gradients, own proposals, launches, taps."""
+        det.zero_grad(set_to_none=True)
+        reset_counts()
+        with plain_path() if plain else contextlib.nullcontext():
+            taps, _ = backbone_taps(clip, bt["images"], cfg, False)
+            feats, l_rpn, _, *own = det.rpn_stage(taps, bt["gt_boxes"], bt["gt_valid"], noise, bt["valid_hw"])
+            l_roi, _ = det.roi_stage(
+                feats, *(own if props is None else props), bt["gt_boxes"], bt["gt_labels"],
+                bt["gt_valid"], noise, ce, cw,
+            )
+            loss = l_rpn + l_roi
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: q.grad.float().clone() for n, q in det.named_parameters()}
+        return loss.item(), grads, own, read_counts(), taps
+
+    clip32 = create_model(cfg.clip_model, device=dev, dtype=torch.float32, seed=SEED).requires_grad_(False)
+    loss_p, g_p, props_p, _, _ = leg(clip32, plain=True)
+    loss_k, g_k, props_k, counts_k, taps_k = leg(clip32, plain=False, props=props_p)
+    # the NMS kernel on this leg's own RPN outputs against the plain NMS: equal bit for bit
+    with torch.no_grad():
+        _, smap, dmap = det.features(taps_k)
+        rpn = flatten_rpn_outputs(smap, dmap, cfg)
+        p = cfg.train_proposals
+        args = ((cfg.image_size, cfg.image_size), p.nms_pre, p.max_per_img, p.iou_threshold, p.min_bbox_size)
+        with plain_nms():
+            own_plain = rpn_proposals(rpn, *args, valid_hw=bt["valid_hw"])
+    nms_equal = all(torch.equal(x, y) for x, y in zip(props_k, own_plain))
+    del clip32, taps_k, smap, dmap, rpn
+    clip16 = create_model(cfg.clip_model, device=dev, dtype=torch.bfloat16, seed=SEED).requires_grad_(False)
+    loss_h, g_h, _, counts_h, _ = leg(clip16, plain=False, props=props_p)
+    del clip16
+    torch.cuda.empty_cache()
+
+    # the proposal sets of the f32 kernel leg against the plain leg's
+    live_p, live_k = props_p[1] > -1e9, props_k[1] > -1e9
+    flips = []
+    for i in range(DET_PARITY_IMAGES):
+        a, bk = props_p[0][i][live_p[i]], props_k[0][i][live_k[i]]
+        d = torch.cdist(a, bk, p=float("inf")) if len(a) and len(bk) else None
+        miss_p = (d.min(dim=1).values > 1e-2).nonzero().flatten().tolist() if d is not None else []
+        miss_k = (d.min(dim=0).values > 1e-2).nonzero().flatten().tolist() if d is not None else []
+        flips += [(i, "plain only", a[j].tolist()) for j in miss_p] + [(i, "kernels only", bk[j].tolist()) for j in miss_k]
+    n_live = live_p.sum(dim=1).tolist()
+    print(
+        f"detector train parity {DET_PRESET}, {DET_PARITY_IMAGES} images: proposals an image plain "
+        f"{n_live}, f32 kernels {live_k.sum(dim=1).tolist()}; {len(flips)} flip between the two legs "
+        f"(no counterpart within 0.01 px); the NMS kernel on the f32 kernel leg's RPN outputs against "
+        f"the plain NMS: equal bit for bit {nms_equal}",
+        flush=True,
+    )
+    for f in flips[:20]:
+        print(f"detector train parity proposal flip: image {f[0]}, {f[1]}, box {[round(x, 3) for x in f[2]]}", flush=True)
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+
+    def flat(g, prefix=""):
+        return torch.cat([v.flatten() for k, v in g.items() if k.startswith(prefix)])
+
+    cos_k = cos(flat(g_k), flat(g_p))
+    rel_k = max((g_k[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-30) for n, w in g_p.items())
+    groups = {grp: cos(flat(g_h, grp + "."), flat(g_p, grp + ".")) for grp in DET_TRAIN_GROUPS}
+    per_tensor = {n: cos(g_h[n], w) for n, w in g_p.items()}
+    worst = min(per_tensor, key=per_tensor.get)
+    d_loss = abs(loss_k - loss_p) / abs(loss_p)
+    print(
+        f"detector train parity losses: f32 plain {loss_p:.7f}, f32 kernels {loss_k:.7f} (rel {d_loss:.3e}, "
+        f"bar {DET_TRAIN_LOSS_MAX_REL}), bf16 kernels {loss_h:.7f}",
+        flush=True,
+    )
+    print(
+        f"detector train parity gradients ({len(g_p)} trainable tensors): f32 kernels vs f32 plain cosine "
+        f"{cos_k:.7f} (bar {DET_TRAIN_F32_MIN_COS}), max rel {rel_k:.3e} of a tensor's largest entry; "
+        f"bf16 kernels vs f32 plain by group {json.dumps({k: round(v, 6) for k, v in groups.items()})} "
+        f"(bar {DET_TRAIN_BF16_MIN_COS}), lowest single tensor {per_tensor[worst]:.6f} ({worst})",
+        flush=True,
+    )
+    expect = expected_launches(layers, det_steps=1)
+    for name, counts in (("f32", counts_k), ("bf16", counts_h)):
+        if counts != expect:
+            fail(f"detector train parity {name} kernel leg launches {counts}, expected {expect}")
+    finite = all(torch.isfinite(g).all().item() for d in (g_p, g_k, g_h) for g in d.values())
+    if not finite or not all(map(math.isfinite, (loss_p, loss_k, loss_h))):
+        fail("detector train parity: non-finite loss or gradient")
+    if not nms_equal:
+        fail("detector train parity: the NMS kernel's proposals differ from the plain NMS's")
+    if flips:
+        fail(f"detector train parity: {len(flips)} proposals of the f32 kernel leg differ from the plain leg's")
+    if not d_loss <= DET_TRAIN_LOSS_MAX_REL:
+        fail(f"detector train parity: f32 kernel loss off by {d_loss} relative")
+    if not cos_k >= DET_TRAIN_F32_MIN_COS:
+        fail(f"detector train parity: f32 kernel gradient cosine {cos_k}")
+    if not min(groups.values()) >= DET_TRAIN_BF16_MIN_COS:
+        fail(f"detector train parity: bf16 kernel gradient cosines {groups}")
+
+
 def kernel_rows(records: Records, paths: dict) -> list:
     """One row per kernel: its launches on the main paths and its numbers
     at the L/14 student's shape in bfloat16 (RoPE: q and k in one launch, as
@@ -1332,7 +1563,16 @@ def main() -> int:
     cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev)
     phase_detector_parity(torch, dev, cfg, clip, det, emb, items)
     del clip, det
+    torch.cuda.empty_cache()
     print(f"detector done at {time.perf_counter() - t0:.1f} s", flush=True)
+    paths["b16_detector_train"] = phase_detector_train(
+        torch, dev, DET_PRESET, DET_TRAIN_WARMUP, DET_TRAIN_TIMED, logs_dir
+    )["launches"]
+    phase_detector_train_parity(torch, dev)
+    paths["b16_detector_train_mask"] = phase_detector_train(
+        torch, dev, DET_MASK_PRESET, DET_MASK_WARMUP, DET_MASK_TIMED, logs_dir
+    )["launches"]
+    print(f"detector training done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernel_rows(records, paths)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,22 +22,26 @@ def box_area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def _pair_inter(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
-    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
-    wh = torch.clamp(rb - lt, min=0.0)
-    return wh[..., 0] * wh[..., 1]
+    """Intersection areas [..., N, M] of a [..., N, 4] and b [..., M, 4]
+    (leading dimensions broadcast), one coordinate at a time: the same
+    operations as the stacked (x, y) form, without its [..., N, M, 2] pairs."""
+    a, b = a[..., :, None, :], b[..., None, :, :]
+    w = torch.clamp(torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0], b[..., 0]), min=0.0)
+    h = torch.clamp(torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1], b[..., 1]), min=0.0)
+    return w * h
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU. a: [N, 4], b: [M, 4] -> [N, M]."""
+    """Pairwise IoU. a: [..., N, 4], b: [..., M, 4] -> [..., N, M]."""
     inter = _pair_inter(a, b)
-    union = box_area(a)[:, None] + box_area(b)[None, :] - inter
+    union = box_area(a)[..., :, None] + box_area(b)[..., None, :] - inter
     return inter / torch.clamp(union, min=1e-6)
 
 
 def box_iof(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Intersection over the area of `a` (mmdet mode='iof'). [N,4],[M,4]->[N,M]."""
-    return _pair_inter(a, b) / torch.clamp(box_area(a)[:, None], min=1e-6)
+    """Intersection over the area of `a` (mmdet mode='iof').
+    [..., N, 4], [..., M, 4] -> [..., N, M]."""
+    return _pair_inter(a, b) / torch.clamp(box_area(a)[..., :, None], min=1e-6)
 
 
 def _row(values, like: torch.Tensor) -> torch.Tensor:

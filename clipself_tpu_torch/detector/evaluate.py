@@ -121,9 +121,9 @@ def metrics_json(metrics: dict, **dump_kwargs) -> str:
 
 
 def load_detector(path: str) -> dict[str, torch.Tensor]:
-    """A detector checkpoint written by the JAX package's `save_detector` (a
-    pickle whose `params` maps 'a/b/c' paths to arrays) -> the state dict of
-    the port's `FViTDetector`, to load with ``strict=True``."""
+    """A detector checkpoint written by either package's `save_detector` (a
+    pickle whose `params` maps 'a/b/c' flax paths to arrays) -> the state
+    dict of the port's `FViTDetector`, to load with ``strict=True``."""
     with open(path, "rb") as f:
         blob = pickle.load(f)
     tree: dict = {}

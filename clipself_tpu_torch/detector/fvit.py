@@ -1,16 +1,18 @@
 """F-ViT detector assembly: frozen CLIP backbone + detection heads.
 
-A port of the inference path of `clipself_tpu/detector/fvit.py` (reference
-architecture `F-ViT/models/fvit.py`, `F-ViT/models/evaclip_vit.py`): a frozen
-distilled EVA-CLIP ViT is tapped at 4 depths, expanded into a feature
-pyramid, fed through FPN + RPN + RoI head; at test time the dense VLM feature
-map (final block value path) scores each detection against the class
-embeddings and is geometrically fused with the detector scores.
+A port of `clipself_tpu/detector/fvit.py` (reference architecture
+`F-ViT/models/fvit.py`, `F-ViT/models/evaclip_vit.py`): a frozen distilled
+EVA-CLIP ViT is tapped at 4 depths, expanded into a feature pyramid, fed
+through FPN + RPN + RoI head. Training scores the RPN on sampled anchors and
+the RoI head (and the mask head) on rois sampled from the RPN's proposals;
+at test time the dense VLM feature map (final block value path) scores each
+detection against the class embeddings and is geometrically fused with the
+detector scores.
 
 `FViTDetector` holds the head stack only; the backbone is a port `CLIP`
-(`backbone_taps`). Module names follow the flax param tree, so
-`models/torch_io.py::detector_state_dict_from_jax` maps it key for key. The
-loss is not ported yet (ROADMAP.md queue 1 item 7).
+(`backbone_taps`, run without gradients). Module names follow the flax
+param tree, so `models/torch_io.py::detector_state_dict_from_jax` maps it
+key for key.
 """
 
 from __future__ import annotations
@@ -18,23 +20,29 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from clipself_tpu_torch.detector.config import FViTConfig
 from clipself_tpu_torch.detector.layers import Conv2d, Deconv2x2
 from clipself_tpu_torch.detector.neck import FPN, SimpleFeaturePyramid
-from clipself_tpu_torch.detector.nms import is_live
+from clipself_tpu_torch.detector.nms import is_live, take
 from clipself_tpu_torch.detector.roi_head import (
     FViTBBoxHead,
     MaskHead,
+    RoITargets,
     _ClassConv1x1,
     fuse_vlm_scores,
     multilevel_roi_align,
+    rcnn_cls_loss,
     rcnn_detections,
+    rcnn_reg_loss,
+    sample_rois,
 )
-from clipself_tpu_torch.detector.rpn import RPNHead, flatten_rpn_outputs, rpn_proposals
+from clipself_tpu_torch.detector.rpn import RPNHead, flatten_rpn_outputs, rpn_loss, rpn_proposals
+from clipself_tpu_torch.detector.targets import SampleNoise
 from clipself_tpu_torch.models.eva_vit import Dense, _lecun_normal
-from clipself_tpu_torch.ops.roi_align import roi_align_1x1
+from clipself_tpu_torch.ops.roi_align import roi_align_1x1, roi_align_nxn
 
 
 class FViTDetector(nn.Module):
@@ -96,6 +104,116 @@ class FViTDetector(nn.Module):
             self._pool(feats, rois, self.cfg.roi_feat_size), class_embed
         )
         return logits, box_deltas
+
+    # ----- training ----------------------------------------------------
+
+    def loss(
+        self,
+        taps,
+        gt_boxes: torch.Tensor,
+        gt_labels: torch.Tensor,
+        gt_valid: torch.Tensor,
+        noise: SampleNoise,
+        class_embed: torch.Tensor,
+        class_weight: Optional[torch.Tensor] = None,
+        gt_masks: Optional[torch.Tensor] = None,
+        valid_hw: Optional[torch.Tensor] = None,
+    ):
+        """Full detection loss (RPN + RCNN [+ mask]): (total, metrics).
+
+        taps: 4 [B, h, w, width] frozen backbone taps. gt_boxes [B, G, 4]
+        image-space xyxy; gt_labels [B, G]; gt_valid [B, G]. noise: the
+        samplers' draws (`targets.SampleNoise`). gt_masks: [B, G, Hm, Wm]
+        binary (stride-4 resolution) when with_mask. The loss is the RPN
+        stage followed by the RoI stage on its proposals."""
+        feats, l_rpn, metrics, props, pscores = self.rpn_stage(
+            taps, gt_boxes, gt_valid, noise, valid_hw
+        )
+        l_roi, roi_metrics = self.roi_stage(
+            feats, props, pscores, gt_boxes, gt_labels, gt_valid, noise, class_embed,
+            class_weight, gt_masks,
+        )
+        metrics.update(roi_metrics)
+        total = l_rpn + l_roi
+        metrics["loss"] = total
+        return total, metrics
+
+    def rpn_stage(self, taps, gt_boxes, gt_valid, noise: SampleNoise, valid_hw=None):
+        """Features, the RPN loss and its metrics, and the train-time
+        proposals [B, P, 4] with their scores [B, P], decoded without
+        gradients (the JAX loss's stop_gradient on the RPN outputs)."""
+        c = self.cfg
+        feats, smap, dmap = self.features(taps)
+        rpn = flatten_rpn_outputs(smap, dmap, c)
+        l_rpn, metrics = rpn_loss(rpn, gt_boxes, gt_valid, noise.rpn_pos, noise.rpn_neg, c)
+        p = c.train_proposals
+        with torch.no_grad():
+            props, pscores = rpn_proposals(
+                rpn, (c.image_size, c.image_size), p.nms_pre, p.max_per_img, p.iou_threshold,
+                p.min_bbox_size, valid_hw=valid_hw,
+            )
+        return feats, l_rpn, metrics, props, pscores
+
+    def roi_stage(
+        self, feats, props, pscores, gt_boxes, gt_labels, gt_valid, noise: SampleNoise,
+        class_embed, class_weight=None, gt_masks=None,
+    ):
+        """The RCNN losses (and the mask loss, with ``cfg.with_mask`` and
+        ``gt_masks``) on rois sampled from the proposals: (sum, metrics)."""
+        c = self.cfg
+        tgt = sample_rois(
+            props, pscores, gt_boxes, gt_labels, gt_valid,
+            noise.roi_pos, noise.roi_neg, noise.roi_gather, c,
+        )
+        b = tgt.rois.shape[0]
+        logits, deltas, _ = self.bbox_head(self._pool(feats, tgt.rois, c.roi_feat_size), class_embed)
+        l_cls = rcnn_cls_loss(logits, tgt.labels.reshape(-1), tgt.chosen.reshape(-1), class_weight)
+        l_reg = rcnn_reg_loss(
+            deltas, tgt.reg_targets.reshape(-1, 4), tgt.pos.reshape(-1), tgt.chosen.reshape(-1)
+        )
+        total = l_cls + l_reg
+        metrics = {"loss_cls": l_cls, "loss_bbox": l_reg, "num_pos_roi": tgt.pos.sum() / b}
+        if c.with_mask and gt_masks is not None:
+            l_mask = self._mask_loss(feats, tgt, gt_masks)
+            total = total + l_mask
+            metrics["loss_mask"] = l_mask
+        return total, metrics
+
+    def _mask_loss(self, feats, tgt: RoITargets, gt_masks: torch.Tensor) -> torch.Tensor:
+        """Per-class BCE mask loss on the positive rois (mmdet FCNMaskHead).
+
+        The mask targets are the gt masks RoI-aligned themselves: each
+        image's [G, Hm, Wm] masks are an Hm x Wm map of G channels; pooling a
+        roi and selecting its assigned gt's channel is one one-hot einsum.
+        The head runs on a fixed positives-first subset of
+        ``num * pos_fraction`` rois (a stable sort of the pos flag), which
+        holds every positive by the sampler's cap, and each roi evaluates
+        only its own class channel (`MaskHead(labels=...)`)."""
+        c = self.cfg
+        b, r = tgt.rois.shape[:2]
+        mr = min(int(c.rcnn_sample.num * c.rcnn_sample.pos_fraction), r)
+        order = torch.sort(-tgt.pos.int(), dim=1, stable=True).indices[:, :mr]
+        rois = take(tgt.rois, order)
+        labels = torch.gather(tgt.labels, 1, order)
+        gt_idx = torch.gather(tgt.gt_idx, 1, order)
+        pos = torch.gather(tgt.pos, 1, order)
+
+        lab = torch.clamp(labels.reshape(-1), 0, c.num_classes - 1)
+        ml = self.mask_head(self._pool(feats, rois, c.mask_roi_size), lab)  # [B * mr, o, o]
+        out = c.mask_roi_size * 2
+        # the stride of the gt mask raster in image coordinates
+        mstride = float(c.image_size) / float(gt_masks.shape[2])
+        maps = gt_masks.float().movedim(1, -1)  # [B, Hm, Wm, G]
+        tgt_masks = roi_align_nxn(maps, rois / mstride, (out, out))  # [B, mr, o, o, G]
+        onehot = F.one_hot(gt_idx, gt_masks.shape[1]).float()  # [B, mr, G]
+        tgt_sel = torch.einsum("brxyg,brg->brxy", tgt_masks, onehot)
+        tgt_sel = (tgt_sel > 0.5).float().reshape(b * mr, out, out)
+        bce = F.binary_cross_entropy_with_logits(ml.float(), tgt_sel, reduction="none")
+        posf = pos.reshape(-1).float()
+        per_roi = bce.mean(dim=(1, 2))
+        return (per_roi * posf).sum() / torch.clamp(posf.sum(), min=1.0)
+
+    # ----- inference ----------------------------------------------------
 
     def proposals(self, taps, image_hw=None, valid_hw: Optional[torch.Tensor] = None):
         """Backbone taps -> (fpn feats, proposals [B, P, 4], scores [B, P])

@@ -1,6 +1,6 @@
 """RoI head: multi-level RoI-align, open-vocabulary bbox head, mask head.
 
-A port of the inference half of `clipself_tpu/detector/roi_head.py`
+A port of `clipself_tpu/detector/roi_head.py`
 (behavioural spec: the reference `F-ViT/models/fvit_head.py`):
   - rois map to FPN levels by
     level = clamp(floor(log2(sqrt(area) / finest_scale + 1e-6)), 0, 3)
@@ -14,23 +14,26 @@ A port of the inference half of `clipself_tpu/detector/roi_head.py`
     temperature) are geometrically mixed with exponent alpha on base classes
     and beta on novel classes.
 
-Pooling runs as one contraction over the row-concatenated pyramid
-(`ops/roi_align.py::roi_align_nxn_levels`), the JAX package's default. RoI
-sampling and the losses are not ported yet (ROADMAP.md queue 1 item 7).
+Training assigns and samples the proposals (gts appended) into a fixed
+budget of rois (`sample_rois`) and scores them with the weighted softmax CE
+and the L1 box loss. Pooling runs as one contraction over the
+row-concatenated pyramid (`ops/roi_align.py::roi_align_nxn_levels`), the JAX
+package's default.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clipself_tpu_torch.detector.boxes import box_area, decode_boxes
+from clipself_tpu_torch.detector.boxes import box_area, decode_boxes, encode_boxes
 from clipself_tpu_torch.detector.config import FViTConfig
 from clipself_tpu_torch.detector.layers import ConvNorm, Deconv2x2
-from clipself_tpu_torch.detector.nms import multiclass_nms
+from clipself_tpu_torch.detector.nms import is_live, multiclass_nms, sorted_desc, take
+from clipself_tpu_torch.detector.targets import assign_max_iou, random_sample
 from clipself_tpu_torch.models.eva_vit import Dense
 from clipself_tpu_torch.ops.roi_align import roi_align_nxn_levels
 
@@ -154,6 +157,99 @@ class MaskHead(nn.Module):
         for i in range(self.cfg.mask_convs):
             x = getattr(self, f"conv_{i}")(x)
         return self.logits(F.relu(self.upsample(x)), labels)
+
+
+class RoITargets(NamedTuple):
+    rois: torch.Tensor  # [B, R, 4] sampled proposals (image space)
+    labels: torch.Tensor  # [B, R] class (num_classes = background)
+    chosen: torch.Tensor  # [B, R] bool: sampled (contributes to the cls loss)
+    pos: torch.Tensor  # [B, R] bool: positive (contributes to the reg loss)
+    reg_targets: torch.Tensor  # [B, R, 4]
+    gt_idx: torch.Tensor  # [B, R] assigned gt index (for the mask targets)
+
+
+def sample_rois(
+    proposals: torch.Tensor,
+    proposal_scores: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    pos_noise: torch.Tensor,
+    neg_noise: torch.Tensor,
+    gather_noise: torch.Tensor,
+    cfg: FViTConfig,
+) -> RoITargets:
+    """Assign + sample proposals for the RCNN stage (train cfg
+    `configs/ov_coco/...:110-126`; gt boxes are appended as proposals).
+
+    proposals [B, P, 4], proposal_scores [B, P] (NEG_INF = empty slot);
+    gt_boxes [B, G, 4], gt_labels [B, G], gt_valid [B, G]; the three noises
+    [B, P + G]: the sampler's positives and negatives, then the draw that
+    orders the fixed-budget gather."""
+    boxes = torch.cat([proposals.float(), gt_boxes.float()], dim=1)
+    # SampleCfg.add_gt_as_proposals (mmdet RandomSampler knob): when off, the
+    # gt rows stay in the tensor (static shapes) but are invalidated
+    gt_rows = gt_valid if cfg.rcnn_sample.add_gt_as_proposals else torch.zeros_like(gt_valid)
+    valid_rows = torch.cat([is_live(proposal_scores), gt_rows], dim=1)
+    a = assign_max_iou(
+        boxes, gt_boxes, gt_valid,
+        cfg.rcnn_assign.pos_iou_thr, cfg.rcnn_assign.neg_iou_thr,
+        cfg.rcnn_assign.min_pos_iou, cfg.rcnn_assign.match_low_quality,
+    )
+    a = a._replace(pos=a.pos & valid_rows, neg=a.neg & valid_rows)
+    s = random_sample(a, cfg.rcnn_sample.num, cfg.rcnn_sample.pos_fraction, pos_noise, neg_noise)
+    labels = torch.where(s.pos_mask, torch.gather(gt_labels.long(), 1, a.gt_idx), cfg.num_classes)
+    tgt = encode_boxes(boxes, take(gt_boxes, a.gt_idx), stds=cfg.bbox_stds)
+    chosen = s.pos_mask | s.neg_mask
+    # fixed-budget gather: the RoI head sees only the sampled `num` rois, not
+    # all proposals + gts (the budget is static, so the shapes stay static)
+    prio = chosen.float() * 2.0 + s.pos_mask.float()
+    prio = prio + gather_noise * 0.5
+    _, sel = sorted_desc(prio, cfg.rcnn_sample.num)
+    return RoITargets(
+        rois=take(boxes, sel),
+        labels=torch.gather(labels, 1, sel),
+        chosen=torch.gather(chosen, 1, sel),
+        pos=torch.gather(s.pos_mask, 1, sel),
+        reg_targets=take(tgt, sel),
+        gt_idx=torch.gather(a.gt_idx, 1, sel),
+    )
+
+
+def rcnn_cls_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    chosen: torch.Tensor,
+    class_weight: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Weighted softmax CE (reference `CustomCrossEntropyLoss`,
+    `F-ViT/models/custom_losses.py:62-111`): classes with ~zero weight get
+    -inf logits (excluded from the partition function), the loss is scaled by
+    the label's class weight, and averaged over the sampled rois.
+    logits [R, K+1] float32, labels [R], chosen [R] bool."""
+    if class_weight is not None:
+        logits = logits.masked_fill(class_weight < 1e-5, float("-inf"))
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, 1, labels[:, None])[:, 0]
+    if class_weight is None:
+        ce = -ll
+    else:
+        w = class_weight[labels]
+        # zero-weight labels (novel classes in the batch) have a -inf
+        # log-prob after masking: select before the product is used, so
+        # neither the loss nor a gradient sees inf * 0
+        ce = torch.where(w > 1e-5, -ll * w, 0.0)
+    ce = torch.where(chosen, ce, 0.0)
+    return ce.sum() / torch.clamp(chosen.sum(), min=1)
+
+
+def rcnn_reg_loss(
+    deltas: torch.Tensor, targets: torch.Tensor, pos: torch.Tensor, chosen: torch.Tensor
+) -> torch.Tensor:
+    """L1 on positive rois, averaged over all sampled rois (mmdet
+    BBoxHead.loss avg_factor semantics)."""
+    l1 = (deltas.float() - targets).abs().sum(dim=-1)
+    return (l1 * pos).sum() / torch.clamp(chosen.sum(), min=1)
 
 
 def fuse_vlm_scores(

@@ -1,10 +1,9 @@
-"""Region proposal network: head module and proposal decoding.
+"""Region proposal network: head module, targets and loss, proposal decoding.
 
-A port of the inference half of `clipself_tpu/detector/rpn.py` (mmdet
-`RPNHead`): a small conv tower shared across levels, per-anchor sigmoid
-objectness + box deltas, and top-k -> decode -> NMS proposal generation,
-batched over images. The targets and the loss are not ported yet
-(ROADMAP.md queue 1 item 7).
+A port of `clipself_tpu/detector/rpn.py` (mmdet `RPNHead`): a small conv
+tower shared across levels, per-anchor sigmoid objectness + box deltas, BCE
++ L1 on 256 randomly sampled anchors an image, and top-k -> decode -> NMS
+proposal generation, batched over images.
 """
 
 from __future__ import annotations
@@ -14,13 +13,15 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from clipself_tpu_torch.detector.anchors import multi_level_anchors
-from clipself_tpu_torch.detector.boxes import decode_boxes
+from clipself_tpu_torch.detector.boxes import decode_boxes, encode_boxes
 from clipself_tpu_torch.detector.config import AnchorCfg, FViTConfig
 from clipself_tpu_torch.detector.layers import Conv2d, ConvNorm
 from clipself_tpu_torch.detector.nms import nms, sorted_desc, take
+from clipself_tpu_torch.detector.targets import assign_max_iou, random_sample
 
 
 class RPNHead(nn.Module):
@@ -66,6 +67,18 @@ def _anchors(feat_shapes: tuple, anchors: AnchorCfg, device: torch.device) -> to
     return torch.from_numpy(np.concatenate(per_level, axis=0)).to(device)
 
 
+def num_anchors(cfg: FViTConfig) -> int:
+    """Anchors over all levels for square ``cfg.image_size`` images: the
+    pyramid makes 4x, 2x, 1x and 1/2x (floor, a 2x2 max pool) of the patch
+    grid, and each extra FPN level subsamples the last one by 2 (ceil)."""
+    g = cfg.image_size // cfg.patch_size
+    sides = [4 * g, 2 * g, g, g // 2]
+    while len(sides) < cfg.num_fpn_outs:
+        sides.append(-(-sides[-1] // 2))
+    per_cell = len(cfg.anchors.scales) * len(cfg.anchors.ratios)
+    return per_cell * sum(s * s for s in sides[: cfg.num_fpn_outs])
+
+
 def flatten_rpn_outputs(
     score_maps: Sequence[torch.Tensor],
     delta_maps: Sequence[torch.Tensor],
@@ -78,6 +91,45 @@ def flatten_rpn_outputs(
     scores = torch.cat([s.reshape(b, -1) for s in score_maps], dim=1)
     deltas = torch.cat([d.reshape(b, -1, 4) for d in delta_maps], dim=1)
     return RPNOut(scores, deltas, _anchors(feat_shapes, cfg.anchors, scores.device))
+
+
+def rpn_loss(
+    rpn: RPNOut,
+    gt_boxes: torch.Tensor,
+    gt_valid: torch.Tensor,
+    pos_noise: torch.Tensor,
+    neg_noise: torch.Tensor,
+    cfg: FViTConfig,
+) -> tuple[torch.Tensor, dict]:
+    """BCE objectness + L1 box loss on sampled anchors (mmdet RPNHead.loss),
+    in float32.
+
+    gt_boxes: [B, G, 4]; gt_valid: [B, G] bool; pos_noise, neg_noise: [B, N]
+    uniform draws of the anchor sampler (`targets.random_sample`).
+    """
+    a = assign_max_iou(
+        rpn.anchors, gt_boxes, gt_valid,
+        cfg.rpn_assign.pos_iou_thr, cfg.rpn_assign.neg_iou_thr,
+        cfg.rpn_assign.min_pos_iou, cfg.rpn_assign.match_low_quality,
+    )
+    s = random_sample(a, cfg.rpn_sample.num, cfg.rpn_sample.pos_fraction, pos_noise, neg_noise)
+    chosen = s.pos_mask | s.neg_mask
+    # BCE with logits over the sampled anchors, averaged over the sample budget
+    ce = F.binary_cross_entropy_with_logits(
+        rpn.scores.float(), s.pos_mask.float(), reduction="none"
+    )
+    n_sampled = torch.clamp(chosen.sum(dim=-1), min=1).float()
+    loss_cls = (ce * chosen).sum(dim=-1) / n_sampled
+    # L1 on positive anchors against the encoded gt deltas
+    tgt = encode_boxes(rpn.anchors, take(gt_boxes, a.gt_idx))
+    l1 = (rpn.deltas.float() - tgt).abs().sum(dim=-1)
+    loss_box = (l1 * s.pos_mask).sum(dim=-1) / n_sampled
+    metrics = {
+        "rpn_loss_cls": loss_cls.mean(),
+        "rpn_loss_bbox": loss_box.mean(),
+        "rpn_num_pos": s.num_pos.float().mean(),
+    }
+    return loss_cls.mean() + loss_box.mean(), metrics
 
 
 def rpn_proposals(

@@ -6,7 +6,8 @@ visual tower and `logit_scale`, with the key map of the EVA branch of
 `clipself_tpu/models/torch_io.py::_vision_key_map` copied here; `load_weights`
 loads such a dict, or a reference `.pt` checkpoint, with `strict=True`.
 `detector_state_dict_from_jax` does the same for the flax tree of the F-ViT
-detector heads, whose port keeps the tree's own names.
+detector heads, whose port keeps the tree's own names, and
+`detector_state_dict_to_jax` is its inverse.
 """
 
 from __future__ import annotations
@@ -131,6 +132,32 @@ def detector_state_dict_from_jax(det_params: Any) -> dict[str, torch.Tensor]:
             arr = arr.T
         out[".".join(path[:-1] + (leaf,))] = torch.tensor(arr.copy())
     return out
+
+
+def detector_state_dict_to_jax(sd: dict[str, torch.Tensor]) -> dict:
+    """The inverse of `detector_state_dict_from_jax`: a state dict of the
+    port's `FViTDetector` -> the flax param tree (nested dicts of float32
+    NumPy arrays) in flax layouts. A `weight` is a `kernel`, or a norm's
+    `scale` where it is one-dimensional (the detector's only 1-D weights
+    are GroupNorm scales)."""
+    tree: dict = {}
+    for key, val in sd.items():
+        path = key.split(".")
+        arr = val.detach().float().cpu().numpy()
+        if path[-1] == "weight":
+            path[-1] = "scale" if arr.ndim == 1 else "kernel"
+        if path[-1] == "kernel" and arr.ndim == 4:
+            if path[-2] in _DECONV_NAMES:  # [in, out, kh, kw] -> [kh, kw, in, out], mirrored
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:  # OIHW -> HWIO
+                arr = arr.transpose(2, 3, 1, 0)
+        elif path[-1] == "kernel" and arr.ndim == 2:
+            arr = arr.T
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.array(arr)  # a contiguous copy, 0-d kept
+    return tree
 
 
 def unwrap_state_dict(sd: dict) -> dict:

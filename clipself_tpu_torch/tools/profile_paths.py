@@ -23,6 +23,12 @@ small model; it has no device time to report and says so.
 on the device (backbone taps, heads, both NMS passes), and
 `evaluate_detector` over the same images as host items (adds the copy to
 the device and the NumPy COCO matching).
+
+``--path detector_train`` runs the detector's train step of ``--preset``
+(`detector/train.py::make_det_train_step`: frozen trunk taps, the loss, its
+backward into the heads, clipping, AdamW at the recipe's settings) on one
+synthetic batch of ``--det-batch`` images staged on the device, the same
+way.
 """
 
 from __future__ import annotations
@@ -39,11 +45,12 @@ import torch
 from clipself_tpu_torch.core.config import get_model_config
 from clipself_tpu_torch.data.loader import SyntheticDistillData
 from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
-from clipself_tpu_torch.detector.classes import base_novel_mask
+from clipself_tpu_torch.detector.classes import base_novel_mask, class_weights
 from clipself_tpu_torch.detector.config import PRESETS
 from clipself_tpu_torch.detector.data import SyntheticDetectionData, synthetic_eval_items
 from clipself_tpu_torch.detector.evaluate import evaluate_detector, make_predict_fn
 from clipself_tpu_torch.detector.fvit import create_detector
+from clipself_tpu_torch.detector.train import DetTrainState, build_det_optimizer, make_det_train_step
 from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.train.methods import clipself_loss
@@ -64,7 +71,8 @@ CLASSES = (
     ("nms bit-matrix kernel", ("nms_matrix_kernel",)),
     ("nms scan kernel", ("nms_scan_kernel",)),
     ("convolutions (cuDNN)", ("cudnn", "conv2d", "fprop", "dgrad", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),
-    ("GroupNorm", ("GroupNorm", "group_norm", "RowwiseMoments")),
+    ("GroupNorm", ("GroupNorm", "group_norm", "RowwiseMoments", "ComputeInternalGradients",
+                   "BackwardFusedParams", "GammaBeta")),
     ("sorts", ("sort", "Sort", "radix", "Radix")),
     ("gathers and index selections", ("gather", "index", "scatter")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas", "gemv")),
@@ -172,7 +180,7 @@ def report(title: str, unit: str, res: dict) -> None:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser("clipself_tpu_torch path profiler")
-    p.add_argument("--path", default="clip", choices=["clip", "detector"])
+    p.add_argument("--path", default="clip", choices=["clip", "detector", "detector_train"])
     p.add_argument("--preset", default="ov_coco_vitb16", choices=sorted(PRESETS))
     p.add_argument("--det-batch", type=int, default=8)
     p.add_argument("--model", default="EVA02-CLIP-B-16")
@@ -198,6 +206,8 @@ def main(argv=None) -> dict:
         ).stdout.strip().splitlines()[0], flush=True)
     if args.path == "detector":
         out = profile_detector(args, device)
+    elif args.path == "detector_train":
+        out = profile_detector_train(args, device)
     else:
         out = profile_clip(args, device)
     if args.json:
@@ -288,6 +298,37 @@ def profile_detector(args, device: torch.device) -> dict:
             args.steps, device, args.det_batch,
         )
         report(f"{what}: evaluate_detector from host items", "batch", out["evaluate"])
+    return out
+
+
+def profile_detector_train(args, device: torch.device) -> dict:
+    cfg = PRESETS[args.preset]
+    clip = create_model(cfg.clip_model, device=device, dtype=torch.bfloat16, seed=args.seed)
+    clip.requires_grad_(False)
+    det = create_detector(cfg, device=device, seed=args.seed + 1)
+    emb = class_embeddings(cfg.num_classes + 1, cfg.embed_dim, seed=args.seed)
+    emb /= (emb ** 2).sum(-1, keepdims=True) ** 0.5
+    dataset = "coco" if cfg.num_classes == 65 else "lvis"
+    cw = torch.as_tensor(class_weights(dataset, cfg.bg_weight), device=device)
+    host = SyntheticDetectionData(
+        cfg.num_classes, cfg.image_size, cfg.max_gt, seed=args.seed, with_mask=cfg.with_mask
+    ).batch(args.det_batch)
+    batch = {
+        k: torch.as_tensor(v, device=device) for k, v in host.items() if k not in ("scale", "image_id")
+    }
+    state = DetTrainState(det, build_det_optimizer(det))
+    step_fn = make_det_train_step(
+        clip, cfg, torch.as_tensor(emb, device=device), cw,
+        torch.Generator(device=device).manual_seed(args.seed),
+    )
+    out = {"preset": args.preset, "image": cfg.image_size}
+    out["train"] = measure(lambda: step_fn(state, batch), args.steps, device, args.det_batch)
+    report(
+        f"F-ViT {args.preset} train step ({cfg.clip_model} frozen), {args.det_batch} images at "
+        f"{cfg.image_size}px staged on the device, {cfg.rpn_sample.num} anchors and "
+        f"{cfg.rcnn_sample.num} rois sampled an image, bf16, AdamW",
+        "step", out["train"],
+    )
     return out
 
 

@@ -120,13 +120,16 @@ def no_decay_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[str,
 # the optimizer
 
 
-def clip_by_global_norm(params: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(params: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """Scale the gradients of ``params`` in place so that their global norm is
-    at most ``max_norm`` (optax `clip_by_global_norm`). No host sync."""
+    at most ``max_norm`` (optax `clip_by_global_norm`); returns that norm
+    before clipping. No host sync."""
     grads = [p.grad for p in params]
-    scale = torch.clamp(max_norm / global_norm(grads), max=1.0)
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / norm, max=1.0)
     for g in grads:
         g.mul_(scale)
+    return norm
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

@@ -675,3 +675,88 @@ def test_nms_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="exceed"):
         nms.nms_keep_mask(torch.zeros(1, many, 4, device=dev), torch.ones(1, many, dtype=torch.bool, device=dev), 0.5)
     assert nms.LAUNCHES.count == before
+
+
+def _launch_counts():
+    return {
+        "nms": nms.LAUNCHES.count, "flash_attention": attention.LAUNCHES.count,
+        "flash_attention_bwd": attention.BWD_LAUNCHES.count, "rope_roll": rope_roll.LAUNCHES.count,
+        "rope_roll_bwd": rope_roll.BWD_LAUNCHES.count, "layer_norm": layer_norm.LAUNCHES.count,
+        "layer_norm_bwd": layer_norm.BWD_LAUNCHES.count,
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_detector_train_step_on_card(dev, dtype):
+    """One tiny detector train step through `make_det_train_step` on the
+    card: the trunk's forward kernels and the NMS kernel launch, no backward
+    kernel (the trunk is frozen), every metric is finite and every detector
+    parameter moves (at a base lr of 1, so that the first update, lr 1e-3,
+    moves the temperature of 50 by more than its float32 spacing)."""
+    from clipself_tpu_torch.detector import config, fvit, train as det_train
+    from clipself_tpu_torch.detector.classes import class_weights
+    from clipself_tpu_torch.detector.data import SyntheticDetectionData
+    from clipself_tpu_torch.models.factory import create_model
+
+    cfg = config.PRESETS["tiny_test"]
+    layers = 4  # EVA02-CLIP-Tiny-Det-Test
+    host = SyntheticDetectionData(cfg.num_classes, cfg.image_size, cfg.max_gt, seed=0).batch(2)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items() if k not in ("scale", "image_id")}
+    clip = create_model(cfg.clip_model, device=dev, dtype=dtype, seed=0).requires_grad_(False)
+    det = fvit.create_detector(cfg, device=dev, seed=1)
+    before = {k: v.clone() for k, v in det.state_dict().items()}
+    state = det_train.DetTrainState(det, det_train.build_det_optimizer(det, base_lr=1.0))
+    gen = torch.Generator().manual_seed(4)
+    ce = torch.nn.functional.normalize(torch.randn(cfg.num_classes + 1, cfg.embed_dim, generator=gen), dim=-1).to(dev)
+    cw = torch.as_tensor(class_weights("coco", cfg.bg_weight), device=dev)
+    step = det_train.make_det_train_step(clip, cfg, ce, cw, torch.Generator(device=dev).manual_seed(0))
+    counts = _launch_counts()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    launched = {k: v - counts[k] for k, v in _launch_counts().items()}
+    assert launched == {
+        "nms": 1, "flash_attention": layers - 1, "flash_attention_bwd": 0, "rope_roll": layers - 1,
+        "rope_roll_bwd": 0, "layer_norm": 4 * layers, "layer_norm_bwd": 0,
+    }
+    assert all(torch.isfinite(v).all() for v in metrics.values()) and metrics["grad_norm"] > 0
+    for name, p in det.state_dict().items():
+        assert torch.isfinite(p).all() and not torch.equal(p, before[name]), name
+    assert all(p.grad is None for p in clip.parameters())
+
+
+def test_detector_loss_on_card_matches_the_cpu(dev, monkeypatch):
+    """The tiny detector loss from the same weights, batch and sampler noise:
+    f32 kernels on the card against the plain versions on the CPU, the loss
+    within 1e-4 relative and the trainable gradient at cosine >= 0.9999 (the
+    bars of `chip_smoke.py`'s detector train parity), with TF32 off for the
+    convolutions and products, as `chip_smoke.py` runs."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from clipself_tpu_torch.detector import config, fvit
+    from clipself_tpu_torch.detector.classes import class_weights
+    from clipself_tpu_torch.detector.data import SyntheticDetectionData
+    from clipself_tpu_torch.detector.rpn import num_anchors
+    from clipself_tpu_torch.detector.targets import draw_noise
+    from clipself_tpu_torch.models.factory import create_model
+
+    cfg = config.PRESETS["tiny_test"]
+    host = SyntheticDetectionData(cfg.num_classes, cfg.image_size, cfg.max_gt, seed=2).batch(2)
+    noise = draw_noise(torch.Generator().manual_seed(3), 2, num_anchors(cfg), cfg.train_proposals.max_per_img + cfg.max_gt)
+    gen = torch.Generator().manual_seed(4)
+    ce = torch.nn.functional.normalize(torch.randn(cfg.num_classes + 1, cfg.embed_dim, generator=gen), dim=-1)
+    cw = torch.as_tensor(class_weights("coco", cfg.bg_weight))
+    out = {}
+    for device in ("cpu", dev):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in host.items() if k not in ("scale", "image_id")}
+        clip = create_model(cfg.clip_model, device=device, dtype=torch.float32, seed=0).requires_grad_(False)
+        det = fvit.create_detector(cfg, device=device, seed=1)
+        taps, _ = fvit.backbone_taps(clip, batch["images"], cfg, False)
+        loss, _ = det.loss(
+            taps, batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"],
+            type(noise)(*(t.to(device) for t in noise)), ce.to(device), cw.to(device),
+        )
+        loss.backward()
+        out[str(device)] = loss.item(), torch.cat([p.grad.flatten().cpu() for p in det.parameters()])
+    (loss_c, g_c), (loss_k, g_k) = out["cpu"], out[str(dev)]
+    assert abs(loss_k - loss_c) <= 1e-4 * abs(loss_c)
+    assert torch.nn.functional.cosine_similarity(g_k, g_c, dim=0).item() >= 0.9999

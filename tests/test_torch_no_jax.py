@@ -1,7 +1,7 @@
 """The port imports no JAX, Flax, PIL or JAX-package module: in a fresh
 interpreter (this test process has JAX loaded by conftest), import every
-module of the port, run the tiny evaluator, one train step and the tiny
-detector evaluation on the CPU."""
+module of the port, run the tiny evaluator, one train step, the tiny
+detector evaluation and one tiny detector train step on the CPU."""
 
 import json
 import math
@@ -47,6 +47,8 @@ import clipself_tpu_torch.detector.neck
 import clipself_tpu_torch.detector.nms
 import clipself_tpu_torch.detector.roi_head
 import clipself_tpu_torch.detector.rpn
+import clipself_tpu_torch.detector.targets
+import clipself_tpu_torch.detector.train as det_train
 
 model = factory.create_model("EVA02-CLIP-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
 batch = synthetic.synthetic_panoptic_batch(
@@ -72,9 +74,14 @@ items = det_data.synthetic_eval_items(
 emb = synthetic.class_embeddings(det_cfg.num_classes + 1, det_cfg.embed_dim)
 emb /= (emb ** 2).sum(-1, keepdims=True) ** 0.5
 metrics = det_evaluate.evaluate_detector(det, clip, items, det_cfg, emb, device="cpu", batch_size=2)
+det_run = det_train.main([
+    "--synthetic", "--preset", "tiny_test", "--device", "cpu", "--batch-size", "2", "--epochs", "1",
+    "--steps-per-epoch", "1", "--output", sys.argv[1] + "/det",
+])
+det_loss = det_run["history"][-1]["metrics"]["loss"]
 banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "clipself_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-print(json.dumps({"n_results": len(res), "loss": loss, "loaded": loaded,
+print(json.dumps({"n_results": len(res), "loss": loss, "det_loss": det_loss, "loaded": loaded,
                   "metrics": json.loads(det_evaluate.metrics_json(metrics))}))
 """
 
@@ -90,7 +97,8 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["n_results"] == 12
-    assert math.isfinite(out["loss"])
+    assert math.isfinite(out["loss"]) and math.isfinite(out["det_loss"])
+    assert (tmp_path / "det" / "detector_epoch0.pkl").is_file()
     assert out["loaded"] == []
     assert sorted(out["metrics"]) == ["AP50", "AP50_base", "AP50_novel", "AP75", "mAP"]
     assert all(v is None or 0.0 <= v <= 1.0 for v in out["metrics"].values())

@@ -64,6 +64,17 @@ def test_cpu_detector_run_reports_no_device_time(capsys):
     assert printed.count("not measured") == 2 and "images/s" not in printed
 
 
+def test_cpu_detector_train_run_reports_no_device_time(capsys):
+    out = profile_paths.main([
+        "--device", "cpu", "--path", "detector_train", "--preset", "tiny_test", "--det-batch", "2",
+        "--steps", "1",
+    ])
+    assert out["preset"] == "tiny_test" and out["train"]["device"].startswith("not measured")
+    assert "classes" not in out["train"]
+    printed = capsys.readouterr().out
+    assert printed.count("not measured") == 1 and "images/s" not in printed and "train step" in printed
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="the refusal is for a machine without a card")
 def test_kernel_timing_tools_refuse_to_run_without_a_card(capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
