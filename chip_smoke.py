@@ -72,7 +72,20 @@ then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
    f32 path (loss, proposals, trainable gradients; the RoI stage of every
    leg on the plain leg's proposals);
 11. the mask branch: `ov_lvis_vitb16` (1203 classes, 14x14 mask rois),
-   batch 8, 1 warm-up and 2 steps, every loss and gradient finite.
+   batch 8, 1 warm-up and 2 steps, every loss and gradient finite;
+then the L/14 presets (EVA02-CLIP-L-14-336 at 896^2, 261888 anchors):
+12. `evaluate_detector` at `ov_coco_vitl14` as in 7 and its parity as in 8
+   (the kernel rows of phase 2 include its shapes: flash attention
+   [8, 4097, 16, 64], LayerNorm [8, 4097, 1024] and [8, 4097, 2730], RoPE
+   [8, 4097, 1024], and the final NMS over 1203 classes in the 896^2 frame);
+13. LVIS evaluation with masks, `ov_lvis_vitb16` and `ov_lvis_vitl14`, batch
+   8, 2 batches after 1 warm-up, on items with gt masks, resize scales other
+   than 1 and the LVIS fields: the LVIS protocol's box and `segm_` metrics as
+   strict JSON (a missing key or a value neither finite nor null fails), ms
+   a batch and the host's share by stage (predict, copy back, pasting,
+   matching);
+14. detector training at `ov_coco_vitl14`, 2 + 5 steps, and `ov_lvis_vitl14`
+   with the mask head, 1 + 2, as in 9 and 11.
 
 The second-to-last line is one JSON object with a row per kernel; the last
 line is `{"ok": true, "device": {...}}`. Without a CUDA card it exits 1
@@ -150,6 +163,12 @@ DET_PARITY_IMAGES, DET_FIXED_ROIS = 2, 32
 # branch's preset, warm-up and timed steps
 DET_TRAIN_WARMUP, DET_TRAIN_TIMED = 2, 5
 DET_MASK_PRESET, DET_MASK_WARMUP, DET_MASK_TIMED = "ov_lvis_vitb16", 1, 2
+# the L/14 presets (EVA02-CLIP-L-14-336 at 896^2): evaluation and its parity
+# as above, training 2 + 5 steps and the mask branch 1 + 2
+DET_L14_PRESET, DET_L14_MASK_PRESET = "ov_coco_vitl14", "ov_lvis_vitl14"
+# LVIS evaluation with masks (batches as above): items with gt masks and
+# resize scales other than 1
+DET_LVIS_PRESETS = ("ov_lvis_vitb16", "ov_lvis_vitl14")
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory, dense bf16 tensor cores, float32 outside the tensor cores.
@@ -684,8 +703,10 @@ def check_layer_norm(torch, dev, records, gen, shape, view, backward):
             fail(f"layer_norm_bwd {dt} {what} {tuple(x.shape)} dweight/dbias off by {sum_rel}")
 
 
-# (kind, images, boxes, IoU threshold, timed): the detector's own shapes
-# first (RPN candidates, final class-wise NMS, one image), then edge cases
+# (kind, images, boxes, IoU threshold, timed[, classes, frame side]): the
+# detector's own shapes first (RPN candidates, final class-wise NMS over the
+# 65 OV-COCO classes at 640^2, one image), then edge cases, then the final
+# NMS over the 1203 OV-LVIS classes at 896^2 (offsets up to ~1.08e6)
 NMS_CASES = (
     ("anchors", 8, 2000, 0.7, True), ("class_offset", 8, 2000, 0.4, True),
     ("anchors", 1, 2000, 0.7, True), ("invalid_tail", 8, 1999, 0.7, False),
@@ -695,6 +716,7 @@ NMS_CASES = (
     # below zero even disjoint pairs suppress: the kernel's shortcut for empty
     # intersections must be off
     ("plain", 2, 300, -0.5, False),
+    ("class_offset", 8, 2000, 0.4, True, 1203, 896),
 )
 
 
@@ -704,15 +726,15 @@ def check_nms(torch, dev, records):
     from clipself_tpu_torch.detector.data import synthetic_nms_case
     from clipself_tpu_torch.ops import nms
 
-    for seed, (kind, b, n, thr, timed) in enumerate(NMS_CASES):
-        boxes, valid = (t.to(dev) for t in synthetic_nms_case(kind, b, n, seed))
+    for seed, (kind, b, n, thr, timed, *frame) in enumerate(NMS_CASES):
+        boxes, valid = (t.to(dev) for t in synthetic_nms_case(kind, b, n, seed, *frame))
         got = nms.nms_keep_mask(boxes, valid, thr)
         torch.cuda.synchronize()
         want = nms.nms_keep_mask_plain(boxes, valid, thr)
         differ = (got != want).sum().item()
         mirror_differs = (nms.nms_keep_mask_blockwise_plain(boxes, valid, thr) != want).sum().item()
         kept = got.sum(dim=1)
-        what = f"keep mask {kind} thr {thr}"
+        what = f"keep mask {kind} thr {thr}" + (" %d classes %dpx" % tuple(frame) if frame else "")
         if not timed:
             print(
                 f"kernel nms {what} [{b}, {n}, 4]: {differ} flags differ (the block-wise plain "
@@ -780,6 +802,15 @@ def phase_kernels(torch, dev, records):
         if s.key == "l14":  # the evaluator's own shapes: one image, one bucket
             check_attention(torch, dev, records, gen, (1, student[1]) + heads, train=False)
             check_attention(torch, dev, records, gen, (BUCKET, crops[1]) + heads, train=False)
+            # the L/14 detectors' dense pass: 8 images at 896^2
+            from clipself_tpu_torch.detector.config import PRESETS
+
+            side = PRESETS[DET_L14_PRESET].image_size
+            det_shape = (DET_BATCH, s.tokens(side), v.width)
+            check_rope(torch, dev, records, gen, det_shape, s.grid(side), heads[1], backward=False)
+            check_attention(torch, dev, records, gen, det_shape[:2] + heads, train=False)
+            for width in (v.width, s.hidden):
+                check_layer_norm(torch, dev, records, gen, det_shape[:2] + (width,), "", backward=False)
         torch.cuda.empty_cache()
         for width in (v.width, s.hidden):
             check_layer_norm(torch, dev, records, gen, student[:2] + (width,), "", backward=True)
@@ -1092,84 +1123,134 @@ def matched(torch, ref, other, top=None):
     return n_ref, n_match, same, drift
 
 
-def phase_detector(torch, dev):
-    """`evaluate_detector` at the full preset; returns what the parity phase
-    reuses and the launch counts of the timed run."""
+def phase_detector(torch, dev, preset):
+    """`evaluate_detector` at a full preset under its own protocol: OV-COCO,
+    or OV-LVIS (1203 classes, frequency groups) on items with the LVIS
+    fields, LVIS v1's annotations and classes an image and a resize scale
+    other than 1; box AP, and mask AP with the preset's mask head. Prints the
+    host's share of a batch by stage. Returns what the parity phase reuses
+    and the launch counts of the timed run."""
     import numpy as np
 
     from clipself_tpu_torch.core.config import get_model_config
     from clipself_tpu_torch.data.synthetic import class_embeddings
-    from clipself_tpu_torch.detector.classes import base_novel_mask
+    from clipself_tpu_torch.detector.classes import base_novel_mask, preset_split
     from clipself_tpu_torch.detector.config import PRESETS
-    from clipself_tpu_torch.detector.data import SyntheticDetectionData, collate, synthetic_eval_items
+    from clipself_tpu_torch.detector.data import (
+        SyntheticDetectionData, collate, lvis_ground_truth, synthetic_eval_items,
+    )
     from clipself_tpu_torch.detector.evaluate import evaluate_detector, make_predict_fn, metrics_json
     from clipself_tpu_torch.detector.fvit import create_detector
     from clipself_tpu_torch.models.factory import create_model
 
-    cfg = PRESETS[DET_PRESET]
+    cfg = PRESETS[preset]
+    name, split = preset_split(preset)
+    lvis = name == "lvis"
     layers = get_model_config(cfg.clip_model).vision.layers
     clip = create_model(cfg.clip_model, device=dev, dtype=torch.bfloat16, seed=SEED)
     det = create_detector(cfg, device=dev, seed=SEED + 1)
     emb = class_embeddings(cfg.num_classes + 1, cfg.embed_dim, seed=SEED)
     emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
-    data = SyntheticDetectionData(cfg.num_classes, cfg.image_size, cfg.max_gt, seed=SEED)
-    warm = [it for _ in range(DET_WARMUP) for it in synthetic_eval_items(data.batch(DET_BATCH))]
-    items = [it for _ in range(DET_BATCHES) for it in synthetic_eval_items(data.batch(DET_BATCH))]
-    evaluate_detector(det, clip, warm, cfg, emb, device=dev, batch_size=DET_BATCH)  # warm-up
-    torch.cuda.synchronize()
+    data = SyntheticDetectionData(
+        cfg.num_classes, cfg.image_size, cfg.max_gt, seed=SEED, with_mask=cfg.with_mask
+    )
 
+    def batches(n, seed):
+        out = []
+        for i in range(n):
+            batch = data.batch(DET_BATCH)
+            if lvis:
+                out += synthetic_eval_items(
+                    lvis_ground_truth(batch, seed + i), num_classes=cfg.num_classes, seed=seed + i
+                )
+            else:
+                out += synthetic_eval_items(batch)
+        return out
+
+    def run(its, timings=None):
+        return evaluate_detector(
+            det, clip, its, cfg, emb, device=dev, dataset_name=name, batch_size=DET_BATCH,
+            split=split, timings=timings,
+        )
+
+    run(batches(DET_WARMUP, SEED + 100))  # warm-up
+    items = batches(DET_BATCHES, SEED)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    timings = {}
     t0 = time.perf_counter()
-    metrics = evaluate_detector(det, clip, items, cfg, emb, device=dev, batch_size=DET_BATCH)
+    metrics = run(items, timings)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
     n_anchors = sum(3 * math.ceil(cfg.image_size / s) ** 2 for s in cfg.anchors.strides)
+    tag = f"detector {'lvis ' if lvis else ''}eval {preset}"
+    summ = timings.pop("summarize")
+    per_batch = (dt - summ) / DET_BATCHES
+    share = {k: round(v / DET_BATCHES * 1e3, 3) for k, v in timings.items()}
+    scales = [float(it["scale"]) for it in items]
+    gts = [len(it["_gt_labels_full"]) for it in items]
     print(
-        f"detector eval {DET_PRESET} ({cfg.clip_model}, {layers} blocks): {DET_BATCHES} batches x "
-        f"{DET_BATCH} images {cfg.image_size}px, {n_anchors} anchors, "
-        f"{cfg.test_proposals.nms_pre} -> {cfg.test_proposals.max_per_img} proposals, "
+        f"{tag} ({cfg.clip_model}, {layers} blocks, {name} protocol"
+        f"{', mask head, masks pasted at stride 4 of the original image' if cfg.with_mask else ''}): "
+        f"{DET_BATCHES} batches x {DET_BATCH} images {cfg.image_size}px (scales "
+        f"{min(scales):.3f}-{max(scales):.3f}, {sum(gts) / len(gts):.2f} gts an image), {n_anchors} "
+        f"anchors, {cfg.test_proposals.nms_pre} -> {cfg.test_proposals.max_per_img} proposals, "
         f"{cfg.num_classes} classes, bf16: {dt:.3f} s after {DET_WARMUP} warm-up batches, "
-        f"{dt / DET_BATCHES * 1e3:.3f} ms a batch, {len(items) / dt:.3f} images/s, peak "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
+        f"{dt / DET_BATCHES * 1e3:.3f} ms a batch, {len(items) / dt:.3f} images/s; without the "
+        f"summaries (once a run, {summ * 1e3:.3f} ms) {per_batch * 1e3:.3f} ms a batch, "
+        f"{DET_BATCH / per_batch:.3f} images/s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; host ms a batch by stage "
+        f"{json.dumps(share)} (predict synced; copy: the outputs back to the host; paste: masks "
+        f"and gt rasters; match: an image's detections against its gts)",
         flush=True,
     )
-    print("detector eval metrics " + metrics_json(metrics, sort_keys=True), flush=True)
-    print(f"detector eval launches {json.dumps(launches)}", flush=True)
-    if set(metrics) != {"mAP", "AP50", "AP75", "AP50_base", "AP50_novel"}:
-        fail(f"detector metrics {metrics}")
-    # every synthetic image has ground truth of base and novel classes, so
-    # no group is empty: each metric is a number in [0, 1]
-    if not all(0.0 <= v <= 1.0 for v in metrics.values()):
-        fail(f"detector metrics out of range: {metrics}")
+    print(f"{tag} metrics " + metrics_json(metrics, sort_keys=True), flush=True)
+    print(f"{tag} launches {json.dumps(launches)}", flush=True)
+    keys = (
+        {"AP", "AP50", "AP75", "APs", "APm", "APl", "AR@300", "APr", "APc", "APf",
+         "mAP", "mAP_rare", "mAP_common", "mAP_frequent"}
+        if lvis else {"mAP", "AP50", "AP75", "AP50_base", "AP50_novel"}
+    )
+    if set(metrics) != keys | ({f"segm_{k}" for k in keys} if cfg.with_mask else set()):
+        fail(f"{tag}: metric keys {sorted(metrics)}")
+    # OV-COCO: every synthetic image has ground truth of base and novel
+    # classes, so no group is empty and each metric is a number in [0, 1].
+    # OV-LVIS: a group without ground truth is -1 (the lvis-api sentinel) or
+    # NaN; a value is finite in [-1, 1], or null in the strict JSON
+    lo = -1.0 if lvis else 0.0
+    bad = {k: v for k, v in json.loads(metrics_json(metrics)).items()
+           if (v is None and not lvis) or (v is not None and not (math.isfinite(v) and lo <= v <= 1.0))}
+    if bad:
+        fail(f"{tag}: metrics out of range or not finite: {bad}")
     expect = expected_launches(layers, dets=DET_BATCHES)
     if launches != expect:
-        fail(f"detector eval launch counts {launches}, expected {expect}")
+        fail(f"{tag} launch counts {launches}, expected {expect}")
     # one batch's raw outputs (after the counts were read)
     batch = collate(items[:DET_BATCH])
     boxes, scores, labels = make_predict_fn(
         det, clip, cfg, torch.as_tensor(emb, device=dev),
-        torch.as_tensor(base_novel_mask("coco"), device=dev),
-    )(torch.as_tensor(batch["images"], device=dev), torch.as_tensor(batch["valid_hw"], device=dev))
+        torch.as_tensor(base_novel_mask(split=split), device=dev),
+    )(torch.as_tensor(batch["images"], device=dev), torch.as_tensor(batch["valid_hw"], device=dev))[:3]
     want = (DET_BATCH, cfg.rcnn_test.max_per_img)
     live = scores > 0
     print(
-        f"detector predict outputs: boxes {list(boxes.shape)}, scores {list(scores.shape)}, labels "
+        f"{tag} predict outputs: boxes {list(boxes.shape)}, scores {list(scores.shape)}, labels "
         f"{list(labels.shape)}; detections an image {live.sum(dim=1).tolist()}, best score "
         f"{scores.max().item():.4f}",
         flush=True,
     )
     if boxes.shape != want + (4,) or scores.shape != want or labels.shape != want:
-        fail(f"detections of shape {boxes.shape}, {scores.shape}, {labels.shape}")
+        fail(f"{tag}: detections of shape {boxes.shape}, {scores.shape}, {labels.shape}")
     if not (torch.isfinite(boxes).all() and torch.isfinite(scores[live]).all() and live.any()):
-        fail("non-finite or no detections")
+        fail(f"{tag}: non-finite or no detections")
     if not ((labels[live] >= 0) & (labels[live] < cfg.num_classes)).all() or (labels[~live] != -1).any():
-        fail("detection labels out of range")
+        fail(f"{tag}: detection labels out of range")
     return cfg, clip, det, emb, items, launches
 
 
-def phase_detector_parity(torch, dev, cfg, clip_bf16, det, emb, items):
+def phase_detector_parity(torch, dev, preset, cfg, clip_bf16, det, emb, items):
     from clipself_tpu_torch.detector.classes import base_novel_mask
     from clipself_tpu_torch.detector.data import collate
     from clipself_tpu_torch.detector.fvit import backbone_taps
@@ -1209,12 +1290,12 @@ def phase_detector_parity(torch, dev, cfg, clip_bf16, det, emb, items):
     k32, (taps32, dense32), counts32 = leg(clip_f32)
     for name, counts in (("bf16", counts16), ("f32", counts32)):
         if counts["nms"] != 3 or not counts["flash_attention"]:  # proposals, then predict's two
-            fail(f"detector {name} kernel leg launches {counts}")
+            fail(f"detector {preset} {name} kernel leg launches {counts}")
     with plain_path():
         p32, _, _ = leg(clip_f32)
     del clip_f32
 
-    shapes = f"{DET_PARITY_IMAGES} images"
+    shapes = f"{preset}, {DET_PARITY_IMAGES} images"
     rows = (
         (f"backbone taps {cfg.image_size}", "taps", None), ("dense vlm map", "dense", None),
         ("rpn objectness maps", "rpn", 1024),
@@ -1230,27 +1311,27 @@ def phase_detector_parity(torch, dev, cfg, clip_bf16, det, emb, items):
                 flush=True,
             )
             if not all(map(math.isfinite, st.values())):
-                fail(f"detector parity {tag} {title}: non-finite")
+                fail(f"detector parity {preset} {tag} {title}: non-finite")
             if tag == "bf16 kernels":
                 bar = PATH_BF16_MIN_COS if key == "dense" else DET_BF16_MIN_COS_FLOOR
                 if not st["min_cos"] >= bar:
-                    fail(f"detector {tag} {title}: min cosine {st['min_cos']} (bar {bar})")
+                    fail(f"detector {preset} {tag} {title}: min cosine {st['min_cos']} (bar {bar})")
             else:
                 bar = PATH_F32_MAX_ABS if key == "dense" else DET_F32_MAX_ABS
                 if not st["max_abs"] <= bar:
-                    fail(f"detector {tag} {title}: max abs {st['max_abs']} (bar {bar})")
+                    fail(f"detector {preset} {tag} {title}: max abs {st['max_abs']} (bar {bar})")
 
     for tag, leg_out in (("bf16 kernels", k16), ("f32 kernels", k32)):
         for top in (10, None):
             n_ref, n_match, same, drift = matched(torch, p32["dets"], leg_out["dets"], top)
             print(
-                f"detector parity detections, f32 plain vs {tag}: "
+                f"detector parity {preset} detections, f32 plain vs {tag}: "
                 f"{'top %d an image' % top if top else 'all positive'}: {n_match}/{n_ref} matched "
                 f"one to one at IoU > 0.5, {same}/{n_match} same label, max score drift {drift:.4f}",
                 flush=True,
             )
             if tag == "f32 kernels" and top and not n_match == same == n_ref:
-                fail("the f32 kernel path lost one of the plain path's top detections")
+                fail(f"{preset}: the f32 kernel path lost one of the plain path's top detections")
 
     # the NMS kernel alone: the same float32 taps through `predict` with the
     # kernel and with the plain NMS; everything else is the same code on
@@ -1264,14 +1345,14 @@ def phase_detector_parity(torch, dev, cfg, clip_bf16, det, emb, items):
     n_props = (pscores_p > -1e9).sum(dim=1).tolist()
     n_dets = (dets_p[1] > 0).sum(dim=1).tolist()
     print(
-        f"detector parity, f32 taps, NMS kernel vs plain NMS: proposals, scores, detections' boxes, "
+        f"detector parity {preset}, f32 taps, NMS kernel vs plain NMS: proposals, scores, detections' boxes, "
         f"scores, labels equal bit for bit: {equal} ({n_props} proposals, {n_dets} detections)",
         flush=True,
     )
     if not all(equal):
-        fail("predict with the NMS kernel differs from predict with the plain NMS")
+        fail(f"{preset}: predict with the NMS kernel differs from predict with the plain NMS")
     print(
-        f"detector parity peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+        f"detector parity {preset} peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
         f"({DET_PARITY_IMAGES} images; the float32 legs keep the RoI-align's y-stage in float32)",
         flush=True,
     )
@@ -1560,8 +1641,8 @@ def main() -> int:
     for s in MODELS:
         paths.update(phase_model(torch, dev, s, logs_dir))
         print(f"{s.key} done at {time.perf_counter() - t0:.1f} s", flush=True)
-    cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev)
-    phase_detector_parity(torch, dev, cfg, clip, det, emb, items)
+    cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev, DET_PRESET)
+    phase_detector_parity(torch, dev, DET_PRESET, cfg, clip, det, emb, items)
     del clip, det
     torch.cuda.empty_cache()
     print(f"detector done at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1573,6 +1654,24 @@ def main() -> int:
         torch, dev, DET_MASK_PRESET, DET_MASK_WARMUP, DET_MASK_TIMED, logs_dir
     )["launches"]
     print(f"detector training done at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the L/14 presets: evaluation and its parity, LVIS with masks, training
+    cfg, clip, det, emb, items, paths["l14_detector"] = phase_detector(torch, dev, DET_L14_PRESET)
+    phase_detector_parity(torch, dev, DET_L14_PRESET, cfg, clip, det, emb, items)
+    del clip, det, items
+    torch.cuda.empty_cache()
+    for preset in DET_LVIS_PRESETS:
+        key = "l14" if "vitl14" in preset else "b16"
+        paths[f"{key}_detector_lvis"] = phase_detector(torch, dev, preset)[-1]
+        torch.cuda.empty_cache()
+    print(f"L/14 and LVIS detector evaluation done at {time.perf_counter() - t0:.1f} s", flush=True)
+    paths["l14_detector_train"] = phase_detector_train(
+        torch, dev, DET_L14_PRESET, DET_TRAIN_WARMUP, DET_TRAIN_TIMED, logs_dir
+    )["launches"]
+    paths["l14_detector_train_mask"] = phase_detector_train(
+        torch, dev, DET_L14_MASK_PRESET, DET_MASK_WARMUP, DET_MASK_TIMED, logs_dir
+    )["launches"]
+    print(f"L/14 detector training done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = kernel_rows(records, paths)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -55,6 +55,18 @@ def transfer_split(dataset: str) -> dict:
     return {"all": names, "seen": list(names), "unseen": []}
 
 
+def preset_split(preset: str) -> tuple[str, dict]:
+    """(dataset name, class split) of a detector preset, as the JAX
+    package's `fvit-test` infers them: a transfer preset's vocabulary,
+    OV-LVIS for the LVIS presets, OV-COCO otherwise."""
+    if preset.startswith("transfer_"):
+        name = preset.split("_")[1]
+        return name, transfer_split(name)
+    if "lvis" in preset:
+        return "lvis", lvis_split()
+    return "coco", coco_split()
+
+
 def class_weights(dataset: str, bg_weight: float) -> np.ndarray:
     """Training CE class-weight vector [K+1] (background last).
 

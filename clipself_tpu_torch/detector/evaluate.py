@@ -1,15 +1,21 @@
-"""Detector evaluation loop: batched prediction -> NumPy COCO AP.
+"""Detector evaluation loop: batched prediction -> NumPy COCO or LVIS AP.
 
 A port of `clipself_tpu/detector/evaluate.py` (mmdet `F-ViT/test.py` +
-`CocoDatasetOV.evaluate`): per-image fused detections are rescaled to
-original image coordinates and scored with the COCO box protocol, reporting
-mAP / AP50 / AP75 and the open-vocabulary base / novel AP50 split. Not
-ported yet (ROADMAP.md queue 1 items 2 and 7): the LVIS protocol, mask AP
-(its mask pasting needs PIL), `DetectionDataset` and the command line.
+`CocoDatasetOV.evaluate` / the lvis-api `LVISEval`): per-image fused
+detections are rescaled to original image coordinates and scored with the
+COCO protocol (mAP / AP50 / AP75 and the open-vocabulary base / novel AP50
+split) or, for LVIS with its frequency groups, the LVIS protocol
+(`eval_lvis.py`: AP / APr / APc / APf); with a mask head the pasted masks are
+scored the same way under `segm_`-prefixed keys. The mask rasters are
+computed in NumPy and equal, bit for bit, what the JAX package gets from
+`PIL.Image.resize` (`resize_bilinear_u8`, `resize_nearest`). Not ported yet
+(ROADMAP.md queue 1 items 2 and 7.5): `DetectionDataset` and the command
+line.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import math
@@ -20,12 +26,133 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from clipself_tpu_torch.detector.classes import base_novel_mask, coco_split
+from clipself_tpu_torch.detector.classes import base_novel_mask, coco_split, lvis_split
 from clipself_tpu_torch.detector.config import FViTConfig
 from clipself_tpu_torch.detector.data import collate
 from clipself_tpu_torch.detector.eval_ap import DetectionEvaluator
+from clipself_tpu_torch.detector.eval_lvis import LvisEvaluator
 from clipself_tpu_torch.detector.fvit import FViTDetector, backbone_taps
 from clipself_tpu_torch.models.torch_io import detector_state_dict_from_jax
+
+# Pillow's 8-bit resampling: weights in fixed point with this many fraction
+# bits, sums started at half a unit and shifted back (`Resample.c`)
+_PRECISION_BITS = 22
+
+
+@functools.lru_cache(maxsize=4096)
+def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] fixed-point weights of Pillow's BILINEAR pass
+    (`precompute_coeffs` + `normalize_coeffs_8bpc`): a triangle filter
+    widened by the shrink factor (antialiasing), taps centred at
+    ``(x + 0.5) * in / out``, bounds rounded by ``(int)(c +- support + 0.5)``
+    and clamped, weights normalised in double, then rounded half away from
+    zero to 22 fraction bits. The double arithmetic follows the C order.
+    Held as float64 integers: a pass's sums (< 2^31) are exact in float64,
+    and a float64 product runs in BLAS."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the triangle's support is 1
+    ss = 1.0 / filterscale
+    w = np.zeros((out_size, in_size), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        taps, total = [], 0.0
+        for x in range(xmax):
+            t = abs(((x + xmin) - center + 0.5) * ss)
+            taps.append(1.0 - t if t < 1.0 else 0.0)
+            total += taps[-1]
+        for x, k in enumerate(taps):  # total > 0: the nearest tap is within half a pixel
+            w[xx, xmin + x] = int(0.5 + k / total * (1 << _PRECISION_BITS))  # k >= 0
+    w.flags.writeable = False
+    return w
+
+
+def _clip8(acc: np.ndarray) -> np.ndarray:
+    return np.clip(acc.astype(np.int64) >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_u8(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """A uint8 [H, W] image resized to ``hw`` exactly as
+    ``PIL.Image.fromarray(img).resize((w, h), Image.BILINEAR)``: the
+    horizontal pass first into a uint8 intermediate, then the vertical pass;
+    a pass whose size does not change is skipped."""
+    h, w = hw
+    half = 1 << (_PRECISION_BITS - 1)
+    out = img
+    if w != img.shape[1]:
+        out = _clip8(out.astype(np.float64) @ _bilinear_weights(img.shape[1], w).T + half)
+    if h != img.shape[0]:
+        out = _clip8(_bilinear_weights(img.shape[0], h) @ out.astype(np.float64) + half)
+    return out.copy() if out is img else out
+
+
+@functools.lru_cache(maxsize=4096)
+def _nearest_index(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Source index of each output pixel under Pillow's NEAREST resize
+    (`ImagingScaleAffine`): a position starting at half a step and advanced
+    by adding the step in double once a pixel, truncated; an index outside
+    the source leaves the pixel 0. The running sum can differ from
+    ``(x + 0.5) * step`` where the step is not a binary fraction (1/3, 3/7)."""
+    step = in_size / out_size
+    pos = np.cumsum(np.concatenate([[step * 0.5], np.full(out_size - 1, step)]))
+    idx = np.where(pos < 0.0, -1, pos.astype(np.int64))
+    inside = (idx >= 0) & (idx < in_size)
+    idx = np.clip(idx, 0, in_size - 1)
+    idx.flags.writeable = inside.flags.writeable = False
+    return idx, inside
+
+
+def resize_nearest(m: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """A [H, W] raster resized to ``hw`` as Pillow's NEAREST resize does."""
+    if m.shape == tuple(hw):
+        return m.copy()
+    yi, yv = _nearest_index(m.shape[0], hw[0])
+    xi, xv = _nearest_index(m.shape[1], hw[1])
+    out = m[yi][:, xi]
+    if not (yv.all() and xv.all()):
+        out[~yv] = 0
+        out[:, ~xv] = 0
+    return out
+
+
+def quantize_probs(prob) -> np.ndarray:
+    """``(prob * 255)`` truncated to uint8, the product rounded in the
+    probabilities' own dtype: a bfloat16 tensor's product rounds to bfloat16
+    before the truncation, as NumPy rounds it on the JAX package's bfloat16
+    arrays. ``prob``: a tensor (any device) or a NumPy array."""
+    if isinstance(prob, torch.Tensor):
+        return (prob.cpu() * 255).to(torch.uint8).numpy()
+    return (np.asarray(prob) * 255).astype(np.uint8)
+
+
+def _paste_u8(q: np.ndarray, box, out_hw: tuple[int, int]) -> np.ndarray:
+    h, w = out_hw
+    out = np.zeros((h, w), bool)
+    x0, y0, x1, y1 = box
+    x0i, y0i = int(np.floor(x0)), int(np.floor(y0))
+    x1i, y1i = int(np.ceil(x1)), int(np.ceil(y1))
+    bw, bh = max(x1i - x0i, 1), max(y1i - y0i, 1)
+    m = resize_bilinear_u8(q, (bh, bw)).astype(np.float32) / 255.0 > 0.5
+    xs0, ys0 = max(x0i, 0), max(y0i, 0)
+    xs1, ys1 = min(x1i, w), min(y1i, h)
+    if xs1 > xs0 and ys1 > ys0:
+        out[ys0:ys1, xs0:xs1] = m[ys0 - y0i : ys1 - y0i, xs0 - x0i : xs1 - x0i]
+    return out
+
+
+def paste_mask(prob, box: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """Paste a roi-space mask probability grid into a full-image boolean
+    raster (mmdet FCNMaskHead.get_seg_masks semantics, 0.5 threshold): the
+    grid as uint8 (`quantize_probs`), resized to the box's pixel footprint
+    with Pillow's BILINEAR arithmetic, clipped to the raster."""
+    return _paste_u8(quantize_probs(prob), box, out_hw)
+
+
+def _resize_bool(m: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """A gt mask raster resized to ``hw`` (NEAREST), as booleans."""
+    return resize_nearest((m.astype(np.uint8) * 255) > 127, hw)
 
 
 def make_predict_fn(det: FViTDetector, clip_model, cfg: FViTConfig, class_embed, base_mask):
@@ -41,6 +168,41 @@ def make_predict_fn(det: FViTDetector, clip_model, cfg: FViTConfig, class_embed,
     return predict
 
 
+def _evaluators(cfg: FViTConfig, split: dict, use_lvis: bool):
+    """(box evaluator, mask evaluator or None) of the split's protocol."""
+    if not use_lvis:
+        ev_mask = DetectionEvaluator(cfg.num_classes, with_mask=True) if cfg.with_mask else None
+        return DetectionEvaluator(cfg.num_classes, with_mask=False), ev_mask
+    name_to_grp = {}
+    for gi, g in enumerate(("rare", "common", "frequent")):
+        for n_ in split["freq_groups"][g]:
+            name_to_grp[n_] = gi
+    freq_index = np.array([name_to_grp.get(n_, 2) for n_ in split["all"]])
+    ev_mask = (
+        LvisEvaluator(cfg.num_classes, freq_index=freq_index, with_mask=True)
+        if cfg.with_mask
+        else None
+    )
+    return LvisEvaluator(cfg.num_classes, freq_index=freq_index), ev_mask
+
+
+def _gt_rasters(item: dict, gt_boxes: np.ndarray, gt_ignore: np.ndarray, hs: int, mask_stride: int):
+    """(gt rasters, their ignore flags) at hs x hs: the first max_gt gts'
+    masks resized, then any overflow gts beyond them as FILLED BOX rasters
+    marked ignore, so that they are neither FN nor FP. Not zeros: a zero
+    raster could never mask-IoU-match, so a detection segmenting an overflow
+    gt would wrongly count as FP instead of being absorbed."""
+    gv = item["gt_valid"]
+    n_m = int(gv.sum())
+    rasters = [_resize_bool(m, (hs, hs)) for m in item["gt_masks"][gv]]
+    for b in gt_boxes[n_m:]:
+        r = np.zeros((hs, hs), bool)
+        x0, y0, x1, y1 = b / mask_stride
+        r[int(y0): int(np.ceil(y1)), int(x0): int(np.ceil(x1))] = True
+        rasters.append(r)
+    return rasters, np.concatenate([gt_ignore[:n_m], np.ones(len(gt_boxes) - n_m, bool)])
+
+
 def evaluate_detector(
     det: FViTDetector,
     clip_model,
@@ -52,32 +214,40 @@ def evaluate_detector(
     dataset_name: str = "coco",
     batch_size: int = 8,
     max_images: Optional[int] = None,
+    mask_stride: int = 4,
     log_every: int = 50,
     split: Optional[dict] = None,
+    timings: Optional[dict] = None,
 ) -> dict:
     """Score ``det`` over ``clip_model`` on a sequence of per-image items
     (`images`, `valid_hw`, `scale`, `_gt_boxes_full`, `_gt_labels_full`,
-    `_gt_ignore_full`), both models already on ``device``. ``class_embed``:
-    [K+1, D] array of unit rows, background last. Returns the metrics dict of
-    `DetectionEvaluator.summarize`; with `cfg.with_mask` the mask
-    probabilities are computed and dropped (box AP only)."""
+    `_gt_ignore_full`; LVIS also `_gt_areas_full`, `_neg_labels`,
+    `_nel_labels`; with `cfg.with_mask` also `gt_valid` and `gt_masks`), both
+    models already on ``device``. ``class_embed``: [K+1, D] array of unit
+    rows, background last. OV-LVIS (``dataset_name="lvis"`` with a split that
+    has `freq_groups`) is scored with the LVIS protocol, everything else with
+    the COCO protocol; with `cfg.with_mask` the masks are pasted at stride
+    ``mask_stride`` of the original image and scored under `segm_` keys.
+    ``timings``: a dict to which the seconds spent in `predict` (synced), in
+    the copy back, in pasting masks, in matching an image's detections and
+    in the summaries (once a call) are added."""
     if split is None:
-        if dataset_name != "coco":
-            raise NotImplementedError(
-                f"dataset {dataset_name!r} without a split: only the COCO registry is wired "
-                "(ROADMAP.md queue 1 item 7)"
-            )
-        split = coco_split()
-    elif dataset_name == "lvis" and "freq_groups" in split:
-        raise NotImplementedError("the LVIS protocol is not ported (ROADMAP.md queue 1 item 7)")
+        split = coco_split() if dataset_name == "coco" else lvis_split()
     device = torch.device(device)
     # base / background rows fuse with alpha, novel with beta (all-True for
     # transfer vocabularies, where every class uses the base exponent)
     bm = torch.as_tensor(base_novel_mask(split=split), device=device)
     ce = torch.as_tensor(np.asarray(class_embed), dtype=torch.float32, device=device)
     predict = make_predict_fn(det, clip_model, cfg, ce, bm)
-    ev = DetectionEvaluator(cfg.num_classes, with_mask=False)
+    # OV-LVIS is scored with the official LVIS protocol (federated pos/neg
+    # image sets, per-image 300-det cap, not-exhaustive ignores), matching the
+    # reference's lvis-api LVISEval use (`F-ViT/datasets/lvls_ov.py:120-180`);
+    # everything else uses the COCO protocol.
+    use_lvis = dataset_name == "lvis" and "freq_groups" in split
+    ev, ev_mask = _evaluators(cfg, split, use_lvis)
     log = logging.getLogger("fvit-eval")
+    spent = dict.fromkeys(("predict", "copy", "paste", "match", "summarize"), 0.0)
+    sync = timings is not None and device.type == "cuda"
 
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     t0 = time.time()
@@ -87,27 +257,87 @@ def evaluate_detector(
         # padded copies are not scored): no image is dropped
         items = [dataset[min(start + j, start + real - 1)] for j in range(batch_size)]
         batch = collate(items)
+        tick = time.perf_counter()
         out = predict(
             torch.as_tensor(batch["images"], device=device),
             torch.as_tensor(batch["valid_hw"], device=device),
         )
+        if sync:
+            torch.cuda.synchronize(device)
+        tock = time.perf_counter()
+        spent["predict"] += tock - tick
         boxes, scores = out[0].float().cpu().numpy(), out[1].float().cpu().numpy()
         labels = out[2].cpu().numpy()
+        # the probabilities in their own dtype, then quantised as paste_mask does
+        probs = quantize_probs(out[3]) if cfg.with_mask else None
+        tick = time.perf_counter()
+        spent["copy"] += tick - tock
         for bi, item in enumerate(items[:real]):
             ok = scores[bi] > 0.0
             s = float(item["scale"])
+            det_boxes = boxes[bi][ok] / s
+            det_scores = scores[bi][ok]
+            det_labels = labels[bi][ok]
             # full (unpadded) gt set in original coordinates; crowd = ignore
-            ev.add_image(
-                boxes[bi][ok] / s, scores[bi][ok], labels[bi][ok],
-                item["_gt_boxes_full"], item["_gt_labels_full"], item["_gt_ignore_full"],
-            )
+            gt_boxes = item["_gt_boxes_full"]
+            gt_labels = item["_gt_labels_full"]
+            gt_ignore = item["_gt_ignore_full"]
+            if use_lvis:
+                lvis_kw = dict(
+                    neg_labels=item["_neg_labels"], not_exhaustive_labels=item["_nel_labels"]
+                )
+                ev.add_image(
+                    det_boxes, det_scores, det_labels, gt_boxes, gt_labels,
+                    gt_areas=item["_gt_areas_full"], **lvis_kw,
+                )
+            else:
+                ev.add_image(det_boxes, det_scores, det_labels, gt_boxes, gt_labels, gt_ignore)
+            if ev_mask is None:
+                continue
+            tock = time.perf_counter()
+            spent["match"] += tock - tick
+            hs = int(np.ceil(cfg.image_size / s / mask_stride))
+            det_m = [
+                _paste_u8(probs[bi][j], boxes[bi][j] / s / mask_stride, (hs, hs))
+                for j in np.where(ok)[0]
+            ]
+            gt_m, ign_m = _gt_rasters(item, gt_boxes, gt_ignore, hs, mask_stride)
+            tick = time.perf_counter()
+            spent["paste"] += tick - tock
+            g = len(ign_m)
+            if use_lvis:
+                ev_mask.add_image(
+                    det_boxes, det_scores, det_labels, gt_boxes[:g], gt_labels[:g],
+                    gt_areas=item["_gt_areas_full"][:g], det_masks=det_m, gt_masks=gt_m,
+                    gt_ignore=ign_m, **lvis_kw,
+                )
+            else:
+                ev_mask.add_image(
+                    det_boxes, det_scores, det_labels, gt_boxes[:g], gt_labels[:g], ign_m,
+                    det_masks=det_m, gt_masks=gt_m,
+                )
+        spent["match"] += time.perf_counter() - tick
         if (start // batch_size + 1) % log_every == 0:
             log.info(f"eval {start + real}/{n} ({(start + real) / (time.time() - t0):.1f} img/s)")
 
-    return ev.summarize(
-        class_names=split["all"], base_classes=split["seen"],
-        novel_classes=split["unseen"], groups=split.get("freq_groups"),
-    )
+    tick = time.perf_counter()
+    if use_lvis:
+        metrics = ev.summarize()
+        if ev_mask is not None:
+            metrics.update({f"segm_{k}": v for k, v in ev_mask.summarize().items()})
+    else:
+        kw = dict(
+            class_names=split["all"], base_classes=split["seen"],
+            novel_classes=split["unseen"], groups=split.get("freq_groups"),
+        )
+        metrics = ev.summarize(**kw)
+        if ev_mask is not None:
+            metrics.update({f"segm_{k}": v for k, v in ev_mask.summarize(**kw).items()})
+    spent["summarize"] += time.perf_counter() - tick
+    if timings is not None:
+        for k, v in spent.items():
+            timings[k] = timings.get(k, 0.0) + v
+    return metrics
 
 
 def metrics_json(metrics: dict, **dump_kwargs) -> str:

@@ -20,15 +20,20 @@ small model; it has no device time to report and says so.
 ``--path detector`` runs the F-ViT detector of ``--preset`` (default
 `ov_coco_vitb16`: EVA02-CLIP-B/16 at 640^2) on one synthetic batch of
 ``--det-batch`` images the same way, twice: `predict` alone on images staged
-on the device (backbone taps, heads, both NMS passes), and
-`evaluate_detector` over the same images as host items (adds the copy to
-the device and the NumPy COCO matching).
+on the device (backbone taps, heads, both NMS passes; with the preset's mask
+head its mask probabilities), and `evaluate_detector` over the same images
+as host items (adds the copy to the device, the mask pasting and the NumPy
+matching) under the preset's protocol: OV-COCO, or OV-LVIS (`lvis_split()`,
+items with gt masks, the LVIS fields and LVIS v1's annotations and classes
+an image, `detector/data.py::lvis_ground_truth`) for the LVIS presets, or the
+transfer vocabulary; the host's seconds by stage are printed after it.
 
 ``--path detector_train`` runs the detector's train step of ``--preset``
 (`detector/train.py::make_det_train_step`: frozen trunk taps, the loss, its
 backward into the heads, clipping, AdamW at the recipe's settings) on one
 synthetic batch of ``--det-batch`` images staged on the device, the same
-way.
+way. It takes the OV-COCO and OV-LVIS presets; a transfer preset is only
+evaluated.
 """
 
 from __future__ import annotations
@@ -39,15 +44,18 @@ import subprocess
 import time
 from functools import partial
 
-import numpy as np
 import torch
 
 from clipself_tpu_torch.core.config import get_model_config
 from clipself_tpu_torch.data.loader import SyntheticDistillData
 from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
-from clipself_tpu_torch.detector.classes import base_novel_mask, class_weights
+from clipself_tpu_torch.detector.classes import base_novel_mask, class_weights, preset_split
 from clipself_tpu_torch.detector.config import PRESETS
-from clipself_tpu_torch.detector.data import SyntheticDetectionData, synthetic_eval_items
+from clipself_tpu_torch.detector.data import (
+    SyntheticDetectionData,
+    lvis_ground_truth,
+    synthetic_eval_items,
+)
 from clipself_tpu_torch.detector.evaluate import evaluate_detector, make_predict_fn
 from clipself_tpu_torch.detector.fvit import create_detector
 from clipself_tpu_torch.detector.train import DetTrainState, build_det_optimizer, make_det_train_step
@@ -196,6 +204,9 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", action="store_true")
     args = p.parse_args(argv)
+    if args.path == "detector_train" and preset_split(args.preset)[0] not in ("coco", "lvis"):
+        p.error(f"--path detector_train: {args.preset} is a transfer preset, which is only "
+                "evaluated (detectors train on OV-COCO or OV-LVIS)")
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -276,28 +287,40 @@ def profile_detector(args, device: torch.device) -> dict:
     host = SyntheticDetectionData(
         cfg.num_classes, cfg.image_size, cfg.max_gt, seed=args.seed, with_mask=cfg.with_mask
     ).batch(args.det_batch)
-    items = synthetic_eval_items(host)
+    name, split = preset_split(args.preset)
+    if name == "lvis":
+        host = lvis_ground_truth(host, args.seed)
+    items = synthetic_eval_items(
+        host, num_classes=cfg.num_classes if name == "lvis" else None, seed=args.seed
+    )
     images = torch.as_tensor(host["images"], device=device)
     valid_hw = torch.as_tensor(host["valid_hw"], device=device)
-    # the OV-COCO base / novel split where the preset has its 65 classes;
-    # any other vocabulary fuses every class with the base exponent
-    coco = cfg.num_classes == 65
-    bm = base_novel_mask("coco") if coco else np.ones(cfg.num_classes + 1, bool)
+    bm = base_novel_mask(split=split)
     predict = make_predict_fn(
         det, clip, cfg, torch.as_tensor(emb, device=device), torch.as_tensor(bm, device=device)
     )
     what = (f"F-ViT {args.preset} ({cfg.clip_model}), {args.det_batch} images a batch at "
-            f"{cfg.image_size}px, {cfg.test_proposals.max_per_img} proposals, bf16")
+            f"{cfg.image_size}px, {cfg.test_proposals.max_per_img} proposals, "
+            f"{cfg.num_classes} classes{', mask head' if cfg.with_mask else ''}, bf16")
     out = {"preset": args.preset, "image": cfg.image_size}
     out["predict"] = measure(lambda: predict(images, valid_hw), args.steps, device, args.det_batch)
     report(f"{what}: predict on staged images", "batch", out["predict"])
-    if coco:  # `evaluate_detector` scores with the COCO protocol
-        out["evaluate"] = measure(
-            lambda: evaluate_detector(det, clip, items, cfg, emb, device=device,
-                                      batch_size=args.det_batch),
-            args.steps, device, args.det_batch,
-        )
-        report(f"{what}: evaluate_detector from host items", "batch", out["evaluate"])
+    timings = {}
+    out["evaluate"] = measure(
+        lambda: evaluate_detector(det, clip, items, cfg, emb, device=device, dataset_name=name,
+                                  batch_size=args.det_batch, split=split, timings=timings),
+        args.steps, device, args.det_batch,
+    )
+    report(f"{what}: evaluate_detector ({name} protocol) from host items", "batch", out["evaluate"])
+    # ``timings`` summed every call of `measure`: its warm-up, the unprofiled
+    # and the profiled runs (the last at the profiler's pace)
+    calls = 2 * args.steps + 1
+    out["host_ms"] = {k: v / calls * 1e3 for k, v in timings.items()}
+    print(
+        f"{what}: evaluate_detector ms a batch by stage, mean of its {calls} calls: "
+        + json.dumps({k: round(v, 3) for k, v in out["host_ms"].items()}),
+        flush=True,
+    )
     return out
 
 
@@ -308,8 +331,7 @@ def profile_detector_train(args, device: torch.device) -> dict:
     det = create_detector(cfg, device=device, seed=args.seed + 1)
     emb = class_embeddings(cfg.num_classes + 1, cfg.embed_dim, seed=args.seed)
     emb /= (emb ** 2).sum(-1, keepdims=True) ** 0.5
-    dataset = "coco" if cfg.num_classes == 65 else "lvis"
-    cw = torch.as_tensor(class_weights(dataset, cfg.bg_weight), device=device)
+    cw = torch.as_tensor(class_weights(preset_split(args.preset)[0], cfg.bg_weight), device=device)
     host = SyntheticDetectionData(
         cfg.num_classes, cfg.image_size, cfg.max_gt, seed=args.seed, with_mask=cfg.with_mask
     ).batch(args.det_batch)

@@ -202,14 +202,6 @@ def test_evaluate_detector_matches_jax(models):
         assert math.isnan(jtwo[k]) and math.isnan(two[k]) or abs(two[k] - jtwo[k]) <= 1e-6
 
 
-def test_evaluate_detector_refuses_lvis(models):
-    m = models
-    with pytest.raises(NotImplementedError):
-        evaluate.evaluate_detector(
-            m["det"], m["clip"], [], m["cfg"], m["ce"], device="cpu", dataset_name="lvis"
-        )
-
-
 def test_load_detector_reads_a_jax_checkpoint(models, tmp_path):
     m = models
     save_detector(str(tmp_path), m["det_params"], m["jcfg"], epoch=3)

@@ -760,3 +760,62 @@ def test_detector_loss_on_card_matches_the_cpu(dev, monkeypatch):
     (loss_c, g_c), (loss_k, g_k) = out["cpu"], out[str(dev)]
     assert abs(loss_k - loss_c) <= 1e-4 * abs(loss_c)
     assert torch.nn.functional.cosine_similarity(g_k, g_c, dim=0).item() >= 0.9999
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_nms_kernel_equals_plain_over_1203_classes_at_896(dev, seed):
+    """The final class-wise NMS of the OV-LVIS L/14 preset: [8, 2000]
+    candidates over 1203 classes in the 896^2 frame, each shifted by label x
+    span, so the coordinates reach ~1.08e6, where a float32 ULP is 0.125."""
+    boxes, valid = synthetic_nms_case("class_offset", 8, 2000, seed=seed, classes=1203, side=896)
+    assert boxes.max().item() > 1e6
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    got = nms.nms_keep_mask(boxes, valid, 0.4)
+    want = nms.nms_keep_mask_plain(boxes, valid, 0.4)
+    assert torch.equal(got, want), f"{(got != want).sum().item()} of {got.numel()} flags differ"
+    assert torch.equal(nms.nms_keep_mask_blockwise_plain(boxes, valid, 0.4), want)
+    assert torch.equal(want.cpu(), nms.nms_keep_mask_plain(boxes.cpu(), valid.cpu(), 0.4))
+
+
+@pytest.mark.parametrize("preset", ["ov_coco_vitl14", "ov_lvis_vitl14"])
+def test_l14_detector_predict_batch_on_card(dev, preset):
+    """One `predict` batch of an L/14 preset at full size (EVA02-CLIP-L-14-336
+    at 896^2, 261888 anchors, two images, bf16): the forward kernels of the 23
+    attention blocks and the two NMS calls launch, the detections are finite,
+    their labels in range and their boxes inside each image's valid size;
+    with the mask head, 28 x 28 probabilities a detection."""
+    import numpy as np
+
+    from clipself_tpu_torch.detector import config, fvit
+    from clipself_tpu_torch.detector.classes import base_novel_mask, coco_split, lvis_split
+    from clipself_tpu_torch.detector.data import SyntheticDetectionData
+    from clipself_tpu_torch.detector.evaluate import make_predict_fn
+    from clipself_tpu_torch.models.factory import create_model
+
+    cfg = config.PRESETS[preset]
+    split = lvis_split() if "lvis" in preset else coco_split()
+    host = SyntheticDetectionData(cfg.num_classes, cfg.image_size, cfg.max_gt, seed=0).batch(2)
+    host["valid_hw"][1] = (896.0, 600.0)
+    clip = create_model(cfg.clip_model, device=dev, dtype=torch.bfloat16, seed=0)
+    det = fvit.create_detector(cfg, device=dev, seed=1)
+    gen = torch.Generator().manual_seed(4)
+    ce = torch.nn.functional.normalize(torch.randn(cfg.num_classes + 1, cfg.embed_dim, generator=gen), dim=-1)
+    predict = make_predict_fn(det, clip, cfg, ce.to(dev), torch.as_tensor(base_novel_mask(split=split), device=dev))
+    counts = _launch_counts()
+    out = predict(torch.as_tensor(host["images"], device=dev), torch.as_tensor(host["valid_hw"], device=dev))
+    torch.cuda.synchronize()
+    launched = {k: v - counts[k] for k, v in _launch_counts().items()}
+    assert launched == {
+        "nms": 2, "flash_attention": 23, "flash_attention_bwd": 0, "rope_roll": 23,
+        "rope_roll_bwd": 0, "layer_norm": 4 * 24 + 1, "layer_norm_bwd": 0,
+    }
+    boxes, scores, labels = out[:3]
+    live = scores > 0
+    assert boxes.shape == (2, 100, 4) and live.any()
+    assert torch.isfinite(boxes).all() and torch.isfinite(scores[live]).all()
+    assert ((labels[live] >= 0) & (labels[live] < cfg.num_classes)).all()
+    assert (boxes[1, :, 2] <= 600.0).all() and (boxes >= 0).all()
+    assert len(out) == (4 if cfg.with_mask else 3)
+    if cfg.with_mask:
+        probs = out[3]
+        assert probs.shape == (2, 100, 28, 28) and np.isfinite(probs.float().cpu().numpy()).all()

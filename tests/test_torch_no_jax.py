@@ -1,7 +1,9 @@
 """The port imports no JAX, Flax, PIL or JAX-package module: in a fresh
 interpreter (this test process has JAX loaded by conftest), import every
 module of the port, run the tiny evaluator, one train step, the tiny
-detector evaluation and one tiny detector train step on the CPU."""
+detector evaluation (COCO protocol, and LVIS protocol with a mask head: the
+mask paster's rasters need no PIL) and one tiny detector train step on the
+CPU."""
 
 import json
 import math
@@ -40,6 +42,7 @@ import clipself_tpu_torch.detector.classes
 import clipself_tpu_torch.detector.config as det_config
 import clipself_tpu_torch.detector.data as det_data
 import clipself_tpu_torch.detector.eval_ap
+import clipself_tpu_torch.detector.eval_lvis
 import clipself_tpu_torch.detector.evaluate as det_evaluate
 import clipself_tpu_torch.detector.fvit as fvit
 import clipself_tpu_torch.detector.layers
@@ -74,6 +77,22 @@ items = det_data.synthetic_eval_items(
 emb = synthetic.class_embeddings(det_cfg.num_classes + 1, det_cfg.embed_dim)
 emb /= (emb ** 2).sum(-1, keepdims=True) ** 0.5
 metrics = det_evaluate.evaluate_detector(det, clip, items, det_cfg, emb, device="cpu", batch_size=2)
+import dataclasses
+mask_cfg = dataclasses.replace(
+    det_cfg, with_mask=True, num_classes=20, mask_convs=1, mask_channels=16, mask_roi_size=6
+)
+names = [f"c{i}" for i in range(20)]
+split = {"all": names, "seen": names[:14], "unseen": names[14:],
+         "freq_groups": {"rare": names[14:], "common": names[7:14], "frequent": names[:7]}}
+mitems = det_data.synthetic_eval_items(
+    det_data.SyntheticDetectionData(20, 64, 5, with_mask=True).batch(3), num_classes=20, seed=1
+)
+memb = synthetic.class_embeddings(21, det_cfg.embed_dim)
+memb /= (memb ** 2).sum(-1, keepdims=True) ** 0.5
+lvis = det_evaluate.evaluate_detector(
+    fvit.create_detector(mask_cfg, device="cpu", seed=2), clip, mitems, mask_cfg, memb, device="cpu",
+    batch_size=2, dataset_name="lvis", split=split,
+)
 det_run = det_train.main([
     "--synthetic", "--preset", "tiny_test", "--device", "cpu", "--batch-size", "2", "--epochs", "1",
     "--steps-per-epoch", "1", "--output", sys.argv[1] + "/det",
@@ -82,7 +101,8 @@ det_loss = det_run["history"][-1]["metrics"]["loss"]
 banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "clipself_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(json.dumps({"n_results": len(res), "loss": loss, "det_loss": det_loss, "loaded": loaded,
-                  "metrics": json.loads(det_evaluate.metrics_json(metrics))}))
+                  "metrics": json.loads(det_evaluate.metrics_json(metrics)),
+                  "lvis": json.loads(det_evaluate.metrics_json(lvis))}))
 """
 
 
@@ -102,3 +122,6 @@ def test_port_runs_without_jax(tmp_path):
     assert out["loaded"] == []
     assert sorted(out["metrics"]) == ["AP50", "AP50_base", "AP50_novel", "AP75", "mAP"]
     assert all(v is None or 0.0 <= v <= 1.0 for v in out["metrics"].values())
+    assert {"AP", "APr", "APc", "APf", "segm_AP", "segm_APr", "segm_AR@300"} <= set(out["lvis"])
+    # an LVIS group without ground truth is the -1 sentinel
+    assert all(v is None or -1.0 <= v <= 1.0 for v in out["lvis"].values())

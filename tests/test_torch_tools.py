@@ -75,6 +75,29 @@ def test_cpu_detector_train_run_reports_no_device_time(capsys):
     assert printed.count("not measured") == 1 and "images/s" not in printed and "train step" in printed
 
 
+@pytest.mark.parametrize("preset,name,classes", [
+    ("ov_coco_vitb16", "coco", 65), ("ov_coco_vitl14", "coco", 65), ("ov_lvis_vitb16", "lvis", 1203),
+    ("ov_lvis_vitl14", "lvis", 1203), ("transfer_voc_vitl14", "voc", 20), ("tiny_test", "coco", 65),
+])
+def test_detector_paths_take_the_split_of_their_preset(preset, name, classes):
+    """The LVIS presets are scored under the LVIS protocol (`lvis_split()`
+    has the frequency groups), the others under their own vocabulary."""
+    from clipself_tpu_torch.detector.config import PRESETS
+
+    got, split = profile_paths.preset_split(preset)
+    assert got == name and len(split["all"]) == classes == PRESETS[preset].num_classes
+    assert ("freq_groups" in split) == (name == "lvis")
+
+
+@pytest.mark.parametrize("preset", ["transfer_voc_vitl14", "transfer_objects365_vitl14"])
+def test_detector_train_refuses_transfer_presets(preset, capsys):
+    """A transfer preset is only evaluated: the train path says so before it
+    builds anything."""
+    with pytest.raises(SystemExit):
+        profile_paths.main(["--device", "cpu", "--path", "detector_train", "--preset", preset])
+    assert "transfer preset" in capsys.readouterr().err
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="the refusal is for a machine without a card")
 def test_kernel_timing_tools_refuse_to_run_without_a_card(capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
