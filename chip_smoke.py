@@ -18,7 +18,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    row says which of the kernel's designs its shape and type took: "wgmma"
    for bfloat16 at head_dim 64, "fma" for float32), and the fused LayerNorm
    forward (with and
-   without statistics) and backward, also on the two strided views of the
+   without statistics; also at the text towers' [64, 77, 512] and
+   [64, 77, 768]) and backward, also on the two strided views of the
    final norm (each backward row names its plan: warps a row, rows a
    block). Each with CUDA-event times of the kernel, of its plain
    version and, where one PyTorch call computes the same function
@@ -37,55 +38,64 @@ Phases, each printing its own lines; any failure exits non-zero:
 then for each model, B/16 first:
 3. the evaluator: `evaluate_zero_shot` (seeded random weights, bf16) over 8
    synthetic panoptic batches after 2 warm-up batches, with ms a batch,
-   images/s, the mAcc dict and the kernel launch counts of that run;
+   images/s, the mAcc dict and the kernel launch counts of that run; at B/16
+   again with `image_ave_pool` (each crop scored by its mean dense feature);
 4. whole-path parity of the dense map against the plain float32 path;
-5. the trainer: `clipself_tpu_torch.train.main`, bf16, synthetic data, batch
+5. the text tower (width 512, 8 heads at B/16; 768, 12 heads at L/14; 12
+   blocks, 77 tokens): `tools/text_embeddings.py::build_text_embeddings` in
+   bf16 over the 65 OV-COCO and the 1203 OV-LVIS classes, each list with a
+   background row (63 ViLD prompts a class), with the seconds, the host's
+   tokenizing apart, prompts/s, peak memory, each class matrix's mean
+   off-diagonal cosine and the LayerNorm launches (two a block and the final
+   one a call); then bf16 and f32 kernels against the plain float32 path on
+   one batch of 64 prompts and on the OV-COCO matrix;
+6. the trainer: `clipself_tpu_torch.train.main`, bf16, synthetic data, batch
    2, 20 boxes, teacher crops at the model's own size, every block unlocked:
    3 warm-up steps and 5 timed steps, with every step's ms, the median
    step's images/s, the per-step losses, peak device memory and the launch
    counts of the run; for L/14 then 1 warm-up and 2 timed steps with
    `--grad-checkpointing`;
-6. train parity: one step's loss and trainable gradients at batch 1 on f32
+7. train parity: one step's loss and trainable gradients at batch 1 on f32
    kernels, bf16 kernels and the f32 plain path (L/14: at full width and a
    depth of 6 blocks, since the plain path keeps every block's
    [1, 16, 4097, 4097] float32 attention maps for its backward);
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
-7. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
+8. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
    unit-norm class embeddings) over four batches of 8 synthetic images after
    two warm-up batches, with ms a batch, images/s, peak memory, the metrics and the launch
    counts of that run;
-8. detector parity on two images: the bf16 kernel path against the plain
+9. detector parity on two images: the bf16 kernel path against the plain
    float32 path on the backbone taps, the dense VLM map, the RPN objectness
    maps and the bbox head's logits and deltas on 32 fixed rois; the float32
    kernel path against the float32 plain path on the same tensors and on the
    detections; and, on the same float32 taps, `predict` with the NMS kernel
    against `predict` with the plain NMS: proposals and detections equal bit
    for bit;
-9. detector training through `python -m clipself_tpu_torch.detector.train`'s
+10. detector training through `python -m clipself_tpu_torch.detector.train`'s
    `main`, `ov_coco_vitb16`, batch 8, bf16, the recipe's AdamW: 2 warm-up
    and 5 timed steps with every step's ms, the median step's images/s, peak
    memory, the last step's loss metrics and the launch counts (the frozen
    trunk: no backward kernel);
-10. detector training parity, one step at batch 2 from the same weights,
+11. detector training parity, one step at batch 2 from the same weights,
    batch and sampler noise: f32 kernels and bf16 kernels against the plain
    f32 path (loss, proposals, trainable gradients; the RoI stage of every
    leg on the plain leg's proposals);
-11. the mask branch: `ov_lvis_vitb16` (1203 classes, 14x14 mask rois),
+12. the mask branch: `ov_lvis_vitb16` (1203 classes, 14x14 mask rois),
    batch 8, 1 warm-up and 2 steps, every loss and gradient finite;
 then the L/14 presets (EVA02-CLIP-L-14-336 at 896^2, 261888 anchors):
-12. `evaluate_detector` at `ov_coco_vitl14` as in 7 and its parity as in 8
+13. `evaluate_detector` at `ov_coco_vitl14` as in 8 and its parity as in 9
    (the kernel rows of phase 2 include its shapes: flash attention
    [8, 4097, 16, 64], LayerNorm [8, 4097, 1024] and [8, 4097, 2730], RoPE
    [8, 4097, 1024], and the final NMS over 1203 classes in the 896^2 frame);
-13. LVIS evaluation with masks, `ov_lvis_vitb16` and `ov_lvis_vitl14`, batch
+14. LVIS evaluation with masks, `ov_lvis_vitb16` and `ov_lvis_vitl14`, batch
    8, 2 batches after 1 warm-up, on items with gt masks, resize scales other
    than 1 and the LVIS fields: the LVIS protocol's box and `segm_` metrics as
    strict JSON (a missing key or a value neither finite nor null fails), ms
    a batch and the host's share by stage (predict, copy back, pasting,
    matching);
-14. detector training at `ov_coco_vitl14`, 2 + 5 steps, and `ov_lvis_vitl14`
-   with the mask head, 1 + 2, as in 9 and 11.
+15. detector training at `ov_coco_vitl14`, 2 + 5 steps, and `ov_lvis_vitl14`
+   with the mask head, 1 + 2, as in 10 and 12.
 
 The second-to-last line is one JSON object with a row per kernel; the last
 line is `{"ok": true, "device": {...}}`. Without a CUDA card it exits 1
@@ -132,6 +142,12 @@ class Model:
         return get_model_config(self.model).vision
 
     @property
+    def text(self):
+        from clipself_tpu_torch.core.config import get_model_config
+
+        return get_model_config(self.model).text
+
+    @property
     def heads(self) -> int:
         return self.vision.width // self.vision.head_width
 
@@ -169,6 +185,10 @@ DET_L14_PRESET, DET_L14_MASK_PRESET = "ov_coco_vitl14", "ov_lvis_vitl14"
 # LVIS evaluation with masks (batches as above): items with gt masks and
 # resize scales other than 1
 DET_LVIS_PRESETS = ("ov_lvis_vitb16", "ov_lvis_vitl14")
+# the text phase: the prompt-ensemble class matrices of OV-COCO (65 classes)
+# and OV-LVIS (1203), each with a background row, at 64 prompts a call (every
+# class has 63); its parity on one 64-prompt batch and on the OV-COCO matrix
+TEXT_BATCH, TEXT_WARMUP_CLASSES = 64, 4
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory, dense bf16 tensor cores, float32 outside the tensor cores.
@@ -284,7 +304,7 @@ def read_counts() -> dict:
 
 def expected_launches(
     layers: int, *, evals: int = 0, steps: int = 0, recompute: bool = False, dets: int = 0,
-    det_steps: int = 0,
+    det_steps: int = 0, ave_pool: bool = False, text_calls: int = 0, text_layers: int = 0,
 ) -> dict:
     """Launches of ``evals`` evaluator batches plus ``steps`` train steps
     plus ``dets`` detector batches plus ``det_steps`` detector train steps
@@ -300,10 +320,14 @@ def expected_launches(
     the taps without the dense map (the blocks' four norms each, the value
     path's included, no final norm; `models/eva_vit.py::forward_taps`) and
     one NMS launch (the train proposals); the trunk is frozen, so nothing of
-    it runs backward."""
+    it runs backward. With ``ave_pool`` an evaluator batch encodes its crops
+    densely (`image_ave_pool`): two dense passes. ``text_calls`` forwards of
+    a text tower of ``text_layers`` blocks launch only LayerNorms, two a
+    block and the final one: its attention is plain (`attention_masked`)."""
     dense, crop, norms = layers - 1, layers, 4 * layers + 1
     again = steps if recompute else 0
-    flash = evals * (dense + crop) + steps * (crop + dense) + again * dense + (dets + det_steps) * dense
+    crop_pass = dense if ave_pool else crop
+    flash = evals * (dense + crop_pass) + steps * (crop + dense) + again * dense + (dets + det_steps) * dense
     return {
         "nms": 2 * dets + det_steps,
         "flash_attention": flash,
@@ -311,17 +335,18 @@ def expected_launches(
         "rope_roll": flash,
         "rope_roll_bwd": steps * dense,
         "layer_norm": (2 * evals + 2 * steps + dets) * norms + again * 4 * layers
-        + det_steps * 4 * layers,
+        + det_steps * 4 * layers + text_calls * (2 * text_layers + 1),
         "layer_norm_bwd": steps * norms,
     }
 
 
 @contextlib.contextmanager
 def plain_path():
-    """Swap the kernels' plain versions in where the tower calls the kernel
-    wrappers (`eva_vit.multi_head_attention`, `eva_vit.layer_norm`,
-    `rope.rolled_rope` and `rope.rolled_rope_qk`, the detector's
-    `nms.nms_keep_mask`); autograd differentiates them. Fails if any kernel
+    """Swap the kernels' plain versions in where the towers call the kernel
+    wrappers (`eva_vit.multi_head_attention`, `eva_vit.layer_norm`, which
+    the text tower's LayerNorms call too, `rope.rolled_rope` and
+    `rope.rolled_rope_qk`, the detector's `nms.nms_keep_mask`); autograd
+    differentiates them. Fails if any kernel
     launched inside, so a swap that misses a call site cannot compare the
     kernels with themselves."""
     from clipself_tpu_torch.models import eva_vit, rope
@@ -613,10 +638,10 @@ LN_VIEWS = {
 }
 
 
-def check_layer_norm(torch, dev, records, gen, shape, view, backward):
+def check_layer_norm(torch, dev, records, gen, shape, view, backward, eps=1e-6):
     from clipself_tpu_torch.ops import layer_norm as ln
 
-    eps, w = 1e-6, shape[-1]
+    w = shape[-1]
     for dt in (torch.float32, torch.bfloat16):
         x = LN_VIEWS[view]((torch.randn(shape, generator=gen) * 3 + 0.5).to(dev, dt))
         dy = LN_VIEWS[view](torch.randn(shape, generator=gen).to(dev, dt)).contiguous()
@@ -812,6 +837,12 @@ def phase_kernels(torch, dev, records):
             for width in (v.width, s.hidden):
                 check_layer_norm(torch, dev, records, gen, det_shape[:2] + (width,), "", backward=False)
         torch.cuda.empty_cache()
+        # the text tower's LayerNorms: a call of 64 prompts of 77 tokens
+        t = s.text
+        check_layer_norm(
+            torch, dev, records, gen, (TEXT_BATCH, t.context_length, t.width), "", backward=False,
+            eps=t.ln_eps,
+        )
         for width in (v.width, s.hidden):
             check_layer_norm(torch, dev, records, gen, student[:2] + (width,), "", backward=True)
         if s.key == "l14":
@@ -844,34 +875,44 @@ def phase_eval(torch, dev, s: Model):
     warm = [batch(N_BATCHES + i) for i in range(EVAL_WARMUP)]
     batches = [batch(i) for i in range(N_BATCHES)]
     emb = class_embeddings(N_CLASSES, cfg.embed_dim, seed=SEED)
-    evaluate_zero_shot(model, warm, emb, device=dev, ann_bucket=BUCKET)  # warm-up
-    torch.cuda.synchronize()
 
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = evaluate_zero_shot(model, batches, emb, device=dev, ann_bucket=BUCKET)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_counts()
+    def timed(ave_pool: bool) -> dict:
+        tag = f"{s.key} eval" + (" image_ave_pool" if ave_pool else "")
+        run = lambda bs: evaluate_zero_shot(  # noqa: E731
+            model, bs, emb, device=dev, ann_bucket=BUCKET, image_ave_pool=ave_pool
+        )
+        run(warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run(batches)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        ips = s.eval_batch * N_BATCHES / dt
+        crops = "mean dense feature of each crop" if ave_pool else "CLS embedding of each crop"
+        print(
+            f"{tag} {s.model} zero-shot: {N_BATCHES} batches x {s.eval_batch} images "
+            f"{s.image}px, {VALID_ANNS} valid of {MAX_ANNS} anns (bucket {BUCKET}), crops "
+            f"{s.crop}px ({crops}), {cfg.vision.layers} blocks: {dt:.3f} s after {EVAL_WARMUP} "
+            f"warm-up batches, {dt / N_BATCHES * 1e3:.3f} ms a batch, {ips:.3f} images/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
+            flush=True,
+        )
+        print(f"{tag} mAcc " + json.dumps(res, sort_keys=True), flush=True)
+        print(f"{tag} launches " + json.dumps(launches), flush=True)
+        if len(res) != 12 or not all(np.isfinite(v) for v in res.values()):
+            fail(f"{tag}: evaluator result not finite: {res}")
+        expect = expected_launches(cfg.vision.layers, evals=N_BATCHES, ave_pool=ave_pool)
+        if launches != expect:
+            fail(f"{tag} launch counts {launches}, expected {expect}")
+        return launches
 
-    ips = s.eval_batch * N_BATCHES / dt
-    print(
-        f"{s.key} eval {s.model} zero-shot: {N_BATCHES} batches x {s.eval_batch} images "
-        f"{s.image}px, {VALID_ANNS} valid of {MAX_ANNS} anns (bucket {BUCKET}), crops "
-        f"{s.crop}px, {cfg.vision.layers} blocks: {dt:.3f} s after {EVAL_WARMUP} warm-up batches, "
-        f"{dt / N_BATCHES * 1e3:.3f} ms a batch, {ips:.3f} images/s, peak "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
-        flush=True,
-    )
-    print(f"{s.key} eval mAcc " + json.dumps(res, sort_keys=True), flush=True)
-    print(f"{s.key} eval launches " + json.dumps(launches), flush=True)
-    if not res or not all(np.isfinite(v) for v in res.values()):
-        fail(f"evaluator result not finite: {res}")
-    expect = expected_launches(cfg.vision.layers, evals=N_BATCHES)
-    if launches != expect:
-        fail(f"{s.key} eval launch counts {launches}, expected {expect}")
-    return model, batches[0], launches
+    paths = {f"{s.key}_eval": timed(False)}
+    if s.key == "b16":  # the evaluator's `--image-ave-pool` mode, on the same batches
+        paths[f"{s.key}_eval_ave_pool"] = timed(True)
+    return model, batches[0], paths
 
 
 def phase_parity(torch, dev, s: Model, model_bf16, batch):
@@ -908,6 +949,7 @@ def phase_parity(torch, dev, s: Model, model_bf16, batch):
         fail(f"{s.key} f32 kernel path off the plain path by {f32_abs}")
     if not bf16_cos >= PATH_BF16_MIN_COS:
         fail(f"{s.key} bf16 kernel path min row cosine {bf16_cos}")
+    return model_f32
 
 
 def phase_train(torch, dev, s: Model, logs_dir, recompute=False):
@@ -1054,13 +1096,116 @@ def phase_train_parity(torch, dev, s: Model):
         fail(f"bf16 kernel gradient {worst_cos} cosine {cos[worst_cos]}")
 
 
+def phase_text(torch, dev, s: Model, model, model_f32) -> dict:
+    """The text tower's main path: `tools/text_embeddings.py::build_text_embeddings`
+    over the OV-COCO and OV-LVIS class lists, each with a background row, on
+    the evaluator's bf16 model (seeded random weights); then its parity
+    against the plain float32 path of the parity phase's float32 model (the
+    same weights). Returns the launch counts of the timed run."""
+    import importlib.util
+
+    import numpy as np
+
+    from clipself_tpu_torch.detector.classes import coco_split, lvis_split
+    from clipself_tpu_torch.models.factory import get_tokenizer
+    from clipself_tpu_torch.tools.text_embeddings import build_text_embeddings, category_prompts
+
+    t = s.text
+    lists = {
+        "coco": coco_split()["all"] + ["background"],
+        "lvis": lvis_split()["all"] + ["background"],
+    }
+    build_text_embeddings(model, lists["coco"][:TEXT_WARMUP_CLASSES])  # warm-up
+    torch.cuda.synchronize()
+    # the float32 model of the parity phase is resident too: the phase's own
+    # peak is the peak less what else was allocated
+    others = (torch.cuda.memory_allocated() - sum(p.numel() * p.element_size() for p in model.parameters())) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    mats = {k: build_text_embeddings(model, names, timings=timings) for k, names in lists.items()}
+    dt = time.perf_counter() - t0  # the matrices are on the host: the device is done
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 - others
+    per_class = [len(category_prompts(c)) for names in lists.values() for c in names]
+    calls = sum(-(-n // TEXT_BATCH) for n in per_class)
+    tok = timings["tokenize"]
+    print(
+        f"{s.key} text {s.model} text tower (width {t.width}, {t.heads} heads, {t.layers} blocks, "
+        f"{t.context_length} tokens), bf16: {len(per_class)} classes ({', '.join(f'{k} {len(v)}' for k, v in lists.items())}), "
+        f"{sum(per_class)} prompts in {calls} calls: {dt:.3f} s, {sum(per_class) / dt:.1f} prompts/s; "
+        f"of it tokenizing on the host {tok:.3f} s, the rest (encoding, launches, copies) "
+        f"{dt - tok:.3f} s, {sum(per_class) / (dt - tok):.1f} prompts/s; peak {peak:.3f} GiB (the "
+        f"model's float32 weights and the work; {others:.3f} GiB of other resident tensors left out)",
+        flush=True,
+    )
+    print(f"{s.key} text launches {json.dumps(launches)}", flush=True)
+    for k, m in mats.items():
+        n = len(m)
+        gram = m @ m.T
+        off = (gram.sum() - np.trace(gram)) / (n * (n - 1))
+        print(
+            f"{s.key} text class matrix {k}: shape {list(m.shape)}, row norms "
+            f"{np.linalg.norm(m, axis=-1).min():.6f}-{np.linalg.norm(m, axis=-1).max():.6f}, mean "
+            f"off-diagonal cosine {off:.6f} (seeded random weights)",
+            flush=True,
+        )
+        if m.shape != (n, model.cfg.embed_dim) or not np.isfinite(m).all():
+            fail(f"{s.key} text class matrix {k}: shape {m.shape} or not finite")
+        if not np.allclose(np.linalg.norm(m, axis=-1), 1.0, atol=1e-3):
+            fail(f"{s.key} text class matrix {k}: rows not unit norm")
+    expect = expected_launches(0, text_calls=calls, text_layers=t.layers)
+    if launches != expect:
+        fail(f"{s.key} text launch counts {launches}, expected {expect}")
+    if s.key == "b16":
+        found = importlib.util.find_spec("regex") is not None
+        print(f"text: the `regex` package is {'' if found else 'not '}installed here "
+              "(for information: the port's tokenizer never imports it)", flush=True)
+
+    # parity: one batch of 64 prompts and the OV-COCO matrix, bf16 and f32
+    # kernels against the plain float32 path (the plain LayerNorm)
+    prompts = [p for c in lists["coco"][:2] for p in category_prompts(c)][:TEXT_BATCH]
+    tokens = torch.as_tensor(get_tokenizer(model.cfg)(prompts), device=dev)
+    with torch.inference_mode():
+        reset_counts()
+        k32 = model_f32.encode_text(tokens, normalize=True)
+        if read_counts()["layer_norm"] != 2 * t.layers + 1:
+            fail(f"{s.key} text: a forward launched {read_counts()} kernels")
+        k16 = model.encode_text(tokens, normalize=True)
+        with plain_path():
+            p32 = model_f32.encode_text(tokens, normalize=True)
+    m32 = build_text_embeddings(model_f32, lists["coco"])
+    with plain_path():
+        mp32 = build_text_embeddings(model_f32, lists["coco"])
+    mats16 = torch.as_tensor(mats["coco"])
+    for what, (got32, got16, want) in (
+        (f"batch of {TEXT_BATCH} prompts", (k32, k16, p32)),
+        (f"class matrix coco {list(mats['coco'].shape)}",
+         (torch.as_tensor(m32), mats16, torch.as_tensor(mp32))),
+    ):
+        f32_abs = (got32.float() - want.float()).abs().max().item()
+        bf16_cos = min_row_cos(got16, want)
+        print(
+            f"{s.key} text parity {what}: f32 kernels vs f32 plain max_abs {f32_abs:.3e} (bar "
+            f"{PATH_F32_MAX_ABS}); bf16 kernels vs f32 plain min_row_cos {bf16_cos:.7f} (bar "
+            f"{PATH_BF16_MIN_COS})",
+            flush=True,
+        )
+        if not f32_abs <= PATH_F32_MAX_ABS:
+            fail(f"{s.key} text {what}: f32 kernel path off the plain path by {f32_abs}")
+        if not bf16_cos >= PATH_BF16_MIN_COS:
+            fail(f"{s.key} text {what}: bf16 kernel path min row cosine {bf16_cos}")
+    return launches
+
+
 def phase_model(torch, dev, s: Model, logs_dir) -> dict:
-    """Phases 3 to 6 for one model; returns the launch counts by main path."""
-    model_bf16, batch0, eval_launches = phase_eval(torch, dev, s)
-    phase_parity(torch, dev, s, model_bf16, batch0)
-    del model_bf16, batch0
+    """Phases 3 to 7 for one model; returns the launch counts by main path."""
+    model_bf16, batch0, paths = phase_eval(torch, dev, s)
+    model_f32 = phase_parity(torch, dev, s, model_bf16, batch0)
+    paths[f"{s.key}_text"] = phase_text(torch, dev, s, model_bf16, model_f32)
+    del model_bf16, model_f32, batch0
     torch.cuda.empty_cache()
-    paths = {f"{s.key}_eval": eval_launches}
     try:
         train = phase_train(torch, dev, s, logs_dir)
         paths[f"{s.key}_train"] = train["launches"]
@@ -1635,9 +1780,10 @@ def main() -> int:
     records = Records()
     phase_kernels(torch, dev, records)
     logs_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_logs")
-    # launches: every main path counted from 0 (each model's evaluator and
-    # train runs); the backward rows launch on the train paths only
+    # launches: every main path counted from 0 (each model's text embeddings,
+    # evaluator and train runs); the backward rows launch on the train paths only
     paths = {}
+    print(f"kernels done at {time.perf_counter() - t0:.1f} s", flush=True)
     for s in MODELS:
         paths.update(phase_model(torch, dev, s, logs_dir))
         print(f"{s.key} done at {time.perf_counter() - t0:.1f} s", flush=True)

@@ -74,13 +74,23 @@ def batch_logits(
     boxes4: torch.Tensor,
     crops: torch.Tensor,
     masks: torch.Tensor,
+    image_ave_pool: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(roi, crop, maskpool) float32 logits [B, M, K] of one batch against
-    the L2-normalized class embeddings ``emb`` [K, C]."""
+    the L2-normalized class embeddings ``emb`` [K, C]. A crop's feature is
+    its CLS embedding, or with ``image_ave_pool`` the mean of its dense
+    map (`encode_dense(normalize=True)`, as the JAX package calls it),
+    L2-normalized in float32 (+1e-12)."""
     rois, maskpool = model.encode_rois_and_masks(images, boxes4, masks, normalize=True)
     b, m = crops.shape[:2]
     crop_flat = crops.reshape((b * m,) + tuple(crops.shape[2:]))
-    crop_feats = model.encode_image(crop_flat, normalize=True).reshape(b, m, -1)
+    if image_ave_pool:
+        cf = model.encode_dense(crop_flat, keep_shape=True, normalize=True).mean(dim=(1, 2))
+        norm = torch.linalg.vector_norm(cf.float(), dim=-1, keepdim=True) + 1e-12
+        cf = cf / norm.to(cf.dtype)
+    else:
+        cf = model.encode_image(crop_flat, normalize=True)
+    crop_feats = cf.reshape(b, m, -1)
     return tuple(f.float() @ emb.T for f in (rois, crop_feats, maskpool))
 
 
@@ -91,11 +101,14 @@ def evaluate_zero_shot(
     *,
     device: Union[str, torch.device],
     ann_bucket: int = DEFAULT_ANN_BUCKET,
+    image_ave_pool: bool = False,
 ) -> dict:
     """Run the evaluator over batches of images [B, H, W, 3], boxes [B, M, 8]
     (xyxy normalized, label, valid, _, is_thing), crops [B, M, h, w, 3] and
     gt_masks [B, M, gh, gw]; ``embeddings`` [K, C] is the text classifier
-    (L2-normalized here). ``ann_bucket`` = 0 disables bucketing."""
+    (L2-normalized here), e.g. from `tools/text_embeddings.py`.
+    ``ann_bucket`` = 0 disables bucketing; ``image_ave_pool`` scores each
+    crop by its mean dense feature instead of its CLS embedding."""
     emb_np = np.array(embeddings, np.float32)
     emb_np /= np.linalg.norm(emb_np, axis=-1, keepdims=True) + 1e-12
     emb = torch.as_tensor(emb_np, device=device)
@@ -118,6 +131,7 @@ def evaluate_zero_shot(
             to_device(boxes[..., :4]),
             to_device(batch["crops"][:, :width]),
             to_device(batch["gt_masks"][:, :width]),
+            image_ave_pool,
         )
         valid = boxes[..., 5].reshape(-1) > 0.5
         labels = boxes[..., 4].reshape(-1)[valid].astype(np.int64)

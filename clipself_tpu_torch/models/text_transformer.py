@@ -1,0 +1,173 @@
+"""CLIP text transformer in PyTorch (frozen in every shipped recipe).
+
+A port of `clipself_tpu/models/text_transformer.py` (reference text tower,
+`src/open_clip/eva_clip/transformer.py:642-742`): token embedding plus a
+learned positional embedding, pre-LN residual blocks with a packed q/k/v
+projection and a GELU MLP, the causal mask, a final LN, and the embedding of
+the EOT token (the argmax of the token ids) projected by `text_projection`.
+
+  - parameters are float32 and cast to the compute dtype at each product,
+    as flax `Dense(dtype=...)` does; the residual stream stays in the
+    compute dtype;
+  - each LayerNorm runs the port's LayerNorm (`eva_vit.LayerNorm`, the
+    hand-written kernel on the card): float32 inside, the fast-variance
+    association of flax `nn.LayerNorm`, its output cast to the compute
+    dtype, as the JAX tower's `.astype` at each call site does;
+  - attention is `ops/attention.py::attention_masked`, the plain mirror of
+    the JAX tower's XLA attention with the additive causal mask
+    `triu(full(-inf), 1)` in float32; the JAX package runs no Pallas kernel
+    here;
+  - module and parameter names follow the reference state dict
+    (`transformer.resblocks.{i}.attn.in_proj_weight`, `mlp.c_fc`, `ls_1.gamma`,
+    `ln_final`, `text_projection`, ...), so `models/torch_io.py` loads
+    reference checkpoints with `strict=True`.
+
+The CoCa text tower (`embed_cls`, `forward_coca`) and the HF text towers are
+not ported (ROADMAP.md queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from clipself_tpu_torch.core.config import TextConfig
+from clipself_tpu_torch.models.common import LayerScale
+from clipself_tpu_torch.models.eva_vit import Dense, LayerNorm, _lecun_normal
+from clipself_tpu_torch.ops.attention import attention_masked
+
+_ROADMAP = "ROADMAP.md queue 1 item 8"
+
+
+def _act(cfg: TextConfig, x: torch.Tensor) -> torch.Tensor:
+    """QuickGELU x * sigmoid(1.702 x) for the OpenAI towers, else exact GELU."""
+    if cfg.quick_gelu:
+        return x * torch.sigmoid(1.702 * x)
+    return F.gelu(x)
+
+
+class TextAttention(nn.Module):
+    """Self-attention with the packed q/k/v projection of
+    `torch.nn.MultiheadAttention` (`in_proj_weight` [3W, W], `in_proj_bias`)."""
+
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.in_proj_weight = nn.Parameter(torch.zeros(3 * w, w))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * w))
+        self.out_proj = Dense(w, w)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        c = self.cfg
+        b, n, w = x.shape
+        qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
+        heads = (b, n, c.heads, w // c.heads)
+        q, k, v = (t.reshape(heads) for t in qkv.split(w, dim=-1))
+        out = attention_masked(q, k, v, (w // c.heads) ** -0.5, mask)
+        return self.out_proj(out.reshape(b, n, w))
+
+
+class TextMlp(nn.Module):
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.c_fc = Dense(cfg.width, 4 * cfg.width)
+        self.c_proj = Dense(4 * cfg.width, cfg.width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(_act(self.cfg, self.c_fc(x)))
+
+
+class TextBlock(nn.Module):
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg.width, cfg.ln_eps)
+        self.attn = TextAttention(cfg)
+        self.ln_2 = LayerNorm(cfg.width, cfg.ln_eps)
+        self.mlp = TextMlp(cfg)
+        ls = cfg.ls_init_value
+        self.ls_1 = LayerScale(cfg.width, ls) if ls is not None else None
+        self.ls_2 = LayerScale(cfg.width, ls) if ls is not None else None
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        a = self.attn(self.ln_1(x), mask)
+        x = x + (a if self.ls_1 is None else self.ls_1(a))
+        m = self.mlp(self.ln_2(x))
+        return x + (m if self.ls_2 is None else self.ls_2(m))
+
+
+class _Transformer(nn.Module):
+    """Holds the blocks under the reference name `transformer.resblocks`."""
+
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.resblocks = nn.ModuleList(TextBlock(cfg) for _ in range(cfg.layers))
+
+
+class TextTransformer(nn.Module):
+    def __init__(self, cfg: TextConfig, embed_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if cfg.hf_model_name:
+            raise NotImplementedError(
+                f"HF text tower {cfg.hf_model_name!r} is not ported ({_ROADMAP})"
+            )
+        if cfg.embed_cls:
+            raise NotImplementedError(f"the CoCa text tower (embed_cls) is not ported ({_ROADMAP})")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
+        self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, cfg.width))
+        self.transformer = _Transformer(cfg)
+        self.ln_final = LayerNorm(cfg.width, cfg.ln_eps)
+        self.text_projection = nn.Parameter(torch.zeros(cfg.width, embed_dim))
+        n = cfg.context_length
+        causal = torch.triu(torch.full((n, n), float("-inf")), diagonal=1)
+        self.register_buffer("attn_mask", causal, persistent=False)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Draw the initial weights with the JAX tower's distributions: flax
+        `nn.Embed`'s normal(1/sqrt(width)) token embedding, normal(0.01)
+        positional embedding, normal(width^-0.5) projection, lecun-normal
+        (truncated) kernels with zero biases, unit LayerNorm scales, the
+        LayerScale init value. Parameters must lie on the generator's device."""
+        w = self.cfg.width
+        self.token_embedding.weight.normal_(0.0, w ** -0.5, generator=generator)
+        self.positional_embedding.normal_(0.0, 0.01, generator=generator)
+        for blk in self.transformer.resblocks:
+            _lecun_normal(blk.attn.in_proj_weight, w, generator)
+            blk.attn.in_proj_bias.zero_()
+        for m in self.modules():
+            if isinstance(m, Dense):
+                _lecun_normal(m.weight, m.in_features, generator)
+                m.bias.zero_()
+        self.text_projection.normal_(0.0, w ** -0.5, generator=generator)
+
+    def features(self, text: torch.Tensor) -> torch.Tensor:
+        """Per-token features [B, n, width] after the final LN, in the compute
+        dtype; ``text`` [B, n] token ids."""
+        n = text.shape[1]
+        x = F.embedding(text.long(), self.token_embedding.weight).to(self.dtype)
+        x = x + self.positional_embedding[:n].to(self.dtype)
+        mask = self.attn_mask[:n, :n] if self.cfg.attn_mask else None
+        for blk in self.transformer.resblocks:
+            x = blk(x, mask)
+        return self.ln_final(x)
+
+    def project(self, feats: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+        """EOT pooling (the first position of the highest token id, as
+        `jnp.argmax` picks) and the projection, in feats' dtype."""
+        eot = text.argmax(dim=-1)
+        pooled = feats[torch.arange(feats.shape[0], device=feats.device), eot]
+        return pooled @ self.text_projection.to(pooled.dtype)
+
+    def forward(self, text: torch.Tensor) -> torch.Tensor:
+        """text [B, n] token ids -> [B, embed_dim] (not normalized)."""
+        return self.project(self.features(text), text)
+
+    def forward_coca(self, text: torch.Tensor):
+        raise NotImplementedError(f"the CoCa text forward is not ported ({_ROADMAP})")

@@ -1,10 +1,13 @@
 """Weights in the reference PyTorch state-dict layout.
 
 `state_dict_from_jax` turns the JAX package's param tree (nested dicts of
-NumPy arrays) into the state dict of the reference `CustomCLIP` for the
-visual tower and `logit_scale`, with the key map of the EVA branch of
-`clipself_tpu/models/torch_io.py::_vision_key_map` copied here; `load_weights`
-loads such a dict, or a reference `.pt` checkpoint, with `strict=True`.
+NumPy arrays) into the state dict of the reference `CustomCLIP`: the visual
+tower, the text tower and `logit_scale`, with the key maps of the EVA branch
+of `clipself_tpu/models/torch_io.py::_vision_key_map` and of `_text_key_map`
+copied here (the result is pinned equal to that module's
+`export_state_dict`). `load_weights` loads such a dict, or a reference
+`.pt` checkpoint, into the whole CLIP with `strict=True`; text-tower keys
+stored without the `text.` prefix (the open_clip hub layout) are taken too.
 `detector_state_dict_from_jax` does the same for the flax tree of the F-ViT
 detector heads, whose port keeps the tree's own names, and
 `detector_state_dict_to_jax` is its inverse.
@@ -79,6 +82,48 @@ def _eva_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     raise KeyError(f"unmapped EVA vision param: {flax_key}")
 
 
+def _text_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """Map a flax param path under `text` to (torch_key, transform), as
+    `_eva_vision_key_map` does."""
+    k = list(flax_key)
+    if k == ["cls_emb"]:
+        return "text.cls_emb", None
+    if k == ["token_embedding", "embedding"]:
+        return "text.token_embedding.weight", None
+    if k == ["positional_embedding"]:
+        return "text.positional_embedding", None
+    if k == ["text_projection"]:
+        return "text.text_projection", None
+    if k == ["ln_final", "scale"]:
+        return "text.ln_final.weight", None
+    if k == ["ln_final", "bias"]:
+        return "text.ln_final.bias", None
+    m = re.match(r"resblocks_(\d+)", k[0])
+    if m:
+        i = m.group(1)
+        rest = k[1:]
+        base = f"text.transformer.resblocks.{i}"
+        ln = {"scale": "weight", "bias": "bias"}
+        if rest[0] in ("ls_1", "ls_2"):
+            return f"{base}.{rest[0]}.gamma", None
+        if rest[0] in ("ln_1", "ln_2"):
+            return f"{base}.{rest[0]}.{ln[rest[1]]}", None
+        if rest[0] == "in_proj":
+            if rest[1] == "kernel":
+                return f"{base}.attn.in_proj_weight", "linear"
+            return f"{base}.attn.in_proj_bias", None
+        if rest[0] == "out_proj":
+            t = "linear" if rest[1] == "kernel" else None
+            return f"{base}.attn.out_proj.{'weight' if t else 'bias'}", t
+        if rest[0] in ("c_fc", "c_proj"):
+            t = "linear" if rest[1] == "kernel" else None
+            return f"{base}.mlp.{rest[0]}.{'weight' if t else 'bias'}", t
+    raise KeyError(f"unmapped text param: {flax_key}")
+
+
+_KEY_MAPS = {"visual": _eva_vision_key_map, "text": _text_key_map}
+
+
 def _flatten(tree: Any, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], Any]:
     if isinstance(tree, dict):
         out = {}
@@ -89,18 +134,22 @@ def _flatten(tree: Any, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], A
 
 
 def state_dict_from_jax(params: Any) -> dict[str, torch.Tensor]:
-    """JAX param tree (nested dicts of arrays, with `visual` and
+    """JAX param tree (nested dicts of arrays: `visual`, `text` and
     `logit_scale`) -> float32 torch state dict in the reference layout
     (linear weights transposed, the HWIO patch kernel made OIHW)."""
+    unknown = sorted(set(params) - set(_KEY_MAPS) - {"logit_scale"})
+    if unknown:
+        raise KeyError(f"params of parts the port does not build: {unknown}")
     out = {}
-    for path, val in _flatten(params["visual"]).items():
-        key, transform = _eva_vision_key_map(path)
-        arr = np.asarray(val, dtype=np.float32)
-        if transform == "linear":
-            arr = arr.T
-        elif transform == "conv":
-            arr = arr.transpose(3, 2, 0, 1)
-        out[key] = torch.tensor(arr)
+    for part, key_map in _KEY_MAPS.items():
+        for path, val in _flatten(params[part]).items():
+            key, transform = key_map(path)
+            arr = np.asarray(val, dtype=np.float32)
+            if transform == "linear":
+                arr = arr.T
+            elif transform == "conv":
+                arr = arr.transpose(3, 2, 0, 1)
+            out[key] = torch.tensor(arr)
     out["logit_scale"] = torch.tensor(np.asarray(params["logit_scale"], dtype=np.float32))
     return out
 
@@ -178,14 +227,25 @@ def unwrap_state_dict(sd: dict) -> dict:
 
 def load_weights(model: nn.Module, source: Union[str, dict]) -> None:
     """Load a reference-layout state dict, or a `.pt` checkpoint path, into
-    a port `CLIP` with `strict=True`. Keys of parts the port does not build
-    (the text tower) are dropped first; every visual key must match."""
+    a port `CLIP` with `strict=True`: every key of the visual tower, the
+    text tower and `logit_scale` must be there, and no other. A text-tower
+    key may come without its `text.` prefix (`import_state_dict` of the JAX
+    package takes the open_clip hub layout so). A checkpoint with no
+    text-tower key at all raises a KeyError that names them: the text tower
+    is never left at its initial weights."""
     if isinstance(source, str):
         source = torch.load(source, map_location="cpu", weights_only=True)
-    sd = unwrap_state_dict(source)
-    sd = {
-        k: torch.as_tensor(v, dtype=torch.float32)
-        for k, v in sd.items()
-        if k.startswith("visual.") or k == "logit_scale"
-    }
-    model.load_state_dict(sd, strict=True)
+    sd = dict(unwrap_state_dict(source))
+    text_keys = [k for k in model.state_dict() if k.startswith("text.")]
+    for key in text_keys:
+        bare = key[len("text."):]
+        if key not in sd and bare in sd:
+            sd[key] = sd.pop(bare)
+    if text_keys and not any(k in sd for k in text_keys):
+        raise KeyError(
+            f"the checkpoint holds none of the {len(text_keys)} text-tower keys "
+            f"({text_keys[0]!r}, ..., {text_keys[-1]!r}; with or without the 'text.' prefix)"
+        )
+    model.load_state_dict(
+        {k: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()}, strict=True
+    )

@@ -27,9 +27,15 @@ f32-softmax semantics of `_xla_attention`), `attention_lse_plain`, and
 dS = P * (dP - di) * scale with di = rowsum(dO * O), the formulas of
 `flash_bwd.py:97-125`, so the CPU tests exercise the kernel's arithmetic and
 not autograd's. A CUDA tensor launches the kernel or raises.
+
+`attention_masked` takes an additive mask and runs in plain PyTorch on
+every device: the text tower's causal attention, which the JAX package runs
+through XLA and not through a Pallas kernel.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -45,13 +51,31 @@ def _logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
 
 
+def attention_masked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """softmax(q k^T * scale + mask) v on [B, N, H, D], on any device: f32
+    logits and softmax, probabilities cast to the input dtype before the
+    value product; ``mask`` is an additive float32 mask broadcast against
+    the [B, H, N, N] logits. The JAX package's XLA attention
+    (`clipself_tpu/ops/attention.py::_xla_attention`), which the text tower
+    runs with its causal mask; no Pallas kernel stands behind it."""
+    logits = _logits(q, k, scale)
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 def attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> torch.Tensor:
-    """softmax(q k^T * scale) v on [B, N, H, D]: f32 logits and softmax,
-    probabilities cast to the input dtype before the value product."""
-    probs = torch.softmax(_logits(q, k, scale), dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    """The flash kernel's plain version: `attention_masked` without a mask."""
+    return attention_masked(q, k, v, scale)
 
 
 def attention_lse_plain(

@@ -28,6 +28,11 @@ items with gt masks, the LVIS fields and LVIS v1's annotations and classes
 an image, `detector/data.py::lvis_ground_truth`) for the LVIS presets, or the
 transfer vocabulary; the host's seconds by stage are printed after it.
 
+``--path text`` runs `tools/text_embeddings.py::build_text_embeddings` of
+``--model``'s text tower in bf16 over the 65 OV-COCO classes and a
+background row (66 calls of 63 prompts, tokenizing included) the same way,
+prompts/s in place of images/s.
+
 ``--path detector_train`` runs the detector's train step of ``--preset``
 (`detector/train.py::make_det_train_step`: frozen trunk taps, the loss, its
 backward into the heads, clipping, AdamW at the recipe's settings) on one
@@ -49,7 +54,7 @@ import torch
 from clipself_tpu_torch.core.config import get_model_config
 from clipself_tpu_torch.data.loader import SyntheticDistillData
 from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
-from clipself_tpu_torch.detector.classes import base_novel_mask, class_weights, preset_split
+from clipself_tpu_torch.detector.classes import base_novel_mask, class_weights, coco_split, preset_split
 from clipself_tpu_torch.detector.config import PRESETS
 from clipself_tpu_torch.detector.data import (
     SyntheticDetectionData,
@@ -63,6 +68,7 @@ from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.train.methods import clipself_loss
 from clipself_tpu_torch.train.optim import build_optimizer, make_schedule
+from clipself_tpu_torch.tools.text_embeddings import build_text_embeddings, category_prompts
 from clipself_tpu_torch.train.step import TrainState, make_train_step
 
 # kernel class: substrings of the kernel's name, first match wins
@@ -164,13 +170,13 @@ def measure(fn, n: int, device: torch.device, images: int) -> dict:
     return out
 
 
-def report(title: str, unit: str, res: dict) -> None:
+def report(title: str, unit: str, res: dict, items: str = "images") -> None:
     if "classes" not in res:
         print(f"{title}: ran on the CPU ({res['wall_ms']:.3f} ms per {unit} of host time); "
               f"device time {res['device']}", flush=True)
         return
     print(f"{title}: {res['wall_ms']:.3f} ms per {unit} unprofiled, "
-          f"{res['images_per_sec']:.3f} images/s", flush=True)
+          f"{res['images_per_sec']:.3f} {items}/s", flush=True)
     print(
         f"  peak memory {res['peak_gib']:.3f} GiB; under the profiler {res['profiled_wall_ms']:.3f} "
         f"ms per {unit}, kernel time {res['kernel_ms']:.3f} ms, {res['launches']:.0f} kernels per "
@@ -188,7 +194,7 @@ def report(title: str, unit: str, res: dict) -> None:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser("clipself_tpu_torch path profiler")
-    p.add_argument("--path", default="clip", choices=["clip", "detector", "detector_train"])
+    p.add_argument("--path", default="clip", choices=["clip", "detector", "detector_train", "text"])
     p.add_argument("--preset", default="ov_coco_vitb16", choices=sorted(PRESETS))
     p.add_argument("--det-batch", type=int, default=8)
     p.add_argument("--model", default="EVA02-CLIP-B-16")
@@ -219,11 +225,23 @@ def main(argv=None) -> dict:
         out = profile_detector(args, device)
     elif args.path == "detector_train":
         out = profile_detector_train(args, device)
+    elif args.path == "text":
+        out = profile_text(args, device)
     else:
         out = profile_clip(args, device)
     if args.json:
         print(json.dumps(out), flush=True)
     return out
+
+
+def profile_text(args, device: torch.device) -> dict:
+    model = create_model(args.model, device=device, dtype=torch.bfloat16, seed=args.seed)
+    names = coco_split()["all"] + ["background"]
+    prompts = sum(len(category_prompts(c)) for c in names)
+    res = measure(lambda: build_text_embeddings(model, names), args.steps, device, prompts)
+    report(f"{args.model} text embeddings: {len(names)} classes, {prompts} prompts, bf16",
+           "class matrix", res, items="prompts")
+    return {"model": args.model, "text": res}
 
 
 def profile_clip(args, device: torch.device) -> dict:

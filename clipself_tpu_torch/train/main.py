@@ -130,6 +130,11 @@ def train(args) -> dict:
         )
     if not args.steps_per_epoch:
         raise ValueError("--synthetic needs --steps-per-epoch")
+    if args.resume == "auto" and not args.name:
+        raise ValueError(
+            "--resume auto needs --name (without it each run creates a "
+            "fresh timestamped dir, so there is nothing to resume from)"
+        )
     device = _device(args.device)
     cfg = get_model_config(args.model)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
@@ -169,10 +174,13 @@ def train(args) -> dict:
     start_epoch = 0
     if args.resume:
         resume_dir = ckpt_dir if args.resume == "auto" else args.resume
-        if args.resume != "auto" and not os.path.isdir(resume_dir):
+        if os.path.isdir(resume_dir):
+            state, start_epoch = ckpt.restore_checkpoint(resume_dir, state)
+            log.info(f"resume from {resume_dir}: epoch {start_epoch}, step {state.step}")
+        elif args.resume != "auto":
             raise FileNotFoundError(resume_dir)
-        state, start_epoch = ckpt.restore_checkpoint(resume_dir, state)
-        log.info(f"resume from {resume_dir}: epoch {start_epoch}, step {state.step}")
+        else:
+            log.info("--resume auto: no checkpoint yet, starting fresh")
 
     step_fn = make_train_step(
         partial(clipself_loss, cosine_weight=args.cosine_weight), teacher

@@ -67,11 +67,7 @@ def test_tower_matches_jax(towers, size, method):
 def test_state_dict_from_jax_equals_export_state_dict(towers):
     _, params, model = towers
     cfg = get_model_config(NAME)
-    ref = {
-        k: v
-        for k, v in jtorch_io.export_state_dict(params, cfg).items()
-        if k.startswith("visual.") or k == "logit_scale"
-    }
+    ref = jtorch_io.export_state_dict(params, cfg)  # the whole CLIP, text tower included
     sd = state_dict_from_jax(params)
     assert sorted(sd) == sorted(ref)
     for k, v in sd.items():
@@ -85,10 +81,9 @@ def test_load_weights_is_strict(towers, tmp_path):
     _, params, _ = towers
     sd = state_dict_from_jax(params)
     model = CLIP(get_model_config(NAME), torch.float32)
-    # reference checkpoints: wrapped, `module.`-prefixed, with text keys and
-    # RoPE buffers the port drops
+    # reference checkpoints: wrapped, `module.`-prefixed, with RoPE buffers
+    # the port drops (every text key loads: tests/test_torch_text.py)
     wrapped = {f"module.{k}": v for k, v in sd.items()}
-    wrapped["module.text.token_embedding.weight"] = torch.zeros(3)
     wrapped["module.visual.rope.freqs_cos"] = torch.zeros(3)
     torch.save({"state_dict": wrapped, "epoch": 3}, tmp_path / "ckpt.pt")
     load_weights(model, str(tmp_path / "ckpt.pt"))

@@ -819,3 +819,40 @@ def test_l14_detector_predict_batch_on_card(dev, preset):
     if cfg.with_mask:
         probs = out[3]
         assert probs.shape == (2, 100, 28, 28) and np.isfinite(probs.float().cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_text_tower_on_card_matches_the_cpu(dev, dtype):
+    """`encode_text` of the tiny text tower (a full-vocabulary variant, so
+    that real BPE ids fit) on the card against the plain versions on the CPU
+    from the same weights: its LayerNorms launch the kernel, two a block and
+    the final one, and nothing else of ours launches (the causal attention
+    is plain PyTorch); float32 within 1e-5, bfloat16 at min row cosine
+    >= 0.9996, the bar of `chip_smoke.py`'s whole paths."""
+    import dataclasses
+
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.models.factory import create_model, get_tokenizer
+
+    tiny = get_model_config("EVA02-CLIP-Tiny-Test")
+    cfg = dataclasses.replace(tiny, text=dataclasses.replace(tiny.text, vocab_size=49408))
+    cpu = create_model(cfg, device="cpu", dtype=torch.float32, seed=0)
+    card = create_model(cfg, device=dev, dtype=dtype, seed=0)
+    tokens = torch.as_tensor(get_tokenizer(cfg)([
+        "a photo of a cat", "This is a photo of the traffic light in the scene.", "x",
+    ]))
+    counts = _launch_counts()
+    with torch.inference_mode():
+        got = card.encode_text(tokens.to(dev), normalize=True)
+        torch.cuda.synchronize()
+        launched = {k: v - counts[k] for k, v in _launch_counts().items()}
+        want = cpu.encode_text(tokens, normalize=True)
+    layers = cfg.text.layers
+    assert launched == {
+        "nms": 0, "flash_attention": 0, "flash_attention_bwd": 0, "rope_roll": 0,
+        "rope_roll_bwd": 0, "layer_norm": 2 * layers + 1, "layer_norm_bwd": 0,
+    }
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    else:
+        assert _min_row_cos(got.cpu(), want) >= 0.9996

@@ -1,9 +1,10 @@
-"""The port imports no JAX, Flax, PIL or JAX-package module: in a fresh
-interpreter (this test process has JAX loaded by conftest), import every
-module of the port, run the tiny evaluator, one train step, the tiny
-detector evaluation (COCO protocol, and LVIS protocol with a mask head: the
-mask paster's rasters need no PIL) and one tiny detector train step on the
-CPU."""
+"""The port imports no JAX, Flax, PIL, `regex`, `ftfy` or JAX-package
+module: in a fresh interpreter (this test process has JAX loaded by
+conftest), import every module of the port, run the tiny evaluator, one
+train step, the tiny detector evaluation (COCO protocol, and LVIS protocol
+with a mask head: the mask paster's rasters need no PIL), one tiny detector
+train step, and the text tower (`encode_text`, `build_text_embeddings` and
+the text-embedding CLI on a full-vocabulary tiny tower) on the CPU."""
 
 import json
 import math
@@ -52,6 +53,9 @@ import clipself_tpu_torch.detector.roi_head
 import clipself_tpu_torch.detector.rpn
 import clipself_tpu_torch.detector.targets
 import clipself_tpu_torch.detector.train as det_train
+import clipself_tpu_torch.models.text_transformer
+import clipself_tpu_torch.tokenizer as tokenizer
+import clipself_tpu_torch.tools.text_embeddings as text_embeddings
 
 model = factory.create_model("EVA02-CLIP-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
 batch = synthetic.synthetic_panoptic_batch(
@@ -98,9 +102,25 @@ det_run = det_train.main([
     "--steps-per-epoch", "1", "--output", sys.argv[1] + "/det",
 ])
 det_loss = det_run["history"][-1]["metrics"]["loss"]
-banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "clipself_tpu")
+tiny = factory.get_model_config("EVA02-CLIP-Tiny-Test")
+full = dataclasses.replace(tiny, text=dataclasses.replace(tiny.text, vocab_size=49408))
+tmodel = factory.create_model(full, device="cpu", dtype=torch.float32, seed=0)
+tokens = torch.as_tensor(factory.get_tokenizer(full)(["a photo of a cat", "a photo of a dog"]))
+txt = tmodel.encode_text(tokens, normalize=True)
+rows = text_embeddings.build_text_embeddings(tmodel, ["cat", "dog"])
+text_embeddings.get_model_config = lambda name: full
+with open(sys.argv[1] + "/classes.json", "w") as f:
+    json.dump(["cat", "dog", "zebra"], f)
+cli = text_embeddings.main([
+    "--model", "EVA02-CLIP-Tiny-Test", "--classes-json", sys.argv[1] + "/classes.json",
+    "--add-background", "--out", sys.argv[1] + "/emb.npy", "--device", "cpu",
+])
+text = {"encode_text": list(txt.shape), "finite": bool(torch.isfinite(txt).all()),
+        "rows": list(rows.shape), "cli": list(cli.shape), "ids": tokenizer.tokenize("a cat")[0, :4].tolist()}
+banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "regex", "ftfy",
+          "clipself_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-print(json.dumps({"n_results": len(res), "loss": loss, "det_loss": det_loss, "loaded": loaded,
+print(json.dumps({"n_results": len(res), "loss": loss, "det_loss": det_loss, "loaded": loaded, "text": text,
                   "metrics": json.loads(det_evaluate.metrics_json(metrics)),
                   "lvis": json.loads(det_evaluate.metrics_json(lvis))}))
 """
@@ -120,6 +140,8 @@ def test_port_runs_without_jax(tmp_path):
     assert math.isfinite(out["loss"]) and math.isfinite(out["det_loss"])
     assert (tmp_path / "det" / "detector_epoch0.pkl").is_file()
     assert out["loaded"] == []
+    assert out["text"] == {"encode_text": [2, 64], "finite": True, "rows": [2, 64], "cli": [4, 64],
+                           "ids": [49406, 320, 2368, 49407]}
     assert sorted(out["metrics"]) == ["AP50", "AP50_base", "AP50_novel", "AP75", "mAP"]
     assert all(v is None or 0.0 <= v <= 1.0 for v in out["metrics"].values())
     assert {"AP", "APr", "APc", "APf", "segm_AP", "segm_APr", "segm_AR@300"} <= set(out["lvis"])

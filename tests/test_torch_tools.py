@@ -75,6 +75,26 @@ def test_cpu_detector_train_run_reports_no_device_time(capsys):
     assert printed.count("not measured") == 1 and "images/s" not in printed and "train step" in printed
 
 
+def test_cpu_text_run_reports_no_device_time(capsys, monkeypatch):
+    """`--path text` on a full-vocabulary tiny text tower (real BPE ids do
+    not fit the registered tiny vocabulary)."""
+    import dataclasses
+
+    from clipself_tpu_torch.core.config import get_model_config
+
+    tiny = get_model_config("EVA02-CLIP-Tiny-Test")
+    full = dataclasses.replace(tiny, text=dataclasses.replace(tiny.text, vocab_size=49408))
+    build = profile_paths.create_model
+    monkeypatch.setattr(profile_paths, "create_model", lambda name, **kw: build(full, **kw))
+    out = profile_paths.main([
+        "--device", "cpu", "--path", "text", "--model", "EVA02-CLIP-Tiny-Test", "--steps", "1",
+    ])
+    assert out["model"] == "EVA02-CLIP-Tiny-Test" and out["text"]["device"].startswith("not measured")
+    printed = capsys.readouterr().out
+    assert printed.count("not measured") == 1 and "prompts/s" not in printed
+    assert "66 classes, 4158 prompts" in printed
+
+
 @pytest.mark.parametrize("preset,name,classes", [
     ("ov_coco_vitb16", "coco", 65), ("ov_coco_vitl14", "coco", 65), ("ov_lvis_vitb16", "lvis", 1203),
     ("ov_lvis_vitl14", "lvis", 1203), ("transfer_voc_vitl14", "voc", 20), ("tiny_test", "coco", 65),

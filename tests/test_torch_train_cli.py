@@ -98,3 +98,29 @@ def test_real_data_and_missing_steps_are_refused(tmp_path):
         train_main.main(argv[:i] + argv[i + 2:])
     with pytest.raises(SystemExit):
         train_main.parse_args(["--accum-freq", "2"])  # not carried by this slice
+
+
+def test_resume_auto_needs_a_name_in_both_packages(tmp_path, caplog):
+    """`--resume auto` without `--name` is refused with the JAX trainer's
+    ValueError by both trainers; with a name and no checkpoint yet, the
+    port's run says so and starts at epoch 0."""
+    from clipself_tpu.train import main as jax_main
+
+    argv = _argv(tmp_path, "x", 1) + ["--resume", "auto"]
+    i = argv.index("--name")
+    unnamed = argv[:i] + argv[i + 2:]
+    with pytest.raises(ValueError, match="--resume auto needs --name"):
+        train_main.main(unnamed)
+    assert not os.listdir(tmp_path)
+    jax_argv = [
+        "--synthetic", "--model", "EVA02-CLIP-Tiny-Test", "--n-devices", "1", "--batch-size", "2",
+        "--det-image-size", "48", "--max-boxes", "3", "--steps-per-epoch", "2",
+        "--epochs", "1", "--logs", str(tmp_path / "jax"), "--resume", "auto",
+    ]
+    with pytest.raises(ValueError, match="--resume auto needs --name"):
+        jax_main.main(jax_argv)
+
+    with caplog.at_level("INFO", logger="clipself_tpu_torch"):
+        run = train_main.main(argv)
+    assert "--resume auto: no checkpoint yet, starting fresh" in caplog.text
+    assert [h["epoch"] for h in run["history"]] == [0, 0] and run["state"].step == 2

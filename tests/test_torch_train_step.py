@@ -37,6 +37,7 @@ from clipself_tpu_torch.models.clip import CLIP
 from clipself_tpu_torch.models.torch_io import (
     _eva_vision_key_map,
     _flatten,
+    _text_key_map,
     load_weights,
     state_dict_from_jax,
 )
@@ -78,8 +79,9 @@ def _batch(seed, b=2, m=3, size=48, crop=32):
 
 def _jax_tree_to_torch(tree) -> dict:
     """A JAX param-shaped tree (params, grads, labels) -> {torch key: leaf},
-    visual tower and logit_scale, leaves untransformed."""
+    visual tower, text tower and logit_scale, leaves untransformed."""
     out = {_eva_vision_key_map(path)[0]: leaf for path, leaf in _flatten(tree["visual"]).items()}
+    out.update({_text_key_map(path)[0]: leaf for path, leaf in _flatten(tree["text"]).items()})
     out["logit_scale"] = tree["logit_scale"]
     return out
 

@@ -70,6 +70,38 @@ def test_evaluate_zero_shot_matches_jax(setup):
     np.testing.assert_equal(got, want)
 
 
+def test_batch_logits_image_ave_pool_match_jax(setup):
+    """The crops scored by their mean dense feature (`image_ave_pool`):
+    `encode_dense(normalize=True)` averaged and L2-normalized, as the JAX
+    package's batch features compute them."""
+    jmodel, params, model, batches, emb = setup
+    e = emb / (np.linalg.norm(emb, axis=-1, keepdims=True) + 1e-12)
+    jfn = jzero_shot._make_batch_features(jmodel, "v2", True)
+    b = batches[0]
+    args = (b["images"], b["boxes"][..., :4], b["crops"], b["gt_masks"])
+    want = jfn(params, jnp.asarray(e), *(jnp.asarray(a) for a in args))
+    got = zero_shot.batch_logits(
+        model, torch.from_numpy(e), *(torch.from_numpy(a) for a in args), image_ave_pool=True
+    )
+    cls_crops = zero_shot.batch_logits(model, torch.from_numpy(e), *(torch.from_numpy(a) for a in args))[1]
+    assert (got[1] - cls_crops).abs().max() > 1e-3  # another crop feature than the CLS one
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=TOL)
+
+
+def test_evaluate_zero_shot_image_ave_pool_matches_jax(setup):
+    jmodel, params, model, batches, emb = setup
+    want = jzero_shot.evaluate_zero_shot(
+        jmodel, params, batches[:1], emb, image_ave_pool=True, ann_bucket=25
+    )
+    got = zero_shot.evaluate_zero_shot(
+        model, batches[:1], emb, device="cpu", ann_bucket=25, image_ave_pool=True
+    )
+    assert sorted(got) == sorted(want) and len(got) == 12
+    np.testing.assert_equal(got, want)
+
+
 def test_bucket_width():
     boxes = np.zeros((2, 100, 8), np.float32)
     boxes[0, :13, 5] = 1.0
