@@ -59,6 +59,23 @@ then for each model, B/16 first:
    kernels, bf16 kernels and the f32 plain path (L/14: at full width and a
    depth of 6 blocks, since the plain path keeps every block's
    [1, 16, 4097, 4097] float32 attention maps for its backward);
+7b. after B/16's phases, the input pipeline on files (`data/`, no PIL): a
+   corpus written under `build/chip_smoke_data/` (deleted at the end) by a
+   stdlib PNG writer whose rows cycle the five PNG filters: 16 train images
+   at COCO's sizes with 30 proposals each, 4 panoptic val images with 6
+   thing and 4 stuff segments over 133 categories, a [133, 512] class
+   embedding; whether the C compiler finds `jpeglib.h` and `png.h` (the
+   native core's `--native-loader` route runs only then); one core's ms for
+   a PNG decode, a det transform, a grid item and a panoptic item; the
+   loaders alone in items/s (`--workers` = the host's cores, at most 8);
+   the pinned copy of a train batch; then `train.main` at the B/16 recipe
+   (1024², batch 2, 20 boxes) with `--val-data` before and after the
+   epoch: `proposals_distill` 1 + 2 steps under the profiler (the device's
+   kernel ms a step and idle share), `grid_distill` 3 + 5 steps through
+   the NumPy route and the native one, each beside the synthetic step of
+   phase 6 with its idle share derived from that kernel time, and an
+   evaluation-only run; every loss finite, every metric finite or null, and
+   every launch count equal to the synthetic step's and evaluator's;
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
 8. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
@@ -99,7 +116,9 @@ then the L/14 presets (EVA02-CLIP-L-14-336 at 896^2, 261888 anchors):
 
 The second-to-last line is one JSON object with a row per kernel; the last
 line is `{"ok": true, "device": {...}}`. Without a CUDA card it exits 1
-before printing either.
+before printing either. Whether it passes or fails, it stops every process it
+started before it exits (`stop_children`): the data phase's fork server and
+resource tracker would otherwise outlive it for a while.
 """
 
 from __future__ import annotations
@@ -1199,8 +1218,9 @@ def phase_text(torch, dev, s: Model, model, model_f32) -> dict:
     return launches
 
 
-def phase_model(torch, dev, s: Model, logs_dir) -> dict:
-    """Phases 3 to 7 for one model; returns the launch counts by main path."""
+def phase_model(torch, dev, s: Model, logs_dir) -> tuple[dict, dict]:
+    """Phases 3 to 7 for one model; returns the launch counts by main path
+    and the synthetic train run's numbers."""
     model_bf16, batch0, paths = phase_eval(torch, dev, s)
     model_f32 = phase_parity(torch, dev, s, model_bf16, batch0)
     paths[f"{s.key}_text"] = phase_text(torch, dev, s, model_bf16, model_f32)
@@ -1228,7 +1248,7 @@ def phase_model(torch, dev, s: Model, logs_dir) -> dict:
     torch.cuda.empty_cache()
     phase_train_parity(torch, dev, s)
     torch.cuda.empty_cache()
-    return paths
+    return paths, train
 
 
 def stats(got, want, width=None) -> dict:
@@ -1698,6 +1718,464 @@ def phase_detector_train_parity(torch, dev):
         fail(f"detector train parity: bf16 kernel gradient cosines {groups}")
 
 
+# ---------------------------------------------------------------------------
+# the data phase: the trainer and the evaluator on files (B/16)
+
+# COCO's common image sizes (w, h); the train files cycle them
+DATA_SIZES = ((640, 480), (480, 640), (640, 427), (500, 375))
+DATA_TRAIN, DATA_PROPOSALS, DATA_VAL = 16, 30, 4
+# panoptic: 80 thing and 53 stuff categories; 6 thing and 4 stuff segments an image
+PAN_THINGS, PAN_STUFF, SEG_THINGS, SEG_STUFF = 80, 53, 6, 4
+# The windows that time the input pipeline. A loader's workers queue 2
+# batches each (DataLoader's prefetch_factor) as soon as they start, and
+# `device_prefetch` holds 2 more: that backlog is built before any step
+# runs. So each timed window starts after as many batches as the backlog
+# and is DATA_WINDOW times as long: batches built ahead of it are at most
+# 1/DATA_WINDOW of it. The loaders alone: LOADER_TIMED batches after the
+# workers' first 2 each. The grid run: DATA_PROFILED steps under the
+# profiler after its timed window. proposals_distill: 1 + 2 steps, a check
+# of the route, not timed.
+DATA_WINDOW, LOADER_TIMED, DATA_PROFILED, PROP_STEPS = 8, 128, 8, 3
+
+
+def png_bytes(img) -> bytes:
+    """A PNG of an RGB uint8 [H, W, 3] array, written with the stdlib and
+    NumPy, its rows filtered None, Sub, Up, Average and Paeth in turn."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    x = img.astype(np.int16)
+    left = np.zeros_like(x)
+    left[:, 1:] = x[:, :-1]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    ul = np.zeros_like(x)
+    ul[1:, 1:] = x[:-1, :-1]
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    kinds = np.arange(h) % 5
+    rows = ((x - preds[kinds, np.arange(h)]) % 256).astype(np.uint8).reshape(h, -1)
+    raw = np.concatenate([kinds.astype(np.uint8)[:, None], rows], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def photo(rng, w: int, h: int):
+    """A photo-like RGB image: a smooth random field with some grain."""
+    import numpy as np
+
+    coarse = rng.uniform(0, 255, (h // 32 + 2, w // 32 + 2, 3))
+    ys, xs = np.linspace(0, h // 32 + 1, h), np.linspace(0, w // 32 + 1, w)
+    y0, x0 = ys.astype(int).clip(max=h // 32), xs.astype(int).clip(max=w // 32)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    top = coarse[y0][:, x0] * (1 - fx) + coarse[y0][:, x0 + 1] * fx
+    bottom = coarse[y0 + 1][:, x0] * (1 - fx) + coarse[y0 + 1][:, x0 + 1] * fx
+    field = top * (1 - fy) + bottom * fy + rng.normal(0, 6, (h, w, 3))
+    return field.clip(0, 255).astype(np.uint8)
+
+
+def write_corpus(root: str, embed_dim: int, entries: int, seed: int = SEED) -> dict:
+    """The data phase's corpus under ``root``: `DATA_TRAIN` train PNGs and a
+    COCO JSON of ``entries`` images that list them in turn (each entry is
+    decoded anew, so an epoch is as long as the timed windows need), each
+    file with `DATA_PROPOSALS` proposal boxes; panoptic val PNGs with their
+    segment PNGs and JSON over 133 categories; a random class embedding.
+    Returns the paths and the first train image's pixels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(root, k) for k in ("train", "val", "segm")}
+    for d in paths.values():
+        os.makedirs(d, exist_ok=True)
+    files, first = [], None
+    for i in range(DATA_TRAIN):
+        w, h = DATA_SIZES[i % len(DATA_SIZES)]
+        pixels = photo(rng, w, h)
+        first = pixels if first is None else first
+        with open(os.path.join(paths["train"], f"{i:012d}.png"), "wb") as f:
+            f.write(png_bytes(pixels))
+        boxes = []
+        for _ in range(DATA_PROPOSALS):
+            bw, bh = rng.uniform(8, w / 2), rng.uniform(8, h / 2)
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            boxes.append([float(x), float(y), float(bw), float(bh)])
+        files.append((f"{i:012d}.png", w, h, boxes))
+    images, anns = [], []
+    for i in range(entries):
+        name, w, h, boxes = files[i % DATA_TRAIN]
+        images.append({"id": i, "file_name": name, "width": w, "height": h})
+        anns += [{"id": i * 100 + j, "image_id": i, "category_id": 1, "bbox": b, "area": b[2] * b[3]}
+                 for j, b in enumerate(boxes)]
+    train = {"images": images, "annotations": anns, "categories": [{"id": 1, "name": "object"}]}
+    cats = [{"id": c + 1, "name": f"class{c}", "isthing": int(c < PAN_THINGS)}
+            for c in range(PAN_THINGS + PAN_STUFF)]
+    val_images, pan = [], []
+    for i in range(DATA_VAL):
+        w, h = DATA_SIZES[i % len(DATA_SIZES)]
+        name = f"{1000 + i:012d}.png"
+        with open(os.path.join(paths["val"], name), "wb") as f:
+            f.write(png_bytes(photo(rng, w, h)))
+        ids = np.zeros((h, w), np.int64)
+        segments = []
+        for s in range(SEG_STUFF):  # horizontal bands
+            ids[s * h // SEG_STUFF : (s + 1) * h // SEG_STUFF] = s + 1
+            segments.append({"id": s + 1, "category_id": int(rng.integers(PAN_THINGS, PAN_THINGS + PAN_STUFF)) + 1})
+        for s in range(SEG_THINGS):  # boxes on top of them
+            bw, bh = int(rng.integers(24, w // 3)), int(rng.integers(24, h // 3))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            seg_id = 1000 + 37 * s
+            ids[y : y + bh, x : x + bw] = seg_id
+            segments.append({"id": seg_id, "category_id": int(rng.integers(0, PAN_THINGS)) + 1,
+                             "bbox": [x, y, bw, bh]})
+        for seg in segments:
+            ys, xs = np.nonzero(ids == seg["id"])
+            seg["area"] = int(len(ys))
+            seg.setdefault("bbox", [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                                    int(ys.max() - ys.min() + 1)])
+        color = np.stack([ids % 256, ids // 256 % 256, ids // 65536], -1).astype(np.uint8)
+        with open(os.path.join(paths["segm"], name), "wb") as f:
+            f.write(png_bytes(color))
+        val_images.append({"id": 1000 + i, "file_name": name, "width": w, "height": h})
+        pan.append({"image_id": 1000 + i, "file_name": name, "segments_info": segments})
+    paths["train_json"] = os.path.join(root, "instances_train.json")
+    paths["val_json"] = os.path.join(root, "panoptic_val.json")
+    paths["embed"] = os.path.join(root, "embeddings.npy")
+    with open(paths["train_json"], "w") as f:
+        json.dump(train, f)
+    with open(paths["val_json"], "w") as f:
+        json.dump({"images": val_images, "annotations": pan, "categories": cats}, f)
+    np.save(paths["embed"], rng.standard_normal((len(cats), embed_dim)).astype(np.float32))
+    return paths, first
+
+
+def host_item_ms(ds, paths: dict, s: Model) -> None:
+    """One core's ms for the NumPy route's pieces on this host: a train PNG
+    decoded, its det transform, a whole grid item and a panoptic eval item
+    (the best of 3 each)."""
+    from clipself_tpu_torch.data import datasets, image_io, transforms
+
+    def best(fn) -> float:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    path = os.path.join(paths["train"], ds.coco.file_name(ds.image_ids[0]))
+    img = image_io.open_image(path)
+    val = datasets.COCOPanopticEvalDataset(
+        paths["val_json"], paths["val"], paths["segm"], det_size=s.image, crop_size=s.crop,
+        downsample_factor=s.vision.patch_size,
+    )
+    print(
+        f"data host, one core: PNG decode {img.shape[1]}x{img.shape[0]} "
+        f"{best(lambda: image_io.open_image(path)):.1f} ms, det transform to {s.image}^2 "
+        f"{best(lambda: transforms.det_transform(img, s.image)):.1f} ms, grid item "
+        f"({TRAIN_BOXES} crops at {s.crop}^2) {best(lambda: ds[0]):.1f} ms, panoptic eval item "
+        f"({val.max_anns} segments) {best(lambda: val[0]):.1f} ms",
+        flush=True,
+    )
+
+
+def native_headers() -> tuple[bool, str]:
+    """Whether the C compiler finds libjpeg's and libpng's headers, which the
+    native core's build needs (a preprocessor run each, before any build)."""
+    missing = []
+    for header in ("jpeglib.h", "png.h"):
+        try:
+            proc = subprocess.run(
+                ["cc", "-E", "-"], input=f"#include <{header}>\n",
+                capture_output=True, text=True, timeout=60,
+            )
+        except OSError as e:
+            return False, f"cc: {e}"
+        if proc.returncode != 0:
+            missing.append(header)
+    if missing:
+        return False, f"not found by cc -E: {', '.join(missing)}"
+    return True, "jpeglib.h and png.h found"
+
+
+@contextlib.contextmanager
+def profiled_steps(torch, start: int, stop: int, out: dict):
+    """Profile the device over the trainer's steps ``start`` + 1 to
+    ``stop``: the trainer's step function is wrapped so that after step
+    ``start`` (the trainer has logged it, so the device is idle) the
+    profiler starts and after step ``stop`` it stops; ``out`` gets the
+    window's wall ms and the kernels' device ms (a host range mirrored onto
+    the device's timeline is not a kernel and is left out, as in
+    `tools/profile_paths.py`)."""
+    from clipself_tpu_torch.train import main as train_main
+
+    original = train_main.make_train_step
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def make(*args, **kwargs):
+        step = original(*args, **kwargs)
+        done = [0]
+
+        def wrapped(state, batch):
+            metrics = step(state, batch)
+            done[0] += 1
+            if done[0] in (start, stop):
+                torch.cuda.synchronize()
+                if done[0] == start:
+                    out["prof"] = torch.profiler.profile(activities=acts)
+                    out["prof"].start()
+                    out["t0"] = time.perf_counter()
+                else:
+                    out["wall_ms"] = (time.perf_counter() - out["t0"]) * 1e3
+                    out["prof"].stop()
+            return metrics
+
+        return wrapped
+
+    train_main.make_train_step = make
+    try:
+        yield
+    finally:
+        train_main.make_train_step = original
+    events = out.pop("prof").key_averages()
+    host = {ev.key for ev in events if ev.device_type == torch.autograd.DeviceType.CPU}
+    out["kernel_ms"] = sum(
+        (getattr(ev, "self_device_time_total", 0) or 0) / 1e3 for ev in events
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.key not in host
+    )
+    if out["kernel_ms"] <= 0:
+        fail("data phase: the profiler recorded no device time over the profiled steps")
+
+
+def loader_rate(make_iter, skip: int, timed: int) -> tuple[float, float]:
+    """(items/s over ``timed`` batches of ``TRAIN_BATCH`` items after the
+    first ``skip``, seconds to the first batch) of a fresh iterator, nothing
+    else running. The first ``skip`` batches are the ones the workers
+    queue as they start, built during the start: leaving them out times the
+    workers' own pace."""
+    t0 = time.perf_counter()
+    it = make_iter()
+    first = start = None
+    for n, _ in enumerate(zip(range(skip + timed), it)):
+        if first is None:
+            first = time.perf_counter()
+        if n == skip - 1:
+            start = time.perf_counter()
+    rate = timed * TRAIN_BATCH / (time.perf_counter() - start)
+    if hasattr(it, "close"):
+        it.close()
+    return rate, first - t0
+
+
+def pinned_copy_ms(torch, dev, s: Model) -> tuple[float, int]:
+    """Device ms of one train batch's host-to-device copy from pinned
+    memory on a side stream, as `device_prefetch` issues it, and its bytes."""
+    host = {
+        "images": torch.zeros(TRAIN_BATCH, s.image, s.image, 3).pin_memory(),
+        "boxes": torch.zeros(TRAIN_BATCH, TRAIN_BOXES, 5).pin_memory(),
+        "crops": torch.zeros(TRAIN_BATCH, TRAIN_BOXES, s.crop, s.crop, 3).pin_memory(),
+    }
+    stream = torch.cuda.Stream(dev)
+
+    def copy():
+        with torch.cuda.stream(stream):
+            return {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+
+    for _ in range(3):
+        copy()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    for _ in range(10):
+        copy()
+    end.record(stream)
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 10, nbytes(*host.values())
+
+
+def phase_data(torch, dev, s: Model, logs_dir: str, synthetic: dict) -> dict:
+    """The trainer and the evaluator on files at B/16's recipe: the loaders
+    alone, grid_distill through the NumPy route and the native core,
+    proposals_distill, and an evaluation-only run; launches checked equal
+    to those of the synthetic step and evaluator at the same shapes."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.data import datasets, image_io, loader, native_loader
+    from clipself_tpu_torch.train import main as train_main
+
+    layers = s.vision.layers
+    workers = min(os.cpu_count() or 1, 8)
+    # batches built before a step runs: the workers' queue and device_prefetch's
+    backlog = 2 * workers + loader.PREFETCH
+    warmup, timed = backlog, DATA_WINDOW * backlog
+    steps = warmup + timed + DATA_PROFILED
+    # one pass holds every grid step and the loaders' windows
+    entries = TRAIN_BATCH * max(steps, 2 * workers + LOADER_TIMED)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_data")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths, first = write_corpus(root, get_model_config(s.model).embed_dim, entries)
+    print(
+        f"data corpus: {DATA_TRAIN} train PNGs at {list(DATA_SIZES)} with {DATA_PROPOSALS} "
+        f"proposals each, listed in turn as {entries} train images; {DATA_VAL} panoptic val PNGs "
+        f"with {SEG_THINGS} thing and {SEG_STUFF} stuff segments over {PAN_THINGS + PAN_STUFF} "
+        f"categories; rows filtered None/Sub/Up/Average/Paeth in turn; written in "
+        f"{time.perf_counter() - t0:.2f} s; {workers} workers (os.cpu_count() {os.cpu_count()}, "
+        f"capped at 8); backlog {backlog} batches (2 a worker, {loader.PREFETCH} in device_prefetch)",
+        flush=True,
+    )
+    headers, why = native_headers()
+    print(f"data native core: libjpeg/libpng headers: {why}", flush=True)
+    if headers:
+        t0 = time.perf_counter()
+        native_loader.load()
+        print(f"data native core built (make -C native) in {time.perf_counter() - t0:.2f} s", flush=True)
+    else:
+        print(f"data native core: NOT run, the --native-loader route needs the headers ({why})", flush=True)
+    out = {}
+    try:
+        ds = datasets.GridDistillDataset(
+            paths["train_json"], paths["train"], det_size=s.image, crop_size=s.crop,
+            max_anns=TRAIN_BOXES, seed=SEED,
+        )
+        # the decoder on this host against the pixels the writer was given
+        decoded = image_io.open_image(os.path.join(paths["train"], ds.coco.file_name(0)))
+        if decoded is None or decoded.shape != first.shape or not (decoded == first).all():
+            fail("data: the PNG decoder does not give back the written pixels")
+        print(f"data check: a {first.shape[1]}x{first.shape[0]} train PNG (rows cycling the five "
+              f"filters) decodes to the written pixels, equal", flush=True)
+        host_item_ms(ds, paths, s)
+        skip = 2 * workers
+        rate, first = loader_rate(lambda: iter(loader.make_loader(
+            ds, TRAIN_BATCH, num_workers=workers, pin_memory=True,
+        )), skip, LOADER_TIMED)
+        print(f"data loader alone, NumPy route ({workers} workers, pinned): {rate:.3f} items/s "
+              f"over {LOADER_TIMED * TRAIN_BATCH} items after the first {skip} batches (the "
+              f"workers' queue); the first batch came after {first:.3f} s (the fork server and "
+              f"its workers starting)", flush=True)
+        if headers:
+            native = loader.NativeDistillLoader(ds, TRAIN_BATCH, seed=SEED, num_threads=workers)
+            rate, first = loader_rate(lambda: iter(native), 2, LOADER_TIMED)
+            native.close()
+            print(f"data loader alone, native route ({workers} threads): {rate:.3f} items/s over "
+                  f"{LOADER_TIMED * TRAIN_BATCH} items after the first 2 batches (its double "
+                  f"buffer); the first came after {first:.3f} s; rows built by the NumPy route "
+                  f"{native.fallback_rows}", flush=True)
+        copy_ms, copy_bytes = pinned_copy_ms(torch, dev, s)
+        print(f"data pinned copy of one train batch ({copy_bytes / 2 ** 20:.1f} MiB, side stream): "
+              f"{copy_ms:.3f} ms, {copy_bytes / copy_ms / 1e6:.3f} GB/s", flush=True)
+
+        val = ["--val-data", paths["val_json"], "--val-image-root", paths["val"],
+               "--val-segm-root", paths["segm"], "--embed-path", paths["embed"]]
+        common = [
+            "--model", s.model, "--precision", "bf16", "--device", str(dev),
+            "--batch-size", str(TRAIN_BATCH), "--det-image-size", str(s.image),
+            "--max-boxes", str(TRAIN_BOXES), "--lock-image-unlocked-groups", str(layers),
+            "--epochs", "1", "--log-every-n-steps", "1", "--lr", "1e-5", "--warmup", "1",
+            "--seed", str(SEED), "--workers", str(workers), "--logs", logs_dir,
+        ]
+        train = ["--train-data", paths["train_json"], "--train-image-root", paths["train"]]
+        synthetic_ms = 1e3 * TRAIN_BATCH / synthetic["images_per_sec"]
+        runs = [("proposals", ["--dataset-type", "proposals_distill", "--steps-per-epoch",
+                               str(PROP_STEPS)], PROP_STEPS)]
+        runs.append(("grid", ["--dataset-type", "grid_distill", "--steps-per-epoch", str(steps)], steps))
+        if headers:
+            runs.append(("native", ["--dataset-type", "grid_distill", "--native-loader",
+                                    "--steps-per-epoch", str(steps)], steps))
+        kernel_ms = None
+        for key, extra, n_steps in runs:
+            tag = f"{s.key} data {key}"
+            prof = {}
+            reset_counts()
+            # the grid runs: after the timed window, DATA_PROFILED steps under the profiler
+            with contextlib.nullcontext() if key == "proposals" else \
+                    profiled_steps(torch, warmup + timed, steps, prof):
+                run = train_main.main(common + train + val + extra + ["--name", f"data_{key}"])
+            torch.cuda.synchronize()
+            launches = read_counts()
+            hist = run["history"]
+            losses = [h["loss"] for h in hist]
+            print(f"{tag} losses {json.dumps([round(x, 6) for x in losses])}", flush=True)
+            if key != "proposals":
+                step_ms = [TRAIN_BATCH / h["images_per_sec"] * 1e3 for h in hist]
+                window = step_ms[warmup : warmup + timed]
+                median_ms = statistics.median(window)
+                mean_ips = TRAIN_BATCH * len(window) / sum(window) * 1e3
+                kernel_ms = prof["kernel_ms"] / DATA_PROFILED
+                prof_ms = prof["wall_ms"] / DATA_PROFILED
+                print(
+                    f"{tag} {s.model} step from files: batch {TRAIN_BATCH} at {s.image}px, "
+                    f"{TRAIN_BOXES} boxes, {timed} timed steps after {warmup} warm-up (the "
+                    f"backlog), median step {median_ms:.3f} ms, {TRAIN_BATCH / median_ms * 1e3:.3f} "
+                    f"images/s; over the window {mean_ips:.3f} images/s (images over its time); the "
+                    f"synthetic staged step in this call {synthetic_ms:.3f} ms",
+                    flush=True,
+                )
+                print(
+                    f"{tag} device idle share over {DATA_PROFILED} profiled steps after the window "
+                    f"{1 - prof['kernel_ms'] / prof['wall_ms']:.1%}: kernel time {kernel_ms:.3f} ms "
+                    f"a step, wall {prof_ms:.3f} ms a step under the profiler",
+                    flush=True,
+                )
+                print(f"{tag} ms per step: warm-up {[round(t, 3) for t in step_ms[:warmup]]}, "
+                      f"timed {[round(t, 3) for t in window]}", flush=True)
+            print(f"{tag} evals " + json.dumps(run["evals"], sort_keys=True), flush=True)
+            print(f"{tag} launches {json.dumps(launches)}", flush=True)
+            if key == "native":
+                print(f"{tag} rows built by the NumPy route: {run['native_fallback_rows']}", flush=True)
+            if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+                fail(f"{tag} losses {losses}")
+            check_evals(tag, run["evals"], 2)
+            expect = expected_launches(layers, steps=n_steps, evals=len(run["evals"]) * DATA_VAL)
+            if launches != expect:
+                fail(f"{tag} launch counts {launches}, expected {expect} (the synthetic step's and "
+                     f"evaluator's at these shapes)")
+            out[f"{s.key}_train_{key}"] = launches
+            del run
+            torch.cuda.empty_cache()
+        print(f"{s.key} data: synthetic staged step {synthetic_ms:.3f} ms, its idle share derived "
+              f"from the grid run's kernel time a step {1 - kernel_ms / synthetic_ms:.1%}", flush=True)
+
+        tag = f"{s.key} data eval_only"
+        reset_counts()
+        t0 = time.perf_counter()
+        run = train_main.main(common + val + ["--name", "data_eval_only"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"{tag} {s.model}: {DATA_VAL} val images at batch 1 in {dt:.3f} s (model build "
+              f"included), metrics " + json.dumps(run["evals"], sort_keys=True), flush=True)
+        print(f"{tag} launches {json.dumps(launches)}", flush=True)
+        check_evals(tag, run["evals"], 1)
+        expect = expected_launches(layers, evals=DATA_VAL)
+        if launches != expect:
+            fail(f"{tag} launch counts {launches}, expected {expect}")
+        out[f"{s.key}_eval_files"] = launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(logs_dir, ignore_errors=True)
+    return out
+
+
+def check_evals(tag: str, evals: list, n: int) -> None:
+    """``n`` evaluations, each with the evaluator's 12 metrics, every one
+    finite in [0, 1] or null (a class group the val set lacks)."""
+    if len(evals) != n:
+        fail(f"{tag}: {len(evals)} evaluations, expected {n}")
+    for e in evals:
+        metrics = {k: v for k, v in e.items() if k != "epoch"}
+        if len(metrics) != 12 or not all(v is None or 0.0 <= v <= 1.0 for v in metrics.values()):
+            fail(f"{tag}: evaluation not finite or null: {e}")
+
+
+
 def kernel_rows(records: Records, paths: dict) -> list:
     """One row per kernel: its launches on the main paths and its numbers
     at the L/14 student's shape in bfloat16 (RoPE: q and k in one launch, as
@@ -1748,7 +2226,76 @@ def kernel_rows(records: Records, paths: dict) -> list:
     return kernels
 
 
+def descendants(root: int) -> list[int]:
+    """The pids of the live processes below ``root``, from the parent links
+    in /proc (zombies left out: they run nothing and go with their parent)."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state != "Z":
+            parent[int(name)] = int(ppid)
+    found, level = [], {root}
+    while level:
+        level = {p for p, pp in parent.items() if pp in level}
+        found.extend(level)
+    return found
+
+
+def end_processes(pids: list[int], grace_s: float = 10.0) -> None:
+    """SIGTERM each process, then SIGKILL those still alive after ``grace_s``."""
+    import signal
+
+    def alive():
+        live = set(descendants(os.getpid()))
+        return [p for p in pids if p in live]
+
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in alive():
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + grace_s
+        while alive() and time.monotonic() < deadline:
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(-1, os.WNOHANG)
+            time.sleep(0.05)
+
+
+def stop_children() -> None:
+    """Stop every process this run started, so that none outlives it. The
+    data phase's loaders leave a fork server and a resource tracker, which on
+    their own exit only some time after this process: a worker still alive
+    (an exception can hold its loader) is ended first, since the tracker
+    waits for every holder of its pipe, then both stop through
+    `loader.stop_worker_server`, and anything left is ended."""
+    from multiprocessing import forkserver, resource_tracker
+
+    helpers = {forkserver._forkserver._forkserver_pid, resource_tracker._resource_tracker._pid}
+    strays = [p for p in descendants(os.getpid()) if p not in helpers]
+    loader = sys.modules.get("clipself_tpu_torch.data.loader")
+    if loader is not None:
+        end_processes(strays)
+        loader.stop_worker_server()
+    left = descendants(os.getpid())
+    if strays or left:
+        print(f"chip_smoke: ended processes still running at exit: {sorted(set(strays) | set(left))}",
+              file=sys.stderr, flush=True)
+    end_processes(left)
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:
+        stop_children()
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1785,8 +2332,12 @@ def main() -> int:
     paths = {}
     print(f"kernels done at {time.perf_counter() - t0:.1f} s", flush=True)
     for s in MODELS:
-        paths.update(phase_model(torch, dev, s, logs_dir))
+        model_paths, train = phase_model(torch, dev, s, logs_dir)
+        paths.update(model_paths)
         print(f"{s.key} done at {time.perf_counter() - t0:.1f} s", flush=True)
+        if s.key == "b16":
+            paths.update(phase_data(torch, dev, s, logs_dir, train))
+            print(f"{s.key} data done at {time.perf_counter() - t0:.1f} s", flush=True)
     cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev, DET_PRESET)
     phase_detector_parity(torch, dev, DET_PRESET, cfg, clip, det, emb, items)
     del clip, det

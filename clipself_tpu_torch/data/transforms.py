@@ -1,0 +1,283 @@
+"""Host-side image transforms in NumPy, channels-last output: Pillow's
+arithmetic without PIL, equal to `clipself_tpu/data/transforms.py` on the
+same pixels.
+
+Images are RGB uint8 [H, W, 3] arrays where the JAX package holds PIL
+images. The reference preprocessing (`src/open_clip/transform.py`):
+  - det transform = ResizeLongest(det_size) with bottom-right padding
+    (`transform.py:169-191`) + OpenAI normalize;
+  - crop transform = ResizeMaxSize(crop_size) with CENTER padding
+    (`transform.py:26-49`) + OpenAI normalize;
+  - `get_scale` = min(new/old) ratio (`transform.py:194-207`).
+Every resize is Pillow's 8-bit BICUBIC (`Resample.c`): a = -0.5 over a
+support of 2 widened by the shrink factor, weights in fixed point with 22
+fraction bits, the horizontal pass first into a uint8 intermediate. Only
+the taps of each output pixel are multiplied (a banded product in int32,
+no BLAS), which is exact: the sums stay under 2^31.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+from clipself_tpu_torch.core.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+
+_MEAN = np.asarray(OPENAI_DATASET_MEAN, np.float32)
+_STD = np.asarray(OPENAI_DATASET_STD, np.float32)
+
+# Pillow's 8-bit resampling: weights with this many fraction bits, sums
+# started at half a unit and shifted back (`Resample.c`)
+PRECISION_BITS = 22
+
+
+def _bicubic(x: float) -> float:
+    """Pillow's `bicubic_filter` (a = -0.5)."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+def _bilinear(x: float) -> float:
+    """Pillow's `bilinear_filter` (the triangle)."""
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+_FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}
+
+
+@functools.lru_cache(maxsize=4096)
+def coeffs(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's `precompute_coeffs` for a whole-image resize along one axis:
+    (index [out, K] int64 of the taps' source pixels, weights [out, K]
+    float64 normalised to sum 1). Taps are centred at ``(x + 0.5) * in /
+    out``, bounds rounded by ``(int)(c +- support + 0.5)`` and clamped; a
+    row shorter than K is padded with weight 0 on its last source pixel.
+    The double arithmetic follows the C order."""
+    fn, base_support = _FILTERS[kind]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = base_support * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    index = np.zeros((out_size, ksize), np.int64)
+    weight = np.zeros((out_size, ksize), np.float64)
+    ss = 1.0 / filterscale
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        taps = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        total = 0.0
+        for k in taps:
+            total += k
+        for x, k in enumerate(taps):
+            weight[xx, x] = k / total if total != 0.0 else k
+        index[xx, :xmax] = np.arange(xmin, xmin + xmax)
+        index[xx, xmax:] = xmin + xmax - 1
+    index.flags.writeable = weight.flags.writeable = False
+    return index, weight
+
+
+@functools.lru_cache(maxsize=4096)
+def fixed_coeffs(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
+    """`coeffs` with Pillow's `normalize_coeffs_8bpc` weights for its 8-bit
+    passes: ``(int)(+-0.5 + k * 2^22)``, rounded half away from zero (C
+    truncation toward zero after the +-0.5), as int32."""
+    index, weight = coeffs(in_size, out_size, kind)
+    scaled = weight * (1 << PRECISION_BITS)
+    fixed = np.trunc(np.where(scaled < 0, scaled - 0.5, scaled + 0.5)).astype(np.int32)
+    fixed.flags.writeable = False
+    return index, fixed
+
+
+def _pass_u8(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit BICUBIC pass of a uint8 [H, W, C] image along ``axis``
+    (1: horizontal, 0: vertical): int32 sums from 2^21 over the taps,
+    shifted by 22 bits and clipped to 0-255, as `clip8` does."""
+    index, fixed = fixed_coeffs(img.shape[axis], out_size, "bicubic")
+    shape = [1, 1, 1]
+    shape[axis] = out_size
+    out_shape = tuple(out_size if i == axis else n for i, n in enumerate(img.shape))
+    acc = np.full(out_shape, 1 << (PRECISION_BITS - 1), np.int32)
+    tap = np.empty(out_shape, np.int32)
+    for k in range(index.shape[1]):
+        np.multiply(np.take(img, index[:, k], axis=axis), fixed[:, k].reshape(shape), out=tap)
+        acc += tap
+    return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _check_size(img: np.ndarray, size: tuple[int, int]) -> None:
+    if (size[0] < 1 or size[1] < 1) and tuple(size) != image_size(img):
+        raise ValueError(f"resize to {tuple(size)}: height and width must be > 0")
+
+
+def resize_bicubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``img`` uint8 [H, W, C] resized to ``size`` = (w, h), equal to
+    ``Image.fromarray(img).resize(size, Image.BICUBIC)``: the horizontal
+    pass first, then the vertical; a pass whose size does not change is
+    skipped. An empty image resizes to black; an empty size raises, as in
+    Pillow."""
+    w, h = size
+    _check_size(img, size)
+    if img.size == 0:
+        return np.zeros((h, w) + img.shape[2:], np.uint8)
+    out = img
+    if w != img.shape[1]:
+        out = _pass_u8(out, w, 1)
+    if h != img.shape[0]:
+        out = _pass_u8(out, h, 0)
+    return out.copy() if out is img else out
+
+
+def resize_bilinear_f32(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """A float32 [H, W] image resized to ``size`` = (w, h) as Pillow's
+    BILINEAR resize of an "F" image (`ImagingResampleHorizontal_32bpc`):
+    weights normalised in double, each output a sum in double over its taps
+    in order, stored as float32 after each pass."""
+    w, h = size
+    _check_size(img, size)
+    if img.size == 0:
+        return np.zeros((h, w), np.float32)
+    out = img.astype(np.float32)
+    for axis, n in ((1, w), (0, h)):
+        if n == out.shape[axis]:
+            continue
+        index, weight = coeffs(out.shape[axis], n, "bilinear")
+        src = out.astype(np.float64)
+        shape = [1, 1]
+        shape[axis] = n
+        acc = np.zeros(tuple(n if i == axis else m for i, m in enumerate(out.shape)), np.float64)
+        for k in range(index.shape[1]):
+            acc += np.take(src, index[:, k], axis=axis) * weight[:, k].reshape(shape)
+        out = acc.astype(np.float32)
+    return out
+
+
+def crop(img: np.ndarray, box) -> np.ndarray:
+    """``Image.crop(box)``: the corners rounded as Pillow rounds them
+    (``map(int, map(round, box))``, half to even), the part outside the
+    image filled with 0. A box whose right or lower edge lies before its
+    left or upper edge raises, as Pillow's does."""
+    if box[2] < box[0] or box[3] < box[1]:
+        raise ValueError(f"crop box {tuple(box)}: right < left or lower < upper")
+    x0, y0, x1, y1 = (int(round(v)) for v in box)
+    h, w = img.shape[:2]
+    out = np.zeros((max(y1 - y0, 0), max(x1 - x0, 0)) + img.shape[2:], img.dtype)
+    sx0, sy0, sx1, sy1 = max(x0, 0), max(y0, 0), min(x1, w), min(y1, h)
+    if sx1 > sx0 and sy1 > sy0:
+        out[sy0 - y0 : sy1 - y0, sx0 - x0 : sx1 - x0] = img[sy0:sy1, sx0:sx1]
+    return out
+
+
+def to_normalized_array(img: np.ndarray) -> np.ndarray:
+    """RGB uint8 [H, W, 3] -> float32 [H, W, 3], OpenAI-normalized."""
+    arr = img.astype(np.float32)
+    arr /= 255.0
+    arr -= _MEAN
+    arr /= _STD
+    return arr
+
+
+def _resize_to_max(img: np.ndarray, max_size: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    scale = max_size / float(max(h, w))
+    return resize_bicubic(img, (round(w * scale), round(h * scale)))
+
+
+def resize_longest(img: np.ndarray, max_size: int, fill: int = 0) -> np.ndarray:
+    """Scale so the longest side == max_size; pad bottom-right to square."""
+    img = _resize_to_max(img, max_size)
+    nh, nw = img.shape[:2]
+    if (nw, nh) == (max_size, max_size):
+        return img
+    canvas = np.full((max_size, max_size) + img.shape[2:], fill, img.dtype)
+    canvas[:nh, :nw] = img
+    return canvas
+
+
+def resize_max_center(img: np.ndarray, max_size: int, fill: int = 0) -> np.ndarray:
+    """Scale so the longest side == max_size; pad symmetrically (center)."""
+    img = _resize_to_max(img, max_size)
+    nh, nw = img.shape[:2]
+    if (nw, nh) == (max_size, max_size):
+        return img
+    top, left = (max_size - nh) // 2, (max_size - nw) // 2
+    canvas = np.full((max_size, max_size) + img.shape[2:], fill, img.dtype)
+    canvas[top : top + nh, left : left + nw] = img
+    return canvas
+
+
+def det_transform(img: np.ndarray, det_size: int) -> np.ndarray:
+    return to_normalized_array(resize_longest(img, det_size))
+
+
+def crop_transform(img: np.ndarray, crop_size: int) -> np.ndarray:
+    return to_normalized_array(resize_max_center(img, crop_size))
+
+
+def get_scale(old_wh: tuple[int, int], new_size: int) -> float:
+    """Scale factor from original (w, h) to the padded new_size square
+    (reference get_scale: min over axes of new/old == new_size / max(w, h))."""
+    w, h = old_wh
+    return new_size / float(max(w, h))
+
+
+def resize_mask_longest(mask: np.ndarray, max_size: int) -> np.ndarray:
+    """Downsample a binary [H, W] mask with the ResizeLongest geometry
+    (bilinear > 0 thresholding, reference data.py:308-309,374-375)."""
+    h, w = mask.shape
+    scale = max_size / float(max(h, w))
+    nh, nw = round(h * scale), round(w * scale)
+    resized = resize_bilinear_f32(mask.astype(np.float32), (nw, nh))
+    out = np.zeros((max_size, max_size), np.float32)
+    out[:nh, :nw] = (resized > 0.0).astype(np.float32)
+    return out
+
+
+def image_size(img: np.ndarray) -> tuple[int, int]:
+    """(w, h), as `PIL.Image.size` orders them."""
+    return img.shape[1], img.shape[0]
+
+
+class RandomResize:
+    """Random rescale by a factor in [lo, hi] (reference
+    `CustomRandomResize`, `custom_transforms.py:8-24`)."""
+
+    def __init__(self, scale=(0.5, 2.0)):
+        self.lo, self.hi = scale
+
+    def __call__(self, img: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+        s = rng.uniform(self.lo, self.hi)
+        w, h = image_size(img)
+        return resize_bicubic(img, (max(1, round(w * s)), max(1, round(h * s))))
+
+
+class RandomCrop:
+    """Random crop bounded to the image (reference `CustomRandomCrop`,
+    `custom_transforms.py:27-44`): crop size = min(size, image dims)."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __call__(self, img: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+        w, h = image_size(img)
+        cw, ch = min(self.size, w), min(self.size, h)
+        x0 = int(rng.integers(0, w - cw + 1))
+        y0 = int(rng.integers(0, h - ch + 1))
+        return crop(img, (x0, y0, x0 + cw, y0 + ch))
+
+
+class RandomHFlip:
+    def __init__(self, p: float = 0.5):
+        self.p = p
+
+    def __call__(self, img: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+        if rng.uniform() < self.p:
+            return img[:, ::-1].copy()
+        return img

@@ -9,16 +9,13 @@ split) or, for LVIS with its frequency groups, the LVIS protocol
 scored the same way under `segm_`-prefixed keys. The mask rasters are
 computed in NumPy and equal, bit for bit, what the JAX package gets from
 `PIL.Image.resize` (`resize_bilinear_u8`, `resize_nearest`). Not ported yet
-(ROADMAP.md queue 1 items 2 and 7.5): `DetectionDataset` and the command
-line.
+(ROADMAP.md queue 1 item 7.5): `DetectionDataset` and the command line.
 """
 
 from __future__ import annotations
 
 import functools
-import json
 import logging
-import math
 import pickle
 import time
 from typing import Optional, Sequence, Union
@@ -32,45 +29,27 @@ from clipself_tpu_torch.detector.data import collate
 from clipself_tpu_torch.detector.eval_ap import DetectionEvaluator
 from clipself_tpu_torch.detector.eval_lvis import LvisEvaluator
 from clipself_tpu_torch.detector.fvit import FViTDetector, backbone_taps
+from clipself_tpu_torch.eval.zero_shot import metrics_json  # noqa: F401  (the metrics' JSON form)
+from clipself_tpu_torch.data.transforms import PRECISION_BITS, fixed_coeffs
 from clipself_tpu_torch.models.torch_io import detector_state_dict_from_jax
-
-# Pillow's 8-bit resampling: weights in fixed point with this many fraction
-# bits, sums started at half a unit and shifted back (`Resample.c`)
-_PRECISION_BITS = 22
 
 
 @functools.lru_cache(maxsize=4096)
 def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[out, in] fixed-point weights of Pillow's BILINEAR pass
-    (`precompute_coeffs` + `normalize_coeffs_8bpc`): a triangle filter
-    widened by the shrink factor (antialiasing), taps centred at
-    ``(x + 0.5) * in / out``, bounds rounded by ``(int)(c +- support + 0.5)``
-    and clamped, weights normalised in double, then rounded half away from
-    zero to 22 fraction bits. The double arithmetic follows the C order.
-    Held as float64 integers: a pass's sums (< 2^31) are exact in float64,
-    and a float64 product runs in BLAS."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = filterscale  # the triangle's support is 1
-    ss = 1.0 / filterscale
+    """[out, in] fixed-point weights of Pillow's BILINEAR pass: the taps of
+    `data/transforms.py::coeffs` (Pillow's `precompute_coeffs`, a triangle
+    filter widened by the shrink factor) rounded to 22 fraction bits as
+    `normalize_coeffs_8bpc` rounds them. Held as float64 integers: a pass's
+    sums (< 2^31) are exact in float64, and a float64 product runs in BLAS."""
+    index, fixed = fixed_coeffs(in_size, out_size, "bilinear")
     w = np.zeros((out_size, in_size), np.float64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        taps, total = [], 0.0
-        for x in range(xmax):
-            t = abs(((x + xmin) - center + 0.5) * ss)
-            taps.append(1.0 - t if t < 1.0 else 0.0)
-            total += taps[-1]
-        for x, k in enumerate(taps):  # total > 0: the nearest tap is within half a pixel
-            w[xx, xmin + x] = int(0.5 + k / total * (1 << _PRECISION_BITS))  # k >= 0
+    np.add.at(w, (np.arange(out_size)[:, None], index), fixed)  # padded taps add 0
     w.flags.writeable = False
     return w
 
 
 def _clip8(acc: np.ndarray) -> np.ndarray:
-    return np.clip(acc.astype(np.int64) >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.clip(acc.astype(np.int64) >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
 def resize_bilinear_u8(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
@@ -79,7 +58,7 @@ def resize_bilinear_u8(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     horizontal pass first into a uint8 intermediate, then the vertical pass;
     a pass whose size does not change is skipped."""
     h, w = hw
-    half = 1 << (_PRECISION_BITS - 1)
+    half = 1 << (PRECISION_BITS - 1)
     out = img
     if w != img.shape[1]:
         out = _clip8(out.astype(np.float64) @ _bilinear_weights(img.shape[1], w).T + half)
@@ -338,16 +317,6 @@ def evaluate_detector(
         for k, v in spent.items():
             timings[k] = timings.get(k, 0.0) + v
     return metrics
-
-
-def metrics_json(metrics: dict, **dump_kwargs) -> str:
-    """The metrics as strict JSON: a NaN (a class group without ground
-    truth) is written as ``null``, never as a bare ``NaN`` token."""
-    clean = {
-        k: (None if isinstance(v, float) and not math.isfinite(v) else v)
-        for k, v in metrics.items()
-    }
-    return json.dumps(clean, allow_nan=False, **dump_kwargs)
 
 
 def load_detector(path: str) -> dict[str, torch.Tensor]:

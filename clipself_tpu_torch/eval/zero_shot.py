@@ -11,6 +11,8 @@ and all crops of a batch are encoded in one call.
 
 from __future__ import annotations
 
+import json
+import math
 from typing import Iterable, Union
 
 import numpy as np
@@ -53,6 +55,16 @@ def macc_with_is_thing(
         results[f"{prefix}.{group}.macc1"] = _macc(c[:, 0], lb)
         results[f"{prefix}.{group}.macc5"] = _macc(c.sum(-1) > 0, lb)
     return results
+
+
+def metrics_json(metrics: dict, **dump_kwargs) -> str:
+    """The metrics as strict JSON: a NaN (a class group without ground
+    truth) is written as ``null``, never as a bare ``NaN`` token."""
+    clean = {
+        k: (None if isinstance(v, float) and not math.isfinite(v) else v)
+        for k, v in metrics.items()
+    }
+    return json.dumps(clean, allow_nan=False, **dump_kwargs)
 
 
 def _bucket_width(boxes: np.ndarray, bucket: int) -> int:

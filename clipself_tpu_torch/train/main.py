@@ -1,26 +1,41 @@
 """CLIPSelf distillation trainer CLI on one device (a port of the distill
-path of `clipself_tpu/train/main.py:292-611`).
+path of `clipself_tpu/train/main.py:174-611`).
 
-    python -m clipself_tpu_torch.train.main --synthetic --steps-per-epoch 10 \\
-        --model EVA02-CLIP-B-16 --batch-size 2 --det-image-size 1024
+    python -m clipself_tpu_torch.train.main \\
+        --model EVA02-CLIP-B-16 --dataset-type grid_distill \\
+        --train-data instances_train2017.json --train-image-root train2017 \\
+        --val-data panoptic_val2017.json --val-image-root val2017 \\
+        --val-segm-root panoptic_val2017 --embed-path coco_panoptic_b16.npy \\
+        --batch-size 2 --det-image-size 1024 --workers 8
 
 parse flags -> student with seeded random weights and a frozen teacher copy
-of them -> AdamW with the reference lock and decay rules -> epoch loop of
-train steps -> alpha-ensemble checkpoint on save epochs, with resume. The
-data are the seeded synthetic batches of `data/loader.py` (`--synthetic`,
-required: the COCO datasets are not ported yet). `--device` defaults to
-`cuda`; without a CUDA device that is an error, not a CPU run.
+of them -> AdamW with the reference lock and decay rules -> zero-shot eval
+-> epoch loop of train steps -> alpha-ensemble checkpoint on save epochs,
+with resume -> zero-shot eval of the ensembled weights every
+`--zeroshot-frequency` epochs, each appended to `results.jsonl` (NaN as
+null). The data routes (`data/`, no PIL):
+  - `--train-data`: COCO files, `grid_distill` or `proposals_distill`
+    items made by `--workers` spawned processes, a fresh loader an epoch;
+    with `--native-loader` (grid_distill) the C++ core's thread pool
+    (`native/loader.cc`, built with `make -C native`; needs the libjpeg and
+    libpng headers);
+  - `--val-data` (COCO-panoptic): the evaluator; without `--train-data` the
+    run evaluates once and returns;
+  - `--synthetic`: one seeded batch, repeated (`--steps-per-epoch` needed).
+Batches reach the card through `data/loader.py::device_prefetch`.
+`--device` defaults to `cuda`; without a CUDA device that is an error, not
+a CPU run.
 
-Not carried by this slice (ROADMAP.md queue 1): real datasets and the
-native loader, `--pretrained`, zero-shot eval during training,
-`--accum-freq`, fsdp/tp meshes, the RegionCLIP and
-proposal methods, and profiling. Their flags are absent.
+Not carried by this slice (ROADMAP.md queue 1): `--pretrained`,
+`--accum-freq`, fsdp/tp meshes, the RegionCLIP method (`--dataset-type
+region_clip` raises) and profiling. Their flags are absent.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import json
 import logging
 import os
 import time
@@ -30,7 +45,24 @@ import numpy as np
 import torch
 
 from clipself_tpu_torch.core.config import get_model_config
-from clipself_tpu_torch.data.loader import SyntheticDistillData
+from clipself_tpu_torch.data.datasets import (
+    COCOPanopticEvalDataset,
+    GridDistillDataset,
+    ProposalDistillDataset,
+)
+from clipself_tpu_torch.data.loader import (
+    SyntheticDistillData,
+    loader_route,
+    make_loader,
+    native_route,
+    stop_worker_server,
+    synthetic_route,
+)
+from clipself_tpu_torch.eval.zero_shot import (
+    DEFAULT_ANN_BUCKET,
+    evaluate_zero_shot,
+    metrics_json,
+)
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.train import checkpoint as ckpt
 from clipself_tpu_torch.train.methods import (
@@ -38,6 +70,7 @@ from clipself_tpu_torch.train.methods import (
     multiscale_sizes,
     resize_images_for_scale,
 )
+from clipself_tpu_torch.train.ensemble import student_teacher_ensemble
 from clipself_tpu_torch.train.optim import build_optimizer, make_schedule
 from clipself_tpu_torch.train.step import TrainState, make_train_step
 from clipself_tpu_torch.utils.meters import AverageMeter, ThroughputMeter
@@ -61,12 +94,36 @@ def parse_args(argv=None):
     p.add_argument("--extract-type", default="v2", choices=["v1", "v2"],
                    help="accepted for parity: the EVA tower has one RoI path "
                         "(the reference and the JAX package ignore it there)")
+    p.add_argument("--dataset-type", default="grid_distill",
+                   choices=["grid_distill", "proposals_distill", "region_clip"])
     # data
+    p.add_argument("--train-data", default=None, help="COCO instances or proposals JSON")
+    p.add_argument("--train-image-root", default=None)
+    p.add_argument("--val-data", default=None, help="COCO-panoptic JSON")
+    p.add_argument("--val-image-root", default=None)
+    p.add_argument("--val-segm-root", default=None)
+    p.add_argument("--test-type", default="coco_panoptic", choices=["coco_panoptic"],
+                   help="val dataset type (reference data.py:643)")
+    p.add_argument("--downsample-factor", type=int, default=None,
+                   help="eval dense-map downsample; default = the model's patch size")
+    p.add_argument("--embed-path", default=None, help="class embeddings .npy of the val set")
     p.add_argument("--synthetic", action="store_true", help="seeded synthetic batches")
     p.add_argument("--det-image-size", type=int, default=1024)
     p.add_argument("--max-boxes", type=int, default=20)
+    p.add_argument("--max-split", type=int, default=16)
+    p.add_argument("--crop-scale", type=float, default=1.0)
+    p.add_argument("--pre-transforms", action="store_true")
+    p.add_argument("--train-ratio", type=float, default=1.0)
+    p.add_argument("--min-size", type=float, default=8.0)
+    p.add_argument("--max-size", type=float, default=1024.0)
     p.add_argument("--batch-size", type=int, default=2, help="batch on the one device")
-    p.add_argument("--steps-per-epoch", type=int, default=None, help="required with --synthetic")
+    p.add_argument("--val-batch-size", type=int, default=1)
+    p.add_argument("--workers", type=int, default=8,
+                   help="data worker processes (threads of the native pool)")
+    p.add_argument("--native-loader", action="store_true",
+                   help="use the C++ decode/resize pool for grid_distill")
+    p.add_argument("--steps-per-epoch", type=int, default=None,
+                   help="default len(train set) // batch size; required with --synthetic")
     # optim
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--beta1", type=float, default=0.9)
@@ -89,6 +146,13 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=None,
                    help="checkpoint dir, or 'auto' = the run dir's checkpoints")
     p.add_argument("--save-frequency", type=int, default=1)
+    p.add_argument("--zeroshot-frequency", type=int, default=1)
+    p.add_argument("--image-ave-pool", action="store_true",
+                   help="evaluator crop features = average-pooled dense map "
+                        "instead of encode_image (reference zero_shot.py:78)")
+    p.add_argument("--eval-ann-bucket", type=int, default=None,
+                   help=f"zero-shot eval ann-axis bucket width (default {DEFAULT_ANN_BUCKET}; "
+                        "0 disables)")
     p.add_argument("--log-every-n-steps", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
@@ -120,15 +184,72 @@ def _setup_logging(out_dir: str) -> None:
     root.addHandler(fh)
 
 
+def build_data(args, device: torch.device, crop_size: int) -> dict:
+    """The run's data (`clipself_tpu/train/main.py::build_data`): "train" a
+    `data/loader.py::TrainRoute` (device batches an epoch), "train_size"
+    with files; "val_ds" and "val" (a loader factory) with ``--val-data``."""
+    if args.dataset_type == "region_clip":
+        raise NotImplementedError(
+            "--dataset-type region_clip: the RegionCLIP trainer is not ported yet "
+            "(ROADMAP.md queue 1 item 6; its dataset is data/datasets.py::RegionCLIPDataset)"
+        )
+    data = {}
+    if args.synthetic:
+        data["train"] = synthetic_route(SyntheticDistillData(
+            batch_size=args.batch_size, det_size=args.det_image_size,
+            crop_size=crop_size, max_anns=args.max_boxes, seed=args.seed,
+        ), device)
+        return data
+    pin = device.type == "cuda"
+    if args.train_data:
+        if args.dataset_type == "grid_distill":
+            ds = GridDistillDataset(
+                args.train_data, args.train_image_root,
+                det_size=args.det_image_size, crop_size=crop_size,
+                max_split=args.max_split, max_anns=args.max_boxes,
+                crop_scale=args.crop_scale, pre_transforms=args.pre_transforms,
+                train_ratio=args.train_ratio, seed=args.seed,
+            )
+        else:
+            ds = ProposalDistillDataset(
+                args.train_data, args.train_image_root,
+                det_size=args.det_image_size, crop_size=crop_size,
+                max_anns=args.max_boxes, min_size=args.min_size,
+                max_size=args.max_size, seed=args.seed,
+            )
+        data["train_size"] = len(ds)
+        route = native_route if args.native_loader and args.dataset_type == "grid_distill" \
+            else loader_route
+        data["train"] = route(ds, args.batch_size, seed=args.seed, workers=args.workers, device=device)
+    if args.val_data:
+        if not args.embed_path:
+            raise ValueError("--val-data needs --embed-path (the class embeddings .npy)")
+        val_ds = COCOPanopticEvalDataset(
+            args.val_data, args.val_image_root, args.val_segm_root,
+            embed_path=args.embed_path, det_size=args.det_image_size,
+            crop_size=crop_size, downsample_factor=args.downsample_factor,
+        )
+        data["val_ds"] = val_ds
+        data["val"] = lambda: make_loader(
+            val_ds, args.val_batch_size, shuffle=False, num_workers=args.workers,
+            # never drop tail eval images: mAcc must see the whole val set
+            drop_last=False, pin_memory=pin,
+        )
+    return data
+
+
 def train(args) -> dict:
     """Run the distill loop of parsed ``args``. Returns the run's
-    {"state", "teacher", "history", "out_dir"}; ``history`` holds one entry
-    per logged step (epoch, step, loss, lr, images_per_sec)."""
-    if not args.synthetic:
-        raise NotImplementedError(
-            "only --synthetic data is ported (COCO datasets: ROADMAP.md queue 1 item 2)"
-        )
-    if not args.steps_per_epoch:
+    {"state", "teacher", "history", "evals", "native_fallback_rows",
+    "out_dir"}: ``history`` holds one entry per logged step (epoch, step,
+    loss, lr, images_per_sec), ``evals`` one per evaluation (epoch and
+    metrics, as in results.jsonl); ``native_fallback_rows`` counts the rows
+    that `--native-loader` left to the NumPy route (None without it).
+    An evaluation-only run (``--val-data`` without ``--train-data``)
+    returns {"evals", "out_dir"}."""
+    if not (args.synthetic or args.train_data or args.val_data):
+        raise ValueError("no data: pass --synthetic, --train-data or --val-data")
+    if args.synthetic and not args.steps_per_epoch:
         raise ValueError("--synthetic needs --steps-per-epoch")
     if args.resume == "auto" and not args.name:
         raise ValueError(
@@ -138,8 +259,11 @@ def train(args) -> dict:
     device = _device(args.device)
     cfg = get_model_config(args.model)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if args.downsample_factor is None:
+        args.downsample_factor = cfg.vision.patch_size
+    data = build_data(args, device, cfg.vision.image_size)
 
-    name = args.name or f"{args.model}-grid_distill-{time.strftime('%Y%m%d-%H%M%S')}"
+    name = args.name or f"{args.model}-{args.dataset_type}-{time.strftime('%Y%m%d-%H%M%S')}"
     out_dir = os.path.join(args.logs, name)
     os.makedirs(out_dir, exist_ok=True)
     _setup_logging(out_dir)
@@ -151,9 +275,50 @@ def train(args) -> dict:
         cfg, device=device, dtype=dtype, seed=args.seed,
         grad_checkpointing=args.grad_checkpointing,
     )
-    teacher = copy.deepcopy(model).requires_grad_(False)  # the initial weights, frozen
+    evals = []
+    eval_model = None
 
-    steps_per_epoch = args.steps_per_epoch
+    def run_eval(params, epoch) -> None:
+        """Zero-shot eval of ``model`` with ``params`` (a state dict; None =
+        the student as it is), appended to results.jsonl."""
+        nonlocal eval_model
+        if "val" not in data or args.zeroshot_frequency == 0:
+            return
+        target = model
+        if params is not None:
+            if eval_model is None:
+                eval_model = copy.deepcopy(model).requires_grad_(False)
+            eval_model.load_state_dict(params)
+            target = eval_model
+        bucket = DEFAULT_ANN_BUCKET if args.eval_ann_bucket is None else args.eval_ann_bucket
+        results = evaluate_zero_shot(
+            target, data["val"](), data["val_ds"].embeddings, device=device,
+            ann_bucket=bucket, image_ave_pool=args.image_ave_pool,
+        )
+        line = metrics_json({"epoch": epoch, **results})  # NaN as null
+        log.info(f"eval epoch {epoch}: {line}")
+        with open(os.path.join(out_dir, "results.jsonl"), "a") as f:
+            f.write(line + "\n")
+        evals.append(json.loads(line))
+
+    if "train" not in data:
+        run_eval(None, 0)
+        log.info("done")
+        return {"evals": evals, "out_dir": out_dir}
+
+    teacher = copy.deepcopy(model).requires_grad_(False)  # the initial weights, frozen
+    route = data["train"]
+    steps_per_epoch = args.steps_per_epoch or route.steps
+    if steps_per_epoch < 1:
+        raise ValueError(
+            f"{data['train_size']} training images make no batch of {args.batch_size}"
+        )
+    if not route.endless and steps_per_epoch > route.steps:
+        # a loader is one pass over the images; only the native loader runs on
+        raise ValueError(
+            f"--steps-per-epoch {steps_per_epoch}: an epoch of {data['train_size']} images "
+            f"has {route.steps} batches of {args.batch_size}"
+        )
     total_steps = steps_per_epoch * args.epochs
     sched_kw = {}
     if args.lr_scheduler == "const-cooldown":
@@ -185,10 +350,6 @@ def train(args) -> dict:
     step_fn = make_train_step(
         partial(clipself_loss, cosine_weight=args.cosine_weight), teacher
     )
-    data = SyntheticDistillData(
-        batch_size=args.batch_size, det_size=args.det_image_size,
-        crop_size=cfg.vision.image_size, max_anns=args.max_boxes, seed=args.seed,
-    )
     if args.multiscale:
         ms_sizes = multiscale_sizes(args.det_image_size, cfg.vision.patch_size)
         ms_rng = np.random.default_rng(args.seed + 1)
@@ -203,18 +364,15 @@ def train(args) -> dict:
         f"{args.model} on {device}: batch {args.batch_size}, {args.det_image_size}px images, "
         f"{args.max_boxes} boxes, {len(optimizer.params)} trainable tensors"
     )
+    # eval before training (reference main.py:263-269)
+    run_eval(None, start_epoch)
     history = []
-    train_iter = iter(data)
-    host, dev_batch = None, None
     for epoch in range(start_epoch, args.epochs):
+        batches = route.epoch(epoch)
         loss_meter = AverageMeter()
         tput = ThroughputMeter()
         for i in range(steps_per_epoch):
-            nxt = next(train_iter)
-            if nxt is not host:  # the synthetic stream repeats one batch
-                host = nxt
-                dev_batch = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
-            metrics = step_fn(state, maybe_multiscale(dev_batch))
+            metrics = step_fn(state, maybe_multiscale(next(batches)))
             tput.update(args.batch_size)
             if (i + 1) % args.log_every_n_steps == 0 or i + 1 == steps_per_epoch:
                 loss = float(metrics["loss"])  # waits for the step
@@ -231,12 +389,25 @@ def train(args) -> dict:
                 )
         completed = epoch + 1
         log.info(f"epoch {epoch} done | mean logged loss {loss_meter.avg:.4f}")
+        batches.close()  # ends this epoch's loader and its worker processes
+        if route.fallback_rows is not None:
+            log.info(f"native loader: {route.fallback_rows} row(s) built by the NumPy route so far")
         if (args.save_frequency and completed % args.save_frequency == 0) or completed == args.epochs:
-            ckpt.save_checkpoint(
+            target = ckpt.save_checkpoint(
                 ckpt_dir, state, teacher.state_dict(), completed, alpha=args.alpha
             )
+        elif args.alpha < 1.0 and "val" in data:
+            target = student_teacher_ensemble(
+                state.model.state_dict(), teacher.state_dict(), args.alpha
+            )
+        else:
+            target = None
+        if args.zeroshot_frequency > 0 and completed % args.zeroshot_frequency == 0:
+            run_eval(target, completed)
+    route.close()
     log.info("done")
-    return {"state": state, "teacher": teacher, "history": history, "out_dir": out_dir}
+    return {"state": state, "teacher": teacher, "history": history, "evals": evals,
+            "native_fallback_rows": route.fallback_rows, "out_dir": out_dir}
 
 
 def main(argv=None) -> dict:
@@ -244,4 +415,7 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_worker_server()

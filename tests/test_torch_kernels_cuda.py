@@ -33,7 +33,10 @@ of their largest entry, and two backward calls give the same bits (no
 atomics). Greedy NMS: the keep mask is discrete and the kernel's
 arithmetic is pinned to single round-to-nearest operations in the plain
 version's order, so the two masks must be equal, and equal to the plain
-mirror of the kernels' two phases (bit matrix, block-wise scan).
+mirror of the kernels' two phases (bit matrix, block-wise scan). The input
+pipeline on the card: `device_prefetch` copies bits, so its batches equal a
+plain copy; one B/16 float32 step from files has the loss of the same item
+staged by hand (the same kernels on the same inputs: 1e-5).
 """
 
 import pytest
@@ -856,3 +859,82 @@ def test_text_tower_on_card_matches_the_cpu(dev, dtype):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
     else:
         assert _min_row_cos(got.cpu(), want) >= 0.9996
+
+
+def test_device_prefetch_gives_the_tensors_of_a_plain_copy(dev):
+    """`data/loader.py::device_prefetch`: pinned host batches copied on a
+    side stream with `non_blocking`, the compute stream waiting on each
+    copy: every batch arrives equal to a plain copy, in order, also when a
+    batch's tensors are used after later batches were issued."""
+    import numpy as np
+
+    from clipself_tpu_torch.data.loader import device_prefetch
+
+    gen = torch.Generator().manual_seed(0)
+    batches = [
+        {"images": torch.randn(2, 64, 64, 3, generator=gen),
+         "boxes": torch.randn(2, 4, 5, generator=gen).pin_memory(),
+         "crops": np.random.default_rng(i).standard_normal((2, 4, 8, 8, 3)).astype(np.float32)}
+        for i in range(5)
+    ]
+    got = []
+    for b in device_prefetch(batches, dev):
+        assert all(t.device == dev for t in b.values())
+        got.append({k: (v * 1).clone() for k, v in b.items()})  # work on the compute stream
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for want, have in zip(batches, got):
+        for k, v in want.items():
+            assert torch.equal(have[k].cpu(), torch.as_tensor(v))
+
+
+def _png(img) -> bytes:
+    """An RGB uint8 PNG, every row unfiltered (the test's corpus writer)."""
+    import struct
+    import zlib
+
+    def chunk(kind, data):
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def test_file_data_step_equals_the_same_batch_staged_by_hand(dev, tmp_path):
+    """One B/16 step from files (`train.main --train-data`, batch 1, 1024^2,
+    20 boxes, float32) has the loss of the same item staged on the card by
+    hand and fed to the loss of a model built from the same seed: the
+    loader, `device_prefetch` and the trainer change nothing (1e-5)."""
+    import json
+    from functools import partial
+
+    import numpy as np
+
+    from clipself_tpu_torch.data.datasets import GridDistillDataset
+    from clipself_tpu_torch.models.factory import create_model
+    from clipself_tpu_torch.train import main as train_main
+    from clipself_tpu_torch.train.methods import clipself_loss
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "img").mkdir()
+    images = []
+    for i, (w, h) in enumerate(((640, 480), (480, 640))):
+        (tmp_path / "img" / f"{i}.png").write_bytes(_png(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)))
+        images.append({"id": i, "file_name": f"{i}.png", "width": w, "height": h})
+    (tmp_path / "train.json").write_text(json.dumps({"images": images, "annotations": [], "categories": []}))
+    run = train_main.main([
+        "--model", "EVA02-CLIP-B-16", "--precision", "fp32", "--device", "cuda",
+        "--batch-size", "1", "--det-image-size", "1024", "--max-boxes", "20",
+        "--train-data", str(tmp_path / "train.json"), "--train-image-root", str(tmp_path / "img"),
+        "--steps-per-epoch", "1", "--epochs", "1", "--workers", "0", "--log-every-n-steps", "1",
+        "--logs", str(tmp_path / "logs"), "--name", "files", "--save-frequency", "0",
+    ])
+    ds = GridDistillDataset(str(tmp_path / "train.json"), str(tmp_path / "img"), det_size=1024,
+                            crop_size=224, max_anns=20)
+    item = ds[int(np.random.default_rng((0, 0)).permutation(len(ds))[0])]
+    batch = {k: torch.as_tensor(v[None], device=dev) for k, v in item.items()}
+    model = create_model("EVA02-CLIP-B-16", device=dev, dtype=torch.float32, seed=0)
+    loss, _ = partial(clipself_loss, cosine_weight=1.0)(model, model, batch)
+    assert abs(run["history"][0]["loss"] - loss.item()) <= 1e-5

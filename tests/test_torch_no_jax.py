@@ -4,13 +4,17 @@ conftest), import every module of the port, run the tiny evaluator, one
 train step, the tiny detector evaluation (COCO protocol, and LVIS protocol
 with a mask head: the mask paster's rasters need no PIL), one tiny detector
 train step, and the text tower (`encode_text`, `build_text_embeddings` and
-the text-embedding CLI on a full-vocabulary tiny tower) on the CPU."""
+the text-embedding CLI on a full-vocabulary tiny tower) on the CPU; then the
+input pipeline: a grid `--train-data` step and an evaluation-only run on a
+PNG corpus that this process wrote (PNGs are decoded without PIL)."""
 
 import json
 import math
 import os
 import subprocess
 import sys
+
+from conftest import write_micro_coco
 
 _SCRIPT = r"""
 import json, sys
@@ -24,7 +28,13 @@ import clipself_tpu_torch.ops._build
 import clipself_tpu_torch.ops.attention
 import clipself_tpu_torch.ops.layer_norm
 import clipself_tpu_torch.ops.rope_roll
+import clipself_tpu_torch.core.constants
+import clipself_tpu_torch.data.coco
+import clipself_tpu_torch.data.datasets
+import clipself_tpu_torch.data.image_io
 import clipself_tpu_torch.data.loader
+import clipself_tpu_torch.data.native_loader
+import clipself_tpu_torch.data.transforms
 import clipself_tpu_torch.tools.profile_paths
 import clipself_tpu_torch.tools.side_by_side
 import clipself_tpu_torch.train.checkpoint
@@ -115,28 +125,61 @@ cli = text_embeddings.main([
     "--model", "EVA02-CLIP-Tiny-Test", "--classes-json", sys.argv[1] + "/classes.json",
     "--add-background", "--out", sys.argv[1] + "/emb.npy", "--device", "cpu",
 ])
+corpus = sys.argv[2]
+common = ["--device", "cpu", "--model", "EVA02-CLIP-Tiny-Test", "--det-image-size", "32",
+          "--max-boxes", "2", "--batch-size", "2", "--workers", "0", "--logs", sys.argv[1]]
+val = ["--val-data", corpus + "/panoptic.json", "--val-image-root", corpus + "/images",
+       "--val-segm-root", corpus + "/segm", "--embed-path", corpus + "/emb.npy"]
+files = train_main.main(common + val + [
+    "--train-data", corpus + "/instances.json", "--train-image-root", corpus + "/images",
+    "--epochs", "1", "--steps-per-epoch", "1", "--name", "files",
+])
+eval_only = train_main.main(common + val + ["--name", "eval_only"])
+data = {"loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
+        "eval_only": sorted(eval_only["evals"][0])}
 text = {"encode_text": list(txt.shape), "finite": bool(torch.isfinite(txt).all()),
         "rows": list(rows.shape), "cli": list(cli.shape), "ids": tokenizer.tokenize("a cat")[0, :4].tolist()}
 banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "regex", "ftfy",
           "clipself_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(json.dumps({"n_results": len(res), "loss": loss, "det_loss": det_loss, "loaded": loaded, "text": text,
+                  "data": data,
                   "metrics": json.loads(det_evaluate.metrics_json(metrics)),
                   "lvis": json.loads(det_evaluate.metrics_json(lvis))}))
 """
+
+
+def write_png_corpus(root):
+    """The micro COCO corpus with its images re-saved as PNG files."""
+    from PIL import Image
+
+    img_dir, _ = write_micro_coco(root, n_images=4, embed_dim=64)
+    for name in ("instances.json", "panoptic.json"):
+        data = json.loads((root / name).read_text())
+        for info in data["images"]:
+            src = img_dir / info["file_name"]
+            info["file_name"] = src.stem + ".png"
+            Image.open(src).save(img_dir / info["file_name"])
+        (root / name).write_text(json.dumps(data))
+    for jpg in img_dir.glob("*.jpg"):
+        jpg.unlink()
 
 
 def test_port_runs_without_jax(tmp_path):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = root
+    (tmp_path / "corpus").mkdir()
+    write_png_corpus(tmp_path / "corpus")
     proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT, str(tmp_path)], cwd=root, env=env,
+        [sys.executable, "-c", _SCRIPT, str(tmp_path), str(tmp_path / "corpus")], cwd=root, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["n_results"] == 12
+    assert math.isfinite(out["data"]["loss"]) and out["data"]["evals"] == 2
+    assert len(out["data"]["eval_only"]) == 13 and "epoch" in out["data"]["eval_only"]
     assert math.isfinite(out["loss"]) and math.isfinite(out["det_loss"])
     assert (tmp_path / "det" / "detector_epoch0.pkl").is_file()
     assert out["loaded"] == []

@@ -89,9 +89,13 @@ def test_cuda_device_without_a_card_is_an_error(tmp_path, monkeypatch):
 
 
 def test_real_data_and_missing_steps_are_refused(tmp_path):
+    """A run with no data source (neither --synthetic, --train-data nor
+    --val-data) and a synthetic run without --steps-per-epoch are refused
+    before anything is written; files are tested in test_torch_train_data.py."""
     argv = [a for a in _argv(tmp_path, "x", 1) if a != "--synthetic"]
-    with pytest.raises(NotImplementedError, match="synthetic"):
+    with pytest.raises(ValueError, match="--synthetic, --train-data or --val-data"):
         train_main.main(argv)
+    assert not os.listdir(tmp_path)
     argv = _argv(tmp_path, "x", 1)
     i = argv.index("--steps-per-epoch")
     with pytest.raises(ValueError, match="steps-per-epoch"):
