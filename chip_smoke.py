@@ -76,6 +76,17 @@ then for each model, B/16 first:
    phase 6 with its idle share derived from that kernel time, and an
    evaluation-only run; every loss finite, every metric finite or null, and
    every launch count equal to the synthetic step's and evaluator's;
+7c. RegionCLIP (`train.main --dataset-type region_clip`, bf16, 20 boxes an
+   image over 4764 categories, a seeded [4764, embed] noun matrix, the
+   recipe's alpha; no teacher): B/16 at the recipe's batch 16 from a PNG
+   corpus, timed past the loader's backlog and profiled; a flags run at
+   batch 2 (`--accum-freq 2`, `--save-most-recent`, `--keep-checkpoints 1`,
+   `--export-torch`) and `--pretrained` on its export, the initial weights
+   equal to it; the step on one staged corpus batch, timed and profiled;
+   L/14 at batch 2 from files and one step with `--grad-checkpointing`;
+   each with one step's parity at batch 1 (f32 and bf16 kernels against
+   the f32 plain path, the federated class mask equal in the three legs);
+   every launch count that of the student's dense pass and its backward;
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
 8. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
@@ -260,6 +271,11 @@ LN_SUM_MAX_REL = 1e-5
 # first run on an H100 measured a max relative gradient error of 2.6e-6
 # and a min gradient cosine of 0.99976 on B/16.
 STEP_LOSS_MAX_ABS = 1e-5
+# The RegionCLIP loss is a sum over the sampled classes averaged over the
+# boxes, ~76 at these seeds, where one float32 ULP is 7.6e-6: its f32 legs
+# are held relative to the plain loss, ~10 ULP (the first run on an H100
+# read 1 ULP at B/16 and 0 at L/14).
+REGION_LOSS_MAX_REL = 1e-6
 STEP_GRAD_F32_MAX_REL = 1e-4
 STEP_GRAD_BF16_MIN_COS = 0.999
 # Recomputation: the first step's loss comes from the same forward kernels
@@ -324,16 +340,19 @@ def read_counts() -> dict:
 def expected_launches(
     layers: int, *, evals: int = 0, steps: int = 0, recompute: bool = False, dets: int = 0,
     det_steps: int = 0, ave_pool: bool = False, text_calls: int = 0, text_layers: int = 0,
+    region_steps: int = 0,
 ) -> dict:
     """Launches of ``evals`` evaluator batches plus ``steps`` train steps
-    plus ``dets`` detector batches plus ``det_steps`` detector train steps
-    of a tower of ``layers`` blocks. A dense pass runs layers - 1 attention
+    plus ``region_steps`` RegionCLIP train steps plus ``dets`` detector
+    batches plus ``det_steps`` detector train steps of a tower of
+    ``layers`` blocks. A dense pass runs layers - 1 attention
     blocks (the last block takes the value path), a crop pass all of them;
     RoPE runs once per attention block (q and k in one launch); every block has four
     LayerNorms and the tower a final one. An evaluator batch is one dense and
     one crop pass; a train step is the teacher's crop pass, the student's
-    dense pass and its backward; with recomputation the student's blocks
-    (not its final norm) run their forward once more. A detector batch is
+    dense pass and its backward; a RegionCLIP step the student's dense pass
+    and its backward alone (no teacher); with recomputation the student's
+    blocks (not its final norm) run their forward once more. A detector batch is
     one dense pass (the taps) and two NMS launches, all images at once: the
     RPN's proposals and the final class-wise NMS. A detector train step is
     the taps without the dense map (the blocks' four norms each, the value
@@ -344,18 +363,20 @@ def expected_launches(
     a text tower of ``text_layers`` blocks launch only LayerNorms, two a
     block and the final one: its attention is plain (`attention_masked`)."""
     dense, crop, norms = layers - 1, layers, 4 * layers + 1
-    again = steps if recompute else 0
+    students = steps + region_steps  # dense passes with a backward
+    again = students if recompute else 0
     crop_pass = dense if ave_pool else crop
-    flash = evals * (dense + crop_pass) + steps * (crop + dense) + again * dense + (dets + det_steps) * dense
+    flash = (evals * (dense + crop_pass) + steps * crop + students * dense + again * dense
+             + (dets + det_steps) * dense)
     return {
         "nms": 2 * dets + det_steps,
         "flash_attention": flash,
-        "flash_attention_bwd": steps * dense,
+        "flash_attention_bwd": students * dense,
         "rope_roll": flash,
-        "rope_roll_bwd": steps * dense,
-        "layer_norm": (2 * evals + 2 * steps + dets) * norms + again * 4 * layers
+        "rope_roll_bwd": students * dense,
+        "layer_norm": (2 * evals + steps + students + dets) * norms + again * 4 * layers
         + det_steps * 4 * layers + text_calls * (2 * text_layers + 1),
-        "layer_norm_bwd": steps * norms,
+        "layer_norm_bwd": students * norms,
     }
 
 
@@ -864,6 +885,15 @@ def phase_kernels(torch, dev, records):
         )
         for width in (v.width, s.hidden):
             check_layer_norm(torch, dev, records, gen, student[:2] + (width,), "", backward=True)
+        if s.key == "b16":  # the RegionCLIP step: the recipe's batch 16, no teacher
+            region = (REGION_BATCH,) + student[1:]
+            check_rope(torch, dev, records, gen, region, s.grid(s.image), heads[1], backward=True)
+            check_attention(torch, dev, records, gen, region[:2] + heads, train=True)
+            torch.cuda.empty_cache()
+            for width in (v.width, s.hidden):
+                check_layer_norm(torch, dev, records, gen, region[:2] + (width,), "", backward=True)
+            # the dense pass's final norm
+            check_layer_norm(torch, dev, records, gen, region, " rows 1: of", backward=True)
         if s.key == "l14":
             teacher = (TRAIN_BATCH * TRAIN_BOXES, s.tokens(s.crop))
             for width in (v.width, s.hidden):
@@ -2164,6 +2194,350 @@ def phase_data(torch, dev, s: Model, logs_dir: str, synthetic: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the RegionCLIP phase: `train.main --dataset-type region_clip` on files, a
+# staged batch, one step's parity (B/16 at the recipe's batch; L/14)
+
+# the recipe's noun matrix has a row per class of coco_pseudo_4764.json; its
+# --max-boxes default; the B/16 recipe's global batch (one card holds it
+# without a teacher) and L/14 at batch 2 (with --grad-checkpointing once)
+REGION_NOUNS, REGION_BOXES, REGION_BATCH, REGION_L14_BATCH = 4764, 20, 16, 2
+# recipe alphas (scripts/train_regionclip_coco_eva_vit{b16,l14}.sh)
+REGION_ALPHA = {"b16": 0.7, "l14": 0.95}
+# from files (B/16): warm-up = the loader's backlog, then REGION_WINDOW times
+# as many timed steps, then REGION_PROFILED under the profiler. The loader is
+# ~3x slower than the device at batch 16 (an H100 80GB HBM3 at 700 W with 8
+# workers: 21.9-30.4 against 77.5-79.3 images/s), so its backlog of 18 batches
+# drains in ~7-10 steps: the warm-up leaves none of it to the window. The flags run: 2 epochs of 2 micro-steps
+# with --accum-freq 2 at batch 2 (its checkpoints, ~2.2 GB each, and a loader
+# an epoch set its time, not its batch); staged: 3 + 1 warm-up steps on one
+# corpus batch, REGION_STAGED timed, then REGION_STAGED under the profiler;
+# L/14: 1 + 3 steps from files, then 1 with --grad-checkpointing
+REGION_WINDOW, REGION_PROFILED, REGION_STAGED = 2, 8, 5
+REGION_L14_STEPS, REGION_FLAGS_BATCH = 4, 2
+# parity: one step at batch 1 (L/14 at s.parity_layers blocks), the
+# federated sampling of REGION_SAMPLE classes per step (the loss's default)
+REGION_PARITY_BATCH, REGION_SAMPLE = 1, 100
+
+
+def write_region_json(paths: dict, seed: int = SEED) -> str:
+    """A region-noun pseudo-label JSON over the corpus's train images (as
+    `coco_pseudo_4764.json` is over COCO's): each image listed in
+    `paths["train_json"]` gets 1 to `REGION_BOXES` of its proposal boxes, each
+    with a category drawn from `REGION_NOUNS` ids; returns its path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 13)
+    with open(paths["train_json"]) as f:
+        train = json.load(f)
+    by_image = {}
+    for ann in train["annotations"]:
+        by_image.setdefault(ann["image_id"], []).append(ann["bbox"])
+    anns = []
+    for img in train["images"]:
+        boxes = by_image[img["id"]][: int(rng.integers(1, REGION_BOXES + 1))]
+        anns += [{"id": len(anns) + 1, "image_id": img["id"], "bbox": b, "area": b[2] * b[3],
+                  "category_id": int(rng.integers(1, REGION_NOUNS + 1))} for b in boxes]
+    path = os.path.join(os.path.dirname(paths["train_json"]), "region_pseudo.json")
+    with open(path, "w") as f:
+        json.dump({"images": train["images"], "annotations": anns,
+                   "categories": [{"id": c + 1, "name": f"noun{c}"} for c in range(REGION_NOUNS)]}, f)
+    return path
+
+
+def write_nouns(root: str, embed_dim: int, seed: int = SEED) -> str:
+    """A seeded, L2-normalized [REGION_NOUNS, embed_dim] noun matrix .npy."""
+    import numpy as np
+
+    emb = np.random.default_rng(seed + 17).standard_normal((REGION_NOUNS, embed_dim)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    path = os.path.join(root, "nouns.npy")
+    np.save(path, emb)
+    return path
+
+
+def staged_region_steps(torch, dev, s: Model, batch: dict, nouns, tag: str) -> dict:
+    """The smoke script's own harness: the trainer's model, optimizer, step
+    and loss on one corpus batch staged on the card and repeated: 3 warm-up
+    steps, each loss read back, then `tools/profile_paths.py::measure`: one
+    more, `REGION_STAGED` synchronised steps (ms a step, peak memory) and
+    `REGION_STAGED` under the profiler (kernel classes, idle share)."""
+    from clipself_tpu_torch.models.factory import create_model
+    from clipself_tpu_torch.tools.profile_paths import measure, report
+    from clipself_tpu_torch.train.methods import make_regionclip_loss
+    from clipself_tpu_torch.train.optim import build_optimizer, make_schedule
+    from clipself_tpu_torch.train.step import TrainState, make_train_step
+
+    layers = s.vision.layers
+    model = create_model(s.model, device=dev, dtype=torch.bfloat16, seed=SEED)
+    opt = build_optimizer(model, make_schedule("cosine", 1e-5, 1, 100), unlocked_groups=layers,
+                          num_layers=layers)
+    state = TrainState(model, opt)
+    step = make_train_step(make_regionclip_loss(nouns, SEED), None)
+    losses = [float(step(state, batch)["loss"]) for _ in range(3)]
+    reset_counts()
+    b = batch["images"].shape[0]
+    res = measure(lambda: step(state, batch), REGION_STAGED, dev, b)
+    launches = read_counts()
+    report(f"{tag} staged {s.model} RegionCLIP step, batch {b} at {s.image}px, {REGION_BOXES} "
+           f"boxes, {REGION_NOUNS} nouns, {layers} blocks unlocked, bf16", "step", res)
+    print(f"{tag} staged: {res['wall_ms']:.3f} ms a step, {res['images_per_sec']:.3f} images/s over "
+          f"{REGION_STAGED} synchronised steps; kernels {res['kernel_ms']:.3f} ms a step, device idle "
+          f"{res['idle_share_derived']:.1%} (derived) / {res['idle_share_profiled']:.1%} (under the "
+          f"profiler); peak {res['peak_gib']:.3f} GiB; warm-up losses "
+          f"{json.dumps([round(x, 6) for x in losses])}", flush=True)
+    print(f"{tag} staged launches {json.dumps(launches)}", flush=True)
+    if not all(map(math.isfinite, losses)):
+        fail(f"{tag} staged losses {losses}")
+    expect = expected_launches(layers, region_steps=2 * REGION_STAGED + 1)  # measure's warm-up too
+    if launches != expect:
+        fail(f"{tag} staged launch counts {launches}, expected {expect}")
+    del state, model, opt
+    torch.cuda.empty_cache()
+    return dict(ms=res["wall_ms"], launches=launches)
+
+
+def phase_region_parity(torch, dev, s: Model, batch: dict, nouns) -> None:
+    """One RegionCLIP step's loss and trainable gradients from the same
+    weights, batch and noise on f32 kernels, bf16 kernels and the f32 plain
+    path (L/14 at `parity_layers` blocks); the federated class mask of the
+    three legs EQUAL, sampling classes that no box carries."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.models.factory import create_model
+    from clipself_tpu_torch.train.methods import _fed_class_mask, fed_loss_noise, regionclip_loss
+    from clipself_tpu_torch.train.optim import trainable_labels
+
+    cfg = get_model_config(s.model)
+    if s.parity_layers is not None:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=s.parity_layers))
+    layers = cfg.vision.layers
+    noise = fed_loss_noise(SEED, 0, REGION_NOUNS, dev)
+    boxes = batch["boxes"]
+    labels, valid = boxes[..., 4].long().reshape(-1), (boxes[..., 5] > 0.5).reshape(-1)
+
+    def one_step(dtype, plain):
+        model = create_model(cfg, device=dev, dtype=dtype, seed=SEED)
+        named = list(model.named_parameters())
+        marks = trainable_labels((n for n, _ in named), layers, layers)
+        for name, p in named:
+            p.requires_grad_(marks[name] == "train")
+        reset_counts()
+        with plain_path() if plain else contextlib.nullcontext():
+            loss, _ = regionclip_loss(model, None, batch, noun_embeddings=nouns, noise=noise)
+            loss.backward()
+            mask = _fed_class_mask(labels, valid, REGION_NOUNS, REGION_SAMPLE, noise)
+        if not plain and not all(v for k, v in read_counts().items() if k != "nms"):
+            fail(f"RegionCLIP kernel path missed a kernel: {read_counts()}")
+        grads = {n: p.grad.float() for n, p in named if p.grad is not None}
+        out = loss.item()
+        del model, loss
+        torch.cuda.empty_cache()
+        return out, grads, mask
+
+    loss_p, g_p, m_p = one_step(torch.float32, plain=True)
+    loss_k, g_k, m_k = one_step(torch.float32, plain=False)
+    loss_h, g_h, m_h = one_step(torch.bfloat16, plain=False)
+    appeared = int(torch.unique(labels[valid]).numel())
+    if not (torch.equal(m_p, m_k) and torch.equal(m_p, m_h)):
+        fail(f"{s.key} region parity: the class masks of the three legs differ")
+    if not int(m_p.sum()) > appeared:
+        fail(f"{s.key} region parity: the mask samples no absent class ({int(m_p.sum())} of {appeared})")
+    if not (g_p.keys() == g_k.keys() == g_h.keys()) or not g_p:
+        fail("region parity: the three paths produced gradients for different parameters")
+    rel, cos = {}, {}
+    for name, w in g_p.items():
+        rel[name] = (g_k[name] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        cos[name] = torch.nn.functional.cosine_similarity(g_h[name].flatten(), w.flatten(), dim=0).item()
+    worst_rel, worst_cos = max(rel, key=rel.get), min(cos, key=cos.get)
+    print(
+        f"{s.key} region parity {s.model}, {layers} of {s.vision.layers} blocks, batch "
+        f"{boxes.shape[0]}, {int(valid.sum())} boxes, {REGION_NOUNS} nouns, class mask of "
+        f"{int(m_p.sum())} classes ({appeared} carried by a box) EQUAL in the three legs: loss f32 "
+        f"plain {loss_p:.7f}, f32 kernels {loss_k:.7f} (|d| {abs(loss_k - loss_p):.3e}, relative "
+        f"{abs(loss_k - loss_p) / abs(loss_p):.3e}, bar {REGION_LOSS_MAX_REL}), bf16 kernels "
+        f"{loss_h:.7f} (relative {abs(loss_h - loss_p) / abs(loss_p):.3e}, reported); gradients: "
+        f"f32 kernels vs f32 plain max "
+        f"rel {rel[worst_rel]:.3e} ({worst_rel}; bar {STEP_GRAD_F32_MAX_REL}); bf16 kernels vs f32 "
+        f"plain min cosine {cos[worst_cos]:.6f} ({worst_cos}; bar {STEP_GRAD_BF16_MIN_COS})",
+        flush=True,
+    )
+    finite = all(torch.isfinite(g).all().item() for d in (g_p, g_k, g_h) for g in d.values())
+    if not finite or not all(map(math.isfinite, (loss_p, loss_k, loss_h))):
+        fail("non-finite loss or gradient in region parity")
+    if not abs(loss_k - loss_p) <= REGION_LOSS_MAX_REL * abs(loss_p):
+        fail(f"{s.key} region f32 kernel loss off the plain loss by {abs(loss_k - loss_p)}")
+    if not rel[worst_rel] <= STEP_GRAD_F32_MAX_REL:
+        fail(f"{s.key} region f32 kernel gradient {worst_rel} off by {rel[worst_rel]} of its max")
+    if not cos[worst_cos] >= STEP_GRAD_BF16_MIN_COS:
+        fail(f"{s.key} region bf16 kernel gradient {worst_cos} cosine {cos[worst_cos]}")
+
+
+def region_run(torch, argv: list, tag: str, steps: int, layers: int, recompute: bool = False) -> dict:
+    """`train.main` with ``argv``: launches counted from 0, every loss finite,
+    the launch counts those of ``steps`` RegionCLIP steps."""
+    from clipself_tpu_torch.train import main as train_main
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train_main.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    run["launches"] = launches
+    losses = [h["loss"] for h in run["history"]]
+    print(f"{tag} losses {json.dumps([round(x, 6) for x in losses])}", flush=True)
+    print(f"{tag} launches {json.dumps(launches)}", flush=True)
+    if not losses or not all(map(math.isfinite, losses)):
+        fail(f"{tag} losses {losses}")
+    expect = expected_launches(layers, region_steps=steps, recompute=recompute)
+    if launches != expect:
+        fail(f"{tag} launch counts {launches}, expected {expect}")
+    return run
+
+
+def phase_region(torch, dev, s: Model, logs_dir: str) -> dict:
+    """`train.main --dataset-type region_clip` on a PNG corpus with a region
+    JSON of `REGION_NOUNS` categories and a seeded noun matrix. B/16: the
+    recipe's batch 16 from files, timed past the loader's backlog and
+    profiled; a flags run at batch 2 (`--accum-freq 2`,
+    `--save-most-recent`, `--keep-checkpoints 1`, `--export-torch`) and
+    `--pretrained` on its export, loaded exactly; the staged step; one
+    step's parity. L/14: batch 2 from files, one step with
+    `--grad-checkpointing`, parity at reduced depth. Returns the launch
+    counts by path."""
+    import numpy as np
+
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.data import datasets, loader
+    from clipself_tpu_torch.train import checkpoint as ckpt
+    from clipself_tpu_torch.train import main as train_main
+
+    cfg = get_model_config(s.model)
+    layers = s.vision.layers
+    workers = min(os.cpu_count() or 1, 8)
+    backlog = 2 * workers + loader.PREFETCH
+    b16 = s.key == "b16"
+    batch_size = REGION_BATCH if b16 else REGION_L14_BATCH
+    warmup, timed = (backlog, REGION_WINDOW * backlog) if b16 else (1, REGION_L14_STEPS - 1)
+    steps = warmup + timed + (REGION_PROFILED if b16 else 0)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_region")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        paths, _ = write_corpus(root, cfg.embed_dim, batch_size * steps)
+        region_json = write_region_json(paths)
+        nouns_path = write_nouns(root, cfg.embed_dim)
+        print(f"{s.key} region corpus: {DATA_TRAIN} train PNGs listed in turn as {batch_size * steps} "
+              f"images, 1-{REGION_BOXES} boxes each over {REGION_NOUNS} categories, nouns "
+              f"[{REGION_NOUNS}, {cfg.embed_dim}], written in {time.perf_counter() - t0:.2f} s", flush=True)
+        common = [
+            "--model", s.model, "--precision", "bf16", "--device", str(dev), "--dataset-type",
+            "region_clip", "--train-data", region_json, "--train-image-root", paths["train"],
+            "--train-embed-path", nouns_path, "--batch-size", str(batch_size), "--det-image-size",
+            str(s.image), "--max-boxes", str(REGION_BOXES), "--lock-image-unlocked-groups", str(layers),
+            "--alpha", str(REGION_ALPHA[s.key]), "--lr", "1e-5", "--warmup", "1", "--seed", str(SEED),
+            "--log-every-n-steps", "1", "--workers", str(workers), "--logs", logs_dir,
+        ]
+        tag = f"{s.key} region"
+        prof = {}
+        with profiled_steps(torch, warmup + timed, steps, prof) if b16 else contextlib.nullcontext():
+            run = region_run(torch, common + ["--epochs", "1", "--steps-per-epoch", str(steps),
+                                              "--name", "region"], f"{tag} files", steps, layers)
+        step_ms = [batch_size / h["images_per_sec"] * 1e3 for h in run["history"]]
+        window = step_ms[warmup: warmup + timed]
+        median, mean = statistics.median(window), sum(window) / len(window)
+        print(
+            f"{tag} files {s.model} RegionCLIP step from files: batch {batch_size} at {s.image}px, "
+            f"{REGION_BOXES} boxes, {REGION_NOUNS} nouns, {layers} blocks unlocked, bf16, {workers} "
+            f"workers: {timed} timed steps after {warmup} warm-up"
+            + (f" (the backlog: {backlog} batches)" if b16 else "")
+            + f": over the window {batch_size / mean * 1e3:.3f} images/s (images "
+            f"over its time; the workers deliver in bursts, so the median step, {median:.3f} ms, "
+            f"{batch_size / median * 1e3:.3f} images/s, is a device-paced or a loader-paced one); peak "
+            f"{run['peak_gib']:.3f} GiB (ms per step: warm-up {[round(t, 3) for t in step_ms[:warmup]]}, "
+            f"timed {[round(t, 3) for t in window]})",
+            flush=True,
+        )
+        if b16:
+            kernel = prof["kernel_ms"] / REGION_PROFILED
+            wall = prof["wall_ms"] / REGION_PROFILED
+            print(f"{tag} files device idle share over {REGION_PROFILED} profiled steps after the "
+                  f"window {1 - kernel / wall:.1%}: kernels {kernel:.3f} ms a step, wall {wall:.3f} ms "
+                  f"a step under the profiler; over the window (mean step {mean:.3f} ms) "
+                  f"{1 - kernel / mean:.1%} at that kernel time", flush=True)
+        out[f"{s.key}_region_files"] = run["launches"]
+        first_loss = run["history"][0]["loss"]
+        del run
+        torch.cuda.empty_cache()
+
+        ds = datasets.RegionCLIPDataset(region_json, paths["train"], det_size=s.image,
+                                        max_anns=REGION_BOXES, seed=SEED)
+        items = [ds[i] for i in range(max(batch_size, REGION_PARITY_BATCH))]
+        nouns = train_main.noun_embeddings(nouns_path, dev)
+
+        def stage(n):
+            return {k: torch.as_tensor(np.stack([it[k] for it in items[:n]]), device=dev)
+                    for k in items[0]}
+
+        if b16:
+            flags = common + ["--batch-size", str(REGION_FLAGS_BATCH), "--epochs", "2",
+                              "--steps-per-epoch", "2", "--accum-freq", "2", "--save-frequency", "1",
+                              "--save-most-recent", "--keep-checkpoints", "1", "--export-torch",
+                              "--name", "region_flags"]
+            t0 = time.perf_counter()
+            run = region_run(torch, flags, f"{tag} flags", 4, layers)
+            flags_s = time.perf_counter() - t0
+            run_dir = os.path.join(logs_dir, "region_flags")
+            saved = ckpt.saved_epochs(os.path.join(run_dir, "checkpoints"))
+            latest = ckpt.saved_epochs(os.path.join(run_dir, "checkpoints_latest"))
+            exports = sorted(n for n in os.listdir(run_dir) if n.endswith(".pt"))
+            print(f"{tag} flags: batch {REGION_FLAGS_BATCH}, 2 epochs x 2 micro-steps, --accum-freq 2: "
+                  f"step {run['state'].step}, checkpoints/ {saved}, checkpoints_latest/ {latest}, "
+                  f"exports {exports}; {flags_s:.1f} s", flush=True)
+            if (run["state"].step, saved, latest, exports) != (4, [2], [2], ["epoch_1.pt", "epoch_2.pt"]):
+                fail(f"{tag} flags: step, checkpoints or exports not as the flags ask")
+            out[f"{s.key}_region_flags"] = run["launches"]
+            del run
+            export = os.path.join(run_dir, "epoch_2.pt")
+            want = torch.load(export, map_location="cpu", weights_only=True)["state_dict"]
+            pre = ["--batch-size", str(REGION_PARITY_BATCH), "--epochs", "1", "--steps-per-epoch", "1",
+                   "--pretrained", export, "--seed", str(SEED + 1), "--name", "region_pretrained"]
+            run = region_run(torch, common + pre, f"{tag} pretrained", 1, layers)
+            got = run["teacher_params"]
+            same = got.keys() == want.keys() and all(torch.equal(got[k], v) for k, v in want.items())
+            print(f"{tag} --pretrained {os.path.basename(export)}: {len(want)} tensors, the "
+                  f"initial weights {'EQUAL to' if same else 'DIFFER from'} the export", flush=True)
+            if not same:
+                fail(f"{tag}: --pretrained did not load the exported weights exactly")
+            out[f"{s.key}_region_pretrained"] = run["launches"]
+            del run, want, got
+            torch.cuda.empty_cache()
+            staged = staged_region_steps(torch, dev, s, stage(batch_size), nouns, tag)
+            out[f"{s.key}_region_staged"] = staged["launches"]
+            print(f"{tag}: from files {mean:.3f} ms a step over the window against staged "
+                  f"{staged['ms']:.3f} ms (the staged step is {staged['ms'] / mean:.1%} of it)", flush=True)
+        else:
+            again = region_run(torch, common + ["--epochs", "1", "--steps-per-epoch", "1",
+                                                "--grad-checkpointing", "--name", "region_recompute"],
+                               f"{tag} recompute", 1, layers, recompute=True)
+            delta = abs(again["history"][0]["loss"] - first_loss)
+            print(f"{tag} recompute: one step {batch_size / again['history'][0]['images_per_sec'] * 1e3:.3f} "
+                  f"ms (the first, with the loader's start), peak {again['peak_gib']:.3f} GiB; first loss "
+                  f"|d| {delta:.3e} from the run without it (bar {RECOMPUTE_LOSS_MAX_ABS})", flush=True)
+            if not delta <= RECOMPUTE_LOSS_MAX_ABS:
+                fail(f"{tag}: the recomputing run's first loss is off by {delta}")
+            out[f"{s.key}_region_recompute"] = again["launches"]
+            del again
+            torch.cuda.empty_cache()
+        phase_region_parity(torch, dev, s, stage(REGION_PARITY_BATCH), nouns)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(logs_dir, ignore_errors=True)
+    return out
+
+
 def check_evals(tag: str, evals: list, n: int) -> None:
     """``n`` evaluations, each with the evaluator's 12 metrics, every one
     finite in [0, 1] or null (a class group the val set lacks)."""
@@ -2338,6 +2712,8 @@ def run() -> int:
         if s.key == "b16":
             paths.update(phase_data(torch, dev, s, logs_dir, train))
             print(f"{s.key} data done at {time.perf_counter() - t0:.1f} s", flush=True)
+        paths.update(phase_region(torch, dev, s, logs_dir))
+        print(f"{s.key} RegionCLIP done at {time.perf_counter() - t0:.1f} s", flush=True)
     cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev, DET_PRESET)
     phase_detector_parity(torch, dev, DET_PRESET, cfg, clip, det, emb, items)
     del clip, det

@@ -261,8 +261,8 @@ class ProposalDistillDataset(_DistillBase):
 
 class RegionCLIPDataset(_DistillBase):
     """Region-noun pseudo-label pairs (reference `COCORegionCLIPDataset`,
-    `data.py:390-459`). Its trainer is not ported yet (ROADMAP.md queue 1
-    item 6)."""
+    `data.py:390-459`), the items of `train/methods.py::regionclip_loss`:
+    images and boxes [max_anns, 6] (xyxy normalized, class label, valid)."""
 
     def __init__(
         self,

@@ -10,17 +10,26 @@ copied here (the result is pinned equal to that module's
 stored without the `text.` prefix (the open_clip hub layout) are taken too.
 `detector_state_dict_from_jax` does the same for the flax tree of the F-ViT
 detector heads, whose port keeps the tree's own names, and
-`detector_state_dict_to_jax` is its inverse.
+`detector_state_dict_to_jax` is its inverse. `load_pretrained` is the
+trainer's `--pretrained`: the JAX package's non-strict import
+(`load_pretrained`, `import_state_dict`), a missing key keeping its value
+and the pos-embed grid resized (`resize_pos_embed_np`, a pinned copy).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import re
 from typing import Any, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from clipself_tpu_torch.ops.interpolate import resize_weight_matrix
+
+log = logging.getLogger("clipself_tpu_torch")
 
 
 def _eva_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
@@ -249,3 +258,72 @@ def load_weights(model: nn.Module, source: Union[str, dict]) -> None:
     model.load_state_dict(
         {k: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()}, strict=True
     )
+
+
+def resize_pos_embed_np(pe: np.ndarray, tgt_tokens: int) -> np.ndarray:
+    """Bicubic-resize a [1, 1+S^2, D] pos-embed to [1, tgt_tokens, D]
+    (a copy of `clipself_tpu/models/torch_io.py::resize_pos_embed_np`,
+    reference `resize_evaclip_pos_embed`, `eva_clip/utils.py:78-139`)."""
+    if pe.shape[1] == tgt_tokens:
+        return pe
+    src = int(round((pe.shape[1] - 1) ** 0.5))
+    tgt = int(round((tgt_tokens - 1) ** 0.5))
+    cls_pe = pe[:, :1]
+    grid = pe[:, 1:].reshape(src, src, -1).astype(np.float32)
+    w = resize_weight_matrix(src, tgt, "bicubic")
+    grid = np.einsum("oh,hwd->owd", w, grid)
+    grid = np.einsum("pw,owd->opd", w, grid)
+    return np.concatenate([cls_pe, grid.reshape(1, tgt * tgt, -1)], axis=1)
+
+
+def load_pretrained(model: nn.Module, path: str) -> list[str]:
+    """Load a reference-layout `.pt` checkpoint, or a `.npz` of the same
+    keys, into a port `CLIP` the way the JAX package's `load_pretrained` /
+    `import_state_dict` fill a param tree (`clipself_tpu/models/torch_io.py:511,
+    :594`): containers unwrapped and RoPE buffers dropped
+    (`unwrap_state_dict`), a text-tower key also taken without its `text.`
+    prefix, `visual.pos_embed` bicubic-resized to the model's grid, keys
+    the model lacks ignored, and **non-strict**: a parameter the checkpoint
+    lacks keeps its value (logged). A shape that differs otherwise raises.
+    Returns the missing keys. Unlike `load_weights`, which is strict.
+
+    A directory (an Orbax run of the JAX trainer) needs jax to read and
+    raises; so does a name that is not a file (a catalog tag of
+    `resolve_pretrained`: the registry is ROADMAP.md queue 1 item 8)."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"--pretrained {path}: a directory is an Orbax checkpoint of the JAX trainer, which "
+            "needs jax to read; export it as a .pt (--export-torch) and pass that"
+        )
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"--pretrained {path}: no such file (catalog tags such as 'eva02' resolve through "
+            "the JAX package's pretrained registry, not ported: ROADMAP.md queue 1 item 8)"
+        )
+    if path.endswith(".npz"):
+        with np.load(path) as npz:
+            sd = {k: npz[k] for k in npz.files}
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = unwrap_state_dict(sd)
+    missing = []
+    with torch.no_grad():
+        for key, param in model.state_dict().items():
+            tkey = key
+            if tkey not in sd and tkey.startswith("text.") and tkey[len("text."):] in sd:
+                tkey = tkey[len("text."):]  # the open_clip hub layout
+            if tkey not in sd:
+                missing.append(key)
+                continue
+            val = sd[tkey]
+            arr = val.detach().cpu().float().numpy() if torch.is_tensor(val) else np.asarray(val, np.float32)
+            if key == "visual.pos_embed":
+                arr = resize_pos_embed_np(arr, param.shape[1])
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs model {tuple(param.shape)}")
+            param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))  # a 0-d stays 0-d
+    if missing:
+        log.info(f"--pretrained {path}: {len(missing)} key(s) not in the checkpoint keep their "
+                 f"initial values: {missing[:8]}{' ...' if len(missing) > 8 else ''}")
+    log.debug(f"--pretrained {path}: {len(sd)} checkpoint keys, {len(missing)} missing: {missing}")
+    return missing

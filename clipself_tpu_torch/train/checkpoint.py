@@ -6,7 +6,8 @@
   - the student weights, optimizer state and step are saved for resume;
   - one directory per epoch, `<ckpt_dir>/<epoch>/checkpoint.pt`, written to
     a temporary file and renamed, so a cut-off save never leaves a file that
-    resume would load.
+    resume would load; ``keep=N`` then removes all but the newest N epochs,
+    as Orbax's ``max_to_keep`` does.
 
 `export_torch` writes the ensembled weights as a reference-layout
 checkpoint: the port's state dict already has the reference keys.
@@ -15,6 +16,7 @@ checkpoint: the port's state dict already has the reference keys.
 from __future__ import annotations
 
 import os
+import shutil
 import tempfile
 from typing import Optional
 
@@ -49,9 +51,12 @@ def save_checkpoint(
     teacher_params: Optional[dict[str, torch.Tensor]],
     epoch: int,
     alpha: float = 1.0,
+    keep: Optional[int] = None,
 ) -> dict[str, torch.Tensor]:
     """Save {ensembled params, student params, optimizer state, step} at
-    ``epoch``; returns the ensembled params (what eval and export consume)."""
+    ``epoch``, then, with ``keep``, remove the epochs older than the newest
+    ``keep`` (None or 0 keeps every one, as ``max_to_keep`` does); returns
+    the ensembled params (what eval and export consume)."""
     student = _cpu_state(state.model)
     if alpha < 1.0 and teacher_params is not None:
         teacher = {k: v.to("cpu") for k, v in teacher_params.items()}
@@ -65,19 +70,26 @@ def save_checkpoint(
         "step": state.step,
     }
     _atomic_save(payload, os.path.join(ckpt_dir, str(epoch), _FILE))
+    if keep:
+        for old in saved_epochs(ckpt_dir)[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, str(old)))
     return target
+
+
+def saved_epochs(ckpt_dir: str) -> list[int]:
+    """The saved epochs under a checkpoint dir, oldest first."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(
+        int(name)
+        for name in os.listdir(ckpt_dir)
+        if name.isdigit() and os.path.isfile(os.path.join(ckpt_dir, name, _FILE))
+    )
 
 
 def latest_epoch(ckpt_dir: str) -> Optional[int]:
     """Newest saved epoch under a checkpoint dir (None when there is none)."""
-    if not os.path.isdir(ckpt_dir):
-        return None
-    epochs = [
-        int(name)
-        for name in os.listdir(ckpt_dir)
-        if name.isdigit() and os.path.isfile(os.path.join(ckpt_dir, name, _FILE))
-    ]
-    return max(epochs, default=None)
+    return (saved_epochs(ckpt_dir) or [None])[-1]
 
 
 def _load(ckpt_dir: str, epoch: Optional[int], device) -> tuple[dict, int]:

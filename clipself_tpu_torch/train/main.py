@@ -1,5 +1,5 @@
-"""CLIPSelf distillation trainer CLI on one device (a port of the distill
-path of `clipself_tpu/train/main.py:174-611`).
+"""CLIPSelf and RegionCLIP trainer CLI on one device (a port of
+`clipself_tpu/train/main.py:174-611`).
 
     python -m clipself_tpu_torch.train.main \\
         --model EVA02-CLIP-B-16 --dataset-type grid_distill \\
@@ -8,27 +8,39 @@ path of `clipself_tpu/train/main.py:174-611`).
         --val-segm-root panoptic_val2017 --embed-path coco_panoptic_b16.npy \\
         --batch-size 2 --det-image-size 1024 --workers 8
 
-parse flags -> student with seeded random weights and a frozen teacher copy
-of them -> AdamW with the reference lock and decay rules -> zero-shot eval
--> epoch loop of train steps -> alpha-ensemble checkpoint on save epochs,
-with resume -> zero-shot eval of the ensembled weights every
-`--zeroshot-frequency` epochs, each appended to `results.jsonl` (NaN as
-null). The data routes (`data/`, no PIL):
-  - `--train-data`: COCO files, `grid_distill` or `proposals_distill`
-    items made by `--workers` spawned processes, a fresh loader an epoch;
-    with `--native-loader` (grid_distill) the C++ core's thread pool
+parse flags -> student with seeded random weights (or `--pretrained`) and
+a copy of its initial weights (a frozen teacher module for the distill
+methods, a state dict for RegionCLIP, which runs no teacher) -> AdamW with
+the reference lock and decay rules, optionally accumulating gradients over
+`--accum-freq` micro-steps -> zero-shot eval -> epoch loop of train steps
+-> alpha-ensemble checkpoint on save epochs (`--keep-checkpoints`,
+`--save-most-recent`, `--export-torch`), with resume -> zero-shot eval of
+the ensembled weights every `--zeroshot-frequency` epochs, each appended to
+`results.jsonl` (NaN as null). The data routes (`data/`, no PIL):
+  - `--train-data`: COCO files, `grid_distill`, `proposals_distill` or
+    `region_clip` items made by `--workers` spawned processes, a fresh
+    loader an epoch; with `--native-loader` (grid_distill; ignored for the
+    others, as in the JAX trainer) the C++ core's thread pool
     (`native/loader.cc`, built with `make -C native`; needs the libjpeg and
     libpng headers);
   - `--val-data` (COCO-panoptic): the evaluator; without `--train-data` the
     run evaluates once and returns;
-  - `--synthetic`: one seeded batch, repeated (`--steps-per-epoch` needed).
+  - `--synthetic`: one seeded distill batch, repeated (`--steps-per-epoch`
+    needed; there is no synthetic RegionCLIP batch, as in the JAX package).
+`region_clip` trains against the `--train-embed-path` noun embeddings with
+the federated BCE of `train/methods.py::regionclip_loss`; its class-sampling
+noise is drawn on the device from ``(--seed, step)``.
 Batches reach the card through `data/loader.py::device_prefetch`.
 `--device` defaults to `cuda`; without a CUDA device that is an error, not
 a CPU run.
 
-Not carried by this slice (ROADMAP.md queue 1): `--pretrained`,
-`--accum-freq`, fsdp/tp meshes, the RegionCLIP method (`--dataset-type
-region_clip` raises) and profiling. Their flags are absent.
+Not carried (ROADMAP.md queue 1): the other towers' flags (item 8:
+`--force-patch-dropout`, `--pretrained-image`, `--force-quick-gelu`,
+`--lock-image-freeze-bn-stats`; `--extract-type v1` is accepted and, as in
+the JAX package, ignored by the EVA tower), meshes (item 9: `--n-devices`,
+`--fsdp-size`, `--tp-size`) and the TPU knobs (item 10: `--attn-impl`,
+`--pad-multiple`, `--scoped-vmem-kib`, `--profile-dir`). Their flags are
+absent.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from clipself_tpu_torch.data.datasets import (
     COCOPanopticEvalDataset,
     GridDistillDataset,
     ProposalDistillDataset,
+    RegionCLIPDataset,
 )
 from clipself_tpu_torch.data.loader import (
     SyntheticDistillData,
@@ -64,9 +77,11 @@ from clipself_tpu_torch.eval.zero_shot import (
     metrics_json,
 )
 from clipself_tpu_torch.models.factory import create_model
+from clipself_tpu_torch.models.torch_io import load_pretrained
 from clipself_tpu_torch.train import checkpoint as ckpt
 from clipself_tpu_torch.train.methods import (
     clipself_loss,
+    make_regionclip_loss,
     multiscale_sizes,
     resize_images_for_scale,
 )
@@ -82,6 +97,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("clipself_tpu_torch trainer")
     # model
     p.add_argument("--model", default="EVA02-CLIP-B-16")
+    p.add_argument("--pretrained", default=None,
+                   help="reference-layout .pt (or .npz) to start from; non-strict, "
+                        "as the JAX trainer's import")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     p.add_argument("--lock-image", action=argparse.BooleanOptionalAction, default=True)
@@ -90,12 +108,15 @@ def parse_args(argv=None):
                    help="recompute each block in the backward pass")
     # method
     p.add_argument("--cosine-weight", type=float, default=1.0)
-    p.add_argument("--multiscale", action="store_true")
+    p.add_argument("--contrast-weight", type=float, default=1.0)
+    p.add_argument("--multiscale", action="store_true", help="ignored for region_clip")
     p.add_argument("--extract-type", default="v2", choices=["v1", "v2"],
                    help="accepted for parity: the EVA tower has one RoI path "
                         "(the reference and the JAX package ignore it there)")
     p.add_argument("--dataset-type", default="grid_distill",
                    choices=["grid_distill", "proposals_distill", "region_clip"])
+    p.add_argument("--train-embed-path", default=None,
+                   help="RegionCLIP noun embeddings .npy (needed for region_clip)")
     # data
     p.add_argument("--train-data", default=None, help="COCO instances or proposals JSON")
     p.add_argument("--train-image-root", default=None)
@@ -121,7 +142,7 @@ def parse_args(argv=None):
     p.add_argument("--workers", type=int, default=8,
                    help="data worker processes (threads of the native pool)")
     p.add_argument("--native-loader", action="store_true",
-                   help="use the C++ decode/resize pool for grid_distill")
+                   help="use the C++ decode/resize pool for grid_distill (ignored otherwise)")
     p.add_argument("--steps-per-epoch", type=int, default=None,
                    help="default len(train set) // batch size; required with --synthetic")
     # optim
@@ -138,14 +159,25 @@ def parse_args(argv=None):
                    help="const-cooldown: cooldown over the last N epochs")
     p.add_argument("--lr-cooldown-end", type=float, default=0.0)
     p.add_argument("--lr-cooldown-power", type=float, default=1.0)
+    p.add_argument("--skip-scheduler", action="store_true",
+                   help="constant base LR, no warmup or decay (reference train.py:84)")
     p.add_argument("--grad-clip-norm", type=float, default=None)
+    p.add_argument("--accum-freq", type=int, default=1,
+                   help="gradient accumulation micro-steps an update (optax.MultiSteps)")
     p.add_argument("--alpha", type=float, default=0.7, help="ensemble weight on save")
     # infra
     p.add_argument("--name", default=None)
     p.add_argument("--logs", default="./logs")
     p.add_argument("--resume", default=None,
-                   help="checkpoint dir, or 'auto' = the run dir's checkpoints")
+                   help="checkpoint dir, or 'auto' = the newer of the run dir's checkpoints/ "
+                        "and checkpoints_latest/")
     p.add_argument("--save-frequency", type=int, default=1)
+    p.add_argument("--save-most-recent", action="store_true",
+                   help="also keep a rolling checkpoints_latest/ written every epoch")
+    p.add_argument("--keep-checkpoints", type=int, default=None,
+                   help="retain only the newest N epoch checkpoints")
+    p.add_argument("--export-torch", action="store_true",
+                   help="also write each saved checkpoint as <run>/epoch_<n>.pt")
     p.add_argument("--zeroshot-frequency", type=int, default=1)
     p.add_argument("--image-ave-pool", action="store_true",
                    help="evaluator crop features = average-pooled dense map "
@@ -154,6 +186,9 @@ def parse_args(argv=None):
                    help=f"zero-shot eval ann-axis bucket width (default {DEFAULT_ANN_BUCKET}; "
                         "0 disables)")
     p.add_argument("--log-every-n-steps", type=int, default=50)
+    p.add_argument("--debug", action="store_true", help="DEBUG log level")
+    p.add_argument("--log-local", action="store_true",
+                   help="write out-<rank>.log (out-0.log: one process) instead of out.log")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 
@@ -168,19 +203,24 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def _setup_logging(out_dir: str) -> None:
+def _setup_logging(args, out_dir: str) -> None:
+    """DEBUG level under ``--debug``, else INFO; the run dir's log file is
+    out.log, or with ``--log-local`` the process's own out-<rank>.log
+    (`clipself_tpu/train/main.py::setup_logging`; one process: rank 0)."""
+    level = logging.DEBUG if args.debug else logging.INFO
     root = logging.getLogger()
-    root.setLevel(logging.INFO)
+    root.setLevel(level)
     if not any(type(h) is logging.StreamHandler for h in root.handlers):
         h = logging.StreamHandler()
         h.setFormatter(logging.Formatter("%(asctime)s | %(message)s"))
         root.addHandler(h)
-    # one out.log per run dir; drop file handlers of earlier in-process runs
+    # one log file per run dir; drop file handlers of earlier in-process runs
     for h in [h for h in root.handlers if isinstance(h, logging.FileHandler)]:
         root.removeHandler(h)
         h.close()
-    fh = logging.FileHandler(os.path.join(out_dir, "out.log"))
+    fh = logging.FileHandler(os.path.join(out_dir, "out-0.log" if args.log_local else "out.log"))
     fh.setFormatter(logging.Formatter("%(asctime)s | %(levelname)s | %(message)s"))
+    fh.setLevel(level)
     root.addHandler(fh)
 
 
@@ -188,11 +228,6 @@ def build_data(args, device: torch.device, crop_size: int) -> dict:
     """The run's data (`clipself_tpu/train/main.py::build_data`): "train" a
     `data/loader.py::TrainRoute` (device batches an epoch), "train_size"
     with files; "val_ds" and "val" (a loader factory) with ``--val-data``."""
-    if args.dataset_type == "region_clip":
-        raise NotImplementedError(
-            "--dataset-type region_clip: the RegionCLIP trainer is not ported yet "
-            "(ROADMAP.md queue 1 item 6; its dataset is data/datasets.py::RegionCLIPDataset)"
-        )
     data = {}
     if args.synthetic:
         data["train"] = synthetic_route(SyntheticDistillData(
@@ -210,12 +245,18 @@ def build_data(args, device: torch.device, crop_size: int) -> dict:
                 crop_scale=args.crop_scale, pre_transforms=args.pre_transforms,
                 train_ratio=args.train_ratio, seed=args.seed,
             )
-        else:
+        elif args.dataset_type == "proposals_distill":
             ds = ProposalDistillDataset(
                 args.train_data, args.train_image_root,
                 det_size=args.det_image_size, crop_size=crop_size,
                 max_anns=args.max_boxes, min_size=args.min_size,
                 max_size=args.max_size, seed=args.seed,
+            )
+        else:
+            ds = RegionCLIPDataset(
+                args.train_data, args.train_image_root,
+                det_size=args.det_image_size, max_anns=args.max_boxes,
+                train_ratio=args.train_ratio, seed=args.seed,
             )
         data["train_size"] = len(ds)
         route = native_route if args.native_loader and args.dataset_type == "grid_distill" \
@@ -238,19 +279,48 @@ def build_data(args, device: torch.device, crop_size: int) -> dict:
     return data
 
 
+def noun_embeddings(path: str, device: torch.device) -> torch.Tensor:
+    """The RegionCLIP noun embeddings of ``path`` ([C, D] .npy) as float32
+    rows L2-normalized with +1e-12, on ``device`` (JAX `main.py:401-403`)."""
+    emb = np.load(path).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True) + 1e-12
+    return torch.as_tensor(emb, device=device)
+
+
+def _resume_dir(args, out_dir: str) -> str:
+    """``--resume``: the given dir, or with 'auto' whichever of the run's
+    checkpoints/ and checkpoints_latest/ holds the newest epoch (the first
+    on a tie; JAX `main.py:440-457`)."""
+    if args.resume != "auto":
+        return args.resume
+    candidates = [os.path.join(out_dir, "checkpoints"), os.path.join(out_dir, "checkpoints_latest")]
+    return max(
+        (d for d in candidates if os.path.isdir(d)),
+        key=lambda d: ckpt.latest_epoch(d) or -1,
+        default=candidates[0],
+    )
+
+
 def train(args) -> dict:
-    """Run the distill loop of parsed ``args``. Returns the run's
-    {"state", "teacher", "history", "evals", "native_fallback_rows",
-    "out_dir"}: ``history`` holds one entry per logged step (epoch, step,
-    loss, lr, images_per_sec), ``evals`` one per evaluation (epoch and
-    metrics, as in results.jsonl); ``native_fallback_rows`` counts the rows
-    that `--native-loader` left to the NumPy route (None without it).
-    An evaluation-only run (``--val-data`` without ``--train-data``)
-    returns {"evals", "out_dir"}."""
+    """Run the training loop of parsed ``args``. Returns the run's
+    {"state", "teacher", "teacher_params", "history", "evals",
+    "native_fallback_rows", "out_dir"}: ``teacher`` is the frozen teacher
+    module (None for region_clip), ``teacher_params`` the initial weights
+    that the alpha-ensemble mixes in; ``history`` holds one entry per logged
+    step (epoch, step, loss, the method's own loss, lr, images_per_sec),
+    ``evals`` one per evaluation (epoch and metrics, as in results.jsonl);
+    ``native_fallback_rows`` counts the rows that `--native-loader` left to
+    the NumPy route (None without it). An evaluation-only run
+    (``--val-data`` without ``--train-data``) returns {"evals", "out_dir"}."""
+    region = args.dataset_type == "region_clip"
     if not (args.synthetic or args.train_data or args.val_data):
         raise ValueError("no data: pass --synthetic, --train-data or --val-data")
     if args.synthetic and not args.steps_per_epoch:
         raise ValueError("--synthetic needs --steps-per-epoch")
+    if region and args.synthetic:
+        raise ValueError("--dataset-type region_clip has no synthetic batch: pass --train-data")
+    if region and args.train_data and not args.train_embed_path:
+        raise ValueError("--dataset-type region_clip needs --train-embed-path (the noun embeddings .npy)")
     if args.resume == "auto" and not args.name:
         raise ValueError(
             "--resume auto needs --name (without it each run creates a "
@@ -266,15 +336,18 @@ def train(args) -> dict:
     name = args.name or f"{args.model}-{args.dataset_type}-{time.strftime('%Y%m%d-%H%M%S')}"
     out_dir = os.path.join(args.logs, name)
     os.makedirs(out_dir, exist_ok=True)
-    _setup_logging(out_dir)
+    _setup_logging(args, out_dir)
     with open(os.path.join(out_dir, "params.txt"), "w") as f:
         for k in sorted(vars(args)):
             f.write(f"{k}: {getattr(args, k)}\n")
+    log.debug("args: " + ", ".join(f"{k}={getattr(args, k)}" for k in sorted(vars(args))))
 
     model = create_model(
         cfg, device=device, dtype=dtype, seed=args.seed,
         grad_checkpointing=args.grad_checkpointing,
     )
+    if args.pretrained:
+        load_pretrained(model, args.pretrained)
     evals = []
     eval_model = None
 
@@ -306,7 +379,14 @@ def train(args) -> dict:
         log.info("done")
         return {"evals": evals, "out_dir": out_dir}
 
-    teacher = copy.deepcopy(model).requires_grad_(False)  # the initial weights, frozen
+    # the initial weights: the distill methods' frozen teacher; RegionCLIP runs
+    # no teacher and keeps them on the host for the alpha-ensemble only
+    if region:
+        teacher = None
+        teacher_params = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    else:
+        teacher = copy.deepcopy(model).requires_grad_(False)
+        teacher_params = teacher.state_dict()
     route = data["train"]
     steps_per_epoch = args.steps_per_epoch or route.steps
     if steps_per_epoch < 1:
@@ -320,25 +400,29 @@ def train(args) -> dict:
             f"has {route.steps} batches of {args.batch_size}"
         )
     total_steps = steps_per_epoch * args.epochs
-    sched_kw = {}
-    if args.lr_scheduler == "const-cooldown":
-        cooldown_epochs = args.epochs_cooldown or max(args.epochs // 4, 1)
-        sched_kw = dict(
-            cooldown_steps=steps_per_epoch * cooldown_epochs,
-            cooldown_power=args.lr_cooldown_power,
-            cooldown_end_lr=args.lr_cooldown_end,
-        )
-    schedule = make_schedule(args.lr_scheduler, args.lr, args.warmup, total_steps, **sched_kw)
+    if args.skip_scheduler:
+        # the reference never steps its scheduler (train.py:84): the base LR throughout
+        schedule = make_schedule("const", args.lr, 0, total_steps)
+    else:
+        sched_kw = {}
+        if args.lr_scheduler == "const-cooldown":
+            cooldown_epochs = args.epochs_cooldown or max(args.epochs // 4, 1)
+            sched_kw = dict(
+                cooldown_steps=steps_per_epoch * cooldown_epochs,
+                cooldown_power=args.lr_cooldown_power,
+                cooldown_end_lr=args.lr_cooldown_end,
+            )
+        schedule = make_schedule(args.lr_scheduler, args.lr, args.warmup, total_steps, **sched_kw)
     optimizer = build_optimizer(
         model, schedule, wd=args.wd, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
         grad_clip_norm=args.grad_clip_norm, unlocked_groups=args.lock_image_unlocked_groups,
-        num_layers=cfg.vision.layers, lock_image=args.lock_image,
+        num_layers=cfg.vision.layers, lock_image=args.lock_image, accum_steps=args.accum_freq,
     )
     state = TrainState(model, optimizer)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     start_epoch = 0
     if args.resume:
-        resume_dir = ckpt_dir if args.resume == "auto" else args.resume
+        resume_dir = _resume_dir(args, out_dir)
         if os.path.isdir(resume_dir):
             state, start_epoch = ckpt.restore_checkpoint(resume_dir, state)
             log.info(f"resume from {resume_dir}: epoch {start_epoch}, step {state.step}")
@@ -347,10 +431,15 @@ def train(args) -> dict:
         else:
             log.info("--resume auto: no checkpoint yet, starting fresh")
 
-    step_fn = make_train_step(
-        partial(clipself_loss, cosine_weight=args.cosine_weight), teacher
-    )
-    if args.multiscale:
+    if region:
+        loss_fn = make_regionclip_loss(
+            noun_embeddings(args.train_embed_path, device), args.seed,
+            contrast_weight=args.contrast_weight,
+        )
+    else:
+        loss_fn = partial(clipself_loss, cosine_weight=args.cosine_weight)
+    step_fn = make_train_step(loss_fn, teacher)
+    if args.multiscale and not region:
         ms_sizes = multiscale_sizes(args.det_image_size, cfg.vision.patch_size)
         ms_rng = np.random.default_rng(args.seed + 1)
 
@@ -361,8 +450,9 @@ def train(args) -> dict:
             return batch
 
     log.info(
-        f"{args.model} on {device}: batch {args.batch_size}, {args.det_image_size}px images, "
-        f"{args.max_boxes} boxes, {len(optimizer.params)} trainable tensors"
+        f"{args.model} on {device}: {args.dataset_type}, batch {args.batch_size}, "
+        f"{args.det_image_size}px images, {args.max_boxes} boxes, {len(optimizer.params)} "
+        f"trainable tensors, {args.accum_freq} micro-step(s) an update"
     )
     # eval before training (reference main.py:263-269)
     run_eval(None, start_epoch)
@@ -378,14 +468,13 @@ def train(args) -> dict:
                 loss = float(metrics["loss"])  # waits for the step
                 loss_meter.update(loss)
                 ips = tput.window()
-                lr_now = float(schedule(state.step - 1))
-                history.append(
-                    {"epoch": epoch, "step": state.step, "loss": loss, "lr": lr_now,
-                     "images_per_sec": ips}
-                )
+                entry = {"epoch": epoch, "step": state.step, "loss": loss, "lr": optimizer.lr,
+                         "images_per_sec": ips}
+                entry.update({k: float(v) for k, v in metrics.items() if k.startswith("loss_")})
+                history.append(entry)
                 log.info(
                     f"epoch {epoch} step {i + 1}/{steps_per_epoch} loss {loss:.4f} "
-                    f"lr {lr_now:.3e} | {ips:.2f} img/s"
+                    f"lr {optimizer.lr:.3e} | {ips:.2f} img/s"
                 )
         completed = epoch + 1
         log.info(f"epoch {epoch} done | mean logged loss {loss_meter.avg:.4f}")
@@ -394,20 +483,31 @@ def train(args) -> dict:
             log.info(f"native loader: {route.fallback_rows} row(s) built by the NumPy route so far")
         if (args.save_frequency and completed % args.save_frequency == 0) or completed == args.epochs:
             target = ckpt.save_checkpoint(
-                ckpt_dir, state, teacher.state_dict(), completed, alpha=args.alpha
+                ckpt_dir, state, teacher_params, completed, alpha=args.alpha,
+                keep=args.keep_checkpoints,
             )
+            if args.export_torch:
+                path = os.path.join(out_dir, f"epoch_{completed}.pt")
+                ckpt.export_torch(path, target, epoch=completed, name=name)
+                log.debug(f"exported {path}")
         elif args.alpha < 1.0 and "val" in data:
-            target = student_teacher_ensemble(
-                state.model.state_dict(), teacher.state_dict(), args.alpha
-            )
+            initial = {k: v.to(device) for k, v in teacher_params.items()}  # RegionCLIP's are on the host
+            target = student_teacher_ensemble(state.model.state_dict(), initial, args.alpha)
         else:
             target = None
+        if args.save_most_recent:
+            # rolling latest, every epoch whatever --save-frequency says (JAX main.py:600-607)
+            ckpt.save_checkpoint(
+                os.path.join(out_dir, "checkpoints_latest"), state, teacher_params, completed,
+                alpha=args.alpha, keep=1,
+            )
         if args.zeroshot_frequency > 0 and completed % args.zeroshot_frequency == 0:
             run_eval(target, completed)
     route.close()
     log.info("done")
-    return {"state": state, "teacher": teacher, "history": history, "evals": evals,
-            "native_fallback_rows": route.fallback_rows, "out_dir": out_dir}
+    return {"state": state, "teacher": teacher, "teacher_params": teacher_params,
+            "history": history, "evals": evals, "native_fallback_rows": route.fallback_rows,
+            "out_dir": out_dir}
 
 
 def main(argv=None) -> dict:

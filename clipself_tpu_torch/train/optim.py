@@ -14,6 +14,8 @@ Freezing is `requires_grad=False` on the frozen parameters: autograd then
 computes no gradient for them, the counterpart of the stop-gradient the JAX
 step applies at its freeze mask (`clipself_tpu/train/step.py:85-91`).
 Parameter names are the port's reference layout (`visual.blocks.{i}....`).
+Gradient accumulation (``accum_steps`` > 1) is `optax.MultiSteps` around
+the optimizer, as `build_optimizer(accum_steps=)` of the JAX package wraps it.
 """
 
 from __future__ import annotations
@@ -141,7 +143,14 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 class Optimizer:
     """AdamW over the trainable parameters of a model in a decay and a
     no-decay group, with optional global-norm clipping of the trainable
-    gradients and the learning rate taken from the schedule at each step."""
+    gradients and the learning rate taken from the schedule at each update.
+
+    With ``accum_steps`` = k > 1 it is `optax.MultiSteps(every_k_schedule=k)`:
+    each micro-step folds its gradients into their running mean (Welford's
+    update, in the parameters' dtype), and every k-th micro-step applies
+    AdamW (clipping included) to that mean and clears it; the other
+    micro-steps leave the parameters and the AdamW state as they are. The
+    schedule counts the applied updates, the inner optimizer's count."""
 
     def __init__(
         self,
@@ -156,7 +165,10 @@ class Optimizer:
         unlocked_groups: int = 0,
         num_layers: int = 12,
         lock_image: bool = True,
+        accum_steps: int = 1,
     ):
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps {accum_steps}: must be at least 1")
         named = list(model.named_parameters())
         labels = trainable_labels(
             (n for n, _ in named), unlocked_groups, num_layers, lock_image
@@ -179,25 +191,60 @@ class Optimizer:
             p.grad = torch.zeros_like(p)
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
+        self.accum_steps = accum_steps
+        # MultiSteps' acc_grads: the running mean of the micro-steps' gradients
+        self.accumulated = [torch.zeros_like(p) for p in self.params] if accum_steps > 1 else None
+        self.lr = float(schedule(0))  # the learning rate of the last applied update
         self.opt = torch.optim.AdamW(
-            [g for g in groups if g["params"]], lr=schedule(0), betas=(beta1, beta2), eps=eps
+            [g for g in groups if g["params"]], lr=self.lr, betas=(beta1, beta2), eps=eps
         )
 
     def step(self, count: int) -> None:
-        """Apply update number ``count`` (0-based) and clear the gradients."""
+        """Take micro-step number ``count`` (0-based) on the gradients in
+        ``.grad`` and clear them. Without accumulation every micro-step is
+        update number ``count``; with it, micro-step ``count`` is folded into
+        the running mean, and the last of each k applies update number
+        ``count // k``."""
+        grads = [p.grad for p in self.params]
+        if self.accumulated is not None:
+            mini = count % self.accum_steps
+            # optax MultiSteps (use_grad_mean): acc + (g - acc) / (mini + 1)
+            delta = torch._foreach_sub(grads, self.accumulated)
+            torch._foreach_div_(delta, float(mini + 1))
+            torch._foreach_add_(self.accumulated, delta)
+            if mini < self.accum_steps - 1:
+                torch._foreach_zero_(grads)
+                return
+            torch._foreach_copy_(grads, self.accumulated)
+            torch._foreach_zero_(self.accumulated)
+            count //= self.accum_steps
         if self.grad_clip_norm is not None:
             clip_by_global_norm(self.params, self.grad_clip_norm)
-        lr = float(self.schedule(count))
+        self.lr = float(self.schedule(count))
         for group in self.opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = self.lr
         self.opt.step()
         self.opt.zero_grad(set_to_none=False)
 
     def state_dict(self) -> dict:
-        return self.opt.state_dict()
+        """AdamW's state dict, with the accumulated gradients under
+        "accumulated" when accumulating."""
+        state = self.opt.state_dict()
+        if self.accumulated is not None:
+            state = {**state, "accumulated": [a.clone() for a in self.accumulated]}
+        return state
 
     def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        accumulated = state.pop("accumulated", None)
+        if (accumulated is None) != (self.accumulated is None):
+            raise ValueError(
+                "the checkpoint's optimizer state and this run disagree on gradient "
+                f"accumulation (this run: accum_steps {self.accum_steps})"
+            )
         self.opt.load_state_dict(state)
+        if accumulated is not None:
+            torch._foreach_copy_(self.accumulated, [a.to(p.device) for a, p in zip(accumulated, self.params)])
 
 
 # the JAX package's name: AdamW with the reference decay mask and image-tower

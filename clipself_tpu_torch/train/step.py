@@ -1,18 +1,20 @@
-"""The distillation train step (a port of `clipself_tpu/train/step.py` on
-one device).
+"""The train step (a port of `clipself_tpu/train/step.py` on one device).
 
 The reference's per-step region (`src/training/train.py:80-122`: teacher
 encode, student dense encode, RoI-align, loss, AdamW, logit clamp) runs
-eagerly: loss and backward, the optimizer step, then logit_scale clamped to
-[0, ln 100]. Frozen parameters carry ``requires_grad=False``
-(`train/optim.py`), so autograd computes no gradient for them.
+eagerly: loss and backward, the optimizer's micro-step (an update, or with
+gradient accumulation a fold into the running mean until every k-th), then
+logit_scale clamped to [0, ln 100] on every micro-step, as the JAX step
+clamps. ``state.step`` counts micro-steps. Frozen parameters carry
+``requires_grad=False`` (`train/optim.py`), so autograd computes no gradient
+for them.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -30,16 +32,19 @@ class TrainState:
 
 
 def make_train_step(
-    loss_fn: Callable, teacher: CLIP, *, log_grad_norm: bool = False
+    loss_fn: Callable, teacher: Optional[CLIP], *, log_grad_norm: bool = False
 ) -> Callable[[TrainState, dict], dict]:
     """Build ``step_fn(state, batch) -> metrics`` for
-    ``loss_fn(model, teacher, batch) -> (loss, metrics)``. The metrics are
-    device tensors; reading one waits for the step. ``log_grad_norm`` adds
-    the global norm of the trainable gradients before clipping (off by
-    default: the reference computes it only to clip)."""
+    ``loss_fn(model, teacher, batch, step) -> (loss, metrics)``, where
+    ``step`` is the micro-step's index (``state.step`` before it; the
+    RegionCLIP loss draws its class-sampling noise from it, as the JAX step
+    folds it into the loss's key). The metrics are device tensors; reading
+    one waits for the step. ``log_grad_norm`` adds the global norm of the
+    micro-step's trainable gradients before clipping (off by default: the
+    reference computes it only to clip)."""
 
     def step_fn(state: TrainState, batch: dict) -> dict:
-        loss, metrics = loss_fn(state.model, teacher, batch)
+        loss, metrics = loss_fn(state.model, teacher, batch, state.step)
         loss.backward()
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()

@@ -938,3 +938,52 @@ def test_file_data_step_equals_the_same_batch_staged_by_hand(dev, tmp_path):
     model = create_model("EVA02-CLIP-B-16", device=dev, dtype=torch.float32, seed=0)
     loss, _ = partial(clipself_loss, cosine_weight=1.0)(model, model, batch)
     assert abs(run["history"][0]["loss"] - loss.item()) <= 1e-5
+
+
+def test_region_clip_step_launches_the_dense_pass_kernels_and_no_teacher(dev):
+    """One RegionCLIP step (`train/methods.py::regionclip_loss` through
+    `make_train_step`, the trainer's `make_regionclip_loss`) at Tiny size: the student's dense pass and its
+    backward, no teacher: per attention block (layers - 1, the last block
+    takes the value path) one flash forward, one flash backward, one RoPE
+    launch each way; every LayerNorm of the tower (4 a block and the final
+    one) forward and backward. Its noise draw does not synchronise the
+    host; the loss and every updated parameter are finite."""
+    from clipself_tpu_torch.models.factory import create_model
+    from clipself_tpu_torch.train import methods, optim, step
+
+    model = create_model("EVA02-CLIP-Tiny-Test", device=dev, dtype=torch.float32, seed=0)
+    layers = model.cfg.vision.layers
+    opt = optim.build_optimizer(model, optim.make_schedule("const", 1e-3, 0, 10),
+                                unlocked_groups=layers, num_layers=layers)
+    nouns = torch.nn.functional.normalize(torch.randn(128, model.cfg.embed_dim, device=dev), dim=-1)
+    gen = torch.Generator().manual_seed(0)
+    boxes = torch.zeros(2, 4, 6)
+    boxes[..., :2] = torch.rand(2, 4, 2, generator=gen) * 0.5
+    boxes[..., 2:4] = boxes[..., :2] + 0.25
+    boxes[..., 4] = torch.randint(0, 128, (2, 4), generator=gen).float()
+    boxes[:, :3, 5] = 1.0  # the last row padded with a box, label and valid flag 0
+    boxes[:, 3] = 0.0
+    batch = {"images": torch.randn(2, 64, 64, 3, generator=gen).to(dev), "boxes": boxes.to(dev)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        noise = methods.fed_loss_noise(0, 3, 128, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert noise.device.type == "cuda" and noise.shape == (128,)
+
+    counters = {
+        "flash_attention": attention.LAUNCHES, "flash_attention_bwd": attention.BWD_LAUNCHES,
+        "rope_roll": rope_roll.LAUNCHES, "rope_roll_bwd": rope_roll.BWD_LAUNCHES,
+        "layer_norm": layer_norm.LAUNCHES, "layer_norm_bwd": layer_norm.BWD_LAUNCHES,
+    }
+    before = {k: c.count for k, c in counters.items()}
+    state = step.TrainState(model, opt)
+    metrics = step.make_train_step(methods.make_regionclip_loss(nouns, 0), None)(state, batch)
+    torch.cuda.synchronize()
+    got = {k: c.count - before[k] for k, c in counters.items()}
+    dense, norms = layers - 1, 4 * layers + 1
+    assert got == {"flash_attention": dense, "flash_attention_bwd": dense, "rope_roll": dense,
+                   "rope_roll_bwd": dense, "layer_norm": norms, "layer_norm_bwd": norms}
+    assert torch.isfinite(metrics["loss"]) and metrics["num_boxes"].item() == 6
+    assert all(torch.isfinite(p).all() for p in model.parameters())

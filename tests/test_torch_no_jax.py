@@ -6,7 +6,9 @@ with a mask head: the mask paster's rasters need no PIL), one tiny detector
 train step, and the text tower (`encode_text`, `build_text_embeddings` and
 the text-embedding CLI on a full-vocabulary tiny tower) on the CPU; then the
 input pipeline: a grid `--train-data` step and an evaluation-only run on a
-PNG corpus that this process wrote (PNGs are decoded without PIL)."""
+PNG corpus that this process wrote (PNGs are decoded without PIL); and the
+RegionCLIP trainer route (`--dataset-type region_clip`) on that corpus with
+`--accum-freq 2`, `--export-torch` and then `--pretrained` on its export."""
 
 import json
 import math
@@ -135,8 +137,20 @@ files = train_main.main(common + val + [
     "--epochs", "1", "--steps-per-epoch", "1", "--name", "files",
 ])
 eval_only = train_main.main(common + val + ["--name", "eval_only"])
+import numpy as np
+np.save(sys.argv[1] + "/nouns.npy", np.random.default_rng(0).standard_normal((128, 64)).astype(np.float32))
+region_args = common + [
+    "--dataset-type", "region_clip", "--train-data", corpus + "/instances.json",
+    "--train-image-root", corpus + "/images", "--train-embed-path", sys.argv[1] + "/nouns.npy",
+    "--epochs", "1", "--steps-per-epoch", "2", "--accum-freq", "2",
+]
+region = train_main.main(region_args + ["--name", "region", "--export-torch"])
+region_pre = train_main.main(region_args + [
+    "--name", "region_pre", "--pretrained", sys.argv[1] + "/region/epoch_1.pt",
+])
 data = {"loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
-        "eval_only": sorted(eval_only["evals"][0])}
+        "eval_only": sorted(eval_only["evals"][0]),
+        "region": [h["loss_contrast"] for h in region["history"] + region_pre["history"]]}
 text = {"encode_text": list(txt.shape), "finite": bool(torch.isfinite(txt).all()),
         "rows": list(rows.shape), "cli": list(cli.shape), "ids": tokenizer.tokenize("a cat")[0, :4].tolist()}
 banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "regex", "ftfy",
@@ -180,6 +194,8 @@ def test_port_runs_without_jax(tmp_path):
     assert out["n_results"] == 12
     assert math.isfinite(out["data"]["loss"]) and out["data"]["evals"] == 2
     assert len(out["data"]["eval_only"]) == 13 and "epoch" in out["data"]["eval_only"]
+    assert len(out["data"]["region"]) == 2 and all(map(math.isfinite, out["data"]["region"]))
+    assert (tmp_path / "region" / "epoch_1.pt").is_file()
     assert math.isfinite(out["loss"]) and math.isfinite(out["det_loss"])
     assert (tmp_path / "det" / "detector_epoch0.pkl").is_file()
     assert out["loaded"] == []

@@ -101,7 +101,7 @@ def test_real_data_and_missing_steps_are_refused(tmp_path):
     with pytest.raises(ValueError, match="steps-per-epoch"):
         train_main.main(argv[:i] + argv[i + 2:])
     with pytest.raises(SystemExit):
-        train_main.parse_args(["--accum-freq", "2"])  # not carried by this slice
+        train_main.parse_args(["--fsdp-size", "2"])  # meshes are not carried (ROADMAP item 9)
 
 
 def test_resume_auto_needs_a_name_in_both_packages(tmp_path, caplog):
