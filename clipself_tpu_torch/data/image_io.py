@@ -72,14 +72,15 @@ def unfilter(raw: np.ndarray, filters: np.ndarray) -> np.ndarray:
     filtered bytes, ``filters`` [H] the filter type of each row (0 None,
     1 Sub, 2 Up, 3 Average, 4 Paeth). Returns [H, W, C] uint8.
 
-    Sub, Average and Paeth need the byte just rebuilt to their left, so
+    An image whose rows are all unfiltered is returned as it is. Sub,
+    Average and Paeth need the byte just rebuilt to their left, so
     the rows are rebuilt together along anti-diagonals: pixel (y, x) needs
     (y, x-1), (y-1, x) and (y-1, x-1), all on earlier diagonals, so
     H + W - 1 vectorised steps rebuild the image. The image is held with a
     zero row above and a zero column on the left (the format's edge
     values), in which a diagonal is one strided view."""
     h, w, c = raw.shape
-    if h == 0 or w == 0:
+    if h == 0 or w == 0 or not filters.any():  # no row filtered: the bytes are the pixels
         return raw.copy()
     padded = np.zeros((h + 1, w + 1, c), np.uint8)
     rawp = np.zeros_like(padded)
@@ -151,6 +152,37 @@ def decode_png(data: bytes, name: str = "<bytes>") -> tuple[np.ndarray, Optional
         raise UnreadableImage("unknown row filter")
     img = unfilter(rows[:, 1:].reshape(h, w, c), filters)
     return (img[..., 0] if _CHANNELS[ctype] == 0 else img), (palette if ctype == 3 else None)
+
+
+def encode_png(img: np.ndarray, filters: str = "none") -> bytes:
+    """A PNG file's bytes for an RGB uint8 [H, W, 3] array, written with
+    `zlib` and NumPy. ``filters``: "none" (filter type 0 on every row: the
+    decoder's row loop, no wavefront) or "cycle" (None, Sub, Up, Average and
+    Paeth in turn, every form `unfilter` rebuilds)."""
+    if filters not in ("none", "cycle"):
+        raise ValueError(f"filters must be 'none' or 'cycle', not {filters!r}")
+    h, w, _ = img.shape
+    x = img.astype(np.int16)
+    if filters == "none":
+        kinds = np.zeros(h, np.int64)
+        rows = img.reshape(h, -1)
+    else:
+        left = np.zeros_like(x)
+        left[:, 1:] = x[:, :-1]
+        up = np.zeros_like(x)
+        up[1:] = x[:-1]
+        ul = np.zeros_like(x)
+        ul[1:, 1:] = x[:-1, :-1]
+        preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, _paeth(left, up, ul)])
+        kinds = np.arange(h) % 5
+        rows = ((x - preds[kinds, np.arange(h)]) % 256).astype(np.uint8).reshape(h, -1)
+    raw = np.concatenate([kinds.astype(np.uint8)[:, None], rows], axis=1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def png_to_rgb(img: np.ndarray, palette: Optional[np.ndarray]) -> np.ndarray:

@@ -9,11 +9,14 @@ images. The reference preprocessing (`src/open_clip/transform.py`):
   - crop transform = ResizeMaxSize(crop_size) with CENTER padding
     (`transform.py:26-49`) + OpenAI normalize;
   - `get_scale` = min(new/old) ratio (`transform.py:194-207`).
-Every resize is Pillow's 8-bit BICUBIC (`Resample.c`): a = -0.5 over a
-support of 2 widened by the shrink factor, weights in fixed point with 22
-fraction bits, the horizontal pass first into a uint8 intermediate. Only
-the taps of each output pixel are multiplied (a banded product in int32,
-no BLAS), which is exact: the sums stay under 2^31.
+Every resize of the distillation pipelines is Pillow's 8-bit BICUBIC
+(`Resample.c`): a = -0.5 over a support of 2 widened by the shrink factor,
+weights in fixed point with 22 fraction bits, the horizontal pass first into
+a uint8 intermediate. Only the taps of each output pixel are multiplied (a
+banded product in int32, no BLAS), which is exact: the sums stay under
+2^31. The detector's resizes are Pillow's 8-bit BILINEAR in the same passes
+(`resize_bilinear`; `resize_bilinear_u8` for one channel), its raster
+resizes NEAREST (`resize_nearest`).
 """
 
 from __future__ import annotations
@@ -32,21 +35,19 @@ _STD = np.asarray(OPENAI_DATASET_STD, np.float32)
 PRECISION_BITS = 22
 
 
-def _bicubic(x: float) -> float:
-    """Pillow's `bicubic_filter` (a = -0.5)."""
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's `bicubic_filter` (a = -0.5), elementwise."""
     a = -0.5
-    x = abs(x)
-    if x < 1.0:
-        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
-    if x < 2.0:
-        return (((x - 5) * x + 8) * x - 4) * a
-    return 0.0
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _bilinear(x: float) -> float:
-    """Pillow's `bilinear_filter` (the triangle)."""
-    x = abs(x)
-    return 1.0 - x if x < 1.0 else 0.0
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    """Pillow's `bilinear_filter` (the triangle), elementwise."""
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
 
 
 _FILTERS = {"bicubic": (_bicubic, 2.0), "bilinear": (_bilinear, 1.0)}
@@ -59,27 +60,24 @@ def coeffs(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, np.ndarr
     float64 normalised to sum 1). Taps are centred at ``(x + 0.5) * in /
     out``, bounds rounded by ``(int)(c +- support + 0.5)`` and clamped; a
     row shorter than K is padded with weight 0 on its last source pixel.
-    The double arithmetic follows the C order."""
+    The double arithmetic follows the C order, elementwise over the rows:
+    each row's sum runs over its taps from the first, as the C loop adds."""
     fn, base_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = base_support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
-    index = np.zeros((out_size, ksize), np.int64)
-    weight = np.zeros((out_size, ksize), np.float64)
     ss = 1.0 / filterscale
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        taps = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
-        total = 0.0
-        for k in taps:
-            total += k
-        for x, k in enumerate(taps):
-            weight[xx, x] = k / total if total != 0.0 else k
-        index[xx, :xmax] = np.arange(xmin, xmin + xmax)
-        index[xx, xmax:] = xmin + xmax - 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    x = np.arange(ksize)
+    inside = x[None, :] < xmax[:, None]
+    taps = np.where(inside, fn((x[None, :] + xmin[:, None] - center[:, None] + 0.5) * ss), 0.0)
+    total = np.add.accumulate(taps, axis=1)[:, -1:]  # left to right, as the C loop
+    with np.errstate(divide="ignore", invalid="ignore"):
+        weight = np.where(total != 0.0, taps / total, taps)
+    index = np.where(inside, xmin[:, None] + x[None, :], (xmin + xmax - 1)[:, None])
     index.flags.writeable = weight.flags.writeable = False
     return index, weight
 
@@ -96,14 +94,17 @@ def fixed_coeffs(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, np
     return index, fixed
 
 
-def _pass_u8(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One 8-bit BICUBIC pass of a uint8 [H, W, C] image along ``axis``
-    (1: horizontal, 0: vertical): int32 sums from 2^21 over the taps,
-    shifted by 22 bits and clipped to 0-255, as `clip8` does."""
-    index, fixed = fixed_coeffs(img.shape[axis], out_size, "bicubic")
+def _pass_u8(img: np.ndarray, out_size: int, axis: int, kind: str, lo: int = 0, hi=None) -> np.ndarray:
+    """One 8-bit pass of Pillow's filter ``kind`` ("bicubic" or
+    "bilinear") over a uint8 [H, W, C] image along ``axis`` (1: horizontal,
+    0: vertical), computing the output pixels ``lo`` to ``hi`` of
+    ``out_size``: int32 sums from 2^21 over the taps, shifted by 22 bits and
+    clipped to 0-255, as `clip8` does."""
+    index, fixed = fixed_coeffs(img.shape[axis], out_size, kind)
+    index, fixed = index[lo:hi], fixed[lo:hi]
     shape = [1, 1, 1]
-    shape[axis] = out_size
-    out_shape = tuple(out_size if i == axis else n for i, n in enumerate(img.shape))
+    shape[axis] = len(index)
+    out_shape = tuple(len(index) if i == axis else n for i, n in enumerate(img.shape))
     acc = np.full(out_shape, 1 << (PRECISION_BITS - 1), np.int32)
     tap = np.empty(out_shape, np.int32)
     for k in range(index.shape[1]):
@@ -117,22 +118,71 @@ def _check_size(img: np.ndarray, size: tuple[int, int]) -> None:
         raise ValueError(f"resize to {tuple(size)}: height and width must be > 0")
 
 
+def _resize_u8(img: np.ndarray, size: tuple[int, int], kind: str, window=None) -> np.ndarray:
+    w, h = size
+    _check_size(img, size)
+    x0, y0, x1, y1 = window or (0, 0, w, h)
+    if img.size == 0:
+        return np.zeros((y1 - y0, x1 - x0) + img.shape[2:], np.uint8)
+    out = _pass_u8(img, w, 1, kind, x0, x1) if w != img.shape[1] else img[:, x0:x1]
+    out = _pass_u8(out, h, 0, kind, y0, y1) if h != img.shape[0] else out[y0:y1]
+    return out.copy() if np.may_share_memory(out, img) else out
+
+
 def resize_bicubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """``img`` uint8 [H, W, C] resized to ``size`` = (w, h), equal to
     ``Image.fromarray(img).resize(size, Image.BICUBIC)``: the horizontal
     pass first, then the vertical; a pass whose size does not change is
     skipped. An empty image resizes to black; an empty size raises, as in
     Pillow."""
-    w, h = size
-    _check_size(img, size)
-    if img.size == 0:
-        return np.zeros((h, w) + img.shape[2:], np.uint8)
-    out = img
-    if w != img.shape[1]:
-        out = _pass_u8(out, w, 1)
-    if h != img.shape[0]:
-        out = _pass_u8(out, h, 0)
-    return out.copy() if out is img else out
+    return _resize_u8(img, size, "bicubic")
+
+
+def resize_bilinear(img: np.ndarray, size: tuple[int, int], window=None) -> np.ndarray:
+    """``img`` uint8 [H, W, C] resized to ``size`` = (w, h), equal to
+    ``Image.fromarray(img).resize(size, Image.BILINEAR)`` (the detector's
+    resizes): Pillow's triangle filter, widened by the shrink factor, in
+    the same 8-bit passes as `resize_bicubic`. ``window`` = (x0, y0, x1, y1)
+    within ``size``: only that crop of the resized image is computed and
+    returned, equal to ``.crop(window)`` of Pillow's whole resize (each
+    output pixel depends on its own taps alone)."""
+    return _resize_u8(img, size, "bilinear", window)
+
+
+def resize_bilinear_u8(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """A uint8 [H, W] image resized to ``hw`` = (h, w) exactly as
+    ``PIL.Image.fromarray(img).resize((w, h), Image.BILINEAR)``:
+    `resize_bilinear` on one channel."""
+    return resize_bilinear(img[..., None], (hw[1], hw[0]))[..., 0]
+
+
+@functools.lru_cache(maxsize=4096)
+def _nearest_index(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Source index of each output pixel under Pillow's NEAREST resize
+    (`ImagingScaleAffine`): a position starting at half a step and advanced
+    by adding the step in double once a pixel, truncated; an index outside
+    the source leaves the pixel 0. The running sum can differ from
+    ``(x + 0.5) * step`` where the step is not a binary fraction (1/3, 3/7)."""
+    step = in_size / out_size
+    pos = np.cumsum(np.concatenate([[step * 0.5], np.full(out_size - 1, step)]))
+    idx = np.where(pos < 0.0, -1, pos.astype(np.int64))
+    inside = (idx >= 0) & (idx < in_size)
+    idx = np.clip(idx, 0, in_size - 1)
+    idx.flags.writeable = inside.flags.writeable = False
+    return idx, inside
+
+
+def resize_nearest(m: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """A [H, W] raster resized to ``hw`` as Pillow's NEAREST resize does."""
+    if m.shape == tuple(hw):
+        return m.copy()
+    yi, yv = _nearest_index(m.shape[0], hw[0])
+    xi, xv = _nearest_index(m.shape[1], hw[1])
+    out = m[yi][:, xi]
+    if not (yv.all() and xv.all()):
+        out[~yv] = 0
+        out[:, ~xv] = 0
+    return out
 
 
 def resize_bilinear_f32(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:

@@ -8,13 +8,22 @@ split) or, for LVIS with its frequency groups, the LVIS protocol
 (`eval_lvis.py`: AP / APr / APc / APf); with a mask head the pasted masks are
 scored the same way under `segm_`-prefixed keys. The mask rasters are
 computed in NumPy and equal, bit for bit, what the JAX package gets from
-`PIL.Image.resize` (`resize_bilinear_u8`, `resize_nearest`). Not ported yet
-(ROADMAP.md queue 1 item 7.5): `DetectionDataset` and the command line.
+`PIL.Image.resize` (`resize_bilinear_u8`, `resize_nearest`).
+
+The `fvit-test` command line scores a detector checkpoint of either package
+on a COCO- or LVIS-format annotation file, in bf16:
+
+    python -m clipself_tpu_torch.detector.evaluate --ann-file <json> \
+        --image-root <dir> --class-embed <.npy> --detector-checkpoint <.pkl>
+
+``--device`` defaults to `cuda`; without a CUDA device that is an error, not
+a CPU run. The metrics are printed and written (``--out``) as strict JSON, a
+NaN as ``null`` (`metrics_json`), where the JAX command writes a bare NaN.
 """
 
 from __future__ import annotations
 
-import functools
+import argparse
 import logging
 import pickle
 import time
@@ -23,77 +32,16 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from clipself_tpu_torch.detector.classes import base_novel_mask, coco_split, lvis_split
-from clipself_tpu_torch.detector.config import FViTConfig
-from clipself_tpu_torch.detector.data import collate
+from clipself_tpu_torch.detector.classes import base_novel_mask, coco_split, lvis_split, transfer_split
+from clipself_tpu_torch.detector.config import PRESETS, FViTConfig
+from clipself_tpu_torch.detector.data import DetectionDataset, collate
 from clipself_tpu_torch.detector.eval_ap import DetectionEvaluator
 from clipself_tpu_torch.detector.eval_lvis import LvisEvaluator
-from clipself_tpu_torch.detector.fvit import FViTDetector, backbone_taps
-from clipself_tpu_torch.eval.zero_shot import metrics_json  # noqa: F401  (the metrics' JSON form)
-from clipself_tpu_torch.data.transforms import PRECISION_BITS, fixed_coeffs
-from clipself_tpu_torch.models.torch_io import detector_state_dict_from_jax
-
-
-@functools.lru_cache(maxsize=4096)
-def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[out, in] fixed-point weights of Pillow's BILINEAR pass: the taps of
-    `data/transforms.py::coeffs` (Pillow's `precompute_coeffs`, a triangle
-    filter widened by the shrink factor) rounded to 22 fraction bits as
-    `normalize_coeffs_8bpc` rounds them. Held as float64 integers: a pass's
-    sums (< 2^31) are exact in float64, and a float64 product runs in BLAS."""
-    index, fixed = fixed_coeffs(in_size, out_size, "bilinear")
-    w = np.zeros((out_size, in_size), np.float64)
-    np.add.at(w, (np.arange(out_size)[:, None], index), fixed)  # padded taps add 0
-    w.flags.writeable = False
-    return w
-
-
-def _clip8(acc: np.ndarray) -> np.ndarray:
-    return np.clip(acc.astype(np.int64) >> PRECISION_BITS, 0, 255).astype(np.uint8)
-
-
-def resize_bilinear_u8(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
-    """A uint8 [H, W] image resized to ``hw`` exactly as
-    ``PIL.Image.fromarray(img).resize((w, h), Image.BILINEAR)``: the
-    horizontal pass first into a uint8 intermediate, then the vertical pass;
-    a pass whose size does not change is skipped."""
-    h, w = hw
-    half = 1 << (PRECISION_BITS - 1)
-    out = img
-    if w != img.shape[1]:
-        out = _clip8(out.astype(np.float64) @ _bilinear_weights(img.shape[1], w).T + half)
-    if h != img.shape[0]:
-        out = _clip8(_bilinear_weights(img.shape[0], h) @ out.astype(np.float64) + half)
-    return out.copy() if out is img else out
-
-
-@functools.lru_cache(maxsize=4096)
-def _nearest_index(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
-    """Source index of each output pixel under Pillow's NEAREST resize
-    (`ImagingScaleAffine`): a position starting at half a step and advanced
-    by adding the step in double once a pixel, truncated; an index outside
-    the source leaves the pixel 0. The running sum can differ from
-    ``(x + 0.5) * step`` where the step is not a binary fraction (1/3, 3/7)."""
-    step = in_size / out_size
-    pos = np.cumsum(np.concatenate([[step * 0.5], np.full(out_size - 1, step)]))
-    idx = np.where(pos < 0.0, -1, pos.astype(np.int64))
-    inside = (idx >= 0) & (idx < in_size)
-    idx = np.clip(idx, 0, in_size - 1)
-    idx.flags.writeable = inside.flags.writeable = False
-    return idx, inside
-
-
-def resize_nearest(m: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
-    """A [H, W] raster resized to ``hw`` as Pillow's NEAREST resize does."""
-    if m.shape == tuple(hw):
-        return m.copy()
-    yi, yv = _nearest_index(m.shape[0], hw[0])
-    xi, xv = _nearest_index(m.shape[1], hw[1])
-    out = m[yi][:, xi]
-    if not (yv.all() and xv.all()):
-        out[~yv] = 0
-        out[:, ~xv] = 0
-    return out
+from clipself_tpu_torch.detector.fvit import FViTDetector, backbone_taps, create_detector
+from clipself_tpu_torch.eval.zero_shot import metrics_json
+from clipself_tpu_torch.data.transforms import resize_bilinear_u8, resize_nearest
+from clipself_tpu_torch.models.factory import create_model
+from clipself_tpu_torch.models.torch_io import detector_state_dict_from_jax, load_pretrained
 
 
 def quantize_probs(prob) -> np.ndarray:
@@ -333,3 +281,88 @@ def load_detector(path: str) -> dict[str, torch.Tensor]:
             node = node.setdefault(p_, {})
         node[parts[-1]] = np.asarray(val)
     return detector_state_dict_from_jax(tree)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("fvit-test")
+    p.add_argument("--preset", default="ov_coco_vitb16", choices=sorted(PRESETS))
+    p.add_argument("--dataset", default=None,
+                   choices=["coco", "lvis", "voc", "objects365"],
+                   help="class-split registry; inferred from --preset when "
+                   "omitted. Transfer presets use the full target vocabulary "
+                   "(reference configs/transfer/*)")
+    p.add_argument("--ann-file", required=True)
+    p.add_argument("--image-root", required=True)
+    p.add_argument("--class-embed", required=True)
+    p.add_argument("--clip-checkpoint", default=None, help="distilled CLIP .pt / .npz")
+    p.add_argument("--detector-checkpoint", required=True)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--max-images", type=int, default=None)
+    p.add_argument("--out", default=None)
+    p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Score ``--detector-checkpoint`` on the annotation file (the JAX
+    `fvit-test`, bf16). Returns the metrics."""
+    from clipself_tpu_torch.train.main import _device
+
+    args = parse_args(argv)
+    device = _device(args.device)
+    logging.basicConfig(level=logging.INFO)
+
+    cfg = PRESETS[args.preset]
+    is_transfer = args.preset.startswith("transfer_")
+    if args.dataset is None:
+        if is_transfer:
+            args.dataset = args.preset.split("_")[1]
+        else:
+            args.dataset = "lvis" if "lvis" in args.preset else "coco"
+    if is_transfer:
+        split = transfer_split(args.dataset)
+    elif args.dataset == "coco":
+        split = coco_split()
+    elif args.dataset == "lvis":
+        split = lvis_split()
+    else:
+        raise SystemExit(f"--dataset {args.dataset} requires a transfer_* preset")
+    if len(split["all"]) != cfg.num_classes:
+        raise SystemExit(
+            f"--dataset {args.dataset} has {len(split['all'])} classes but "
+            f"preset {args.preset} expects {cfg.num_classes}"
+        )
+    clip_model = create_model(cfg.clip_model, device=device, dtype=torch.bfloat16)
+    if args.clip_checkpoint:
+        load_pretrained(clip_model, args.clip_checkpoint)
+    clip_model.requires_grad_(False)
+    det = create_detector(cfg, device=device)
+    det.load_state_dict(load_detector(args.detector_checkpoint), strict=True)
+    ce = np.load(args.class_embed).astype(np.float32)
+    k = len(split["all"])
+    if ce.shape != (k + 1, cfg.embed_dim):
+        raise SystemExit(
+            f"--class-embed {args.class_embed} has shape {ce.shape}; "
+            f"preset {args.preset} needs ({k + 1}, {cfg.embed_dim}) — "
+            f"{k} classes + background"
+        )
+    ce = ce / np.linalg.norm(ce, axis=-1, keepdims=True)
+    ds = DetectionDataset(
+        args.ann_file, args.image_root, split["all"],
+        image_size=cfg.image_size, max_gt=cfg.max_gt, train=False,
+        with_mask=cfg.with_mask,
+    )
+    metrics = evaluate_detector(
+        det, clip_model, ds, cfg, ce, device=device,
+        dataset_name=args.dataset, batch_size=args.batch_size,
+        max_images=args.max_images, split=split,
+    )
+    print(metrics_json(metrics, indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(metrics_json(metrics))
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

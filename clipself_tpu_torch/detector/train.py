@@ -1,6 +1,7 @@
 """F-ViT detector training on one device (a port of
 `clipself_tpu/detector/train.py`: mmdet `F-ViT/train.py` + `dist_train.sh`).
 
+    python -m clipself_tpu_torch.detector.train --ann-file <json> --image-root <dir>
     python -m clipself_tpu_torch.detector.train --synthetic --steps-per-epoch 10
 
 Recipe (`configs/ov_coco/...eva_original.py:213-224`): AdamW lr 1e-4, betas
@@ -11,12 +12,16 @@ loss and its backward into the heads, the global gradient norm (before
 clipping), clipping, the AdamW update. The samplers' noise is drawn from a
 `torch.Generator` on the step's device, seeded from ``--seed``.
 
-``--synthetic`` (seeded `SyntheticDetectionData` batches) is the only data
-source: `DetectionDataset` (COCO files, PIL) is not ported (ROADMAP.md queue 1
-items 2 and 7.5). ``--device`` defaults to `cuda`; without a CUDA device that
-is an error, not a CPU run. The mesh shardings, buffer donation and TPU
-compiler options of the JAX step are not carried (ROADMAP.md queue 1 items 9
-and 10).
+Batches come from a COCO- or LVIS-format annotation file through
+`DetectionDataset` (``--ann-file``, ``--image-root``), in the JAX trainer's
+order: each epoch a `default_rng((seed, epoch))` permutation of the images,
+the ragged tail dropped, the items read in this process as the JAX trainer
+reads them; or, with ``--synthetic``, seeded `SyntheticDetectionData`
+batches. ``--clip-checkpoint`` loads a distilled CLIP `.pt` non-strictly, as
+the JAX package's `create_model(pretrained=)` does. ``--device`` defaults to
+`cuda`; without a CUDA device that is an error, not a CPU run. The mesh
+shardings, buffer donation and TPU compiler options of the JAX step are not
+carried (ROADMAP.md queue 1 items 9 and 10).
 """
 
 from __future__ import annotations
@@ -34,12 +39,12 @@ import torch
 
 from clipself_tpu_torch.detector.classes import class_weights, coco_split, lvis_split
 from clipself_tpu_torch.detector.config import PRESETS, FViTConfig
-from clipself_tpu_torch.detector.data import SyntheticDetectionData
+from clipself_tpu_torch.detector.data import DetectionDataset, SyntheticDetectionData, collate
 from clipself_tpu_torch.detector.fvit import FViTDetector, backbone_taps, create_detector
 from clipself_tpu_torch.detector.rpn import num_anchors
 from clipself_tpu_torch.detector.targets import draw_noise
 from clipself_tpu_torch.models.factory import create_model
-from clipself_tpu_torch.models.torch_io import _flatten, detector_state_dict_to_jax, load_weights
+from clipself_tpu_torch.models.torch_io import _flatten, detector_state_dict_to_jax, load_pretrained
 from clipself_tpu_torch.train.main import _device
 from clipself_tpu_torch.train.optim import clip_by_global_norm
 
@@ -155,7 +160,7 @@ def parse_args(argv=None):
     p.add_argument("--ann-file", default=None)
     p.add_argument("--image-root", default=None)
     p.add_argument("--class-embed", default=None, help=".npy [K+1, D] text embeddings")
-    p.add_argument("--clip-checkpoint", default=None, help="distilled CLIP .pt state dict")
+    p.add_argument("--clip-checkpoint", default=None, help="distilled CLIP .pt / .npz")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--epochs", type=int, default=3)
@@ -173,17 +178,16 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Train on parsed ``argv``. Returns {"state", "history"}: ``history``
-    holds one entry per logged step (epoch, step, step_ms, metrics), where
-    step_ms is the host clock from the batch's copy to the device to its
-    metrics read back (the synthetic batch is drawn before the clock
-    starts)."""
+    """Train on parsed ``argv``. Returns {"state", "history", "clip"}
+    (``clip``: the frozen CLIP model the taps came from): ``history``
+    holds one entry per logged step (epoch, step, step_ms, data_ms,
+    metrics), where step_ms is the host clock from the batch's copy to the
+    device to its metrics read back, and data_ms the host clock spent
+    building the batch before it (reading and collating the items, or
+    drawing the synthetic batch)."""
     args = parse_args(argv)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "only --synthetic data is ported (DetectionDataset and COCO files: "
-            "ROADMAP.md queue 1 items 2 and 7.5)"
-        )
+    if not args.synthetic and not (args.ann_file and args.image_root):
+        raise SystemExit("fvit-train: --ann-file and --image-root are required without --synthetic")
     device = _device(args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = PRESETS[args.preset]
@@ -216,23 +220,48 @@ def main(argv=None) -> dict:
     class_embed = torch.as_tensor(ce, device=device)
     cw = torch.as_tensor(class_weights(args.dataset, cfg.bg_weight), device=device)
 
-    clip_model = create_model(cfg.clip_model, device=device, dtype=dtype, seed=args.seed)
+    # the trunk's random weights do not follow --seed: the JAX CLIs, and
+    # `fvit-test` here, build it from create_model's default seed, so a
+    # checkpoint is scored on the trunk it was trained on
+    clip_model = create_model(cfg.clip_model, device=device, dtype=dtype)
     if args.clip_checkpoint:
-        load_weights(clip_model, args.clip_checkpoint)
+        load_pretrained(clip_model, args.clip_checkpoint)
     clip_model.requires_grad_(False)
     det = create_detector(cfg, device=device, seed=args.seed)
-    data = SyntheticDetectionData(
-        k, image_size=cfg.image_size, max_gt=cfg.max_gt, with_mask=cfg.with_mask
-    )
-    steps = args.steps_per_epoch or 10
+
+    if args.synthetic:
+        data = SyntheticDetectionData(
+            k, image_size=cfg.image_size, max_gt=cfg.max_gt, with_mask=cfg.with_mask
+        )
+        steps = args.steps_per_epoch or 10
+
+        def batches(epoch):
+            return (data.batch(args.batch_size) for _ in range(steps))
+    else:
+        ds = DetectionDataset(
+            args.ann_file, args.image_root, split["all"],
+            image_size=cfg.image_size, max_gt=cfg.max_gt, train=True,
+            ratio_range=tuple(args.ratio_range),
+            seed=args.seed, with_mask=cfg.with_mask,
+        )
+        steps = args.steps_per_epoch or (len(ds) // args.batch_size)
+
+        def batches(epoch):
+            ds.set_epoch(epoch)
+            order = np.random.default_rng((args.seed, epoch)).permutation(len(ds))
+            for i in range(steps):
+                idx = order[i * args.batch_size : (i + 1) * args.batch_size]
+                if len(idx) < args.batch_size:
+                    return
+                yield collate([ds[int(j)] for j in idx])
 
     state = DetTrainState(det, build_det_optimizer(det, args.lr, args.wd))
     generator = torch.Generator(device=device).manual_seed(args.seed)
     step_fn = make_det_train_step(clip_model, cfg, class_embed, cw, generator)
     history = []
     for epoch in range(args.epochs):
-        for i in range(steps):
-            host = data.batch(args.batch_size)
+        tick = time.perf_counter()
+        for i, host in enumerate(batches(epoch)):
             t0 = time.perf_counter()
             batch = {
                 k2: torch.as_tensor(v, device=device)
@@ -242,12 +271,16 @@ def main(argv=None) -> dict:
             if (i + 1) % args.log_every == 0 or i == 0:
                 m = {k2: float(v) for k2, v in metrics.items()}  # waits for the step
                 step_ms = (time.perf_counter() - t0) * 1e3
-                history.append({"epoch": epoch, "step": state.step, "step_ms": step_ms, "metrics": m})
+                history.append({
+                    "epoch": epoch, "step": state.step, "step_ms": step_ms,
+                    "data_ms": (t0 - tick) * 1e3, "metrics": m,
+                })
                 shown = {k2: round(v, 4) for k2, v in m.items()}
                 log.info(f"epoch {epoch} step {i + 1}/{steps} {shown} ({step_ms:.1f} ms)")
+            tick = time.perf_counter()
         save_detector(args.output, det, cfg, epoch)
     log.info("done")
-    return {"state": state, "history": history}
+    return {"state": state, "history": history, "clip": clip_model}
 
 
 def save_detector(output: str, det: FViTDetector, cfg: FViTConfig, epoch: int) -> str:

@@ -535,7 +535,7 @@ def test_cli_trains_and_writes_a_checkpoint_both_packages_read(tmp_path):
 
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 items 2 and 7.5"):
+    with pytest.raises(SystemExit, match="--ann-file and --image-root are required without --synthetic"):
         train.main(["--preset", "tiny_test", "--device", "cpu", "--output", str(tmp_path)])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: --device cuda is a valid choice here")

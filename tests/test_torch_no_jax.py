@@ -8,7 +8,10 @@ the text-embedding CLI on a full-vocabulary tiny tower) on the CPU; then the
 input pipeline: a grid `--train-data` step and an evaluation-only run on a
 PNG corpus that this process wrote (PNGs are decoded without PIL); and the
 RegionCLIP trainer route (`--dataset-type region_clip`) on that corpus with
-`--accum-freq 2`, `--export-torch` and then `--pretrained` on its export."""
+`--accum-freq 2`, `--export-torch` and then `--pretrained` on its export;
+and the detector's file path: a set written by the port's
+`tools/synth_det_data.py`, one file-fed tiny detector train step and
+`fvit-test` on its checkpoint."""
 
 import json
 import math
@@ -37,6 +40,7 @@ import clipself_tpu_torch.data.image_io
 import clipself_tpu_torch.data.loader
 import clipself_tpu_torch.data.native_loader
 import clipself_tpu_torch.data.transforms
+import clipself_tpu_torch.tools.detector_seed_sweep
 import clipself_tpu_torch.tools.profile_paths
 import clipself_tpu_torch.tools.side_by_side
 import clipself_tpu_torch.train.checkpoint
@@ -68,6 +72,9 @@ import clipself_tpu_torch.detector.train as det_train
 import clipself_tpu_torch.models.text_transformer
 import clipself_tpu_torch.tokenizer as tokenizer
 import clipself_tpu_torch.tools.text_embeddings as text_embeddings
+import clipself_tpu_torch.data.draw
+import clipself_tpu_torch.detector.classes as det_classes
+import clipself_tpu_torch.tools.synth_det_data as synth_det_data
 
 model = factory.create_model("EVA02-CLIP-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
 batch = synthetic.synthetic_panoptic_batch(
@@ -148,9 +155,20 @@ region = train_main.main(region_args + ["--name", "region", "--export-torch"])
 region_pre = train_main.main(region_args + [
     "--name", "region_pre", "--pretrained", sys.argv[1] + "/region/epoch_1.pt",
 ])
+det_ann, det_imgs = synth_det_data.write_synth_det(
+    sys.argv[1] + "/detset", det_classes.coco_split()["all"], synth_det_data.gt_classes("coco", 3),
+    n_images=2, size=64,
+)
+np.save(sys.argv[1] + "/det_ce.npy", np.random.default_rng(0).standard_normal((66, 32)).astype(np.float32))
+det_common = ["--preset", "tiny_test", "--device", "cpu", "--ann-file", det_ann, "--image-root", det_imgs,
+              "--class-embed", sys.argv[1] + "/det_ce.npy", "--batch-size", "2"]
+det_files = det_train.main(det_common + ["--epochs", "1", "--output", sys.argv[1] + "/det_files"])
+fvit = det_evaluate.main(det_common + ["--detector-checkpoint", sys.argv[1] + "/det_files/detector_epoch0.pkl"])
 data = {"loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
         "eval_only": sorted(eval_only["evals"][0]),
-        "region": [h["loss_contrast"] for h in region["history"] + region_pre["history"]]}
+        "region": [h["loss_contrast"] for h in region["history"] + region_pre["history"]],
+        "det_files": [h["metrics"]["loss"] for h in det_files["history"]],
+        "fvit": json.loads(det_evaluate.metrics_json(fvit))}
 text = {"encode_text": list(txt.shape), "finite": bool(torch.isfinite(txt).all()),
         "rows": list(rows.shape), "cli": list(cli.shape), "ids": tokenizer.tokenize("a cat")[0, :4].tolist()}
 banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "regex", "ftfy",
@@ -196,6 +214,8 @@ def test_port_runs_without_jax(tmp_path):
     assert len(out["data"]["eval_only"]) == 13 and "epoch" in out["data"]["eval_only"]
     assert len(out["data"]["region"]) == 2 and all(map(math.isfinite, out["data"]["region"]))
     assert (tmp_path / "region" / "epoch_1.pt").is_file()
+    assert len(out["data"]["det_files"]) == 1 and all(map(math.isfinite, out["data"]["det_files"]))
+    assert sorted(out["data"]["fvit"]) == ["AP50", "AP50_base", "AP50_novel", "AP75", "mAP"]
     assert math.isfinite(out["loss"]) and math.isfinite(out["det_loss"])
     assert (tmp_path / "det" / "detector_epoch0.pkl").is_file()
     assert out["loaded"] == []
