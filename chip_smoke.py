@@ -43,8 +43,8 @@ then for each model, B/16 first:
 4. whole-path parity of the dense map against the plain float32 path;
 5. the text tower (width 512, 8 heads at B/16; 768, 12 heads at L/14; 12
    blocks, 77 tokens): `tools/text_embeddings.py::build_text_embeddings` in
-   bf16 over the 65 OV-COCO and the 1203 OV-LVIS classes, each list with a
-   background row (63 ViLD prompts a class), with the seconds, the host's
+   bf16 over the 65 OV-COCO and (B/16 only) the 1203 OV-LVIS classes, each
+   list with a background row (63 ViLD prompts a class), with the seconds, the host's
    tokenizing apart, prompts/s, peak memory, each class matrix's mean
    off-diagonal cosine and the LayerNorm launches (two a block and the final
    one a call); then bf16 and f32 kernels against the plain float32 path on
@@ -87,6 +87,17 @@ then for each model, B/16 first:
    each with one step's parity at batch 1 (f32 and bf16 kernels against
    the f32 plain path, the federated class mask equal in the three legs);
    every launch count that of the student's dense pass and its backward;
+7d. the plain OpenCLIP / OpenAI ViT tower (`phase_open_clip_vit`): ViT-B-16
+   at 1024^2 (crops 224^2) through `evaluate_zero_shot` at extract type v2
+   (2 + 8 batches) and v1, mask-attention pooling (2 + 4), and one v3 call;
+   ViT-L-14-336 at 896^2 (crops 336^2) at v2 (2 + 4); each with ms a batch,
+   images/s, peak memory, the kernels' ms a batch under the profiler and the
+   launch counts; parity of the dense map and of the v1 pooled features
+   (bf16 and f32 kernels against the plain float32 path; the v1 path's
+   masked attention is plain PyTorch in every leg); the trainer at
+   ViT-B-16 with `--force-quick-gelu` (batch 2, 20 boxes, 12 blocks
+   unlocked, 3 + 5 steps, 2 profiled), one `--extract-type v1` run (1 + 1
+   steps, its peak memory) and one step's parity at batch 1;
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
 8. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
@@ -184,6 +195,7 @@ class Model:
     image: int
     eval_batch: int
     parity_layers: int | None = None  # depth of the train-parity phase; None: all
+    text_lists: tuple = ("coco", "lvis")  # the class lists of the text phase
 
     @property
     def vision(self):
@@ -218,8 +230,17 @@ class Model:
 
 MODELS = (
     Model("b16", "EVA02-CLIP-B-16", image=1024, eval_batch=2),
-    Model("l14", "EVA02-CLIP-L-14-336", image=896, eval_batch=1, parity_layers=6),
+    Model("l14", "EVA02-CLIP-L-14-336", image=896, eval_batch=1, parity_layers=6,
+          text_lists=("coco",)),
 )
+# the plain OpenCLIP / OpenAI ViT tower at the B/16 recipe's shapes (and L/14
+# at 896^2 through the evaluator): v1 evaluator batches, L/14 v2 batches, and
+# batches or steps under the profiler for the kernel ms
+VIT_MODELS = (
+    Model("vit_b16", "ViT-B-16", image=1024, eval_batch=2),
+    Model("vit_l14", "ViT-L-14-336", image=896, eval_batch=1),
+)
+VIT_V1_BATCHES, VIT_L14_BATCHES, VIT_PROFILED = 4, 4, 2
 
 # the detector phase: preset, images a batch (the reference's 8 a GPU), warm-up
 # and timed batches, images of the parity phase, fixed rois of its head rows
@@ -253,8 +274,9 @@ DET_L14_PRESET, DET_L14_MASK_PRESET = "ov_coco_vitl14", "ov_lvis_vitl14"
 # resize scales other than 1
 DET_LVIS_PRESETS = ("ov_lvis_vitb16", "ov_lvis_vitl14")
 # the text phase: the prompt-ensemble class matrices of OV-COCO (65 classes)
-# and OV-LVIS (1203), each with a background row, at 64 prompts a call (every
-# class has 63); its parity on one 64-prompt batch and on the OV-COCO matrix
+# and, at B/16 (`Model.text_lists`), OV-LVIS (1203), each with a background
+# row, at 64 prompts a call (every class has 63); its parity on one
+# 64-prompt batch and on the OV-COCO matrix
 TEXT_BATCH, TEXT_WARMUP_CLASSES = 64, 4
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
@@ -346,6 +368,7 @@ DET_TRAIN_BF16_MIN_COS = 0.99
 DET_TRAIN_GROUPS = ("pyramid", "fpn", "rpn", "bbox_head")
 
 
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -421,13 +444,14 @@ def expected_launches(
 def plain_path():
     """Swap the kernels' plain versions in where the towers call the kernel
     wrappers (`eva_vit.multi_head_attention`, `eva_vit.layer_norm`, which
-    the text tower's LayerNorms call too, `rope.rolled_rope` and
+    the text tower's and the OpenCLIP ViT's LayerNorms call too,
+    `open_clip_vit.multi_head_attention`, `rope.rolled_rope` and
     `rope.rolled_rope_qk`, the detector's `nms.nms_keep_mask`); autograd
     differentiates them. Fails if any kernel
     launched inside, so a swap that misses a call site cannot compare the
     kernels with themselves."""
-    from clipself_tpu_torch.models import eva_vit, rope
-    from clipself_tpu_torch.ops.attention import attention_plain
+    from clipself_tpu_torch.models import eva_vit, open_clip_vit, rope
+    from clipself_tpu_torch.ops.attention import attention_masked, attention_plain
     from clipself_tpu_torch.ops.layer_norm import layer_norm_plain
     from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain, unpack_tables
 
@@ -438,15 +462,19 @@ def plain_path():
         tables = unpack_tables(packed)
         return rolled_rope_plain(q, *tables), rolled_rope_plain(k, *tables)
 
-    saved = eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk
+    saved = (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
+             open_clip_vit.multi_head_attention)
     eva_vit.multi_head_attention, eva_vit.layer_norm = attention_plain, layer_norm_plain
     rope.rolled_rope, rope.rolled_rope_qk = rope_plain, rope_qk_plain
+    # the ViT tower's dispatch: unmasked calls took the flash kernel
+    open_clip_vit.multi_head_attention = attention_masked
     reset_counts()
     try:
         with plain_nms():
             yield
     finally:
-        eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk = saved
+        (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
+         open_clip_vit.multi_head_attention) = saved
     if any(read_counts().values()):
         fail(f"the plain path launched kernels: {read_counts()}")
 
@@ -619,10 +647,11 @@ def check_rope(torch, dev, records, gen, shape, grid, head_dim, backward):
                     fail(f"rope_roll {label} {dt} {shape} off by {err_ulp} ULP")
 
 
-def sdpa(torch, q, k, v, scale):
-    """The library's attention on the same [B, N, H, D] tensors."""
+def sdpa(torch, q, k, v, scale, mask=None):
+    """The library's attention on the same [B, N, H, D] tensors (with an
+    additive ``mask`` broadcast against [B, H, N, N])."""
     out = torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=scale
     )
     return out.transpose(1, 2)
 
@@ -1038,26 +1067,37 @@ def phase_parity(torch, dev, s: Model, model_bf16, batch):
     return model_f32
 
 
-def phase_train(torch, dev, s: Model, logs_dir, recompute=False):
-    """The distill step through the trainer's entry point."""
+def phase_train(
+    torch, dev, s: Model, logs_dir, recompute=False, *, extra=(), tag=None, batch=TRAIN_BATCH,
+    warmup=None, timed=None, profiled=0, expect=None,
+):
+    """The distill step through the trainer's entry point: ``warmup``
+    steps, ``timed`` steps (the median reported), then ``profiled`` steps
+    under the profiler (their kernel ms a step); ``extra`` trainer flags;
+    ``expect`` the launch counts (by default the EVA tower's)."""
     from clipself_tpu_torch.train import main as train_main
-    from clipself_tpu_torch.train.optim import trainable_labels
+    from clipself_tpu_torch.train.optim import _BLOCK, trainable_labels
 
     layers = s.vision.layers
-    warmup = RECOMPUTE_WARMUP if recompute else TRAIN_WARMUP
-    steps = warmup + (RECOMPUTE_STEPS if recompute else TRAIN_TIMED)
-    tag = f"{s.key} train" + (" recompute" if recompute else "")
+    if warmup is None:
+        warmup = RECOMPUTE_WARMUP if recompute else TRAIN_WARMUP
+    if timed is None:
+        timed = RECOMPUTE_STEPS if recompute else TRAIN_TIMED
+    steps = warmup + timed + profiled
+    tag = tag or f"{s.key} train" + (" recompute" if recompute else "")
     argv = [
         "--synthetic", "--model", s.model, "--precision", "bf16", "--device", str(dev),
-        "--batch-size", str(TRAIN_BATCH), "--det-image-size", str(s.image),
+        "--batch-size", str(batch), "--det-image-size", str(s.image),
         "--max-boxes", str(TRAIN_BOXES), "--lock-image-unlocked-groups", str(layers),
         "--steps-per-epoch", str(steps), "--epochs", "1", "--log-every-n-steps", "1",
         "--lr", "1e-5", "--warmup", "1", "--seed", str(SEED),
         "--logs", logs_dir, "--name", tag.replace(" ", "_"),
-    ] + (["--grad-checkpointing"] if recompute else [])
+    ] + (["--grad-checkpointing"] if recompute else []) + list(extra)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    run = train_main.main(argv)
+    prof = {}
+    with profiled_steps(torch, warmup + timed, steps, prof) if profiled else contextlib.nullcontext():
+        run = train_main.main(argv)
     torch.cuda.synchronize()
     launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1065,23 +1105,28 @@ def phase_train(torch, dev, s: Model, logs_dir, recompute=False):
     losses = [h["loss"] for h in hist]
     # the median step of the timed window: a step that the host delayed
     # does not move it
-    step_ms = [TRAIN_BATCH / h["images_per_sec"] * 1e3 for h in hist[warmup:]]
+    step_ms = [batch / h["images_per_sec"] * 1e3 for h in hist[warmup:warmup + timed]]
     median_ms = statistics.median(step_ms)
-    ips = TRAIN_BATCH / median_ms * 1e3
+    ips = batch / median_ms * 1e3
     print(
-        f"{tag} {s.model} distill step: batch {TRAIN_BATCH} at {s.image}px, {TRAIN_BOXES} boxes, "
-        f"crops {s.crop}px, {layers} blocks unlocked, bf16: {len(step_ms)} timed steps after "
-        f"{warmup} warm-up, median step {median_ms:.3f} ms, {ips:.3f} images/s "
-        f"(ms per step {[round(t, 3) for t in step_ms]}; warm-up "
-        f"{[round(TRAIN_BATCH / h['images_per_sec'] * 1e3, 3) for h in hist[:warmup]]})",
+        f"{tag} {s.model} distill step: batch {batch} at {s.image}px, {TRAIN_BOXES} boxes, "
+        f"crops {s.crop}px, {layers} blocks unlocked, bf16{''.join(' ' + a for a in extra)}: "
+        f"{len(step_ms)} timed steps after {warmup} warm-up, median step {median_ms:.3f} ms, "
+        f"{ips:.3f} images/s (ms per step {[round(t, 3) for t in step_ms]}; warm-up "
+        f"{[round(batch / h['images_per_sec'] * 1e3, 3) for h in hist[:warmup]]})",
         flush=True,
     )
+    if profiled:
+        k = prof["kernel_ms"] / profiled
+        print(f"{tag} profiled {profiled} steps: kernels {k:.3f} ms a step, window "
+              f"{prof['wall_ms'] / profiled:.3f} ms a step; device idle {1 - k / median_ms:.1%} of the "
+              f"median unprofiled step", flush=True)
     print(f"{tag} losses {json.dumps([round(x, 6) for x in losses])}", flush=True)
     print(f"{tag} peak memory {peak_gib:.3f} GiB (max_memory_allocated)", flush=True)
     print(f"{tag} launches {json.dumps(launches)}", flush=True)
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"{tag} losses {losses}")
-    expect = expected_launches(layers, steps=steps, recompute=recompute)
+    expect = expect(steps) if expect else expected_launches(layers, steps=steps, recompute=recompute)
     if launches != expect:
         fail(f"{tag} launch counts {launches}, expected {expect}")
     student, teacher = run["state"].model, run["teacher"]
@@ -1097,17 +1142,20 @@ def phase_train(torch, dev, s: Model, logs_dir, recompute=False):
         if labels[name] == "freeze" and not same:
             fail(f"frozen parameter {name} moved")
         if labels[name] == "train" and not same:
-            moved.add(name.split(".")[2])
+            moved.add(_BLOCK.match(name).group(1))
     if moved != {str(i) for i in range(layers)}:
         fail(f"{tag}: unlocked blocks that moved: {sorted(moved)}")
     print(f"{tag} checks: losses finite, {layers} unlocked blocks moved, frozen unchanged", flush=True)
     del run, student, teacher
-    return dict(images_per_sec=ips, losses=losses, peak_gib=peak_gib, launches=launches)
+    return dict(images_per_sec=ips, losses=losses, peak_gib=peak_gib, launches=launches,
+                median_ms=median_ms, kernel_ms=prof["kernel_ms"] / profiled if profiled else None)
 
 
-def phase_train_parity(torch, dev, s: Model):
+def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2"):
     """One step's loss and trainable gradients from the same weights and
-    batch (batch 1) on f32 kernels, bf16 kernels and the f32 plain path."""
+    batch (batch 1) on f32 kernels, bf16 kernels and the f32 plain path;
+    the kernel legs must launch every one of ``kernels`` (by default every
+    kernel of the EVA tower)."""
     from clipself_tpu_torch.core.config import get_model_config
     from clipself_tpu_torch.data.loader import SyntheticDistillData
     from clipself_tpu_torch.models.factory import create_model
@@ -1134,11 +1182,12 @@ def phase_train_parity(torch, dev, s: Model):
             p.requires_grad_(labels[name] == "train")
         reset_counts()
         with plain_path() if plain else contextlib.nullcontext():
-            loss, _ = clipself_loss(model, teacher, batch)
+            loss, _ = clipself_loss(model, teacher, batch, extract_type=extract_type)
             loss.backward()
         # every kernel of the tower, forward and backward (the NMS kernel
         # belongs to the detector)
-        if not plain and not all(v for k, v in read_counts().items() if k != "nms"):
+        wanted = kernels or [k for k in read_counts() if k != "nms"]
+        if not plain and not all(read_counts()[k] for k in wanted):
             fail(f"kernel path missed a kernel: {read_counts()}")
         grads = {n: p.grad.float() for n, p in named if p.grad is not None}
         out = loss.item()
@@ -1184,7 +1233,7 @@ def phase_train_parity(torch, dev, s: Model):
 
 def phase_text(torch, dev, s: Model, model, model_f32) -> dict:
     """The text tower's main path: `tools/text_embeddings.py::build_text_embeddings`
-    over the OV-COCO and OV-LVIS class lists, each with a background row, on
+    over the class lists of ``s.text_lists``, each with a background row, on
     the evaluator's bf16 model (seeded random weights); then its parity
     against the plain float32 path of the parity phase's float32 model (the
     same weights). Returns the launch counts of the timed run."""
@@ -1197,10 +1246,8 @@ def phase_text(torch, dev, s: Model, model, model_f32) -> dict:
     from clipself_tpu_torch.tools.text_embeddings import build_text_embeddings, category_prompts
 
     t = s.text
-    lists = {
-        "coco": coco_split()["all"] + ["background"],
-        "lvis": lvis_split()["all"] + ["background"],
-    }
+    splits = {"coco": coco_split, "lvis": lvis_split}
+    lists = {k: splits[k]()["all"] + ["background"] for k in s.text_lists}
     build_text_embeddings(model, lists["coco"][:TEXT_WARMUP_CLASSES])  # warm-up
     torch.cuda.synchronize()
     # the float32 model of the parity phase is resident too: the phase's own
@@ -1316,6 +1363,221 @@ def phase_model(torch, dev, s: Model, logs_dir) -> tuple[dict, dict]:
     phase_train_parity(torch, dev, s)
     torch.cuda.empty_cache()
     return paths, train
+
+
+def vit_expected_launches(layers: int, *, evals=0, evals_v1=0, steps=0, steps_v1=0) -> dict:
+    """Launches of the OpenCLIP ViT's paths: ``evals`` evaluator batches at
+    extract type v2, ``evals_v1`` at v1, ``steps`` distill steps at v2 and
+    ``steps_v1`` at v1, for a tower of ``layers`` blocks. A pass has 2
+    LayerNorms a block plus `ln_pre` and `ln_post`. A dense pass (v2) runs
+    layers - 1 flash blocks (the last takes the value path), a crop pass all
+    of them; a mask-attention pass (v1) none: every block takes the additive
+    mask, plain attention. A v2 batch is a dense and a crop pass; a v1 batch
+    two mask-attention passes (RoIs, masks) and a crop pass. A step is the
+    teacher's crop pass and the student's pass, whose backward runs the flash
+    backward on its flash blocks and the LayerNorm backward on every block's
+    two norms and `ln_post` (`ln_pre`'s input and weights are frozen). No
+    RoPE (the tower has none), no NMS."""
+    norms, dense, crop = 2 * layers + 2, layers - 1, layers
+    students = steps + steps_v1
+    return {
+        "nms": 0,
+        "flash_attention": evals * (dense + crop) + evals_v1 * crop + students * crop + steps * dense,
+        "flash_attention_bwd": steps * dense,
+        "rope_roll": 0,
+        "rope_roll_bwd": 0,
+        "layer_norm": (2 * evals + 3 * evals_v1 + 2 * students) * norms,
+        "layer_norm_bwd": students * (2 * layers + 1),
+    }
+
+
+def masked_attention_row(torch, dev, s: Model, model, images, boxes) -> None:
+    """The v1 path's attention, a plain op (`attention_masked`: the JAX
+    package runs XLA there, no Pallas kernel): one block's call at the
+    evaluator's shape in bf16, its CUDA-event time beside
+    `scaled_dot_product_attention` with the same float mask (a yardstick) and
+    the card's bound for the same products."""
+    from clipself_tpu_torch.ops.attention import attention_masked
+
+    gh = s.grid(s.image)
+    masks = model.visual.boxes_to_grid_masks(boxes, gh, gh)
+    mask = model.visual.attention_mask(masks)
+    b, n = mask.shape[0], mask.shape[-1]
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    q, k, v = (torch.randn((b, n, s.heads, s.vision.head_width), generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    scale = s.vision.head_width ** -0.5
+    lib_mask = mask.to(q.dtype)  # the library takes a float mask in the query's dtype
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: attention_masked(q, k, v, scale, mask), iters=5, warmup=1)
+        lib = cuda_ms(lambda: sdpa(torch, q, k, v, scale, lib_mask), iters=5, warmup=1)
+        err = (attention_masked(q, k, v, scale, mask).float()
+               - sdpa(torch, q, k, v, scale, lib_mask).float()).abs().max().item()
+    flops = 4 * b * s.heads * n * n * s.vision.head_width
+    bound = max(nbytes(q, k, v, q) / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS) * 1e3
+    print(f"{s.key} plain masked attention (v1) [{b},{n},{s.heads},{s.vision.head_width}] bf16 with a "
+          f"[{b},1,{n},{n}] float32 mask: {ms:.4f} ms a call, library (scaled_dot_product_attention, "
+          f"the mask in bf16) {lib:.4f} ms, bound {bound:.4f} ms (operations); max_abs against the library "
+          f"{err:.3e}; {s.vision.layers} calls a pass, two passes a v1 batch", flush=True)
+
+
+def vit_eval(torch, dev, s: Model) -> dict:
+    """The OpenCLIP ViT through `evaluate_zero_shot` (bf16, seeded random
+    weights): v2 over `N_BATCHES` (B/16) or `VIT_L14_BATCHES` (L/14) after
+    `EVAL_WARMUP`, at B/16 v1 (mask-attention pooling) over
+    `VIT_V1_BATCHES` and one v3 call; each with ms a batch, images/s, peak
+    memory, the kernels' ms a batch over `VIT_PROFILED` batches under the
+    profiler and the launch counts. Then parity against the plain float32
+    path: the dense map and the v1 pooled features. Returns the launch
+    counts by path."""
+    import numpy as np
+
+    from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
+    from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
+    from clipself_tpu_torch.models.factory import create_model
+
+    model = create_model(s.model, device=dev, dtype=torch.bfloat16, seed=SEED)
+    layers = s.vision.layers
+
+    def batch(i):
+        host = synthetic_panoptic_batch(
+            i, batch=s.eval_batch, image_size=s.image, max_anns=MAX_ANNS, valid_anns=VALID_ANNS,
+            crop_size=s.crop, mask_hw=s.grid(s.image), n_classes=N_CLASSES, seed=SEED,
+        )
+        return {k: (v if k == "boxes" else torch.as_tensor(v, device=dev)) for k, v in host.items()}
+
+    emb = class_embeddings(N_CLASSES, model.cfg.embed_dim, seed=SEED)
+    b16 = s.key == "vit_b16"
+    modes = [("v2", N_BATCHES if b16 else VIT_L14_BATCHES)] + ([("v1", VIT_V1_BATCHES)] if b16 else [])
+    paths = {}
+    batches = []
+    for et, n in modes:
+        tag = f"{s.key} eval {et}"
+        warm = [batch(N_BATCHES + i) for i in range(EVAL_WARMUP)]
+        batches = [batch(i) for i in range(n)]
+        run = lambda bs: evaluate_zero_shot(  # noqa: E731
+            model, bs, emb, device=dev, ann_bucket=BUCKET, extract_type=et
+        )
+        run(warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run(batches)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            run(batches[:VIT_PROFILED])
+            torch.cuda.synchronize()
+        k = kernel_ms(torch, prof) / VIT_PROFILED
+        ms = dt / n * 1e3
+        print(
+            f"{tag} {s.model} zero-shot: {n} batches x {s.eval_batch} images {s.image}px, "
+            f"{VALID_ANNS} valid of {MAX_ANNS} anns (bucket {BUCKET}), crops {s.crop}px, {layers} "
+            f"blocks, extract type {et}: {ms:.3f} ms a batch after {EVAL_WARMUP} warm-up batches, "
+            f"{s.eval_batch * n / dt:.3f} images/s, peak {peak:.3f} GiB; kernels {k:.3f} ms a batch "
+            f"({VIT_PROFILED} profiled), device idle {1 - k / ms:.1%}",
+            flush=True,
+        )
+        print(f"{tag} mAcc " + json.dumps(res, sort_keys=True), flush=True)
+        print(f"{tag} launches " + json.dumps(launches), flush=True)
+        if len(res) != 12 or not all(np.isfinite(v) for v in res.values()):
+            fail(f"{tag}: evaluator result not finite: {res}")
+        expect = vit_expected_launches(layers, **({"evals_v1": n} if et == "v1" else {"evals": n}))
+        if launches != expect:
+            fail(f"{tag} launch counts {launches}, expected {expect}")
+        paths[f"{s.key}_eval" + ("_v1" if et == "v1" else "")] = launches
+    images = batches[0]["images"]
+    boxes = torch.as_tensor(batches[0]["boxes"][:, :BUCKET, :4], device=dev)
+    if b16:
+        with torch.inference_mode():
+            v1_ref = model.encode_pseudo_boxes(images, boxes, extract_type="v1")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v1, v2 = model.visual.extract_roi_features(images, boxes, "v3")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            v2_ref = model.encode_pseudo_boxes(images, boxes, extract_type="v2")
+        c1 = min_row_cos(v1, v1_ref)
+        print(f"{s.key} v3 {s.model}: one call on {list(boxes.shape[:2])} boxes {ms:.3f} ms; its v1 "
+              f"half against a v1 call min_row_cos {c1:.7f} (the same operations; bar 0.99999); its "
+              f"v2 half against a v2 call (the value path of the masked trunk against the dense "
+              f"trunk's) min_row_cos {min_row_cos(v2, v2_ref):.6f}", flush=True)
+        if v1.shape != v2.shape or not (torch.isfinite(v1).all() and torch.isfinite(v2).all()) or not c1 >= 0.99999:
+            fail(f"{s.key} v3: shapes {tuple(v1.shape)} {tuple(v2.shape)}, v1 half cosine {c1}")
+
+        masked_attention_row(torch, dev, s, model, images, boxes)
+
+    # parity: the dense map and the v1 pooled features against the plain f32 path
+    model_f32 = create_model(s.model, device=dev, dtype=torch.float32, seed=SEED)
+    with torch.inference_mode():
+        got = {}
+        for what, fn in (
+            ("dense map", lambda m: m.encode_dense(images, keep_shape=True)),
+            ("v1 pooled features", lambda m: m.encode_pseudo_boxes(images, boxes, extract_type="v1")),
+        ):
+            k32, k16 = fn(model_f32), fn(model)
+            with plain_path():
+                p32 = fn(model_f32)
+            got[what] = (k32, k16, p32)
+    torch.cuda.synchronize()
+    for what, (k32, k16, p32) in got.items():
+        f32_abs = (k32 - p32).abs().max().item()
+        bf16_cos = min_row_cos(k16, p32)
+        print(
+            f"{s.key} parity {what} {list(p32.shape)}: f32 kernels vs f32 plain max_abs {f32_abs:.3e} "
+            f"(bar {PATH_F32_MAX_ABS}); bf16 kernels vs f32 plain min_row_cos {bf16_cos:.7f} "
+            f"(bar {PATH_BF16_MIN_COS})",
+            flush=True,
+        )
+        if not all(torch.isfinite(t).all() for t in (k32, k16, p32)):
+            fail(f"{s.key} {what}: not finite")
+        if not f32_abs <= PATH_F32_MAX_ABS:
+            fail(f"{s.key} {what}: f32 kernel path off the plain path by {f32_abs}")
+        if not bf16_cos >= PATH_BF16_MIN_COS:
+            fail(f"{s.key} {what}: bf16 kernel path min row cosine {bf16_cos}")
+    del model, model_f32, got
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_open_clip_vit(torch, dev, logs_dir) -> dict:
+    """The plain OpenCLIP / OpenAI ViT tower: `vit_eval` of ViT-B-16 at
+    1024^2 and ViT-L-14-336 at 896^2; then ViT-B-16 through the trainer
+    (`--force-quick-gelu`, batch 2, 20 boxes, every block unlocked: 3 + 5
+    steps and `VIT_PROFILED` under the profiler), one `--extract-type v1`
+    run of 2 steps at batch 2 (peak memory) and one step's parity at batch
+    1. Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    paths = {}
+    for s in VIT_MODELS:
+        paths.update(vit_eval(torch, dev, s))
+    s = VIT_MODELS[0]
+    layers = s.vision.layers
+    try:
+        train = phase_train(
+            torch, dev, s, logs_dir, extra=["--force-quick-gelu"], tag=f"{s.key} train",
+            profiled=VIT_PROFILED, expect=lambda n: vit_expected_launches(layers, steps=n),
+        )
+        paths[f"{s.key}_train"] = train["launches"]
+        torch.cuda.empty_cache()
+        v1 = phase_train(
+            torch, dev, s, logs_dir, extra=["--extract-type", "v1"], tag=f"{s.key} train v1",
+            warmup=1, timed=1, expect=lambda n: vit_expected_launches(layers, steps_v1=n),
+        )
+        paths[f"{s.key}_train_v1"] = v1["launches"]
+    finally:
+        shutil.rmtree(logs_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_train_parity(
+        torch, dev, s, kernels=["flash_attention", "flash_attention_bwd", "layer_norm", "layer_norm_bwd"]
+    )
+    torch.cuda.empty_cache()
+    print(f"open_clip_vit phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
 
 
 def stats(got, want, width=None) -> dict:
@@ -1985,14 +2247,22 @@ def profiled_steps(torch, start: int, stop: int, out: dict, trainer=None):
         yield
     finally:
         setattr(module, name, original)
-    events = out.pop("prof").key_averages()
+    out["kernel_ms"] = kernel_ms(torch, out.pop("prof"))
+
+
+def kernel_ms(torch, prof) -> float:
+    """The kernels' device ms of a profiled window (a host range mirrored
+    onto the device's timeline is not a kernel and is left out, as in
+    `tools/profile_paths.py`); fails if the profiler saw no device time."""
+    events = prof.key_averages()
     host = {ev.key for ev in events if ev.device_type == torch.autograd.DeviceType.CPU}
-    out["kernel_ms"] = sum(
+    ms = sum(
         (getattr(ev, "self_device_time_total", 0) or 0) / 1e3 for ev in events
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.key not in host
     )
-    if out["kernel_ms"] <= 0:
-        fail("the profiler recorded no device time over the profiled steps")
+    if ms <= 0:
+        fail("the profiler recorded no device time over the profiled window")
+    return ms
 
 
 def loader_rate(make_iter, skip: int, timed: int) -> tuple[float, float]:
@@ -2223,7 +2493,7 @@ REGION_ALPHA = {"b16": 0.7, "l14": 0.95}
 # an epoch set its time, not its batch); staged: 3 + 1 warm-up steps on one
 # corpus batch, REGION_STAGED timed, then REGION_STAGED under the profiler;
 # L/14: 1 + 3 steps from files, then 1 with --grad-checkpointing
-REGION_WINDOW, REGION_PROFILED, REGION_STAGED = 2, 8, 5
+REGION_WINDOW, REGION_PROFILED, REGION_STAGED = 1, 8, 5
 REGION_L14_STEPS, REGION_FLAGS_BATCH = 4, 2
 # parity: one step at batch 1 (L/14 at s.parity_layers blocks), the
 # federated sampling of REGION_SAMPLE classes per step (the loss's default)
@@ -2960,6 +3230,8 @@ def run() -> int:
             print(f"{s.key} data done at {time.perf_counter() - t0:.1f} s", flush=True)
         paths.update(phase_region(torch, dev, s, logs_dir, handoff=handoff if s.key == "b16" else None))
         print(f"{s.key} RegionCLIP done at {time.perf_counter() - t0:.1f} s", flush=True)
+    paths.update(phase_open_clip_vit(torch, dev, logs_dir))
+    print(f"OpenCLIP ViT done at {time.perf_counter() - t0:.1f} s", flush=True)
     cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev, DET_PRESET)
     phase_detector_parity(torch, dev, DET_PRESET, cfg, clip, det, emb, items)
     del clip, det

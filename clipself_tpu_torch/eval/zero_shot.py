@@ -87,13 +87,19 @@ def batch_logits(
     crops: torch.Tensor,
     masks: torch.Tensor,
     image_ave_pool: bool = False,
+    extract_type: str = "v2",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(roi, crop, maskpool) float32 logits [B, M, K] of one batch against
-    the L2-normalized class embeddings ``emb`` [K, C]. A crop's feature is
-    its CLS embedding, or with ``image_ave_pool`` the mean of its dense
-    map (`encode_dense(normalize=True)`, as the JAX package calls it),
+    the L2-normalized class embeddings ``emb`` [K, C]. The RoI features
+    come by ``extract_type``, the mask features by mask-attention pooling
+    when it is 'v1' (`clipself_tpu/eval/zero_shot.py:74-79`). A crop's
+    feature is its CLS embedding, or with ``image_ave_pool`` the mean of its
+    dense map (`encode_dense(normalize=True)`, as the JAX package calls it),
     L2-normalized in float32 (+1e-12)."""
-    rois, maskpool = model.encode_rois_and_masks(images, boxes4, masks, normalize=True)
+    rois, maskpool = model.encode_rois_and_masks(
+        images, boxes4, masks, normalize=True, extract_type=extract_type,
+        mask_attn=extract_type == "v1",
+    )
     b, m = crops.shape[:2]
     crop_flat = crops.reshape((b * m,) + tuple(crops.shape[2:]))
     if image_ave_pool:
@@ -114,13 +120,16 @@ def evaluate_zero_shot(
     device: Union[str, torch.device],
     ann_bucket: int = DEFAULT_ANN_BUCKET,
     image_ave_pool: bool = False,
+    extract_type: str = "v2",
 ) -> dict:
     """Run the evaluator over batches of images [B, H, W, 3], boxes [B, M, 8]
     (xyxy normalized, label, valid, _, is_thing), crops [B, M, h, w, 3] and
     gt_masks [B, M, gh, gw]; ``embeddings`` [K, C] is the text classifier
     (L2-normalized here), e.g. from `tools/text_embeddings.py`.
     ``ann_bucket`` = 0 disables bucketing; ``image_ave_pool`` scores each
-    crop by its mean dense feature instead of its CLS embedding."""
+    crop by its mean dense feature instead of its CLS embedding;
+    ``extract_type`` 'v1' scores RoIs and masks by mask-attention pooling
+    (the OpenCLIP ViT; the EVA tower has one RoI path)."""
     emb_np = np.array(embeddings, np.float32)
     emb_np /= np.linalg.norm(emb_np, axis=-1, keepdims=True) + 1e-12
     emb = torch.as_tensor(emb_np, device=device)
@@ -144,6 +153,7 @@ def evaluate_zero_shot(
             to_device(batch["crops"][:, :width]),
             to_device(batch["gt_masks"][:, :width]),
             image_ave_pool,
+            extract_type,
         )
         valid = boxes[..., 5].reshape(-1) > 0.5
         labels = boxes[..., 4].reshape(-1)[valid].astype(np.int64)

@@ -1,6 +1,13 @@
-"""CLIP assembly with the dense-prediction API: the EVA visual tower, the
-text tower and `logit_scale` (a port of `clipself_tpu/models/clip.py`). The
-text tower is frozen by recipe (`train/optim.py::trainable_labels`)."""
+"""CLIP assembly with the dense-prediction API: a visual tower (EVA02 or the
+plain OpenCLIP / OpenAI ViT), the text tower and `logit_scale` (a port of
+`clipself_tpu/models/clip.py`). The text tower is frozen by recipe
+(`train/optim.py::trainable_labels`).
+
+The visual tower is chosen from the config as the JAX package chooses it:
+`eva_model_name` gives `EvaViT`, a config with neither `eva_model_name`,
+`resnet_layers`, `timm_model_name` nor `hf_trunk_name` gives `OpenCLIPViT`.
+The other towers raise, each naming its ROADMAP.md item.
+"""
 
 from __future__ import annotations
 
@@ -12,9 +19,28 @@ from torch import nn
 from clipself_tpu_torch.core.config import CLIPConfig
 from clipself_tpu_torch.models.common import l2_normalize
 from clipself_tpu_torch.models.eva_vit import EvaViT
+from clipself_tpu_torch.models.open_clip_vit import OpenCLIPViT
 from clipself_tpu_torch.models.text_transformer import TextTransformer
 from clipself_tpu_torch.ops.mask_pool import mask_pool
 from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
+
+
+def _visual_class(cfg: CLIPConfig):
+    """The port's tower class of ``cfg``, or NotImplementedError naming the
+    ROADMAP.md item of a tower not ported yet."""
+    v = cfg.vision
+    missing = None
+    if cfg.multimodal is not None:
+        missing = "the CoCa model (item 8.6)"
+    elif v.hf_trunk_name:
+        missing = f"the transformers trunk adapter {v.hf_trunk_name!r} (item 8.5)"
+    elif v.timm_model_name:
+        missing = f"the timm tower {v.timm_model_name!r} (item 8.4)"
+    elif v.resnet_layers:
+        missing = "the ModifiedResNet tower (item 8.2)"
+    if missing is not None:
+        raise NotImplementedError(f"{cfg.name}: {missing} is not ported yet (ROADMAP.md queue 1)")
+    return EvaViT if v.eva_model_name else OpenCLIPViT
 
 
 class CLIP(nn.Module):
@@ -22,12 +48,8 @@ class CLIP(nn.Module):
         self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False
     ):
         super().__init__()
-        if not cfg.vision.eva_model_name:
-            raise NotImplementedError(
-                f"{cfg.name}: only the EVA vision towers are ported (ROADMAP.md queue 1 item 8)"
-            )
         self.cfg = cfg
-        self.visual = EvaViT(cfg.vision, cfg.embed_dim, dtype, grad_checkpointing)
+        self.visual = _visual_class(cfg)(cfg.vision, cfg.embed_dim, dtype, grad_checkpointing)
         self.text = TextTransformer(cfg.text, cfg.embed_dim, dtype)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
@@ -60,13 +82,43 @@ class CLIP(nn.Module):
         return l2_normalize(feats) if normalize else feats
 
     def encode_pseudo_boxes(
-        self, image: torch.Tensor, normed_boxes: torch.Tensor, normalize: bool = False
+        self,
+        image: torch.Tensor,
+        normed_boxes: torch.Tensor,
+        normalize: bool = False,
+        extract_type: str = "v2",
     ) -> torch.Tensor:
         """image [B, H, W, 3]; normed_boxes [B, M, 4] xyxy in [0, 1] ->
-        RoI features [B, M, C] (`clipself_tpu/models/clip.py:132-145`; the
-        EVA tower has one extract type, so it takes no ``extract_type``)."""
-        feats = self.visual.extract_roi_features(image, normed_boxes)
+        RoI features [B, M, C] (`clipself_tpu/models/clip.py:132-145`).
+        ``extract_type`` 'v1' (mask-attention pooling) and 'v3' reach the
+        OpenCLIP ViT; the EVA tower has one RoI path and ignores it, as the
+        reference and the JAX package do."""
+        feats = self.visual.extract_roi_features(image, normed_boxes, extract_type)
         return l2_normalize(feats) if normalize else feats
+
+    def _mask_feats(self, image: torch.Tensor, masks: torch.Tensor, mask_attn: bool) -> torch.Tensor:
+        """Mask-attention pooling where the tower has it (``mask_attn``),
+        else the masked mean of the dense map (the EVA tower always)."""
+        if mask_attn and hasattr(self.visual, "mask_attn_pool"):
+            return self.visual.mask_attn_pool(image, masks)
+        return mask_pool(self.visual.encode_dense(image, keep_shape=True), masks)
+
+    def encode_masks(
+        self,
+        image: torch.Tensor,
+        masks: torch.Tensor,
+        normalize: bool = True,
+        mask_attn: bool = False,
+    ) -> torch.Tensor:
+        """image [B, H, W, 3]; masks [B, M, gh, gw] binary -> [B, M, C]
+        (`clipself_tpu/models/clip.py:147-161`)."""
+        feats = self._mask_feats(image, masks, mask_attn)
+        return l2_normalize(feats) if normalize else feats
+
+    def encode_rois_and_image(self, image: torch.Tensor, normed_boxes: torch.Tensor):
+        """(normalized v2 RoI features, normalized image embedding) of one
+        trunk pass (the OpenCLIP ViT)."""
+        return self.visual.encode_rois_and_image(image, normed_boxes)
 
     def encode_rois_and_masks(
         self,
@@ -74,14 +126,22 @@ class CLIP(nn.Module):
         normed_boxes: torch.Tensor,
         masks: torch.Tensor,
         normalize: bool = True,
+        extract_type: str = "v2",
+        mask_attn: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """RoI features and mask-pooled features from ONE dense trunk pass
-        (extract_type 'v2'). image [B, H, W, 3]; normed_boxes [B, M, 4] xyxy
-        in [0, 1]; masks [B, M, gh, gw]. Returns ([B, M, C], [B, M, C])."""
-        dense = self.visual.encode_dense(image, keep_shape=True)
-        _, gh, gw, _ = dense.shape
-        rois = roi_align_1x1(dense, denormalize_boxes(normed_boxes, gh, gw))
-        mp = mask_pool(dense, masks)
+        """RoI features and mask features: image [B, H, W, 3]; normed_boxes
+        [B, M, 4] xyxy in [0, 1]; masks [B, M, gh, gw]. Returns ([B, M, C],
+        [B, M, C]). At extract_type 'v2' without ``mask_attn`` both come
+        from ONE dense trunk pass; otherwise from the separate calls, as
+        the JAX package falls back (`clipself_tpu/models/clip.py:163-209`)."""
+        if extract_type == "v2" and not mask_attn:
+            dense = self.visual.encode_dense(image, keep_shape=True)
+            _, gh, gw, _ = dense.shape
+            rois = roi_align_1x1(dense, denormalize_boxes(normed_boxes, gh, gw))
+            mp = mask_pool(dense, masks)
+        else:
+            rois = self.encode_pseudo_boxes(image, normed_boxes, extract_type=extract_type)
+            mp = self._mask_feats(image, masks, mask_attn)
         if normalize:
             rois = l2_normalize(rois)
             mp = l2_normalize(mp)

@@ -36,7 +36,7 @@ from clipself_tpu_torch.ops.layer_norm import layer_norm
 from clipself_tpu_torch.ops.patchify import patchify
 from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
 
-_ROADMAP = "ROADMAP.md queue 1 item 8"
+_ROADMAP = "ROADMAP.md queue 1 item 8.3"
 
 
 def _unsupported(cfg: VisionConfig) -> Optional[str]:
@@ -321,10 +321,14 @@ class EvaViT(nn.Module):
             dense = l2_normalize(self.head(self.norm(t[:, 1:]))).reshape(b, gh, gw, -1)
         return taps, dense
 
-    def extract_roi_features(self, x: torch.Tensor, normed_boxes: torch.Tensor) -> torch.Tensor:
+    def extract_roi_features(
+        self, x: torch.Tensor, normed_boxes: torch.Tensor, extract_type: str = "v2"
+    ) -> torch.Tensor:
         """RoI features [B, M, C] by 1x1 aligned RoI-align over the dense map;
         ``normed_boxes`` [B, M, 4] xyxy in [0, 1], padded rows allowed
-        (`clipself_tpu/models/eva_vit.py:620-634`)."""
+        (`clipself_tpu/models/eva_vit.py:620-634`). The tower has one RoI
+        path: ``extract_type`` is ignored, as the reference ignores it
+        (`eva_vit_model.py:625`)."""
         dense = self.encode_dense(x, keep_shape=True)
         _, gh, gw, _ = dense.shape
         return roi_align_1x1(dense, denormalize_boxes(normed_boxes, gh, gw))

@@ -1,10 +1,11 @@
-"""Model creation: config registry -> initialized port `CLIP` on a device,
-and the model's tokenizer."""
+"""Model creation: config registry -> initialized port `CLIP` on a device
+(optionally over a pretrained checkpoint or catalog tag), with its
+preprocessing pair, and the model's tokenizer."""
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -19,6 +20,7 @@ def create_model(
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
     grad_checkpointing: bool = False,
+    pretrained: Optional[str] = None,
 ) -> CLIP:
     """Build a CLIP with seeded random weights, in eval mode on ``device``.
 
@@ -29,21 +31,60 @@ def create_model(
     differ); load real weights with
     `models.torch_io.load_weights`. ``grad_checkpointing`` recomputes each
     block of the visual tower in the backward pass (the JAX package's
-    ``remat``).
+    ``remat``). ``pretrained``, a checkpoint path or a catalog tag of the
+    model (`models/pretrained.py::resolve_pretrained`), is imported over
+    the initial weights non-strictly (`models/torch_io.py::load_pretrained`),
+    as `clipself_tpu/models/factory.py:100-108` routes it.
     """
     cfg = get_model_config(name_or_cfg) if isinstance(name_or_cfg, str) else name_or_cfg
     model = CLIP(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
     generator = torch.Generator().manual_seed(seed)
     model.visual.init_weights(generator)
     model.text.init_weights(generator)
+    if pretrained:
+        from clipself_tpu_torch.models.pretrained import resolve_pretrained
+        from clipself_tpu_torch.models.torch_io import load_pretrained
+
+        # an existing path (a file, or a directory that `load_pretrained` refuses) as it is
+        load_pretrained(model, resolve_pretrained(cfg.name, pretrained))
     return model.to(device).eval()
+
+
+def create_model_and_transforms(
+    name_or_cfg: Union[str, CLIPConfig],
+    *,
+    device: Union[str, torch.device],
+    dtype: torch.dtype = torch.bfloat16,
+    pretrained: Optional[str] = None,
+    det_image_size: int = 1024,
+    dataset_type: str = "grid_distill",
+    **kwargs,
+):
+    """The model and its (det, crop) preprocessing pair
+    (`clipself_tpu/models/factory.py::create_model_and_transforms`,
+    reference `src/open_clip/factory.py:267-350`): each transform takes an
+    RGB uint8 [H, W, 3] image to a normalized float32 [S, S, 3] array
+    (`data/transforms.py`: ResizeLongest + pad to ``det_image_size``, and
+    ResizeLongest-max + centre pad to the tower's size). For the distill and
+    RegionCLIP dataset types both the train and the val preprocess are the
+    pair; otherwise the train preprocess is the crop transform alone.
+    Returns (model, preprocess_train, preprocess_val)."""
+    from clipself_tpu_torch.data.transforms import crop_transform, det_transform
+
+    model = create_model(name_or_cfg, device=device, dtype=dtype, pretrained=pretrained, **kwargs)
+    pre_crop = functools.partial(crop_transform, crop_size=model.cfg.vision.image_size)
+    pair = [functools.partial(det_transform, det_size=det_image_size), pre_crop]
+    if dataset_type in ("grid_distill", "proposals_distill", "region_clip",
+                        "clipself", "clipself_proposals"):
+        return model, pair, pair
+    return model, pre_crop, pair
 
 
 def get_tokenizer(name_or_cfg: Any = None):
     """The tokenizer callable of a model (`clipself_tpu/models/factory.py::get_tokenizer`):
     the CLIP BPE `tokenize` at the model's context length. A CoCa config
     declares one token less than it consumes, so it gets one more. HF text
-    towers raise (ROADMAP.md queue 1 item 8)."""
+    towers raise (ROADMAP.md queue 1 item 8.5)."""
     from clipself_tpu_torch import tokenizer as _tok
 
     if name_or_cfg is None:

@@ -22,8 +22,8 @@ the EOT token (the argmax of the token ids) projected by `text_projection`.
     `ln_final`, `text_projection`, ...), so `models/torch_io.py` loads
     reference checkpoints with `strict=True`.
 
-The CoCa text tower (`embed_cls`, `forward_coca`) and the HF text towers are
-not ported (ROADMAP.md queue 1 item 8).
+The CoCa text tower (`embed_cls`, `forward_coca`; ROADMAP.md queue 1 item
+8.6) and the HF text towers (item 8.5) are not ported.
 """
 
 from __future__ import annotations
@@ -35,18 +35,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from clipself_tpu_torch.core.config import TextConfig
-from clipself_tpu_torch.models.common import LayerScale
+from clipself_tpu_torch.models.common import LayerScale, gelu
 from clipself_tpu_torch.models.eva_vit import Dense, LayerNorm, _lecun_normal
 from clipself_tpu_torch.ops.attention import attention_masked
 
-_ROADMAP = "ROADMAP.md queue 1 item 8"
-
-
-def _act(cfg: TextConfig, x: torch.Tensor) -> torch.Tensor:
-    """QuickGELU x * sigmoid(1.702 x) for the OpenAI towers, else exact GELU."""
-    if cfg.quick_gelu:
-        return x * torch.sigmoid(1.702 * x)
-    return F.gelu(x)
+_HF_ITEM = "ROADMAP.md queue 1 item 8.5"
+_COCA_ITEM = "ROADMAP.md queue 1 item 8.6"
 
 
 class TextAttention(nn.Module):
@@ -79,7 +73,7 @@ class TextMlp(nn.Module):
         self.c_proj = Dense(4 * cfg.width, cfg.width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(_act(self.cfg, self.c_fc(x)))
+        return self.c_proj(gelu(self.c_fc(x), self.cfg.quick_gelu))
 
 
 class TextBlock(nn.Module):
@@ -113,10 +107,10 @@ class TextTransformer(nn.Module):
         super().__init__()
         if cfg.hf_model_name:
             raise NotImplementedError(
-                f"HF text tower {cfg.hf_model_name!r} is not ported ({_ROADMAP})"
+                f"HF text tower {cfg.hf_model_name!r} is not ported ({_HF_ITEM})"
             )
         if cfg.embed_cls:
-            raise NotImplementedError(f"the CoCa text tower (embed_cls) is not ported ({_ROADMAP})")
+            raise NotImplementedError(f"the CoCa text tower (embed_cls) is not ported ({_COCA_ITEM})")
         self.cfg = cfg
         self.dtype = dtype
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
@@ -170,4 +164,4 @@ class TextTransformer(nn.Module):
         return self.project(self.features(text), text)
 
     def forward_coca(self, text: torch.Tensor):
-        raise NotImplementedError(f"the CoCa text forward is not ported ({_ROADMAP})")
+        raise NotImplementedError(f"the CoCa text forward is not ported ({_COCA_ITEM})")

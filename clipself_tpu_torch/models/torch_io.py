@@ -2,9 +2,9 @@
 
 `state_dict_from_jax` turns the JAX package's param tree (nested dicts of
 NumPy arrays) into the state dict of the reference `CustomCLIP`: the visual
-tower, the text tower and `logit_scale`, with the key maps of the EVA branch
-of `clipself_tpu/models/torch_io.py::_vision_key_map` and of `_text_key_map`
-copied here (the result is pinned equal to that module's
+tower, the text tower and `logit_scale`, with the key maps of the EVA and
+OpenCLIP ViT branches of `clipself_tpu/models/torch_io.py::_vision_key_map`
+and of `_text_key_map` copied here (the result is pinned equal to that module's
 `export_state_dict`). `load_weights` loads such a dict, or a reference
 `.pt` checkpoint, into the whole CLIP with `strict=True`; text-tower keys
 stored without the `text.` prefix (the open_clip hub layout) are taken too.
@@ -91,6 +91,49 @@ def _eva_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     raise KeyError(f"unmapped EVA vision param: {flax_key}")
 
 
+def _vit_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """Map a flax param path under `visual` of a plain OpenCLIP ViT tower
+    (`visual.transformer.resblocks` layout) to (torch_key, transform), as
+    `_eva_vision_key_map` does."""
+    k = list(flax_key)
+    ln = {"scale": "weight", "bias": "bias"}
+    if k == ["conv1", "kernel"]:
+        return "visual.conv1.weight", "conv"
+    if k in (["class_embedding"], ["positional_embedding"], ["proj"]):
+        return f"visual.{k[0]}", None
+    if len(k) == 2 and k[0] in ("ln_pre", "ln_post"):
+        return f"visual.{k[0]}.{ln[k[1]]}", None
+    m = re.match(r"resblocks_(\d+)", k[0])
+    if m:
+        base = f"visual.transformer.resblocks.{m.group(1)}"
+        rest = k[1:]
+        if rest[0] in ("ls_1", "ls_2"):
+            return f"{base}.{rest[0]}.gamma", None
+        if rest[0] in ("ln_1", "ln_2"):
+            return f"{base}.{rest[0]}.{ln[rest[1]]}", None
+        if rest[0] == "in_proj":
+            if rest[1] == "kernel":
+                return f"{base}.attn.in_proj_weight", "linear"
+            return f"{base}.attn.in_proj_bias", None
+        if rest[0] == "out_proj":
+            t = "linear" if rest[1] == "kernel" else None
+            return f"{base}.attn.out_proj.{'weight' if t else 'bias'}", t
+        if rest[0] in ("c_fc", "c_proj"):
+            t = "linear" if rest[1] == "kernel" else None
+            return f"{base}.mlp.{rest[0]}.{'weight' if t else 'bias'}", t
+    raise KeyError(f"unmapped OpenCLIP ViT vision param: {flax_key}")
+
+
+def _vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """The visual tower's key map: the EVA layout, else the plain OpenCLIP
+    ViT's (the two trees share no top-level name; the JAX package's
+    `_vision_key_map` tries them in this order)."""
+    try:
+        return _eva_vision_key_map(flax_key)
+    except KeyError:
+        return _vit_vision_key_map(flax_key)
+
+
 def _text_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     """Map a flax param path under `text` to (torch_key, transform), as
     `_eva_vision_key_map` does."""
@@ -130,7 +173,7 @@ def _text_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     raise KeyError(f"unmapped text param: {flax_key}")
 
 
-_KEY_MAPS = {"visual": _eva_vision_key_map, "text": _text_key_map}
+_KEY_MAPS = {"visual": _vision_key_map, "text": _text_key_map}
 
 
 def _flatten(tree: Any, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], Any]:
@@ -276,35 +319,27 @@ def resize_pos_embed_np(pe: np.ndarray, tgt_tokens: int) -> np.ndarray:
     return np.concatenate([cls_pe, grid.reshape(1, tgt * tgt, -1)], axis=1)
 
 
-def load_pretrained(model: nn.Module, path: str) -> list[str]:
-    """Load a reference-layout `.pt` checkpoint, or a `.npz` of the same
-    keys, into a port `CLIP` the way the JAX package's `load_pretrained` /
-    `import_state_dict` fill a param tree (`clipself_tpu/models/torch_io.py:511,
-    :594`): containers unwrapped and RoPE buffers dropped
-    (`unwrap_state_dict`), a text-tower key also taken without its `text.`
-    prefix, `visual.pos_embed` bicubic-resized to the model's grid, keys
-    the model lacks ignored, and **non-strict**: a parameter the checkpoint
-    lacks keeps its value (logged). A shape that differs otherwise raises.
-    Returns the missing keys. Unlike `load_weights`, which is strict.
+def is_torchscript_archive(path: str) -> bool:
+    """Whether ``path`` is a `torch.jit` archive (a zip holding
+    `constants.pkl`, as the OpenAI releases are)."""
+    import zipfile
 
-    A directory (an Orbax run of the JAX trainer) needs jax to read and
-    raises; so does a name that is not a file (a catalog tag of
-    `resolve_pretrained`: the registry is ROADMAP.md queue 1 item 8)."""
-    if os.path.isdir(path):
-        raise ValueError(
-            f"--pretrained {path}: a directory is an Orbax checkpoint of the JAX trainer, which "
-            "needs jax to read; export it as a .pt (--export-torch) and pass that"
-        )
-    if not os.path.isfile(path):
-        raise FileNotFoundError(
-            f"--pretrained {path}: no such file (catalog tags such as 'eva02' resolve through "
-            "the JAX package's pretrained registry, not ported: ROADMAP.md queue 1 item 8)"
-        )
-    if path.endswith(".npz"):
-        with np.load(path) as npz:
-            sd = {k: npz[k] for k in npz.files}
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as z:
+        return any(n.split("/")[-1] == "constants.pkl" for n in z.namelist())
+
+
+def import_state_dict(model: nn.Module, sd: dict, source: str = "state dict") -> list[str]:
+    """Fill a port `CLIP` from a reference-layout state dict (tensors or
+    arrays) the way the JAX package's `import_state_dict` fills a param tree
+    (`clipself_tpu/models/torch_io.py:511`): containers unwrapped and RoPE
+    buffers dropped (`unwrap_state_dict`), a text-tower key also taken
+    without its `text.` prefix, the absolute pos-embed (`visual.pos_embed`
+    of the EVA towers, `visual.positional_embedding` of the OpenCLIP ViT)
+    bicubic-resized to the model's grid, keys the model lacks ignored, and
+    **non-strict**: a parameter the dict lacks keeps its value (logged). A
+    shape that differs otherwise raises. Returns the missing keys."""
     sd = unwrap_state_dict(sd)
     missing = []
     with torch.no_grad():
@@ -319,11 +354,48 @@ def load_pretrained(model: nn.Module, path: str) -> list[str]:
             arr = val.detach().cpu().float().numpy() if torch.is_tensor(val) else np.asarray(val, np.float32)
             if key == "visual.pos_embed":
                 arr = resize_pos_embed_np(arr, param.shape[1])
+            elif key == "visual.positional_embedding":
+                arr = resize_pos_embed_np(arr[None], param.shape[0])[0]
             if tuple(arr.shape) != tuple(param.shape):
                 raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs model {tuple(param.shape)}")
             param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))  # a 0-d stays 0-d
     if missing:
-        log.info(f"--pretrained {path}: {len(missing)} key(s) not in the checkpoint keep their "
+        log.info(f"{source}: {len(missing)} key(s) not in the checkpoint keep their "
                  f"initial values: {missing[:8]}{' ...' if len(missing) > 8 else ''}")
-    log.debug(f"--pretrained {path}: {len(sd)} checkpoint keys, {len(missing)} missing: {missing}")
+    log.debug(f"{source}: {len(sd)} checkpoint keys, {len(missing)} missing: {missing}")
     return missing
+
+
+def load_pretrained(model: nn.Module, path: str) -> list[str]:
+    """Load a reference-layout `.pt` checkpoint, or a `.npz` of the same
+    keys, into a port `CLIP` with `import_state_dict` (non-strict), as the
+    JAX package's `load_pretrained` does (`clipself_tpu/models/torch_io.py:594`).
+    Unlike `load_weights`, which is strict. Returns the missing keys.
+
+    A directory (an Orbax run of the JAX trainer) needs jax to read and
+    raises; so does a name that is not a file (resolve a catalog tag with
+    `models/pretrained.py::resolve_pretrained` first, as `create_model`
+    does). A `torch.jit` archive (an OpenAI release) raises too, naming
+    `models/openai.py::load_openai_model`: the JAX route gives such a file
+    to `torch.load` and fails on the script module it returns."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"--pretrained {path}: a directory is an Orbax checkpoint of the JAX trainer, which "
+            "needs jax to read; export it as a .pt (--export-torch) and pass that"
+        )
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"--pretrained {path}: no such file (a catalog tag resolves through "
+            "models/pretrained.py::resolve_pretrained)"
+        )
+    if is_torchscript_archive(path):
+        raise ValueError(
+            f"--pretrained {path}: a torch.jit archive (an OpenAI release) holds no state dict "
+            "to import; build the model from it with models/openai.py::load_openai_model"
+        )
+    if path.endswith(".npz"):
+        with np.load(path) as npz:
+            sd = {k: npz[k] for k in npz.files}
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    return import_state_dict(model, sd, source=f"--pretrained {path}")

@@ -29,8 +29,11 @@ dS = P * (dP - di) * scale with di = rowsum(dO * O), the formulas of
 not autograd's. A CUDA tensor launches the kernel or raises.
 
 `attention_masked` takes an additive mask and runs in plain PyTorch on
-every device: the text tower's causal attention, which the JAX package runs
-through XLA and not through a Pallas kernel.
+every device: the text tower's causal attention and the OpenCLIP ViT's
+mask-attention pooling, which the JAX package runs through XLA and not
+through a Pallas kernel. `multi_head_attention` picks between the two as
+the JAX dispatch does: a mask goes to `attention_masked`, none to the
+flash kernel.
 """
 
 from __future__ import annotations
@@ -262,5 +265,18 @@ def flash_attention(
     return flash_attention_fwd(q, k, v, scale)
 
 
-# the JAX package's name for the towers' attention entry point
-multi_head_attention = flash_attention
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The towers' attention entry point over [B, N, H, D]
+    (`clipself_tpu/ops/attention.py:460-502`): without a mask the flash
+    kernel (`flash_attention`); with an additive ``mask`` `attention_masked`
+    on every device, as the JAX package takes XLA's attention whenever a
+    mask is given (f32 logits, the `xla_attn_half_logits` knob off)."""
+    if mask is not None:
+        return attention_masked(q, k, v, scale, mask)
+    return flash_attention(q, k, v, scale)

@@ -217,12 +217,12 @@ def _default_tokenizer() -> SimpleTokenizer:
 
 class HFTokenizer:
     """The HuggingFace tokenizer of the JAX package's HF text towers: not
-    ported (ROADMAP.md queue 1 item 8)."""
+    ported (ROADMAP.md queue 1 item 8.5)."""
 
     def __init__(self, tokenizer_name: str):
         raise NotImplementedError(
             f"HF tokenizer {tokenizer_name!r}: the HF text towers are not ported "
-            "(ROADMAP.md queue 1 item 8)"
+            "(ROADMAP.md queue 1 item 8.5)"
         )
 
 

@@ -6,7 +6,10 @@
 
 ``--path clip`` (the default) runs the distill step (batch 2, 20 boxes, every block unlocked, bf16, AdamW,
 seeded random weights, one synthetic batch staged on the device) and the
-zero-shot evaluator (13 valid of 100 annotations, bucket 25) of one model,
+zero-shot evaluator (13 valid of 100 annotations, bucket 25) of one model
+(an EVA02 config or a plain OpenCLIP / OpenAI ViT: `--extract-type v1`
+pools its RoI features, and the evaluator's masks, by mask attention, whose
+plain attention's device time is reported under its own host range),
 each first without the profiler (host clock around a synchronised window:
 ms per step or batch, images/s, peak memory) and then under
 `torch.profiler` for ``--steps`` steps or batches, and prints for each a
@@ -44,6 +47,7 @@ evaluated.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -91,11 +95,18 @@ CLASSES = (
     ("gathers and index selections", ("gather", "index", "scatter")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas", "gemv")),
     ("AdamW multi-tensor kernels", ("multi_tensor_apply",)),
+    ("softmax", ("softmax", "Softmax", "SoftMax")),
+    ("GELU and sigmoid", ("gelu", "Gelu", "sigmoid")),
     ("reductions", ("reduce_kernel",)),
     ("dtype casts and copies", ("copy", "Memcpy", "direct_copy", "CatArrayBatchedCopy")),
     ("memsets and fills", ("Memset", "FillFunctor")),
     ("elementwise", ("elementwise", "vectorized")),
 )
+
+
+# host ranges whose device time is reported beside the classes
+MASKED_RANGE = "plain masked attention"
+RANGES = (MASKED_RANGE,)
 
 
 def classify(name: str) -> str:
@@ -155,7 +166,14 @@ def measure(fn, n: int, device: torch.device, images: int) -> dict:
     kernel_ms = sum(r[0] for r in table.values())
     if kernel_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    # the device time under each host range of RANGES (its kernels are also
+    # in their classes above)
+    ranges = {
+        ev.key: (getattr(ev, "device_time_total", 0) or 0) / 1e3 / n for ev in events
+        if ev.key in RANGES and ev.device_type == torch.autograd.DeviceType.CPU
+    }
     out.update(
+        ranges=ranges,
         profiled_wall_ms=profiled_ms, kernel_ms=kernel_ms,
         launches=sum(r[1] for r in table.values()),
         idle_share_profiled=1 - kernel_ms / profiled_ms,
@@ -190,6 +208,8 @@ def report(title: str, unit: str, res: dict, items: str = "images") -> None:
         print(f"  | {label} | {row['ms']:.3f} | {row['share']:.1%} | {row['launches']:.0f} |")
     for name, ms in res["other"].items():
         print(f"  other: {ms:.3f} ms {name[:120]}")
+    for name, ms in res["ranges"].items():
+        print(f"  under the range '{name}': {ms:.3f} ms of device time per {unit} (counted in the classes above)")
 
 
 def main(argv=None) -> dict:
@@ -206,6 +226,8 @@ def main(argv=None) -> dict:
     p.add_argument("--valid-anns", type=int, default=13)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--grad-checkpointing", action="store_true")
+    p.add_argument("--extract-type", default="v2", choices=["v1", "v2"],
+                   help="the OpenCLIP ViT's RoI features (and the evaluator's masks at v1)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", action="store_true")
@@ -244,7 +266,33 @@ def profile_text(args, device: torch.device) -> dict:
     return {"model": args.model, "text": res}
 
 
+@contextlib.contextmanager
+def masked_attention_range():
+    """Run the OpenCLIP ViT's masked attention calls (mask-attention
+    pooling, plain PyTorch) inside the host range `MASKED_RANGE`."""
+    from clipself_tpu_torch.models import open_clip_vit
+
+    inner = open_clip_vit.multi_head_attention
+
+    def wrapped(q, k, v, scale, mask=None):
+        if mask is None:
+            return inner(q, k, v, scale)
+        with torch.profiler.record_function(MASKED_RANGE):
+            return inner(q, k, v, scale, mask)
+
+    open_clip_vit.multi_head_attention = wrapped
+    try:
+        yield
+    finally:
+        open_clip_vit.multi_head_attention = inner
+
+
 def profile_clip(args, device: torch.device) -> dict:
+    with masked_attention_range():
+        return _profile_clip(args, device)
+
+
+def _profile_clip(args, device: torch.device) -> dict:
     cfg = get_model_config(args.model)
     v = cfg.vision
     out = {"model": args.model, "image": args.det_image_size}
@@ -259,7 +307,9 @@ def profile_clip(args, device: torch.device) -> dict:
         unlocked_groups=v.layers, num_layers=v.layers,
     )
     state = TrainState(model, optimizer)
-    step_fn = make_train_step(partial(clipself_loss, cosine_weight=1.0), teacher)
+    step_fn = make_train_step(
+        partial(clipself_loss, cosine_weight=1.0, extract_type=args.extract_type), teacher
+    )
     host = SyntheticDistillData(
         batch_size=args.batch_size, det_size=args.det_image_size, crop_size=v.image_size,
         max_anns=args.max_boxes, seed=args.seed,
@@ -268,7 +318,8 @@ def profile_clip(args, device: torch.device) -> dict:
     out["train"] = measure(lambda: step_fn(state, batch), args.steps, device, args.batch_size)
     report(
         f"{args.model} distill step, batch {args.batch_size} at {args.det_image_size}px, "
-        f"{args.max_boxes} boxes, crops {v.image_size}px, {v.layers} blocks unlocked, bf16"
+        f"{args.max_boxes} boxes, crops {v.image_size}px, {v.layers} blocks unlocked, bf16, "
+        f"extract type {args.extract_type}"
         + (", block recomputation" if args.grad_checkpointing else ""),
         "step", out["train"],
     )
@@ -284,13 +335,13 @@ def profile_clip(args, device: torch.device) -> dict:
     ebatch = {k: (a if k == "boxes" else torch.as_tensor(a, device=device)) for k, a in host.items()}
     emb = class_embeddings(133, cfg.embed_dim, seed=args.seed)
     out["eval"] = measure(
-        lambda: evaluate_zero_shot(model, [ebatch], emb, device=device),
+        lambda: evaluate_zero_shot(model, [ebatch], emb, device=device, extract_type=args.extract_type),
         args.steps, device, args.eval_batch,
     )
     report(
         f"{args.model} zero-shot evaluator, {args.eval_batch} images a batch at "
         f"{args.det_image_size}px, {args.valid_anns} valid of {args.max_anns} anns, crops "
-        f"{v.image_size}px",
+        f"{v.image_size}px, extract type {args.extract_type}",
         "batch", out["eval"],
     )
     return out

@@ -34,19 +34,25 @@ Batches reach the card through `data/loader.py::device_prefetch`.
 `--device` defaults to `cuda`; without a CUDA device that is an error, not
 a CPU run.
 
-Not carried (ROADMAP.md queue 1): the other towers' flags (item 8:
-`--force-patch-dropout`, `--pretrained-image`, `--force-quick-gelu`,
-`--lock-image-freeze-bn-stats`; `--extract-type v1` is accepted and, as in
-the JAX package, ignored by the EVA tower), meshes (item 9: `--n-devices`,
-`--fsdp-size`, `--tp-size`) and the TPU knobs (item 10: `--attn-impl`,
-`--pad-multiple`, `--scoped-vmem-kib`, `--profile-dir`). Their flags are
-absent.
+`--model` takes the EVA02 configs and the plain OpenCLIP / OpenAI ViT ones
+(`ViT-B-16`, `ViT-L-14-336`, ...); `--extract-type v1` pools the ViT's RoI
+features by mask attention (the EVA tower, as in the JAX package, ignores
+it), `--force-quick-gelu` sets QuickGELU in both towers, and `--pretrained`
+takes a file or a catalog tag (`models/pretrained.py`; nothing is
+downloaded).
+
+Not carried (ROADMAP.md queue 1): the other towers' flags (item 8.2:
+`--lock-image-freeze-bn-stats`; item 8.3: `--force-patch-dropout`; item
+8.4: `--pretrained-image`), meshes (item 9: `--n-devices`, `--fsdp-size`,
+`--tp-size`) and the TPU knobs (item 10: `--attn-impl`, `--pad-multiple`,
+`--scoped-vmem-kib`, `--profile-dir`). Their flags are absent.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import logging
 import os
@@ -77,6 +83,7 @@ from clipself_tpu_torch.eval.zero_shot import (
     metrics_json,
 )
 from clipself_tpu_torch.models.factory import create_model
+from clipself_tpu_torch.models.pretrained import resolve_pretrained
 from clipself_tpu_torch.models.torch_io import load_pretrained
 from clipself_tpu_torch.train import checkpoint as ckpt
 from clipself_tpu_torch.train.methods import (
@@ -98,21 +105,25 @@ def parse_args(argv=None):
     # model
     p.add_argument("--model", default="EVA02-CLIP-B-16")
     p.add_argument("--pretrained", default=None,
-                   help="reference-layout .pt (or .npz) to start from; non-strict, "
-                        "as the JAX trainer's import")
+                   help="reference-layout .pt (or .npz), or a catalog tag of --model "
+                        "(models/pretrained.py), to start from; non-strict, as the JAX "
+                        "trainer's import")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     p.add_argument("--lock-image", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--lock-image-unlocked-groups", type=int, default=12)
     p.add_argument("--grad-checkpointing", action="store_true",
                    help="recompute each block in the backward pass")
+    p.add_argument("--force-quick-gelu", action="store_true",
+                   help="QuickGELU in both towers (the OpenAI weights' activation)")
     # method
     p.add_argument("--cosine-weight", type=float, default=1.0)
     p.add_argument("--contrast-weight", type=float, default=1.0)
     p.add_argument("--multiscale", action="store_true", help="ignored for region_clip")
     p.add_argument("--extract-type", default="v2", choices=["v1", "v2"],
-                   help="accepted for parity: the EVA tower has one RoI path "
-                        "(the reference and the JAX package ignore it there)")
+                   help="RoI features of the OpenCLIP ViT: v2 RoI-align on the dense map, "
+                        "v1 mask-attention pooling (also the evaluator's masks); the EVA "
+                        "tower has one RoI path and ignores it")
     p.add_argument("--dataset-type", default="grid_distill",
                    choices=["grid_distill", "proposals_distill", "region_clip"])
     p.add_argument("--train-embed-path", default=None,
@@ -328,6 +339,13 @@ def train(args) -> dict:
         )
     device = _device(args.device)
     cfg = get_model_config(args.model)
+    if args.force_quick_gelu:
+        # reference main.py:125 -> the factory's quick_gelu override
+        cfg = dataclasses.replace(
+            cfg,
+            vision=dataclasses.replace(cfg.vision, quick_gelu=True),
+            text=dataclasses.replace(cfg.text, quick_gelu=True),
+        )
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     if args.downsample_factor is None:
         args.downsample_factor = cfg.vision.patch_size
@@ -347,7 +365,8 @@ def train(args) -> dict:
         grad_checkpointing=args.grad_checkpointing,
     )
     if args.pretrained:
-        load_pretrained(model, args.pretrained)
+        # a file, or a catalog tag resolved to its cached file (`create_model(pretrained=)`'s route)
+        load_pretrained(model, resolve_pretrained(cfg.name, args.pretrained))
     evals = []
     eval_model = None
 
@@ -367,6 +386,7 @@ def train(args) -> dict:
         results = evaluate_zero_shot(
             target, data["val"](), data["val_ds"].embeddings, device=device,
             ann_bucket=bucket, image_ave_pool=args.image_ave_pool,
+            extract_type=args.extract_type,
         )
         line = metrics_json({"epoch": epoch, **results})  # NaN as null
         log.info(f"eval epoch {epoch}: {line}")
@@ -434,10 +454,12 @@ def train(args) -> dict:
     if region:
         loss_fn = make_regionclip_loss(
             noun_embeddings(args.train_embed_path, device), args.seed,
-            contrast_weight=args.contrast_weight,
+            contrast_weight=args.contrast_weight, extract_type=args.extract_type,
         )
     else:
-        loss_fn = partial(clipself_loss, cosine_weight=args.cosine_weight)
+        loss_fn = partial(
+            clipself_loss, cosine_weight=args.cosine_weight, extract_type=args.extract_type
+        )
     step_fn = make_train_step(loss_fn, teacher)
     if args.multiscale and not region:
         ms_sizes = multiscale_sizes(args.det_image_size, cfg.vision.patch_size)

@@ -54,6 +54,7 @@ def clipself_loss(
     step: int = 0,
     *,
     cosine_weight: float = 1.0,
+    extract_type: str = "v2",
 ) -> tuple[torch.Tensor, dict]:
     """CLIPSelf distillation loss (reference `CLIPSelf.__call__`,
     `clipself.py:7-49`), on tensors on the model's device:
@@ -63,16 +64,19 @@ def clipself_loss(
       crops:  [B, M, s, s, 3] teacher crops (padded rows arbitrary)
 
     The teacher's CLS embeddings of the B*M crops carry no gradient; the
-    student's RoI features come from its dense map. Returns the masked mean
-    of 1 - cos in f32, times ``cosine_weight``, and the metrics dict. The
-    step index is not used.
+    student's RoI features come from its dense map (``extract_type`` 'v2')
+    or, on the OpenCLIP ViT, from mask-attention pooling ('v1'). Returns
+    the masked mean of 1 - cos in f32, times ``cosine_weight``, and the
+    metrics dict. The step index is not used.
     """
     images, boxes, crops = batch["images"], batch["boxes"], batch["crops"]
     b, m = boxes.shape[:2]
     valid = (boxes[..., 4] > 0.5).reshape(b * m).float()
     with torch.no_grad():
         teacher_feats = teacher.encode_image(crops.reshape((b * m,) + tuple(crops.shape[2:])))
-    student_feats = model.encode_pseudo_boxes(images, boxes[..., :4]).reshape(b * m, -1)
+    student_feats = model.encode_pseudo_boxes(
+        images, boxes[..., :4], extract_type=extract_type
+    ).reshape(b * m, -1)
     cos = (
         l2_normalize(student_feats).float() * l2_normalize(teacher_feats).float()
     ).sum(-1)
@@ -125,6 +129,7 @@ def regionclip_loss(
     noise: torch.Tensor,
     num_sample_cats: int = 100,
     contrast_weight: float = 1.0,
+    extract_type: str = "v2",
 ) -> tuple[torch.Tensor, dict]:
     """RegionCLIP region-text loss (reference `RegionCLIP.__call__`,
     `region_clip.py:28-67`): the student's L2-normalized RoI features
@@ -134,14 +139,17 @@ def regionclip_loss(
       images: [B, S, S, 3]
       boxes:  [B, M, 6] xyxy normalized, class label, valid flag
     noun_embeddings: [C, D] L2-normalized (constant); noise: [C] uniform
-    [0, 1) draws of the class sampling. No teacher runs; the step index is
-    not used (the noise carries it).
+    [0, 1) draws of the class sampling; ``extract_type`` as in
+    `clipself_loss`. No teacher runs; the step index is not used (the noise
+    carries it).
     """
     images, boxes = batch["images"], batch["boxes"]
     b, m = boxes.shape[:2]
     valid = (boxes[..., 5] > 0.5).reshape(b * m)
     labels = boxes[..., 4].to(torch.int64).reshape(b * m)
-    feats = model.encode_pseudo_boxes(images, boxes[..., :4], normalize=True).reshape(b * m, -1)
+    feats = model.encode_pseudo_boxes(
+        images, boxes[..., :4], normalize=True, extract_type=extract_type
+    ).reshape(b * m, -1)
     temp = model.logit_scale.exp().detach()
     nouns = noun_embeddings.float()
     logits = feats.float() @ nouns.T * temp  # [BM, C]
@@ -158,7 +166,8 @@ def regionclip_loss(
 
 
 def make_regionclip_loss(
-    noun_embeddings: torch.Tensor, seed: int, *, contrast_weight: float = 1.0
+    noun_embeddings: torch.Tensor, seed: int, *, contrast_weight: float = 1.0,
+    extract_type: str = "v2",
 ):
     """The trainer's RegionCLIP loss ``loss_fn(model, teacher, batch, step)``:
     `regionclip_loss` with the noise of `fed_loss_noise(seed, step)`, drawn
@@ -169,7 +178,7 @@ def make_regionclip_loss(
         noise = fed_loss_noise(seed, step, noun_embeddings.shape[0], device)
         return regionclip_loss(
             model, teacher, batch, step, noun_embeddings=noun_embeddings, noise=noise,
-            contrast_weight=contrast_weight,
+            contrast_weight=contrast_weight, extract_type=extract_type,
         )
 
     return loss_fn

@@ -13,7 +13,8 @@ Reference semantics reproduced:
 Freezing is `requires_grad=False` on the frozen parameters: autograd then
 computes no gradient for them, the counterpart of the stop-gradient the JAX
 step applies at its freeze mask (`clipself_tpu/train/step.py:85-91`).
-Parameter names are the port's reference layout (`visual.blocks.{i}....`).
+Parameter names are the port's reference layout (`visual.blocks.{i}....`,
+`visual.transformer.resblocks.{i}....`).
 Gradient accumulation (``accum_steps`` > 1) is `optax.MultiSteps` around
 the optimizer, as `build_optimizer(accum_steps=)` of the JAX package wraps it.
 """
@@ -86,15 +87,20 @@ def make_schedule(
 # ---------------------------------------------------------------------------
 # parameter labeling
 
-_BLOCK = re.compile(r"visual\.blocks\.(\d+)\.")
+# a block of the EVA towers (`visual.blocks.{i}`) or of the OpenCLIP ViT
+# (`visual.transformer.resblocks.{i}`)
+_BLOCK = re.compile(r"visual\.(?:blocks|transformer\.resblocks)\.(\d+)\.")
 
 
 def trainable_labels(
     names: Iterable[str], unlocked_groups: int, num_layers: int, lock_image: bool = True
 ) -> dict[str, str]:
-    """Label each parameter name 'train' or 'freeze'. logit_scale is always
-    frozen; under ``lock_image`` only the last ``unlocked_groups`` blocks of
-    the EVA tower train (stem, pos-embed, final norm and head stay frozen)."""
+    """Label each parameter name 'train' or 'freeze'. logit_scale and the
+    text tower are always frozen; under ``lock_image`` only the last
+    ``unlocked_groups`` blocks of the visual tower train: the stem, the CLS
+    and positional embeddings, the final norm and the head (`proj`) stay
+    frozen, in the EVA towers and the OpenCLIP ViT alike
+    (`clipself_tpu/train/optim.py:106-166`)."""
     first_trainable = num_layers - unlocked_groups
     labels = {}
     for name in names:

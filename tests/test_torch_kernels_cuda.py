@@ -987,3 +987,110 @@ def test_region_clip_step_launches_the_dense_pass_kernels_and_no_teacher(dev):
                    "rope_roll_bwd": dense, "layer_norm": norms, "layer_norm_bwd": norms}
     assert torch.isfinite(metrics["loss"]) and metrics["num_boxes"].item() == 6
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def _vit_attention(dev, seed):
+    """The OpenCLIP ViT's packed attention at ViT-B-16's width (768, 12
+    heads of 64) with seeded weights, float32 parameters on the card."""
+    from clipself_tpu_torch.models.open_clip_vit import Attention
+
+    attn = Attention(768, 12)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 768 ** -0.5)
+    return attn.to(dev)
+
+
+@pytest.mark.parametrize("n", [197, 4097])
+def test_vit_packed_attention_reads_the_projection_in_place(dev, n, monkeypatch):
+    """ViT-B-16's q, k and v are strided views of the packed projection
+    (row stride 3 x 768): the flash kernel takes them without a copy, once a
+    call, and agrees with the plain attention on the same views (bf16: min
+    row cosine 0.9999)."""
+    import torch.nn.functional as F
+
+    from clipself_tpu_torch.models import open_clip_vit
+
+    attn = _vit_attention(dev, 3)
+    x = torch.randn(2, n, 768, generator=torch.Generator().manual_seed(4)).to(dev, torch.bfloat16)
+    qkv = F.linear(x, attn.in_proj_weight.bfloat16(), attn.in_proj_bias.bfloat16())
+    q, k, v = (t.view(2, n, 12, 64) for t in qkv.split(768, dim=-1))
+    assert not q.is_contiguous() and q.stride()[:3] == (n * 2304, 2304, 64)
+    attention._check_qkv(q, k, v, "ViT-B-16 views")  # no copy needed
+    before = attention.LAUNCHES.count
+    with torch.no_grad():
+        got = attn(x)
+    assert attention.LAUNCHES.count == before + 1
+    monkeypatch.setattr(open_clip_vit, "multi_head_attention", attention.attention_masked)
+    with torch.no_grad():
+        want = attn(x)
+    assert attention.LAUNCHES.count == before + 1
+    assert _min_row_cos(got, want) >= 0.9999
+
+
+def test_vit_masked_attention_runs_the_plain_op(dev):
+    """With the mask of mask-attention pooling the dispatch takes
+    `attention_masked` on the card, as the JAX package takes XLA: no flash
+    launch, the plain op's values."""
+    from clipself_tpu_torch.models.open_clip_vit import OpenCLIPViT
+
+    attn = _vit_attention(dev, 5)
+    gen = torch.Generator().manual_seed(6)
+    boxes = torch.rand(2, 20, 4, generator=gen).sort(-1).values[..., [0, 1, 2, 3]]
+    boxes = torch.stack([boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3]], -1).to(dev)
+    mask = OpenCLIPViT.attention_mask(OpenCLIPViT.boxes_to_grid_masks(boxes, 14, 14))
+    x = torch.randn(2, mask.shape[-1], 768, generator=gen).to(dev, torch.bfloat16)
+    before = attention.LAUNCHES.count
+    with torch.no_grad():
+        got = attn(x, mask)
+        import torch.nn.functional as F
+
+        qkv = F.linear(x, attn.in_proj_weight.bfloat16(), attn.in_proj_bias.bfloat16())
+        q, k, v = (t.reshape(2, -1, 12, 64) for t in qkv.split(768, dim=-1))
+        want = attn.out_proj(attention.attention_masked(q, k, v, 0.125, mask).reshape(x.shape))
+    assert attention.LAUNCHES.count == before
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_vit_block_forward_backward_on_card(dev, dtype, monkeypatch):
+    """One ViT-B-16 block (QuickGELU, LayerScale) over [2, 197, 768] on the
+    card, forward and backward through the flash and LayerNorm kernels,
+    against the same block on their plain versions in float32: float32
+    within 1e-4 (of each gradient's largest entry), bfloat16 at min cosine
+    0.999."""
+    import dataclasses
+
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.models import eva_vit, open_clip_vit
+    from clipself_tpu_torch.ops.layer_norm import layer_norm_plain
+
+    cfg = dataclasses.replace(get_model_config("ViT-B-16").vision, quick_gelu=True, ls_init_value=0.5)
+    block = open_clip_vit.CLIPBlock(cfg)
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.03)
+    block = block.to(dev)
+    x0 = torch.randn(2, 197, 768, generator=gen).to(dev)
+
+    def run(dt):
+        x = x0.to(dt).requires_grad_()
+        block.zero_grad()
+        out = block(x)
+        out.float().square().sum().backward()
+        return [out.float(), x.grad.float()] + [p.grad.float().clone() for p in block.parameters()]
+
+    before = (attention.LAUNCHES.count, attention.BWD_LAUNCHES.count, layer_norm.BWD_LAUNCHES.count)
+    got = run(dtype)
+    after = (attention.LAUNCHES.count, attention.BWD_LAUNCHES.count, layer_norm.BWD_LAUNCHES.count)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 2]
+    monkeypatch.setattr(open_clip_vit, "multi_head_attention", attention.attention_masked)
+    monkeypatch.setattr(eva_vit, "layer_norm", layer_norm_plain)
+    want = run(torch.float32)
+    for g, w in zip(got, want):
+        if dtype == torch.float32:
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-6
+        else:
+            assert torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0) >= 0.999

@@ -11,7 +11,9 @@ RegionCLIP trainer route (`--dataset-type region_clip`) on that corpus with
 `--accum-freq 2`, `--export-torch` and then `--pretrained` on its export;
 and the detector's file path: a set written by the port's
 `tools/synth_det_data.py`, one file-fed tiny detector train step and
-`fvit-test` on its checkpoint."""
+`fvit-test` on its checkpoint; and the plain OpenCLIP ViT (`ViT-Tiny-Test`):
+one evaluator batch at extract type v1 and one train step with
+`--extract-type v1 --force-quick-gelu`."""
 
 import json
 import math
@@ -75,6 +77,9 @@ import clipself_tpu_torch.tools.text_embeddings as text_embeddings
 import clipself_tpu_torch.data.draw
 import clipself_tpu_torch.detector.classes as det_classes
 import clipself_tpu_torch.tools.synth_det_data as synth_det_data
+import clipself_tpu_torch.models.open_clip_vit
+import clipself_tpu_torch.models.openai
+import clipself_tpu_torch.models.pretrained
 
 model = factory.create_model("EVA02-CLIP-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
 batch = synthetic.synthetic_panoptic_batch(
@@ -164,7 +169,17 @@ det_common = ["--preset", "tiny_test", "--device", "cpu", "--ann-file", det_ann,
               "--class-embed", sys.argv[1] + "/det_ce.npy", "--batch-size", "2"]
 det_files = det_train.main(det_common + ["--epochs", "1", "--output", sys.argv[1] + "/det_files"])
 fvit = det_evaluate.main(det_common + ["--detector-checkpoint", sys.argv[1] + "/det_files/detector_epoch0.pkl"])
+vit = factory.create_model("ViT-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
+vit_res = zero_shot.evaluate_zero_shot(
+    vit, [batch], synthetic.class_embeddings(7, 64), device="cpu", ann_bucket=0, extract_type="v1"
+)
+vit_run = train_main.main([
+    "--device", "cpu", "--synthetic", "--model", "ViT-Tiny-Test", "--extract-type", "v1",
+    "--force-quick-gelu", "--batch-size", "1", "--det-image-size", "32", "--max-boxes", "2",
+    "--steps-per-epoch", "1", "--epochs", "1", "--logs", sys.argv[1], "--name", "vit",
+])
 data = {"loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
+        "vit": [len(vit_res), vit_run["history"][-1]["loss"]],
         "eval_only": sorted(eval_only["evals"][0]),
         "region": [h["loss_contrast"] for h in region["history"] + region_pre["history"]],
         "det_files": [h["metrics"]["loss"] for h in det_files["history"]],
@@ -211,6 +226,7 @@ def test_port_runs_without_jax(tmp_path):
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["n_results"] == 12
     assert math.isfinite(out["data"]["loss"]) and out["data"]["evals"] == 2
+    assert out["data"]["vit"][0] == 12 and math.isfinite(out["data"]["vit"][1])
     assert len(out["data"]["eval_only"]) == 13 and "epoch" in out["data"]["eval_only"]
     assert len(out["data"]["region"]) == 2 and all(map(math.isfinite, out["data"]["region"]))
     assert (tmp_path / "region" / "epoch_1.pt").is_file()

@@ -32,6 +32,8 @@ from clipself_tpu_torch.tools import profile_paths, side_by_side
         ("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float>(...)", "GroupNorm"),
         ("void at::native::radixSortKVInPlace<2, -1, 128, 32, float, long, unsigned int>(...)", "sorts"),
         ("void at::native::_scatter_gather_elementwise_kernel<128, 8, ...>", "gathers and index selections"),
+        ("void at::native::(anonymous namespace)::cunn_SoftMaxForwardReg<float, float, float, ...>", "softmax"),
+        ("void at::native::vectorized_elementwise_kernel<4, at::native::GeluCUDAKernelImpl(...)>", "GELU and sigmoid"),
         ("something_else", "other"),
     ],
 )

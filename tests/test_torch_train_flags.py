@@ -210,11 +210,23 @@ def test_pretrained_is_the_jax_load_pretrained(jax_checkpoint, tmp_path):
 
 
 def test_pretrained_refuses_directories_and_catalog_tags(tmp_path):
+    """`load_pretrained` refuses a directory (an Orbax run) and a name that
+    is not a file; a catalog tag goes through `resolve_pretrained` first
+    (`create_model(pretrained=)`, the trainer's `--pretrained`), and a tag
+    the model does not have raises the JAX package's FileNotFoundError."""
+    from clipself_tpu.models.pretrained import resolve_pretrained as jresolve_pretrained
+    from clipself_tpu_torch.models.factory import create_model
+
     model = CLIP(get_model_config(NAME), torch.float32)
     with pytest.raises(ValueError, match="Orbax"):
         torch_io.load_pretrained(model, str(tmp_path))
-    with pytest.raises(FileNotFoundError, match="queue 1 item 8"):
+    with pytest.raises(FileNotFoundError, match="resolve_pretrained"):
         torch_io.load_pretrained(model, "eva02")
+    with pytest.raises(FileNotFoundError) as want:
+        jresolve_pretrained(NAME, "eva02")
+    with pytest.raises(FileNotFoundError) as got:
+        create_model(NAME, device="cpu", dtype=torch.float32, pretrained="eva02")
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("tokens", [17, 50, 101])
