@@ -14,9 +14,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    forward and backward on one tensor and on two in one launch (q and k, as
    the towers call it; also at the detector's [8, 1601, 768]), the
    flash-attention forward with and without its
-   LSE (also at the detector's [8, 1601, 12, 64]), the flash backward (each
+   LSE (also at the detector's [8, 1601, 12, 64], and at [1, 4097, 16, d]
+   for the large towers' head dims d = 80, 88, 104, 112, which the WMMA and
+   FMA designs take on zero-filled 16-wide tiles), the flash backward (each
    row says which of the kernel's designs its shape and type took: "wgmma"
-   for bfloat16 at head_dim 64, "fma" for float32), and the fused LayerNorm
+   for bfloat16 at head_dim 64, "wmma" for bfloat16 at the others, "fma"
+   for float32), and the fused LayerNorm
    forward (with and
    without statistics; also at the text towers' [64, 77, 512] and
    [64, 77, 768]) and backward, also on the two strided views of the
@@ -36,25 +39,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    0.4, one image, an invalid tail) and at the edge cases (one box, no valid
    box, identical boxes, zero-area boxes, duplicates, a negative threshold);
 then for each model, B/16 first:
-3. the evaluator: `evaluate_zero_shot` (seeded random weights, bf16) over 8
+3. the evaluator: `evaluate_zero_shot` (seeded random weights, bf16) over 4
    synthetic panoptic batches after 2 warm-up batches, with ms a batch,
    images/s, the mAcc dict and the kernel launch counts of that run; at B/16
    again with `image_ave_pool` (each crop scored by its mean dense feature);
 4. whole-path parity of the dense map against the plain float32 path;
 5. the text tower (width 512, 8 heads at B/16; 768, 12 heads at L/14; 12
    blocks, 77 tokens): `tools/text_embeddings.py::build_text_embeddings` in
-   bf16 over the 65 OV-COCO and (B/16 only) the 1203 OV-LVIS classes, each
-   list with a background row (63 ViLD prompts a class), with the seconds, the host's
+   bf16 over the 65 OV-COCO classes and a background row (63 ViLD prompts a
+   class), with the seconds, the host's
    tokenizing apart, prompts/s, peak memory, each class matrix's mean
    off-diagonal cosine and the LayerNorm launches (two a block and the final
    one a call); then bf16 and f32 kernels against the plain float32 path on
    one batch of 64 prompts and on the OV-COCO matrix;
 6. the trainer: `clipself_tpu_torch.train.main`, bf16, synthetic data, batch
    2, 20 boxes, teacher crops at the model's own size, every block unlocked:
-   3 warm-up steps and 5 timed steps, with every step's ms, the median
-   step's images/s, the per-step losses, peak device memory and the launch
-   counts of the run; for L/14 then 1 warm-up and 2 timed steps with
-   `--grad-checkpointing`;
+   3 warm-up steps and 5 timed steps (L/14: 2 and 3), with every step's ms,
+   the median step's images/s, the per-step losses, peak device memory and
+   the launch counts of the run; for L/14 then 1 warm-up and 2 timed steps
+   with `--grad-checkpointing`;
 7. train parity: one step's loss and trainable gradients at batch 1 on f32
    kernels, bf16 kernels and the f32 plain path (L/14: at full width and a
    depth of 6 blocks, since the plain path keeps every block's
@@ -89,7 +92,7 @@ then for each model, B/16 first:
    every launch count that of the student's dense pass and its backward;
 7d. the plain OpenCLIP / OpenAI ViT tower (`phase_open_clip_vit`): ViT-B-16
    at 1024^2 (crops 224^2) through `evaluate_zero_shot` at extract type v2
-   (2 + 8 batches) and v1, mask-attention pooling (2 + 4), and one v3 call;
+   (2 + 4 batches) and v1, mask-attention pooling (2 + 4), and one v3 call;
    ViT-L-14-336 at 896^2 (crops 336^2) at v2 (2 + 4); each with ms a batch,
    images/s, peak memory, the kernels' ms a batch under the profiler and the
    launch counts; parity of the dense map and of the v1 pooled features
@@ -98,6 +101,16 @@ then for each model, B/16 first:
    ViT-B-16 with `--force-quick-gelu` (batch 2, 20 boxes, 12 blocks
    unlocked, 3 + 5 steps, 2 profiled), one `--extract-type v1` run (1 + 1
    steps, its peak memory) and one step's parity at batch 1;
+7e. the ModifiedResNet and the EVA01 variant (`phase_towers`): RN50 and
+   EVA01-CLIP-B-16 at 1024^2 (crops 224^2) through `evaluate_zero_shot` at
+   v2 (2 + 4 batches of 2, 2 profiled; RN50 also one v1 call), the dense map
+   and the image embedding (RN50 also the v1 RoI features) against the
+   plain float32 path, the trainer (batch 2, 20 boxes, every lock group
+   unlocked: RN50's five, EVA01's 12 blocks; 2 + 3 steps, 2 profiled; RN50
+   once more with `--lock-image-freeze-bn-stats`, 1 step, its BatchNorm
+   statistics unchanged) and one step's parity at batch 1; RN50 launches no
+   kernel of the port, EVA01 the flash forward and backward and the
+   LayerNorm forward and backward, no RoPE (`tower_expected_launches`);
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
 8. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
@@ -178,11 +191,13 @@ import tempfile
 import time
 
 MAX_ANNS, VALID_ANNS, BUCKET = 100, 13, 25
-# evaluator: 2 warm-up batches, then 8 timed ones
-EVAL_WARMUP, N_BATCHES, N_CLASSES, SEED = 2, 8, 133, 0
+# evaluator: 2 warm-up batches, then 4 timed ones
+EVAL_WARMUP, N_BATCHES, N_CLASSES, SEED = 2, 4, 133, 0
 # trainer: 3 warm-up steps, then 5 timed steps (the median step is reported);
-# when recomputing, 1 warm-up step and 2 timed ones
+# L/14 2 and 3 (the script's time limit); when recomputing, 1 warm-up step
+# and 2 timed ones
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BOXES = 2, 3, 5, 20
+L14_TRAIN_WARMUP, L14_TRAIN_TIMED = 2, 3
 RECOMPUTE_WARMUP, RECOMPUTE_STEPS = 1, 2
 
 
@@ -195,7 +210,6 @@ class Model:
     image: int
     eval_batch: int
     parity_layers: int | None = None  # depth of the train-parity phase; None: all
-    text_lists: tuple = ("coco", "lvis")  # the class lists of the text phase
 
     @property
     def vision(self):
@@ -230,8 +244,7 @@ class Model:
 
 MODELS = (
     Model("b16", "EVA02-CLIP-B-16", image=1024, eval_batch=2),
-    Model("l14", "EVA02-CLIP-L-14-336", image=896, eval_batch=1, parity_layers=6,
-          text_lists=("coco",)),
+    Model("l14", "EVA02-CLIP-L-14-336", image=896, eval_batch=1, parity_layers=6),
 )
 # the plain OpenCLIP / OpenAI ViT tower at the B/16 recipe's shapes (and L/14
 # at 896^2 through the evaluator): v1 evaluator batches, L/14 v2 batches, and
@@ -241,6 +254,19 @@ VIT_MODELS = (
     Model("vit_l14", "ViT-L-14-336", image=896, eval_batch=1),
 )
 VIT_V1_BATCHES, VIT_L14_BATCHES, VIT_PROFILED = 4, 4, 2
+# the ModifiedResNet and the EVA01 variant at the B/16 recipe's shapes
+# (1024^2, crops at the tower's 224^2, batch 2, 20 boxes): evaluator batches
+# after EVAL_WARMUP, the distill step's warm-up and timed steps, and batches
+# or steps under the profiler for the kernel ms; RN50 trains its five lock
+# groups (stem, layer1..4; the attention pool is never locked)
+TOWER_MODELS = (
+    Model("rn50", "RN50", image=1024, eval_batch=2),
+    Model("eva01_b16", "EVA01-CLIP-B-16", image=1024, eval_batch=2),
+)
+TOWER_BATCHES, TOWER_TRAIN_WARMUP, TOWER_TRAIN_TIMED, TOWER_PROFILED = 4, 2, 3, 2
+RN_GROUPS = 5
+# the flash kernels' rows at the large towers' head dims
+WIDE_HEAD_DIMS = (80, 88, 104, 112)
 
 # the detector phase: preset, images a batch (the reference's 8 a GPU), warm-up
 # and timed batches, images of the parity phase, fixed rois of its head rows
@@ -273,10 +299,10 @@ DET_L14_PRESET, DET_L14_MASK_PRESET = "ov_coco_vitl14", "ov_lvis_vitl14"
 # LVIS evaluation with masks (batches as above): items with gt masks and
 # resize scales other than 1
 DET_LVIS_PRESETS = ("ov_lvis_vitb16", "ov_lvis_vitl14")
-# the text phase: the prompt-ensemble class matrices of OV-COCO (65 classes)
-# and, at B/16 (`Model.text_lists`), OV-LVIS (1203), each with a background
-# row, at 64 prompts a call (every class has 63); its parity on one
-# 64-prompt batch and on the OV-COCO matrix
+# the text phase: the prompt-ensemble class matrix of OV-COCO (65 classes and
+# a background row; OV-LVIS's 1203 classes are the same calls, more of them),
+# at 64 prompts a call (every class has 63); its parity on one 64-prompt
+# batch and on that matrix
 TEXT_BATCH, TEXT_WARMUP_CLASSES = 64, 4
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
@@ -451,7 +477,7 @@ def plain_path():
     launched inside, so a swap that misses a call site cannot compare the
     kernels with themselves."""
     from clipself_tpu_torch.models import eva_vit, open_clip_vit, rope
-    from clipself_tpu_torch.ops.attention import attention_masked, attention_plain
+    from clipself_tpu_torch.ops.attention import attention_masked
     from clipself_tpu_torch.ops.layer_norm import layer_norm_plain
     from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain, unpack_tables
 
@@ -464,7 +490,9 @@ def plain_path():
 
     saved = (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
              open_clip_vit.multi_head_attention)
-    eva_vit.multi_head_attention, eva_vit.layer_norm = attention_plain, layer_norm_plain
+    # the EVA tower's dispatch: unmasked calls took the flash kernel (a rel-pos
+    # bias is a mask, plain on every path)
+    eva_vit.multi_head_attention, eva_vit.layer_norm = attention_masked, layer_norm_plain
     rope.rolled_rope, rope.rolled_rope_qk = rope_plain, rope_qk_plain
     # the ViT tower's dispatch: unmasked calls took the flash kernel
     open_clip_vit.multi_head_attention = attention_masked
@@ -494,6 +522,46 @@ def plain_nms():
         det_nms.nms_keep_mask = saved
     if ops_nms.LAUNCHES.count != before:
         fail("the plain NMS path launched the NMS kernel")
+
+
+@contextlib.contextmanager
+def drawn_once():
+    """`models/factory.py::create_model` with each (config, seed)'s initial
+    weights drawn once in this process: `create_model` draws every weight on
+    the host from its seed (seconds a tower, most of a model's build), and
+    this script builds the same models again and again (evaluator, parity,
+    trainer, detector). A later call of a config and seed already drawn
+    builds the modules and loads the values of the first draw, which are
+    bit for bit what a fresh draw gives; `pretrained=` calls draw as before.
+    Every module that holds `create_model` by name takes the wrapper."""
+    import torch
+
+    from clipself_tpu_torch.models import factory
+
+    original, drawn = factory.create_model, {}
+
+    def create_model(name_or_cfg, **kw):
+        cfg = factory.get_model_config(name_or_cfg) if isinstance(name_or_cfg, str) else name_or_cfg
+        key = (cfg, kw.get("seed", 0))
+        if kw.get("pretrained") or key not in drawn:
+            model = original(cfg, **kw)
+            if not kw.get("pretrained"):
+                drawn[key] = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+            return model
+        model = factory.CLIP(cfg, dtype=kw.get("dtype", torch.bfloat16),
+                             grad_checkpointing=kw.get("grad_checkpointing", False))
+        model.load_state_dict(drawn[key])
+        return model.to(kw["device"]).eval()
+
+    for m in list(sys.modules.values()):
+        if getattr(m, "create_model", None) is original:
+            m.create_model = create_model
+    try:
+        yield
+    finally:  # the modules imported inside hold the wrapper too
+        for m in list(sys.modules.values()):
+            if getattr(m, "create_model", None) is create_model:
+                m.create_model = original
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
@@ -617,7 +685,7 @@ def check_rope(torch, dev, records, gen, shape, grid, head_dim, backward):
         design = rope_roll.kernel_design(dt, head_dim)
         for what, table, plain_tables in directions:
             back = what == "backward"
-            q, k = (torch.randn(b, n, w, generator=gen).to(dev, dt) for _ in range(2))
+            q, k = (torch.randn(b, n, w, generator=gen, device=dev).to(dt) for _ in range(2))
             if back:
                 leaves = [torch.zeros_like(t, requires_grad=True) for t in (q, k)]
                 want = [
@@ -668,7 +736,7 @@ def check_attention(torch, dev, records, gen, shape, train):
     for dt in (torch.float32, torch.bfloat16):
         iters = 5 if dt == torch.float32 else 10
         q, k, v = (
-            torch.randn(b, n, h * d, generator=gen).to(dev, dt).view(b, n, h, d) for _ in range(3)
+            torch.randn(b, n, h * d, generator=gen, device=dev).to(dt).view(b, n, h, d) for _ in range(3)
         )
         got = attention.flash_attention_fwd(q, k, v, scale).float()
         f = [t.float() for t in (q, k, v)]
@@ -702,7 +770,7 @@ def check_attention(torch, dev, records, gen, shape, train):
         )
         if not lse_err <= LSE_MAX_ABS:
             fail(f"flash_attention lse {dt} {shape} max abs {lse_err}")
-        do = torch.randn(q.shape, generator=gen).to(dev, dt)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dt)
         got = attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
         want = attention.attention_bwd_plain(*f, out32, lse32, do.float(), scale)
         del out32, lse32
@@ -749,10 +817,10 @@ def check_layer_norm(torch, dev, records, gen, shape, view, backward, eps=1e-6):
 
     w = shape[-1]
     for dt in (torch.float32, torch.bfloat16):
-        x = LN_VIEWS[view]((torch.randn(shape, generator=gen) * 3 + 0.5).to(dev, dt))
-        dy = LN_VIEWS[view](torch.randn(shape, generator=gen).to(dev, dt)).contiguous()
-        weight = (torch.randn(w, generator=gen) * 0.2 + 1.0).to(dev)
-        bias = (torch.randn(w, generator=gen) * 0.1).to(dev)
+        x = LN_VIEWS[view]((torch.randn(shape, generator=gen, device=dev) * 3 + 0.5).to(dt))
+        dy = LN_VIEWS[view](torch.randn(shape, generator=gen, device=dev).to(dt)).contiguous()
+        weight = torch.randn(w, generator=gen, device=dev) * 0.2 + 1.0
+        bias = torch.randn(w, generator=gen, device=dev) * 0.1
         # the library call takes the affine in x's type
         lib_w, lib_b = weight.to(dt), bias.to(dt)
         what = f"{view} {list(shape)}:" if view else ""
@@ -908,7 +976,9 @@ def check_nms(torch, dev, records):
 
 
 def phase_kernels(torch, dev, records):
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    # the rows' inputs are drawn on the card: a host draw of their ~4 G
+    # values took ~35 s
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     for s in MODELS:
         v = s.vision
         student = (TRAIN_BATCH, s.tokens(s.image), v.width)
@@ -966,6 +1036,14 @@ def phase_kernels(torch, dev, records):
                 check_layer_norm(torch, dev, records, gen, teacher + (width,), "", backward=False)
             check_layer_norm(torch, dev, records, gen, student, " rows 1: of", backward=True)
             check_layer_norm(torch, dev, records, gen, teacher + (v.width,), " row 0 of", backward=True)
+    # the large towers' head dims, which the WMMA and FMA designs take on
+    # zero-filled 16-wide tiles (88: ViT-g-14, EVA01-CLIP-g-14; 104:
+    # ViT-bigG-14) or exactly (80; 112: EVA02-CLIP-bigE-14), over the
+    # L/14-size grid at 896^2 (also g-14's): one image, 16 heads
+    l14 = MODELS[-1]
+    for d in WIDE_HEAD_DIMS:
+        check_attention(torch, dev, records, gen, (1, l14.tokens(l14.image), 16, d), train=True)
+        torch.cuda.empty_cache()
     check_nms(torch, dev, records)
 
 
@@ -1069,16 +1147,22 @@ def phase_parity(torch, dev, s: Model, model_bf16, batch):
 
 def phase_train(
     torch, dev, s: Model, logs_dir, recompute=False, *, extra=(), tag=None, batch=TRAIN_BATCH,
-    warmup=None, timed=None, profiled=0, expect=None,
+    warmup=None, timed=None, profiled=0, expect=None, unlocked=None, group_of=None,
 ):
     """The distill step through the trainer's entry point: ``warmup``
     steps, ``timed`` steps (the median reported), then ``profiled`` steps
     under the profiler (their kernel ms a step); ``extra`` trainer flags;
-    ``expect`` the launch counts (by default the EVA tower's)."""
+    ``expect`` the launch counts (by default the EVA tower's); ``unlocked``
+    the lock groups trained (by default every block); ``group_of`` the
+    lock group of a trainable parameter's name (by default its block),
+    every group of which must move."""
     from clipself_tpu_torch.train import main as train_main
     from clipself_tpu_torch.train.optim import _BLOCK, trainable_labels
 
     layers = s.vision.layers
+    unlocked = layers if unlocked is None else unlocked
+    group_of = group_of or (lambda name: _BLOCK.match(name).group(1))
+    freeze_bn_stats = "--lock-image-freeze-bn-stats" in extra
     if warmup is None:
         warmup = RECOMPUTE_WARMUP if recompute else TRAIN_WARMUP
     if timed is None:
@@ -1088,7 +1172,7 @@ def phase_train(
     argv = [
         "--synthetic", "--model", s.model, "--precision", "bf16", "--device", str(dev),
         "--batch-size", str(batch), "--det-image-size", str(s.image),
-        "--max-boxes", str(TRAIN_BOXES), "--lock-image-unlocked-groups", str(layers),
+        "--max-boxes", str(TRAIN_BOXES), "--lock-image-unlocked-groups", str(unlocked),
         "--steps-per-epoch", str(steps), "--epochs", "1", "--log-every-n-steps", "1",
         "--lr", "1e-5", "--warmup", "1", "--seed", str(SEED),
         "--logs", logs_dir, "--name", tag.replace(" ", "_"),
@@ -1110,7 +1194,7 @@ def phase_train(
     ips = batch / median_ms * 1e3
     print(
         f"{tag} {s.model} distill step: batch {batch} at {s.image}px, {TRAIN_BOXES} boxes, "
-        f"crops {s.crop}px, {layers} blocks unlocked, bf16{''.join(' ' + a for a in extra)}: "
+        f"crops {s.crop}px, {unlocked} groups unlocked, bf16{''.join(' ' + a for a in extra)}: "
         f"{len(step_ms)} timed steps after {warmup} warm-up, median step {median_ms:.3f} ms, "
         f"{ips:.3f} images/s (ms per step {[round(t, 3) for t in step_ms]}; warm-up "
         f"{[round(batch / h['images_per_sec'] * 1e3, 3) for h in hist[:warmup]]})",
@@ -1132,30 +1216,38 @@ def phase_train(
     student, teacher = run["state"].model, run["teacher"]
     if student.visual.grad_checkpointing != recompute:
         fail(f"{tag}: the student's grad_checkpointing is {student.visual.grad_checkpointing}")
-    labels = trainable_labels((n for n, _ in student.named_parameters()), layers, layers)
+    labels = trainable_labels(
+        (n for n, _ in student.named_parameters()), unlocked, layers, freeze_bn_stats=freeze_bn_stats
+    )
     t_params = dict(teacher.named_parameters())
-    moved = set()
+    moved, groups, frozen = set(), set(), 0
     for name, p in student.named_parameters():
         if not torch.isfinite(p).all():
             fail(f"non-finite parameter {name} after training")
         same = torch.equal(p, t_params[name])
-        if labels[name] == "freeze" and not same:
-            fail(f"frozen parameter {name} moved")
-        if labels[name] == "train" and not same:
-            moved.add(_BLOCK.match(name).group(1))
-    if moved != {str(i) for i in range(layers)}:
-        fail(f"{tag}: unlocked blocks that moved: {sorted(moved)}")
-    print(f"{tag} checks: losses finite, {layers} unlocked blocks moved, frozen unchanged", flush=True)
+        if labels[name] == "freeze":
+            frozen += 1
+            if not same:
+                fail(f"frozen parameter {name} moved")
+            continue
+        groups.add(group_of(name))
+        if not same:
+            moved.add(group_of(name))
+    if moved != groups:
+        fail(f"{tag}: unlocked groups that moved: {sorted(moved)} of {sorted(groups)}")
+    print(f"{tag} checks: losses finite, {len(groups)} unlocked groups moved, {frozen} frozen tensors "
+          f"unchanged", flush=True)
     del run, student, teacher
     return dict(images_per_sec=ips, losses=losses, peak_gib=peak_gib, launches=launches,
                 median_ms=median_ms, kernel_ms=prof["kernel_ms"] / profiled if profiled else None)
 
 
-def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2"):
+def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2", unlocked=None):
     """One step's loss and trainable gradients from the same weights and
     batch (batch 1) on f32 kernels, bf16 kernels and the f32 plain path;
     the kernel legs must launch every one of ``kernels`` (by default every
-    kernel of the EVA tower)."""
+    kernel of the EVA tower; an empty list: none, and then none may
+    launch); ``unlocked`` lock groups train (by default every block)."""
     from clipself_tpu_torch.core.config import get_model_config
     from clipself_tpu_torch.data.loader import SyntheticDistillData
     from clipself_tpu_torch.models.factory import create_model
@@ -1168,6 +1260,7 @@ def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2"):
             cfg, vision=dataclasses.replace(cfg.vision, layers=s.parity_layers)
         )
     layers = cfg.vision.layers
+    unlocked = layers if unlocked is None else unlocked
     host = SyntheticDistillData(
         batch_size=1, det_size=s.image, crop_size=s.crop, max_anns=TRAIN_BOXES, seed=SEED
     ).batch
@@ -1177,7 +1270,7 @@ def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2"):
         model = create_model(cfg, device=dev, dtype=dtype, seed=SEED)
         teacher = copy.deepcopy(model).requires_grad_(False)
         named = list(model.named_parameters())
-        labels = trainable_labels((n for n, _ in named), layers, layers)
+        labels = trainable_labels((n for n, _ in named), unlocked, layers)
         for name, p in named:
             p.requires_grad_(labels[name] == "train")
         reset_counts()
@@ -1186,9 +1279,11 @@ def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2"):
             loss.backward()
         # every kernel of the tower, forward and backward (the NMS kernel
         # belongs to the detector)
-        wanted = kernels or [k for k in read_counts() if k != "nms"]
+        wanted = [k for k in read_counts() if k != "nms"] if kernels is None else kernels
         if not plain and not all(read_counts()[k] for k in wanted):
             fail(f"kernel path missed a kernel: {read_counts()}")
+        if not wanted and any(read_counts().values()):
+            fail(f"a tower that runs no kernel launched one: {read_counts()}")
         grads = {n: p.grad.float() for n, p in named if p.grad is not None}
         out = loss.item()
         del model, teacher, loss
@@ -1233,7 +1328,7 @@ def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2"):
 
 def phase_text(torch, dev, s: Model, model, model_f32) -> dict:
     """The text tower's main path: `tools/text_embeddings.py::build_text_embeddings`
-    over the class lists of ``s.text_lists``, each with a background row, on
+    over the OV-COCO classes and a background row, on
     the evaluator's bf16 model (seeded random weights); then its parity
     against the plain float32 path of the parity phase's float32 model (the
     same weights). Returns the launch counts of the timed run."""
@@ -1241,13 +1336,12 @@ def phase_text(torch, dev, s: Model, model, model_f32) -> dict:
 
     import numpy as np
 
-    from clipself_tpu_torch.detector.classes import coco_split, lvis_split
+    from clipself_tpu_torch.detector.classes import coco_split
     from clipself_tpu_torch.models.factory import get_tokenizer
     from clipself_tpu_torch.tools.text_embeddings import build_text_embeddings, category_prompts
 
     t = s.text
-    splits = {"coco": coco_split, "lvis": lvis_split}
-    lists = {k: splits[k]()["all"] + ["background"] for k in s.text_lists}
+    lists = {"coco": coco_split()["all"] + ["background"]}
     build_text_embeddings(model, lists["coco"][:TEXT_WARMUP_CLASSES])  # warm-up
     torch.cuda.synchronize()
     # the float32 model of the parity phase is resident too: the phase's own
@@ -1341,7 +1435,9 @@ def phase_model(torch, dev, s: Model, logs_dir) -> tuple[dict, dict]:
     del model_bf16, model_f32, batch0
     torch.cuda.empty_cache()
     try:
-        train = phase_train(torch, dev, s, logs_dir)
+        l14 = s.key == "l14"
+        train = phase_train(torch, dev, s, logs_dir, warmup=L14_TRAIN_WARMUP if l14 else None,
+                            timed=L14_TRAIN_TIMED if l14 else None)
         paths[f"{s.key}_train"] = train["launches"]
         torch.cuda.empty_cache()
         if s.key == "l14":
@@ -1365,11 +1461,15 @@ def phase_model(torch, dev, s: Model, logs_dir) -> tuple[dict, dict]:
     return paths, train
 
 
-def vit_expected_launches(layers: int, *, evals=0, evals_v1=0, steps=0, steps_v1=0) -> dict:
+def vit_expected_launches(
+    layers: int, *, evals=0, evals_v1=0, steps=0, steps_v1=0, tower_norms=2
+) -> dict:
     """Launches of the OpenCLIP ViT's paths: ``evals`` evaluator batches at
     extract type v2, ``evals_v1`` at v1, ``steps`` distill steps at v2 and
     ``steps_v1`` at v1, for a tower of ``layers`` blocks. A pass has 2
-    LayerNorms a block plus `ln_pre` and `ln_post`. A dense pass (v2) runs
+    LayerNorms a block plus ``tower_norms``: `ln_pre` and `ln_post` (the
+    EVA01 tower, whose blocks have no sub-LN either, has its final `norm`
+    alone, and no RoPE: its counts are these with ``tower_norms`` 1). A dense pass (v2) runs
     layers - 1 flash blocks (the last takes the value path), a crop pass all
     of them; a mask-attention pass (v1) none: every block takes the additive
     mask, plain attention. A v2 batch is a dense and a crop pass; a v1 batch
@@ -1378,7 +1478,7 @@ def vit_expected_launches(layers: int, *, evals=0, evals_v1=0, steps=0, steps_v1
     backward on its flash blocks and the LayerNorm backward on every block's
     two norms and `ln_post` (`ln_pre`'s input and weights are frozen). No
     RoPE (the tower has none), no NMS."""
-    norms, dense, crop = 2 * layers + 2, layers - 1, layers
+    norms, dense, crop = 2 * layers + tower_norms, layers - 1, layers
     students = steps + steps_v1
     return {
         "nms": 0,
@@ -1577,6 +1677,168 @@ def phase_open_clip_vit(torch, dev, logs_dir) -> dict:
     )
     torch.cuda.empty_cache()
     print(f"open_clip_vit phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+def tower_expected_launches(s: Model, **paths) -> dict:
+    """The launch counts of the ModifiedResNet (none: BatchNorm, and the
+    attention pool's attention is plain, as the JAX package runs no Pallas
+    kernel there) or of the EVA01 tower (`vit_expected_launches` with its
+    one final norm) over ``paths`` (evals=, steps=)."""
+    if s.vision.resnet_layers:
+        return {k: 0 for k in _counters()}
+    return vit_expected_launches(s.vision.layers, tower_norms=1, **paths)
+
+
+def tower_eval(torch, dev, s: Model) -> dict:
+    """The tower through `evaluate_zero_shot` (bf16, seeded random weights):
+    `TOWER_BATCHES` v2 batches after `EVAL_WARMUP`, with ms a batch,
+    images/s, peak memory, the kernels' ms a batch over `TOWER_PROFILED`
+    batches under the profiler and the launch counts; for the ResNet also
+    one v1 call (the attention pool of 7x7 RoI-aligned maps). Then parity
+    against the plain float32 path: the dense map, the image embedding and
+    (ResNet) the v1 RoI features. Returns the launch counts by path."""
+    import numpy as np
+
+    from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
+    from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
+    from clipself_tpu_torch.models.factory import create_model
+
+    rn = bool(s.vision.resnet_layers)
+    model = create_model(s.model, device=dev, dtype=torch.bfloat16, seed=SEED)
+
+    def batch(i):
+        host = synthetic_panoptic_batch(
+            i, batch=s.eval_batch, image_size=s.image, max_anns=MAX_ANNS, valid_anns=VALID_ANNS,
+            crop_size=s.crop, mask_hw=s.grid(s.image), n_classes=N_CLASSES, seed=SEED,
+        )
+        return {k: (v if k == "boxes" else torch.as_tensor(v, device=dev)) for k, v in host.items()}
+
+    emb = class_embeddings(N_CLASSES, model.cfg.embed_dim, seed=SEED)
+    warm = [batch(TOWER_BATCHES + i) for i in range(EVAL_WARMUP)]
+    batches = [batch(i) for i in range(TOWER_BATCHES)]
+    tag = f"{s.key} eval"
+
+    def run(bs, et="v2"):
+        return evaluate_zero_shot(model, bs, emb, device=dev, ann_bucket=BUCKET, extract_type=et)
+
+    run(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run(batches)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(batches[:TOWER_PROFILED])
+        torch.cuda.synchronize()
+    k = kernel_ms(torch, prof) / TOWER_PROFILED
+    ms = dt / TOWER_BATCHES * 1e3
+    print(
+        f"{tag} {s.model} zero-shot: {TOWER_BATCHES} batches x {s.eval_batch} images {s.image}px, "
+        f"{VALID_ANNS} valid of {MAX_ANNS} anns (bucket {BUCKET}), crops {s.crop}px, extract type v2: "
+        f"{ms:.3f} ms a batch after {EVAL_WARMUP} warm-up batches, {s.eval_batch * TOWER_BATCHES / dt:.3f} "
+        f"images/s, peak {peak:.3f} GiB; kernels {k:.3f} ms a batch ({TOWER_PROFILED} profiled), device "
+        f"idle {1 - k / ms:.1%}",
+        flush=True,
+    )
+    print(f"{tag} mAcc " + json.dumps(res, sort_keys=True), flush=True)
+    print(f"{tag} launches " + json.dumps(launches), flush=True)
+    if len(res) != 12 or not all(np.isfinite(v) for v in res.values()):
+        fail(f"{tag}: evaluator result not finite: {res}")
+    expect = tower_expected_launches(s, evals=TOWER_BATCHES)
+    if launches != expect:
+        fail(f"{tag} launch counts {launches}, expected {expect}")
+    paths = {f"{s.key}_eval": launches}
+    if rn:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run(batches[:1], "v1")
+        torch.cuda.synchronize()
+        ms, launches = (time.perf_counter() - t0) * 1e3, read_counts()
+        print(f"{tag} v1 {s.model}: one batch {ms:.3f} ms (the RoIs pooled by the attention pool of "
+              f"7x7 RoI-aligned stage-4 maps; masks by mask_pool); mAcc {json.dumps(res, sort_keys=True)}; "
+              f"launches {json.dumps(launches)}", flush=True)
+        if len(res) != 12 or not all(np.isfinite(v) for v in res.values()) or any(launches.values()):
+            fail(f"{tag} v1: result {res}, launches {launches}")
+        paths[f"{s.key}_eval_v1"] = launches
+
+    images = batches[0]["images"]
+    boxes = torch.as_tensor(batches[0]["boxes"][:, :BUCKET, :4], device=dev)
+    model_f32 = create_model(s.model, device=dev, dtype=torch.float32, seed=SEED)
+    legs = [("dense map", lambda m: m.encode_dense(images, keep_shape=True)),
+            ("image embedding", lambda m: m.encode_image(images))]
+    if rn:
+        legs.append(("v1 RoI features", lambda m: m.encode_pseudo_boxes(images, boxes, extract_type="v1")))
+    with torch.inference_mode():
+        got = {}
+        for what, fn in legs:
+            k32, k16 = fn(model_f32), fn(model)
+            with plain_path():
+                p32 = fn(model_f32)
+            got[what] = (k32, k16, p32)
+    torch.cuda.synchronize()
+    for what, (k32, k16, p32) in got.items():
+        f32_abs = (k32 - p32).abs().max().item()
+        bf16_cos = min_row_cos(k16, p32)
+        print(
+            f"{s.key} parity {what} {list(p32.shape)}: f32 kernels vs f32 plain max_abs {f32_abs:.3e} "
+            f"(bar {PATH_F32_MAX_ABS}); bf16 kernels vs f32 plain min_row_cos {bf16_cos:.7f} "
+            f"(bar {PATH_BF16_MIN_COS})",
+            flush=True,
+        )
+        if not all(torch.isfinite(t).all() for t in (k32, k16, p32)):
+            fail(f"{s.key} {what}: not finite")
+        if not f32_abs <= PATH_F32_MAX_ABS:
+            fail(f"{s.key} {what}: f32 kernel path off the plain path by {f32_abs}")
+        if not bf16_cos >= PATH_BF16_MIN_COS:
+            fail(f"{s.key} {what}: bf16 kernel path min row cosine {bf16_cos}")
+    del model, model_f32, got
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_towers(torch, dev, logs_dir) -> dict:
+    """The ModifiedResNet (RN50) and the EVA01 variant (EVA01-CLIP-B-16), each
+    at 1024^2: `tower_eval`, then the trainer (batch 2, 20 boxes, 40 crops
+    at 224^2, every lock group unlocked: `TOWER_TRAIN_WARMUP` +
+    `TOWER_TRAIN_TIMED` steps and `TOWER_PROFILED` under the profiler;
+    RN50 also one step with `--lock-image-freeze-bn-stats`, whose BatchNorm
+    statistics must keep their bits) and one step's parity at batch 1.
+    Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    paths = {}
+    for s in TOWER_MODELS:
+        rn = bool(s.vision.resnet_layers)
+        paths.update(tower_eval(torch, dev, s))
+        unlocked = RN_GROUPS if rn else s.vision.layers
+        # a ResNet parameter's part: the stem (lock group 1), a stage (groups 2-5), the pool
+        group_of = (lambda name: name.split(".")[1] if name.startswith(("visual.layer", "visual.attnpool"))
+                    else "stem") if rn else None
+        common = dict(unlocked=unlocked, group_of=group_of,
+                      expect=lambda n, s=s: tower_expected_launches(s, steps=n))
+        try:
+            train = phase_train(torch, dev, s, logs_dir, tag=f"{s.key} train", warmup=TOWER_TRAIN_WARMUP,
+                                timed=TOWER_TRAIN_TIMED, profiled=TOWER_PROFILED, **common)
+            paths[f"{s.key}_train"] = train["launches"]
+            torch.cuda.empty_cache()
+            if rn:
+                frozen = phase_train(torch, dev, s, logs_dir, extra=["--lock-image-freeze-bn-stats"],
+                                     tag=f"{s.key} train frozen bn stats", warmup=0, timed=1, **common)
+                paths[f"{s.key}_train_frozen_bn"] = frozen["launches"]
+        finally:
+            shutil.rmtree(logs_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        phase_train_parity(
+            torch, dev, s, unlocked=unlocked,
+            kernels=[] if rn else ["flash_attention", "flash_attention_bwd", "layer_norm", "layer_norm_bwd"],
+        )
+        torch.cuda.empty_cache()
+    print(f"towers phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
 
@@ -2064,7 +2326,7 @@ PAN_THINGS, PAN_STUFF, SEG_THINGS, SEG_STUFF = 80, 53, 6, 4
 # workers' first 2 each. The grid run: DATA_PROFILED steps under the
 # profiler after its timed window. proposals_distill: 1 + 2 steps, a check
 # of the route, not timed.
-DATA_WINDOW, LOADER_TIMED, DATA_PROFILED, PROP_STEPS = 4, 64, 8, 3
+DATA_WINDOW, LOADER_TIMED, DATA_PROFILED, PROP_STEPS = 2, 32, 4, 3
 
 
 def photo(rng, w: int, h: int):
@@ -2461,7 +2723,8 @@ def phase_data(torch, dev, s: Model, logs_dir: str, synthetic: dict) -> dict:
         dt = time.perf_counter() - t0
         launches = read_counts()
         print(f"{tag} {s.model}: {DATA_VAL} val images at batch 1 in {dt:.3f} s (model build "
-              f"included), metrics " + json.dumps(run["evals"], sort_keys=True), flush=True)
+              f"included, its initial weights drawn once a run: `drawn_once`), metrics "
+              + json.dumps(run["evals"], sort_keys=True), flush=True)
         print(f"{tag} launches {json.dumps(launches)}", flush=True)
         check_evals(tag, run["evals"], 1)
         expect = expected_launches(layers, evals=DATA_VAL)
@@ -2493,7 +2756,7 @@ REGION_ALPHA = {"b16": 0.7, "l14": 0.95}
 # an epoch set its time, not its batch); staged: 3 + 1 warm-up steps on one
 # corpus batch, REGION_STAGED timed, then REGION_STAGED under the profiler;
 # L/14: 1 + 3 steps from files, then 1 with --grad-checkpointing
-REGION_WINDOW, REGION_PROFILED, REGION_STAGED = 1, 8, 5
+REGION_WINDOW, REGION_PROFILED, REGION_STAGED = 1, 4, 5
 REGION_L14_STEPS, REGION_FLAGS_BATCH = 4, 2
 # parity: one step at batch 1 (L/14 at s.parity_layers blocks), the
 # federated sampling of REGION_SAMPLE classes per step (the loss's default)
@@ -2949,7 +3212,8 @@ def phase_detector_files(torch, dev, synthetic_ms: dict, handoff: dict) -> dict:
                 f"{statistics.median(step_ms):.3f} ms) against the synthetic step's "
                 f"{synthetic_ms[preset]:.3f} ms in this run; a checkpoint save {statistics.median(saves):.3f} "
                 f"ms (median of {len(saves)}, {sum(saves) / 1e3:.3f} s in all); train {train_s:.3f} s, "
-                f"fvit-test {eval_s:.3f} s (the models' build included)",
+                f"fvit-test {eval_s:.3f} s (the models' build included, the CLIP's initial weights "
+                f"drawn once a run: `drawn_once`)",
                 flush=True,
             )
             print(
@@ -3211,6 +3475,12 @@ def run() -> int:
         flush=True,
     )
 
+    with drawn_once():
+        return run_phases(torch, dev, t0)
+
+
+def run_phases(torch, dev, t0) -> int:
+    """Every phase, in order; prints the kernels' line and the last line."""
     records = Records()
     phase_kernels(torch, dev, records)
     logs_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_logs")
@@ -3232,6 +3502,8 @@ def run() -> int:
         print(f"{s.key} RegionCLIP done at {time.perf_counter() - t0:.1f} s", flush=True)
     paths.update(phase_open_clip_vit(torch, dev, logs_dir))
     print(f"OpenCLIP ViT done at {time.perf_counter() - t0:.1f} s", flush=True)
+    paths.update(phase_towers(torch, dev, logs_dir))
+    print(f"RN50 and EVA01-B/16 done at {time.perf_counter() - t0:.1f} s", flush=True)
     cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev, DET_PRESET)
     phase_detector_parity(torch, dev, DET_PRESET, cfg, clip, det, emb, items)
     del clip, det

@@ -39,11 +39,19 @@
 //    and P goes to the second product as a register operand, never through
 //    shared memory. One or two warpgroups (64 or 128 query rows) a block,
 //    by N.
-//  * bfloat16 at the other head dims (16-48, 80-128): 4 warps of 16 rows,
+//  * bfloat16 at the other head dims (8-56, 72-128): 4 warps of 16 rows,
 //    WMMA 16x16x16 tiles with f32 accumulation, scores and P staged in
 //    shared memory, tiles loaded with plain vector loads, one buffer.
 //  * float32 (the parity path): the same blocking with f32 FMAs, so that it
 //    keeps full f32 precision (tensor cores would round the inputs to TF32).
+//
+// The two older designs take every head_dim d that is a multiple of 8 up to
+// 128 by zero-fill: each is instantiated at the tile width DP = d rounded up
+// to 16 (ViT-g-14's 88 runs the 96-wide tiles, ViT-bigG-14's 104 the
+// 112-wide ones) and takes the true d at run time. The loads fill columns d
+// to DP - 1 of every Q, K and V tile with zeros, which add nothing to
+// Q K^T, and P V's extra output columns (zero too) are never stored. The
+// softmax scale is the caller's, d ** -0.5 of the true d.
 //
 // The shared-memory tile loader and the Pad/Plan conventions of the two older
 // designs are repeated in flash_attention_bwd.cu: each .cu file is compiled
@@ -99,11 +107,12 @@ __device__ __forceinline__ __nv_bfloat16 to_out(float v, __nv_bfloat16) {
 }
 
 // Copy 64 rows [row0, row0 + 64) of one head into shared memory with
-// 16-byte loads; rows at or past n are zero-filled.
+// 16-byte loads; rows at or past n and columns at or past the true head_dim
+// d (a multiple of 8, so a vector is wholly in or out) are zero-filled.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long stride_n, int row0, int n,
-                                          int tid) {
+                                          int d, int tid) {
   constexpr int EPV = 16 / sizeof(T);
   constexpr int VPR = D / EPV;
   for (int i = tid; i < 64 * VPR; i += THREADS) {
@@ -111,7 +120,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
     const int cc = (i % VPR) * EPV;
     const int g = row0 + rr;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (g < n) {
+    if (g < n && cc < d) {
       val = *reinterpret_cast<const uint4*>(src + (long long)g * stride_n + cc);
     }
     *reinterpret_cast<uint4*>(dst + rr * Plan<T, D>::LD + cc) = val;
@@ -202,11 +211,12 @@ struct Products<float, D> {
   }
 };
 
+// D is the tile width, d <= D the true head_dim (the row length of o).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int n,
+                     float* __restrict__ lse, int n, int d,
                      int heads, long long qsb, long long qsn, long long qsh,
                      long long ksb, long long ksn, long long ksh,
                      long long vsb, long long vsn, long long vsh,
@@ -230,7 +240,7 @@ __global__ void __launch_bounds__(THREADS)
   const T* kg = k + b * ksb + h * ksh;
   const T* vg = v + b * vsb + h * vsh;
 
-  load_tile<T, D>(qs, qg, qsn, q0, n, tid);
+  load_tile<T, D>(qs, qg, qsn, q0, n, d, tid);
 
   const T* qw = qs + warp * WROWS * P::LD;
   float* sw = s_all + warp * WROWS * P::LDS;  // scores, then PV of the tile
@@ -250,8 +260,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(ks, kg, ksn, k0, n, tid);
-    load_tile<T, D>(vs, vg, vsn, k0, n, tid);
+    load_tile<T, D>(ks, kg, ksn, k0, n, d, tid);
+    load_tile<T, D>(vs, vg, vsn, k0, n, d, tid);
     __syncthreads();
 
     Products<T, D>::qk(qw, ks, sw);
@@ -295,9 +305,12 @@ __global__ void __launch_bounds__(THREADS)
   const int row = q0 + warp * WROWS + r;
   if (row < n) {
     const float inv = 1.0f / l;
-    T* og = o + (((long long)b * n + row) * heads + h) * D + half * (D / 2);
+    T* og = o + (((long long)b * n + row) * heads + h) * d;
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) og[j] = to_out(acc[j] * inv, T());
+    for (int j = 0; j < D / 2; ++j) {
+      const int c = half * (D / 2) + j;
+      if (c < d) og[c] = to_out(acc[j] * inv, T());  // zero-fill columns dropped
+    }
     if (lse != nullptr && half == 0) {
       lse[((long long)b * heads + h) * n + row] =
           (m + log2f(l)) * 0.6931471805599453f;
@@ -507,16 +520,16 @@ constexpr Design design_rule(bool is_f32, int head_dim) {
   return is_f32 ? DESIGN_FMA : head_dim == 64 ? DESIGN_WGMMA : DESIGN_WMMA;
 }
 
-template <typename T, int D>
-constexpr Design design_of() {
-  return design_rule(std::is_same<T, float>::value, D);
+// The head dims taken: multiples of 8 up to 128.
+constexpr bool head_dim_taken(int head_dim) {
+  return head_dim % 8 == 0 && head_dim >= 8 && head_dim <= 128;
 }
 
 struct Args {
   const void *q, *k, *v;
   void* o;
   float* lse;
-  int batch, n, heads;
+  int batch, n, heads, head_dim;
   long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh;
   float scale_log2;
   cudaStream_t stream;
@@ -537,30 +550,33 @@ cudaError_t launch_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
+// D: the tile width, a.head_dim rounded up to 16.
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
-  if constexpr (design_of<T, D>() == DESIGN_WGMMA) {
-    // rows a block, from the shape: short sequences (the crop passes) give
-    // few blocks a (batch, head), so they take 64-row blocks
-    return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_wgmma<2>(a) : launch_wgmma<1>(a);
-  } else {
-    using P = Plan<T, D>;
-    auto kern = flash_fwd_kernel<T, D>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((a.n + BQ - 1) / BQ, a.heads, a.batch);
-    kern<<<grid, THREADS, P::total, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.n, a.heads, a.qsb,
-        a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale_log2);
-    return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 64) {
+    if (design_rule(false, a.head_dim) == DESIGN_WGMMA) {
+      // rows a block, from the shape: short sequences (the crop passes) give
+      // few blocks a (batch, head), so they take 64-row blocks
+      return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_wgmma<2>(a) : launch_wgmma<1>(a);
+    }
   }
+  using P = Plan<T, D>;
+  auto kern = flash_fwd_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + BQ - 1) / BQ, a.heads, a.batch);
+  kern<<<grid, THREADS, P::total, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.n, a.head_dim, a.heads,
+      a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale_log2);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int head_dim, const Args& a) {
-  switch (head_dim) {
+cudaError_t dispatch(const Args& a) {
+  if (!head_dim_taken(a.head_dim)) return cudaErrorInvalidValue;
+  switch ((a.head_dim + 15) / 16 * 16) {
     case 16: return launch<T, 16>(a);
     case 32: return launch<T, 32>(a);
     case 48: return launch<T, 48>(a);
@@ -568,19 +584,18 @@ cudaError_t dispatch(int head_dim, const Args& a) {
     case 80: return launch<T, 80>(a);
     case 96: return launch<T, 96>(a);
     case 112: return launch<T, 112>(a);
-    case 128: return launch<T, 128>(a);
-    default: return cudaErrorInvalidValue;
+    default: return launch<T, 128>(a);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, n, heads, head_dim]
-// with unit stride on head_dim and the given element strides for batch,
-// token and head (16-byte aligned rows); o: contiguous [batch, n, heads,
-// head_dim]; lse: null, or contiguous float32 [batch, heads, n] for the
-// natural-log row log-sum-exp of the scaled logits. Returns the launch's
-// cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, n, heads, head_dim],
+// head_dim a multiple of 8 up to 128, with unit stride on head_dim and the
+// given element strides for batch, token and head (16-byte aligned rows); o:
+// contiguous [batch, n, heads, head_dim]; lse: null, or contiguous float32
+// [batch, heads, n] for the natural-log row log-sum-exp of the scaled logits.
+// Returns the launch's cudaError_t.
 extern "C" int clipself_flash_fwd(int dtype, const void* q, const void* k,
                                   const void* v, void* o, void* lse,
                                   int batch, int n,
@@ -591,11 +606,11 @@ extern "C" int clipself_flash_fwd(int dtype, const void* q, const void* k,
                                   void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0) return (int)cudaSuccess;
   const Args a{q,   k,   v,   o,   static_cast<float*>(lse), batch, n,
-               heads, qsb, qsn, qsh, ksb, ksn, ksh, vsb,   vsn, vsh,
+               heads, head_dim, qsb, qsn, qsh, ksb, ksn, ksh, vsb,   vsn, vsh,
                scale * 1.4426950408889634f,  // fold log2(e): exp -> exp2
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)dispatch<float>(head_dim, a);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(head_dim, a);
+  if (dtype == 0) return (int)dispatch<float>(a);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -603,7 +618,7 @@ extern "C" int clipself_flash_fwd(int dtype, const void* q, const void* k,
 // 0 = f32 FMA, 1 = WMMA tiles, 2 = wgmma (bf16 at head_dim 64); -1 if the
 // pair is not taken.
 extern "C" int clipself_flash_fwd_design(int dtype, int head_dim) {
-  if (head_dim % 16 || head_dim < 16 || head_dim > 128) return -1;
+  if (!head_dim_taken(head_dim)) return -1;
   if (dtype != 0 && dtype != 1) return -1;
   return design_rule(dtype == 0, head_dim);
 }

@@ -41,6 +41,13 @@
 //    keeps full f32 precision (tensor cores would round the inputs to TF32);
 //    dq is its own accumulator.
 //
+// The two older designs take every head_dim d that is a multiple of 8 up to
+// 128 by zero-fill, as the forward does: instantiated at the tile width
+// DP = d rounded up to 16, the true d at run time. Columns d to DP - 1 of
+// the K, V, Q and dO tiles load as zeros, which add nothing to S, dP, dS^T Q
+// or dS K; the extra columns of dQ, dK and dV (zero too) are never stored;
+// di = rowsum(dO * O) runs over the true d.
+//
 // Bound on the H100: at N = 4097, D = 64 a (key, query) pair costs 10 * D
 // flops against Q/dO tiles that every key block reads again from the L2, so
 // the kernel is bound by operations. What holds the warpgroup design below
@@ -121,11 +128,12 @@ __device__ __forceinline__ __nv_bfloat16 to_t(float v, __nv_bfloat16) {
 }
 
 // Copy 64 rows [row0, row0 + 64) of one head into shared memory with
-// 16-byte loads; rows at or past n are zero-filled.
+// 16-byte loads; rows at or past n and columns at or past the true head_dim
+// d (a multiple of 8, so a vector is wholly in or out) are zero-filled.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long stride_n, int row0, int n,
-                                          int tid) {
+                                          int d, int tid) {
   constexpr int EPV = 16 / sizeof(T);
   constexpr int VPR = D / EPV;
   for (int i = tid; i < 64 * VPR; i += THREADS) {
@@ -133,7 +141,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
     const int cc = (i % VPR) * EPV;
     const int g = row0 + rr;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (g < n) {
+    if (g < n && cc < d) {
       val = *reinterpret_cast<const uint4*>(src + (long long)g * stride_n + cc);
     }
     *reinterpret_cast<uint4*>(dst + rr * Plan<T, D>::LD + cc) = val;
@@ -221,10 +229,10 @@ struct KVAcc<T, D, false> {  // bf16: WMMA accumulator fragments
       }
     }
   }
-  // write the 16 rows to dst (contiguous [B, N, H, D] row pointer per key)
-  // through the warp's f32 staging rows
+  // write the 16 rows' first d columns to dst (contiguous [B, N, H, d] row
+  // pointer per key) through the warp's f32 staging rows
   __device__ void store(float* stage, T* dst_base, long long row_stride,
-                        int row0, int n) {
+                        int row0, int n, int d) {
 #pragma unroll
     for (int dt = 0; dt < D / 16; ++dt) {
       nvcuda::wmma::store_matrix_sync(stage + dt * 16, f[dt], P::LDQ,
@@ -235,7 +243,7 @@ struct KVAcc<T, D, false> {  // bf16: WMMA accumulator fragments
     for (int i = lane; i < WROWS * D; i += 32) {
       const int r = i / D;
       const int c = i % D;
-      if (row0 + r < n) {
+      if (row0 + r < n && c < d) {
         dst_base[(long long)(row0 + r) * row_stride + c] =
             to_t(stage[r * P::LDQ + c], T());
       }
@@ -257,13 +265,16 @@ struct KVAcc<T, D, true> {  // float32: lane pair per row, D / 2 columns each
     fma_rows<D, BQ>(a, P::LDP, 1, b, P::LD, 1, f);
   }
   __device__ void store(float*, float* dst_base, long long row_stride,
-                        int row0, int n) {
+                        int row0, int n, int d) {
     const int lane = threadIdx.x & 31;
     const int r = lane >> 1;
     if (row0 + r < n) {
-      float* o = dst_base + (long long)(row0 + r) * row_stride + (lane & 1) * (D / 2);
+      float* o = dst_base + (long long)(row0 + r) * row_stride;
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) o[j] = f[j];
+      for (int j = 0; j < D / 2; ++j) {
+        const int c = (lane & 1) * (D / 2) + j;
+        if (c < d) o[c] = f[j];
+      }
     }
   }
 };
@@ -302,13 +313,15 @@ __device__ __forceinline__ void ds_by_k(const T* dst_cols, const T* k,
   }
 }
 
+// D is the tile width, d <= D the true head_dim (the row length of dout and
+// of the outputs).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ di, float* __restrict__ dq_acc,
-                     T* __restrict__ dk, T* __restrict__ dv, int n, int heads,
+                     T* __restrict__ dk, T* __restrict__ dv, int n, int d, int heads,
                      long long qsb, long long qsn, long long qsh,
                      long long ksb, long long ksn, long long ksh,
                      long long vsb, long long vsn, long long vsh,
@@ -334,13 +347,13 @@ __global__ void __launch_bounds__(THREADS)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const float scale_log2 = scale * LOG2E;
-  const long long row_stride = (long long)heads * D;  // contiguous outputs
-  const long long head_off = ((long long)b * n * heads + h) * D;
+  const long long row_stride = (long long)heads * d;  // contiguous outputs
+  const long long head_off = ((long long)b * n * heads + h) * d;
   const float* lse_bh = lse + ((long long)b * heads + h) * n;
   const float* di_bh = di + ((long long)b * heads + h) * n;
 
-  load_tile<T, D>(ks, k + b * ksb + h * ksh, ksn, k0, n, tid);
-  load_tile<T, D>(vs, v + b * vsb + h * vsh, vsn, k0, n, tid);
+  load_tile<T, D>(ks, k + b * ksb + h * ksh, ksn, k0, n, d, tid);
+  load_tile<T, D>(vs, v + b * vsb + h * vsh, vsn, k0, n, d, tid);
 
   const int wk = warp * WROWS;  // the warp's first key row in the block
   float* sw = s_all + wk * P::LDS;
@@ -363,8 +376,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = 0; t < n_tiles; ++t) {
     const int q0 = t * BQ;
     __syncthreads();  // every warp is done with the previous tile
-    load_tile<T, D>(qs, q + b * qsb + h * qsh, qsn, q0, n, tid);
-    load_tile<T, D>(dos, dout + head_off, row_stride, q0, n, tid);
+    load_tile<T, D>(qs, q + b * qsb + h * qsh, qsn, q0, n, d, tid);
+    load_tile<T, D>(dos, dout + head_off, row_stride, q0, n, d, tid);
     if (tid < BQ) {
       const bool ok = q0 + tid < n;
       lse2_s[tid] = ok ? lse_bh[q0 + tid] * LOG2E : 0.0f;
@@ -402,7 +415,7 @@ __global__ void __launch_bounds__(THREADS)
       const int rr = i / D;
       const int cc = i % D;
       const int row = q0 + wk + rr;
-      if (row < n) {
+      if (row < n && cc < d) {
         atomicAdd(dq_acc + head_off + (long long)row * row_stride + cc,
                   outw[rr * P::LDQ + cc]);
       }
@@ -410,8 +423,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   __syncthreads();  // the staging rows alias every warp's scores
-  dk_acc.store(outw, dk + head_off, row_stride, k0 + wk, n);
-  dv_acc.store(outw, dv + head_off, row_stride, k0 + wk, n);
+  dk_acc.store(outw, dk + head_off, row_stride, k0 + wk, n, d);
+  dv_acc.store(outw, dv + head_off, row_stride, k0 + wk, n, d);
 }
 
 // ---- bf16, head_dim 64: the warpgroup design --------------------------------
@@ -796,9 +809,9 @@ constexpr Design design_rule(bool is_f32, int head_dim) {
   return is_f32 ? DESIGN_FMA : head_dim == 64 ? DESIGN_WGMMA : DESIGN_WMMA;
 }
 
-template <typename T, int D>
-constexpr Design design_of() {
-  return design_rule(std::is_same<T, float>::value, D);
+// The head dims taken: multiples of 8 up to 128.
+constexpr bool head_dim_taken(int head_dim) {
+  return head_dim % 8 == 0 && head_dim >= 8 && head_dim <= 128;
 }
 
 // The wgmma design's dQ accumulator, [B, H, tiles, 8, 128] slots of four
@@ -840,7 +853,7 @@ int grid_for(long long work, int threads) {
 struct Args {
   const void *q, *k, *v, *o, *lse, *dout;
   void *dq, *dk, *dv, *dq_acc, *di;
-  int batch, n, heads;
+  int batch, n, heads, head_dim;
   long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh;
   float scale;
   cudaStream_t stream;
@@ -856,69 +869,78 @@ long long scratch_floats(Design design, long long batch, long long n,
   return batch * n * heads * head_dim;
 }
 
+// bfloat16 at head_dim 64: the warpgroup kernel, then its dQ tiles to bf16
+// rows (the di pass and the zeroed accumulator are the caller's).
+cudaError_t launch_wgmma(const Args& a, long long acc_floats) {
+  using bf16 = __nv_bfloat16;
+  auto kern = wg::flash_bwd_wgmma_kernel;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       wg::SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + wg::KEYS - 1) / wg::KEYS, a.heads, a.batch);
+  kern<<<grid, wg::THREADS, wg::SMEM_BYTES, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<float*>(a.dq_acc), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb,
+      a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dq_tiles_to_bf16_kernel<<<grid_for(acc_floats / 4, 256), 256, 0, a.stream>>>(
+      static_cast<const float4*>(a.dq_acc), static_cast<bf16*>(a.dq),
+      acc_floats / 4, a.n, a.heads, (a.n + 63) / 64);
+  return cudaGetLastError();
+}
+
+// D: the tile width, a.head_dim rounded up to 16.
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
-  constexpr Design design = design_of<T, D>();
+  const int d = a.head_dim;
+  const Design design = design_rule(std::is_same<T, float>::value, d);
   const long long rows = (long long)a.batch * a.n * a.heads;
   const long long acc_floats = design == DESIGN_FMA
-                                   ? rows * D
-                                   : scratch_floats(design, a.batch, a.n, a.heads, D);
+                                   ? rows * d
+                                   : scratch_floats(design, a.batch, a.n, a.heads, d);
   cudaError_t e = cudaMemsetAsync(a.dq_acc, 0, sizeof(float) * acc_floats, a.stream);
   if (e != cudaSuccess) return e;
   flash_bwd_di_kernel<T><<<grid_for(rows * 32, 256), 256, 0, a.stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
-      static_cast<float*>(a.di), rows, a.n, a.heads, D);
+      static_cast<float*>(a.di), rows, a.n, a.heads, d);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  if constexpr (design == DESIGN_WGMMA) {
-    auto kern = wg::flash_bwd_wgmma_kernel;
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             wg::SMEM_BYTES);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((a.n + wg::KEYS - 1) / wg::KEYS, a.heads, a.batch);
-    kern<<<grid, wg::THREADS, wg::SMEM_BYTES, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-        static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb,
-        a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    dq_tiles_to_bf16_kernel<<<grid_for(acc_floats / 4, 256), 256, 0, a.stream>>>(
-        static_cast<const float4*>(a.dq_acc), static_cast<__nv_bfloat16*>(a.dq),
-        acc_floats / 4, a.n, a.heads, (a.n + 63) / 64);
-    return cudaGetLastError();
-  } else {
-    using P = Plan<T, D>;
-    auto kern = flash_bwd_kernel<T, D>;
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)P::total);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((a.n + BK - 1) / BK, a.heads, a.batch);
-    kern<<<grid, THREADS, P::total, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-        static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb,
-        a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    if (design == DESIGN_WMMA) {
-      f32_to_bf16_kernel<<<grid_for(rows * D, 256), 256, 0, a.stream>>>(
-          static_cast<const float*>(a.dq_acc),
-          static_cast<__nv_bfloat16*>(a.dq), rows * D);
-      e = cudaGetLastError();
-    }
-    return e;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 64) {
+    if (design == DESIGN_WGMMA) return launch_wgmma(a, acc_floats);
   }
+  using P = Plan<T, D>;
+  auto kern = flash_bwd_kernel<T, D>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)P::total);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + BK - 1) / BK, a.heads, a.batch);
+  kern<<<grid, THREADS, P::total, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.n, d, a.heads, a.qsb, a.qsn, a.qsh, a.ksb,
+      a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (design == DESIGN_WMMA) {
+    f32_to_bf16_kernel<<<grid_for(rows * d, 256), 256, 0, a.stream>>>(
+        static_cast<const float*>(a.dq_acc),
+        static_cast<__nv_bfloat16*>(a.dq), rows * d);
+    e = cudaGetLastError();
+  }
+  return e;
 }
 
 template <typename T>
-cudaError_t dispatch(int head_dim, const Args& a) {
-  switch (head_dim) {
+cudaError_t dispatch(const Args& a) {
+  if (!head_dim_taken(a.head_dim)) return cudaErrorInvalidValue;
+  switch ((a.head_dim + 15) / 16 * 16) {
     case 16: return launch<T, 16>(a);
     case 32: return launch<T, 32>(a);
     case 48: return launch<T, 48>(a);
@@ -926,8 +948,7 @@ cudaError_t dispatch(int head_dim, const Args& a) {
     case 80: return launch<T, 80>(a);
     case 96: return launch<T, 96>(a);
     case 112: return launch<T, 112>(a);
-    case 128: return launch<T, 128>(a);
-    default: return cudaErrorInvalidValue;
+    default: return launch<T, 128>(a);
   }
 }
 
@@ -937,7 +958,7 @@ cudaError_t dispatch(int head_dim, const Args& a) {
 // 0 = f32 FMA, 1 = WMMA tiles, 2 = wgmma (bf16 at head_dim 64); -1 if the
 // pair is not taken.
 extern "C" int clipself_flash_bwd_design(int dtype, int head_dim) {
-  if (head_dim % 16 || head_dim < 16 || head_dim > 128) return -1;
+  if (!head_dim_taken(head_dim)) return -1;
   if (dtype != 0 && dtype != 1) return -1;
   return design_rule(dtype == 0, head_dim);
 }
@@ -951,15 +972,15 @@ extern "C" long long clipself_flash_bwd_scratch_floats(int dtype, int batch, int
   return scratch_floats(static_cast<Design>(design), batch, n, heads, head_dim);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, n, heads, head_dim]
-// with unit stride on head_dim and the given element strides for batch,
-// token and head (16-byte aligned rows); o, dout: contiguous [batch, n,
-// heads, head_dim]; lse: contiguous float32 [batch, heads, n], natural-log
-// row log-sum-exp of the scaled logits (clipself_flash_fwd writes it).
-// Outputs dq, dk, dv: contiguous [batch, n, heads, head_dim] in dtype.
-// Scratch: dq_acc, float32 of clipself_flash_bwd_scratch_floats elements (dq
-// itself for float32), and di, float32 [batch, heads, n]. Returns the first failing
-// launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, n, heads, head_dim],
+// head_dim a multiple of 8 up to 128, with unit stride on head_dim and the
+// given element strides for batch, token and head (16-byte aligned rows); o,
+// dout: contiguous [batch, n, heads, head_dim]; lse: contiguous float32 [batch,
+// heads, n], natural-log row log-sum-exp of the scaled logits
+// (clipself_flash_fwd writes it). Outputs dq, dk, dv: contiguous [batch, n,
+// heads, head_dim] in dtype. Scratch: dq_acc, float32 of
+// clipself_flash_bwd_scratch_floats elements (dq itself for float32), and di,
+// float32 [batch, heads, n]. Returns the first failing launch's cudaError_t.
 extern "C" int clipself_flash_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* lse, const void* dout, void* dq,
@@ -971,9 +992,9 @@ extern "C" int clipself_flash_bwd(int dtype, const void* q, const void* k,
                                   float scale, void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0) return (int)cudaSuccess;
   const Args a{q,   k,   v,   o,   lse, dout, dq,  dk,   dv,  dq_acc, di,
-               batch, n, heads, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
+               batch, n, heads, head_dim, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
                scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)dispatch<float>(head_dim, a);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(head_dim, a);
+  if (dtype == 0) return (int)dispatch<float>(a);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,12 @@
-"""CLIP assembly with the dense-prediction API: a visual tower (EVA02 or the
-plain OpenCLIP / OpenAI ViT), the text tower and `logit_scale` (a port of
-`clipself_tpu/models/clip.py`). The text tower is frozen by recipe
-(`train/optim.py::trainable_labels`).
+"""CLIP assembly with the dense-prediction API: a visual tower (EVA01 /
+EVA02, the plain OpenCLIP / OpenAI ViT or the ModifiedResNet), the text
+tower and `logit_scale` (a port of `clipself_tpu/models/clip.py`). The text
+tower is frozen by recipe (`train/optim.py::trainable_labels`).
 
 The visual tower is chosen from the config as the JAX package chooses it:
-`eva_model_name` gives `EvaViT`, a config with neither `eva_model_name`,
-`resnet_layers`, `timm_model_name` nor `hf_trunk_name` gives `OpenCLIPViT`.
-The other towers raise, each naming its ROADMAP.md item.
+`eva_model_name` gives `EvaViT`, `resnet_layers` `ModifiedResNet`, a config
+with neither these nor `timm_model_name` nor `hf_trunk_name` gives
+`OpenCLIPViT`. The other towers raise, each naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from torch import nn
 from clipself_tpu_torch.core.config import CLIPConfig
 from clipself_tpu_torch.models.common import l2_normalize
 from clipself_tpu_torch.models.eva_vit import EvaViT
+from clipself_tpu_torch.models.modified_resnet import ModifiedResNet
 from clipself_tpu_torch.models.open_clip_vit import OpenCLIPViT
 from clipself_tpu_torch.models.text_transformer import TextTransformer
 from clipself_tpu_torch.ops.mask_pool import mask_pool
@@ -36,11 +37,11 @@ def _visual_class(cfg: CLIPConfig):
         missing = f"the transformers trunk adapter {v.hf_trunk_name!r} (item 8.5)"
     elif v.timm_model_name:
         missing = f"the timm tower {v.timm_model_name!r} (item 8.4)"
-    elif v.resnet_layers:
-        missing = "the ModifiedResNet tower (item 8.2)"
     if missing is not None:
         raise NotImplementedError(f"{cfg.name}: {missing} is not ported yet (ROADMAP.md queue 1)")
-    return EvaViT if v.eva_model_name else OpenCLIPViT
+    if v.eva_model_name:
+        return EvaViT
+    return ModifiedResNet if v.resnet_layers else OpenCLIPViT
 
 
 class CLIP(nn.Module):
@@ -97,8 +98,9 @@ class CLIP(nn.Module):
         return l2_normalize(feats) if normalize else feats
 
     def _mask_feats(self, image: torch.Tensor, masks: torch.Tensor, mask_attn: bool) -> torch.Tensor:
-        """Mask-attention pooling where the tower has it (``mask_attn``),
-        else the masked mean of the dense map (the EVA tower always)."""
+        """Mask-attention pooling where the tower has it (``mask_attn``; the
+        ModifiedResNet's is its masked mean), else the masked mean of the
+        dense map (the EVA tower always)."""
         if mask_attn and hasattr(self.visual, "mask_attn_pool"):
             return self.visual.mask_attn_pool(image, masks)
         return mask_pool(self.visual.encode_dense(image, keep_shape=True), masks)
@@ -117,7 +119,7 @@ class CLIP(nn.Module):
 
     def encode_rois_and_image(self, image: torch.Tensor, normed_boxes: torch.Tensor):
         """(normalized v2 RoI features, normalized image embedding) of one
-        trunk pass (the OpenCLIP ViT)."""
+        trunk pass (the OpenCLIP ViT and the ModifiedResNet)."""
         return self.visual.encode_rois_and_image(image, normed_boxes)
 
     def encode_rois_and_masks(

@@ -1,8 +1,28 @@
-"""EVA02 vision transformer with the dense-prediction protocol, in PyTorch.
+"""EVA vision transformer with the dense-prediction protocol, in PyTorch.
 
-A port of `clipself_tpu/models/eva_vit.py` for the EVA02 configurations
+A port of `clipself_tpu/models/eva_vit.py`: the EVA02 configurations
 (pre-norm blocks, sub-LN q/k/v projections with an inner attention LN, SwiGLU
-with `ffn_ln`, 2-D RoPE on the patch tokens):
+with `ffn_ln`, 2-D RoPE on the patch tokens) and the EVA01 / bigE variants
+their flags select:
+
+  - ``subln=False``: one fused `qkv` projection with the standalone `q_bias`
+    and `v_bias` and no k bias, no inner attention LN and no `ffn_ln`;
+  - ``naiveswiglu=False``: the exact-GELU `Mlp` (`fc1`, `fc2`);
+  - ``rope=False``: the learned absolute pos-embed alone, no RoPE launch;
+  - ``postnorm``: each branch's norm after its attention or MLP (bigE);
+  - ``use_rel_pos_bias`` / ``use_shared_rel_pos_bias``: a learned BEiT
+    relative-position bias, per block or one for all blocks, added to the
+    logits as an additive mask, so that attention takes
+    `ops/attention.py::attention_masked` (plain PyTorch), as the JAX package
+    takes XLA there; the table fixes the resolution;
+  - ``patch_dropout``: `forward` keeps a subset of the patch tokens when it
+    is given a `torch.Generator` or the keep indices, and only then (the JAX
+    tower drops only with a `patch_dropout` rng, which its trainer never
+    gives); RoPE then rotates each kept token by its grid position
+    (`models/rope.py::apply_rope_gathered`, plain PyTorch as in the JAX
+    package).
+
+The rest of the design:
 
   - parameters live in float32 and are cast to the compute dtype at each
     matmul, as flax `Dense(dtype=...)` does; LayerNorms compute in float32
@@ -22,6 +42,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,32 +50,12 @@ from torch.utils.checkpoint import checkpoint
 
 from clipself_tpu_torch.core.config import VisionConfig
 from clipself_tpu_torch.models.common import l2_normalize
-from clipself_tpu_torch.models.rope import apply_rope_flat_qk
+from clipself_tpu_torch.models.rope import apply_rope_flat_qk, apply_rope_gathered
 from clipself_tpu_torch.ops.attention import multi_head_attention
 from clipself_tpu_torch.ops.interpolate import resize_2d
 from clipself_tpu_torch.ops.layer_norm import layer_norm
 from clipself_tpu_torch.ops.patchify import patchify
 from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
-
-_ROADMAP = "ROADMAP.md queue 1 item 8.3"
-
-
-def _unsupported(cfg: VisionConfig) -> Optional[str]:
-    """Name the first config flag this port does not implement yet."""
-    flags = (
-        ("use_rel_pos_bias", cfg.use_rel_pos_bias),
-        ("use_shared_rel_pos_bias", cfg.use_shared_rel_pos_bias),
-        ("postnorm", cfg.postnorm),
-        ("subln=False", not cfg.subln),
-        ("naiveswiglu=False (GELU Mlp)", not cfg.naiveswiglu),
-        ("rope=False", not cfg.rope),
-        ("patch_dropout", cfg.patch_dropout > 0.0),
-    )
-    for name, on in flags:
-        if on:
-            return name
-    return None
-
 
 def _trunc_normal(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     """flax `truncated_normal(std)`: a normal cut at two standard deviations."""
@@ -96,44 +97,142 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
-class EvaAttention(nn.Module):
+def rel_pos_index(window: tuple[int, int]) -> tuple[np.ndarray, int]:
+    """The BEiT relative-position index over a (wh, ww) grid plus CLS: the
+    pairwise (dy, dx) offsets bucketed into a (2wh-1)(2ww-1) table, with
+    three extra buckets for cls->token, token->cls and cls->cls. Returns
+    ([wh*ww + 1, wh*ww + 1] int32, table rows); a copy of
+    `clipself_tpu/models/eva_vit.py::_rel_pos_index`."""
+    wh, ww = window
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel = rel + np.array([wh - 1, ww - 1])
+    num_rel = (2 * wh - 1) * (2 * ww - 1) + 3
+    idx = np.zeros((wh * ww + 1, wh * ww + 1), np.int32)
+    idx[1:, 1:] = rel[:, :, 0] * (2 * ww - 1) + rel[:, :, 1]
+    idx[0, :] = num_rel - 3
+    idx[:, 0] = num_rel - 2
+    idx[0, 0] = num_rel - 1
+    return idx, num_rel
+
+
+class _RelPos(nn.Module):
+    """Holds a learned relative-position table under the reference name
+    `relative_position_bias_table` [rows, heads] (zero at init) and its
+    index as a buffer the state dict leaves out; `rel_pos_bias()` is the
+    additive float32 bias [1, heads, N + 1, N + 1] over the config's
+    grid."""
+
+    def _init_rel_pos(self, cfg: VisionConfig) -> None:
+        idx, num_rel = rel_pos_index((cfg.grid_size, cfg.grid_size))
+        self.relative_position_bias_table = nn.Parameter(torch.zeros(num_rel, cfg.num_heads))
+        self.register_buffer(
+            "relative_position_index", torch.from_numpy(idx.reshape(-1).astype(np.int64)), persistent=False
+        )
+
+    def rel_pos_bias(self) -> torch.Tensor:
+        n1 = int(round(self.relative_position_index.numel() ** 0.5))
+        bias = self.relative_position_bias_table[self.relative_position_index]
+        return bias.reshape(n1, n1, -1).permute(2, 0, 1)[None]
+
+
+def _check_window(bias: torch.Tensor, n: int) -> None:
+    if bias.shape[-1] != n:
+        raise ValueError(
+            f"rel-pos-bias window {bias.shape[-1]} != sequence {n}; rel-pos models are "
+            "fixed-resolution (resize the table at checkpoint load for other input sizes)"
+        )
+
+
+class RelPosBias(_RelPos):
+    """The bias shared by every block (`visual.rel_pos_bias`)."""
+
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        self._init_rel_pos(cfg)
+
+    def forward(self) -> torch.Tensor:
+        return self.rel_pos_bias()
+
+
+class EvaAttention(_RelPos):
     def __init__(self, cfg: VisionConfig):
         super().__init__()
         self.cfg = cfg
         w = cfg.width
-        self.q_proj = Dense(w, w, bias=False)
-        self.k_proj = Dense(w, w, bias=False)
-        self.v_proj = Dense(w, w, bias=False)
+        if cfg.subln:
+            self.q_proj = Dense(w, w, bias=False)
+            self.k_proj = Dense(w, w, bias=False)
+            self.v_proj = Dense(w, w, bias=False)
+        else:
+            self.qkv = Dense(w, 3 * w, bias=False)
         # the reference keeps the q/v biases as standalone parameters
         self.q_bias = nn.Parameter(torch.zeros(w)) if cfg.qkv_bias else None
         self.v_bias = nn.Parameter(torch.zeros(w)) if cfg.qkv_bias else None
-        self.inner_attn_ln = LayerNorm(w, cfg.ln_eps)
+        self.inner_attn_ln = LayerNorm(w, cfg.ln_eps) if cfg.subln else None
         self.proj = Dense(w, w)
+        if cfg.use_rel_pos_bias:  # the reference keeps it on the attention
+            self._init_rel_pos(cfg)
 
     def _v(self, x: torch.Tensor) -> torch.Tensor:
-        v = self.v_proj(x)
+        if self.cfg.subln:
+            v = self.v_proj(x)
+        else:  # the V rows of the fused projection
+            w = self.cfg.width
+            v = F.linear(x, self.qkv.weight[2 * w:].to(x.dtype))
         return v if self.v_bias is None else v + self.v_bias.to(v.dtype)
 
-    def forward(self, x: torch.Tensor, grid_hw: tuple[int, int]) -> torch.Tensor:
-        c = self.cfg
-        b, n, w = x.shape
-        q = self.q_proj(x)
+    def _qkv(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if self.cfg.subln:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        else:  # strided views of the fused rows
+            q, k, v = self.qkv(x).split(self.cfg.width, dim=-1)
         if self.q_bias is not None:
             q = q + self.q_bias.to(q.dtype)
-        k = self.k_proj(x)
-        v = self._v(x)
-        gh, gw = grid_hw
-        q, k = apply_rope_flat_qk(q, k, gh, gw, c.head_width, 1, c.pt_hw_seq_len)
+            v = v + self.v_bias.to(v.dtype)
+        return q, k, v
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        grid_hw: tuple[int, int],
+        bias: Optional[torch.Tensor] = None,
+        pos_idx: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """``bias``: the shared rel-pos bias or None; ``pos_idx`` [B, K]:
+        the grid positions of the patch tokens that patch dropout kept."""
+        c = self.cfg
+        b, n, w = x.shape
+        q, k, v = self._qkv(x)
         heads = (b, n, c.num_heads, c.head_width)
+        gh, gw = grid_hw
+        if c.rope and pos_idx is not None:
+            q, k = (
+                torch.cat([t[:, :1], apply_rope_gathered(t[:, 1:], pos_idx, gh, gw, c.pt_hw_seq_len)], 1)
+                for t in (q.view(heads), k.view(heads))
+            )
+        elif c.rope:
+            q, k = apply_rope_flat_qk(q.contiguous(), k.contiguous(), gh, gw, c.head_width, 1, c.pt_hw_seq_len)
+        mask = bias
+        if c.use_rel_pos_bias:
+            own = self.rel_pos_bias()
+            _check_window(own, n)
+            mask = own if mask is None else mask + own
         out = multi_head_attention(
-            q.view(heads), k.view(heads), v.view(heads), c.head_width ** -0.5
-        )
-        return self.proj(self.inner_attn_ln(out.reshape(b, n, w)))
+            q.view(heads), k.view(heads), v.view(heads), c.head_width ** -0.5, mask
+        ).reshape(b, n, w)
+        if self.inner_attn_ln is not None:
+            out = self.inner_attn_ln(out)
+        return self.proj(out)
 
     def value_path(self, x: torch.Tensor) -> torch.Tensor:
         """The attention branch without token mixing: v-projection, inner LN
         and output projection (reference `proj_without_attn`)."""
-        return self.proj(self.inner_attn_ln(self._v(x)))
+        v = self._v(x)
+        if self.inner_attn_ln is not None:
+            v = self.inner_attn_ln(v)
+        return self.proj(v)
 
 
 class SwiGLU(nn.Module):
@@ -142,21 +241,37 @@ class SwiGLU(nn.Module):
         hidden = int(cfg.width * cfg.mlp_ratio)
         self.w1 = Dense(cfg.width, hidden)
         self.w2 = Dense(cfg.width, hidden)
-        self.ffn_ln = LayerNorm(hidden, cfg.ln_eps)
+        self.ffn_ln = LayerNorm(hidden, cfg.ln_eps) if cfg.subln else None
         self.w3 = Dense(hidden, cfg.width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(self.w1(x)) * self.w2(x)
-        return self.w3(self.ffn_ln(h))
+        return self.w3(h if self.ffn_ln is None else self.ffn_ln(h))
+
+
+class Mlp(nn.Module):
+    """The exact-GELU MLP of the EVA01-style configs (no naiveswiglu)."""
+
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        hidden = int(cfg.width * cfg.mlp_ratio)
+        self.fc1 = Dense(cfg.width, hidden)
+        self.ffn_ln = LayerNorm(hidden, cfg.ln_eps) if cfg.subln else None
+        self.fc2 = Dense(hidden, cfg.width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(self.fc1(x))
+        return self.fc2(h if self.ffn_ln is None else self.ffn_ln(h))
 
 
 class EvaBlock(nn.Module):
     def __init__(self, cfg: VisionConfig):
         super().__init__()
+        self.postnorm = cfg.postnorm
         self.norm1 = LayerNorm(cfg.width, cfg.ln_eps)
         self.attn = EvaAttention(cfg)
         self.norm2 = LayerNorm(cfg.width, cfg.ln_eps)
-        self.mlp = SwiGLU(cfg)
+        self.mlp = SwiGLU(cfg) if cfg.naiveswiglu else Mlp(cfg)
         if cfg.ls_init_value is not None:
             self.gamma_1 = nn.Parameter(torch.full((cfg.width,), float(cfg.ls_init_value)))
             self.gamma_2 = nn.Parameter(torch.full((cfg.width,), float(cfg.ls_init_value)))
@@ -167,17 +282,25 @@ class EvaBlock(nn.Module):
     def _scaled(y: torch.Tensor, gamma: Optional[torch.Tensor]) -> torch.Tensor:
         return y if gamma is None else y * gamma.to(y.dtype)
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self._scaled(self.mlp(self.norm2(x)), self.gamma_2)
+    def _branch(self, x: torch.Tensor, fn, norm: nn.Module, gamma) -> torch.Tensor:
+        """x + gamma * fn(norm(x)), or with postnorm x + gamma * norm(fn(x))."""
+        y = norm(fn(x)) if self.postnorm else fn(norm(x))
+        return x + self._scaled(y, gamma)
 
-    def forward(self, x: torch.Tensor, grid_hw: tuple[int, int]) -> torch.Tensor:
-        x = x + self._scaled(self.attn(self.norm1(x), grid_hw), self.gamma_1)
-        return self._mlp(x)
+    def forward(
+        self,
+        x: torch.Tensor,
+        grid_hw: tuple[int, int],
+        bias: Optional[torch.Tensor] = None,
+        pos_idx: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        x = self._branch(x, lambda t: self.attn(t, grid_hw, bias, pos_idx), self.norm1, self.gamma_1)
+        return self._branch(x, self.mlp, self.norm2, self.gamma_2)
 
     def forward_without_attn(self, x: torch.Tensor) -> torch.Tensor:
         """Final-block value path (reference `forward_without_attn`)."""
-        x = x + self._scaled(self.attn.value_path(self.norm1(x)), self.gamma_1)
-        return self._mlp(x)
+        x = self._branch(x, self.attn.value_path, self.norm1, self.gamma_1)
+        return self._branch(x, self.mlp, self.norm2, self.gamma_2)
 
 
 class PatchEmbed(nn.Module):
@@ -207,9 +330,6 @@ class EvaViT(nn.Module):
         grad_checkpointing: bool = False,
     ):
         super().__init__()
-        missing = _unsupported(cfg)
-        if missing is not None:
-            raise NotImplementedError(f"EvaViT port: {missing} is not ported yet ({_ROADMAP})")
         self.cfg = cfg
         self.dtype = dtype
         self.grad_checkpointing = grad_checkpointing
@@ -220,6 +340,8 @@ class EvaViT(nn.Module):
         self.blocks = nn.ModuleList(EvaBlock(cfg) for _ in range(cfg.layers))
         self.norm = LayerNorm(cfg.width, cfg.ln_eps)
         self.head = Dense(cfg.width, embed_dim)
+        # one table for every block (reference `eva_vit_model.py:423-424`)
+        self.rel_pos_bias = RelPosBias(cfg) if cfg.use_shared_rel_pos_bias else None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -271,11 +393,43 @@ class EvaViT(nn.Module):
             return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
         return fn(*args)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Image embedding from the CLS token [B, embed_dim]."""
+    def _shared_bias(self, n: int) -> Optional[torch.Tensor]:
+        """The shared rel-pos bias for a sequence of ``n`` tokens, or None
+        (computed once a pass and handed to every block)."""
+        if self.rel_pos_bias is None:
+            return None
+        bias = self.rel_pos_bias()
+        _check_window(bias, n)
+        return bias
+
+    def _patch_dropout(self, t: torch.Tensor, keep) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Keep a subset of the patch tokens (the CLS token always), as the
+        JAX tower's `_patch_dropout` (reference `PatchDropout`). ``keep``:
+        None (no drop), a `torch.Generator` (the first max(1, int(N * (1 -
+        patch_dropout))) positions of an argsort of uniform noise, as the
+        JAX tower draws them from its rng), or the keep indices [B, K].
+        Returns (tokens, keep indices or None)."""
+        if self.cfg.patch_dropout <= 0.0 or keep is None:
+            return t, None
+        b, n1, w = t.shape
+        if isinstance(keep, torch.Generator):
+            n = n1 - 1
+            k = max(1, int(n * (1.0 - self.cfg.patch_dropout)))
+            noise = torch.rand((b, n), generator=keep, device=keep.device)
+            keep = torch.argsort(noise, dim=-1)[:, :k]
+        keep = keep.to(t.device)
+        patches = torch.gather(t[:, 1:], 1, keep[..., None].expand(-1, -1, w))
+        return torch.cat([t[:, :1], patches], dim=1), keep
+
+    def forward(self, x: torch.Tensor, patch_keep=None) -> torch.Tensor:
+        """Image embedding from the CLS token [B, embed_dim]; ``patch_keep``
+        (a generator or keep indices, see `_patch_dropout`) drops patch
+        tokens where the config sets `patch_dropout`."""
         t, grid = self.embed(x)
+        t, pos_idx = self._patch_dropout(t, patch_keep)
+        bias = self._shared_bias(t.shape[1])
         for blk in self.blocks:
-            t = self._run(blk, t, grid)
+            t = self._run(blk, t, grid, bias, pos_idx)
         return self.head(self.norm(t[:, 0]))
 
     def encode_dense(self, x: torch.Tensor, keep_shape: bool = True) -> torch.Tensor:
@@ -283,8 +437,9 @@ class EvaViT(nn.Module):
         attention, drop CLS, norm + head, L2-normalize. Returns
         [B, gh, gw, C] if keep_shape else [B, gh*gw, C]."""
         t, (gh, gw) = self.embed(x)
+        bias = self._shared_bias(t.shape[1])
         for blk in self.blocks[:-1]:
-            t = self._run(blk, t, (gh, gw))
+            t = self._run(blk, t, (gh, gw), bias)
         t = self._run(self.blocks[-1].forward_without_attn, t)[:, 1:]
         t = self.head(self.norm(t))
         t = l2_normalize(t)
@@ -309,8 +464,9 @@ class EvaViT(nn.Module):
             return tokens[:, 1:].reshape(b, gh, gw, width)
 
         taps = []
+        bias = self._shared_bias(t.shape[1])
         for i, blk in enumerate(self.blocks[:-1]):
-            t = self._run(blk, t, (gh, gw))
+            t = self._run(blk, t, (gh, gw), bias)
             if i in out_indices:
                 taps.append(to_map(t))
         t = self._run(self.blocks[-1].forward_without_attn, t)

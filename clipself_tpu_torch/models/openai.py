@@ -6,8 +6,7 @@ a checkpoint is reduced to a float32 NumPy state dict, the architecture is
 inferred from its tensor shapes, the text-tower keys are moved under `text.`
 (the reference `CustomCLIP` layout), and the weights import into a port
 `CLIP` through `models/torch_io.py::import_state_dict`. The inference covers
-the ResNet releases too; building a ResNet model raises until that tower is
-ported (ROADMAP.md queue 1 item 8.2).
+the ResNet releases too, which build `models/modified_resnet.py`.
 """
 
 from __future__ import annotations

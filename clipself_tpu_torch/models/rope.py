@@ -3,7 +3,9 @@
 The table functions are NumPy copies of `clipself_tpu/models/rope.py`
 (`rope_tables_np`, `_split_sin_np`, `rope_tables_padded_np`,
 `rope_tables_flat_np`); `tests/test_torch_rope.py` pins them equal to the
-originals. `apply_rope_flat_qk` rotates the flat [B, N, H * head_dim] q and
+originals. `apply_rope_gathered` rotates the tokens that patch dropout kept,
+each by its grid position, in plain PyTorch (the JAX package's
+`apply_rope_gathered` is plain XLA too). `apply_rope_flat_qk` rotates the flat [B, N, H * head_dim] q and
 k projections of an attention block in one launch of the rolled-RoPE kernel
 (`ops/rope_roll.py`), `apply_rope_flat` one such tensor. The tables are
 [N, head_dim] float32 (identity rows for the CLS prefix, and no pad tail,
@@ -202,3 +204,22 @@ def apply_rope_flat_qk(
     launch of the kernel (forward and backward)."""
     key = (grid_h, grid_w, head_dim, n_prefix, pt_seq_len, q.device)
     return rolled_rope_qk(q, k, *rope_tables_packed(*key))
+
+
+def apply_rope_gathered(
+    x: torch.Tensor, keep_idx: torch.Tensor, grid_h: int, grid_w: int, pt_seq_len: int = 16
+) -> torch.Tensor:
+    """Rotate a patch-dropout-reduced token set ``x[B, K, H, D]`` whose
+    original grid positions are ``keep_idx[B, K]``
+    (`clipself_tpu/models/rope.py::apply_rope_gathered`): the rolled form
+    x * cos + roll(x, -1) * sin_a + roll(x, 1) * sin_b, the tables gathered
+    at the kept positions, in x's dtype."""
+    d = x.shape[-1]
+    cos_np, sin_np = rope_tables_np(grid_h, grid_w, d // 2, pt_seq_len)
+    sin_a_np, sin_b_np = _split_sin_np(sin_np)
+    idx = keep_idx.to(x.device)
+    cos, sin_a, sin_b = (
+        torch.as_tensor(t, device=x.device).to(x.dtype)[idx][:, :, None, :]
+        for t in (cos_np, sin_a_np, sin_b_np)
+    )
+    return x * cos + torch.roll(x, -1, dims=-1) * sin_a + torch.roll(x, 1, dims=-1) * sin_b

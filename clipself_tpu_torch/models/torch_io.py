@@ -2,9 +2,10 @@
 
 `state_dict_from_jax` turns the JAX package's param tree (nested dicts of
 NumPy arrays) into the state dict of the reference `CustomCLIP`: the visual
-tower, the text tower and `logit_scale`, with the key maps of the EVA and
-OpenCLIP ViT branches of `clipself_tpu/models/torch_io.py::_vision_key_map`
-and of `_text_key_map` copied here (the result is pinned equal to that module's
+tower, the text tower and `logit_scale`, with the key maps of the EVA,
+OpenCLIP ViT and ModifiedResNet branches of
+`clipself_tpu/models/torch_io.py::_vision_key_map` and of `_text_key_map`
+copied here (the result is pinned equal to that module's
 `export_state_dict`). `load_weights` loads such a dict, or a reference
 `.pt` checkpoint, into the whole CLIP with `strict=True`; text-tower keys
 stored without the `text.` prefix (the open_clip hub layout) are taken too.
@@ -124,14 +125,54 @@ def _vit_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     raise KeyError(f"unmapped OpenCLIP ViT vision param: {flax_key}")
 
 
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _resnet_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """Map a flax param path under `visual` of a ModifiedResNet tower
+    (`visual.layer{s}.{i}` layout) to (torch_key, transform), as
+    `_eva_vision_key_map` does. The stem's `conv1` is the plain ViT map's
+    key. BatchNorm's mean and var are the reference's running statistics;
+    a bottleneck's downsample is the reference's Sequential(avgpool '-1',
+    conv '0', bn '1')."""
+    k = list(flax_key)
+    if re.fullmatch(r"conv[23]", k[0]) and k[1:] == ["kernel"]:
+        return f"visual.{k[0]}.weight", "conv"
+    if re.fullmatch(r"bn[123]", k[0]):
+        return f"visual.{k[0]}.{_BN[k[1]]}", None
+    m = re.fullmatch(r"layer(\d+)_(\d+)", k[0])
+    if m:
+        base = f"visual.layer{m.group(1)}.{m.group(2)}"
+        rest = k[1:]
+        if re.fullmatch(r"conv[123]", rest[0]) and rest[1] == "kernel":
+            return f"{base}.{rest[0]}.weight", "conv"
+        if re.fullmatch(r"bn[123]", rest[0]):
+            return f"{base}.{rest[0]}.{_BN[rest[1]]}", None
+        if rest == ["downsample_conv", "kernel"]:
+            return f"{base}.downsample.0.weight", "conv"
+        if rest[0] == "downsample_bn":
+            return f"{base}.downsample.1.{_BN[rest[1]]}", None
+    if k[0] == "attnpool":
+        rest = k[1:]
+        if rest == ["positional_embedding"]:
+            return "visual.attnpool.positional_embedding", None
+        if rest[0] in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            t = "linear" if rest[1] == "kernel" else None
+            return f"visual.attnpool.{rest[0]}.{'weight' if t else 'bias'}", t
+    raise KeyError(f"unmapped ModifiedResNet vision param: {flax_key}")
+
+
 def _vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     """The visual tower's key map: the EVA layout, else the plain OpenCLIP
-    ViT's (the two trees share no top-level name; the JAX package's
+    ViT's, else the ModifiedResNet's (the trees share no top-level name but
+    the stem's `conv1`, which the ViT map takes for both; the JAX package's
     `_vision_key_map` tries them in this order)."""
-    try:
-        return _eva_vision_key_map(flax_key)
-    except KeyError:
-        return _vit_vision_key_map(flax_key)
+    for key_map in (_eva_vision_key_map, _vit_vision_key_map):
+        try:
+            return key_map(flax_key)
+        except KeyError:
+            pass
+    return _resnet_vision_key_map(flax_key)
 
 
 def _text_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
@@ -280,14 +321,17 @@ def unwrap_state_dict(sd: dict) -> dict:
 def load_weights(model: nn.Module, source: Union[str, dict]) -> None:
     """Load a reference-layout state dict, or a `.pt` checkpoint path, into
     a port `CLIP` with `strict=True`: every key of the visual tower, the
-    text tower and `logit_scale` must be there, and no other. A text-tower
+    text tower and `logit_scale` must be there, and no other (BatchNorm's
+    `num_batches_tracked` and the rel-pos bias's `relative_position_index`,
+    buffers the port recomputes, are dropped). A text-tower
     key may come without its `text.` prefix (`import_state_dict` of the JAX
     package takes the open_clip hub layout so). A checkpoint with no
     text-tower key at all raises a KeyError that names them: the text tower
     is never left at its initial weights."""
     if isinstance(source, str):
         source = torch.load(source, map_location="cpu", weights_only=True)
-    sd = dict(unwrap_state_dict(source))
+    sd = {k: v for k, v in unwrap_state_dict(source).items()
+          if not k.endswith(("num_batches_tracked", "relative_position_index"))}
     text_keys = [k for k in model.state_dict() if k.startswith("text.")]
     for key in text_keys:
         bare = key[len("text."):]

@@ -19,7 +19,10 @@ designs and its C entry point picks one from dtype and head_dim alone
 call of the EVA02 towers, runs `wgmma` products on swizzled tiles fed by a
 `cp.async` ring with the softmax, P and dS in registers
 (`csrc/hopper_mma.cuh` holds the shared pieces); bfloat16 at the other head
-dims runs WMMA tiles; float32, the parity path, f32 FMAs.
+dims runs WMMA tiles; float32, the parity path, f32 FMAs. The WMMA and FMA
+designs take any head_dim that is a multiple of 8 up to 128 (ViT-g-14 and
+EVA01-g-14 have 88, ViT-bigG-14 104): tiles 16 columns wide, the columns
+past the head_dim loaded as zeros and never stored.
 
 On CPU tensors they run the plain versions below: `attention_plain` (the
 f32-softmax semantics of `_xla_attention`), `attention_lse_plain`, and
@@ -122,14 +125,14 @@ def _check_device(t: torch.Tensor, what: str) -> None:
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> None:
     """What the CUDA kernels take: float32 or bfloat16 [B, N, H, D] views,
-    D a multiple of 16 up to 128, unit stride on D, 16-byte aligned rows."""
+    D a multiple of 8 up to 128, unit stride on D, 16-byte aligned rows."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {q.dtype} (takes float32, bfloat16)")
     if q.dim() != 4:
         raise ValueError(f"{what}: expected [B, N, H, D], got {tuple(q.shape)}")
     d = q.shape[-1]
-    if d % 16 or d > 128:
-        raise ValueError(f"{what}: head_dim {d} must be a multiple of 16 up to 128")
+    if d % 8 or d > 128:
+        raise ValueError(f"{what}: head_dim {d} must be a multiple of 8 up to 128")
     align = 16 // q.element_size()  # elements per 16-byte vector load
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:

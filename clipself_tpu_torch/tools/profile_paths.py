@@ -302,9 +302,11 @@ def _profile_clip(args, device: torch.device) -> dict:
                          grad_checkpointing=args.grad_checkpointing)
     teacher = create_model(cfg, device=device, dtype=torch.bfloat16, seed=args.seed)
     teacher.requires_grad_(False)
+    # every lock group: a ResNet has five (stem, layer1..4), a ViT a block each
+    unlocked = 5 if v.resnet_layers else v.layers
     optimizer = build_optimizer(
         model, make_schedule("cosine", 1e-5, 1, 1000), wd=0.1,
-        unlocked_groups=v.layers, num_layers=v.layers,
+        unlocked_groups=unlocked, num_layers=v.layers,
     )
     state = TrainState(model, optimizer)
     step_fn = make_train_step(
@@ -318,7 +320,7 @@ def _profile_clip(args, device: torch.device) -> dict:
     out["train"] = measure(lambda: step_fn(state, batch), args.steps, device, args.batch_size)
     report(
         f"{args.model} distill step, batch {args.batch_size} at {args.det_image_size}px, "
-        f"{args.max_boxes} boxes, crops {v.image_size}px, {v.layers} blocks unlocked, bf16, "
+        f"{args.max_boxes} boxes, crops {v.image_size}px, {unlocked} lock groups unlocked, bf16, "
         f"extract type {args.extract_type}"
         + (", block recomputation" if args.grad_checkpointing else ""),
         "step", out["train"],

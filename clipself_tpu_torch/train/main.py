@@ -34,17 +34,21 @@ Batches reach the card through `data/loader.py::device_prefetch`.
 `--device` defaults to `cuda`; without a CUDA device that is an error, not
 a CPU run.
 
-`--model` takes the EVA02 configs and the plain OpenCLIP / OpenAI ViT ones
-(`ViT-B-16`, `ViT-L-14-336`, ...); `--extract-type v1` pools the ViT's RoI
-features by mask attention (the EVA tower, as in the JAX package, ignores
-it), `--force-quick-gelu` sets QuickGELU in both towers, and `--pretrained`
-takes a file or a catalog tag (`models/pretrained.py`; nothing is
-downloaded).
+`--model` takes the EVA01 / EVA02 configs, the plain OpenCLIP / OpenAI ViT
+ones (`ViT-B-16`, `ViT-L-14-336`, ...) and the ModifiedResNet ones (`RN50`,
+...); `--extract-type v1` pools the ViT's RoI features by mask attention
+and the ResNet's by its attention pool over 7x7 RoI-aligned maps (the EVA
+tower, as in the JAX package, ignores it), `--force-quick-gelu` sets
+QuickGELU in both towers, `--lock-image-freeze-bn-stats` keeps the
+ResNet's BatchNorm statistics out of the update, `--force-patch-dropout`
+sets the config's patch dropout (which, as in the JAX trainer, no step
+applies: the drop needs keep indices that the trainer never gives), and
+`--pretrained` takes a file or a catalog tag (`models/pretrained.py`;
+nothing is downloaded).
 
-Not carried (ROADMAP.md queue 1): the other towers' flags (item 8.2:
-`--lock-image-freeze-bn-stats`; item 8.3: `--force-patch-dropout`; item
-8.4: `--pretrained-image`), meshes (item 9: `--n-devices`, `--fsdp-size`,
-`--tp-size`) and the TPU knobs (item 10: `--attn-impl`, `--pad-multiple`,
+Not carried (ROADMAP.md queue 1): the timm towers' `--pretrained-image`
+(item 8.4), meshes (item 9: `--n-devices`, `--fsdp-size`, `--tp-size`) and
+the TPU knobs (item 10: `--attn-impl`, `--pad-multiple`,
 `--scoped-vmem-kib`, `--profile-dir`). Their flags are absent.
 """
 
@@ -116,6 +120,13 @@ def parse_args(argv=None):
                    help="recompute each block in the backward pass")
     p.add_argument("--force-quick-gelu", action="store_true",
                    help="QuickGELU in both towers (the OpenAI weights' activation)")
+    p.add_argument("--lock-image-freeze-bn-stats", action="store_true",
+                   help="freeze BatchNorm running stats in unlocked image-tower groups "
+                        "(reference main.py:165; here the stats are parameters, so "
+                        "'freeze' keeps them out of the update)")
+    p.add_argument("--force-patch-dropout", type=float, default=None,
+                   help="override the config's vision patch_dropout "
+                        "(reference factory.py:174-176)")
     # method
     p.add_argument("--cosine-weight", type=float, default=1.0)
     p.add_argument("--contrast-weight", type=float, default=1.0)
@@ -339,6 +350,11 @@ def train(args) -> dict:
         )
     device = _device(args.device)
     cfg = get_model_config(args.model)
+    if args.force_patch_dropout is not None:
+        # override the config's patch dropout (reference factory.py:174-176)
+        cfg = dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, patch_dropout=args.force_patch_dropout)
+        )
     if args.force_quick_gelu:
         # reference main.py:125 -> the factory's quick_gelu override
         cfg = dataclasses.replace(
@@ -437,6 +453,7 @@ def train(args) -> dict:
         model, schedule, wd=args.wd, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
         grad_clip_norm=args.grad_clip_norm, unlocked_groups=args.lock_image_unlocked_groups,
         num_layers=cfg.vision.layers, lock_image=args.lock_image, accum_steps=args.accum_freq,
+        freeze_bn_stats=args.lock_image_freeze_bn_stats,
     )
     state = TrainState(model, optimizer)
     ckpt_dir = os.path.join(out_dir, "checkpoints")

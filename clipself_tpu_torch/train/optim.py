@@ -4,7 +4,9 @@ Reference semantics reproduced:
   - AdamW with two parameter groups: no weight decay for 1-D parameters and
     names holding bn/ln_/norm/bias/logit_scale (`src/training/main.py:198-213`);
   - image-tower locking with the last N blocks unlocked
-    (`eva_vit_model.py:500-516`); logit_scale is always frozen;
+    (`eva_vit_model.py:500-516`), or for the ModifiedResNet the last N of
+    its five groups (`modified_resnet.py:255-278`), with the BatchNorm
+    statistics optionally frozen; logit_scale is always frozen;
   - warmup + {cosine, const, const-cooldown} per-step schedules
     (`src/training/scheduler.py:13-53`), evaluated at the update count
     before the update (0 for the first), as optax's `scale_by_learning_rate`
@@ -90,24 +92,45 @@ def make_schedule(
 # a block of the EVA towers (`visual.blocks.{i}`) or of the OpenCLIP ViT
 # (`visual.transformer.resblocks.{i}`)
 _BLOCK = re.compile(r"visual\.(?:blocks|transformer\.resblocks)\.(\d+)\.")
+# a ModifiedResNet stage (`visual.layer{s}.{i}`, lock group s + 1) and its stem
+_RESNET_STAGE = re.compile(r"visual\.layer(\d+)\.")
+_RESNET_STEM = re.compile(r"visual\.(?:conv[123]|bn[123])\.")
 
 
 def trainable_labels(
-    names: Iterable[str], unlocked_groups: int, num_layers: int, lock_image: bool = True
+    names: Iterable[str],
+    unlocked_groups: int,
+    num_layers: int,
+    lock_image: bool = True,
+    freeze_bn_stats: bool = False,
 ) -> dict[str, str]:
-    """Label each parameter name 'train' or 'freeze'. logit_scale and the
-    text tower are always frozen; under ``lock_image`` only the last
-    ``unlocked_groups`` blocks of the visual tower train: the stem, the CLS
-    and positional embeddings, the final norm and the head (`proj`) stay
-    frozen, in the EVA towers and the OpenCLIP ViT alike
-    (`clipself_tpu/train/optim.py:106-166`)."""
+    """Label each parameter name 'train' or 'freeze'
+    (`clipself_tpu/train/optim.py:106-166`). logit_scale and the text tower
+    are always frozen; with ``freeze_bn_stats`` so are the BatchNorm
+    statistics (`running_mean`, `running_var`: parameters here, as in the
+    JAX param tree), whatever the lock. Under ``lock_image`` only the last
+    ``unlocked_groups`` groups of the visual tower train: in the EVA towers
+    and the OpenCLIP ViT the last blocks, the stem, the CLS and positional
+    embeddings, the final norm and the head (`proj`) staying frozen; in the
+    ModifiedResNet the groups [stem, layer1, ..., layer4], group g frozen
+    while g <= 5 - ``unlocked_groups``, and the attention pool never."""
+    names = list(names)
     first_trainable = num_layers - unlocked_groups
+    freeze_at = 5 - unlocked_groups  # the ResNet's group rule
+    is_resnet = "visual.bn1.weight" in names
     labels = {}
     for name in names:
         if name == "logit_scale" or name.startswith("text."):
             labels[name] = "freeze"
+        elif freeze_bn_stats and name.endswith((".running_mean", ".running_var")):
+            labels[name] = "freeze"
         elif not lock_image:
             labels[name] = "train"
+        elif is_resnet:
+            m = _RESNET_STAGE.match(name)
+            group = int(m.group(1)) + 1 if m else 1 if _RESNET_STEM.match(name) else None
+            # the attention pool is in no group: it always trains
+            labels[name] = "freeze" if group is not None and group <= freeze_at else "train"
         else:
             m = _BLOCK.match(name)
             labels[name] = "train" if m and int(m.group(1)) >= first_trainable else "freeze"
@@ -172,12 +195,13 @@ class Optimizer:
         num_layers: int = 12,
         lock_image: bool = True,
         accum_steps: int = 1,
+        freeze_bn_stats: bool = False,
     ):
         if accum_steps < 1:
             raise ValueError(f"accum_steps {accum_steps}: must be at least 1")
         named = list(model.named_parameters())
         labels = trainable_labels(
-            (n for n, _ in named), unlocked_groups, num_layers, lock_image
+            (n for n, _ in named), unlocked_groups, num_layers, lock_image, freeze_bn_stats
         )
         decay = no_decay_mask(named)
         for name, p in named:

@@ -277,6 +277,46 @@ def test_flash_backward_bf16_matches_f32(dev, n, d):
         assert _min_row_cos(g, w) >= 0.999
 
 
+# the head dims that are not a multiple of 16 run the 16-wide tiles with
+# zero-filled columns (88: ViT-g-14 and EVA01-g-14; 104: ViT-bigG-14), beside
+# the multiples of 16 around them (80: the L/14-size towers' 1280 / 16, 96,
+# 112: bigE-14)
+_PAD_DIMS = (80, 88, 96, 104, 112)
+
+
+@pytest.mark.parametrize("n", [1, 65, 4097])
+@pytest.mark.parametrize("d", _PAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_and_backward_at_every_head_dim(dev, n, d, dtype):
+    """Forward (with its LSE) and backward at the head dims of the large
+    towers: float32 within the bars above of the plain version, bfloat16 at
+    the bf16 bars against float32 on the same inputs; each call launches
+    the kernel."""
+    scale = d ** -0.5
+    q, k, v, do = _bwd_inputs(dev, 1, n, 2, d, dtype, n + d)
+    assert attention.kernel_design(dtype, d) == ("fma" if dtype == torch.float32 else "wmma")
+    before = (attention.LAUNCHES.count, attention.BWD_LAUNCHES.count)
+    o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    assert (attention.LAUNCHES.count, attention.BWD_LAUNCHES.count) == (before[0] + 1, before[1] + 1)
+    f = [t.float() for t in (q, k, v)]
+    o32, lse32 = attention.attention_lse_plain(*f, scale)
+    want = attention.attention_bwd_plain(*f, o32, lse32, do.float(), scale)
+    torch.testing.assert_close(lse, lse32, rtol=0, atol=1e-4)
+    assert o.shape == q.shape and o.is_contiguous()
+    for g in got:
+        assert g.shape == q.shape and g.is_contiguous() and torch.isfinite(g).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o32, rtol=0, atol=1e-4)
+        for g, w in zip(got, want):
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+    else:
+        assert _min_row_cos(o, o32) >= 0.9999
+        if n > 1:  # at one token the exact dq and dk vanish
+            for g, w in zip(got, want):
+                assert _min_row_cos(g, w) >= 0.999
+
+
 # bfloat16 at head_dim 64: the wgmma kernels at the edges of their tiles (a
 # warpgroup's 64 rows, the forward's 128-row and the backward's 128-key
 # blocks), the towers' lengths, an odd B * H, and three layouts of q, k, v
@@ -415,9 +455,10 @@ def test_flash_attention_function_on_card(dev):
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(dev):
-    q = torch.randn(1, 8, 2, 24, device=dev)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        attention.flash_attention(q, q, q, 0.2)
+    for d in (20, 136):  # not a multiple of 8; past 128
+        q = torch.randn(1, 8, 2, d, device=dev)
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            attention.flash_attention(q, q, q, 0.2)
     q = torch.randn(1, 8, 2, 16, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):
         attention.flash_attention(q, q, q, 0.2)

@@ -13,7 +13,11 @@ and the detector's file path: a set written by the port's
 `tools/synth_det_data.py`, one file-fed tiny detector train step and
 `fvit-test` on its checkpoint; and the plain OpenCLIP ViT (`ViT-Tiny-Test`):
 one evaluator batch at extract type v1 and one train step with
-`--extract-type v1 --force-quick-gelu`."""
+`--extract-type v1 --force-quick-gelu`; the ModifiedResNet (`RN-Tiny-Test`):
+one evaluator batch at v1 and one train step with
+`--lock-image-freeze-bn-stats`; and the EVA01 / bigE variants (the tiny EVA
+tower with a fused `qkv`, the GELU MLP, no RoPE, post-norm blocks and a
+shared rel-pos bias): one dense map."""
 
 import json
 import math
@@ -78,6 +82,7 @@ import clipself_tpu_torch.data.draw
 import clipself_tpu_torch.detector.classes as det_classes
 import clipself_tpu_torch.tools.synth_det_data as synth_det_data
 import clipself_tpu_torch.models.open_clip_vit
+import clipself_tpu_torch.models.modified_resnet
 import clipself_tpu_torch.models.openai
 import clipself_tpu_torch.models.pretrained
 
@@ -178,8 +183,26 @@ vit_run = train_main.main([
     "--force-quick-gelu", "--batch-size", "1", "--det-image-size", "32", "--max-boxes", "2",
     "--steps-per-epoch", "1", "--epochs", "1", "--logs", sys.argv[1], "--name", "vit",
 ])
+rn = factory.create_model("RN-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
+rn_batch = synthetic.synthetic_panoptic_batch(
+    0, batch=2, image_size=64, max_anns=8, valid_anns=5, crop_size=64, mask_hw=2, n_classes=7
+)
+rn_res = zero_shot.evaluate_zero_shot(
+    rn, [rn_batch], synthetic.class_embeddings(7, 64), device="cpu", ann_bucket=0, extract_type="v1"
+)
+rn_run = train_main.main([
+    "--device", "cpu", "--synthetic", "--model", "RN-Tiny-Test", "--lock-image-freeze-bn-stats",
+    "--lock-image-unlocked-groups", "5", "--batch-size", "1", "--det-image-size", "64",
+    "--max-boxes", "2", "--steps-per-epoch", "1", "--epochs", "1", "--logs", sys.argv[1], "--name", "rn",
+])
+bige = dataclasses.replace(tiny, vision=dataclasses.replace(
+    tiny.vision, subln=False, naiveswiglu=False, rope=False, postnorm=True, use_shared_rel_pos_bias=True))
+eva = factory.create_model(bige, device="cpu", dtype=torch.float32, seed=0)
+eva_dense = eva.encode_dense(torch.zeros(1, 32, 32, 3), keep_shape=True)
 data = {"loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
         "vit": [len(vit_res), vit_run["history"][-1]["loss"]],
+        "rn": [len(rn_res), rn_run["history"][-1]["loss"]],
+        "eva_variants": [list(eva_dense.shape), bool(torch.isfinite(eva_dense).all())],
         "eval_only": sorted(eval_only["evals"][0]),
         "region": [h["loss_contrast"] for h in region["history"] + region_pre["history"]],
         "det_files": [h["metrics"]["loss"] for h in det_files["history"]],
@@ -227,6 +250,8 @@ def test_port_runs_without_jax(tmp_path):
     assert out["n_results"] == 12
     assert math.isfinite(out["data"]["loss"]) and out["data"]["evals"] == 2
     assert out["data"]["vit"][0] == 12 and math.isfinite(out["data"]["vit"][1])
+    assert out["data"]["rn"][0] == 12 and math.isfinite(out["data"]["rn"][1])
+    assert out["data"]["eva_variants"] == [[1, 4, 4, 64], True]
     assert len(out["data"]["eval_only"]) == 13 and "epoch" in out["data"]["eval_only"]
     assert len(out["data"]["region"]) == 2 and all(map(math.isfinite, out["data"]["region"]))
     assert (tmp_path / "region" / "epoch_1.pt").is_file()
