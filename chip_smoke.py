@@ -111,6 +111,16 @@ then for each model, B/16 first:
    statistics unchanged) and one step's parity at batch 1; RN50 launches no
    kernel of the port, EVA01 the flash forward and backward and the
    LayerNorm forward and backward, no RoPE (`tower_expected_launches`);
+   then the timm towers the same way: convnext_base at 1024^2 and Swin-B
+   (`swin_base_patch4_window7_224`) at 896^2 (its stage grids must divide by
+   the window 7), each also through one v1 evaluator call, the v1 RoI
+   features in the parity legs, every LayerNorm input of a dense pass
+   contiguous (channels-last maps, no copy before a norm) and the trainer
+   with `--no-lock-image`; ConvNeXt's layer scales (1e-6 at init) are drawn
+   uniform in [0.1, 1) before its parity legs; they launch the LayerNorm
+   kernels alone (Swin's window attention is plain, as the JAX package's
+   einsum is); the kernel rows of phase 2 include their LayerNorm shapes
+   (ConvNeXt-Base widths 128 and 1024, Swin-B's patch merging at 4C = 512);
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
 8. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
@@ -236,7 +246,13 @@ class Model:
         return self.vision.image_size
 
     def grid(self, size: int) -> int:
-        return size // self.vision.patch_size
+        from clipself_tpu_torch.models.clip import dense_stride
+
+        return size // dense_stride(self.vision)
+
+    @property
+    def timm(self) -> bool:
+        return bool(self.vision.timm_model_name)
 
     def tokens(self, size: int) -> int:
         return 1 + self.grid(size) ** 2
@@ -262,6 +278,12 @@ VIT_V1_BATCHES, VIT_L14_BATCHES, VIT_PROFILED = 4, 4, 2
 TOWER_MODELS = (
     Model("rn50", "RN50", image=1024, eval_batch=2),
     Model("eva01_b16", "EVA01-CLIP-B-16", image=1024, eval_batch=2),
+    # the timm-family towers: ConvNeXt-Base at the recipe's 1024^2, Swin-B at
+    # 896^2 (its stage grids must divide by the window 7, which 1024^2's 256
+    # does not); both stride 32, crops at their 224^2; they train with
+    # --no-lock-image (under the lock a timm tower trains nothing, as in JAX)
+    Model("convnext_b", "convnext_base", image=1024, eval_batch=2),
+    Model("swin_b", "swin_base_patch4_window7_224", image=896, eval_batch=2),
 )
 TOWER_BATCHES, TOWER_TRAIN_WARMUP, TOWER_TRAIN_TIMED, TOWER_PROFILED = 4, 2, 3, 2
 RN_GROUPS = 5
@@ -471,12 +493,13 @@ def plain_path():
     """Swap the kernels' plain versions in where the towers call the kernel
     wrappers (`eva_vit.multi_head_attention`, `eva_vit.layer_norm`, which
     the text tower's and the OpenCLIP ViT's LayerNorms call too,
-    `open_clip_vit.multi_head_attention`, `rope.rolled_rope` and
-    `rope.rolled_rope_qk`, the detector's `nms.nms_keep_mask`); autograd
+    `open_clip_vit.multi_head_attention`, `timm_vit.multi_head_attention`,
+    `rope.rolled_rope` and `rope.rolled_rope_qk`, the detector's
+    `nms.nms_keep_mask`; the timm towers' LayerNorms are `eva_vit`'s); autograd
     differentiates them. Fails if any kernel
     launched inside, so a swap that misses a call site cannot compare the
     kernels with themselves."""
-    from clipself_tpu_torch.models import eva_vit, open_clip_vit, rope
+    from clipself_tpu_torch.models import eva_vit, open_clip_vit, rope, timm_vit
     from clipself_tpu_torch.ops.attention import attention_masked
     from clipself_tpu_torch.ops.layer_norm import layer_norm_plain
     from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain, unpack_tables
@@ -489,20 +512,20 @@ def plain_path():
         return rolled_rope_plain(q, *tables), rolled_rope_plain(k, *tables)
 
     saved = (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
-             open_clip_vit.multi_head_attention)
+             open_clip_vit.multi_head_attention, timm_vit.multi_head_attention)
     # the EVA tower's dispatch: unmasked calls took the flash kernel (a rel-pos
     # bias is a mask, plain on every path)
     eva_vit.multi_head_attention, eva_vit.layer_norm = attention_masked, layer_norm_plain
     rope.rolled_rope, rope.rolled_rope_qk = rope_plain, rope_qk_plain
-    # the ViT tower's dispatch: unmasked calls took the flash kernel
-    open_clip_vit.multi_head_attention = attention_masked
+    # the ViT towers' dispatch: unmasked calls took the flash kernel
+    open_clip_vit.multi_head_attention = timm_vit.multi_head_attention = attention_masked
     reset_counts()
     try:
         with plain_nms():
             yield
     finally:
         (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
-         open_clip_vit.multi_head_attention) = saved
+         open_clip_vit.multi_head_attention, timm_vit.multi_head_attention) = saved
     if any(read_counts().values()):
         fail(f"the plain path launched kernels: {read_counts()}")
 
@@ -1044,6 +1067,25 @@ def phase_kernels(torch, dev, records):
     for d in WIDE_HEAD_DIMS:
         check_attention(torch, dev, records, gen, (1, l14.tokens(l14.image), 16, d), train=True)
         torch.cuda.empty_cache()
+    # the timm towers' LayerNorms on their channels-last rows: ConvNeXt-Base
+    # at 1024^2 (eps 1e-6) at stage 1's width 128 and stage 4's 1024 (the
+    # dense head norm's shape too), forward and backward, and the head norm
+    # of an evaluator batch's pooled crops; Swin-B at 896^2 (eps 1e-5) at its
+    # first patch merging, 4C = 512
+    from clipself_tpu_torch.models.convnext import CONVNEXT_ARCHS
+    from clipself_tpu_torch.models.swin import SWIN_ARCHS
+
+    cn, sw = (s for s in TOWER_MODELS if s.timm)
+    dims, side = CONVNEXT_ARCHS[cn.vision.timm_model_name][1], cn.image // 4
+    swin_c, swin_side = SWIN_ARCHS[sw.vision.timm_model_name][0], sw.image // 8
+    for shape, eps, backward in (
+        ((cn.eval_batch, side, side, dims[0]), 1e-6, True),
+        ((cn.eval_batch, side // 8, side // 8, dims[-1]), 1e-6, True),
+        ((cn.eval_batch * BUCKET, dims[-1]), 1e-6, False),
+        ((sw.eval_batch, swin_side, swin_side, 4 * swin_c), 1e-5, True),
+    ):
+        check_layer_norm(torch, dev, records, gen, shape, "", backward=backward, eps=eps)
+    torch.cuda.empty_cache()
     check_nms(torch, dev, records)
 
 
@@ -1163,6 +1205,7 @@ def phase_train(
     unlocked = layers if unlocked is None else unlocked
     group_of = group_of or (lambda name: _BLOCK.match(name).group(1))
     freeze_bn_stats = "--lock-image-freeze-bn-stats" in extra
+    lock_image = "--no-lock-image" not in extra
     if warmup is None:
         warmup = RECOMPUTE_WARMUP if recompute else TRAIN_WARMUP
     if timed is None:
@@ -1217,7 +1260,8 @@ def phase_train(
     if student.visual.grad_checkpointing != recompute:
         fail(f"{tag}: the student's grad_checkpointing is {student.visual.grad_checkpointing}")
     labels = trainable_labels(
-        (n for n, _ in student.named_parameters()), unlocked, layers, freeze_bn_stats=freeze_bn_stats
+        (n for n, _ in student.named_parameters()), unlocked, layers, lock_image=lock_image,
+        freeze_bn_stats=freeze_bn_stats,
     )
     t_params = dict(teacher.named_parameters())
     moved, groups, frozen = set(), set(), 0
@@ -1242,12 +1286,15 @@ def phase_train(
                 median_ms=median_ms, kernel_ms=prof["kernel_ms"] / profiled if profiled else None)
 
 
-def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2", unlocked=None):
+def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2", unlocked=None,
+                       lock_image=True, prepare=None):
     """One step's loss and trainable gradients from the same weights and
     batch (batch 1) on f32 kernels, bf16 kernels and the f32 plain path;
     the kernel legs must launch every one of ``kernels`` (by default every
     kernel of the EVA tower; an empty list: none, and then none may
-    launch); ``unlocked`` lock groups train (by default every block)."""
+    launch); ``unlocked`` lock groups train (by default every block), all
+    of the image tower without ``lock_image``; ``prepare(model)`` sets
+    weights after the draw (both legs' the same)."""
     from clipself_tpu_torch.core.config import get_model_config
     from clipself_tpu_torch.data.loader import SyntheticDistillData
     from clipself_tpu_torch.models.factory import create_model
@@ -1268,9 +1315,11 @@ def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2", un
 
     def one_step(dtype, plain):
         model = create_model(cfg, device=dev, dtype=dtype, seed=SEED)
+        if prepare is not None:
+            prepare(model)
         teacher = copy.deepcopy(model).requires_grad_(False)
         named = list(model.named_parameters())
-        labels = trainable_labels((n for n, _ in named), unlocked, layers)
+        labels = trainable_labels((n for n, _ in named), unlocked, layers, lock_image=lock_image)
         for name, p in named:
             p.requires_grad_(labels[name] == "train")
         reset_counts()
@@ -1680,24 +1729,87 @@ def phase_open_clip_vit(torch, dev, logs_dir) -> dict:
     return paths
 
 
-def tower_expected_launches(s: Model, **paths) -> dict:
+def timm_norms(s: Model) -> int:
+    """The LayerNorms of one pass of a timm tower: ConvNeXt has its stem's,
+    one before each later stage's downsampling conv, one a block and the
+    head norm; Swin its patch embedding's, two a block, one a patch merging
+    and the final norm."""
+    from clipself_tpu_torch.models.convnext import CONVNEXT_ARCHS
+    from clipself_tpu_torch.models.swin import SWIN_ARCHS
+
+    name = s.vision.timm_model_name
+    if name.startswith("convnext"):
+        depths = CONVNEXT_ARCHS[name][0]
+        return len(depths) + sum(depths) + 1
+    depths = SWIN_ARCHS[name][1]
+    return 2 * sum(depths) + len(depths) + 1
+
+
+def tower_expected_launches(s: Model, evals=0, evals_v1=0, steps=0) -> dict:
     """The launch counts of the ModifiedResNet (none: BatchNorm, and the
     attention pool's attention is plain, as the JAX package runs no Pallas
-    kernel there) or of the EVA01 tower (`vit_expected_launches` with its
-    one final norm) over ``paths`` (evals=, steps=)."""
+    kernel there), of a timm tower (LayerNorms alone: `timm_norms` a pass;
+    its attention, Swin's window attention, is plain; a v2 evaluator batch
+    is a dense and a crop pass, a v1 batch the RoI pass, the mask pass and
+    a crop pass, a step the teacher's crop pass and the student's, whose
+    backward runs every norm of its pass) or of the EVA01 tower
+    (`vit_expected_launches` with its one final norm) over ``evals`` v2
+    and ``evals_v1`` v1 evaluator batches and ``steps`` train steps."""
     if s.vision.resnet_layers:
         return {k: 0 for k in _counters()}
-    return vit_expected_launches(s.vision.layers, tower_norms=1, **paths)
+    if s.timm:
+        norms = timm_norms(s)
+        return {**{k: 0 for k in _counters()}, "layer_norm": (2 * evals + 3 * evals_v1 + 2 * steps) * norms,
+                "layer_norm_bwd": steps * norms}
+    return vit_expected_launches(s.vision.layers, tower_norms=1, evals=evals, evals_v1=evals_v1, steps=steps)
+
+
+def draw_layer_scale(torch, model) -> None:
+    """ConvNeXt's layer scale starts at 1e-6, so on seeded weights its
+    blocks barely touch the map: every `gamma` is drawn uniform in [0.1, 1)
+    instead, from a CUDA generator seeded `SEED`, the same draws on every
+    model it is called on."""
+    from clipself_tpu_torch.models.convnext import ConvNeXtBlock
+
+    gen = None
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, ConvNeXtBlock):
+                if gen is None:
+                    gen = torch.Generator(device=m.gamma.device).manual_seed(SEED)
+                m.gamma.copy_(torch.rand(m.gamma.shape, generator=gen, device=m.gamma.device) * 0.9 + 0.1)
+
+
+def strided_norm_inputs(torch, model, images) -> tuple[int, int]:
+    """(LayerNorm calls of one dense pass, those whose input was not
+    contiguous): the timm towers keep their maps channels-last, so each
+    norm reads [.., C] rows where they lie; a non-contiguous 4-D input would
+    make the kernel's wrapper raise, and a copy before the norm is what this
+    rules out."""
+    from clipself_tpu_torch.models.eva_vit import LayerNorm
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda mod, a: seen.append(a[0].is_contiguous()))
+             for m in model.modules() if isinstance(m, LayerNorm)]
+    try:
+        model.encode_dense(images, keep_shape=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(seen), seen.count(False)
 
 
 def tower_eval(torch, dev, s: Model) -> dict:
     """The tower through `evaluate_zero_shot` (bf16, seeded random weights):
     `TOWER_BATCHES` v2 batches after `EVAL_WARMUP`, with ms a batch,
     images/s, peak memory, the kernels' ms a batch over `TOWER_PROFILED`
-    batches under the profiler and the launch counts; for the ResNet also
-    one v1 call (the attention pool of 7x7 RoI-aligned maps). Then parity
-    against the plain float32 path: the dense map, the image embedding and
-    (ResNet) the v1 RoI features. Returns the launch counts by path."""
+    batches under the profiler and the launch counts; for the ResNet and
+    the timm towers also one v1 call (the ResNet: the attention pool of 7x7
+    RoI-aligned maps; ConvNeXt and Swin: the trunk map RoI-aligned to the
+    crop-size grid and pooled through the head). Then parity against the
+    plain float32 path: the dense map, the image embedding and (ResNet,
+    timm) the v1 RoI features, ConvNeXt's layer scales drawn first
+    (`draw_layer_scale`). Returns the launch counts by path."""
     import numpy as np
 
     from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
@@ -1705,6 +1817,7 @@ def tower_eval(torch, dev, s: Model) -> dict:
     from clipself_tpu_torch.models.factory import create_model
 
     rn = bool(s.vision.resnet_layers)
+    convnext = s.timm and s.vision.timm_model_name.startswith("convnext")
     model = create_model(s.model, device=dev, dtype=torch.bfloat16, seed=SEED)
 
     def batch(i):
@@ -1754,25 +1867,37 @@ def tower_eval(torch, dev, s: Model) -> dict:
     if launches != expect:
         fail(f"{tag} launch counts {launches}, expected {expect}")
     paths = {f"{s.key}_eval": launches}
-    if rn:
+    if rn or s.timm:
         reset_counts()
         t0 = time.perf_counter()
         res = run(batches[:1], "v1")
         torch.cuda.synchronize()
         ms, launches = (time.perf_counter() - t0) * 1e3, read_counts()
-        print(f"{tag} v1 {s.model}: one batch {ms:.3f} ms (the RoIs pooled by the attention pool of "
-              f"7x7 RoI-aligned stage-4 maps; masks by mask_pool); mAcc {json.dumps(res, sort_keys=True)}; "
-              f"launches {json.dumps(launches)}", flush=True)
-        if len(res) != 12 or not all(np.isfinite(v) for v in res.values()) or any(launches.values()):
-            fail(f"{tag} v1: result {res}, launches {launches}")
+        how = ("the attention pool of 7x7 RoI-aligned stage-4 maps" if rn else
+               "the trunk map RoI-aligned to the crop-size grid, pooled through the head")
+        print(f"{tag} v1 {s.model}: one batch {ms:.3f} ms (the RoIs pooled by {how}; masks by the tower's "
+              f"mask_pool); mAcc {json.dumps(res, sort_keys=True)}; launches {json.dumps(launches)}", flush=True)
+        expect = tower_expected_launches(s, evals_v1=1)
+        if len(res) != 12 or not all(np.isfinite(v) for v in res.values()) or launches != expect:
+            fail(f"{tag} v1: result {res}, launches {launches}, expected {expect}")
         paths[f"{s.key}_eval_v1"] = launches
 
     images = batches[0]["images"]
     boxes = torch.as_tensor(batches[0]["boxes"][:, :BUCKET, :4], device=dev)
+    if s.timm:
+        with torch.inference_mode():
+            calls, strided = strided_norm_inputs(torch, model, images)
+        print(f"{s.key} LayerNorm inputs of one dense pass: {calls} calls, {strided} not contiguous "
+              "(channels-last maps read in place, no copy before a norm)", flush=True)
+        if strided or calls != timm_norms(s):
+            fail(f"{s.key}: {strided} of {calls} LayerNorm inputs not contiguous (expected 0 of {timm_norms(s)})")
     model_f32 = create_model(s.model, device=dev, dtype=torch.float32, seed=SEED)
+    if convnext:
+        draw_layer_scale(torch, model)
+        draw_layer_scale(torch, model_f32)
     legs = [("dense map", lambda m: m.encode_dense(images, keep_shape=True)),
             ("image embedding", lambda m: m.encode_image(images))]
-    if rn:
+    if rn or s.timm:
         legs.append(("v1 RoI features", lambda m: m.encode_pseudo_boxes(images, boxes, extract_type="v1")))
     with torch.inference_mode():
         got = {}
@@ -1802,28 +1927,41 @@ def tower_eval(torch, dev, s: Model) -> dict:
     return paths
 
 
+def timm_group(name: str) -> str:
+    """The part of a timm tower a trainable parameter belongs to: a stage
+    (`trunk.stages.{s}`, `trunk.layers.{s}`), else the stem, patch
+    embedding, final or head norm, or the projection."""
+    parts = name.split(".")
+    return ".".join(parts[1:4] if parts[2] in ("stages", "layers") else parts[1:3])
+
+
 def phase_towers(torch, dev, logs_dir) -> dict:
-    """The ModifiedResNet (RN50) and the EVA01 variant (EVA01-CLIP-B-16), each
-    at 1024^2: `tower_eval`, then the trainer (batch 2, 20 boxes, 40 crops
-    at 224^2, every lock group unlocked: `TOWER_TRAIN_WARMUP` +
-    `TOWER_TRAIN_TIMED` steps and `TOWER_PROFILED` under the profiler;
-    RN50 also one step with `--lock-image-freeze-bn-stats`, whose BatchNorm
-    statistics must keep their bits) and one step's parity at batch 1.
-    Returns the launch counts by path."""
+    """The ModifiedResNet (RN50), the EVA01 variant (EVA01-CLIP-B-16) and the
+    timm towers (convnext_base at 1024^2, Swin-B at 896^2): `tower_eval`,
+    then the trainer (batch 2, 20 boxes, 40 crops at 224^2, every lock
+    group unlocked, the timm towers with `--no-lock-image`:
+    `TOWER_TRAIN_WARMUP` + `TOWER_TRAIN_TIMED` steps and `TOWER_PROFILED`
+    under the profiler; RN50 also one step with
+    `--lock-image-freeze-bn-stats`, whose BatchNorm statistics must keep
+    their bits) and one step's parity at batch 1 (ConvNeXt's layer scales
+    drawn first). Returns the launch counts by path."""
     t0 = time.perf_counter()
     paths = {}
     for s in TOWER_MODELS:
+        t_model = time.perf_counter()
         rn = bool(s.vision.resnet_layers)
         paths.update(tower_eval(torch, dev, s))
         unlocked = RN_GROUPS if rn else s.vision.layers
         # a ResNet parameter's part: the stem (lock group 1), a stage (groups 2-5), the pool
         group_of = (lambda name: name.split(".")[1] if name.startswith(("visual.layer", "visual.attnpool"))
-                    else "stem") if rn else None
+                    else "stem") if rn else timm_group if s.timm else None
+        extra = ["--no-lock-image"] if s.timm else []
         common = dict(unlocked=unlocked, group_of=group_of,
                       expect=lambda n, s=s: tower_expected_launches(s, steps=n))
         try:
-            train = phase_train(torch, dev, s, logs_dir, tag=f"{s.key} train", warmup=TOWER_TRAIN_WARMUP,
-                                timed=TOWER_TRAIN_TIMED, profiled=TOWER_PROFILED, **common)
+            train = phase_train(torch, dev, s, logs_dir, extra=extra, tag=f"{s.key} train",
+                                warmup=TOWER_TRAIN_WARMUP, timed=TOWER_TRAIN_TIMED, profiled=TOWER_PROFILED,
+                                **common)
             paths[f"{s.key}_train"] = train["launches"]
             torch.cuda.empty_cache()
             if rn:
@@ -1833,11 +1971,15 @@ def phase_towers(torch, dev, logs_dir) -> dict:
         finally:
             shutil.rmtree(logs_dir, ignore_errors=True)
         torch.cuda.empty_cache()
+        kernels = ([] if rn else ["layer_norm", "layer_norm_bwd"] if s.timm
+                   else ["flash_attention", "flash_attention_bwd", "layer_norm", "layer_norm_bwd"])
+        convnext = s.timm and s.vision.timm_model_name.startswith("convnext")
         phase_train_parity(
-            torch, dev, s, unlocked=unlocked,
-            kernels=[] if rn else ["flash_attention", "flash_attention_bwd", "layer_norm", "layer_norm_bwd"],
+            torch, dev, s, unlocked=unlocked, kernels=kernels, lock_image=not s.timm,
+            prepare=(lambda m: draw_layer_scale(torch, m)) if convnext else None,
         )
         torch.cuda.empty_cache()
+        print(f"{s.key} tower done in {time.perf_counter() - t_model:.1f} s", flush=True)
     print(f"towers phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
@@ -3503,7 +3645,7 @@ def run_phases(torch, dev, t0) -> int:
     paths.update(phase_open_clip_vit(torch, dev, logs_dir))
     print(f"OpenCLIP ViT done at {time.perf_counter() - t0:.1f} s", flush=True)
     paths.update(phase_towers(torch, dev, logs_dir))
-    print(f"RN50 and EVA01-B/16 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"RN50, EVA01-B/16, ConvNeXt-B and Swin-B done at {time.perf_counter() - t0:.1f} s", flush=True)
     cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev, DET_PRESET)
     phase_detector_parity(torch, dev, DET_PRESET, cfg, clip, det, emb, items)
     del clip, det

@@ -1,12 +1,15 @@
 """CLIP assembly with the dense-prediction API: a visual tower (EVA01 /
-EVA02, the plain OpenCLIP / OpenAI ViT or the ModifiedResNet), the text
-tower and `logit_scale` (a port of `clipself_tpu/models/clip.py`). The text
-tower is frozen by recipe (`train/optim.py::trainable_labels`).
+EVA02, the plain OpenCLIP / OpenAI ViT, the ModifiedResNet or a timm-family
+tower), the text tower and `logit_scale` (a port of
+`clipself_tpu/models/clip.py`). The text tower is frozen by recipe
+(`train/optim.py::trainable_labels`).
 
 The visual tower is chosen from the config as the JAX package chooses it:
-`eva_model_name` gives `EvaViT`, `resnet_layers` `ModifiedResNet`, a config
-with neither these nor `timm_model_name` nor `hf_trunk_name` gives
-`OpenCLIPViT`. The other towers raise, each naming its ROADMAP.md item.
+`timm_model_name` gives `ConvNeXtTower` (`convnext*`), `SwinTower`
+(`swin*`) or `TimmViTTower` (`vit_*`), `eva_model_name` `EvaViT`,
+`resnet_layers` `ModifiedResNet`, a config with none of these nor
+`hf_trunk_name` `OpenCLIPViT`. The other towers raise, each naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,11 +19,14 @@ import math
 import torch
 from torch import nn
 
-from clipself_tpu_torch.core.config import CLIPConfig
+from clipself_tpu_torch.core.config import CLIPConfig, VisionConfig
 from clipself_tpu_torch.models.common import l2_normalize
+from clipself_tpu_torch.models.convnext import ConvNeXtTower
 from clipself_tpu_torch.models.eva_vit import EvaViT
 from clipself_tpu_torch.models.modified_resnet import ModifiedResNet
 from clipself_tpu_torch.models.open_clip_vit import OpenCLIPViT
+from clipself_tpu_torch.models.swin import SwinTower
+from clipself_tpu_torch.models.timm_vit import TimmViTTower
 from clipself_tpu_torch.models.text_transformer import TextTransformer
 from clipself_tpu_torch.ops.mask_pool import mask_pool
 from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
@@ -35,13 +41,27 @@ def _visual_class(cfg: CLIPConfig):
         missing = "the CoCa model (item 8.6)"
     elif v.hf_trunk_name:
         missing = f"the transformers trunk adapter {v.hf_trunk_name!r} (item 8.5)"
-    elif v.timm_model_name:
-        missing = f"the timm tower {v.timm_model_name!r} (item 8.4)"
     if missing is not None:
         raise NotImplementedError(f"{cfg.name}: {missing} is not ported yet (ROADMAP.md queue 1)")
+    if v.timm_model_name:
+        # one tower a timm trunk family (`clipself_tpu/models/clip.py:45-64`)
+        for prefix, tower in (("convnext", ConvNeXtTower), ("swin", SwinTower), ("vit_", TimmViTTower)):
+            if v.timm_model_name.startswith(prefix):
+                return tower
+        raise NotImplementedError(
+            f"timm trunk {v.timm_model_name!r} has no native tower "
+            "(supported families: convnext_*, swin_*, vit_*)"
+        )
     if v.eva_model_name:
         return EvaViT
     return ModifiedResNet if v.resnet_layers else OpenCLIPViT
+
+
+def dense_stride(v: VisionConfig) -> int:
+    """The stride of a tower's dense map in pixels: 32 for the ConvNeXt and
+    Swin towers, whose configs carry the default `patch_size`, else the
+    config's `patch_size` (32 for the ResNets)."""
+    return 32 if (v.timm_model_name or "").startswith(("convnext", "swin")) else v.patch_size
 
 
 class CLIP(nn.Module):
@@ -76,9 +96,10 @@ class CLIP(nn.Module):
     def encode_dense(
         self, image: torch.Tensor, keep_shape: bool = False, normalize: bool = False
     ) -> torch.Tensor:
-        """image [B, H, W, 3] -> L2-normalized dense features
-        [B, gh, gw, C] (keep_shape) or [B, gh*gw, C]; ``normalize``
-        normalizes them once more, as the JAX package's flag does."""
+        """image [B, H, W, 3] -> dense features [B, gh, gw, C] (keep_shape)
+        or [B, gh*gw, C], L2-normalized by every tower but the timm-family
+        ones; ``normalize`` normalizes them (once more), as the JAX
+        package's flag does."""
         feats = self.visual.encode_dense(image, keep_shape=keep_shape)
         return l2_normalize(feats) if normalize else feats
 
@@ -99,10 +120,16 @@ class CLIP(nn.Module):
 
     def _mask_feats(self, image: torch.Tensor, masks: torch.Tensor, mask_attn: bool) -> torch.Tensor:
         """Mask-attention pooling where the tower has it (``mask_attn``; the
-        ModifiedResNet's is its masked mean), else the masked mean of the
-        dense map (the EVA tower always)."""
+        ModifiedResNet's is its masked mean), else the tower's own
+        `mask_pool` where it has one (the timm towers and the ResNet: the
+        timm towers L2-normalize their dense map first), else the masked
+        mean of the dense map (the EVA tower and the OpenCLIP ViT, whose
+        JAX `mask_pool` is that expression), as the JAX wrapper calls
+        `visual.mask_pool`."""
         if mask_attn and hasattr(self.visual, "mask_attn_pool"):
             return self.visual.mask_attn_pool(image, masks)
+        if hasattr(self.visual, "mask_pool"):
+            return self.visual.mask_pool(image, masks)
         return mask_pool(self.visual.encode_dense(image, keep_shape=True), masks)
 
     def encode_masks(
@@ -118,8 +145,9 @@ class CLIP(nn.Module):
         return l2_normalize(feats) if normalize else feats
 
     def encode_rois_and_image(self, image: torch.Tensor, normed_boxes: torch.Tensor):
-        """(normalized v2 RoI features, normalized image embedding) of one
-        trunk pass (the OpenCLIP ViT and the ModifiedResNet)."""
+        """(normalized RoI features, normalized image embedding) of one
+        trunk pass (the OpenCLIP ViT, the ModifiedResNet and the timm-family
+        towers; v1 RoIs for ConvNeXt and Swin, v2 for the others)."""
         return self.visual.encode_rois_and_image(image, normed_boxes)
 
     def encode_rois_and_masks(
@@ -135,7 +163,10 @@ class CLIP(nn.Module):
         [B, M, 4] xyxy in [0, 1]; masks [B, M, gh, gw]. Returns ([B, M, C],
         [B, M, C]). At extract_type 'v2' without ``mask_attn`` both come
         from ONE dense trunk pass; otherwise from the separate calls, as
-        the JAX package falls back (`clipself_tpu/models/clip.py:163-209`)."""
+        the JAX package falls back (`clipself_tpu/models/clip.py:163-209`).
+        The shared pass pools the dense map as `encode_dense` gives it, which
+        the timm towers leave un-normalized (so does the JAX wrapper), while
+        their own v2 RoIs and `mask_pool` normalize it first."""
         if extract_type == "v2" and not mask_attn:
             dense = self.visual.encode_dense(image, keep_shape=True)
             _, gh, gw, _ = dense.shape

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -32,3 +33,18 @@ class LayerScale(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.gamma.to(x.dtype)
+
+
+_DEVICE_CONSTANTS: dict = {}
+
+
+def device_constant(key: tuple, array: np.ndarray, device) -> torch.Tensor:
+    """``array`` as a tensor on ``device``, made once a process for each
+    ``key`` and device; a normal tensor even when the first caller runs
+    under inference_mode (the evaluator), since a later training step may
+    save it for its backward."""
+    key = key + (str(device),)
+    if key not in _DEVICE_CONSTANTS:
+        with torch.inference_mode(False):
+            _DEVICE_CONSTANTS[key] = torch.from_numpy(array).to(device)
+    return _DEVICE_CONSTANTS[key]

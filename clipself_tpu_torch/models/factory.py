@@ -5,6 +5,7 @@ preprocessing pair, and the model's tokenizer."""
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Any, Optional, Union
 
 import torch
@@ -34,7 +35,10 @@ def create_model(
     ``remat``). ``pretrained``, a checkpoint path or a catalog tag of the
     model (`models/pretrained.py::resolve_pretrained`), is imported over
     the initial weights non-strictly (`models/torch_io.py::load_pretrained`),
-    as `clipself_tpu/models/factory.py:100-108` routes it.
+    as `clipself_tpu/models/factory.py:100-108` routes it. A timm tower
+    whose config sets `timm_model_pretrained` (`--pretrained-image`) without
+    ``pretrained`` logs a warning: nothing is fetched
+    (`clipself_tpu/models/factory.py:112-120`).
     """
     cfg = get_model_config(name_or_cfg) if isinstance(name_or_cfg, str) else name_or_cfg
     model = CLIP(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
@@ -47,6 +51,13 @@ def create_model(
 
         # an existing path (a file, or a directory that `load_pretrained` refuses) as it is
         load_pretrained(model, resolve_pretrained(cfg.name, pretrained))
+    if cfg.vision.timm_model_name and cfg.vision.timm_model_pretrained and not pretrained:
+        # the reference's --pretrained-image pulls the trunk's timm hub
+        # weights; only an explicit checkpoint can be honoured here
+        logging.getLogger("clipself_tpu_torch").warning(
+            "timm_model_pretrained is set but no weights source is reachable "
+            "offline; pass --pretrained <checkpoint> to load trunk weights"
+        )
     return model.to(device).eval()
 
 

@@ -3,10 +3,10 @@
 `state_dict_from_jax` turns the JAX package's param tree (nested dicts of
 NumPy arrays) into the state dict of the reference `CustomCLIP`: the visual
 tower, the text tower and `logit_scale`, with the key maps of the EVA,
-OpenCLIP ViT and ModifiedResNet branches of
+OpenCLIP ViT, ModifiedResNet, ConvNeXt, Swin and timm-ViT branches of
 `clipself_tpu/models/torch_io.py::_vision_key_map` and of `_text_key_map`
 copied here (the result is pinned equal to that module's
-`export_state_dict`). `load_weights` loads such a dict, or a reference
+`export_state_dict`; a timm tower's map is chosen from the config). `load_weights` loads such a dict, or a reference
 `.pt` checkpoint, into the whole CLIP with `strict=True`; text-tower keys
 stored without the `text.` prefix (the open_clip hub layout) are taken too.
 `detector_state_dict_from_jax` does the same for the flax tree of the F-ViT
@@ -22,12 +22,13 @@ from __future__ import annotations
 import logging
 import os
 import re
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from clipself_tpu_torch.core.config import CLIPConfig
 from clipself_tpu_torch.ops.interpolate import resize_weight_matrix
 
 log = logging.getLogger("clipself_tpu_torch")
@@ -162,11 +163,153 @@ def _resnet_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     raise KeyError(f"unmapped ModifiedResNet vision param: {flax_key}")
 
 
-def _vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
-    """The visual tower's key map: the EVA layout, else the plain OpenCLIP
-    ViT's, else the ModifiedResNet's (the trees share no top-level name but
-    the stem's `conv1`, which the ViT map takes for both; the JAX package's
-    `_vision_key_map` tries them in this order)."""
+_LN = {"scale": "weight", "bias": "bias"}
+
+
+def _dense(base: str, leaf: str) -> tuple[str, Any]:
+    """A flax Dense leaf (`kernel` or `bias`) of the torch module ``base``."""
+    t = "linear" if leaf == "kernel" else None
+    return f"{base}.{'weight' if t else 'bias'}", t
+
+
+def _timm_head_key_map(k: list) -> tuple[str, Any]:
+    """The projection of a timm tower: `proj` -> `visual.head.proj`, the MLP
+    head's `proj_fc1` / `proj_fc2` -> `visual.head.mlp.fc1` / `fc2`."""
+    if k[0] == "proj" and k[1:] == ["kernel"]:
+        return "visual.head.proj.weight", "linear"
+    if k[0] in ("proj_fc1", "proj_fc2") and len(k) == 2:
+        return _dense(f"visual.head.mlp.fc{k[0][-1]}", k[1])
+    raise KeyError(f"unmapped timm head param: {k}")
+
+
+def _convnext_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """Map a flax param path under `visual` of a ConvNeXt tower to the timm
+    layout (`visual.trunk.stem.*`, `visual.trunk.stages.*`,
+    `visual.trunk.head.norm.*`, `visual.head.*`), as `_eva_vision_key_map` does."""
+    k = list(flax_key)
+    if k[0] == "head_norm":
+        return f"visual.trunk.head.norm.{_LN[k[1]]}", None
+    if k[0] != "trunk":
+        return _timm_head_key_map(k)
+    rest = k[1:]
+    if rest[0] == "stem_conv":
+        return ("visual.trunk.stem.0.weight", "conv") if rest[1] == "kernel" else ("visual.trunk.stem.0.bias", None)
+    if rest[0] == "stem_norm":
+        return f"visual.trunk.stem.1.{_LN[rest[1]]}", None
+    m = re.fullmatch(r"downsample_norm_(\d+)", rest[0])
+    if m:
+        return f"visual.trunk.stages.{m.group(1)}.downsample.0.{_LN[rest[1]]}", None
+    m = re.fullmatch(r"downsample_conv_(\d+)", rest[0])
+    if m:
+        t = "conv" if rest[1] == "kernel" else None
+        return f"visual.trunk.stages.{m.group(1)}.downsample.1.{'weight' if t else 'bias'}", t
+    m = re.fullmatch(r"stage(\d+)_block(\d+)", rest[0])
+    if m:
+        base = f"visual.trunk.stages.{m.group(1)}.blocks.{m.group(2)}"
+        sub = rest[1:]
+        if sub[0] == "conv_dw":
+            t = "conv" if sub[1] == "kernel" else None
+            return f"{base}.conv_dw.{'weight' if t else 'bias'}", t
+        if sub[0] == "norm":
+            return f"{base}.norm.{_LN[sub[1]]}", None
+        if sub[0] in ("mlp_fc1", "mlp_fc2"):
+            return _dense(f"{base}.mlp.fc{sub[0][-1]}", sub[1])
+        if sub == ["gamma"]:
+            return f"{base}.gamma", None
+    raise KeyError(f"unmapped ConvNeXt vision param: {flax_key}")
+
+
+def _swin_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """Map a flax param path under `visual` of a Swin tower to the classic
+    timm Swin layout (`visual.trunk.patch_embed.*`,
+    `visual.trunk.layers.{i}.blocks.{j}.*`,
+    `visual.trunk.layers.{i}.downsample.*`, `visual.trunk.norm.*`,
+    `visual.head.*`)."""
+    k = list(flax_key)
+    if k[0] != "trunk":
+        return _timm_head_key_map(k)
+    rest = k[1:]
+    if rest[0] == "patch_embed_conv":
+        t = "conv" if rest[1] == "kernel" else None
+        return f"visual.trunk.patch_embed.proj.{'weight' if t else 'bias'}", t
+    if rest[0] == "patch_embed_norm":
+        return f"visual.trunk.patch_embed.norm.{_LN[rest[1]]}", None
+    if rest[0] == "norm":
+        return f"visual.trunk.norm.{_LN[rest[1]]}", None
+    m = re.fullmatch(r"downsample_norm_(\d+)", rest[0])
+    if m:
+        return f"visual.trunk.layers.{m.group(1)}.downsample.norm.{_LN[rest[1]]}", None
+    m = re.fullmatch(r"downsample_reduction_(\d+)", rest[0])
+    if m:
+        return f"visual.trunk.layers.{m.group(1)}.downsample.reduction.weight", "linear"
+    m = re.fullmatch(r"layer(\d+)_block(\d+)", rest[0])
+    if m:
+        base = f"visual.trunk.layers.{m.group(1)}.blocks.{m.group(2)}"
+        sub = rest[1:]
+        if sub[0] in ("norm1", "norm2"):
+            return f"{base}.{sub[0]}.{_LN[sub[1]]}", None
+        if sub[0] in ("attn_qkv", "attn_proj"):
+            return _dense(f"{base}.attn.{sub[0][5:]}", sub[1])
+        if sub == ["rel_pos_table"]:
+            return f"{base}.attn.relative_position_bias_table", None
+        if sub[0] in ("mlp_fc1", "mlp_fc2"):
+            return _dense(f"{base}.mlp.fc{sub[0][-1]}", sub[1])
+    raise KeyError(f"unmapped Swin vision param: {flax_key}")
+
+
+def _timm_vit_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """Map a flax param path under `visual` of a timm plain-ViT tower to the
+    timm ViT layout (`visual.trunk.patch_embed.proj.*`,
+    `visual.trunk.cls_token`, `visual.trunk.pos_embed`,
+    `visual.trunk.blocks.{j}.*` with the rel-pos MLP at
+    `attn.rel_pos.mlp.*`, `visual.trunk.norm.*` / `fc_norm.*`,
+    `visual.head.proj.weight`)."""
+    k = list(flax_key)
+    if k[0] == "patch_embed_conv":
+        t = "conv" if k[1] == "kernel" else None
+        return f"visual.trunk.patch_embed.proj.{'weight' if t else 'bias'}", t
+    if k in (["cls_token"], ["pos_embed"]):
+        return f"visual.trunk.{k[0]}", None
+    if k[0] in ("norm", "fc_norm") and len(k) == 2:
+        return f"visual.trunk.{k[0]}.{_LN[k[1]]}", None
+    m = re.fullmatch(r"block(\d+)", k[0])
+    if m:
+        base = f"visual.trunk.blocks.{m.group(1)}"
+        sub = k[1:]
+        if sub[0] in ("norm1", "norm2"):
+            return f"{base}.{sub[0]}.{_LN[sub[1]]}", None
+        if sub[0] in ("attn_qkv", "attn_proj"):
+            return _dense(f"{base}.attn.{sub[0][5:]}", sub[1])
+        if sub[0] in ("mlp_fc1", "mlp_fc2"):
+            return _dense(f"{base}.mlp.fc{sub[0][-1]}", sub[1])
+    m = re.fullmatch(r"rel_pos(\d+)", k[0])
+    if m and len(k) == 3:
+        # timm keeps the bias MLP on the attention module
+        return _dense(f"visual.trunk.blocks.{m.group(1)}.attn.rel_pos.mlp.{k[1]}", k[2])
+    return _timm_head_key_map(k)
+
+
+def _timm_key_map(timm_model_name: str):
+    """The key map of a timm tower, by its trunk family (`convnext*`,
+    `swin*`, `vit_*`, as `models/clip.py::_visual_class` routes it)."""
+    for prefix, key_map in (("convnext", _convnext_vision_key_map), ("swin", _swin_vision_key_map),
+                            ("vit_", _timm_vit_vision_key_map)):
+        if timm_model_name.startswith(prefix):
+            return key_map
+    raise KeyError(f"timm trunk {timm_model_name!r} has no key map")
+
+
+def _vision_key_map(flax_key: tuple[str, ...], cfg: Optional[CLIPConfig] = None) -> tuple[str, Any]:
+    """The visual tower's key map. A timm tower's is chosen from ``cfg``, as
+    the JAX package's `_vision_key_map(flax_key, cfg)` chooses it: its flax
+    names collide with other towers' (`trunk` in Swin and ConvNeXt;
+    `cls_token`, `pos_embed` and `norm` in EVA and the timm ViT; `proj` in
+    the OpenCLIP ViT). Otherwise the EVA layout, else the plain OpenCLIP
+    ViT's, else the ModifiedResNet's (these trees share no top-level name
+    but the stem's `conv1`, which the ViT map takes for both; the JAX
+    package tries them in this order)."""
+    if cfg is not None and cfg.vision.timm_model_name:
+        return _timm_key_map(cfg.vision.timm_model_name)(flax_key)
     for key_map in (_eva_vision_key_map, _vit_vision_key_map):
         try:
             return key_map(flax_key)
@@ -226,17 +369,29 @@ def _flatten(tree: Any, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], A
     return {prefix: tree}
 
 
-def state_dict_from_jax(params: Any) -> dict[str, torch.Tensor]:
+def flax_to_torch_key(path: tuple[str, ...], cfg: Optional[CLIPConfig] = None) -> tuple[str, Any]:
+    """(torch key, transform) of a flax param path (`visual`, `text` or
+    `logit_scale` first); a timm tower's visual keys need ``cfg``."""
+    if path == ("logit_scale",):
+        return "logit_scale", None
+    if path[0] == "visual":
+        return _vision_key_map(path[1:], cfg)
+    return _KEY_MAPS[path[0]](path[1:])
+
+
+def state_dict_from_jax(params: Any, cfg: Optional[CLIPConfig] = None) -> dict[str, torch.Tensor]:
     """JAX param tree (nested dicts of arrays: `visual`, `text` and
     `logit_scale`) -> float32 torch state dict in the reference layout
-    (linear weights transposed, the HWIO patch kernel made OIHW)."""
+    (linear weights transposed, the HWIO patch kernel made OIHW). A timm
+    tower's tree needs its config ``cfg``: its flax names collide with the
+    other towers' (`_vision_key_map`)."""
     unknown = sorted(set(params) - set(_KEY_MAPS) - {"logit_scale"})
     if unknown:
         raise KeyError(f"params of parts the port does not build: {unknown}")
     out = {}
-    for part, key_map in _KEY_MAPS.items():
+    for part in _KEY_MAPS:
         for path, val in _flatten(params[part]).items():
-            key, transform = key_map(path)
+            key, transform = flax_to_torch_key((part,) + path, cfg)
             arr = np.asarray(val, dtype=np.float32)
             if transform == "linear":
                 arr = arr.T
@@ -322,8 +477,9 @@ def load_weights(model: nn.Module, source: Union[str, dict]) -> None:
     """Load a reference-layout state dict, or a `.pt` checkpoint path, into
     a port `CLIP` with `strict=True`: every key of the visual tower, the
     text tower and `logit_scale` must be there, and no other (BatchNorm's
-    `num_batches_tracked` and the rel-pos bias's `relative_position_index`,
-    buffers the port recomputes, are dropped). A text-tower
+    `num_batches_tracked`, the rel-pos bias's `relative_position_index` and
+    a timm Swin block's `attn_mask`, buffers the port recomputes, are
+    dropped). A text-tower
     key may come without its `text.` prefix (`import_state_dict` of the JAX
     package takes the open_clip hub layout so). A checkpoint with no
     text-tower key at all raises a KeyError that names them: the text tower
@@ -331,7 +487,7 @@ def load_weights(model: nn.Module, source: Union[str, dict]) -> None:
     if isinstance(source, str):
         source = torch.load(source, map_location="cpu", weights_only=True)
     sd = {k: v for k, v in unwrap_state_dict(source).items()
-          if not k.endswith(("num_batches_tracked", "relative_position_index"))}
+          if not k.endswith(("num_batches_tracked", "relative_position_index", ".attn_mask"))}
     text_keys = [k for k in model.state_dict() if k.startswith("text.")]
     for key in text_keys:
         bare = key[len("text."):]
@@ -383,7 +539,9 @@ def import_state_dict(model: nn.Module, sd: dict, source: str = "state dict") ->
     of the EVA towers, `visual.positional_embedding` of the OpenCLIP ViT)
     bicubic-resized to the model's grid, keys the model lacks ignored, and
     **non-strict**: a parameter the dict lacks keeps its value (logged). A
-    shape that differs otherwise raises. Returns the missing keys."""
+    shape that differs otherwise raises: a timm tower's `visual.trunk.pos_embed`
+    and Swin tables are not resized (no registry config needs it). Returns
+    the missing keys."""
     sd = unwrap_state_dict(sd)
     missing = []
     with torch.no_grad():

@@ -7,9 +7,10 @@
 ``--path clip`` (the default) runs the distill step (batch 2, 20 boxes, every block unlocked, bf16, AdamW,
 seeded random weights, one synthetic batch staged on the device) and the
 zero-shot evaluator (13 valid of 100 annotations, bucket 25) of one model
-(an EVA02 config or a plain OpenCLIP / OpenAI ViT: `--extract-type v1`
+(an EVA02 config, a plain OpenCLIP / OpenAI ViT: `--extract-type v1`
 pools its RoI features, and the evaluator's masks, by mask attention, whose
-plain attention's device time is reported under its own host range),
+plain attention's device time is reported under its own host range; a
+ResNet; a timm tower, trained with the image tower unlocked),
 each first without the profiler (host clock around a synchronised window:
 ms per step or batch, images/s, peak memory) and then under
 `torch.profiler` for ``--steps`` steps or batches, and prints for each a
@@ -69,6 +70,7 @@ from clipself_tpu_torch.detector.evaluate import evaluate_detector, make_predict
 from clipself_tpu_torch.detector.fvit import create_detector
 from clipself_tpu_torch.detector.train import DetTrainState, build_det_optimizer, make_det_train_step
 from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
+from clipself_tpu_torch.models.clip import dense_stride
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.train.methods import clipself_loss
 from clipself_tpu_torch.train.optim import build_optimizer, make_schedule
@@ -88,7 +90,8 @@ CLASSES = (
     ("rope_roll kernel", ("rope_roll_kernel",)),
     ("nms bit-matrix kernel", ("nms_matrix_kernel",)),
     ("nms scan kernel", ("nms_scan_kernel",)),
-    ("convolutions (cuDNN)", ("cudnn", "conv2d", "fprop", "dgrad", "implicit_gemm", "nchwToNhwc", "nhwcToNchw")),
+    ("convolutions (cuDNN)", ("cudnn", "conv2d", "fprop", "dgrad", "implicit_gemm", "nchwToNhwc", "nhwcToNchw",
+                              "depthwise")),
     ("GroupNorm", ("GroupNorm", "group_norm", "RowwiseMoments", "ComputeInternalGradients",
                    "BackwardFusedParams", "GammaBeta")),
     ("sorts", ("sort", "Sort", "radix", "Radix")),
@@ -302,11 +305,12 @@ def _profile_clip(args, device: torch.device) -> dict:
                          grad_checkpointing=args.grad_checkpointing)
     teacher = create_model(cfg, device=device, dtype=torch.bfloat16, seed=args.seed)
     teacher.requires_grad_(False)
-    # every lock group: a ResNet has five (stem, layer1..4), a ViT a block each
+    # every lock group: a ResNet has five (stem, layer1..4), a ViT a block
+    # each; a timm tower trains only unlocked (`--no-lock-image`)
     unlocked = 5 if v.resnet_layers else v.layers
     optimizer = build_optimizer(
         model, make_schedule("cosine", 1e-5, 1, 1000), wd=0.1,
-        unlocked_groups=unlocked, num_layers=v.layers,
+        unlocked_groups=unlocked, num_layers=v.layers, lock_image=not v.timm_model_name,
     )
     state = TrainState(model, optimizer)
     step_fn = make_train_step(
@@ -320,7 +324,8 @@ def _profile_clip(args, device: torch.device) -> dict:
     out["train"] = measure(lambda: step_fn(state, batch), args.steps, device, args.batch_size)
     report(
         f"{args.model} distill step, batch {args.batch_size} at {args.det_image_size}px, "
-        f"{args.max_boxes} boxes, crops {v.image_size}px, {unlocked} lock groups unlocked, bf16, "
+        f"{args.max_boxes} boxes, crops {v.image_size}px, "
+        f"{'the image tower' if v.timm_model_name else f'{unlocked} lock groups'} unlocked, bf16, "
         f"extract type {args.extract_type}"
         + (", block recomputation" if args.grad_checkpointing else ""),
         "step", out["train"],
@@ -332,7 +337,7 @@ def _profile_clip(args, device: torch.device) -> dict:
     host = synthetic_panoptic_batch(
         0, batch=args.eval_batch, image_size=args.det_image_size, max_anns=args.max_anns,
         valid_anns=args.valid_anns, crop_size=v.image_size,
-        mask_hw=args.det_image_size // v.patch_size, seed=args.seed,
+        mask_hw=args.det_image_size // dense_stride(v), seed=args.seed,
     )
     ebatch = {k: (a if k == "boxes" else torch.as_tensor(a, device=device)) for k, a in host.items()}
     emb = class_embeddings(133, cfg.embed_dim, seed=args.seed)

@@ -44,12 +44,16 @@ ResNet's BatchNorm statistics out of the update, `--force-patch-dropout`
 sets the config's patch dropout (which, as in the JAX trainer, no step
 applies: the drop needs keep indices that the trainer never gives), and
 `--pretrained` takes a file or a catalog tag (`models/pretrained.py`;
-nothing is downloaded).
+nothing is downloaded). The timm-family towers (`convnext_*`, `swin_*`,
+`vit_*`) train with `--no-lock-image` (under the lock none of their
+parameters trains, as in the JAX trainer); `--pretrained-image` marks such a
+tower's config `timm_model_pretrained`, which without `--pretrained` only
+logs a warning (no hub weights are fetched).
 
-Not carried (ROADMAP.md queue 1): the timm towers' `--pretrained-image`
-(item 8.4), meshes (item 9: `--n-devices`, `--fsdp-size`, `--tp-size`) and
-the TPU knobs (item 10: `--attn-impl`, `--pad-multiple`,
-`--scoped-vmem-kib`, `--profile-dir`). Their flags are absent.
+Not carried (ROADMAP.md queue 1): meshes (item 9: `--n-devices`,
+`--fsdp-size`, `--tp-size`) and the TPU knobs (item 10: `--attn-impl`,
+`--pad-multiple`, `--scoped-vmem-kib`, `--profile-dir`). Their flags are
+absent.
 """
 
 from __future__ import annotations
@@ -112,6 +116,9 @@ def parse_args(argv=None):
                    help="reference-layout .pt (or .npz), or a catalog tag of --model "
                         "(models/pretrained.py), to start from; non-strict, as the JAX "
                         "trainer's import")
+    p.add_argument("--pretrained-image", action="store_true",
+                   help="timm towers: mark the trunk pretrained (reference factory.py:182-187); "
+                        "nothing is fetched, pass --pretrained for weights")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     p.add_argument("--lock-image", action=argparse.BooleanOptionalAction, default=True)
@@ -355,6 +362,11 @@ def train(args) -> dict:
         cfg = dataclasses.replace(
             cfg, vision=dataclasses.replace(cfg.vision, patch_dropout=args.force_patch_dropout)
         )
+    if args.pretrained_image:
+        # reference factory.py:182-187: timm towers only
+        if not cfg.vision.timm_model_name:
+            raise ValueError("pretrained image towers currently only supported for timm models")
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, timm_model_pretrained=True))
     if args.force_quick_gelu:
         # reference main.py:125 -> the factory's quick_gelu override
         cfg = dataclasses.replace(

@@ -113,7 +113,10 @@ def trainable_labels(
     and the OpenCLIP ViT the last blocks, the stem, the CLS and positional
     embeddings, the final norm and the head (`proj`) staying frozen; in the
     ModifiedResNet the groups [stem, layer1, ..., layer4], group g frozen
-    while g <= 5 - ``unlocked_groups``, and the attention pool never."""
+    while g <= 5 - ``unlocked_groups``, and the attention pool never. A
+    timm tower (`visual.trunk.*`, `visual.head.*`) has no group the JAX
+    rules name, so under the lock all of it freezes, and without it all of
+    it trains, as in the JAX package."""
     names = list(names)
     first_trainable = num_layers - unlocked_groups
     freeze_at = 5 - unlocked_groups  # the ResNet's group rule
@@ -137,14 +140,24 @@ def trainable_labels(
     return labels
 
 
+# a Swin block's relative-position table: `rel_pos_table` in the JAX tree
+_SWIN_TABLE = re.compile(r"visual\.trunk\.layers\.\d+\.blocks\.\d+\.attn\.relative_position_bias_table$")
+
+
 def no_decay_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[str, bool]:
     """True where weight decay applies. Reference exclude rule: ndim < 2 or
-    the name holds bn/ln_/norm/bias/logit_scale (`main.py:200-204`)."""
+    the name holds bn/ln_/norm/bias/logit_scale (`main.py:200-204`), read on
+    the JAX package's leaf names (`clipself_tpu/train/optim.py::no_decay_mask`):
+    they are the torch names but for a Swin block's table, whose JAX name
+    `rel_pos_table` holds none of them, so it decays there and here."""
     excluded = ("bn", "ln_", "norm", "bias", "logit_scale")
-    return {
-        name: p.ndim >= 2 and not any(s in name.lower() for s in excluded)
-        for name, p in named_params
-    }
+
+    def decays(name: str, p: torch.Tensor) -> bool:
+        if p.ndim < 2:
+            return False
+        return bool(_SWIN_TABLE.match(name)) or not any(s in name.lower() for s in excluded)
+
+    return {name: decays(name, p) for name, p in named_params}
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ one evaluator batch at extract type v1 and one train step with
 one evaluator batch at v1 and one train step with
 `--lock-image-freeze-bn-stats`; and the EVA01 / bigE variants (the tiny EVA
 tower with a fused `qkv`, the GELU MLP, no RoPE, post-norm blocks and a
-shared rel-pos bias): one dense map."""
+shared rel-pos bias): one dense map; and a timm ConvNeXt (`convnext_base`'s
+config on a tiny arch): one evaluator batch and one `--no-lock-image`
+train step."""
 
 import json
 import math
@@ -199,9 +201,27 @@ bige = dataclasses.replace(tiny, vision=dataclasses.replace(
     tiny.vision, subln=False, naiveswiglu=False, rope=False, postnorm=True, use_shared_rel_pos_bias=True))
 eva = factory.create_model(bige, device="cpu", dtype=torch.float32, seed=0)
 eva_dense = eva.encode_dense(torch.zeros(1, 32, 32, 3), keep_shape=True)
+import clipself_tpu_torch.models.convnext as convnext
+convnext.CONVNEXT_ARCHS["convnext_nojax_tiny"] = ((1, 1, 2, 1), (8, 16, 24, 32))
+cn = dataclasses.replace(tiny, name="convnext-nojax", vision=dataclasses.replace(
+    factory.get_model_config("convnext_base").vision, timm_model_name="convnext_nojax_tiny", image_size=32))
+cn_model = factory.create_model(cn, device="cpu", dtype=torch.float32, seed=0)
+cn_batch = synthetic.synthetic_panoptic_batch(
+    0, batch=2, image_size=64, max_anns=8, valid_anns=5, crop_size=32, mask_hw=2, n_classes=7
+)
+cn_res = zero_shot.evaluate_zero_shot(
+    cn_model, [cn_batch], synthetic.class_embeddings(7, cn.embed_dim), device="cpu", ann_bucket=0
+)
+train_main.get_model_config = lambda name: cn
+cn_run = train_main.main([
+    "--device", "cpu", "--synthetic", "--model", "convnext-nojax", "--no-lock-image", "--batch-size", "1",
+    "--det-image-size", "64", "--max-boxes", "2", "--steps-per-epoch", "1", "--epochs", "1",
+    "--logs", sys.argv[1], "--name", "convnext",
+])
 data = {"loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
         "vit": [len(vit_res), vit_run["history"][-1]["loss"]],
         "rn": [len(rn_res), rn_run["history"][-1]["loss"]],
+        "convnext": [len(cn_res), cn_run["history"][-1]["loss"]],
         "eva_variants": [list(eva_dense.shape), bool(torch.isfinite(eva_dense).all())],
         "eval_only": sorted(eval_only["evals"][0]),
         "region": [h["loss_contrast"] for h in region["history"] + region_pre["history"]],
@@ -251,6 +271,7 @@ def test_port_runs_without_jax(tmp_path):
     assert math.isfinite(out["data"]["loss"]) and out["data"]["evals"] == 2
     assert out["data"]["vit"][0] == 12 and math.isfinite(out["data"]["vit"][1])
     assert out["data"]["rn"][0] == 12 and math.isfinite(out["data"]["rn"][1])
+    assert out["data"]["convnext"][0] == 12 and math.isfinite(out["data"]["convnext"][1])
     assert out["data"]["eva_variants"] == [[1, 4, 4, 64], True]
     assert len(out["data"]["eval_only"]) == 13 and "epoch" in out["data"]["eval_only"]
     assert len(out["data"]["region"]) == 2 and all(map(math.isfinite, out["data"]["region"]))

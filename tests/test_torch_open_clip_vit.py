@@ -520,17 +520,19 @@ def test_trainer_cli_v1_quick_gelu(tmp_path):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("convnext_base", "item 8.4"), ("hf-vit-tiny-test", "item 8.5"), ("roberta-ViT-B-32", "item 8.5"),
-    ("coca_ViT-B-32", "item 8.6"),
+    ("hf-vit-tiny-test", "item 8.5"), ("roberta-ViT-B-32", "item 8.5"), ("coca_ViT-B-32", "item 8.6"),
 ])
 def test_unported_towers_raise_naming_their_item(name, item):
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         CLIP(get_model_config(name), torch.float32)
 
 
-@pytest.mark.parametrize("name,tower", [("RN50", "ModifiedResNet"), ("EVA01-CLIP-B-16", "EvaViT")])
+@pytest.mark.parametrize("name,tower", [
+    ("RN50", "ModifiedResNet"), ("EVA01-CLIP-B-16", "EvaViT"), ("convnext_base", "ConvNeXtTower"),
+    ("swin_base_patch4_window7_224", "SwinTower"), ("vit_relpos_medium_patch16_cls_224", "TimmViTTower"),
+])
 def test_formerly_unported_towers_build(name, tower):
-    """The towers of items 8.2 and 8.3, which raised before they were
+    """The towers of items 8.2, 8.3 and 8.4, which raised before they were
     ported, build (on the meta device: no memory)."""
     with torch.device("meta"):
         model = CLIP(get_model_config(name), torch.float32)

@@ -18,6 +18,12 @@ plain attention), with the same bar. The weights are drawn on the card with
 a CUDA generator (a tower of 4.4 B parameters takes minutes on the host);
 the float32 model is drawn again from the same seed.
 
+The timm towers take one such batch too: convnext_large_d (the MLP head)
+and convnext_xxlarge (LayerNorm width 3072) at 1024^2, their layer scales
+drawn uniform in [0.1, 1) so that the blocks matter; the GAP ViT at its
+256^2 (the flash forward in every block) and the rel-pos ViT at 224^2 and
+448^2; each launching the LayerNorm kernel once a norm of each pass.
+
 Every transformer block is also held on its own: each block of the float32
 tower takes the tokens that the plain float32 path gives it, and its output
 with the bf16 kernels (min row cosine >= 0.9996) and with the float32
@@ -42,8 +48,9 @@ import torch
 from clipself_tpu_torch.core.config import get_model_config
 from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
 from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
-from clipself_tpu_torch.models import eva_vit, open_clip_vit
-from clipself_tpu_torch.models.clip import CLIP
+from clipself_tpu_torch.models import eva_vit, open_clip_vit, timm_vit
+from clipself_tpu_torch.models.clip import CLIP, dense_stride
+from clipself_tpu_torch.models.convnext import CONVNEXT_ARCHS, ConvNeXtBlock
 from clipself_tpu_torch.ops import attention, layer_norm, rope_roll
 
 pytestmark = pytest.mark.cuda
@@ -66,26 +73,35 @@ def _counts() -> dict:
 
 
 def _build(name: str, dtype: torch.dtype, dev) -> CLIP:
-    """The tower's CLIP with seeded random weights drawn on the card."""
+    """The tower's CLIP with seeded random weights drawn on the card; a
+    ConvNeXt's layer scales (1e-6 at init, which leaves its blocks all but
+    idle) then drawn uniform in [0.1, 1)."""
     with torch.device(dev):
         model = CLIP(get_model_config(name), dtype)
     gen = torch.Generator(device=dev).manual_seed(0)
     model.visual.init_weights(gen)
     model.text.init_weights(gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, ConvNeXtBlock):
+                m.gamma.copy_(torch.rand(m.gamma.shape, generator=gen, device=dev) * 0.9 + 0.1)
     return model.eval()
 
 
 @contextlib.contextmanager
 def _plain():
     """The kernels' plain versions where the towers call the wrappers
-    (these towers run no RoPE)."""
-    saved = (eva_vit.multi_head_attention, eva_vit.layer_norm, open_clip_vit.multi_head_attention)
+    (these towers run no RoPE; the timm towers' LayerNorms are `eva_vit`'s)."""
+    saved = (eva_vit.multi_head_attention, eva_vit.layer_norm, open_clip_vit.multi_head_attention,
+             timm_vit.multi_head_attention)
     eva_vit.multi_head_attention = open_clip_vit.multi_head_attention = attention.attention_masked
+    timm_vit.multi_head_attention = attention.attention_masked
     eva_vit.layer_norm = layer_norm.layer_norm_plain
     try:
         yield
     finally:
-        eva_vit.multi_head_attention, eva_vit.layer_norm, open_clip_vit.multi_head_attention = saved
+        (eva_vit.multi_head_attention, eva_vit.layer_norm, open_clip_vit.multi_head_attention,
+         timm_vit.multi_head_attention) = saved
 
 
 def _min_row_cos(a, b):
@@ -124,7 +140,7 @@ def _evaluate_and_compare(name, side, dev):
     dense map's min row cosine, the blocks' worst bf16 cosine, the blocks'
     worst f32 relative error)."""
     cfg = get_model_config(name)
-    grid = side // (cfg.vision.patch_size or 32)
+    grid = side // dense_stride(cfg.vision)
     host = synthetic_panoptic_batch(
         0, batch=1, image_size=side, max_anns=MAX_ANNS, valid_anns=VALID_ANNS,
         crop_size=cfg.vision.image_size, mask_hw=grid, n_classes=N_CLASSES,
@@ -185,3 +201,29 @@ def test_resnet_50x64_evaluator_batch_at_448(dev):
     launched, cos, _, _ = _evaluate_and_compare("RN50x64", 448, dev)
     assert launched == {"flash": 0, "layer_norm": 0, "rope": 0}, launched
     assert cos >= PATH_BF16_MIN_COS, f"RN50x64: bf16 dense map min row cosine {cos}"
+
+
+@pytest.mark.parametrize("name", ["convnext_large_d", "convnext_xxlarge"])
+def test_convnext_evaluator_batch_at_1024(dev, name):
+    """ConvNeXt-Large with the MLP head and ConvNeXt-XXLarge (LayerNorm width
+    3072) at 1024^2: the LayerNorm kernel alone launches, once a norm of the
+    dense and of the crop pass; the dense map holds the bf16 bar."""
+    depths = CONVNEXT_ARCHS[get_model_config(name).vision.timm_model_name][0]
+    launched, cos, _, _ = _evaluate_and_compare(name, 1024, dev)
+    assert launched == {"flash": 0, "layer_norm": 2 * (len(depths) + sum(depths) + 1), "rope": 0}, launched
+    assert cos >= PATH_BF16_MIN_COS, f"{name}: bf16 dense map min row cosine {cos}"
+
+
+@pytest.mark.parametrize("name,side,flash", [
+    ("vit_medium_patch16_gap_256", 256, 24),  # its pos_embed is not resized: 256^2 only
+    ("vit_relpos_medium_patch16_cls_224", 224, 0),
+    ("vit_relpos_medium_patch16_cls_224", 448, 0),  # [784^2, 512] rel-pos MLP activations
+])
+def test_timm_vit_evaluator_batch(dev, name, side, flash):
+    """The GAP ViT's unbiased attention launches the flash forward in every
+    block of both passes; the rel-pos ViT's biased attention is plain. Two
+    LayerNorms a block and the final one a pass; the dense map holds the
+    bf16 bar."""
+    launched, cos, _, _ = _evaluate_and_compare(name, side, dev)
+    assert launched == {"flash": flash, "layer_norm": 2 * 25, "rope": 0}, launched
+    assert cos >= PATH_BF16_MIN_COS, f"{name} at {side}^2: bf16 dense map min row cosine {cos}"

@@ -269,3 +269,46 @@ def test_debug_and_log_local_write_out_0_at_debug(tmp_path):
     assert "| DEBUG |" in text and "| INFO |" in text
     train_main.main(_synthetic(tmp_path, "info", 1))
     assert "| DEBUG |" not in (tmp_path / "info" / "out.log").read_text()
+
+
+def test_pretrained_image_refuses_a_tower_that_is_not_timm(tmp_path):
+    """`--pretrained-image` on a non-timm model raises, with the message of
+    the JAX trainer's assert."""
+    from clipself_tpu.train import main as jax_main
+
+    message = "pretrained image towers currently only supported for timm models"
+    with pytest.raises(ValueError, match=message):
+        train_main.main(_synthetic(tmp_path, "pi", 1, "--pretrained-image"))
+    with pytest.raises(AssertionError, match=message):
+        jax_main.main(["--synthetic", "--model", NAME, "--pretrained-image", "--logs", str(tmp_path)])
+
+
+def test_pretrained_image_marks_a_timm_tower_and_warns(tmp_path, monkeypatch, caplog):
+    """On a timm tower (a tiny ConvNeXt, `--no-lock-image`: under the lock a
+    timm tower trains nothing) the flag sets `timm_model_pretrained` and,
+    with nothing to load, logs the JAX package's warning; the step trains."""
+    import dataclasses
+
+    from clipself_tpu_torch.core.config import config_from_dict
+    from clipself_tpu_torch.models import convnext
+
+    monkeypatch.setitem(convnext.CONVNEXT_ARCHS, "convnext_flags_tiny", ((1, 1, 1, 1), (8, 16, 24, 32)))
+    cfg = config_from_dict(dict(
+        embed_dim=32, vision_cfg=dict(timm_model_name="convnext_flags_tiny", image_size=32),
+        text_cfg=dict(context_length=8, vocab_size=64, width=32, heads=2, layers=1)), name="convnext-flags")
+    monkeypatch.setattr(train_main, "get_model_config", lambda name: cfg)
+    with caplog.at_level("WARNING", logger="clipself_tpu_torch"):
+        run = train_main.main([
+            "--device", "cpu", "--synthetic", "--model", "convnext-flags", "--pretrained-image",
+            "--no-lock-image", "--precision", "fp32", "--batch-size", "1", "--det-image-size", "64",
+            "--max-boxes", "2", "--steps-per-epoch", "1", "--epochs", "1", "--lr", "1e-3",
+            "--logs", str(tmp_path), "--name", "pi",
+        ])
+    model = run["state"].model
+    assert model.cfg.vision.timm_model_pretrained
+    assert dataclasses.replace(model.cfg.vision, timm_model_pretrained=False) == cfg.vision
+    assert "timm_model_pretrained is set but no weights source is reachable" in caplog.text
+    assert math.isfinite(run["history"][-1]["loss"])
+    moved = {k.split(".")[1] for k, v in run["teacher"].state_dict().items()
+             if not torch.equal(model.state_dict()[k], v)}
+    assert moved == {"trunk", "head"}
