@@ -121,6 +121,17 @@ then for each model, B/16 first:
    kernels alone (Swin's window attention is plain, as the JAX package's
    einsum is); the kernel rows of phase 2 include their LayerNorm shapes
    (ConvNeXt-Base widths 128 and 1024, Swin-B's patch merging at 4C = 512);
+7f. CoCa (`phase_coca`): coca_ViT-L-14 (ViT-L/14 at 224^2 with the
+   attentional pooler, text tower and decoder of 12 blocks at width 768,
+   vocabulary 49408) on seeded random weights drawn once on the card: forward
+   and `coca_loss` over 8 images and 8 tokenized captions in bf16 (ms,
+   images/s, kernel ms under the profiler), parity of the image latents, text
+   latents and decoder logits (bf16 and f32 kernels against the plain float32
+   path), one bf16 backward (vision gradients finite), greedy captions of 20
+   tokens (ms a generated position; f32 kernels against the f32 plain path,
+   tokens EQUAL or a near tie), every run's launches equal to
+   `coca_expected_launches`; the kernel rows of phase 2 include the flash
+   kernels at its [8, 257, 16, 64] and coca_ViT-B-32's [8, 50, 12, 64];
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
 8. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
@@ -327,6 +338,22 @@ DET_LVIS_PRESETS = ("ov_lvis_vitb16", "ov_lvis_vitl14")
 # batch and on that matrix
 TEXT_BATCH, TEXT_WARMUP_CLASSES = 64, 4
 
+# CoCa: coca_ViT-L-14 (ViT-L/14 at 224^2 with the attentional pooler of 256
+# queries; 12-block text tower and decoder at width 768; vocabulary 49408) on
+# a batch of 8 images and 8 captions: forward and loss timed over COCA_TIMED
+# calls after one, greedy captions of COCA_MAX_LEN tokens
+COCA_MODEL, COCA_BATCH, COCA_TIMED, COCA_MAX_LEN = "coca_ViT-L-14", 8, 5, 20
+COCA_CAPTIONS = (
+    "a man riding a wave on top of a surfboard", "two dogs playing with a frisbee in the park",
+    "a plate of food with broccoli and rice", "a red double decker bus driving down a street",
+    "a cat sleeping on a laptop keyboard", "people walking on a beach near the ocean",
+    "a kitchen with a stove and a refrigerator", "a giraffe standing next to a tall tree",
+)
+# greedy tokens of the f32 kernel path against the f32 plain path: EQUAL, or
+# the first difference at a position whose top-2 logit gap (plain path) is
+# under this: a near tie that summation order may flip
+COCA_TIE_GAP = 1e-3
+
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory, dense bf16 tensor cores, float32 outside the tensor cores.
 PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -494,12 +521,13 @@ def plain_path():
     wrappers (`eva_vit.multi_head_attention`, `eva_vit.layer_norm`, which
     the text tower's and the OpenCLIP ViT's LayerNorms call too,
     `open_clip_vit.multi_head_attention`, `timm_vit.multi_head_attention`,
-    `rope.rolled_rope` and `rope.rolled_rope_qk`, the detector's
+    `coca.multi_head_attention` (the CoCa pooler's cross-attention is plain
+    on every path), `rope.rolled_rope` and `rope.rolled_rope_qk`, the detector's
     `nms.nms_keep_mask`; the timm towers' LayerNorms are `eva_vit`'s); autograd
     differentiates them. Fails if any kernel
     launched inside, so a swap that misses a call site cannot compare the
     kernels with themselves."""
-    from clipself_tpu_torch.models import eva_vit, open_clip_vit, rope, timm_vit
+    from clipself_tpu_torch.models import coca, eva_vit, open_clip_vit, rope, timm_vit
     from clipself_tpu_torch.ops.attention import attention_masked
     from clipself_tpu_torch.ops.layer_norm import layer_norm_plain
     from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain, unpack_tables
@@ -512,20 +540,22 @@ def plain_path():
         return rolled_rope_plain(q, *tables), rolled_rope_plain(k, *tables)
 
     saved = (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
-             open_clip_vit.multi_head_attention, timm_vit.multi_head_attention)
+             open_clip_vit.multi_head_attention, timm_vit.multi_head_attention, coca.multi_head_attention)
     # the EVA tower's dispatch: unmasked calls took the flash kernel (a rel-pos
     # bias is a mask, plain on every path)
     eva_vit.multi_head_attention, eva_vit.layer_norm = attention_masked, layer_norm_plain
     rope.rolled_rope, rope.rolled_rope_qk = rope_plain, rope_qk_plain
-    # the ViT towers' dispatch: unmasked calls took the flash kernel
+    # the ViT towers' dispatch, and a CoCa cross block's where the keys are
+    # as many as the queries: unmasked calls took the flash kernel
     open_clip_vit.multi_head_attention = timm_vit.multi_head_attention = attention_masked
+    coca.multi_head_attention = attention_masked
     reset_counts()
     try:
         with plain_nms():
             yield
     finally:
         (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
-         open_clip_vit.multi_head_attention, timm_vit.multi_head_attention) = saved
+         open_clip_vit.multi_head_attention, timm_vit.multi_head_attention, coca.multi_head_attention) = saved
     if any(read_counts().values()):
         fail(f"the plain path launched kernels: {read_counts()}")
 
@@ -571,8 +601,8 @@ def drawn_once():
             if not kw.get("pretrained"):
                 drawn[key] = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
             return model
-        model = factory.CLIP(cfg, dtype=kw.get("dtype", torch.bfloat16),
-                             grad_checkpointing=kw.get("grad_checkpointing", False))
+        model = factory.model_class(cfg)(cfg, dtype=kw.get("dtype", torch.bfloat16),
+                                         grad_checkpointing=kw.get("grad_checkpointing", False))
         model.load_state_dict(drawn[key])
         return model.to(kw["device"]).eval()
 
@@ -747,10 +777,13 @@ def sdpa(torch, q, k, v, scale, mask=None):
     return out.transpose(1, 2)
 
 
-def check_attention(torch, dev, records, gen, shape, train):
+def check_attention(torch, dev, records, gen, shape, train, graph=False):
     """The forward on [B, N, H, D] per-head views of [B, N, W] projections;
     with ``train`` also the forward with its LSE and the one-pass backward
-    (plain float32 on the bf16-valued inputs is the bar for bf16)."""
+    (plain float32 on the bf16-valued inputs is the bar for bf16). With
+    ``graph`` the kernel, plain and library calls are timed from a CUDA
+    graph (`cuda_ms`): at CoCa's small shapes the host's launch pace would
+    hide their device times; the library's backward stays eager."""
     from clipself_tpu_torch.ops import attention
 
     b, n, h, d = shape
@@ -769,9 +802,9 @@ def check_attention(torch, dev, records, gen, shape, train):
         del got, want
         records.add(
             "flash_attention", "forward", shape, dt, err=max_abs,
-            ms=cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale), iters),
-            plain_ms=cuda_ms(lambda: attention.attention_plain(q, k, v, scale), iters),
-            library_ms=cuda_ms(lambda: sdpa(torch, q, k, v, scale), iters),
+            ms=cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale), iters, graph=graph),
+            plain_ms=cuda_ms(lambda: attention.attention_plain(q, k, v, scale), iters, graph=graph),
+            library_ms=cuda_ms(lambda: sdpa(torch, q, k, v, scale), iters, graph=graph),
             moved=4 * nbytes(q), flops=flops, note=f"min_row_cos {cos:.7f} ",
             design=attention.kernel_design(dt, d),
         )
@@ -786,8 +819,8 @@ def check_attention(torch, dev, records, gen, shape, train):
         lse_err = (lse - lse32).abs().max().item()
         records.add(
             "flash_attention", "forward with lse", shape, dt, err=lse_err,
-            ms=cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale, return_lse=True), iters),
-            plain_ms=cuda_ms(lambda: attention.attention_lse_plain(q, k, v, scale), iters),
+            ms=cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale, return_lse=True), iters, graph=graph),
+            plain_ms=cuda_ms(lambda: attention.attention_lse_plain(q, k, v, scale), iters, graph=graph),
             library_ms=None, moved=4 * nbytes(q) + nbytes(lse), flops=flops,
             note=f"(of the lse, bar {LSE_MAX_ABS}) ", design=attention.kernel_design(dt, d),
         )
@@ -802,20 +835,21 @@ def check_attention(torch, dev, records, gen, shape, train):
         coss = [min_row_cos(g, w) for g, w in zip(got, want)]
         finite = all(torch.isfinite(g).all().item() for g in got)
         del got, want, f
-        # the library's backward alone: autograd of its forward, kept graph
+        # the library's backward alone: autograd of its forward, kept graph,
+        # timed eagerly always (autograd's backward does not capture into a
+        # CUDA graph here: the engine ties the capture to the legacy stream)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         lib_out = sdpa(torch, *leaves, scale)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters)
         records.add(
             "flash_attention_bwd", "backward", shape, dt, err=max(errs),
-            ms=cuda_ms(lambda: attention.flash_attention_bwd(q, k, v, out, lse, do, scale), iters),
-            plain_ms=cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, out, lse, do, scale), 5),
-            library_ms=cuda_ms(
-                lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), iters
-            ),
+            ms=cuda_ms(lambda: attention.flash_attention_bwd(q, k, v, out, lse, do, scale), iters, graph=graph),
+            plain_ms=cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, out, lse, do, scale), 5, graph=graph),
+            library_ms=lib_bwd_ms,
             # q, k, v, out, dO and the lse read, dq, dk, dv written; five
             # products (S, dP, dV, dK, dQ)
             moved=8 * nbytes(q) + nbytes(lse), flops=flops * 5 // 2,
-            note=f"rel {rel:.3e} min_row_cos {min(coss):.6f} ",
+            note=f"rel {rel:.3e} min_row_cos {min(coss):.6f} " + ("(library eager) " if graph else ""),
             design=attention.kernel_design(dt, d, backward=True),
         )
         del lib_out, leaves
@@ -1059,6 +1093,11 @@ def phase_kernels(torch, dev, records):
                 check_layer_norm(torch, dev, records, gen, teacher + (width,), "", backward=False)
             check_layer_norm(torch, dev, records, gen, student, " rows 1: of", backward=True)
             check_layer_norm(torch, dev, records, gen, teacher + (v.width,), " row 0 of", backward=True)
+    # coca_ViT-L-14's vision trunk at a batch of 8 at 224^2 (257 tokens,
+    # forward and backward: coca_loss trains it) and coca_ViT-B-32's (50
+    # tokens: one ragged tile)
+    check_attention(torch, dev, records, gen, (COCA_BATCH, 257, 16, 64), train=True, graph=True)
+    check_attention(torch, dev, records, gen, (COCA_BATCH, 50, 12, 64), train=False, graph=True)
     # the large towers' head dims, which the WMMA and FMA designs take on
     # zero-filled 16-wide tiles (88: ViT-g-14, EVA01-CLIP-g-14; 104:
     # ViT-bigG-14) or exactly (80; 112: EVA02-CLIP-bigE-14), over the
@@ -1984,6 +2023,214 @@ def phase_towers(torch, dev, logs_dir) -> dict:
     return paths
 
 
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def coca_expected_launches(cfg, *, forwards=0, backwards=0, images=0, decodes=0) -> dict:
+    """Launches of a CoCa over the OpenCLIP ViT with the attentional pooler:
+    ``forwards`` model forwards (of which ``backwards`` run backward),
+    ``images`` image encodings alone and ``decodes`` decoder calls
+    (`decode_text`, one a generated position). The vision trunk's blocks
+    take the flash kernel (unmasked self-attention); the pooler, the text
+    tower and the decoder run plain attention (cross or causal). LayerNorms:
+    the tower's `ln_pre`, two a block, the pooler's `ln_q` and `ln_k` and
+    `ln_post`; the text tower's two a block and `ln_final` (on the CLS
+    position); the decoder's two a self block, three a cross block
+    (`ln_1`, `ln_1_kv`, `ln_2`) and `ln_final`. Every parameter is trainable,
+    so a backward runs the LayerNorm backward for every norm of its forward."""
+    v, t, m = cfg.vision, cfg.text, cfg.multimodal
+    vision_norms = 1 + 2 * v.layers + 3
+    decode_norms = (2 * t.layers + 1) + (5 * m.layers + 1)
+    return {
+        "nms": 0,
+        "flash_attention": (forwards + images) * v.layers,
+        "flash_attention_bwd": backwards * v.layers,
+        "rope_roll": 0,
+        "rope_roll_bwd": 0,
+        "layer_norm": (forwards + images) * vision_norms + (forwards + decodes) * decode_norms,
+        "layer_norm_bwd": backwards * (vision_norms + decode_norms),
+    }
+
+
+def coca_parity(torch, model, model_f32, images, texts) -> dict:
+    """Image latents, text latents and decoder logits of the bf16 kernels
+    and the f32 kernels against the f32 plain path (min row cosine, max
+    abs); fails under `PATH_BF16_MIN_COS` (bf16) or over `PATH_F32_MAX_ABS`
+    (f32) on any of them."""
+    def run(m):
+        out = m(images, texts)
+        return {"image latents": out["image_features"], "text latents": out["text_features"],
+                "decoder logits": out["logits"]}
+
+    with torch.inference_mode():
+        k16, k32 = run(model), run(model_f32)
+        with plain_path():
+            p32 = run(model_f32)
+    rows = {}
+    for what in p32:
+        cos, f32_abs = min_row_cos(k16[what], p32[what]), (k32[what] - p32[what]).abs().max().item()
+        rows[what] = (cos, f32_abs)
+        print(f"coca parity {what} {list(p32[what].shape)}: bf16 kernels vs f32 plain min_row_cos {cos:.7f} "
+              f"(bar {PATH_BF16_MIN_COS}); f32 kernels vs f32 plain max_abs {f32_abs:.3e} "
+              f"(bar {PATH_F32_MAX_ABS})", flush=True)
+        if not all(torch.isfinite(x[what]).all() for x in (k16, k32, p32)):
+            fail(f"coca {what}: not finite")
+    for what, (cos, f32_abs) in rows.items():
+        if not cos >= PATH_BF16_MIN_COS:
+            fail(f"coca {what}: bf16 kernel path min row cosine {cos}")
+        if not f32_abs <= PATH_F32_MAX_ABS:
+            fail(f"coca {what}: f32 kernel path off the plain path by {f32_abs}")
+    return rows
+
+
+def greedy_parity(torch, model_f32, images, sot: int, eot: int) -> None:
+    """Greedy captions of the f32 kernel path against the f32 plain path:
+    EQUAL, or the first differing position's top-2 logit gap (the plain
+    path's) under `COCA_TIE_GAP`."""
+    from clipself_tpu_torch.models.coca import generate
+
+    got = generate(model_f32, images, sot, eot, max_len=COCA_MAX_LEN)
+    with plain_path():
+        want = generate(model_f32, images, sot, eot, max_len=COCA_MAX_LEN)
+        diff = (got != want).nonzero()
+        gap = None
+        if len(diff):
+            b, pos = diff[0].tolist()
+            with torch.inference_mode():
+                logits = model_f32.decode_text(model_f32._encode_image(images[b:b + 1])[1], want[b:b + 1])
+            top2 = torch.topk(logits[0, pos - 1].float(), 2).values
+            gap = (top2[0] - top2[1]).item()
+    print(f"coca greedy {list(got.shape)}: f32 kernels vs f32 plain tokens "
+          + ("EQUAL" if gap is None else f"differ first at row {b} position {pos}, top-2 logit gap {gap:.3e} "
+             f"(bar {COCA_TIE_GAP})"), flush=True)
+    if gap is not None and not gap < COCA_TIE_GAP:
+        fail(f"coca greedy tokens differ at row {b} position {pos} with a top-2 gap of {gap}")
+
+
+def phase_coca(torch, dev) -> dict:
+    """coca_ViT-L-14 at full width and depth on seeded random weights, drawn
+    once on the card (a host draw of its 0.64 G values takes seconds) and
+    shared by the bf16 and the f32 model: forward and `coca_loss` over 8
+    images at 224^2 and 8 captions from `get_tokenizer`, timed (images/s)
+    and profiled (kernel ms); parity of the image latents, text latents and
+    decoder logits; one backward in bf16 (the vision tower's gradients
+    finite); greedy captions of `COCA_MAX_LEN` tokens (ms a generated
+    position, the f32 kernel path against the f32 plain path). Every run's
+    launches equal `coca_expected_launches`. Returns the launch counts by
+    path."""
+    from clipself_tpu_torch.models.coca import coca_loss, generate
+    from clipself_tpu_torch.models.factory import get_model_config, get_tokenizer, model_class
+    from clipself_tpu_torch.tokenizer import tokenize
+
+    t0 = time.perf_counter()
+    cfg = get_model_config(COCA_MODEL)
+    with torch.device(dev):
+        model = model_class(cfg)(cfg, dtype=torch.bfloat16)
+        model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+        model_f32 = model_class(cfg)(cfg, dtype=torch.float32)
+    model_f32.load_state_dict(model.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    size = cfg.vision.image_size
+    images = torch.randn((COCA_BATCH, size, size, 3), generator=gen, device=dev)
+    texts = torch.as_tensor(get_tokenizer(COCA_MODEL)(list(COCA_CAPTIONS)), device=dev).long()
+    sot, eot = (int(tokenize("")[0, i]) for i in (0, 1))
+    smi = card()
+    paths = {}
+
+    def step():
+        return coca_loss(model(images, texts), texts)[0]
+
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        for _ in range(COCA_TIMED):
+            loss = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / COCA_TIMED * 1e3
+        paths["coca_forward"] = read_counts()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step()
+            torch.cuda.synchronize()
+        k_ms = kernel_ms(torch, prof)
+    print(f"coca forward + coca_loss kernels: {top_kernels(torch, prof)}", flush=True)
+    print(f"coca {COCA_MODEL} forward + coca_loss, {COCA_BATCH} images {size}px and {COCA_BATCH} captions of "
+          f"{texts.shape[1]} tokens, bf16: {ms:.3f} ms a call ({COCA_TIMED} after 1), "
+          f"{COCA_BATCH / ms * 1e3:.3f} images/s, kernels {k_ms:.3f} ms, device idle {1 - k_ms / ms:.1%}, "
+          f"loss {loss.item():.5f}; {smi}", flush=True)
+    expect = coca_expected_launches(cfg, forwards=COCA_TIMED)
+    if paths["coca_forward"] != expect:
+        fail(f"coca forward launch counts {paths['coca_forward']}, expected {expect}")
+    if not math.isfinite(loss.item()):
+        fail(f"coca loss {loss.item()}")
+
+    coca_parity(torch, model, model_f32, images, texts)
+
+    # one backward in bf16: every parameter trainable
+    reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = step()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t1) * 1e3
+    paths["coca_backward"] = read_counts()
+    grads = [p.grad for name, p in model.named_parameters() if name.startswith("visual.")]
+    finite = all(g is not None and torch.isfinite(g).all().item() for g in grads)
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads)).item()
+    model.zero_grad(set_to_none=True)
+    print(f"coca backward of coca_loss, bf16: forward + backward {bwd_ms:.3f} ms (one call), loss "
+          f"{loss.item():.5f}, {len(grads)} vision gradients finite {finite}, their norm {norm:.4e}; "
+          f"launches {json.dumps(paths['coca_backward'])}", flush=True)
+    expect = coca_expected_launches(cfg, forwards=1, backwards=1)
+    if paths["coca_backward"] != expect:
+        fail(f"coca backward launch counts {paths['coca_backward']}, expected {expect}")
+    if not finite:
+        fail("coca backward: a vision gradient is missing or not finite")
+
+    # greedy captions: ms a generated position in bf16, then f32 kernels vs plain
+    generate(model, images, sot, eot, max_len=4)
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    tokens = generate(model, images, sot, eot, max_len=COCA_MAX_LEN)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t1) * 1e3
+    paths["coca_generate"] = read_counts()
+    steps = COCA_MAX_LEN - 1
+    with torch.inference_mode():
+        img_tokens = model._encode_image(images)[1]
+        with torch.profiler.profile(activities=acts) as prof:
+            model.decode_text(img_tokens, tokens)
+            torch.cuda.synchronize()
+    print(f"coca one decode step [{COCA_BATCH}, {COCA_MAX_LEN}] kernels {kernel_ms(torch, prof):.3f} ms: "
+          f"{top_kernels(torch, prof)}", flush=True)
+    print(f"coca greedy generate bf16, {COCA_BATCH} images, max_len {COCA_MAX_LEN}: {gen_ms:.3f} ms, "
+          f"{gen_ms / steps:.3f} ms a generated position (the whole buffer decoded each step), "
+          f"first caption {tokens[0].tolist()}; {smi}", flush=True)
+    expect = coca_expected_launches(cfg, images=1, decodes=steps)
+    if paths["coca_generate"] != expect:
+        fail(f"coca generate launch counts {paths['coca_generate']}, expected {expect}")
+    # a row starts with the start token and ends at its first end token or
+    # pad (the pad id is a real token, and a generated one ends the row)
+    ends = (tokens[:, 1:] == eot) | (tokens[:, 1:] == model_f32.pad_id)
+    if not ((tokens[:, 0] == sot).all() and ends.any(dim=1).all()):
+        fail(f"coca greedy captions malformed: {tokens.tolist()}")
+    greedy_parity(torch, model_f32, images, sot, eot)
+    del model, model_f32
+    torch.cuda.empty_cache()
+    print(f"coca phase: {time.perf_counter() - t0:.1f} s (bar 45 s)", flush=True)
+    return paths
+
+
 def stats(got, want, width=None) -> dict:
     """max abs, mean abs and min row cosine of two tensors; ``width`` cuts
     both into rows of that many values first (a last axis of 3 anchors is
@@ -2652,6 +2899,17 @@ def profiled_steps(torch, start: int, stop: int, out: dict, trainer=None):
     finally:
         setattr(module, name, original)
     out["kernel_ms"] = kernel_ms(torch, out.pop("prof"))
+
+
+def top_kernels(torch, prof, n: int = 8) -> str:
+    """The ``n`` device kernels of a profiled window that took the most
+    time, with their launches, and the number of kernel launches in all."""
+    events = prof.key_averages()
+    host = {ev.key for ev in events if ev.device_type == torch.autograd.DeviceType.CPU}
+    dev = sorted((ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA and ev.key not in host),
+                 key=lambda ev: -(getattr(ev, "self_device_time_total", 0) or 0))
+    rows = [f"{ev.key[:48]} {ev.self_device_time_total / 1e3:.3f} ms ({ev.count})" for ev in dev[:n]]
+    return f"{sum(ev.count for ev in dev)} launches; " + "; ".join(rows)
 
 
 def kernel_ms(torch, prof) -> float:
@@ -3602,11 +3860,7 @@ def run() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     _build.LIBRARY.get()
@@ -3646,6 +3900,8 @@ def run_phases(torch, dev, t0) -> int:
     print(f"OpenCLIP ViT done at {time.perf_counter() - t0:.1f} s", flush=True)
     paths.update(phase_towers(torch, dev, logs_dir))
     print(f"RN50, EVA01-B/16, ConvNeXt-B and Swin-B done at {time.perf_counter() - t0:.1f} s", flush=True)
+    paths.update(phase_coca(torch, dev))
+    print(f"CoCa done at {time.perf_counter() - t0:.1f} s", flush=True)
     cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev, DET_PRESET)
     phase_detector_parity(torch, dev, DET_PRESET, cfg, clip, det, emb, items)
     del clip, det

@@ -8,8 +8,9 @@ The visual tower is chosen from the config as the JAX package chooses it:
 `timm_model_name` gives `ConvNeXtTower` (`convnext*`), `SwinTower`
 (`swin*`) or `TimmViTTower` (`vit_*`), `eva_model_name` `EvaViT`,
 `resnet_layers` `ModifiedResNet`, a config with none of these nor
-`hf_trunk_name` `OpenCLIPViT`. The other towers raise, each naming its
-ROADMAP.md item.
+`hf_trunk_name` `OpenCLIPViT`. The transformers trunk adapter raises,
+naming its ROADMAP.md item. A config with a multimodal decoder builds a
+`models/coca.py::CoCa` (`models/factory.py::model_class`).
 """
 
 from __future__ import annotations
@@ -36,13 +37,11 @@ def _visual_class(cfg: CLIPConfig):
     """The port's tower class of ``cfg``, or NotImplementedError naming the
     ROADMAP.md item of a tower not ported yet."""
     v = cfg.vision
-    missing = None
-    if cfg.multimodal is not None:
-        missing = "the CoCa model (item 8.6)"
-    elif v.hf_trunk_name:
-        missing = f"the transformers trunk adapter {v.hf_trunk_name!r} (item 8.5)"
-    if missing is not None:
-        raise NotImplementedError(f"{cfg.name}: {missing} is not ported yet (ROADMAP.md queue 1)")
+    if v.hf_trunk_name:
+        raise NotImplementedError(
+            f"{cfg.name}: the transformers trunk adapter {v.hf_trunk_name!r} (item 8.5) is not "
+            "ported yet (ROADMAP.md queue 1)"
+        )
     if v.timm_model_name:
         # one tower a timm trunk family (`clipself_tpu/models/clip.py:45-64`)
         for prefix, tower in (("convnext", ConvNeXtTower), ("swin", SwinTower), ("vit_", TimmViTTower)):
@@ -73,6 +72,12 @@ class CLIP(nn.Module):
         self.visual = _visual_class(cfg)(cfg.vision, cfg.embed_dim, dtype, grad_checkpointing)
         self.text = TextTransformer(cfg.text, cfg.embed_dim, dtype)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The visual tower's initial draw from ``generator``, then the text
+        tower's."""
+        self.visual.init_weights(generator)
+        self.text.init_weights(generator)
 
     def forward(self, image: torch.Tensor, text: torch.Tensor):
         """(image embedding, text embedding), both L2-normalized, and

@@ -425,12 +425,32 @@ class EvaViT(nn.Module):
         """Image embedding from the CLS token [B, embed_dim]; ``patch_keep``
         (a generator or keep indices, see `_patch_dropout`) drops patch
         tokens where the config sets `patch_dropout`."""
+        return self.head(self.norm(self._trunk(x, patch_keep)[:, 0]))
+
+    def _trunk(self, x: torch.Tensor, patch_keep) -> torch.Tensor:
+        """Every block's output [B, 1 + K, width] over the embedded (and,
+        with ``patch_keep``, dropped) tokens, before the final norm."""
         t, grid = self.embed(x)
         t, pos_idx = self._patch_dropout(t, patch_keep)
         bias = self._shared_bias(t.shape[1])
         for blk in self.blocks:
             t = self._run(blk, t, grid, bias, pos_idx)
-        return self.head(self.norm(t[:, 0]))
+        return t
+
+    def forward_tokens(self, x: torch.Tensor, patch_keep=None) -> torch.Tensor:
+        """The final-norm token sequence [B, 1 + K, width], CLS first, for
+        the CoCa consumers (`clipself_tpu/models/eva_vit.py:573-586`): patch
+        dropout applies here as on the global-embedding path (K = gh*gw
+        without it)."""
+        return self.norm(self._trunk(x, patch_keep))
+
+    def forward_pooled(self, x: torch.Tensor, patch_keep=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(pooled [B, embed_dim], tokens [B, K, width]): the projected CLS
+        embedding and the final-norm patch tokens, the EVA analogue of the
+        ViT's output_tokens path (`clipself_tpu/models/eva_vit.py:588-596`),
+        for a CoCa built over an EVA tower."""
+        t = self.forward_tokens(x, patch_keep)
+        return self.head(t[:, 0]), t[:, 1:]
 
     def encode_dense(self, x: torch.Tensor, keep_shape: bool = True) -> torch.Tensor:
         """Dense patch features: blocks[:-1], the final block without

@@ -1,6 +1,7 @@
-"""Model creation: config registry -> initialized port `CLIP` on a device
-(optionally over a pretrained checkpoint or catalog tag), with its
-preprocessing pair, and the model's tokenizer."""
+"""Model creation: config registry -> initialized port `CLIP`, or `CoCa`
+for a config with a multimodal decoder, on a device (optionally over a
+pretrained checkpoint or catalog tag), with its preprocessing pair, and the
+model's tokenizer."""
 
 from __future__ import annotations
 
@@ -12,6 +13,13 @@ import torch
 
 from clipself_tpu_torch.core.config import CLIPConfig, get_model_config
 from clipself_tpu_torch.models.clip import CLIP
+from clipself_tpu_torch.models.coca import CoCa
+
+
+def model_class(cfg: CLIPConfig) -> type:
+    """`CoCa` for a config with a multimodal decoder, else `CLIP`
+    (`clipself_tpu/models/factory.py:77-81`, reference `factory.py:215-230`)."""
+    return CoCa if cfg.multimodal is not None else CLIP
 
 
 def create_model(
@@ -22,14 +30,15 @@ def create_model(
     seed: int = 0,
     grad_checkpointing: bool = False,
     pretrained: Optional[str] = None,
-) -> CLIP:
-    """Build a CLIP with seeded random weights, in eval mode on ``device``.
+) -> Union[CLIP, CoCa]:
+    """Build a CLIP (a CoCa for a multimodal config) with seeded random
+    weights, in eval mode on ``device``.
 
     Parameters are float32; ``dtype`` is the compute dtype. The weights are
     drawn on the CPU from ``torch.Generator().manual_seed(seed)`` with the
     JAX package's init distributions, the visual tower's first, then the
-    text tower's (they are not the JAX package's values: the two generators
-    differ); load real weights with
+    text tower's, then a CoCa's decoder (they are not the JAX package's
+    values: the two generators differ); load real weights with
     `models.torch_io.load_weights`. ``grad_checkpointing`` recomputes each
     block of the visual tower in the backward pass (the JAX package's
     ``remat``). ``pretrained``, a checkpoint path or a catalog tag of the
@@ -41,10 +50,8 @@ def create_model(
     (`clipself_tpu/models/factory.py:112-120`).
     """
     cfg = get_model_config(name_or_cfg) if isinstance(name_or_cfg, str) else name_or_cfg
-    model = CLIP(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
-    generator = torch.Generator().manual_seed(seed)
-    model.visual.init_weights(generator)
-    model.text.init_weights(generator)
+    model = model_class(cfg)(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
+    model.init_weights(torch.Generator().manual_seed(seed))
     if pretrained:
         from clipself_tpu_torch.models.pretrained import resolve_pretrained
         from clipself_tpu_torch.models.torch_io import load_pretrained

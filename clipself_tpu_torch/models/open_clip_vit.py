@@ -34,8 +34,11 @@ dense protocol, `transformer.py:550-589, 659-834`):
     EVA tower's does (the JAX tower takes `remat` and does not apply it;
     the results are the same either way).
 
-The CoCa tower's attentional pooler is not ported (ROADMAP.md queue 1 item
-8.6).
+With `attentional_pool` (the CoCa towers) `attn_pool`, a
+`models/common.py::AttentionalPooler` of `n_queries` queries in embed_dim
+space, pools the trunk's tokens; `ln_post` then normalizes embed_dim and
+`proj` is square (`forward_pooled`). The dense protocol assumes no pooler,
+as the JAX tower's does.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from clipself_tpu_torch.core.config import VisionConfig
-from clipself_tpu_torch.models.common import LayerScale, gelu, l2_normalize
+from clipself_tpu_torch.models.common import AttentionalPooler, LayerScale, gelu, l2_normalize
 from clipself_tpu_torch.models.eva_vit import Dense, LayerNorm, _lecun_normal
 from clipself_tpu_torch.ops.attention import multi_head_attention
 from clipself_tpu_torch.ops.interpolate import resize_2d
@@ -150,11 +153,6 @@ class OpenCLIPViT(nn.Module):
         grad_checkpointing: bool = False,
     ):
         super().__init__()
-        if cfg.attentional_pool:
-            raise NotImplementedError(
-                "OpenCLIPViT port: the CoCa attentional pooler is not ported yet "
-                "(ROADMAP.md queue 1 item 8.6)"
-            )
         self.cfg = cfg
         self.dtype = dtype
         self.grad_checkpointing = grad_checkpointing
@@ -164,8 +162,16 @@ class OpenCLIPViT(nn.Module):
         self.positional_embedding = nn.Parameter(torch.zeros(base * base + 1, w))
         self.ln_pre = LayerNorm(w, LN_EPS)
         self.transformer = _Transformer(cfg)
-        self.ln_post = LayerNorm(w, LN_EPS)
-        self.proj = nn.Parameter(torch.zeros(w, embed_dim))
+        # the CoCa tower (reference `transformer.py:380-384`): the pooler's
+        # queries live in embed_dim space, ln_post normalizes embed_dim and
+        # the projection is square
+        self.attn_pool = (
+            AttentionalPooler(embed_dim, w, cfg.attn_pooler_heads, cfg.n_queries)
+            if cfg.attentional_pool else None
+        )
+        out = embed_dim if cfg.attentional_pool else w
+        self.ln_post = LayerNorm(out, LN_EPS)
+        self.proj = nn.Parameter(torch.zeros(out, embed_dim))
 
     @property
     def blocks(self) -> nn.ModuleList:
@@ -176,7 +182,8 @@ class OpenCLIPViT(nn.Module):
         """Draw the initial weights with the JAX tower's distributions:
         normal(width^-0.5) class and positional embeddings and projection,
         lecun-normal (truncated) patch and dense kernels, zero biases, unit
-        LayerNorm scales, the LayerScale init value. Parameters must lie on
+        LayerNorm scales, the LayerScale init value; the pooler's after the
+        trunk's (`AttentionalPooler.init_weights`). Parameters must lie on
         the generator's device."""
         w = self.cfg.width
         conv = self.conv1["weight"]
@@ -186,11 +193,13 @@ class OpenCLIPViT(nn.Module):
         for blk in self.blocks:
             _lecun_normal(blk.attn.in_proj_weight, w, generator)
             blk.attn.in_proj_bias.zero_()
-        for m in self.modules():
+        for m in self.transformer.modules():
             if isinstance(m, Dense):
                 _lecun_normal(m.weight, m.in_features, generator)
                 m.bias.zero_()
         self.proj.normal_(0.0, w ** -0.5, generator=generator)
+        if self.attn_pool is not None:
+            self.attn_pool.init_weights(generator)
 
     # ---- embedding -----------------------------------------------------
 
@@ -243,12 +252,25 @@ class OpenCLIPViT(nn.Module):
     # ---- public protocol -----------------------------------------------
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Image embedding [B, embed_dim] (not normalized): `ln_post` on the
-        CLS token alone, then `proj` (`forward_pooled`)."""
+        """Image embedding [B, embed_dim] (not normalized): the pooled half
+        of `forward_pooled`."""
+        return self.forward_pooled(x)[0]
+
+    def forward_pooled(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(pooled [B, embed_dim], tokens), the reference forward with
+        output_tokens (`clipself_tpu/models/open_clip_vit.py:204-221`): with
+        the attentional pooler the trunk's tokens are pooled to n_queries,
+        `ln_post` runs on all of them and (pooled, tokens) = (t[:, 0] @
+        proj, t[:, 1:]) ([B, n_queries - 1, embed_dim]); without it `ln_post`
+        runs on the CLS token alone and the tokens are the trunk's raw patch
+        tokens [B, gh*gw, width]."""
         t, _ = self.embed(x)
         for blk in self.blocks:
             t = self._run(blk, t)
-        return self._project(t[:, 0])
+        if self.attn_pool is not None:
+            t = self.ln_post(self.attn_pool(t))
+            return t[:, 0] @ self.proj.to(t.dtype), t[:, 1:]
+        return self._project(t[:, 0]), t[:, 1:]
 
     def forward_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """The final-norm token sequence [B, 1 + gh*gw, width], CLS first."""

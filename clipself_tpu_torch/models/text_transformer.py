@@ -22,8 +22,10 @@ the EOT token (the argmax of the token ids) projected by `text_projection`.
     `ln_final`, `text_projection`, ...), so `models/torch_io.py` loads
     reference checkpoints with `strict=True`.
 
-The CoCa text tower (`embed_cls`, `forward_coca`; ROADMAP.md queue 1 item
-8.6) and the HF text towers (item 8.5) are not ported.
+The CoCa text tower (`embed_cls`) appends a learned `cls_emb` after the
+text, so the positional table has context_length + 1 rows; `forward_coca`
+pools it (`clipself_tpu/models/text_transformer.py:129-160`). The HF text
+towers (ROADMAP.md queue 1 item 8.5) are not ported.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ from clipself_tpu_torch.models.eva_vit import Dense, LayerNorm, _lecun_normal
 from clipself_tpu_torch.ops.attention import attention_masked
 
 _HF_ITEM = "ROADMAP.md queue 1 item 8.5"
-_COCA_ITEM = "ROADMAP.md queue 1 item 8.6"
 
 
 class TextAttention(nn.Module):
@@ -109,12 +110,14 @@ class TextTransformer(nn.Module):
             raise NotImplementedError(
                 f"HF text tower {cfg.hf_model_name!r} is not ported ({_HF_ITEM})"
             )
-        if cfg.embed_cls:
-            raise NotImplementedError(f"the CoCa text tower (embed_cls) is not ported ({_COCA_ITEM})")
         self.cfg = cfg
         self.dtype = dtype
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
-        self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, cfg.width))
+        # embed_cls (reference `transformer.py:911-915`): one learned CLS
+        # token after the text, one more positional row
+        self.cls_emb = nn.Parameter(torch.zeros(cfg.width)) if cfg.embed_cls else None
+        num_pos = cfg.context_length + (1 if cfg.embed_cls else 0)
+        self.positional_embedding = nn.Parameter(torch.zeros(num_pos, cfg.width))
         self.transformer = _Transformer(cfg)
         self.ln_final = LayerNorm(cfg.width, cfg.ln_eps)
         self.text_projection = nn.Parameter(torch.zeros(cfg.width, embed_dim))
@@ -126,12 +129,14 @@ class TextTransformer(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Draw the initial weights with the JAX tower's distributions: flax
         `nn.Embed`'s normal(1/sqrt(width)) token embedding, normal(0.01)
-        positional embedding, normal(width^-0.5) projection, lecun-normal
+        positional embedding and CLS token, normal(width^-0.5) projection, lecun-normal
         (truncated) kernels with zero biases, unit LayerNorm scales, the
         LayerScale init value. Parameters must lie on the generator's device."""
         w = self.cfg.width
         self.token_embedding.weight.normal_(0.0, w ** -0.5, generator=generator)
         self.positional_embedding.normal_(0.0, 0.01, generator=generator)
+        if self.cls_emb is not None:
+            self.cls_emb.normal_(0.0, 0.01, generator=generator)
         for blk in self.transformer.resblocks:
             _lecun_normal(blk.attn.in_proj_weight, w, generator)
             blk.attn.in_proj_bias.zero_()
@@ -163,5 +168,33 @@ class TextTransformer(nn.Module):
         """text [B, n] token ids -> [B, embed_dim] (not normalized)."""
         return self.project(self.features(text), text)
 
-    def forward_coca(self, text: torch.Tensor):
-        raise NotImplementedError(f"the CoCa text forward is not ported ({_COCA_ITEM})")
+    def forward_coca(self, text: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(pooled [B, embed_dim], tokens [B, n, width]) of ``text`` [B, n],
+        the reference embed_cls forward (`transformer.py:985-1016`). The CLS
+        token is appended after the text (n + 1 positions); the mask is
+        causal, plus on the CLS row the pad columns of `build_cls_mask`
+        (`transformer.py:974-981`) replicated literally, with its one-column
+        shift: column 0 stays visible and column j >= 1 is masked where
+        token j - 1 is the pad id. `ln_final` and the projection run on the
+        CLS position alone; the token stream comes back without `ln_final`.
+        Without `cls_emb`: `ln_final` over every token, EOT pooling, and
+        the normalized stream."""
+        c = self.cfg
+        if self.cls_emb is None:
+            feats = self.features(text)
+            return self.project(feats, text), feats
+        b, n = text.shape
+        seq = n + 1
+        x = F.embedding(text.long(), self.token_embedding.weight).to(self.dtype)
+        x = torch.cat([x, self.cls_emb.to(self.dtype).expand(b, 1, c.width)], dim=1)
+        x = x + self.positional_embedding[:seq].to(self.dtype)
+        dev = x.device
+        causal = torch.triu(torch.full((seq, seq), float("-inf"), device=dev), diagonal=1)
+        vis = torch.where(text != c.pad_id, 0.0, float("-inf"))
+        cls_mask = torch.zeros((b, seq, seq), device=dev)
+        cls_mask[:, -1] = torch.cat([torch.zeros((b, 1), device=dev), vis], dim=1)
+        mask = (causal[None] + cls_mask)[:, None]
+        for blk in self.transformer.resblocks:
+            x = blk(x, mask)
+        pooled = self.ln_final(x[:, -1])
+        return pooled @ self.text_projection.to(pooled.dtype), x[:, :-1]

@@ -1,13 +1,15 @@
 """Weights in the reference PyTorch state-dict layout.
 
 `state_dict_from_jax` turns the JAX package's param tree (nested dicts of
-NumPy arrays) into the state dict of the reference `CustomCLIP`: the visual
-tower, the text tower and `logit_scale`, with the key maps of the EVA,
-OpenCLIP ViT, ModifiedResNet, ConvNeXt, Swin and timm-ViT branches of
+NumPy arrays) into the state dict of the reference `CustomCLIP` or `CoCa`:
+the visual tower, the text tower, a CoCa's decoder and `logit_scale`, with
+the key maps of the EVA, OpenCLIP ViT (the CoCa pooler's included),
+ModifiedResNet, ConvNeXt, Swin and timm-ViT branches of
 `clipself_tpu/models/torch_io.py::_vision_key_map` and of `_text_key_map`
-copied here (the result is pinned equal to that module's
-`export_state_dict`; a timm tower's map is chosen from the config). `load_weights` loads such a dict, or a reference
-`.pt` checkpoint, into the whole CLIP with `strict=True`; text-tower keys
+and `_decoder_key_map` copied here (the result is pinned equal to that
+module's `export_state_dict`; a timm tower's map is chosen from the
+config). `load_weights` loads such a dict, or a reference `.pt`
+checkpoint, into the whole model with `strict=True`; text-tower keys
 stored without the `text.` prefix (the open_clip hub layout) are taken too.
 `detector_state_dict_from_jax` does the same for the flax tree of the F-ViT
 detector heads, whose port keeps the tree's own names, and
@@ -93,6 +95,10 @@ def _eva_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     raise KeyError(f"unmapped EVA vision param: {flax_key}")
 
 
+# the third of a torch-packed q / k / v projection that a flax Dense fills
+_QKV = {"q_proj": 0, "k_proj": 1, "v_proj": 2}
+
+
 def _vit_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     """Map a flax param path under `visual` of a plain OpenCLIP ViT tower
     (`visual.transformer.resblocks` layout) to (torch_key, transform), as
@@ -123,6 +129,21 @@ def _vit_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
         if rest[0] in ("c_fc", "c_proj"):
             t = "linear" if rest[1] == "kernel" else None
             return f"{base}.mlp.{rest[0]}.{'weight' if t else 'bias'}", t
+    if k[0] == "attn_pool":
+        # the CoCa pooler: torch MultiheadAttention with kdim != embed_dim
+        # (separate q / k / v weights, one packed bias)
+        rest, base = k[1:], "visual.attn_pool"
+        if rest == ["query"]:
+            return f"{base}.query", None
+        if rest[0] in ("ln_q", "ln_k"):
+            return f"{base}.{rest[0]}.{ln[rest[1]]}", None
+        if rest[0] in _QKV:
+            if rest[1] == "kernel":
+                return f"{base}.attn.{rest[0]}_weight", "linear"
+            return f"{base}.attn.in_proj_bias", ("slice", _QKV[rest[0]])
+        if rest[0] == "out_proj":
+            t = "linear" if rest[1] == "kernel" else None
+            return f"{base}.attn.out_proj.{'weight' if t else 'bias'}", t
     raise KeyError(f"unmapped OpenCLIP ViT vision param: {flax_key}")
 
 
@@ -357,7 +378,41 @@ def _text_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     raise KeyError(f"unmapped text param: {flax_key}")
 
 
-_KEY_MAPS = {"visual": _vision_key_map, "text": _text_key_map}
+def _decoder_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """Map a flax param path under `text_decoder` (the CoCa decoder) to
+    (torch_key, transform), as `_eva_vision_key_map` does: the self blocks
+    have the text tower's layout under `text_decoder.resblocks.{i}`; a
+    cross block's q / k / v kernels and biases fill thirds of the packed
+    `attn.in_proj_weight` and `attn.in_proj_bias` (transform
+    ("linear_slice", i) or ("slice", i))."""
+    k = list(flax_key)
+    ln = {"scale": "weight", "bias": "bias"}
+    if k == ["text_projection"]:
+        return "text_decoder.text_projection", None
+    if k[0] == "ln_final":
+        return f"text_decoder.ln_final.{ln[k[1]]}", None
+    if re.match(r"resblocks_(\d+)", k[0]):
+        tkey, t = _text_key_map(flax_key)
+        return tkey.replace("text.transformer.", "text_decoder."), t
+    m = re.match(r"cross_attn_(\d+)", k[0])
+    if m:
+        base, rest = f"text_decoder.cross_attn.{m.group(1)}", k[1:]
+        if rest[0] in ("ln_1", "ln_1_kv", "ln_2"):
+            return f"{base}.{rest[0]}.{ln[rest[1]]}", None
+        if rest[0] in _QKV:
+            if rest[1] == "kernel":
+                return f"{base}.attn.in_proj_weight", ("linear_slice", _QKV[rest[0]])
+            return f"{base}.attn.in_proj_bias", ("slice", _QKV[rest[0]])
+        if rest[0] == "out_proj":
+            t = "linear" if rest[1] == "kernel" else None
+            return f"{base}.attn.out_proj.{'weight' if t else 'bias'}", t
+        if rest[0] in ("c_fc", "c_proj"):
+            t = "linear" if rest[1] == "kernel" else None
+            return f"{base}.mlp.{rest[0]}.{'weight' if t else 'bias'}", t
+    raise KeyError(f"unmapped decoder param: {flax_key}")
+
+
+_KEY_MAPS = {"visual": _vision_key_map, "text": _text_key_map, "text_decoder": _decoder_key_map}
 
 
 def _flatten(tree: Any, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], Any]:
@@ -370,8 +425,9 @@ def _flatten(tree: Any, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], A
 
 
 def flax_to_torch_key(path: tuple[str, ...], cfg: Optional[CLIPConfig] = None) -> tuple[str, Any]:
-    """(torch key, transform) of a flax param path (`visual`, `text` or
-    `logit_scale` first); a timm tower's visual keys need ``cfg``."""
+    """(torch key, transform) of a flax param path (`visual`, `text`,
+    `text_decoder` or `logit_scale` first); a timm tower's visual keys need
+    ``cfg``."""
     if path == ("logit_scale",):
         return "logit_scale", None
     if path[0] == "visual":
@@ -380,24 +436,34 @@ def flax_to_torch_key(path: tuple[str, ...], cfg: Optional[CLIPConfig] = None) -
 
 
 def state_dict_from_jax(params: Any, cfg: Optional[CLIPConfig] = None) -> dict[str, torch.Tensor]:
-    """JAX param tree (nested dicts of arrays: `visual`, `text` and
-    `logit_scale`) -> float32 torch state dict in the reference layout
-    (linear weights transposed, the HWIO patch kernel made OIHW). A timm
-    tower's tree needs its config ``cfg``: its flax names collide with the
-    other towers' (`_vision_key_map`)."""
+    """JAX param tree (nested dicts of arrays: `visual`, `text`, a CoCa's
+    `text_decoder`, and `logit_scale`) -> float32 torch state dict in the
+    reference layout (linear weights transposed, the HWIO patch kernel made
+    OIHW, the thirds of a packed q / k / v projection joined in q, k, v
+    order, as `clipself_tpu/models/torch_io.py::export_state_dict` joins
+    them). A timm tower's tree needs its config ``cfg``: its flax names
+    collide with the other towers' (`_vision_key_map`)."""
     unknown = sorted(set(params) - set(_KEY_MAPS) - {"logit_scale"})
     if unknown:
         raise KeyError(f"params of parts the port does not build: {unknown}")
-    out = {}
+    out, packed = {}, {}
     for part in _KEY_MAPS:
-        for path, val in _flatten(params[part]).items():
+        for path, val in _flatten(params.get(part, {})).items():
             key, transform = flax_to_torch_key((part,) + path, cfg)
             arr = np.asarray(val, dtype=np.float32)
+            if isinstance(transform, tuple):
+                kind, idx = transform
+                packed.setdefault(key, {})[idx] = arr.T if kind == "linear_slice" else arr
+                continue
             if transform == "linear":
                 arr = arr.T
             elif transform == "conv":
                 arr = arr.transpose(3, 2, 0, 1)
             out[key] = torch.tensor(arr)
+    for key, thirds in packed.items():
+        if sorted(thirds) != [0, 1, 2]:
+            raise KeyError(f"{key}: the tree holds thirds {sorted(thirds)} of the packed projection")
+        out[key] = torch.tensor(np.concatenate([thirds[0], thirds[1], thirds[2]], axis=0))
     out["logit_scale"] = torch.tensor(np.asarray(params["logit_scale"], dtype=np.float32))
     return out
 

@@ -35,8 +35,9 @@ not autograd's. A CUDA tensor launches the kernel or raises.
 every device: the text tower's causal attention and the OpenCLIP ViT's
 mask-attention pooling, which the JAX package runs through XLA and not
 through a Pallas kernel. `multi_head_attention` picks between the two as
-the JAX dispatch does: a mask goes to `attention_masked`, none to the
-flash kernel.
+the JAX dispatch does: a mask, or keys of another length than the queries
+(cross-attention: the CoCa pooler and decoder), go to `attention_masked`;
+unmasked self-attention goes to the flash kernel.
 """
 
 from __future__ import annotations
@@ -64,12 +65,14 @@ def attention_masked(
     scale: float,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """softmax(q k^T * scale + mask) v on [B, N, H, D], on any device: f32
-    logits and softmax, probabilities cast to the input dtype before the
-    value product; ``mask`` is an additive float32 mask broadcast against
-    the [B, H, N, N] logits. The JAX package's XLA attention
-    (`clipself_tpu/ops/attention.py::_xla_attention`), which the text tower
-    runs with its causal mask; no Pallas kernel stands behind it."""
+    """softmax(q k^T * scale + mask) v on q [B, Nq, H, D] and k, v [B, Nk,
+    H, D], on any device: f32 logits and softmax, probabilities cast to the
+    input dtype before the value product; ``mask`` is an additive float32
+    mask broadcast against the [B, H, Nq, Nk] logits. The JAX package's
+    XLA attention (`clipself_tpu/ops/attention.py::_xla_attention`), which
+    the text tower runs with its causal mask and the CoCa pooler and
+    decoder without one (cross-attention); no Pallas kernel stands behind
+    it."""
     logits = _logits(q, k, scale)
     if mask is not None:
         logits = logits + mask
@@ -275,11 +278,13 @@ def multi_head_attention(
     scale: float,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The towers' attention entry point over [B, N, H, D]
-    (`clipself_tpu/ops/attention.py:460-502`): without a mask the flash
-    kernel (`flash_attention`); with an additive ``mask`` `attention_masked`
-    on every device, as the JAX package takes XLA's attention whenever a
-    mask is given (f32 logits, the `xla_attn_half_logits` knob off)."""
-    if mask is not None:
+    """The towers' attention entry point over q [B, Nq, H, D] and k, v
+    [B, Nk, H, D] (`clipself_tpu/ops/attention.py:460-502`): unmasked
+    self-attention (Nk == Nq) takes the flash kernel (`flash_attention`);
+    an additive ``mask``, or cross-attention (Nk != Nq), takes
+    `attention_masked` on every device, as the JAX package takes XLA's
+    attention there (f32 logits, the `xla_attn_half_logits` knob off): its
+    flash path derives the ragged tail from q's length alone."""
+    if mask is not None or k.shape[1] != q.shape[1]:
         return attention_masked(q, k, v, scale, mask)
     return flash_attention(q, k, v, scale)

@@ -19,7 +19,8 @@ one evaluator batch at v1 and one train step with
 tower with a fused `qkv`, the GELU MLP, no RoPE, post-norm blocks and a
 shared rel-pos bias): one dense map; and a timm ConvNeXt (`convnext_base`'s
 config on a tiny arch): one evaluator batch and one `--no-lock-image`
-train step."""
+train step; and a tiny CoCa (`models/coca.py`, with the attentional pooler
+and `train/contrastive.py`): `coca_loss` and a sampled caption."""
 
 import json
 import math
@@ -30,7 +31,7 @@ import sys
 from conftest import write_micro_coco
 
 _SCRIPT = r"""
-import json, sys
+import json, math, sys
 import torch
 import clipself_tpu_torch.core.config
 import clipself_tpu_torch.data.synthetic as synthetic
@@ -87,6 +88,8 @@ import clipself_tpu_torch.models.open_clip_vit
 import clipself_tpu_torch.models.modified_resnet
 import clipself_tpu_torch.models.openai
 import clipself_tpu_torch.models.pretrained
+import clipself_tpu_torch.models.coca as coca
+import clipself_tpu_torch.train.contrastive as contrastive
 
 model = factory.create_model("EVA02-CLIP-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
 batch = synthetic.synthetic_panoptic_batch(
@@ -218,7 +221,21 @@ cn_run = train_main.main([
     "--det-image-size", "64", "--max-boxes", "2", "--steps-per-epoch", "1", "--epochs", "1",
     "--logs", sys.argv[1], "--name", "convnext",
 ])
-data = {"loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
+coca_cfg = dataclasses.replace(
+    factory.get_model_config("ViT-Tiny-Test"),
+    vision=dataclasses.replace(factory.get_model_config("ViT-Tiny-Test").vision, attentional_pool=True,
+                               n_queries=5, attn_pooler_heads=2),
+    text=dataclasses.replace(tiny.text, embed_cls=True, context_length=16),
+    multimodal=clipself_tpu_torch.core.config.MultimodalConfig(
+        context_length=16, vocab_size=512, width=64, heads=2, layers=2),
+)
+coca_model = factory.create_model(coca_cfg, device="cpu", dtype=torch.float32, seed=0)
+coca_img, coca_txt = torch.zeros(2, 32, 32, 3), torch.randint(1, 512, (2, 16))
+coca_out = coca.coca_loss(coca_model(coca_img, coca_txt), coca_txt)[0]
+caption = coca.generate(coca_model, coca_img, 1, 2, max_len=6, top_k=3)
+create_loss = contrastive.create_loss("clipself").__name__
+data = {"coca": [type(coca_model).__name__, math.isfinite(float(coca_out)), list(caption.shape), create_loss],
+        "loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
         "vit": [len(vit_res), vit_run["history"][-1]["loss"]],
         "rn": [len(rn_res), rn_run["history"][-1]["loss"]],
         "convnext": [len(cn_res), cn_run["history"][-1]["loss"]],
@@ -273,6 +290,7 @@ def test_port_runs_without_jax(tmp_path):
     assert out["data"]["rn"][0] == 12 and math.isfinite(out["data"]["rn"][1])
     assert out["data"]["convnext"][0] == 12 and math.isfinite(out["data"]["convnext"][1])
     assert out["data"]["eva_variants"] == [[1, 4, 4, 64], True]
+    assert out["data"]["coca"] == ["CoCa", True, [2, 6], "clip_loss"]
     assert len(out["data"]["eval_only"]) == 13 and "epoch" in out["data"]["eval_only"]
     assert len(out["data"]["region"]) == 2 and all(map(math.isfinite, out["data"]["region"]))
     assert (tmp_path / "region" / "epoch_1.pt").is_file()

@@ -35,7 +35,7 @@ from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panopt
 from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
 from clipself_tpu_torch.models import torch_io
 from clipself_tpu_torch.models.clip import CLIP
-from clipself_tpu_torch.models.factory import create_model
+from clipself_tpu_torch.models.factory import create_model, model_class
 from clipself_tpu_torch.models.open_clip_vit import OpenCLIPViT
 from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.ops.attention import multi_head_attention
@@ -520,7 +520,7 @@ def test_trainer_cli_v1_quick_gelu(tmp_path):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("hf-vit-tiny-test", "item 8.5"), ("roberta-ViT-B-32", "item 8.5"), ("coca_ViT-B-32", "item 8.6"),
+    ("hf-vit-tiny-test", "item 8.5"), ("roberta-ViT-B-32", "item 8.5"), ("coca_roberta-ViT-B-32", "item 8.5"),
 ])
 def test_unported_towers_raise_naming_their_item(name, item):
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
@@ -530,13 +530,17 @@ def test_unported_towers_raise_naming_their_item(name, item):
 @pytest.mark.parametrize("name,tower", [
     ("RN50", "ModifiedResNet"), ("EVA01-CLIP-B-16", "EvaViT"), ("convnext_base", "ConvNeXtTower"),
     ("swin_base_patch4_window7_224", "SwinTower"), ("vit_relpos_medium_patch16_cls_224", "TimmViTTower"),
+    ("coca_ViT-B-32", "OpenCLIPViT"),
 ])
 def test_formerly_unported_towers_build(name, tower):
-    """The towers of items 8.2, 8.3 and 8.4, which raised before they were
-    ported, build (on the meta device: no memory)."""
+    """The towers of items 8.2, 8.3, 8.4 and 8.6 (a CoCa, built by
+    `model_class`), which raised before they were ported, build (on the
+    meta device: no memory)."""
+    cfg = get_model_config(name)
     with torch.device("meta"):
-        model = CLIP(get_model_config(name), torch.float32)
+        model = model_class(cfg)(cfg, torch.float32)
     assert type(model.visual).__name__ == tower
+    assert type(model).__name__ == ("CoCa" if cfg.multimodal else "CLIP")
 
 
 def test_create_model_builds_the_vit_tower():

@@ -223,8 +223,9 @@ def test_text_init_follows_the_jax_distributions(towers):
 
 def test_tokenizer_choice_and_refusals():
     """`get_tokenizer`: the BPE `tokenize` at the config's context length
-    (one more for a CoCa config), as the JAX package's; HF towers and the
-    CoCa text tower raise."""
+    (one more for a CoCa config), as the JAX package's; HF towers raise;
+    the CoCa text tower (`embed_cls`) builds with its CLS token and one
+    more position."""
     for name in (NAME, "coca_base"):
         got = get_tokenizer(name)(["a photo of a cat"])
         want = jget_tokenizer(name)(["a photo of a cat"])
@@ -233,7 +234,8 @@ def test_tokenizer_choice_and_refusals():
     with pytest.raises(NotImplementedError, match="item 8"):
         get_tokenizer("roberta-ViT-B-32")
     cfg = get_model_config(NAME).text
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TextTransformer(dataclasses.replace(cfg, embed_cls=True), 64)
+    cls_tower = TextTransformer(dataclasses.replace(cfg, embed_cls=True), 64)
+    assert cls_tower.cls_emb.shape == (cfg.width,)
+    assert cls_tower.positional_embedding.shape == (cfg.context_length + 1, cfg.width)
     with pytest.raises(NotImplementedError, match="item 8"):
         TextTransformer(dataclasses.replace(cfg, hf_model_name="roberta-base"), 64)
