@@ -132,6 +132,20 @@ then for each model, B/16 first:
    tokens EQUAL or a near tie), every run's launches equal to
    `coca_expected_launches`; the kernel rows of phase 2 include the flash
    kernels at its [8, 257, 16, 64] and coca_ViT-B-32's [8, 50, 12, 64];
+7g. the HF towers without transformers (`phase_hf`): (a) the transformers
+   ViT trunk adapter at ViTConfig's defaults (ViT-B/16's widths, 224^2,
+   embed 512): one evaluator batch of 2 after 1 (ms, images/s, kernel ms
+   under the profiler, idle share), its dense map and image embedding
+   against the plain float32 path, the trainer with --no-lock-image (2 + 3
+   steps, 2 profiled); (b) roberta-ViT-B-32 with its text tower keyed by the
+   model type 'roberta' (RoBERTa-base's widths): 64 images and 64 id rows of
+   77 through CLIP.forward and clip_loss (1 + 3 calls, 1 profiled), the text
+   tower alone, both embeddings against the plain float32 path, one bf16
+   backward into both towers; the trunks run float32 in every model, as the
+   JAX towers' do, so their attention takes the flash kernels' float32 design
+   and their LayerNorms the float32 kernels (rows in phase 2 at
+   [2, 197, 12, 64] and eps 1e-12); every run's launches equal
+   `hf_expected_launches`;
 then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
 640^2, 102300 anchors, 1000 proposals, 65 classes), full width and depth:
 8. `evaluate_detector` (seeded random CLIP and detector weights, bf16, random
@@ -354,6 +368,21 @@ COCA_CAPTIONS = (
 # under this: a near tie that summation order may flip
 COCA_TIE_GAP = 1e-3
 
+# the HF towers without transformers (`phase_hf`): (a) the transformers trunk
+# adapter at ViTConfig's defaults (`hf_trunk_kwargs` "{}": ViT-B/16's widths,
+# 12 layers at 224^2, patch 16) under `hf-vit-tiny-test`'s other settings,
+# embed 512, registered as HF_VIT for the run: HF_EVAL_BATCHES evaluator
+# batches of 2 after one, one profiled, and the distill step with
+# --no-lock-image (HF_TRAIN_WARMUP + HF_TRAIN_TIMED steps and
+# HF_TRAIN_PROFILED under the profiler); (b) roberta-ViT-B-32 with its text
+# tower keyed by the model type "roberta" (RoBERTa-base's encoder widths,
+# vocabulary 50265) on HF_TEXT_ROWS images and id rows of 77: CLIP.forward
+# and clip_loss (which pairs image i with text i), then one backward into
+# both towers. Both trunks compute in float32 whatever the model's dtype.
+HF_VIT, HF_VIT_KWARGS, HF_VIT_SIZE, HF_EMBED = "hf-vit-b16-224", "{}", 224, 512
+HF_EVAL_BATCHES, HF_TRAIN_WARMUP, HF_TRAIN_TIMED, HF_TRAIN_PROFILED = 2, 2, 3, 2
+HF_TEXT_MODEL, HF_TEXT_TYPE, HF_TEXT_ROWS, HF_TEXT_TIMED = "roberta-ViT-B-32", "roberta", 64, 3
+
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory, dense bf16 tensor cores, float32 outside the tensor cores.
 PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -522,12 +551,14 @@ def plain_path():
     the text tower's and the OpenCLIP ViT's LayerNorms call too,
     `open_clip_vit.multi_head_attention`, `timm_vit.multi_head_attention`,
     `coca.multi_head_attention` (the CoCa pooler's cross-attention is plain
-    on every path), `rope.rolled_rope` and `rope.rolled_rope_qk`, the detector's
+    on every path), `hf_vit.multi_head_attention` (the HF ViT trunk; the HF
+    text trunks' attention is plain on every path and their LayerNorms are
+    `eva_vit`'s), `rope.rolled_rope` and `rope.rolled_rope_qk`, the detector's
     `nms.nms_keep_mask`; the timm towers' LayerNorms are `eva_vit`'s); autograd
     differentiates them. Fails if any kernel
     launched inside, so a swap that misses a call site cannot compare the
     kernels with themselves."""
-    from clipself_tpu_torch.models import coca, eva_vit, open_clip_vit, rope, timm_vit
+    from clipself_tpu_torch.models import coca, eva_vit, hf_vit, open_clip_vit, rope, timm_vit
     from clipself_tpu_torch.ops.attention import attention_masked
     from clipself_tpu_torch.ops.layer_norm import layer_norm_plain
     from clipself_tpu_torch.ops.rope_roll import rolled_rope_plain, unpack_tables
@@ -540,7 +571,8 @@ def plain_path():
         return rolled_rope_plain(q, *tables), rolled_rope_plain(k, *tables)
 
     saved = (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
-             open_clip_vit.multi_head_attention, timm_vit.multi_head_attention, coca.multi_head_attention)
+             open_clip_vit.multi_head_attention, timm_vit.multi_head_attention, coca.multi_head_attention,
+             hf_vit.multi_head_attention)
     # the EVA tower's dispatch: unmasked calls took the flash kernel (a rel-pos
     # bias is a mask, plain on every path)
     eva_vit.multi_head_attention, eva_vit.layer_norm = attention_masked, layer_norm_plain
@@ -548,14 +580,15 @@ def plain_path():
     # the ViT towers' dispatch, and a CoCa cross block's where the keys are
     # as many as the queries: unmasked calls took the flash kernel
     open_clip_vit.multi_head_attention = timm_vit.multi_head_attention = attention_masked
-    coca.multi_head_attention = attention_masked
+    coca.multi_head_attention = hf_vit.multi_head_attention = attention_masked
     reset_counts()
     try:
         with plain_nms():
             yield
     finally:
         (eva_vit.multi_head_attention, eva_vit.layer_norm, rope.rolled_rope, rope.rolled_rope_qk,
-         open_clip_vit.multi_head_attention, timm_vit.multi_head_attention, coca.multi_head_attention) = saved
+         open_clip_vit.multi_head_attention, timm_vit.multi_head_attention, coca.multi_head_attention,
+         hf_vit.multi_head_attention) = saved
     if any(read_counts().values()):
         fail(f"the plain path launched kernels: {read_counts()}")
 
@@ -869,7 +902,11 @@ LN_VIEWS = {
 }
 
 
-def check_layer_norm(torch, dev, records, gen, shape, view, backward, eps=1e-6):
+def check_layer_norm(torch, dev, records, gen, shape, view, backward, eps=1e-6, tag=""):
+    """The forward (with and without statistics) and, with ``backward``,
+    the backward against their plain versions on the ``view`` of a
+    ``shape`` tensor, at ``eps``; ``tag`` is appended to each record's name
+    (the HF towers' rows: eps 1e-12)."""
     from clipself_tpu_torch.ops import layer_norm as ln
 
     w = shape[-1]
@@ -880,7 +917,7 @@ def check_layer_norm(torch, dev, records, gen, shape, view, backward, eps=1e-6):
         bias = torch.randn(w, generator=gen, device=dev) * 0.1
         # the library call takes the affine in x's type
         lib_w, lib_b = weight.to(dt), bias.to(dt)
-        what = f"{view} {list(shape)}:" if view else ""
+        what = (f"{view} {list(shape)}:" if view else "") + tag
 
         def err_ulps(got, want, mag):
             diff = (got.float() - want.float()).abs()
@@ -1098,6 +1135,16 @@ def phase_kernels(torch, dev, records):
     # tokens: one ragged tile)
     check_attention(torch, dev, records, gen, (COCA_BATCH, 257, 16, 64), train=True, graph=True)
     check_attention(torch, dev, records, gen, (COCA_BATCH, 50, 12, 64), train=False, graph=True)
+    # the HF ViT-B/16 trunk at 224^2 (`phase_hf`; float32 on every path): the
+    # distill step's student at batch 2, forward and backward (its crops'
+    # [50, 197, 12, 64] and the evaluator's are the B/16 crop rows above),
+    # and its LayerNorms at eps 1e-12: an evaluator batch's crops, the
+    # student's rows with their backward, and the RoBERTa text tower's 64
+    # rows of 77 with their backward
+    check_attention(torch, dev, records, gen, (TRAIN_BATCH, 197, 12, 64), train=True, graph=True)
+    for shape, backward in (((2 * BUCKET, 197, 768), False), ((TRAIN_BATCH, 197, 768), True),
+                            ((HF_TEXT_ROWS, 77, 768), True)):
+        check_layer_norm(torch, dev, records, gen, shape, "", backward=backward, eps=1e-12, tag=" eps 1e-12")
     # the large towers' head dims, which the WMMA and FMA designs take on
     # zero-filled 16-wide tiles (88: ViT-g-14, EVA01-CLIP-g-14; 104:
     # ViT-bigG-14) or exactly (80; 112: EVA02-CLIP-bigE-14), over the
@@ -2228,6 +2275,297 @@ def phase_coca(torch, dev) -> dict:
     del model, model_f32
     torch.cuda.empty_cache()
     print(f"coca phase: {time.perf_counter() - t0:.1f} s (bar 45 s)", flush=True)
+    return paths
+
+
+def hf_vit_config():
+    """`hf-vit-tiny-test` with the trunk at ViTConfig's defaults (ViT-B/16:
+    width 768, 12 layers of 12 heads, FFN 3072, patch 16, `qkv_bias`, eps
+    1e-12) at 224^2 and embed 512, named HF_VIT."""
+    from clipself_tpu_torch.core.config import get_model_config
+
+    cfg = get_model_config("hf-vit-tiny-test")
+    vision = dataclasses.replace(cfg.vision, image_size=HF_VIT_SIZE, hf_trunk_kwargs=HF_VIT_KWARGS)
+    return dataclasses.replace(cfg, name=HF_VIT, embed_dim=HF_EMBED, vision=vision)
+
+
+def hf_text_config():
+    """HF_TEXT_MODEL with its text tower keyed by the model type
+    HF_TEXT_TYPE (the registry names a hub id, whose config.json is not in
+    the repository); everything else as the registry has it."""
+    from clipself_tpu_torch.core.config import get_model_config
+
+    cfg = get_model_config(HF_TEXT_MODEL)
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, hf_model_name=HF_TEXT_TYPE))
+
+
+@contextlib.contextmanager
+def registered(cfg):
+    """`get_model_config` answers ``cfg.name`` with ``cfg`` in every module
+    that holds it by name (the trainer's `--model` among them)."""
+    from clipself_tpu_torch.core import config
+
+    original = config.get_model_config
+
+    def get_model_config(name):
+        return cfg if name == cfg.name else original(name)
+
+    holders = [m for m in list(sys.modules.values()) if getattr(m, "get_model_config", None) is original]
+    for m in holders:
+        m.get_model_config = get_model_config
+    try:
+        yield
+    finally:
+        for m in holders:
+            m.get_model_config = original
+
+
+def hf_expected_launches(*, vit_passes=0, vit_backwards=0, text_passes=0, text_backwards=0,
+                         clip_vit_passes=0, clip_vit_backwards=0) -> dict:
+    """Launches of the HF paths: a pass of the HF ViT-B/16 trunk runs the
+    flash forward in each of its 12 layers and 25 LayerNorms (2 a layer and
+    the final `layernorm`); its backward with every parameter trainable the
+    flash backward and the LayerNorm backward of each. A pass of the RoBERTa
+    text trunk runs 25 LayerNorms (the embeddings' and 2 a layer) and no
+    flash kernel (its attention takes the padding mask: plain); a pass of
+    roberta-ViT-B-32's OpenCLIP ViT-B/32 the flash forward in its 12 blocks
+    and 26 LayerNorms (2 a block, `ln_pre`, `ln_post`), and with every
+    parameter trainable the backward of each."""
+    return {
+        "nms": 0,
+        "flash_attention": 12 * (vit_passes + clip_vit_passes),
+        "flash_attention_bwd": 12 * (vit_backwards + clip_vit_backwards),
+        "rope_roll": 0,
+        "rope_roll_bwd": 0,
+        "layer_norm": 25 * (vit_passes + text_passes) + 26 * clip_vit_passes,
+        "layer_norm_bwd": 25 * (vit_backwards + text_backwards) + 26 * clip_vit_backwards,
+    }
+
+
+def hf_parity(torch, tag, legs: dict) -> None:
+    """Each leg's f32 kernel path against the f32 plain path (max abs under
+    `PATH_F32_MAX_ABS`) and its bf16 model against the plain path (min row
+    cosine at least `PATH_BF16_MIN_COS`); ``legs``: what -> (f32 kernels,
+    bf16 kernels, f32 plain)."""
+    for what, (k32, k16, p32) in legs.items():
+        f32_abs = (k32 - p32).abs().max().item()
+        bf16_cos = min_row_cos(k16, p32)
+        print(f"{tag} parity {what} {list(p32.shape)}: f32 kernels vs f32 plain max_abs {f32_abs:.3e} (bar "
+              f"{PATH_F32_MAX_ABS}); bf16 kernels vs f32 plain min_row_cos {bf16_cos:.7f} (bar "
+              f"{PATH_BF16_MIN_COS})", flush=True)
+        if not all(torch.isfinite(t).all() for t in (k32, k16, p32)):
+            fail(f"{tag} {what}: not finite")
+        if not f32_abs <= PATH_F32_MAX_ABS:
+            fail(f"{tag} {what}: f32 kernel path off the plain path by {f32_abs}")
+        if not bf16_cos >= PATH_BF16_MIN_COS:
+            fail(f"{tag} {what}: bf16 kernel path min row cosine {bf16_cos}")
+
+
+def hf_group(name: str) -> str:
+    """The part of the HF trunk adapter a trainable parameter belongs to: a
+    layer (`trunk.encoder.layer.{i}`), else the embeddings, the final norm
+    or the head."""
+    parts = name.split(".")
+    return ".".join(parts[1:5] if parts[2:4] == ["encoder", "layer"] else parts[1:3])
+
+
+def hf_ids(torch, dev, rows: int, length: int, vocab: int, pad: int, bos: int, eos: int, seed: int = SEED):
+    """[rows, length] RoBERTa-style ids: the start id, 3 to length - 2
+    random ids, the end id, then the pad id."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = np.full((rows, length), pad, np.int64)
+    for r in range(rows):
+        n = int(rng.integers(3, length - 1))
+        ids[r, 0], ids[r, n + 1] = bos, eos
+        ids[r, 1:n + 1] = rng.integers(3, vocab, n)
+    return torch.as_tensor(ids, device=dev)
+
+
+def phase_hf(torch, dev, logs_dir) -> dict:
+    """The HF towers without transformers at full width: (a) the HF ViT-B/16
+    trunk adapter (`hf_vit_config`) through `evaluate_zero_shot` (ms a
+    batch, images/s, the kernels' ms under the profiler, idle share), the
+    dense map and image embedding against the plain f32 path, and the
+    distill step through the trainer with --no-lock-image; (b) the RoBERTa
+    text tower of `hf_text_config` through CLIP.forward and `clip_loss`
+    (timed and profiled), its text and image embeddings against the plain
+    f32 path, the text tower alone, and one bf16 backward into both towers.
+    Weights are drawn once on the card for each model. Every run's launches
+    equal `hf_expected_launches`. Returns the launch counts by path."""
+    import numpy as np
+
+    from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
+    from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
+    from clipself_tpu_torch.models.clip import CLIP
+    from clipself_tpu_torch.train.contrastive import clip_loss
+
+    t0 = time.perf_counter()
+    smi = card()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    paths = {}
+
+    def draw(cfg):
+        with torch.device(dev):
+            m16 = CLIP(cfg, torch.bfloat16)
+            m16.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+            m32 = CLIP(cfg, torch.float32)
+        m32.load_state_dict(m16.state_dict())
+        return m16.eval(), m32.eval()
+
+    # (a) the trunk adapter
+    vit_cfg = hf_vit_config()
+    with registered(vit_cfg):
+        s = Model("hf_vit_b16", HF_VIT, image=HF_VIT_SIZE, eval_batch=2)
+        model, model_f32 = draw(vit_cfg)
+        trunk = model.visual.hf_config
+        print(f"hf_vit_b16 trunk: {trunk.num_hidden_layers} layers, width {trunk.hidden_size}, "
+              f"{trunk.num_attention_heads} heads, FFN {trunk.intermediate_size}, patch {trunk.patch_size} at "
+              f"{HF_VIT_SIZE}px (dense grid {s.grid(s.image)}), {trunk.hidden_act} GELU, eps "
+              f"{trunk.layer_norm_eps}; float32 trunk, bf16 head", flush=True)
+
+        def batch(i):
+            host = synthetic_panoptic_batch(
+                i, batch=s.eval_batch, image_size=s.image, max_anns=MAX_ANNS, valid_anns=VALID_ANNS,
+                crop_size=s.crop, mask_hw=s.grid(s.image), n_classes=N_CLASSES, seed=SEED,
+            )
+            return {k: (v if k == "boxes" else torch.as_tensor(v, device=dev)) for k, v in host.items()}
+
+        emb = class_embeddings(N_CLASSES, HF_EMBED, seed=SEED)
+        batches = [batch(i) for i in range(HF_EVAL_BATCHES + 1)]
+
+        def run(bs):
+            return evaluate_zero_shot(model, bs, emb, device=dev, ann_bucket=BUCKET)
+
+        run(batches[-1:])
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        res = run(batches[:-1])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        paths["hf_vit_eval"] = launches = read_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            run(batches[:1])
+            torch.cuda.synchronize()
+        k = kernel_ms(torch, prof)
+        ms = dt / HF_EVAL_BATCHES * 1e3
+        print(f"hf_vit_b16 eval zero-shot: {HF_EVAL_BATCHES} batches x {s.eval_batch} images {s.image}px, "
+              f"{VALID_ANNS} valid of {MAX_ANNS} anns (bucket {BUCKET}), crops {s.crop}px: {ms:.3f} ms a batch "
+              f"after 1, {s.eval_batch * HF_EVAL_BATCHES / dt:.3f} images/s; kernels {k:.3f} ms a batch (1 "
+              f"profiled), device idle {1 - k / ms:.1%}; {smi}", flush=True)
+        print(f"hf_vit_b16 eval kernels: {top_kernels(torch, prof)}", flush=True)
+        print(f"hf_vit_b16 eval mAcc {json.dumps(res, sort_keys=True)}; launches {json.dumps(launches)}",
+              flush=True)
+        expect = hf_expected_launches(vit_passes=2 * HF_EVAL_BATCHES)
+        if len(res) != 12 or not all(np.isfinite(v) for v in res.values()) or launches != expect:
+            fail(f"hf_vit_b16 eval: result {res}, launches {launches}, expected {expect}")
+        images = batches[0]["images"]
+        with torch.inference_mode():
+            legs = {}
+            for what, fn in (("dense map", lambda m: m.encode_dense(images, keep_shape=True)),
+                             ("image embedding", lambda m: m.encode_image(images))):
+                k32, k16 = fn(model_f32), fn(model)
+                with plain_path():
+                    legs[what] = (k32, k16, fn(model_f32))
+        hf_parity(torch, "hf_vit_b16", legs)
+        del model, model_f32, legs
+        torch.cuda.empty_cache()
+        try:
+            train = phase_train(
+                torch, dev, s, logs_dir, extra=["--no-lock-image"], tag="hf_vit_b16 train",
+                warmup=HF_TRAIN_WARMUP, timed=HF_TRAIN_TIMED, profiled=HF_TRAIN_PROFILED, group_of=hf_group,
+                expect=lambda n: hf_expected_launches(vit_passes=2 * n, vit_backwards=n),
+            )
+        finally:
+            shutil.rmtree(logs_dir, ignore_errors=True)
+        paths["hf_vit_train"] = train["launches"]
+    torch.cuda.empty_cache()
+
+    # (b) the RoBERTa text tower
+    cfg = hf_text_config()
+    model, model_f32 = draw(cfg)
+    c = model.text.hf_config
+    print(f"hf_roberta text tower: {c.num_hidden_layers} layers, width {c.hidden_size}, "
+          f"{c.num_attention_heads} heads, FFN {c.intermediate_size}, vocabulary {c.vocab_size}, eps "
+          f"{c.layer_norm_eps}, pad id {c.pad_token_id}, {cfg.text.pooler_type}, {cfg.text.proj} projection; "
+          f"float32 trunk, bf16 projection; vision {cfg.name}'s ViT-B/32", flush=True)
+    size = cfg.vision.image_size
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    images = torch.randn((HF_TEXT_ROWS, size, size, 3), generator=gen, device=dev)
+    texts = hf_ids(torch, dev, HF_TEXT_ROWS, 77, c.vocab_size, c.pad_token_id, 0, 2)
+
+    def step(m):
+        return clip_loss(*m(images, texts))
+
+    with torch.inference_mode():
+        step(model)
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        for _ in range(HF_TEXT_TIMED):
+            loss = step(model)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / HF_TEXT_TIMED * 1e3
+        paths["hf_roberta_forward"] = launches = read_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            step(model)
+            torch.cuda.synchronize()
+        k = kernel_ms(torch, prof)
+        reset_counts()
+        t1 = time.perf_counter()
+        model.encode_text(texts)
+        torch.cuda.synchronize()
+        text_ms = (time.perf_counter() - t1) * 1e3
+        paths["hf_roberta_text"] = text_launches = read_counts()
+    print(f"hf_roberta forward + clip_loss, {HF_TEXT_ROWS} images {size}px and {HF_TEXT_ROWS} id rows of "
+          f"{texts.shape[1]}, bf16: {ms:.3f} ms a call ({HF_TEXT_TIMED} after 1), {HF_TEXT_ROWS / ms * 1e3:.3f} "
+          f"images/s, kernels {k:.3f} ms, device idle {1 - k / ms:.1%}, loss {loss.item():.5f}; the text tower "
+          f"alone {text_ms:.3f} ms (one call); {smi}", flush=True)
+    print(f"hf_roberta forward kernels: {top_kernels(torch, prof)}", flush=True)
+    print(f"hf_roberta launches: forward {json.dumps(launches)}; text tower {json.dumps(text_launches)}",
+          flush=True)
+    expect = hf_expected_launches(text_passes=HF_TEXT_TIMED, clip_vit_passes=HF_TEXT_TIMED)
+    if launches != expect or text_launches != hf_expected_launches(text_passes=1):
+        fail(f"hf_roberta launch counts {launches} / {text_launches}, expected {expect} and "
+             f"{hf_expected_launches(text_passes=1)}")
+    if not math.isfinite(loss.item()):
+        fail(f"hf_roberta loss {loss.item()}")
+    with torch.inference_mode():
+        legs = {}
+        for what, fn in (("text embedding", lambda m: m.encode_text(texts, normalize=True)),
+                         ("image embedding", lambda m: m.encode_image(images, normalize=True))):
+            k32, k16 = fn(model_f32), fn(model)
+            with plain_path():
+                legs[what] = (k32, k16, fn(model_f32))
+    hf_parity(torch, "hf_roberta", legs)
+    del model_f32, legs
+    reset_counts()
+    t1 = time.perf_counter()
+    loss = step(model)
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t1) * 1e3
+    paths["hf_roberta_backward"] = launches = read_counts()
+    # the RoBERTa trunk's pooler is built (as the JAX trunk keeps it) but the
+    # mean pooler never reads it
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if n != "logit_scale" and not n.startswith("text.transformer.pooler.")}
+    finite = all(g is not None and torch.isfinite(g).all().item() for g in grads.values())
+    norms = {t: torch.sqrt(sum((g.float() ** 2).sum() for n, g in grads.items() if n.startswith(t))).item()
+             for t in ("visual.", "text.")}
+    print(f"hf_roberta backward of clip_loss into both towers, bf16: forward + backward {bwd_ms:.3f} ms (one "
+          f"call), loss {loss.item():.5f}, {len(grads)} gradients finite {finite}, norms {json.dumps(norms)}; "
+          f"launches {json.dumps(launches)}", flush=True)
+    expect = hf_expected_launches(text_passes=1, text_backwards=1, clip_vit_passes=1, clip_vit_backwards=1)
+    if launches != expect:
+        fail(f"hf_roberta backward launch counts {launches}, expected {expect}")
+    if not finite:
+        fail("hf_roberta backward: a gradient is missing or not finite")
+    del model, grads
+    torch.cuda.empty_cache()
+    print(f"hf phase: {time.perf_counter() - t0:.1f} s (bar 25 s)", flush=True)
     return paths
 
 
@@ -3902,6 +4240,8 @@ def run_phases(torch, dev, t0) -> int:
     print(f"RN50, EVA01-B/16, ConvNeXt-B and Swin-B done at {time.perf_counter() - t0:.1f} s", flush=True)
     paths.update(phase_coca(torch, dev))
     print(f"CoCa done at {time.perf_counter() - t0:.1f} s", flush=True)
+    paths.update(phase_hf(torch, dev, logs_dir))
+    print(f"HF towers done at {time.perf_counter() - t0:.1f} s", flush=True)
     cfg, clip, det, emb, items, paths["b16_detector"] = phase_detector(torch, dev, DET_PRESET)
     phase_detector_parity(torch, dev, DET_PRESET, cfg, clip, det, emb, items)
     del clip, det

@@ -71,12 +71,13 @@ class VisionConfig:
     timm_proj: str = "linear"
     timm_drop: float = 0.0
     timm_drop_path: Optional[float] = None
-    # transformers-Flax trunk grafting (the generic-arbitrary-trunk half of
-    # the reference's timm adapter, `timm_model.py:29-239`): when
-    # hf_trunk_name is set the tower is models/trunk_adapter.FlaxTrunkAdapter
-    # wrapping FlaxAutoModel — a model TYPE like "vit" configured by
+    # transformers trunk grafting (the generic-arbitrary-trunk half of the
+    # reference's timm adapter, `timm_model.py:29-239`): when hf_trunk_name
+    # is set the tower is models/trunk_adapter.TrunkAdapter over the port's
+    # transformers ViT — a model TYPE like "vit" configured by
     # hf_trunk_kwargs (stored as a JSON string so the config stays hashable;
-    # config_from_dict accepts a plain dict), or a hub id when reachable.
+    # config_from_dict accepts a plain dict); a hub id raises, its
+    # config.json not being in the repository.
     hf_trunk_name: Optional[str] = None
     hf_trunk_kwargs: Optional[str] = None
     hf_trunk_pool: str = "cls"  # 'cls' | 'mean'
@@ -114,8 +115,8 @@ class TextConfig:
     ln_eps: float = 1e-5
     # HuggingFace text tower (reference `hf_model.py` + config JSONs like
     # `model_configs/roberta-ViT-B-32.json:10-14`): when hf_model_name is
-    # set the text tower is an HF Flax trunk instead of the CLIP text
-    # transformer, and tokenization routes to the matching HF tokenizer.
+    # set the text tower is models/hf_text.HFTextTower instead of the CLIP
+    # text transformer, and tokenization routes to the matching HF tokenizer.
     hf_model_name: Optional[str] = None
     hf_tokenizer_name: Optional[str] = None
     hf_model_config: Optional[dict] = None  # offline AutoConfig kwargs

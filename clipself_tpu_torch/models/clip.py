@@ -5,11 +5,12 @@ tower), the text tower and `logit_scale` (a port of
 (`train/optim.py::trainable_labels`).
 
 The visual tower is chosen from the config as the JAX package chooses it:
-`timm_model_name` gives `ConvNeXtTower` (`convnext*`), `SwinTower`
-(`swin*`) or `TimmViTTower` (`vit_*`), `eva_model_name` `EvaViT`,
-`resnet_layers` `ModifiedResNet`, a config with none of these nor
-`hf_trunk_name` `OpenCLIPViT`. The transformers trunk adapter raises,
-naming its ROADMAP.md item. A config with a multimodal decoder builds a
+`hf_trunk_name` gives the transformers trunk adapter `TrunkAdapter`,
+`timm_model_name` `ConvNeXtTower` (`convnext*`), `SwinTower` (`swin*`) or
+`TimmViTTower` (`vit_*`), `eva_model_name` `EvaViT`, `resnet_layers`
+`ModifiedResNet`, a config with none of these `OpenCLIPViT`. The text tower
+is `HFTextTower` where the config names `hf_model_name`, else the CLIP
+`TextTransformer`. A config with a multimodal decoder builds a
 `models/coca.py::CoCa` (`models/factory.py::model_class`).
 """
 
@@ -24,24 +25,23 @@ from clipself_tpu_torch.core.config import CLIPConfig, VisionConfig
 from clipself_tpu_torch.models.common import l2_normalize
 from clipself_tpu_torch.models.convnext import ConvNeXtTower
 from clipself_tpu_torch.models.eva_vit import EvaViT
+from clipself_tpu_torch.models.hf_configs import trunk_config
+from clipself_tpu_torch.models.hf_text import HFTextTower
 from clipself_tpu_torch.models.modified_resnet import ModifiedResNet
 from clipself_tpu_torch.models.open_clip_vit import OpenCLIPViT
 from clipself_tpu_torch.models.swin import SwinTower
 from clipself_tpu_torch.models.timm_vit import TimmViTTower
 from clipself_tpu_torch.models.text_transformer import TextTransformer
+from clipself_tpu_torch.models.trunk_adapter import TrunkAdapter
 from clipself_tpu_torch.ops.mask_pool import mask_pool
 from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
 
 
 def _visual_class(cfg: CLIPConfig):
-    """The port's tower class of ``cfg``, or NotImplementedError naming the
-    ROADMAP.md item of a tower not ported yet."""
+    """The port's tower class of ``cfg``."""
     v = cfg.vision
     if v.hf_trunk_name:
-        raise NotImplementedError(
-            f"{cfg.name}: the transformers trunk adapter {v.hf_trunk_name!r} (item 8.5) is not "
-            "ported yet (ROADMAP.md queue 1)"
-        )
+        return TrunkAdapter
     if v.timm_model_name:
         # one tower a timm trunk family (`clipself_tpu/models/clip.py:45-64`)
         for prefix, tower in (("convnext", ConvNeXtTower), ("swin", SwinTower), ("vit_", TimmViTTower)):
@@ -58,8 +58,11 @@ def _visual_class(cfg: CLIPConfig):
 
 def dense_stride(v: VisionConfig) -> int:
     """The stride of a tower's dense map in pixels: 32 for the ConvNeXt and
-    Swin towers, whose configs carry the default `patch_size`, else the
+    Swin towers, whose configs carry the default `patch_size`, the HF
+    config's `patch_size` for the transformers trunk adapter, else the
     config's `patch_size` (32 for the ResNets)."""
+    if v.hf_trunk_name:
+        return trunk_config(v.hf_trunk_name, v.hf_trunk_kwargs).patch_size
     return 32 if (v.timm_model_name or "").startswith(("convnext", "swin")) else v.patch_size
 
 
@@ -70,7 +73,8 @@ class CLIP(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.visual = _visual_class(cfg)(cfg.vision, cfg.embed_dim, dtype, grad_checkpointing)
-        self.text = TextTransformer(cfg.text, cfg.embed_dim, dtype)
+        text = HFTextTower if cfg.text.hf_model_name else TextTransformer
+        self.text = text(cfg.text, cfg.embed_dim, dtype)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     def init_weights(self, generator: torch.Generator) -> None:

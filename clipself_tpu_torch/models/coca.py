@@ -7,7 +7,11 @@
     others the caption's image tokens), or without it (the CLS embedding
     and the raw patch tokens), or an EVA tower (the projected CLS and the
     final-norm patch tokens), as the JAX package builds it;
-  - the text tower with `embed_cls` (`TextTransformer.forward_coca`);
+  - the text tower with `embed_cls` (`TextTransformer.forward_coca`), or an
+    HF text tower (`models/hf_text.py::HFTextTower.forward_tokens`: the
+    projected pooled feature and the trunk's per-token hidden states,
+    without the CLS slot under `cls_pooler`), as
+    `clipself_tpu/models/coca.py:178-186, :203-215` routes it;
   - the multimodal decoder: a layer is one causal self-attention block (the
     text tower's `TextBlock` through a `TextConfig` view of the decoder's
     hyperparameters) and one cross-attention block with its own MLP; the
@@ -41,12 +45,11 @@ from torch import nn
 from clipself_tpu_torch.core.config import CLIPConfig, MultimodalConfig, TextConfig
 from clipself_tpu_torch.models.common import gelu, l2_normalize
 from clipself_tpu_torch.models.eva_vit import Dense, EvaViT, LayerNorm, _lecun_normal
+from clipself_tpu_torch.models.hf_text import HFTextTower
 from clipself_tpu_torch.models.open_clip_vit import OpenCLIPViT
 from clipself_tpu_torch.models.text_transformer import TextBlock, TextTransformer
 from clipself_tpu_torch.ops.attention import multi_head_attention
 from clipself_tpu_torch.train.contrastive import clip_loss
-
-_HF_ITEM = "ROADMAP.md queue 1 item 8.5"
 
 
 def _text_view(c: MultimodalConfig) -> TextConfig:
@@ -94,13 +97,15 @@ class CrossAttnBlock(nn.Module):
         self.ln_2 = LayerNorm(c.width, c.ln_eps)
         self.mlp = _Mlp(c.width, int(c.width * c.mlp_ratio), c.quick_gelu)
 
-    def forward(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The residual stream keeps x's dtype; the branches compute in
+        ``dtype``, as `TextBlock` does."""
         c, a = self.cfg, self.attn
         b, n, w = x.shape
         h = c.heads
-        y, kx = self.ln_1(x), self.ln_1_kv(kv)
-        wq, wk, wv = a.in_proj_weight.to(x.dtype).split(w)
-        bq, bk, bv = a.in_proj_bias.to(x.dtype).split(w)
+        y, kx = self.ln_1(x).to(dtype), self.ln_1_kv(kv).to(dtype)
+        wq, wk, wv = a.in_proj_weight.to(dtype).split(w)
+        bq, bk, bv = a.in_proj_bias.to(dtype).split(w)
         out = multi_head_attention(
             F.linear(y, wq, bq).reshape(b, n, h, w // h),
             F.linear(kx, wk, bk).reshape(b, -1, h, w // h),
@@ -108,16 +113,20 @@ class CrossAttnBlock(nn.Module):
             (w // h) ** -0.5,
         )
         x = x + a.out_proj(out.reshape(b, n, w))
-        return x + self.mlp(self.ln_2(x))
+        return x + self.mlp(self.ln_2(x).to(dtype))
 
 
 class MultimodalDecoder(nn.Module):
     """Reference `MultimodalTransformer` (`transformer.py:1018-1106`): per
     layer a causal self block then a cross block, the final LN, and the
-    projection to the vocabulary, in the compute dtype."""
+    projection to the vocabulary. The blocks' branches and the projection
+    compute in ``dtype``; the residual stream keeps the dtype of the token
+    stream it starts from (an HF text tower's float32 hidden states stay
+    float32 in a bf16 model, as the JAX decoder's promotion keeps them)."""
 
-    def __init__(self, c: MultimodalConfig):
+    def __init__(self, c: MultimodalConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if c.mlp_ratio != 4.0:
             raise NotImplementedError("multimodal mlp_ratio != 4 (no shipped reference config uses it)")
         self.cfg = c
@@ -149,9 +158,9 @@ class MultimodalDecoder(nn.Module):
         causal = torch.triu(torch.full((n, n), float("-inf"), device=text_embs.device), diagonal=1)
         x = text_embs
         for blk, cross in zip(self.resblocks, self.cross_attn):
-            x = cross(blk(x, causal[None, None]), image_embs)
-        x = self.ln_final(x)
-        return x @ self.text_projection.to(x.dtype)
+            x = cross(blk(x, causal[None, None], self.dtype), image_embs, self.dtype)
+        x = self.ln_final(x).to(self.dtype)
+        return x @ self.text_projection.to(self.dtype)
 
 
 class CoCa(nn.Module):
@@ -171,16 +180,12 @@ class CoCa(nn.Module):
                 "CoCa needs a token-sequence vision tower; ResNet towers have "
                 "no token stream (as in the reference)"
             )
-        if cfg.text.hf_model_name:
-            raise NotImplementedError(
-                f"{cfg.name}: the HF text tower {cfg.text.hf_model_name!r} of a CoCa is not ported "
-                f"yet ({_HF_ITEM})"
-            )
         self.cfg = cfg
         tower = EvaViT if v.eva_model_name else OpenCLIPViT
         self.visual = tower(v, cfg.embed_dim, dtype, grad_checkpointing)
-        self.text = TextTransformer(cfg.text, cfg.embed_dim, dtype)
-        self.text_decoder = MultimodalDecoder(cfg.multimodal)
+        text = HFTextTower if cfg.text.hf_model_name else TextTransformer
+        self.text = text(cfg.text, cfg.embed_dim, dtype)
+        self.text_decoder = MultimodalDecoder(cfg.multimodal, dtype)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     @property
@@ -203,9 +208,13 @@ class CoCa(nn.Module):
     def _encode_text(self, text: torch.Tensor, normalize: bool = True, embed_cls: bool = True):
         """(text latent [B, E], token stream [B, L, W]), reference
         `_encode_text` (`coca_model.py:136-139`): with ``embed_cls`` the ids
-        lose their last slot to make room for the CLS token."""
+        lose their last slot to make room for the CLS token (an HF tower's
+        too, as in the JAX package)."""
         text = text[:, :-1] if embed_cls else text
-        pooled, tokens = self.text.forward_coca(text)
+        if isinstance(self.text, HFTextTower):
+            pooled, tokens = self.text.forward_tokens(text)
+        else:
+            pooled, tokens = self.text.forward_coca(text)
         return (l2_normalize(pooled) if normalize else pooled), tokens
 
     def encode_image(self, image: torch.Tensor, normalize: bool = True) -> torch.Tensor:

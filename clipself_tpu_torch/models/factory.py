@@ -30,6 +30,7 @@ def create_model(
     seed: int = 0,
     grad_checkpointing: bool = False,
     pretrained: Optional[str] = None,
+    hf_pretrained: bool = False,
 ) -> Union[CLIP, CoCa]:
     """Build a CLIP (a CoCa for a multimodal config) with seeded random
     weights, in eval mode on ``device``.
@@ -47,9 +48,20 @@ def create_model(
     as `clipself_tpu/models/factory.py:100-108` routes it. A timm tower
     whose config sets `timm_model_pretrained` (`--pretrained-image`) without
     ``pretrained`` logs a warning: nothing is fetched
-    (`clipself_tpu/models/factory.py:112-120`).
+    (`clipself_tpu/models/factory.py:112-120`). An HF text tower logs the
+    JAX package's warning that it is randomly initialized; its hub weights
+    (``hf_pretrained``, `clipself_tpu/models/factory.py:121-133`) are not in
+    the repository and are never fetched: ``hf_pretrained=True`` raises
+    (load a transformers torch trunk with
+    `models/hf_text.py::load_hf_trunk_params`).
     """
     cfg = get_model_config(name_or_cfg) if isinstance(name_or_cfg, str) else name_or_cfg
+    if hf_pretrained and cfg.text.hf_model_name:
+        raise OSError(
+            f"hf_pretrained: the hub weights of the HF text tower {cfg.text.hf_model_name!r} are not in "
+            "the repository and nothing is fetched; load a transformers torch trunk state dict with "
+            "models/hf_text.py::load_hf_trunk_params"
+        )
     model = model_class(cfg)(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
     model.init_weights(torch.Generator().manual_seed(seed))
     if pretrained:
@@ -64,6 +76,12 @@ def create_model(
         logging.getLogger("clipself_tpu_torch").warning(
             "timm_model_pretrained is set but no weights source is reachable "
             "offline; pass --pretrained <checkpoint> to load trunk weights"
+        )
+    if cfg.text.hf_model_name:
+        logging.getLogger("clipself_tpu_torch").warning(
+            "HF text tower %r is randomly initialized; its hub weights are not in the repository "
+            "(load a transformers torch trunk with models/hf_text.py::load_hf_trunk_params)",
+            cfg.text.hf_model_name,
         )
     return model.to(device).eval()
 
@@ -101,8 +119,9 @@ def create_model_and_transforms(
 def get_tokenizer(name_or_cfg: Any = None):
     """The tokenizer callable of a model (`clipself_tpu/models/factory.py::get_tokenizer`):
     the CLIP BPE `tokenize` at the model's context length. A CoCa config
-    declares one token less than it consumes, so it gets one more. HF text
-    towers raise (ROADMAP.md queue 1 item 8.5)."""
+    declares one token less than it consumes, so it gets one more. A model
+    with an HF text tower gets `tokenizer.py::HFTokenizer`, which raises:
+    the hub's vocabulary is not in the repository."""
     from clipself_tpu_torch import tokenizer as _tok
 
     if name_or_cfg is None:

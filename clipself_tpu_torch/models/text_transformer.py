@@ -24,8 +24,9 @@ the EOT token (the argmax of the token ids) projected by `text_projection`.
 
 The CoCa text tower (`embed_cls`) appends a learned `cls_emb` after the
 text, so the positional table has context_length + 1 rows; `forward_coca`
-pools it (`clipself_tpu/models/text_transformer.py:129-160`). The HF text
-towers (ROADMAP.md queue 1 item 8.5) are not ported.
+pools it (`clipself_tpu/models/text_transformer.py:129-160`). A config that
+names an HF text tower (`hf_model_name`) builds `models/hf_text.py::HFTextTower`
+instead (`models/clip.py::CLIP`, `models/coca.py::CoCa`).
 """
 
 from __future__ import annotations
@@ -40,8 +41,6 @@ from clipself_tpu_torch.core.config import TextConfig
 from clipself_tpu_torch.models.common import LayerScale, gelu
 from clipself_tpu_torch.models.eva_vit import Dense, LayerNorm, _lecun_normal
 from clipself_tpu_torch.ops.attention import attention_masked
-
-_HF_ITEM = "ROADMAP.md queue 1 item 8.5"
 
 
 class TextAttention(nn.Module):
@@ -88,10 +87,16 @@ class TextBlock(nn.Module):
         self.ls_1 = LayerScale(cfg.width, ls) if ls is not None else None
         self.ls_2 = LayerScale(cfg.width, ls) if ls is not None else None
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        a = self.attn(self.ln_1(x), mask)
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor], dtype: Optional[torch.dtype] = None
+    ) -> torch.Tensor:
+        """The residual stream keeps x's dtype; each branch computes in
+        ``dtype`` (x's by default) from its norm's output cast to it, as the
+        JAX block's `ln(x).astype(self.dtype)` does."""
+        dt = dtype or x.dtype
+        a = self.attn(self.ln_1(x).to(dt), mask)
         x = x + (a if self.ls_1 is None else self.ls_1(a))
-        m = self.mlp(self.ln_2(x))
+        m = self.mlp(self.ln_2(x).to(dt))
         return x + (m if self.ls_2 is None else self.ls_2(m))
 
 
@@ -107,8 +112,8 @@ class TextTransformer(nn.Module):
     def __init__(self, cfg: TextConfig, embed_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.hf_model_name:
-            raise NotImplementedError(
-                f"HF text tower {cfg.hf_model_name!r} is not ported ({_HF_ITEM})"
+            raise ValueError(
+                f"HF text tower {cfg.hf_model_name!r}: build it with models/hf_text.py::HFTextTower"
             )
         self.cfg = cfg
         self.dtype = dtype

@@ -8,7 +8,12 @@ ModifiedResNet, ConvNeXt, Swin and timm-ViT branches of
 `clipself_tpu/models/torch_io.py::_vision_key_map` and of `_text_key_map`
 and `_decoder_key_map` copied here (the result is pinned equal to that
 module's `export_state_dict`; a timm tower's map is chosen from the
-config). `load_weights` loads such a dict, or a reference `.pt`
+config). The HF towers' subtrees (`text/trunk`, `text/proj`,
+`visual/trunk`, `visual/head` of the transformers trunk adapter), which
+the JAX `export_state_dict` does not map, take the port's own map: the
+transformers torch names under `text.transformer.` and `visual.trunk.`,
+`kernel` a transposed weight (the patch projection's an OIHW one), `scale`
+and `embedding` a `weight`. `load_weights` loads such a dict, or a reference `.pt`
 checkpoint, into the whole model with `strict=True`; text-tower keys
 stored without the `text.` prefix (the open_clip hub layout) are taken too.
 `detector_state_dict_from_jax` does the same for the flax tree of the F-ViT
@@ -320,6 +325,30 @@ def _timm_key_map(timm_model_name: str):
     raise KeyError(f"timm trunk {timm_model_name!r} has no key map")
 
 
+def _hf_key(base: str, rest: list) -> tuple[str, Any]:
+    """A leaf of a transformers Flax trunk under the torch module ``base``:
+    the path joined by '.', `kernel` a transposed linear weight (the ViT
+    patch projection's an OIHW conv weight), `scale` and `embedding` a
+    verbatim `weight`, every other leaf (`bias`, the T5 norm's `weight`,
+    `cls_token`, `position_embeddings`) verbatim under its own name."""
+    leaf, path = rest[-1], ".".join(rest[:-1])
+    if leaf == "kernel":
+        return f"{base}.{path}.weight", "conv" if rest[-3:-1] == ["patch_embeddings", "projection"] else "linear"
+    name = "weight" if leaf in ("scale", "embedding") else leaf
+    return f"{base}.{path}.{name}" if path else f"{base}.{name}", None
+
+
+def _hf_vision_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
+    """The transformers trunk adapter: `trunk/...` -> `visual.trunk.<the
+    transformers torch ViTModel names>`, `head` -> `visual.head.weight`."""
+    k = list(flax_key)
+    if k[0] == "trunk" and len(k) > 1:
+        return _hf_key("visual.trunk", k[1:])
+    if k == ["head", "kernel"]:
+        return "visual.head.weight", "linear"
+    raise KeyError(f"unmapped HF trunk adapter param: {flax_key}")
+
+
 def _vision_key_map(flax_key: tuple[str, ...], cfg: Optional[CLIPConfig] = None) -> tuple[str, Any]:
     """The visual tower's key map. A timm tower's is chosen from ``cfg``, as
     the JAX package's `_vision_key_map(flax_key, cfg)` chooses it: its flax
@@ -328,21 +357,34 @@ def _vision_key_map(flax_key: tuple[str, ...], cfg: Optional[CLIPConfig] = None)
     the OpenCLIP ViT). Otherwise the EVA layout, else the plain OpenCLIP
     ViT's, else the ModifiedResNet's (these trees share no top-level name
     but the stem's `conv1`, which the ViT map takes for both; the JAX
-    package tries them in this order)."""
+    package tries them in this order), else the transformers trunk
+    adapter's (whose `head` the EVA map takes alike), which ``cfg`` with
+    `hf_trunk_name` picks directly."""
     if cfg is not None and cfg.vision.timm_model_name:
         return _timm_key_map(cfg.vision.timm_model_name)(flax_key)
-    for key_map in (_eva_vision_key_map, _vit_vision_key_map):
+    if cfg is not None and cfg.vision.hf_trunk_name:
+        return _hf_vision_key_map(flax_key)
+    for key_map in (_eva_vision_key_map, _vit_vision_key_map, _resnet_vision_key_map):
         try:
             return key_map(flax_key)
         except KeyError:
             pass
-    return _resnet_vision_key_map(flax_key)
+    return _hf_vision_key_map(flax_key)
 
 
 def _text_key_map(flax_key: tuple[str, ...]) -> tuple[str, Any]:
     """Map a flax param path under `text` to (torch_key, transform), as
-    `_eva_vision_key_map` does."""
+    `_eva_vision_key_map` does. An HF text tower's `trunk/...` is
+    `text.transformer.<the transformers torch names>`, its `proj` the
+    reference's `text.proj.weight` (linear) or `text.proj.{0,2}.weight`
+    (the MLP's `layers_0`, `layers_2`)."""
     k = list(flax_key)
+    if k[0] == "trunk" and len(k) > 1:
+        return _hf_key("text.transformer", k[1:])
+    if k == ["proj", "kernel"]:
+        return "text.proj.weight", "linear"
+    if k[0] == "proj" and len(k) == 3 and k[2] == "kernel" and re.fullmatch(r"layers_\d+", k[1]):
+        return f"text.proj.{k[1][len('layers_'):]}.weight", "linear"
     if k == ["cls_emb"]:
         return "text.cls_emb", None
     if k == ["token_embedding", "embedding"]:
@@ -464,6 +506,10 @@ def state_dict_from_jax(params: Any, cfg: Optional[CLIPConfig] = None) -> dict[s
         if sorted(thirds) != [0, 1, 2]:
             raise KeyError(f"{key}: the tree holds thirds {sorted(thirds)} of the packed projection")
         out[key] = torch.tensor(np.concatenate([thirds[0], thirds[1], thirds[2]], axis=0))
+    if "text.transformer.shared.weight" in out:
+        # a T5 trunk: the encoder's `embed_tokens` is the `shared` module,
+        # under both keys in the torch state dict, once in the flax tree
+        out["text.transformer.encoder.embed_tokens.weight"] = out["text.transformer.shared.weight"].clone()
     out["logit_scale"] = torch.tensor(np.asarray(params["logit_scale"], dtype=np.float32))
     return out
 

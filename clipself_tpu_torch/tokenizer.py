@@ -216,13 +216,16 @@ def _default_tokenizer() -> SimpleTokenizer:
 
 
 class HFTokenizer:
-    """The HuggingFace tokenizer of the JAX package's HF text towers: not
-    ported (ROADMAP.md queue 1 item 8.5)."""
+    """The HuggingFace tokenizer of the HF text towers
+    (`clipself_tpu/tokenizer.py::HFTokenizer`, `AutoTokenizer.from_pretrained`):
+    its vocabulary files come from the hub, are not in the repository and are
+    never fetched, so it raises OSError naming them. The towers themselves
+    take token ids (`models/hf_text.py::HFTextTower`)."""
 
     def __init__(self, tokenizer_name: str):
-        raise NotImplementedError(
-            f"HF tokenizer {tokenizer_name!r}: the HF text towers are not ported "
-            "(ROADMAP.md queue 1 item 8.5)"
+        raise OSError(
+            f"HF tokenizer {tokenizer_name!r}: its hub vocabulary (tokenizer.json / vocab files) is "
+            "not in the repository and nothing is fetched; give the HF text tower token ids"
         )
 
 

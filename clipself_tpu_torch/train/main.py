@@ -90,6 +90,7 @@ from clipself_tpu_torch.eval.zero_shot import (
     evaluate_zero_shot,
     metrics_json,
 )
+from clipself_tpu_torch.models.clip import dense_stride
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.models.pretrained import resolve_pretrained
 from clipself_tpu_torch.models.torch_io import load_pretrained
@@ -155,7 +156,8 @@ def parse_args(argv=None):
     p.add_argument("--test-type", default="coco_panoptic", choices=["coco_panoptic"],
                    help="val dataset type (reference data.py:643)")
     p.add_argument("--downsample-factor", type=int, default=None,
-                   help="eval dense-map downsample; default = the model's patch size")
+                   help="eval dense-map downsample; default = the stride of the tower's dense map "
+                        "(models/clip.py::dense_stride)")
     p.add_argument("--embed-path", default=None, help="class embeddings .npy of the val set")
     p.add_argument("--synthetic", action="store_true", help="seeded synthetic batches")
     p.add_argument("--det-image-size", type=int, default=1024)
@@ -376,7 +378,11 @@ def train(args) -> dict:
         )
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     if args.downsample_factor is None:
-        args.downsample_factor = cfg.vision.patch_size
+        # the dense map's stride, not `cfg.vision.patch_size` as the JAX
+        # trainer takes it: the two differ for the HF trunk adapter (the HF
+        # config's patch) and ConvNeXt / Swin (32), where masks on the
+        # patch_size grid do not fit the dense map (ROADMAP.md queue 3, Watch)
+        args.downsample_factor = dense_stride(cfg.vision)
     data = build_data(args, device, cfg.vision.image_size)
 
     name = args.name or f"{args.model}-{args.dataset_type}-{time.strftime('%Y%m%d-%H%M%S')}"

@@ -114,9 +114,9 @@ def trainable_labels(
     embeddings, the final norm and the head (`proj`) staying frozen; in the
     ModifiedResNet the groups [stem, layer1, ..., layer4], group g frozen
     while g <= 5 - ``unlocked_groups``, and the attention pool never. A
-    timm tower (`visual.trunk.*`, `visual.head.*`) has no group the JAX
-    rules name, so under the lock all of it freezes, and without it all of
-    it trains, as in the JAX package."""
+    timm tower or the transformers trunk adapter (`visual.trunk.*`,
+    `visual.head.*`) has no group the JAX rules name, so under the lock all
+    of it freezes, and without it all of it trains, as in the JAX package."""
     names = list(names)
     first_trainable = num_layers - unlocked_groups
     freeze_at = 5 - unlocked_groups  # the ResNet's group rule

@@ -288,15 +288,18 @@ def test_registry_cocas_build_with_the_jax_layout(name):
     assert get_tokenizer(name)(["a photo of a cat"]).shape == (1, 77)
 
 
-@pytest.mark.parametrize("name,match", [
-    ("coca_roberta-ViT-B-32", "item 8.5"),
-    ("RN50", "no token stream"),
+@pytest.mark.parametrize("name,error,match", [
+    # the HF text tower is ported; this config names it by a hub id, whose
+    # config.json is not in the repository
+    pytest.param("coca_roberta-ViT-B-32", OSError, "'roberta-base'.*config.json",
+                 id="coca_roberta-ViT-B-32-item 8.5"),
+    pytest.param("RN50", NotImplementedError, "no token stream", id="RN50-no token stream"),
 ])
-def test_unported_cocas_raise(name, match):
+def test_unported_cocas_raise(name, error, match):
     cfg = get_model_config(name)
     if cfg.multimodal is None:  # a ResNet CoCa: RN50 under coca_ViT-B-32's decoder
         cfg = dataclasses.replace(cfg, multimodal=get_model_config("coca_ViT-B-32").multimodal)
-    with pytest.raises(NotImplementedError, match=match), torch.device("meta"):
+    with pytest.raises(error, match=match), torch.device("meta"):
         model_class(cfg)(cfg)
 
 

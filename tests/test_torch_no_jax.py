@@ -20,7 +20,11 @@ tower with a fused `qkv`, the GELU MLP, no RoPE, post-norm blocks and a
 shared rel-pos bias): one dense map; and a timm ConvNeXt (`convnext_base`'s
 config on a tiny arch): one evaluator batch and one `--no-lock-image`
 train step; and a tiny CoCa (`models/coca.py`, with the attentional pooler
-and `train/contrastive.py`): `coca_loss` and a sampled caption."""
+and `train/contrastive.py`): `coca_loss` and a sampled caption; and the HF
+towers without `transformers`: `hf-vit-tiny-test` (the trunk adapter) and
+a tiny 'roberta' text tower, each encoding, and one `--no-lock-image`
+distill step on `hf-vit-tiny-test`. Neither `transformers` nor its
+`tokenizers`, `sentencepiece` or `safetensors` is loaded."""
 
 import json
 import math
@@ -90,6 +94,12 @@ import clipself_tpu_torch.models.openai
 import clipself_tpu_torch.models.pretrained
 import clipself_tpu_torch.models.coca as coca
 import clipself_tpu_torch.train.contrastive as contrastive
+import clipself_tpu_torch.models.hf_configs
+import clipself_tpu_torch.models.hf_bert
+import clipself_tpu_torch.models.hf_t5
+import clipself_tpu_torch.models.hf_vit
+import clipself_tpu_torch.models.hf_text
+import clipself_tpu_torch.models.trunk_adapter
 
 model = factory.create_model("EVA02-CLIP-Tiny-Test", device="cpu", dtype=torch.float32, seed=0)
 batch = synthetic.synthetic_panoptic_batch(
@@ -234,7 +244,22 @@ coca_img, coca_txt = torch.zeros(2, 32, 32, 3), torch.randint(1, 512, (2, 16))
 coca_out = coca.coca_loss(coca_model(coca_img, coca_txt), coca_txt)[0]
 caption = coca.generate(coca_model, coca_img, 1, 2, max_len=6, top_k=3)
 create_loss = contrastive.create_loss("clipself").__name__
+hf_vit = factory.create_model("hf-vit-tiny-test", device="cpu", dtype=torch.float32, seed=0)
+hf_img = hf_vit.encode_image(torch.zeros(2, 32, 32, 3), normalize=True)
+roberta = dataclasses.replace(tiny, text=dataclasses.replace(tiny.text, hf_model_name="roberta", hf_model_config=dict(
+    hidden_size=32, num_hidden_layers=1, num_attention_heads=2, intermediate_size=64, vocab_size=100,
+    max_position_embeddings=20)))
+hf_txt = factory.create_model(roberta, device="cpu", dtype=torch.float32, seed=0).encode_text(
+    torch.randint(3, 100, (2, 8)), normalize=True)
+train_main.get_model_config = factory.get_model_config
+hf_run = train_main.main([
+    "--device", "cpu", "--synthetic", "--model", "hf-vit-tiny-test", "--no-lock-image", "--batch-size", "1",
+    "--det-image-size", "32", "--max-boxes", "2", "--steps-per-epoch", "1", "--epochs", "1",
+    "--logs", sys.argv[1], "--name", "hf_vit",
+])
 data = {"coca": [type(coca_model).__name__, math.isfinite(float(coca_out)), list(caption.shape), create_loss],
+        "hf": [list(hf_img.shape), list(hf_txt.shape), bool(torch.isfinite(hf_txt).all()),
+               hf_run["history"][-1]["loss"]],
         "loss": files["history"][-1]["loss"], "evals": len(files["evals"]),
         "vit": [len(vit_res), vit_run["history"][-1]["loss"]],
         "rn": [len(rn_res), rn_run["history"][-1]["loss"]],
@@ -247,7 +272,7 @@ data = {"coca": [type(coca_model).__name__, math.isfinite(float(coca_out)), list
 text = {"encode_text": list(txt.shape), "finite": bool(torch.isfinite(txt).all()),
         "rows": list(rows.shape), "cli": list(cli.shape), "ids": tokenizer.tokenize("a cat")[0, :4].tolist()}
 banned = ("jax", "jaxlib", "flax", "PIL", "optax", "orbax", "torchvision", "regex", "ftfy",
-          "clipself_tpu")
+          "clipself_tpu", "transformers", "tokenizers", "sentencepiece", "safetensors")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(json.dumps({"n_results": len(res), "loss": loss, "det_loss": det_loss, "loaded": loaded, "text": text,
                   "data": data,
@@ -291,6 +316,7 @@ def test_port_runs_without_jax(tmp_path):
     assert out["data"]["convnext"][0] == 12 and math.isfinite(out["data"]["convnext"][1])
     assert out["data"]["eva_variants"] == [[1, 4, 4, 64], True]
     assert out["data"]["coca"] == ["CoCa", True, [2, 6], "clip_loss"]
+    assert out["data"]["hf"][:3] == [[2, 16], [2, 64], True] and math.isfinite(out["data"]["hf"][3])
     assert len(out["data"]["eval_only"]) == 13 and "epoch" in out["data"]["eval_only"]
     assert len(out["data"]["region"]) == 2 and all(map(math.isfinite, out["data"]["region"]))
     assert (tmp_path / "region" / "epoch_1.pt").is_file()

@@ -223,7 +223,9 @@ def test_text_init_follows_the_jax_distributions(towers):
 
 def test_tokenizer_choice_and_refusals():
     """`get_tokenizer`: the BPE `tokenize` at the config's context length
-    (one more for a CoCa config), as the JAX package's; HF towers raise;
+    (one more for a CoCa config), as the JAX package's; an HF tower's
+    tokenizer raises naming the hub vocabulary that is not in the repository;
+    the CLIP text tower refuses an HF config (`HFTextTower` builds it);
     the CoCa text tower (`embed_cls`) builds with its CLS token and one
     more position."""
     for name in (NAME, "coca_base"):
@@ -231,11 +233,11 @@ def test_tokenizer_choice_and_refusals():
         want = jget_tokenizer(name)(["a photo of a cat"])
         np.testing.assert_array_equal(got, want)
     assert get_tokenizer(NAME)(["x"]).shape == (1, 16)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(OSError, match="'roberta-base'.*vocabulary"):
         get_tokenizer("roberta-ViT-B-32")
     cfg = get_model_config(NAME).text
     cls_tower = TextTransformer(dataclasses.replace(cfg, embed_cls=True), 64)
     assert cls_tower.cls_emb.shape == (cfg.width,)
     assert cls_tower.positional_embedding.shape == (cfg.context_length + 1, cfg.width)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="HFTextTower"):
         TextTransformer(dataclasses.replace(cfg, hf_model_name="roberta-base"), 64)
