@@ -62,6 +62,21 @@ then for each model, B/16 first:
    kernels, bf16 kernels and the f32 plain path (L/14: at full width and a
    depth of 6 blocks, since the plain path keeps every block's
    [1, 16, 4097, 4097] float32 attention maps for its backward);
+7a. after B/16's train parity, the trainer laid out for a mesh
+   (`phase_parallel`): the card is one GPU, so the mesh is (1, 1, 1) over a
+   world-size-1 NCCL group in this process (launcher variables set for the
+   call alone), with FSDP2 over (data, fsdp) and the tensor-parallel plan
+   over `model` applied as at larger worlds (their collectives run on one
+   rank: the LayerNorm's gather and the row-parallel sums are no-ops); the
+   B/16 distill step through `train.main` (1024^2, batch 2, 20 crops at 224^2,
+   every block unlocked, the seeded weights of phase 6) for 2 warm-up and 3
+   timed steps and 1 under the profiler, beside the same run without a
+   launcher: the first loss and the first step's gradient of block 11's
+   `mlp.w3` within 1e-6 relative, the later losses within 2e-4 relative and
+   that weight after the run within 1e-4 (past the first update the
+   unwrapped step does not repeat itself: the flash backward sums dQ by
+   atomics), launch counts equal (`b16_train_sharded` in the kernels line),
+   images/s and kernel ms of each;
 7b. after B/16's phases, the input pipeline on files (`data/`, no PIL): a
    corpus written under `build/chip_smoke_data/` (deleted at the end) by
    `data/image_io.py::encode_png`, its rows cycling the five PNG filters: 16 train images
@@ -181,7 +196,7 @@ then the F-ViT detector, preset `ov_coco_vitb16` (EVA02-CLIP-B/16 backbone at
    checkpoint: the first and last loss, AP50 and mAP (LVIS: box and `segm_`
    AP and AP50; fails under 0.90 AP50, box and segm; OV-COCO is also driven
    at `--seed` 1 and 2 in two `tools/detector_seed_sweep.py` processes side
-   by side, and the median of the three seeds' AP50 must reach 0.90 too), one core's ms a train
+   by side while the OV-LVIS drive runs, and the median of the three seeds' AP50 must reach 0.90 too), one core's ms a train
    and an eval item, the steps fed from files (reads, step) beside the
    synthetic step of phase 10 / 12, the device's idle share over 6 epochs
    under the profiler and the launches a step and an eval batch (equal to the synthetic
@@ -234,6 +249,16 @@ EVAL_WARMUP, N_BATCHES, N_CLASSES, SEED = 2, 4, 133, 0
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_BOXES = 2, 3, 5, 20
 L14_TRAIN_WARMUP, L14_TRAIN_TIMED = 2, 3
 RECOMPUTE_WARMUP, RECOMPUTE_STEPS = 1, 2
+# the trainer laid out for a mesh at world size 1 against the same run
+# without one: warm-up, timed and profiled steps; the block weight compared.
+# The first step is the same operations on the same values: its loss and the
+# weight's gradient within 1e-6 relative (they read equal). Past the first
+# update the unwrapped step does not repeat itself: the flash backward sums dQ
+# by atomics, so two unwrapped runs differ in the later losses and the weight
+# (`tools/train_repeat.py` reads their spread); those are held to bars above it
+PARALLEL_WARMUP, PARALLEL_TIMED, PARALLEL_PROFILED = 2, 3, 1
+PARALLEL_WEIGHT = "visual.blocks.11.mlp.w3.weight"
+PARALLEL_MAX_REL, PARALLEL_LATER_LOSS_MAX_REL, PARALLEL_WEIGHT_MAX_ABS = 1e-6, 2e-4, 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1459,6 +1484,80 @@ def phase_train_parity(torch, dev, s: Model, kernels=None, extract_type="v2", un
         fail(f"f32 kernel gradient {worst_rel} off by {rel[worst_rel]} of its max")
     if not cos[worst_cos] >= STEP_GRAD_BF16_MIN_COS:
         fail(f"bf16 kernel gradient {worst_cos} cosine {cos[worst_cos]}")
+
+
+def phase_parallel(torch, dev, s: Model, logs_dir) -> dict:
+    """The distill step through `train.main` on a (1, 1, 1) mesh against the
+    same run without a launcher (see 7a above); returns the launches of the
+    sharded run."""
+    from clipself_tpu_torch.tools.train_repeat import run_once
+
+    layers, w, t = s.vision.layers, PARALLEL_WARMUP, PARALLEL_TIMED
+    steps = w + t + PARALLEL_PROFILED
+    argv = [
+        "--synthetic", "--model", s.model, "--precision", "bf16", "--device", str(dev),
+        "--batch-size", str(TRAIN_BATCH), "--det-image-size", str(s.image),
+        "--max-boxes", str(TRAIN_BOXES), "--lock-image-unlocked-groups", str(layers),
+        "--steps-per-epoch", str(steps), "--epochs", "1", "--log-every-n-steps", "1",
+        "--lr", "1e-5", "--warmup", "1", "--seed", str(SEED), "--logs", logs_dir,
+    ]
+
+    def one(tag: str, sharded: bool) -> dict:
+        t0 = time.perf_counter()
+        prof = {}
+        reset_counts()
+        extra = ["--name", tag] + (["--n-devices", "1"] if sharded else [])
+        with profiled_steps(torch, w + t, steps, prof):
+            out = run_once(argv + extra, PARALLEL_WEIGHT, sharded)
+        torch.cuda.synchronize()
+        step_ms = [TRAIN_BATCH / h["images_per_sec"] * 1e3 for h in out["history"][w:w + t]]
+        median_ms = statistics.median(step_ms)
+        out.update(launches=read_counts(), median_ms=median_ms, images_per_sec=TRAIN_BATCH / median_ms * 1e3,
+                   kernel_ms=prof["kernel_ms"] / PARALLEL_PROFILED, seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        return out
+
+    try:
+        plain = one("parallel_unwrapped", False)
+        sharded = one("parallel_sharded", True)
+    finally:
+        shutil.rmtree(logs_dir, ignore_errors=True)
+    tag = f"{s.key} train sharded"
+    for name, r in (("unwrapped", plain), ("sharded (1, 1, 1)", sharded)):
+        print(
+            f"{tag}: {name} {s.model} distill step, batch {TRAIN_BATCH} at {s.image}px, {TRAIN_BOXES} "
+            f"crops at {s.crop}px, bf16: median of {t} timed steps after {w} warm-up {r['median_ms']:.3f} ms, "
+            f"{r['images_per_sec']:.3f} images/s; kernels {r['kernel_ms']:.3f} ms a step under the profiler; "
+            f"run {r['seconds']:.1f} s; mesh {r['mesh']}, {r['tp_modules']} modules with a tensor-parallel "
+            f"group; launches {json.dumps(r['launches'])}",
+            flush=True,
+        )
+    rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(sharded["losses"], plain["losses"])]
+    rel_first, rel_later = rel[0], max(rel[1:])
+    rel_g = ((sharded["grad"] - plain["grad"]).abs().max() / plain["grad"].abs().max()).item()
+    abs_w = (sharded["after"] - plain["after"]).abs().max().item()
+    print(f"{tag}: losses {json.dumps([round(x, 7) for x in sharded['losses']])} against "
+          f"{json.dumps([round(x, 7) for x in plain['losses']])}: the first rel {rel_first:.3e}, the first "
+          f"step's {PARALLEL_WEIGHT} gradient max rel {rel_g:.3e} (bar {PARALLEL_MAX_REL}); later losses max "
+          f"rel {rel_later:.3e} (bar {PARALLEL_LATER_LOSS_MAX_REL}), the weight after {steps} steps max |d| "
+          f"{abs_w:.3e} (bar {PARALLEL_WEIGHT_MAX_ABS}); host cost of the wrappers "
+          f"{sharded['median_ms'] - plain['median_ms']:+.3f} ms a step at "
+          f"{sharded['kernel_ms'] - plain['kernel_ms']:+.3f} ms of kernels", flush=True)
+    expect = expected_launches(layers, steps=steps)
+    if sharded["mesh"] != (1, 1, 1) or plain["mesh"] is not None:
+        fail(f"{tag}: meshes {sharded['mesh']} and {plain['mesh']}, expected (1, 1, 1) and none")
+    if not sharded["tp_modules"]:
+        fail(f"{tag}: no module carries the tensor-parallel plan")
+    if not (len(sharded["losses"]) == len(plain["losses"]) == steps
+            and all(map(math.isfinite, sharded["losses"] + plain["losses"]))):
+        fail(f"{tag}: losses {sharded['losses']} and {plain['losses']}")
+    if not (rel_first <= PARALLEL_MAX_REL and rel_g <= PARALLEL_MAX_REL):
+        fail(f"{tag}: the sharded first step is off the unwrapped one: loss {rel_first}, gradient {rel_g}")
+    if not (rel_later <= PARALLEL_LATER_LOSS_MAX_REL and abs_w <= PARALLEL_WEIGHT_MAX_ABS):
+        fail(f"{tag}: the sharded run drifts from the unwrapped one: losses {rel_later}, weight {abs_w}")
+    if not sharded["launches"] == plain["launches"] == expect:
+        fail(f"{tag}: launches {sharded['launches']} and {plain['launches']}, expected {expect}")
+    return {"b16_train_sharded": sharded["launches"]}
 
 
 def phase_text(torch, dev, s: Model, model, model_f32) -> dict:
@@ -3844,7 +3943,9 @@ def phase_detector_files(torch, dev, synthetic_ms: dict, handoff: dict) -> dict:
     steps' host ms beside the synthetic step's (``synthetic_ms`` by preset),
     the device's idle share over profiled steps, the checkpoints' save time
     and the launches a step and an eval batch; OV-COCO is also driven at
-    the seeds `DET_FILES_SEEDS`, two processes side by side; fails on a
+    the seeds `DET_FILES_SEEDS`, two processes side by side that run while
+    the OV-LVIS drive runs (its host-paced readings are taken beside them:
+    the script's time limit); fails on a
     non-finite loss, an AP under `DET_FILES_MIN_AP50` (OV-COCO: seed `SEED`'s
     and the median of the three seeds') or launches other than the
     synthetic path's. Then the hand-off check: ``handoff["export"]`` (a B/16
@@ -3974,10 +4075,12 @@ def phase_detector_files(torch, dev, synthetic_ms: dict, handoff: dict) -> dict:
             bars = ("AP50", "segm_AP50") if dataset == "lvis" else ("AP50",)
             if not all(metrics[k] >= DET_FILES_MIN_AP50 for k in bars):
                 fail(f"{tag}: {json.dumps({k: metrics[k] for k in bars})} under {DET_FILES_MIN_AP50}")
-            if dataset == "coco":
-                seeds_ap50(preset, epochs, metrics["AP50"], os.path.join(root, "seeds"), dev, tag)
+            if dataset == "coco":  # the seeds' drives run beside the OV-LVIS drive
+                seeds = start_seeds(preset, epochs, os.path.join(root, "seeds"), dev) + (metrics["AP50"], tag)
             out[f"b16_detector_files_{dataset}"] = launches
             out[f"b16_detector_files_{dataset}_eval"] = eval_launches
+
+        finish_seeds(*seeds)
 
         # the CLIPSelf -> F-ViT hand-off: fvit-train's --clip-checkpoint (non-strict)
         # on the export and on a vision-only copy, against the exporter's tower
@@ -4021,13 +4124,11 @@ def phase_detector_files(torch, dev, synthetic_ms: dict, handoff: dict) -> dict:
     return out
 
 
-def seeds_ap50(preset: str, epochs: int, ap50: float, root: str, dev, tag: str) -> None:
-    """The drive of ``preset`` at the seeds `DET_FILES_SEEDS`, each in a
-    `tools/detector_seed_sweep.py` process of its own, side by side, on the
-    tool's own copy of the set; fails unless the median AP50 of theirs and
-    ``ap50`` (seed `SEED`'s) reaches `DET_FILES_MIN_AP50`."""
+def start_seeds(preset: str, epochs: int, root: str, dev) -> tuple:
+    """Start the drive of ``preset`` at the seeds `DET_FILES_SEEDS`, each in
+    a `tools/detector_seed_sweep.py` process of its own, side by side, on
+    the tool's own copy of the set; returns what `finish_seeds` takes."""
     here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
     procs = []
     for seed in DET_FILES_SEEDS:
         out = os.path.join(root, f"seed{seed}")
@@ -4037,6 +4138,12 @@ def seeds_ap50(preset: str, epochs: int, ap50: float, root: str, dev, tag: str) 
                "--device", str(dev), "--json", os.path.join(out, "ap50.json")]
         with open(os.path.join(out, "log"), "w") as log:
             procs.append((seed, out, subprocess.Popen(cmd, cwd=here, stdout=log, stderr=subprocess.STDOUT)))
+    return procs, time.perf_counter(), epochs
+
+
+def finish_seeds(procs: list, t0: float, epochs: int, ap50: float, tag: str) -> None:
+    """Wait for the seeds' drives of `start_seeds`; fails unless the median
+    AP50 of theirs and ``ap50`` (seed `SEED`'s) reaches `DET_FILES_MIN_AP50`."""
     by_seed = {SEED: ap50}
     for seed, out, proc in procs:
         if proc.wait() != 0:
@@ -4047,8 +4154,8 @@ def seeds_ap50(preset: str, epochs: int, ap50: float, root: str, dev, tag: str) 
             by_seed[seed] = json.load(f)["ap50"][str(seed)][str(epochs)]
     median = statistics.median(by_seed.values())
     print(f"{tag} AP50 by --seed after {epochs} epochs {json.dumps(by_seed)}: median {median:.4f} (bar "
-          f"{DET_FILES_MIN_AP50}); seeds {list(DET_FILES_SEEDS)} side by side in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"{DET_FILES_MIN_AP50}); seeds {[s for s, _, _ in procs]} side by side, beside the OV-LVIS drive, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
     if not median >= DET_FILES_MIN_AP50:
         fail(f"{tag}: the median AP50 over --seed {sorted(by_seed)} is {median}, under {DET_FILES_MIN_AP50}")
 
@@ -4230,6 +4337,8 @@ def run_phases(torch, dev, t0) -> int:
         paths.update(model_paths)
         print(f"{s.key} done at {time.perf_counter() - t0:.1f} s", flush=True)
         if s.key == "b16":
+            paths.update(phase_parallel(torch, dev, s, logs_dir))
+            print(f"{s.key} sharded step done at {time.perf_counter() - t0:.1f} s", flush=True)
             paths.update(phase_data(torch, dev, s, logs_dir, train))
             print(f"{s.key} data done at {time.perf_counter() - t0:.1f} s", flush=True)
         paths.update(phase_region(torch, dev, s, logs_dir, handoff=handoff if s.key == "b16" else None))

@@ -315,39 +315,52 @@ def _forward(stream: Iterator[dict]) -> Iterator[dict]:
         yield next(stream)
 
 
-def synthetic_route(data: "SyntheticDistillData", device) -> TrainRoute:
-    """`--synthetic`: the one batch staged on the device once, repeated."""
-    batch = {k: torch.as_tensor(v, device=device) for k, v in data.batch.items()}
+def _rows(batches: Iterable[dict], rows: slice) -> Iterator[dict]:
+    """Each host batch cut to ``rows`` (a rank's share of a global batch)."""
+    for batch in batches:
+        yield batch if rows == slice(None) else {k: v[rows] for k, v in batch.items()}
+
+
+def synthetic_route(data: "SyntheticDistillData", device, *, rows: slice = slice(None)) -> TrainRoute:
+    """`--synthetic`: the one batch (its ``rows``) staged on the device
+    once, repeated."""
+    batch = {k: torch.as_tensor(v[rows], device=device) for k, v in data.batch.items()}
     return TrainRoute(lambda epoch: _forward(itertools.repeat(batch)), endless=True)
 
 
-def loader_route(dataset, batch_size: int, *, seed: int, workers: int, device) -> TrainRoute:
+def loader_route(
+    dataset, batch_size: int, *, seed: int, workers: int, device, rows: slice = slice(None),
+) -> TrainRoute:
     """`make_loader` with ``workers`` processes, built afresh each epoch
     after ``set_epoch`` (the worker processes copy the dataset, and its
-    epoch, when they start), its batches through `device_prefetch`; closing
-    an epoch's generator ends its workers. One pass an epoch: ``steps`` =
-    len(dataset) // batch_size."""
+    epoch, when they start), each batch's ``rows`` through `device_prefetch`;
+    closing an epoch's generator ends its workers. One pass an epoch:
+    ``steps`` = len(dataset) // batch_size. The order and the items depend
+    on (seed, epoch, index) alone, so every rank of a mesh builds the same
+    global batch and keeps its rows."""
     device = torch.device(device)
 
     def batches(epoch):
         dataset.set_epoch(epoch)
-        return device_prefetch(make_loader(
+        return device_prefetch(_rows(make_loader(
             dataset, batch_size, shuffle=True, seed=seed, epoch=epoch,
             num_workers=workers, pin_memory=device.type == "cuda",
-        ), device)
+        ), rows), device)
 
     return TrainRoute(batches, steps=len(dataset) // batch_size)
 
 
-def native_route(dataset, batch_size: int, *, seed: int, workers: int, device) -> TrainRoute:
+def native_route(
+    dataset, batch_size: int, *, seed: int, workers: int, device, rows: slice = slice(None),
+) -> TrainRoute:
     """`NativeDistillLoader` (`--native-loader`) with ``workers`` threads:
-    one endless, double-buffered stream over the epochs through
-    `device_prefetch`; ``fallback_rows`` counts its rows built by the NumPy
-    route."""
+    one endless, double-buffered stream over the epochs, each batch's
+    ``rows`` through `device_prefetch`; ``fallback_rows`` counts its rows
+    built by the NumPy route."""
     native = NativeDistillLoader(
         dataset, batch_size, shuffle=True, seed=seed, num_threads=workers,
     )
-    stream = device_prefetch(native, device)
+    stream = device_prefetch(_rows(native, rows), device)
 
     def batches(epoch):
         dataset.set_epoch(epoch)

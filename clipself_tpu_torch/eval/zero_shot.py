@@ -7,18 +7,25 @@ text-embedding matrix; report per-class mean top-1 / top-5 accuracy split by
 thing/stuff. Batches are fixed-shape and padded (`COCOPanopticEvalDataset`
 format, or `data/synthetic.py`); the annotation axis is bucketed per batch
 and all crops of a batch are encoded in one call.
+
+On a mesh (`parallel/mesh.py`) every rank reads the whole batch, encodes its
+rows (all of them where the batch does not divide over the batch shards)
+and all-gathers the logits: the metrics are the single-process ones on
+every rank. Every rank runs every forward, as FSDP2's gathers need, and the
+bucket width comes from the whole batch, so the ranks agree on it.
 """
 
 from __future__ import annotations
 
 import json
 import math
-from typing import Iterable, Union
+from typing import Iterable, Optional, Union
 
 import numpy as np
 import torch
 
 from clipself_tpu_torch.models.clip import CLIP
+from clipself_tpu_torch.parallel.mesh import Mesh, batch_rows, gather_rows
 
 # `eval_ann_bucket` knob default of the JAX package (core/knobs.py)
 DEFAULT_ANN_BUCKET = 25
@@ -78,6 +85,32 @@ def _bucket_width(boxes: np.ndarray, bucket: int) -> int:
     return min(-(-hi // bucket) * bucket, m)
 
 
+def _logits(
+    model: CLIP,
+    emb: torch.Tensor,
+    images: torch.Tensor,
+    boxes4: torch.Tensor,
+    crops: torch.Tensor,
+    masks: torch.Tensor,
+    image_ave_pool: bool = False,
+    extract_type: str = "v2",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    rois, maskpool = model.encode_rois_and_masks(
+        images, boxes4, masks, normalize=True, extract_type=extract_type,
+        mask_attn=extract_type == "v1",
+    )
+    b, m = crops.shape[:2]
+    crop_flat = crops.reshape((b * m,) + tuple(crops.shape[2:]))
+    if image_ave_pool:
+        cf = model.encode_dense(crop_flat, keep_shape=True, normalize=True).mean(dim=(1, 2))
+        norm = torch.linalg.vector_norm(cf.float(), dim=-1, keepdim=True) + 1e-12
+        cf = cf / norm.to(cf.dtype)
+    else:
+        cf = model.encode_image(crop_flat, normalize=True)
+    crop_feats = cf.reshape(b, m, -1)
+    return tuple(f.float() @ emb.T for f in (rois, crop_feats, maskpool))
+
+
 @torch.inference_mode()
 def batch_logits(
     model: CLIP,
@@ -96,20 +129,7 @@ def batch_logits(
     feature is its CLS embedding, or with ``image_ave_pool`` the mean of its
     dense map (`encode_dense(normalize=True)`, as the JAX package calls it),
     L2-normalized in float32 (+1e-12)."""
-    rois, maskpool = model.encode_rois_and_masks(
-        images, boxes4, masks, normalize=True, extract_type=extract_type,
-        mask_attn=extract_type == "v1",
-    )
-    b, m = crops.shape[:2]
-    crop_flat = crops.reshape((b * m,) + tuple(crops.shape[2:]))
-    if image_ave_pool:
-        cf = model.encode_dense(crop_flat, keep_shape=True, normalize=True).mean(dim=(1, 2))
-        norm = torch.linalg.vector_norm(cf.float(), dim=-1, keepdim=True) + 1e-12
-        cf = cf / norm.to(cf.dtype)
-    else:
-        cf = model.encode_image(crop_flat, normalize=True)
-    crop_feats = cf.reshape(b, m, -1)
-    return tuple(f.float() @ emb.T for f in (rois, crop_feats, maskpool))
+    return _logits(model, emb, images, boxes4, crops, masks, image_ave_pool, extract_type)
 
 
 def evaluate_zero_shot(
@@ -121,6 +141,7 @@ def evaluate_zero_shot(
     ann_bucket: int = DEFAULT_ANN_BUCKET,
     image_ave_pool: bool = False,
     extract_type: str = "v2",
+    mesh: Optional[Mesh] = None,
 ) -> dict:
     """Run the evaluator over batches of images [B, H, W, 3], boxes [B, M, 8]
     (xyxy normalized, label, valid, _, is_thing), crops [B, M, h, w, 3] and
@@ -129,7 +150,9 @@ def evaluate_zero_shot(
     ``ann_bucket`` = 0 disables bucketing; ``image_ave_pool`` scores each
     crop by its mean dense feature instead of its CLS embedding;
     ``extract_type`` 'v1' scores RoIs and masks by mask-attention pooling
-    (the OpenCLIP ViT; the EVA tower has one RoI path)."""
+    (the OpenCLIP ViT; the EVA tower has one RoI path). With ``mesh``
+    every rank of it calls this with the same batches and gets the
+    metrics."""
     emb_np = np.array(embeddings, np.float32)
     emb_np /= np.linalg.norm(emb_np, axis=-1, keepdims=True) + 1e-12
     emb = torch.as_tensor(emb_np, device=device)
@@ -145,16 +168,24 @@ def evaluate_zero_shot(
             continue  # fully padded batch: nothing to score
         width = _bucket_width(boxes, int(ann_bucket))
         boxes = boxes[:, :width]
-        logits = batch_logits(
-            model,
-            emb,
-            to_device(batch["images"]),
-            to_device(boxes[..., :4]),
-            to_device(batch["crops"][:, :width]),
-            to_device(batch["gt_masks"][:, :width]),
+        rows = batch_rows(mesh, boxes.shape[0])  # this rank's images (all without a mesh)
+        args = (
+            to_device(batch["images"][rows]),
+            to_device(boxes[rows, :, :4]),
+            to_device(batch["crops"][rows, :width]),
+            to_device(batch["gt_masks"][rows, :width]),
             image_ave_pool,
             extract_type,
         )
+        if mesh is None:
+            logits = batch_logits(model, emb, *args)
+        else:
+            # no_grad, not inference_mode: FSDP2's gathered parameters outlive the
+            # call and are trained afterwards
+            with torch.no_grad():
+                logits = _logits(model, emb, *args)
+            if rows != slice(None):
+                logits = tuple(gather_rows(lg, mesh.batch_group) for lg in logits)
         valid = boxes[..., 5].reshape(-1) > 0.5
         labels = boxes[..., 4].reshape(-1)[valid].astype(np.int64)
         for key, lg in zip(("rois", "crops", "maskpool"), logits):

@@ -56,6 +56,7 @@ from clipself_tpu_torch.ops.interpolate import resize_2d
 from clipself_tpu_torch.ops.layer_norm import layer_norm
 from clipself_tpu_torch.ops.patchify import patchify
 from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
+from clipself_tpu_torch.parallel.tensor_parallel import TensorParallel
 
 def _trunc_normal(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     """flax `truncated_normal(std)`: a normal cut at two standard deviations."""
@@ -70,7 +71,13 @@ def _lecun_normal(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
 
 class Dense(nn.Linear):
     """`nn.Linear` with float32 parameters, computed in the input's dtype.
-    Built zero-filled; `EvaViT.init_weights` draws the weights."""
+    Built zero-filled; `EvaViT.init_weights` draws the weights. With ``tp``
+    (`parallel/tensor_parallel.py`) it is row-parallel: the weight holds
+    this rank's input columns, the partial products are summed over the
+    group and the bias is added once, after the sum (fused into the product
+    where one rank holds the whole sum)."""
+
+    tp: Optional[TensorParallel] = None
 
     def reset_parameters(self) -> None:
         nn.init.zeros_(self.weight)
@@ -79,13 +86,20 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        if self.tp is None or self.tp.size == 1:
+            return F.linear(x, self.weight.to(x.dtype), bias)
+        y = self.tp.reduce(F.linear(x, self.weight.to(x.dtype)))
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.Module):
     """Row LayerNorm computed in float32 (fast variance,
     y = (x-mu)*(rstd*w)+b) and returned in x's dtype: one rounding of the
-    float32 value, as the cast at the JAX tower's call sites."""
+    float32 value, as the cast at the JAX tower's call sites. With ``tp``
+    the rows, weight and bias are this rank's slices of a width sharded
+    over the group: the whole row is gathered, normalised and sliced."""
+
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, width: int, eps: float):
         super().__init__()
@@ -94,7 +108,11 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        if self.tp is None:
+            return layer_norm(x, self.weight, self.bias, self.eps)
+        tp = self.tp
+        y = layer_norm(tp.gather(x), tp.gather(self.weight), tp.gather(self.bias), self.eps)
+        return y if tp.size == 1 else tp.local(y)
 
 
 def rel_pos_index(window: tuple[int, int]) -> tuple[np.ndarray, int]:
@@ -157,9 +175,16 @@ class RelPosBias(_RelPos):
 
 
 class EvaAttention(_RelPos):
+    """EVA attention. ``heads`` and ``width`` are this rank's: all of the
+    config's, or under tensor parallelism (``tp``) its share of the heads,
+    whose q / k / v rows, biases, rel-pos columns and inner LN it holds."""
+
+    tp: Optional[TensorParallel] = None
+
     def __init__(self, cfg: VisionConfig):
         super().__init__()
         self.cfg = cfg
+        self.heads, self.width = cfg.num_heads, cfg.width
         w = cfg.width
         if cfg.subln:
             self.q_proj = Dense(w, w, bias=False)
@@ -179,15 +204,14 @@ class EvaAttention(_RelPos):
         if self.cfg.subln:
             v = self.v_proj(x)
         else:  # the V rows of the fused projection
-            w = self.cfg.width
-            v = F.linear(x, self.qkv.weight[2 * w:].to(x.dtype))
+            v = F.linear(x, self.qkv.weight[2 * self.width:].to(x.dtype))
         return v if self.v_bias is None else v + self.v_bias.to(v.dtype)
 
     def _qkv(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         if self.cfg.subln:
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         else:  # strided views of the fused rows
-            q, k, v = self.qkv(x).split(self.cfg.width, dim=-1)
+            q, k, v = self.qkv(x).split(self.width, dim=-1)
         if self.q_bias is not None:
             q = q + self.q_bias.to(q.dtype)
             v = v + self.v_bias.to(v.dtype)
@@ -203,9 +227,11 @@ class EvaAttention(_RelPos):
         """``bias``: the shared rel-pos bias or None; ``pos_idx`` [B, K]:
         the grid positions of the patch tokens that patch dropout kept."""
         c = self.cfg
-        b, n, w = x.shape
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        b, n, _ = x.shape
         q, k, v = self._qkv(x)
-        heads = (b, n, c.num_heads, c.head_width)
+        heads = (b, n, self.heads, c.head_width)
         gh, gw = grid_hw
         if c.rope and pos_idx is not None:
             q, k = (
@@ -221,7 +247,7 @@ class EvaAttention(_RelPos):
             mask = own if mask is None else mask + own
         out = multi_head_attention(
             q.view(heads), k.view(heads), v.view(heads), c.head_width ** -0.5, mask
-        ).reshape(b, n, w)
+        ).reshape(b, n, self.width)
         if self.inner_attn_ln is not None:
             out = self.inner_attn_ln(out)
         return self.proj(out)
@@ -229,6 +255,8 @@ class EvaAttention(_RelPos):
     def value_path(self, x: torch.Tensor) -> torch.Tensor:
         """The attention branch without token mixing: v-projection, inner LN
         and output projection (reference `proj_without_attn`)."""
+        if self.tp is not None:
+            x = self.tp.enter(x)
         v = self._v(x)
         if self.inner_attn_ln is not None:
             v = self.inner_attn_ln(v)
@@ -236,6 +264,11 @@ class EvaAttention(_RelPos):
 
 
 class SwiGLU(nn.Module):
+    """SwiGLU with `ffn_ln`; under tensor parallelism (``tp``) this rank
+    holds a slice of the hidden width."""
+
+    tp: Optional[TensorParallel] = None
+
     def __init__(self, cfg: VisionConfig):
         super().__init__()
         hidden = int(cfg.width * cfg.mlp_ratio)
@@ -245,12 +278,17 @@ class SwiGLU(nn.Module):
         self.w3 = Dense(hidden, cfg.width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         h = F.silu(self.w1(x)) * self.w2(x)
         return self.w3(h if self.ffn_ln is None else self.ffn_ln(h))
 
 
 class Mlp(nn.Module):
-    """The exact-GELU MLP of the EVA01-style configs (no naiveswiglu)."""
+    """The exact-GELU MLP of the EVA01-style configs (no naiveswiglu); under
+    tensor parallelism (``tp``) this rank holds a slice of the hidden width."""
+
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, cfg: VisionConfig):
         super().__init__()
@@ -260,6 +298,8 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden, cfg.width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         h = F.gelu(self.fc1(x))
         return self.fc2(h if self.ffn_ln is None else self.ffn_ln(h))
 

@@ -158,5 +158,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def refuse_dtensor(what: str, *tensors) -> None:
+    """A kernel takes one rank's local tensors. A `DTensor` (a sharded
+    parameter of FSDP2 or a tensor-parallel layout) raises: the wrappers
+    never gather it quietly and never take the plain version for it."""
+    from torch.distributed.tensor import DTensor
+
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{what}: got a DTensor ({tuple(t.placements)} over {t.device_mesh}); "
+                "the kernels take local tensors"
+            )
+
+
 def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream

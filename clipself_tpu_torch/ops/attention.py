@@ -180,6 +180,7 @@ def flash_attention_fwd(
 ):
     """softmax(q k^T * scale) v on [B, N, H, D] as a contiguous [B, N, H, D]
     tensor; with ``return_lse``, also the row log-sum-exp [B, H, N] f32."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     _check_device(q, "flash_attention")
     if q.device.type == "cpu":
         if return_lse:
@@ -212,6 +213,7 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv), contiguous [B, N, H, D] in q's dtype, from the forward's
     output ``o`` and ``lse`` and the output gradient ``do``."""
+    _build.refuse_dtensor("flash_attention_bwd", q, k, v, o, lse, do)
     _check_device(q, "flash_attention_bwd")
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, scale)

@@ -310,6 +310,7 @@ def layer_norm_fwd(
     """LayerNorm of x [..., W] as a contiguous tensor of x's dtype; with
     ``return_stats`` also the float32 row mean and rstd of shape
     x.shape[:-1], which the backward takes."""
+    _build.refuse_dtensor("layer_norm", x, weight, bias)
     _check_device(x, "layer_norm")
     if x.device.type == "cpu":
         out = layer_norm_stats_plain(x, weight, bias, eps)
@@ -350,6 +351,7 @@ def layer_norm_bwd(
     that is not needed (``need_dx``, ``need_dwb`` for the pair) is None and is
     not computed on the card. On the card, rows wider than
     `bwd_max_width(x.dtype)` raise."""
+    _build.refuse_dtensor("layer_norm_bwd", x, dy, mu, rstd, weight)
     _check_device(x, "layer_norm_bwd")
     if not (need_dx or need_dwb):
         return None, None, None

@@ -122,6 +122,7 @@ def nms_keep_mask(
 ) -> torch.Tensor:
     """keep [B, N] (or [N]) bool for score-sorted boxes [B, N, 4] (or
     [N, 4]) with validity [B, N]; boxes are read as float32."""
+    _build.refuse_dtensor("nms_keep_mask", sorted_boxes, valid)
     if sorted_boxes.device.type == "cpu":
         return nms_keep_mask_plain(sorted_boxes, valid, iou_threshold)
     if sorted_boxes.device.type != "cuda":

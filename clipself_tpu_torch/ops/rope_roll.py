@@ -90,6 +90,7 @@ def rolled_rope_packed(
     packed float32 table [N, D / 2, 4], in one launch; returns new tensors.
     ``backward`` only picks the launch counter: the backward is this function
     on the gradients with the packed backward tables."""
+    _build.refuse_dtensor("rolled_rope", *xs, packed)
     x = xs[0]
     if x.device.type == "cpu":
         tables = unpack_tables(packed)

@@ -11,6 +11,11 @@
 
 `export_torch` writes the ensembled weights as a reference-layout
 checkpoint: the port's state dict already has the reference keys.
+
+On a mesh (`parallel/mesh.py`) every rank gathers the whole model and
+optimizer state from the shards, rank 0 alone writes it in the
+single-process format, and a resume gives each rank its shards again: a
+checkpoint of any mesh resumes under any other mesh or in one process.
 """
 
 from __future__ import annotations
@@ -21,7 +26,15 @@ import tempfile
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from clipself_tpu_torch.parallel.mesh import (
+    Mesh,
+    full_optimizer_state,
+    full_state_dict,
+    load_full_state_dict,
+    local_optimizer_state,
+)
 from clipself_tpu_torch.train.ensemble import student_teacher_ensemble
 from clipself_tpu_torch.train.step import TrainState
 
@@ -52,27 +65,30 @@ def save_checkpoint(
     epoch: int,
     alpha: float = 1.0,
     keep: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> dict[str, torch.Tensor]:
     """Save {ensembled params, student params, optimizer state, step} at
     ``epoch``, then, with ``keep``, remove the epochs older than the newest
     ``keep`` (None or 0 keeps every one, as ``max_to_keep`` does); returns
-    the ensembled params (what eval and export consume)."""
-    student = _cpu_state(state.model)
+    the ensembled params (what eval and export consume). With ``mesh`` every
+    rank calls it and gets the params; rank 0 writes."""
+    student = _cpu_state(state.model) if mesh is None else full_state_dict(state.model, mesh)
     if alpha < 1.0 and teacher_params is not None:
         teacher = {k: v.to("cpu") for k, v in teacher_params.items()}
         target = student_teacher_ensemble(student, teacher, alpha)
     else:
         target = student
-    payload = {
-        "params": target,
-        "student_params": student,
-        "opt_state": state.optimizer.state_dict(),
-        "step": state.step,
-    }
-    _atomic_save(payload, os.path.join(ckpt_dir, str(epoch), _FILE))
-    if keep:
-        for old in saved_epochs(ckpt_dir)[:-keep]:
-            shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    opt_state = (
+        state.optimizer.state_dict() if mesh is None else full_optimizer_state(state.optimizer, mesh)
+    )
+    payload = {"params": target, "student_params": student, "opt_state": opt_state, "step": state.step}
+    if mesh is None or dist.get_rank() == 0:
+        _atomic_save(payload, os.path.join(ckpt_dir, str(epoch), _FILE))
+        if keep:
+            for old in saved_epochs(ckpt_dir)[:-keep]:
+                shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    if mesh is not None:
+        dist.barrier()  # the file is whole before any rank reads it
     return target
 
 
@@ -102,17 +118,22 @@ def _load(ckpt_dir: str, epoch: Optional[int], device) -> tuple[dict, int]:
 
 
 def restore_checkpoint(
-    ckpt_dir: str, state: TrainState, epoch: Optional[int] = None
+    ckpt_dir: str, state: TrainState, epoch: Optional[int] = None, mesh: Optional[Mesh] = None,
 ) -> tuple[TrainState, int]:
     """Load the student params, optimizer state and step of ``epoch`` (the
     newest by default) into ``state``; returns (state, epoch), or (state, 0)
-    when the directory holds no checkpoint."""
+    when the directory holds no checkpoint. With ``mesh`` each rank reads
+    the file and keeps its shards."""
     if latest_epoch(ckpt_dir) is None and epoch is None:
         return state, 0
-    device = next(state.model.parameters()).device
-    payload, epoch = _load(ckpt_dir, epoch, device)
-    state.model.load_state_dict(payload["student_params"], strict=True)
-    state.optimizer.load_state_dict(payload["opt_state"])
+    if mesh is None:
+        payload, epoch = _load(ckpt_dir, epoch, next(state.model.parameters()).device)
+        state.model.load_state_dict(payload["student_params"], strict=True)
+        state.optimizer.load_state_dict(payload["opt_state"])
+    else:
+        payload, epoch = _load(ckpt_dir, epoch, "cpu")
+        load_full_state_dict(state.model, payload["student_params"], mesh)
+        state.optimizer.load_state_dict(local_optimizer_state(state.optimizer, payload["opt_state"], mesh))
     state.step = int(payload["step"])
     return state, epoch
 

@@ -1,19 +1,18 @@
 """The contrastive CLIP losses, a port of `clipself_tpu/train/contrastive.py`
 (reference `src/open_clip/loss.py:19-215`): the symmetric InfoNCE of
 `ClipLoss` over the whole batch, the soft-label distillation of
-`DistillClipLoss`, and `create_loss`'s routing by dataset type. Logits and
-softmaxes in float32. On one card the batch is the whole batch; the
-reference's cross-process gather and `local_loss` (the JAX package's
-`local_clip_loss_fn`, a `shard_map` over a mesh) wait for the multi-GPU
-slice (ROADMAP.md queue 1 item 9). The shipped CLIPSelf and RegionCLIP
-methods compute their own losses; `models/coca.py::coca_loss` calls
-`clip_loss`."""
+`DistillClipLoss`, `local_clip_loss` (the reference's `local_loss` across
+processes, the JAX package's `local_clip_loss_fn`) and `create_loss`'s
+routing by dataset type. Logits and softmaxes in float32. The shipped
+CLIPSelf and RegionCLIP methods compute their own losses;
+`models/coca.py::coca_loss` calls `clip_loss`."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -35,6 +34,67 @@ def clip_loss(
     logits = _logits(logit_scale, image_features, text_features)
     labels = torch.arange(logits.shape[0], device=logits.device)
     return 0.5 * (_cross_entropy(logits, labels).mean() + _cross_entropy(logits.T, labels).mean())
+
+
+class _GatherRows(torch.autograd.Function):
+    """The ranks' rows concatenated in rank order; the backward sums the
+    gathered gradient over the ranks and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[0]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g[r * ctx.n:(r + 1) * ctx.n], None
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean of a scalar over the ranks. Every rank holds the mean and
+    backpropagates the one global loss, so a rank's share of the gradient
+    is 1 / n of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = dist.get_world_size(group)
+        x = x.detach().clone()
+        dist.all_reduce(x, group=group)
+        return x / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def local_clip_loss(
+    image_features: torch.Tensor,
+    text_features: torch.Tensor,
+    logit_scale: torch.Tensor,
+    group=None,
+) -> torch.Tensor:
+    """`clip_loss` with the reference's ``local_loss`` across the ranks of
+    ``group`` (`loss.py:49-63, 107-120`; the JAX package's
+    `local_clip_loss_fn`, `clipself_tpu/train/contrastive.py:76-101`): each
+    rank scores its own rows against the all-gathered rows of every rank,
+    row i's label its index in the gathered batch (i plus the rank times
+    the rows a rank), and the loss is the mean over the ranks, on every
+    rank. Gradients reach every rank's features through the gather. Each
+    rank holds the same number of rows."""
+    all_img = _GatherRows.apply(image_features, group)
+    all_txt = _GatherRows.apply(text_features, group)
+    n = image_features.shape[0]
+    rank = dist.get_rank(group)
+    labels = torch.arange(n, device=image_features.device) + rank * n
+    li = _logits(logit_scale, image_features, all_txt)
+    lt = _logits(logit_scale, text_features, all_img)
+    loss = 0.5 * (_cross_entropy(li, labels).mean() + _cross_entropy(lt, labels).mean())
+    return _MeanOverRanks.apply(loss, group)
 
 
 def distill_clip_loss(

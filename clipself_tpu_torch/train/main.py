@@ -1,5 +1,5 @@
-"""CLIPSelf and RegionCLIP trainer CLI on one device (a port of
-`clipself_tpu/train/main.py:174-611`).
+"""CLIPSelf and RegionCLIP trainer CLI on one device or a mesh of ranks (a
+port of `clipself_tpu/train/main.py:174-611`).
 
     python -m clipself_tpu_torch.train.main \\
         --model EVA02-CLIP-B-16 --dataset-type grid_distill \\
@@ -50,8 +50,24 @@ parameters trains, as in the JAX trainer); `--pretrained-image` marks such a
 tower's config `timm_model_pretrained`, which without `--pretrained` only
 logs a warning (no hub weights are fetched).
 
-Not carried (ROADMAP.md queue 1): meshes (item 9: `--n-devices`,
-`--fsdp-size`, `--tp-size`) and the TPU knobs (item 10: `--attn-impl`,
+Under a launcher, one process a GPU, the JAX trainer's dp / fsdp / tp mesh
+(`parallel/mesh.py`):
+
+    torchrun --nproc-per-node 8 -m clipself_tpu_torch.train.main --synthetic \\
+        --steps-per-epoch 10 --batch-size 8 --fsdp-size 2 --tp-size 2
+
+gives a (data 2, fsdp 2, model 2) mesh: each rank takes its rows of the
+global batch (every rank builds the global batch from the seed, or from the
+files in the seeded order), FSDP2 shards the student and the frozen teacher
+over (data, fsdp), the EVA towers' blocks are tensor-parallel over `model`,
+the losses are those of the global batch, rank 0 writes the run's files and
+the checkpoints (in the single-process format, so they resume under any
+mesh), and the evaluator splits each batch over the ranks. `--n-devices`
+must equal the launched world size; without a launcher the run is the
+single-process one, and `--fsdp-size` / `--tp-size` above 1 are refused
+with the JAX trainer's error. `--device cpu` runs the group over gloo.
+
+Not carried (ROADMAP.md queue 1, item 10): the TPU knobs (`--attn-impl`,
 `--pad-multiple`, `--scoped-vmem-kib`, `--profile-dir`). Their flags are
 absent.
 """
@@ -66,9 +82,11 @@ import logging
 import os
 import time
 from functools import partial
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from clipself_tpu_torch.core.config import get_model_config
 from clipself_tpu_torch.data.datasets import (
@@ -94,6 +112,18 @@ from clipself_tpu_torch.models.clip import dense_stride
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.models.pretrained import resolve_pretrained
 from clipself_tpu_torch.models.torch_io import load_pretrained
+from clipself_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_rows,
+    check_batch,
+    create_mesh,
+    full_state_dict,
+    init_distributed,
+    load_full_state_dict,
+    mesh_shape,
+    shard_model,
+)
+from clipself_tpu_torch.parallel.tensor_parallel import check_tower
 from clipself_tpu_torch.train import checkpoint as ckpt
 from clipself_tpu_torch.train.methods import (
     clipself_loss,
@@ -102,7 +132,7 @@ from clipself_tpu_torch.train.methods import (
     resize_images_for_scale,
 )
 from clipself_tpu_torch.train.ensemble import student_teacher_ensemble
-from clipself_tpu_torch.train.optim import build_optimizer, make_schedule
+from clipself_tpu_torch.train.optim import build_optimizer, make_schedule, set_trainable
 from clipself_tpu_torch.train.step import TrainState, make_train_step
 from clipself_tpu_torch.utils.meters import AverageMeter, ThroughputMeter
 
@@ -168,7 +198,8 @@ def parse_args(argv=None):
     p.add_argument("--train-ratio", type=float, default=1.0)
     p.add_argument("--min-size", type=float, default=8.0)
     p.add_argument("--max-size", type=float, default=1024.0)
-    p.add_argument("--batch-size", type=int, default=2, help="batch on the one device")
+    p.add_argument("--batch-size", type=int, default=2,
+                   help="global batch (split over the data-like ranks of a mesh)")
     p.add_argument("--val-batch-size", type=int, default=1)
     p.add_argument("--workers", type=int, default=8,
                    help="data worker processes (threads of the native pool)")
@@ -221,6 +252,14 @@ def parse_args(argv=None):
     p.add_argument("--log-local", action="store_true",
                    help="write out-<rank>.log (out-0.log: one process) instead of out.log")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="ranks of the mesh: must equal the launched world size (1 without a launcher)")
+    p.add_argument("--fsdp-size", type=int, default=1,
+                   help="shard params/optimizer state over this many ranks "
+                        "(FSDP2 over an 'fsdp' mesh axis; 1 = pure data parallel)")
+    p.add_argument("--tp-size", type=int, default=1,
+                   help="Megatron tensor parallelism over a 'model' mesh axis "
+                        "(EVA towers; a branch whose heads or hidden width does not divide stays whole)")
     return p.parse_args(argv)
 
 
@@ -234,10 +273,10 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def _setup_logging(args, out_dir: str) -> None:
-    """DEBUG level under ``--debug``, else INFO; the run dir's log file is
-    out.log, or with ``--log-local`` the process's own out-<rank>.log
-    (`clipself_tpu/train/main.py::setup_logging`; one process: rank 0)."""
+def _setup_logging(args, out_dir: str, rank: int = 0) -> None:
+    """DEBUG level under ``--debug``, else INFO; rank 0 writes the run dir's
+    out.log, or with ``--log-local`` every rank its own out-<rank>.log
+    (`clipself_tpu/train/main.py::setup_logging`)."""
     level = logging.DEBUG if args.debug else logging.INFO
     root = logging.getLogger()
     root.setLevel(level)
@@ -249,22 +288,25 @@ def _setup_logging(args, out_dir: str) -> None:
     for h in [h for h in root.handlers if isinstance(h, logging.FileHandler)]:
         root.removeHandler(h)
         h.close()
-    fh = logging.FileHandler(os.path.join(out_dir, "out-0.log" if args.log_local else "out.log"))
+    if rank and not args.log_local:
+        return
+    fh = logging.FileHandler(os.path.join(out_dir, f"out-{rank}.log" if args.log_local else "out.log"))
     fh.setFormatter(logging.Formatter("%(asctime)s | %(levelname)s | %(message)s"))
     fh.setLevel(level)
     root.addHandler(fh)
 
 
-def build_data(args, device: torch.device, crop_size: int) -> dict:
+def build_data(args, device: torch.device, crop_size: int, rows: slice = slice(None)) -> dict:
     """The run's data (`clipself_tpu/train/main.py::build_data`): "train" a
-    `data/loader.py::TrainRoute` (device batches an epoch), "train_size"
-    with files; "val_ds" and "val" (a loader factory) with ``--val-data``."""
+    `data/loader.py::TrainRoute` (device batches an epoch, each batch's
+    ``rows``: a rank's share of the global batch), "train_size" with files;
+    "val_ds" and "val" (a loader factory of whole batches) with ``--val-data``."""
     data = {}
     if args.synthetic:
         data["train"] = synthetic_route(SyntheticDistillData(
             batch_size=args.batch_size, det_size=args.det_image_size,
             crop_size=crop_size, max_anns=args.max_boxes, seed=args.seed,
-        ), device)
+        ), device, rows=rows)
         return data
     pin = device.type == "cuda"
     if args.train_data:
@@ -292,7 +334,9 @@ def build_data(args, device: torch.device, crop_size: int) -> dict:
         data["train_size"] = len(ds)
         route = native_route if args.native_loader and args.dataset_type == "grid_distill" \
             else loader_route
-        data["train"] = route(ds, args.batch_size, seed=args.seed, workers=args.workers, device=device)
+        data["train"] = route(
+            ds, args.batch_size, seed=args.seed, workers=args.workers, device=device, rows=rows,
+        )
     if args.val_data:
         if not args.embed_path:
             raise ValueError("--val-data needs --embed-path (the class embeddings .npy)")
@@ -342,7 +386,10 @@ def train(args) -> dict:
     ``evals`` one per evaluation (epoch and metrics, as in results.jsonl);
     ``native_fallback_rows`` counts the rows that `--native-loader` left to
     the NumPy route (None without it). An evaluation-only run
-    (``--val-data`` without ``--train-data``) returns {"evals", "out_dir"}."""
+    (``--val-data`` without ``--train-data``) returns {"evals", "out_dir"}.
+    Under a launcher every rank calls it; the returned state is the rank's
+    (`parallel/mesh.py::full_state_dict` gathers the model), and "mesh" is
+    added to the result."""
     region = args.dataset_type == "region_clip"
     if not (args.synthetic or args.train_data or args.val_data):
         raise ValueError("no data: pass --synthetic, --train-data or --val-data")
@@ -383,15 +430,35 @@ def train(args) -> dict:
         # config's patch) and ConvNeXt / Swin (32), where masks on the
         # patch_size grid do not fit the dense map (ROADMAP.md queue 3, Watch)
         args.downsample_factor = dense_stride(cfg.vision)
-    data = build_data(args, device, cfg.vision.image_size)
+    check_tower(cfg, args.tp_size)
+    launch = init_distributed(device)
+    world = 1 if launch is None else launch.world
+    if args.n_devices is not None and args.n_devices != world:
+        raise ValueError(
+            f"--n-devices {args.n_devices}: the launch has {world} process(es), one a device"
+        )
+    shape = mesh_shape(world, args.fsdp_size, args.tp_size)
+    check_batch(args.batch_size, shape[0] * shape[1])
+    mesh: Optional[Mesh] = None
+    if launch is not None:
+        device = launch.device
+        mesh = create_mesh(shape, device)
+    rank = 0 if mesh is None else dist.get_rank()
+    data = build_data(args, device, cfg.vision.image_size, batch_rows(mesh, args.batch_size))
 
     name = args.name or f"{args.model}-{args.dataset_type}-{time.strftime('%Y%m%d-%H%M%S')}"
+    if mesh is not None and not args.name:
+        # every rank writes into rank 0's run dir (JAX main.py:381-390)
+        box = [name]
+        dist.broadcast_object_list(box, src=0)
+        name = box[0]
     out_dir = os.path.join(args.logs, name)
     os.makedirs(out_dir, exist_ok=True)
-    _setup_logging(args, out_dir)
-    with open(os.path.join(out_dir, "params.txt"), "w") as f:
-        for k in sorted(vars(args)):
-            f.write(f"{k}: {getattr(args, k)}\n")
+    _setup_logging(args, out_dir, rank)
+    if rank == 0:
+        with open(os.path.join(out_dir, "params.txt"), "w") as f:
+            for k in sorted(vars(args)):
+                f.write(f"{k}: {getattr(args, k)}\n")
     log.debug("args: " + ", ".join(f"{k}={getattr(args, k)}" for k in sorted(vars(args))))
 
     model = create_model(
@@ -403,6 +470,22 @@ def train(args) -> dict:
         load_pretrained(model, resolve_pretrained(cfg.name, args.pretrained))
     evals = []
     eval_model = None
+    if mesh is not None:
+        # copies of the initial weights before the layout: the ensemble's host
+        # copy, the frozen teacher and the evaluator's model of ensembled weights
+        teacher_params = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+        teacher = (
+            copy.deepcopy(model).requires_grad_(False) if "train" in data and not region else None
+        )
+        if "val" in data and args.zeroshot_frequency != 0:
+            eval_model = copy.deepcopy(model).requires_grad_(False)
+        set_trainable(
+            model, args.lock_image_unlocked_groups, cfg.vision.layers, args.lock_image,
+            args.lock_image_freeze_bn_stats,
+        )
+        for m in (model, teacher, eval_model):
+            if m is not None:
+                shard_model(m, cfg, mesh)
 
     def run_eval(params, epoch) -> None:
         """Zero-shot eval of ``model`` with ``params`` (a state dict; None =
@@ -412,33 +495,38 @@ def train(args) -> dict:
             return
         target = model
         if params is not None:
-            if eval_model is None:
-                eval_model = copy.deepcopy(model).requires_grad_(False)
-            eval_model.load_state_dict(params)
+            if mesh is not None:
+                load_full_state_dict(eval_model, params, mesh)
+            else:
+                if eval_model is None:
+                    eval_model = copy.deepcopy(model).requires_grad_(False)
+                eval_model.load_state_dict(params)
             target = eval_model
         bucket = DEFAULT_ANN_BUCKET if args.eval_ann_bucket is None else args.eval_ann_bucket
         results = evaluate_zero_shot(
             target, data["val"](), data["val_ds"].embeddings, device=device,
             ann_bucket=bucket, image_ave_pool=args.image_ave_pool,
-            extract_type=args.extract_type,
+            extract_type=args.extract_type, mesh=mesh,
         )
         line = metrics_json({"epoch": epoch, **results})  # NaN as null
         log.info(f"eval epoch {epoch}: {line}")
-        with open(os.path.join(out_dir, "results.jsonl"), "a") as f:
-            f.write(line + "\n")
+        if rank == 0:
+            with open(os.path.join(out_dir, "results.jsonl"), "a") as f:
+                f.write(line + "\n")
         evals.append(json.loads(line))
 
     if "train" not in data:
         run_eval(None, 0)
         log.info("done")
-        return {"evals": evals, "out_dir": out_dir}
+        return {"evals": evals, "out_dir": out_dir, "mesh": mesh}
 
     # the initial weights: the distill methods' frozen teacher; RegionCLIP runs
-    # no teacher and keeps them on the host for the alpha-ensemble only
-    if region:
+    # no teacher and keeps them on the host for the alpha-ensemble only (on a
+    # mesh both were taken before the layout, above)
+    if mesh is None and region:
         teacher = None
         teacher_params = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
-    else:
+    elif mesh is None:
         teacher = copy.deepcopy(model).requires_grad_(False)
         teacher_params = teacher.state_dict()
     route = data["train"]
@@ -471,7 +559,7 @@ def train(args) -> dict:
         model, schedule, wd=args.wd, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
         grad_clip_norm=args.grad_clip_norm, unlocked_groups=args.lock_image_unlocked_groups,
         num_layers=cfg.vision.layers, lock_image=args.lock_image, accum_steps=args.accum_freq,
-        freeze_bn_stats=args.lock_image_freeze_bn_stats,
+        freeze_bn_stats=args.lock_image_freeze_bn_stats, mesh=mesh,
     )
     state = TrainState(model, optimizer)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
@@ -479,23 +567,25 @@ def train(args) -> dict:
     if args.resume:
         resume_dir = _resume_dir(args, out_dir)
         if os.path.isdir(resume_dir):
-            state, start_epoch = ckpt.restore_checkpoint(resume_dir, state)
+            state, start_epoch = ckpt.restore_checkpoint(resume_dir, state, mesh=mesh)
             log.info(f"resume from {resume_dir}: epoch {start_epoch}, step {state.step}")
         elif args.resume != "auto":
             raise FileNotFoundError(resume_dir)
         else:
             log.info("--resume auto: no checkpoint yet, starting fresh")
 
+    group = None if mesh is None else mesh.batch_group  # the losses are the global batch's
     if region:
         loss_fn = make_regionclip_loss(
             noun_embeddings(args.train_embed_path, device), args.seed,
-            contrast_weight=args.contrast_weight, extract_type=args.extract_type,
+            contrast_weight=args.contrast_weight, extract_type=args.extract_type, group=group,
         )
     else:
         loss_fn = partial(
-            clipself_loss, cosine_weight=args.cosine_weight, extract_type=args.extract_type
+            clipself_loss, cosine_weight=args.cosine_weight, extract_type=args.extract_type,
+            group=group,
         )
-    step_fn = make_train_step(loss_fn, teacher)
+    step_fn = make_train_step(loss_fn, teacher, mesh=mesh)
     if args.multiscale and not region:
         ms_sizes = multiscale_sizes(args.det_image_size, cfg.vision.patch_size)
         ms_rng = np.random.default_rng(args.seed + 1)
@@ -506,6 +596,8 @@ def train(args) -> dict:
         def maybe_multiscale(batch):
             return batch
 
+    if mesh is not None:
+        log.info(f"mesh (data, fsdp, model) {shape}: rank {rank} at {mesh.coords} on {device}")
     log.info(
         f"{args.model} on {device}: {args.dataset_type}, batch {args.batch_size}, "
         f"{args.det_image_size}px images, {args.max_boxes} boxes, {len(optimizer.params)} "
@@ -541,12 +633,14 @@ def train(args) -> dict:
         if (args.save_frequency and completed % args.save_frequency == 0) or completed == args.epochs:
             target = ckpt.save_checkpoint(
                 ckpt_dir, state, teacher_params, completed, alpha=args.alpha,
-                keep=args.keep_checkpoints,
+                keep=args.keep_checkpoints, mesh=mesh,
             )
-            if args.export_torch:
+            if args.export_torch and rank == 0:
                 path = os.path.join(out_dir, f"epoch_{completed}.pt")
                 ckpt.export_torch(path, target, epoch=completed, name=name)
                 log.debug(f"exported {path}")
+        elif args.alpha < 1.0 and "val" in data and mesh is not None:
+            target = student_teacher_ensemble(full_state_dict(state.model, mesh), teacher_params, args.alpha)
         elif args.alpha < 1.0 and "val" in data:
             initial = {k: v.to(device) for k, v in teacher_params.items()}  # RegionCLIP's are on the host
             target = student_teacher_ensemble(state.model.state_dict(), initial, args.alpha)
@@ -556,7 +650,7 @@ def train(args) -> dict:
             # rolling latest, every epoch whatever --save-frequency says (JAX main.py:600-607)
             ckpt.save_checkpoint(
                 os.path.join(out_dir, "checkpoints_latest"), state, teacher_params, completed,
-                alpha=args.alpha, keep=1,
+                alpha=args.alpha, keep=1, mesh=mesh,
             )
         if args.zeroshot_frequency > 0 and completed % args.zeroshot_frequency == 0:
             run_eval(target, completed)
@@ -564,7 +658,7 @@ def train(args) -> dict:
     log.info("done")
     return {"state": state, "teacher": teacher, "teacher_params": teacher_params,
             "history": history, "evals": evals, "native_fallback_rows": route.fallback_rows,
-            "out_dir": out_dir}
+            "out_dir": out_dir, "mesh": mesh}
 
 
 def main(argv=None) -> dict:
@@ -576,3 +670,5 @@ if __name__ == "__main__":
         main()
     finally:
         stop_worker_server()
+        if dist.is_initialized():  # the launched group of `parallel/mesh.py::init_distributed`
+            dist.destroy_process_group()

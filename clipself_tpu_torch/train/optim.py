@@ -19,6 +19,13 @@ Parameter names are the port's reference layout (`visual.blocks.{i}....`,
 `visual.transformer.resblocks.{i}....`).
 Gradient accumulation (``accum_steps`` > 1) is `optax.MultiSteps` around
 the optimizer, as `build_optimizer(accum_steps=)` of the JAX package wraps it.
+
+On a mesh (`parallel/mesh.py`) the optimizer is built after `shard_model`,
+whose wrappers keep the parameter names, so the lock groups and decay masks
+read the same names. Each rank updates its shards: AdamW on FSDP2's
+DTensors, the accumulation on their local shards; clipping takes the norm
+over every shard of one copy of the state, a leaf that the tensor-parallel
+plan leaves whole counted once in its `model` group.
 """
 
 from __future__ import annotations
@@ -28,7 +35,10 @@ import re
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from clipself_tpu_torch.parallel.mesh import Mesh, is_dtensor, local_tensor
 
 # ---------------------------------------------------------------------------
 # schedules (per-step closures, matching the reference formulas)
@@ -160,6 +170,24 @@ def no_decay_mask(named_params: Iterable[tuple[str, torch.Tensor]]) -> dict[str,
     return {name: decays(name, p) for name, p in named_params}
 
 
+def set_trainable(
+    model: nn.Module,
+    unlocked_groups: int,
+    num_layers: int,
+    lock_image: bool = True,
+    freeze_bn_stats: bool = False,
+) -> None:
+    """Set ``requires_grad`` on every parameter of ``model`` by
+    `trainable_labels` (on a mesh, before `parallel/mesh.py::shard_model`:
+    FSDP2 reduces the gradients of the trainable parameters)."""
+    named = list(model.named_parameters())
+    labels = trainable_labels(
+        (n for n, _ in named), unlocked_groups, num_layers, lock_image, freeze_bn_stats
+    )
+    for name, p in named:
+        p.requires_grad_(labels[name] == "train")
+
+
 # ---------------------------------------------------------------------------
 # the optimizer
 
@@ -209,22 +237,36 @@ class Optimizer:
         lock_image: bool = True,
         accum_steps: int = 1,
         freeze_bn_stats: bool = False,
+        mesh: Optional[Mesh] = None,
     ):
         if accum_steps < 1:
             raise ValueError(f"accum_steps {accum_steps}: must be at least 1")
+        set_trainable(model, unlocked_groups, num_layers, lock_image, freeze_bn_stats)
         named = list(model.named_parameters())
-        labels = trainable_labels(
-            (n for n, _ in named), unlocked_groups, num_layers, lock_image, freeze_bn_stats
-        )
         decay = no_decay_mask(named)
-        for name, p in named:
-            p.requires_grad_(labels[name] == "train")
         trainable = [(n, p) for n, p in named if p.requires_grad]
         groups = [
             {"params": [p for n, p in trainable if decay[n]], "weight_decay": wd},
             {"params": [p for n, p in trainable if not decay[n]], "weight_decay": 0.0},
         ]
         self.params = [p for _, p in trainable]
+        self.names = [n for n, _ in trainable]
+        # the names in the index order of AdamW's state dict
+        order = [(n, p) for n, p in trainable if decay[n]] + [(n, p) for n, p in trainable if not decay[n]]
+        self.state_names, self.state_params = [n for n, _ in order], [p for _, p in order]
+        self.mesh = mesh
+        if mesh is not None:
+            whole = [n for n, p in trainable if not is_dtensor(p)]
+            if whole:
+                raise ValueError(
+                    f"trainable parameters outside FSDP2 on a mesh: {whole} (their gradients "
+                    "would not be reduced)"
+                )
+            # a leaf the tensor-parallel plan leaves whole has the same gradient on
+            # every rank of a `model` group: its norm counts on the first alone
+            self._norm_weights = [
+                1.0 if n in mesh.plan or mesh.tp.rank == 0 else 0.0 for n in self.names
+            ]
         # gradients stay allocated and are zeroed, never None: a trainable
         # parameter outside the loss's graph (the last block's q/k
         # projections, which the dense value path skips) still gets its
@@ -242,27 +284,47 @@ class Optimizer:
             [g for g in groups if g["params"]], lr=self.lr, betas=(beta1, beta2), eps=eps
         )
 
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the trainable gradients (over every shard on a
+        mesh). No host sync."""
+        if self.mesh is None:
+            return global_norm([p.grad for p in self.params])
+        norms = torch.stack([torch.linalg.vector_norm(local_tensor(p.grad).float()) for p in self.params])
+        weights = torch.tensor(self._norm_weights, device=norms.device)
+        sq = (norms * norms * weights).sum()
+        dist.all_reduce(sq, group=self.mesh.shard_group)
+        return sq.sqrt()
+
+    def _clip(self) -> None:
+        if self.mesh is None:
+            clip_by_global_norm(self.params, self.grad_clip_norm)
+            return
+        scale = torch.clamp(self.grad_clip_norm / self.grad_norm(), max=1.0)
+        for p in self.params:
+            local_tensor(p.grad).mul_(scale)
+
     def step(self, count: int) -> None:
         """Take micro-step number ``count`` (0-based) on the gradients in
         ``.grad`` and clear them. Without accumulation every micro-step is
         update number ``count``; with it, micro-step ``count`` is folded into
         the running mean, and the last of each k applies update number
         ``count // k``."""
-        grads = [p.grad for p in self.params]
         if self.accumulated is not None:
+            grads = [local_tensor(p.grad) for p in self.params]
+            accumulated = [local_tensor(a) for a in self.accumulated]
             mini = count % self.accum_steps
             # optax MultiSteps (use_grad_mean): acc + (g - acc) / (mini + 1)
-            delta = torch._foreach_sub(grads, self.accumulated)
+            delta = torch._foreach_sub(grads, accumulated)
             torch._foreach_div_(delta, float(mini + 1))
-            torch._foreach_add_(self.accumulated, delta)
+            torch._foreach_add_(accumulated, delta)
             if mini < self.accum_steps - 1:
                 torch._foreach_zero_(grads)
                 return
-            torch._foreach_copy_(grads, self.accumulated)
-            torch._foreach_zero_(self.accumulated)
+            torch._foreach_copy_(grads, accumulated)
+            torch._foreach_zero_(accumulated)
             count //= self.accum_steps
         if self.grad_clip_norm is not None:
-            clip_by_global_norm(self.params, self.grad_clip_norm)
+            self._clip()
         self.lr = float(self.schedule(count))
         for group in self.opt.param_groups:
             group["lr"] = self.lr
@@ -287,7 +349,9 @@ class Optimizer:
             )
         self.opt.load_state_dict(state)
         if accumulated is not None:
-            torch._foreach_copy_(self.accumulated, [a.to(p.device) for a, p in zip(accumulated, self.params)])
+            with torch.no_grad():
+                for dst, src in zip(self.accumulated, accumulated):
+                    local_tensor(dst).copy_(local_tensor(src))
 
 
 # the JAX package's name: AdamW with the reference decay mask and image-tower

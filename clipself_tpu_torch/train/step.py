@@ -8,6 +8,14 @@ logit_scale clamped to [0, ln 100] on every micro-step, as the JAX step
 clamps. ``state.step`` counts micro-steps. Frozen parameters carry
 ``requires_grad=False`` (`train/optim.py`), so autograd computes no gradient
 for them.
+
+On a mesh (`parallel/mesh.py`) each rank runs the step on its rows of the
+global batch with the model laid out by `shard_model`. Its loss is its share
+of the global loss, and it backpropagates that share times the number of
+batch shards: FSDP2 averages the gradients over those ranks, so the update
+follows the gradient of the global loss (the JAX step's gradient of the
+loss over the sharded batch). The metrics are summed over the batch shards,
+so they are the global ones; the clamp runs on every rank.
 """
 
 from __future__ import annotations
@@ -19,7 +27,8 @@ from typing import Callable, Optional
 import torch
 
 from clipself_tpu_torch.models.clip import CLIP
-from clipself_tpu_torch.train.optim import Optimizer, global_norm
+from clipself_tpu_torch.parallel.mesh import Mesh, num_batch_shards, reduce_sum
+from clipself_tpu_torch.train.optim import Optimizer
 
 MAX_LOGIT_SCALE = math.log(100.0)  # reference clamp (train.py:117-119)
 
@@ -32,7 +41,8 @@ class TrainState:
 
 
 def make_train_step(
-    loss_fn: Callable, teacher: Optional[CLIP], *, log_grad_norm: bool = False
+    loss_fn: Callable, teacher: Optional[CLIP], *, log_grad_norm: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, dict], dict]:
     """Build ``step_fn(state, batch) -> metrics`` for
     ``loss_fn(model, teacher, batch, step) -> (loss, metrics)``, where
@@ -41,15 +51,21 @@ def make_train_step(
     folds it into the loss's key). The metrics are device tensors; reading
     one waits for the step. ``log_grad_norm`` adds the global norm of the
     micro-step's trainable gradients before clipping (off by default: the
-    reference computes it only to clip)."""
+    reference computes it only to clip). With ``mesh``, ``batch`` holds this
+    rank's rows and ``loss_fn`` takes the mesh's batch group."""
+    scale = num_batch_shards(mesh)
 
     def step_fn(state: TrainState, batch: dict) -> dict:
         loss, metrics = loss_fn(state.model, teacher, batch, state.step)
-        loss.backward()
+        (loss if scale == 1 else loss * scale).backward()
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()
+        if mesh is not None:
+            keys = sorted(metrics)
+            total = reduce_sum(torch.stack([metrics[k].float() for k in keys]), mesh.batch_group)
+            metrics = dict(zip(keys, total.unbind()))
         if log_grad_norm:
-            metrics["grad_norm"] = global_norm([p.grad for p in state.optimizer.params])
+            metrics["grad_norm"] = state.optimizer.grad_norm()
         state.optimizer.step(state.step)
         with torch.no_grad():
             state.model.logit_scale.clamp_(0.0, MAX_LOGIT_SCALE)

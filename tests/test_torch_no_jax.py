@@ -24,7 +24,8 @@ and `train/contrastive.py`): `coca_loss` and a sampled caption; and the HF
 towers without `transformers`: `hf-vit-tiny-test` (the trunk adapter) and
 a tiny 'roberta' text tower, each encoding, and one `--no-lock-image`
 distill step on `hf-vit-tiny-test`. Neither `transformers` nor its
-`tokenizers`, `sentencepiece` or `safetensors` is loaded."""
+`tokenizers`, `sentencepiece` or `safetensors` is loaded. The multi-process
+modules (`parallel/`) are imported with the rest."""
 
 import json
 import math
@@ -46,6 +47,8 @@ import clipself_tpu_torch.ops._build
 import clipself_tpu_torch.ops.attention
 import clipself_tpu_torch.ops.layer_norm
 import clipself_tpu_torch.ops.rope_roll
+import clipself_tpu_torch.parallel.mesh
+import clipself_tpu_torch.parallel.tensor_parallel
 import clipself_tpu_torch.core.constants
 import clipself_tpu_torch.data.coco
 import clipself_tpu_torch.data.datasets

@@ -100,8 +100,50 @@ def test_real_data_and_missing_steps_are_refused(tmp_path):
     i = argv.index("--steps-per-epoch")
     with pytest.raises(ValueError, match="steps-per-epoch"):
         train_main.main(argv[:i] + argv[i + 2:])
-    with pytest.raises(SystemExit):
-        train_main.parse_args(["--fsdp-size", "2"])  # meshes are not carried (ROADMAP item 9)
+
+
+def test_mesh_flags_parse_and_are_checked_as_the_jax_trainer_checks_them(tmp_path, monkeypatch):
+    """`--n-devices`, `--fsdp-size` and `--tp-size` parse; a mesh that does not
+    divide the device count and a batch that does not divide over the batch
+    shards raise the JAX trainer's errors in its words; without a launcher
+    the run has one process, so `--n-devices 2` and `--fsdp-size 2` are
+    refused before anything is written; `--tp-size 2` on a tower that the
+    tensor-parallel plan does not cover names the ROADMAP item where its
+    rules wait. The mesh runs themselves are in test_torch_parallel.py."""
+    from clipself_tpu.train import main as jax_main
+    from clipself_tpu_torch.parallel.mesh import check_batch, mesh_shape
+
+    for k in ("WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    args = train_main.parse_args(["--n-devices", "8", "--fsdp-size", "2", "--tp-size", "2"])
+    assert (args.n_devices, args.fsdp_size, args.tp_size) == (8, 2, 2)
+    assert train_main.parse_args([]).n_devices is None
+    assert mesh_shape(8, 2, 2) == (2, 2, 2)
+
+    jax_argv = [
+        "--synthetic", "--model", "EVA02-CLIP-Tiny-Test", "--det-image-size", "48",
+        "--max-boxes", "3", "--steps-per-epoch", "1", "--epochs", "1", "--logs", str(tmp_path / "jax"),
+    ]
+    for extra, port_check in (
+        (["--n-devices", "8", "--fsdp-size", "3"], lambda: mesh_shape(8, 3, 1)),
+        (["--n-devices", "8", "--fsdp-size", "2", "--batch-size", "4"], lambda: check_batch(4, 8)),
+    ):
+        with pytest.raises(AssertionError) as jax_err:
+            jax_main.main(jax_argv + extra)
+        with pytest.raises(ValueError) as port_err:
+            port_check()
+        assert str(port_err.value) == str(jax_err.value)
+    with pytest.raises(AssertionError) as jax_err:
+        jax_main.main(jax_argv + ["--n-devices", "1", "--fsdp-size", "2"])
+    with pytest.raises(ValueError) as port_err:
+        train_main.main(_argv(tmp_path, "mesh", 1, "--fsdp-size", "2"))
+    assert str(port_err.value) == str(jax_err.value)
+    with pytest.raises(ValueError, match="--n-devices 2: the launch has 1 process"):
+        train_main.main(_argv(tmp_path, "mesh", 1, "--n-devices", "2"))
+    argv = [a if a != "EVA02-CLIP-Tiny-Test" else "ViT-Tiny-Test" for a in _argv(tmp_path, "vit", 1)]
+    with pytest.raises(ValueError, match="ROADMAP.md queue 1, item 9.2"):
+        train_main.main(argv + ["--tp-size", "2"])
+    assert not {"mesh", "vit"} & set(os.listdir(tmp_path))  # the port wrote nothing
 
 
 def test_resume_auto_needs_a_name_in_both_packages(tmp_path, caplog):
