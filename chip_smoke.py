@@ -19,7 +19,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    FMA designs take on zero-filled 16-wide tiles), the flash backward (each
    row says which of the kernel's designs its shape and type took: "wgmma"
    for bfloat16 at head_dim 64, "wmma" for bfloat16 at the others, "fma"
-   for float32), and the fused LayerNorm
+   for float32; each is called twice on the same inputs and must give the
+   same bits: every sum of the kernel runs in a fixed order), and the fused LayerNorm
    forward (with and
    without statistics; also at the text towers' [64, 77, 512] and
    [64, 77, 768]) and backward, also on the two strided views of the
@@ -71,12 +72,16 @@ then for each model, B/16 first:
    B/16 distill step through `train.main` (1024^2, batch 2, 20 crops at 224^2,
    every block unlocked, the seeded weights of phase 6) for 2 warm-up and 3
    timed steps and 1 under the profiler, beside the same run without a
-   launcher: the first loss and the first step's gradient of block 11's
-   `mlp.w3` within 1e-6 relative, the later losses within 2e-4 relative and
-   that weight after the run within 1e-4 (past the first update the
-   unwrapped step does not repeat itself: the flash backward sums dQ by
-   atomics), launch counts equal (`b16_train_sharded` in the kernels line),
-   images/s and kernel ms of each;
+   launcher: the losses, the first step's gradient of block 11's `mlp.w3`
+   and that weight after the run EQUAL (every kernel of the step sums in a
+   fixed order, the flash backward's dQ included), launch counts equal
+   (`b16_train_sharded` in the kernels line), images/s and kernel ms of
+   each; then the detector trainer, `detector.train.main --synthetic` at
+   `ov_coco_vitb16` (batch 8, 2 warm-up and 3 timed steps), under the same
+   one-process launch (a (1, 1, 1) `data` mesh, the heads under
+   DistributedDataParallel) beside the same run without one: the logged
+   losses and the heads after the run EQUAL, launch counts equal
+   (`b16_detector_train_sharded`);
 7b. after B/16's phases, the input pipeline on files (`data/`, no PIL): a
    corpus written under `build/chip_smoke_data/` (deleted at the end) by
    `data/image_io.py::encode_png`, its rows cycling the five PNG filters: 16 train images
@@ -251,14 +256,16 @@ L14_TRAIN_WARMUP, L14_TRAIN_TIMED = 2, 3
 RECOMPUTE_WARMUP, RECOMPUTE_STEPS = 1, 2
 # the trainer laid out for a mesh at world size 1 against the same run
 # without one: warm-up, timed and profiled steps; the block weight compared.
-# The first step is the same operations on the same values: its loss and the
-# weight's gradient within 1e-6 relative (they read equal). Past the first
-# update the unwrapped step does not repeat itself: the flash backward sums dQ
-# by atomics, so two unwrapped runs differ in the later losses and the weight
-# (`tools/train_repeat.py` reads their spread); those are held to bars above it
+# Every step is the same operations on the same values, and every kernel of
+# the step sums in a fixed order (the flash backward's dQ included), so the
+# losses, the first step's gradient and the weight after the run are EQUAL
 PARALLEL_WARMUP, PARALLEL_TIMED, PARALLEL_PROFILED = 2, 3, 1
 PARALLEL_WEIGHT = "visual.blocks.11.mlp.w3.weight"
-PARALLEL_MAX_REL, PARALLEL_LATER_LOSS_MAX_REL, PARALLEL_WEIGHT_MAX_ABS = 1e-6, 2e-4, 1e-4
+PARALLEL_MAX_REL, PARALLEL_LATER_LOSS_MAX_REL, PARALLEL_WEIGHT_MAX_ABS = 0.0, 0.0, 0.0
+# the detector trainer at DET_PRESET on a (1, 1, 1) data mesh (the heads under
+# DistributedDataParallel) against the same run without a launcher: warm-up
+# and timed steps; the logged losses and the heads after the run EQUAL
+PARALLEL_DET_WARMUP, PARALLEL_DET_TIMED = 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -435,8 +442,9 @@ PATH_BF16_MIN_COS = 0.9996
 # LSE: a sum of f32 exponentials in another order, values of ~log(N) ~ 8.
 LSE_MAX_ABS = 1e-4
 # Flash backward f32: up to N = 4097 products per entry summed in another
-# order, dQ through f32 atomics in a run-dependent order; relative to the
-# largest gradient entry, since the gradients' scale depends on the inputs.
+# order (a fixed one: two calls must give the same bits, in every design);
+# relative to the largest gradient entry, since the gradients' scale depends
+# on the inputs.
 BWD_F32_MAX_REL = 1e-4
 # Flash backward bf16: P and dS are rounded to bf16 before their products.
 BWD_BF16_MIN_COS = 0.999
@@ -886,6 +894,9 @@ def check_attention(torch, dev, records, gen, shape, train, graph=False):
             fail(f"flash_attention lse {dt} {shape} max abs {lse_err}")
         do = torch.randn(q.shape, generator=gen, device=dev).to(dt)
         got = attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+        again = attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+        repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
         want = attention.attention_bwd_plain(*f, out32, lse32, do.float(), scale)
         del out32, lse32
         errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
@@ -907,12 +918,15 @@ def check_attention(torch, dev, records, gen, shape, train, graph=False):
             # q, k, v, out, dO and the lse read, dq, dk, dv written; five
             # products (S, dP, dV, dK, dQ)
             moved=8 * nbytes(q) + nbytes(lse), flops=flops * 5 // 2,
-            note=f"rel {rel:.3e} min_row_cos {min(coss):.6f} " + ("(library eager) " if graph else ""),
+            note=f"rel {rel:.3e} min_row_cos {min(coss):.6f} second call {'EQUAL' if repeats else 'DIFFERS'} "
+            + ("(library eager) " if graph else ""),
             design=attention.kernel_design(dt, d, backward=True),
         )
         del lib_out, leaves
         if not finite:
             fail(f"flash_attention_bwd {dt} {shape}: non-finite gradient")
+        if not repeats:
+            fail(f"flash_attention_bwd {dt} {shape}: a second call on the same inputs gave other bits")
         if dt == torch.float32 and not rel <= BWD_F32_MAX_REL:
             fail(f"flash_attention_bwd f32 {shape} relative error {rel} (bar {BWD_F32_MAX_REL})")
         if dt == torch.bfloat16 and not min(coss) >= BWD_BF16_MIN_COS:
@@ -1557,7 +1571,71 @@ def phase_parallel(torch, dev, s: Model, logs_dir) -> dict:
         fail(f"{tag}: the sharded run drifts from the unwrapped one: losses {rel_later}, weight {abs_w}")
     if not sharded["launches"] == plain["launches"] == expect:
         fail(f"{tag}: launches {sharded['launches']} and {plain['launches']}, expected {expect}")
-    return {"b16_train_sharded": sharded["launches"]}
+    return {"b16_train_sharded": sharded["launches"],
+            "b16_detector_train_sharded": detector_sharded(torch, dev, logs_dir)}
+
+
+def detector_sharded(torch, dev, logs_dir) -> dict:
+    """`detector.train.main --synthetic` at DET_PRESET (batch 8, bf16) under
+    a one-process launch (a (1, 1, 1) `data` mesh over a world-size-1 NCCL
+    group, the heads under DistributedDataParallel) beside the same run
+    without a launcher; returns the launched run's launches."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.detector import train as det_train
+    from clipself_tpu_torch.detector.config import PRESETS
+    from clipself_tpu_torch.tools.train_repeat import one_process_launch
+
+    cfg = PRESETS[DET_PRESET]
+    w, t = PARALLEL_DET_WARMUP, PARALLEL_DET_TIMED
+    argv = [
+        "--synthetic", "--preset", DET_PRESET, "--device", str(dev), "--batch-size", str(DET_BATCH),
+        "--epochs", "1", "--steps-per-epoch", str(w + t), "--log-every", "1", "--seed", str(SEED),
+    ]
+
+    def one(tag: str, sharded: bool) -> dict:
+        t0 = time.perf_counter()
+        reset_counts()
+        try:
+            with one_process_launch() if sharded else contextlib.nullcontext():
+                run = det_train.main(argv + ["--output", os.path.join(logs_dir, tag)])
+            torch.cuda.synchronize()
+            launches = read_counts()
+        finally:
+            shutil.rmtree(logs_dir, ignore_errors=True)
+        hist = run["history"]
+        out = {
+            "losses": [h["metrics"]["loss"] for h in hist], "mesh": run["mesh"], "launches": launches,
+            "median_ms": statistics.median(h["step_ms"] for h in hist[w:]),
+            "heads": {k: v.detach().clone() for k, v in run["state"].model.state_dict().items()},
+            "seconds": time.perf_counter() - t0,
+        }
+        del run
+        torch.cuda.empty_cache()
+        return out
+
+    plain = one("detector_unwrapped", False)
+    sharded = one("detector_sharded", True)
+    tag = f"b16 detector train sharded {DET_PRESET}"
+    for name, r in (("unwrapped", plain), ("sharded (1, 1, 1)", sharded)):
+        print(f"{tag}: {name} batch {DET_BATCH}, bf16: median of {t} timed steps after {w} warm-up "
+              f"{r['median_ms']:.3f} ms, {DET_BATCH / r['median_ms'] * 1e3:.3f} images/s; run "
+              f"{r['seconds']:.1f} s; mesh {r['mesh']}; launches {json.dumps(r['launches'])}", flush=True)
+    heads_equal = plain["heads"].keys() == sharded["heads"].keys() and all(
+        torch.equal(v, sharded["heads"][k]) for k, v in plain["heads"].items()
+    )
+    print(f"{tag}: losses {json.dumps(sharded['losses'])} against {json.dumps(plain['losses'])}: "
+          f"{'EQUAL' if sharded['losses'] == plain['losses'] else 'DIFFER'}; heads after {w + t} steps "
+          f"{'EQUAL' if heads_equal else 'DIFFER'}", flush=True)
+    if sharded["mesh"] != (1, 1, 1) or plain["mesh"] is not None:
+        fail(f"{tag}: meshes {sharded['mesh']} and {plain['mesh']}, expected (1, 1, 1) and none")
+    if not (len(plain["losses"]) == w + t and all(map(math.isfinite, plain["losses"]))):
+        fail(f"{tag}: losses {plain['losses']}")
+    if sharded["losses"] != plain["losses"] or not heads_equal:
+        fail(f"{tag}: the launched run is off the unwrapped one")
+    expect = expected_launches(get_model_config(cfg.clip_model).vision.layers, det_steps=w + t)
+    if not sharded["launches"] == plain["launches"] == expect:
+        fail(f"{tag}: launches {sharded['launches']} and {plain['launches']}, expected {expect}")
+    return sharded["launches"]
 
 
 def phase_text(torch, dev, s: Model, model, model_f32) -> dict:

@@ -14,7 +14,7 @@
 // [B, N, H * D] projection layout, so the head transposes of
 // attention.py:494-496 disappear; the output is written as a contiguous
 // [B, N, H, D]. Training also asks for the row log-sum-exp, lse [B, H, N]
-// f32, the residual of the one-pass backward (csrc/flash_attention_bwd.cu)
+// f32, the residual of the backward (csrc/flash_attention_bwd.cu)
 // in place of the Pallas kernel's (l, m) pair. It is a NATURAL-log value:
 // the running max m is kept in the log2 domain (the scale carries log2(e),
 // exp is exp2), so the kernel stores lse = (m + log2(l)) * ln(2). A null lse

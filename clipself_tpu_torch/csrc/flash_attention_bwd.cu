@@ -13,33 +13,48 @@
 //
 // with P and dS rounded to the input dtype before their products and every
 // product accumulated in f32. The TPU kernel walks the key blocks in order
-// and carries dQ in a VMEM scratch between grid steps; Hopper runs blocks in
-// no order, so the accumulation across key blocks takes one of two forms: a
-// dK/dV pass followed by a dQ pass that recomputes S and dP, or atomics.
-// This kernel takes the atomics: one pass, five products per tile pair
-// instead of eight. dQ accumulates in a zeroed f32 buffer through f32
-// additions in the L2, and a last pass rounds it to bf16 (a float32 dq is
-// its own accumulator). The order of the f32 additions into dQ changes from
-// run to run, so dQ is not bitwise repeatable; the checks use tolerances.
+// and carries dQ in a VMEM scratch between grid steps, so each element of dQ
+// receives its key-block partials in ascending key order and the result
+// repeats bit for bit from call to call. Hopper runs blocks in parallel and
+// in no order, so a sum across blocks needs atomics, a second pass, or
+// blocks that wait on each other. This file takes the second pass, and every
+// sum it forms is in a fixed order:
+//
+//  * the dK / dV pass: a block owns a run of keys of one (batch, head),
+//    keeps their dK and dV in registers or WMMA fragments and walks the
+//    query tiles in order (S, dP, dV, dK: four products a tile pair);
+//  * the dQ pass: a block owns a run of queries, keeps their dQ the same
+//    way and walks the key tiles in ascending order, as the TPU kernel's kv
+//    grid does (S and dP again, then dQ: three products a tile pair).
+//
+// So dQ, dK and dV are bitwise repeatable, and no block waits on another:
+// nothing depends on the order in which the card dispatches blocks, no
+// thread spins on a flag, and there is no f32 accumulator in device memory
+// to zero and round afterwards. The price is S and dP computed twice: seven
+// products a tile pair where one pass that adds dQ by atomics runs five.
+// The alternative that keeps five, each key block adding its dQ tile only
+// after the key block before it has added its own, chains the 33 key
+// blocks of a query tile at N = 4097 one after another on every tile, and
+// makes the result depend on the blocks being dispatched in index order.
+// Each call runs three kernels: di = rowsum(dO * O), then the two passes,
+// each reading di instead of recomputing it.
 //
 // Three designs, picked by dtype and head_dim alone
 // (clipself_flash_bwd_design); all read K, V, Q and dO through the
-// [B, N, H, D] strides the forward takes, write dK and dV as contiguous
-// [B, N, H, D], mask the ragged tail (-inf before the exp) and run the small
-// di = rowsum(dO * O) pass first instead of recomputing it for every key block:
+// [B, N, H, D] strides the forward takes, write dQ, dK and dV as contiguous
+// [B, N, H, D] and mask the ragged tail (-inf before the exp):
 //
 //  * bfloat16 at head_dim 64, every backward of the EVA02 towers: the
-//    warpgroup design in namespace `wg` below (its own note says how). All
-//    five products run as wgmma (csrc/hopper_mma.cuh), S^T, dP^T,
-//    P^T and dS^T live in registers, Q/dO tiles arrive through a four-stage
-//    cp.async ring, and the f32 dQ accumulator is fed by bulk reductions.
-//  * bfloat16 at the other head dims: one block of 4 warps owns 64 keys and
-//    keeps their dK and dV in WMMA accumulator fragments; it loops over
-//    64-row query tiles staged with plain loads, every product's result
-//    passes through shared memory in f32, and dQ leaves by scalar atomicAdd.
+//    warpgroup kernels in namespace `wg` below (their own note says how).
+//    Every product runs as wgmma (csrc/hopper_mma.cuh); the scores, P and
+//    dS live in registers, and the streamed tiles arrive through cp.async
+//    rings.
+//  * bfloat16 at the other head dims: a block of 4 warps owns 64 keys (64
+//    queries in the dQ pass), keeps its accumulators in WMMA fragments and
+//    loops over the other side's 64-row tiles staged with plain loads;
+//    every product's result passes through shared memory in f32.
 //  * float32 (the parity path): the same blocking with f32 FMAs, so that it
-//    keeps full f32 precision (tensor cores would round the inputs to TF32);
-//    dq is its own accumulator.
+//    keeps full f32 precision (tensor cores would round the inputs to TF32).
 //
 // The two older designs take every head_dim d that is a multiple of 8 up to
 // 128 by zero-fill, as the forward does: instantiated at the tile width
@@ -48,16 +63,14 @@
 // or dS K; the extra columns of dQ, dK and dV (zero too) are never stored;
 // di = rowsum(dO * O) runs over the true d.
 //
-// Bound on the H100: at N = 4097, D = 64 a (key, query) pair costs 10 * D
-// flops against Q/dO tiles that every key block reads again from the L2, so
-// the kernel is bound by operations. What holds the warpgroup design below
-// the tensor cores' rate is the elementwise work between the products (a
-// warpgroup's exponentials, dS and bf16 packing take about as long as its 20
-// wgmma operations a tile, at two warps a scheduler), shared-memory
-// bandwidth (m64n64k16 with both operands in shared memory reads 4 KB for 32
-// tensor-core cycles) and the 254 registers a thread that leave one block of
-// 8 warps an SM. The dQ additions, 33 partial sums an element at N = 4097,
-// cost nothing visible once the copy engine does them.
+// Bound on the H100: at N = 4097, D = 64 a (key, query) pair costs 14 * D
+// flops in the two passes against tiles that every block reads again from
+// the L2, so the kernels are bound by operations. What holds the warpgroup
+// kernels below the tensor cores' rate is the elementwise work between the
+// products (the exponentials, dS and bf16 packing take about as long as a
+// tile's wgmma operations), shared-memory bandwidth (m64n64k16 with both
+// operands in shared memory reads 4 KB for 32 tensor-core cycles) and, in
+// the dK / dV kernel, the registers that leave one block of 8 warps an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,13 +83,16 @@
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per inner tile
-constexpr int BK = 64;  // keys per block
+constexpr int BQ = 64;  // query rows per tile
+constexpr int BK = 64;  // keys per tile
 constexpr int WARPS = 4;
-constexpr int WROWS = 16;  // keys per warp, and dQ rows per warp
+constexpr int WROWS = 16;  // a warp's rows: keys in the dK / dV pass, queries in the dQ pass
 constexpr int THREADS = WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of one H100 block
+// bf16 head_dim 64: sequences up to this length take one warpgroup a block
+// in the dQ pass (the forward's rule: short sequences give few blocks)
+constexpr int WGMMA_ONE_WARPGROUP_MAX_N = 384;
 
 template <typename T>
 struct Pad;  // shared-memory row padding, in elements (keeps 16-byte rows)
@@ -89,14 +105,16 @@ struct Pad<__nv_bfloat16> {
   static constexpr int v = 8;
 };
 
-// Shared-memory plan. Every region and every 16-row/16-column tile inside it
-// starts on a 32-byte boundary, as WMMA loads and stores require.
+// Shared-memory plan of both passes of the two older designs ("own" rows:
+// the block's keys in the dK / dV pass, its queries in the dQ pass; "other"
+// rows: the tile it streams). Every region and every 16-row/16-column tile
+// inside it starts on a 32-byte boundary, as WMMA loads and stores require.
 template <typename T, int D>
 struct Plan {
   static constexpr int LD = D + Pad<T>::v;   // K, V, Q, dO rows
-  static constexpr int LDP = BQ + Pad<T>::v; // P^T, dS^T rows (key-major)
-  static constexpr int LDS = BQ + 4;         // f32 S^T, dP^T rows
-  static constexpr int LDQ = D + 4;          // f32 dQ / dK / dV rows
+  static constexpr int LDP = BQ + Pad<T>::v; // P, dS rows (own-major, in T)
+  static constexpr int LDS = BQ + 4;         // f32 S, dP rows (own-major)
+  static constexpr int LDQ = D + 4;          // f32 rows of an accumulator
   static constexpr size_t tile = sizeof(T) * 64 * LD;
   static constexpr size_t scores = sizeof(float) * BK * LDS;
   static constexpr size_t probs = sizeof(T) * BK * LDP;
@@ -104,17 +122,17 @@ struct Plan {
   static constexpr size_t o_v = tile;
   static constexpr size_t o_q = 2 * tile;
   static constexpr size_t o_do = 3 * tile;
-  static constexpr size_t o_s = 4 * tile;       // S^T, then P (f32)
-  static constexpr size_t o_dp = o_s + scores;  // dP^T (f32)
-  // f32 rows of dQ (and at the end dK, dV) alias S^T/dP^T: they are written
+  static constexpr size_t o_s = 4 * tile;       // S (f32)
+  static constexpr size_t o_dp = o_s + scores;  // dP (f32)
+  // f32 rows of the accumulators at the end alias S / dP: they are written
   // only after every warp has finished reading its scores
   static constexpr size_t o_out = o_s;
-  static constexpr size_t o_pt = o_dp + scores;  // P^T in T
-  static constexpr size_t o_ds = o_pt + probs;   // dS^T in T
-  static constexpr size_t o_lse = o_ds + probs;  // lse * log2(e) of the tile
+  static constexpr size_t o_pt = o_dp + scores;  // P in T (dK / dV pass)
+  static constexpr size_t o_ds = o_pt + probs;   // dS in T
+  static constexpr size_t o_lse = o_ds + probs;  // lse * log2(e) of the query tile
   static constexpr size_t o_di = o_lse + sizeof(float) * BQ;
   static constexpr size_t total = o_di + sizeof(float) * BQ;
-  static_assert(sizeof(float) * BQ * LDQ <= 2 * scores, "dQ rows overflow");
+  static_assert(sizeof(float) * BQ * LDQ <= 2 * scores, "accumulator rows overflow");
   static_assert(total <= SMEM_LIMIT, "shared-memory plan too large");
 };
 
@@ -167,8 +185,10 @@ __device__ __forceinline__ void fma_rows(const float* a, int a_r, int a_k,
 }
 
 // out[16, 64] (f32, row stride LDS) = a[16, D] . b[64, D]^T, both row-major
-// with row stride LD: the warp's S^T (a = its keys, b = the query tile) and
-// dP^T (a = its values, b = the dO tile).
+// with row stride LD: the warp's 16 own rows against the streamed tile
+// (keys against queries give S^T and values against dO give dP^T in the
+// dK / dV pass; queries against keys S and dO against values dP in the dQ
+// pass).
 template <typename T, int D>
 __device__ __forceinline__ void rows_by_tile_t(const T* a, const T* b,
                                                float* out) {
@@ -201,12 +221,13 @@ __device__ __forceinline__ void rows_by_tile_t(const T* a, const T* b,
   }
 }
 
-// The per-warp dK / dV accumulators [16, D] in f32.
+// A warp's [16, D] accumulator in f32: dK and dV in the dK / dV pass, dQ in
+// the dQ pass.
 template <typename T, int D, bool IS_F32 = std::is_same<T, float>::value>
-struct KVAcc;
+struct Acc;
 
 template <typename T, int D>
-struct KVAcc<T, D, false> {  // bf16: WMMA accumulator fragments
+struct Acc<T, D, false> {  // bf16: WMMA accumulator fragments
   using P = Plan<T, D>;
   nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[D / 16];
 
@@ -214,7 +235,8 @@ struct KVAcc<T, D, false> {  // bf16: WMMA accumulator fragments
 #pragma unroll
     for (int dt = 0; dt < D / 16; ++dt) nvcuda::wmma::fill_fragment(f[dt], 0.0f);
   }
-  // f += a[16, 64] . b[64, D]; a key-major (row stride LDP), b row-major (LD)
+  // f += a[16, 64] . b[64, D]; a row-major with row stride LDP, b row-major
+  // (LD); the 64 terms of each element in order of b's rows
   __device__ void add(const T* a, const T* b) {
     using namespace nvcuda;
 #pragma unroll
@@ -230,7 +252,7 @@ struct KVAcc<T, D, false> {  // bf16: WMMA accumulator fragments
     }
   }
   // write the 16 rows' first d columns to dst (contiguous [B, N, H, d] row
-  // pointer per key) through the warp's f32 staging rows
+  // pointer per row) through the warp's f32 staging rows
   __device__ void store(float* stage, T* dst_base, long long row_stride,
                         int row0, int n, int d) {
 #pragma unroll
@@ -253,7 +275,7 @@ struct KVAcc<T, D, false> {  // bf16: WMMA accumulator fragments
 };
 
 template <typename T, int D>
-struct KVAcc<T, D, true> {  // float32: lane pair per row, D / 2 columns each
+struct Acc<T, D, true> {  // float32: lane pair per row, D / 2 columns each
   using P = Plan<T, D>;
   float f[D / 2];
 
@@ -279,53 +301,19 @@ struct KVAcc<T, D, true> {  // float32: lane pair per row, D / 2 columns each
   }
 };
 
-// out[16, D] (f32, row stride LDQ) = dS[16 queries, 64 keys] . K[64, D] for
-// the warp's 16 query columns of dS^T (key-major, row stride LDP).
-template <typename T, int D>
-__device__ __forceinline__ void ds_by_k(const T* dst_cols, const T* k,
-                                        float* out) {
-  using P = Plan<T, D>;
-  if constexpr (std::is_same<T, float>::value) {
-    float acc[D / 2];
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
-    fma_rows<D, BK>(dst_cols, 1, P::LDP, k, P::LD, 1, acc);
-    const int lane = threadIdx.x & 31;
-    float* o = out + (lane >> 1) * P::LDQ + (lane & 1) * (D / 2);
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] = acc[j];
-  } else {
-    using namespace nvcuda;
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, dst_cols + kk * 16 * P::LDP, P::LDP);
-        wmma::load_matrix_sync(fb, k + kk * 16 * P::LD + dt * 16, P::LD);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(out + dt * 16, c, P::LDQ, wmma::mem_row_major);
-    }
-  }
-}
-
-// D is the tile width, d <= D the true head_dim (the row length of dout and
-// of the outputs).
+// The dK / dV pass. D is the tile width, d <= D the true head_dim (the row
+// length of dout and of the outputs).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, float* __restrict__ dq_acc,
-                     T* __restrict__ dk, T* __restrict__ dv, int n, int d, int heads,
-                     long long qsb, long long qsn, long long qsh,
-                     long long ksb, long long ksn, long long ksh,
-                     long long vsb, long long vsn, long long vsh,
-                     float scale) {
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ di, T* __restrict__ dk,
+                          T* __restrict__ dv, int n, int d, int heads,
+                          long long qsb, long long qsn, long long qsh,
+                          long long ksb, long long ksn, long long ksh,
+                          long long vsb, long long vsn, long long vsh,
+                          float scale) {
   using P = Plan<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem + P::o_k);
@@ -362,7 +350,7 @@ __global__ void __launch_bounds__(THREADS)
   T* dsw = dst + wk * P::LDP;
   float* outw = out_all + wk * P::LDQ;
 
-  KVAcc<T, D> dk_acc, dv_acc;
+  Acc<T, D> dk_acc, dv_acc;
   dk_acc.zero();
   dv_acc.zero();
 
@@ -406,20 +394,6 @@ __global__ void __launch_bounds__(THREADS)
 
     dv_acc.add(ptw, dos);  // dV += P^T dO
     dk_acc.add(dsw, qs);   // dK += dS^T Q
-    __syncthreads();       // dS^T complete; every warp is done with S^T, dP^T
-
-    // dQ rows [q0 + wk, q0 + wk + 16) += dS K over the block's 64 keys
-    ds_by_k<T, D>(dst + wk, ks, outw);
-    __syncwarp();
-    for (int i = lane; i < WROWS * D; i += 32) {
-      const int rr = i / D;
-      const int cc = i % D;
-      const int row = q0 + wk + rr;
-      if (row < n && cc < d) {
-        atomicAdd(dq_acc + head_off + (long long)row * row_stride + cc,
-                  outw[rr * P::LDQ + cc]);
-      }
-    }
   }
 
   __syncthreads();  // the staging rows alias every warp's scores
@@ -427,34 +401,125 @@ __global__ void __launch_bounds__(THREADS)
   dv_acc.store(outw, dv + head_off, row_stride, k0 + wk, n, d);
 }
 
+// The dQ pass: a block owns 64 query rows, 16 a warp, and walks the key
+// tiles in ascending order.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, T* __restrict__ dq,
+                        int n, int d, int heads,
+                        long long qsb, long long qsn, long long qsh,
+                        long long ksb, long long ksn, long long ksh,
+                        long long vsb, long long vsn, long long vsh,
+                        float scale) {
+  using P = Plan<T, D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem + P::o_k);
+  T* vs = reinterpret_cast<T*>(smem + P::o_v);
+  T* qs = reinterpret_cast<T*>(smem + P::o_q);
+  T* dos = reinterpret_cast<T*>(smem + P::o_do);
+  float* s_all = reinterpret_cast<float*>(smem + P::o_s);
+  float* dp_all = reinterpret_cast<float*>(smem + P::o_dp);
+  float* out_all = reinterpret_cast<float*>(smem + P::o_out);
+  T* ds_all = reinterpret_cast<T*>(smem + P::o_ds);
+  float* lse2_s = reinterpret_cast<float*>(smem + P::o_lse);
+  float* di_s = reinterpret_cast<float*>(smem + P::o_di);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float scale_log2 = scale * LOG2E;
+  const long long row_stride = (long long)heads * d;  // contiguous dO and dQ
+  const long long head_off = ((long long)b * n * heads + h) * d;
+  const float* lse_bh = lse + ((long long)b * heads + h) * n;
+  const float* di_bh = di + ((long long)b * heads + h) * n;
+
+  load_tile<T, D>(qs, q + b * qsb + h * qsh, qsn, q0, n, d, tid);
+  load_tile<T, D>(dos, dout + head_off, row_stride, q0, n, d, tid);
+  if (tid < BQ) {
+    const bool ok = q0 + tid < n;
+    lse2_s[tid] = ok ? lse_bh[q0 + tid] * LOG2E : 0.0f;
+    di_s[tid] = ok ? di_bh[q0 + tid] : 0.0f;
+  }
+
+  const int wq = warp * WROWS;  // the warp's first query row in the block
+  float* sw = s_all + wq * P::LDS;
+  float* dpw = dp_all + wq * P::LDS;
+  T* dsw = ds_all + wq * P::LDP;
+  float* outw = out_all + wq * P::LDQ;
+
+  Acc<T, D> dq_acc;
+  dq_acc.zero();
+
+  // lane pair (2r, 2r+1) owns query row r of the warp's 16 in the
+  // elementwise step, each lane half of the key columns
+  const int r = lane >> 1;
+  const int half = lane & 1;
+  const bool query_ok = q0 + wq + r < n;
+
+  const int n_tiles = (n + BK - 1) / BK;
+  for (int t = 0; t < n_tiles; ++t) {  // ascending key order
+    const int k0 = t * BK;
+    __syncthreads();  // every warp is done with the previous K and V tiles
+    load_tile<T, D>(ks, k + b * ksb + h * ksh, ksn, k0, n, d, tid);
+    load_tile<T, D>(vs, v + b * vsb + h * vsh, vsn, k0, n, d, tid);
+    __syncthreads();
+
+    rows_by_tile_t<T, D>(qs + wq * P::LD, ks, sw);   // S  [16 q, 64 keys]
+    rows_by_tile_t<T, D>(dos + wq * P::LD, vs, dpw); // dP [16 q, 64 keys]
+    __syncwarp();
+
+    const float lse2 = lse2_s[wq + r];
+    const float dd = di_s[wq + r];
+#pragma unroll 8
+    for (int j = 0; j < BK / 2; ++j) {
+      const int c = half * (BK / 2) + j;
+      const float x = (query_ok && k0 + c < n) ? sw[r * P::LDS + c] * scale_log2 - lse2
+                                               : -INFINITY;
+      const float p = exp2f(x);
+      dsw[r * P::LDP + c] = to_t(p * (dpw[r * P::LDS + c] - dd) * scale, T());
+    }
+    __syncwarp();
+
+    dq_acc.add(dsw, ks);  // dQ += dS K
+  }
+
+  __syncthreads();  // the staging rows alias every warp's scores
+  dq_acc.store(outw, dq + head_off, row_stride, q0 + wq, n, d);
+}
+
 // ---- bf16, head_dim 64: the warpgroup design --------------------------------
 //
-// A block of two warpgroups owns 128 keys of one (batch, head), 64 a
-// warpgroup, and keeps their dK and dV in wgmma accumulators for the whole
-// kernel. 64-row Q and dO tiles with their lse and di come through a ring of
-// STAGES shared-memory stages filled by cp.async, tile t + AHEAD in flight
-// while tile t is computed, with one block barrier a tile. A warpgroup's work
-// on a tile has two phases:
+// The dK / dV pass. A block of two warpgroups owns 128 keys of one (batch,
+// head), 64 a warpgroup, and keeps their dK and dV in wgmma accumulators for
+// the whole kernel. 64-row Q and dO tiles with their lse and di come through
+// a ring of STAGES shared-memory stages filled by cp.async, tile t + AHEAD
+// in flight while tile t is computed, with one block barrier a tile. A
+// warpgroup's work on a tile has two phases:
 //
 //   phase 1: S^T = K Q^T and dP^T = V dO^T in registers (one wgmma group),
-//            P^T and dS^T formed there and rounded to bf16, dS^T also
-//            written to shared memory;
+//            P^T and dS^T formed there and rounded to bf16;
 //   phase 2: dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A
-//            operands against the dO and Q tiles read MN-major, and the
-//            warpgroup's 64-key partial of dQ = dS K, with the stored dS^T
-//            as a transposed A operand (one wgmma group).
+//            operands against the dO and Q tiles read MN-major (one wgmma
+//            group).
 //
 // The tensor cores idle while a warpgroup does phase 1's elementwise work, so
 // the two warpgroups run half a tile apart: between two block barriers
 // warpgroup 0 runs phase 1 then phase 2 of tile t, warpgroup 1 phase 2 of
 // tile t - 1 then phase 1 of tile t, and one's products overlap the other's
-// exponentials. The same lag halves the dQ additions: warpgroup 0 leaves its
-// partial dQ tile in shared memory, and warpgroup 1, a barrier later, adds
-// its own partial of that tile on top and sends the 128-key sum to the f32
-// accumulator with one bulk reduction (cp.reduce.async.bulk: the copy engine
-// and the L2 do the 16 KB of additions, no thread waits for them). The
-// accumulator therefore holds dQ tile by tile in the fragment's own order,
-// and the last pass rounds it to bf16 rows.
+// exponentials.
+//
+// The dQ pass has the forward's shape: a block of one or two warpgroups owns
+// 64 query rows a warpgroup, with their Q and dO tiles resident, and walks
+// the 64-key K and V tiles in ascending order through a three-stage cp.async
+// ring, one block barrier a tile: S = Q K^T and dP = dO V^T in registers, dS
+// formed there and packed to bf16 as the A operand of dQ += dS K, with the
+// K tile read MN-major; dQ stays in the accumulator and leaves as bf16 rows.
 
 namespace wg {
 
@@ -466,15 +531,21 @@ constexpr int THREADS = 256;
 constexpr int KEYS = 128;                           // keys a block
 constexpr int QDO_STAGE_BYTES = 2 * TILE64_BYTES;   // one Q and one dO tile
 constexpr int ROWVEC_BYTES = 2 * 64 * 4;            // lse and di of a tile
-constexpr int DQ_TILE_BYTES = 64 * 64 * 4;          // a partial dQ tile, f32
 constexpr int O_K = 0;
 constexpr int O_V = O_K + KEYS * ROW_BYTES;
 constexpr int O_RING = O_V + KEYS * ROW_BYTES;
-constexpr int O_DS = O_RING + STAGES * QDO_STAGE_BYTES;  // [warpgroup][2] tiles
-constexpr int O_DQ = O_DS + 4 * TILE64_BYTES;            // [2] partial dQ tiles
-constexpr int O_VEC = O_DQ + 2 * DQ_TILE_BYTES;
+constexpr int O_VEC = O_RING + STAGES * QDO_STAGE_BYTES;
 constexpr int SMEM_BYTES = ATOM_BYTES + O_VEC + STAGES * ROWVEC_BYTES;
 static_assert(SMEM_BYTES <= SMEM_LIMIT, "shared-memory plan too large");
+
+constexpr int DQ_STAGES = 3;                       // K / V tiles of the dQ pass
+constexpr int KV_STAGE_BYTES = 2 * TILE64_BYTES;   // one K and one V tile
+
+template <int NWG>
+constexpr int dq_smem_bytes() {
+  return ATOM_BYTES + 2 * NWG * TILE64_BYTES + DQ_STAGES * KV_STAGE_BYTES;
+}
+static_assert(dq_smem_bytes<2>() <= SMEM_LIMIT, "shared-memory plan too large");
 
 __device__ __forceinline__ void block_barrier() {
   // by number, not by place in the code: the two warpgroups meet it from
@@ -487,19 +558,18 @@ __device__ __forceinline__ void warpgroup_barrier(int wgi) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ di,
-                           float* __restrict__ dq_acc,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int n, int heads,
-                           long long qsb, long long qsn, long long qsh,
-                           long long ksb, long long ksn, long long ksh,
-                           long long vsb, long long vsn, long long vsh,
-                           float scale) {
+    flash_bwd_dkdv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const __nv_bfloat16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ di,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int n, int heads,
+                                long long qsb, long long qsn, long long qsh,
+                                long long ksb, long long ksn, long long ksh,
+                                long long vsb, long long vsn, long long vsh,
+                                float scale) {
   extern __shared__ unsigned char smem[];
   const int tid = threadIdx.x;
   const int wgi = tid >> 7;
@@ -523,8 +593,8 @@ __global__ void __launch_bounds__(THREADS)
   const int n_tiles = (n + 63) / 64;
 
   // Tile `tile` of Q, dO, lse and di into stage `st`. Warpgroup 0 starts
-  // the ring's copies alone: warpgroup 1 has the longer tile (it sums and
-  // sends the dQ tiles).
+  // the ring's copies alone: warpgroup 1 has the longer tile (it runs two
+  // phases after the barrier).
   auto load_stage = [&](int tile, int st) {
     if (wgi == 0) {
       const int row0 = tile * 64;
@@ -537,19 +607,13 @@ __global__ void __launch_bounds__(THREADS)
       cp_async_4(vec_s + st * ROWVEC_BYTES + tid * 4, ok ? src + r : src, ok);
     }
   };
-  // The block barrier of the ring; it also frees the dQ tile that a bulk
-  // reduction started before it may still be reading.
-  auto ring_barrier = [&]() {
-    if (t128 == 0) bulk_wait_read();
-    block_barrier();
-  };
   // Tile t has landed for every thread, and every warp is done with what the
   // barrier before it allowed; then tile t + AHEAD starts into the stage that
   // tile t - 2 left (warpgroup 1 was done with it before this barrier).
   auto ring_step = [&](int t) {
     cp_async_wait<AHEAD - 1>();
     fence_async_proxy();
-    ring_barrier();
+    block_barrier();
     const int tn = t + AHEAD;
     if (tn < n_tiles) load_stage(tn, tn % STAGES);
     cp_async_commit();
@@ -569,7 +633,6 @@ __global__ void __launch_bounds__(THREADS)
   const uint32_t v_s = base + O_V + wgi * TILE64_BYTES;
   const uint64_t k_desc = tile_desc(k_s);
   const uint64_t v_desc = tile_desc(v_s);
-  const uint32_t ds_s = base + O_DS + wgi * 2 * TILE64_BYTES;
   // this thread's key rows of the warpgroup's 64: r0 and r0 + 8
   const int r0 = frag_row(t128, 0);
   const bool key_ok0 = key_base + r0 < n;
@@ -583,7 +646,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // Phase 1 of tile t: P^T and dS^T of [64 keys, 64 queries] as bf16 pairs
-  // in the A-fragment order, dS^T also in shared memory.
+  // in the A-fragment order.
   auto phase1 = [&](int t, uint32_t (&pt)[16], uint32_t (&dst)[16]) {
     const int st = t % STAGES;
     const int q0 = t * 64;
@@ -643,25 +706,13 @@ __global__ void __launch_bounds__(THREADS)
       dst[2 * j + 1] = pack_bf16(p10 * (dp_acc[4 * j + 2] - dd.x) * scale,
                                  p11 * (dp_acc[4 * j + 3] - dd.y) * scale);
     }
-
-    // Two dS^T buffers in turn: a warp may write tile t + 1's while another
-    // warp's share of tile t's dQ product still reads.
-    const uint32_t ds_buf = ds_s + (t & 1) * TILE64_BYTES;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      st_shared_u32(ds_buf + swizzle_offset(r0, j) + 4 * (lane & 3), dst[2 * j]);
-      st_shared_u32(ds_buf + swizzle_offset(r0 + 8, j) + 4 * (lane & 3), dst[2 * j + 1]);
-    }
-    fence_async_proxy();
   };
 
-  // Phase 2 of tile t: dV and dK grow, dq is the warpgroup's partial tile.
-  auto phase2 = [&](int t, uint32_t (&pt)[16], uint32_t (&dst)[16], float (&dq)[32]) {
+  // Phase 2 of tile t: dV and dK grow.
+  auto phase2 = [&](int t, uint32_t (&pt)[16], uint32_t (&dst)[16]) {
     const int st = t % STAGES;
     const uint64_t q_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES);
     const uint64_t do_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES + TILE64_BYTES);
-    const uint64_t ds_desc = tile_desc(ds_s + (t & 1) * TILE64_BYTES);
-    warpgroup_barrier(wgi);  // every warp's rows of dS^T are in shared memory
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     fence_regs(pt);
@@ -677,79 +728,34 @@ __global__ void __launch_bounds__(THREADS)
       wgmma_m64n64k16_rs<1>(dk_acc, dst[4 * kk], dst[4 * kk + 1], dst[4 * kk + 2],
                             dst[4 * kk + 3], q_desc + kk * K_SLICE_MN_MAJOR, 1);
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // dQ = dS K
-      wgmma_m64n64k16_ss<1, 1>(dq, ds_desc + kk * K_SLICE_MN_MAJOR,
-                               k_desc + kk * K_SLICE_MN_MAJOR, kk > 0);
-    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
-    fence_regs(dq);
     fence_regs(pt);
     fence_regs(dst);
-  };
-
-  // A dQ tile in shared memory and in the f32 accumulator: [8][128] slots of
-  // four floats, slot [i][t128] holding registers 4 i .. 4 i + 3 of thread
-  // t128, so the same thread of both warpgroups meets the same entries and
-  // one bulk reduction adds the whole 16 KB tile.
-  auto dq_slot = [&](int t, int i) {
-    return base + O_DQ + (t & 1) * DQ_TILE_BYTES + (i * 128 + t128) * 16;
-  };
-  float* dq_tiles = dq_acc + ((long long)b * heads + h) * n_tiles * (64 * 64);
-  auto send_dq = [&](int t) {
-    fence_async_proxy();
-    warpgroup_barrier(wgi);
-    if (t128 == 0) {
-      bulk_reduce_add_f32(dq_tiles + (long long)t * (64 * 64),
-                          base + O_DQ + (t & 1) * DQ_TILE_BYTES, DQ_TILE_BYTES);
-      bulk_commit();
-    }
   };
 
   if (wgi == 0) {
     for (int t = 0; t < n_tiles; ++t) {
       ring_step(t);
       uint32_t pt[16], dst[16];
-      float dq[32];
       phase1(t, pt, dst);
-      phase2(t, pt, dst, dq);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        st_shared_f32x4(dq_slot(t, i), dq[4 * i], dq[4 * i + 1], dq[4 * i + 2],
-                        dq[4 * i + 3]);
-      }
-      // with keys in warpgroup 1, that one adds its partial a barrier later
-      if (!pair) send_dq(t);
+      phase2(t, pt, dst);
     }
-    ring_barrier();
+    block_barrier();
   } else {
     uint32_t pt[16], dst[16];
-    float dq[32];
-    // tile t's dQ: this warpgroup's partial on top of warpgroup 0's
-    auto finish = [&](int t) {
-      phase2(t, pt, dst, dq);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 o = ld_shared_f32x4(dq_slot(t, i));
-        st_shared_f32x4(dq_slot(t, i), dq[4 * i] + o.x, dq[4 * i + 1] + o.y,
-                        dq[4 * i + 2] + o.z, dq[4 * i + 3] + o.w);
-      }
-      send_dq(t);
-    };
     for (int t = 0; t < n_tiles; ++t) {
       ring_step(t);
       if (pair) {
-        if (t > 0) finish(t - 1);
+        if (t > 0) phase2(t - 1, pt, dst);
         phase1(t, pt, dst);
       }
     }
-    ring_barrier();
-    if (pair) finish(n_tiles - 1);
+    block_barrier();
+    if (pair) phase2(n_tiles - 1, pt, dst);
   }
-  if (t128 == 0) bulk_wait_read();
   cp_async_wait<0>();
   warpgroup_barrier(wgi);  // every product that reads this warpgroup's K and V is done
 
@@ -759,6 +765,150 @@ __global__ void __launch_bounds__(THREADS)
     store_acc_rows(dv_acc, v_s, dv + head_off + (long long)key_base * row_stride,
                    row_stride, n - key_base);
   }
+}
+
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128)
+    flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ di,
+                              __nv_bfloat16* __restrict__ dq, int n, int heads,
+                              long long qsb, long long qsn, long long qsh,
+                              long long ksb, long long ksn, long long ksh,
+                              long long vsb, long long vsn, long long vsh,
+                              float scale) {
+  constexpr int NT = NWG * 128;
+  extern __shared__ unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int wgi = tid >> 7;   // warpgroup of the block
+  const int t128 = tid & 127;  // thread of the warpgroup
+  const int q0 = blockIdx.x * (NWG * 64);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float scale_log2 = scale * LOG2E;
+  const long long row_stride = (long long)heads * 64;  // contiguous dO and dQ
+  const long long head_off = ((long long)b * n * heads + h) * 64;
+  const __nv_bfloat16* qg = q + b * qsb + h * qsh;
+  const __nv_bfloat16* kg = k + b * ksb + h * ksh;
+  const __nv_bfloat16* vg = v + b * vsb + h * vsh;
+  const float* lse_bh = lse + ((long long)b * heads + h) * n;
+  const float* di_bh = di + ((long long)b * heads + h) * n;
+
+  const uint32_t q_s = align_1024(smem_u32(smem));
+  const uint32_t do_s = q_s + NWG * TILE64_BYTES;
+  const uint32_t kv_s = do_s + NWG * TILE64_BYTES;
+  const int n_tiles = (n + 63) / 64;
+
+  // Q and dO ride in the first group with the first K / V stage
+  load_tile_async<NWG * 64, NT>(q_s, qg, qsn, q0, n, tid);
+  load_tile_async<NWG * 64, NT>(do_s, dout + head_off, row_stride, q0, n, tid);
+#pragma unroll
+  for (int s = 0; s < DQ_STAGES - 1; ++s) {
+    if (s < n_tiles) {
+      load_tile_async<64, NT>(kv_s + s * KV_STAGE_BYTES, kg, ksn, s * 64, n, tid);
+      load_tile_async<64, NT>(kv_s + s * KV_STAGE_BYTES + TILE64_BYTES, vg, vsn,
+                              s * 64, n, tid);
+    }
+    cp_async_commit();
+  }
+
+  const uint64_t q_desc = tile_desc(q_s + wgi * TILE64_BYTES);
+  const uint64_t do_desc = tile_desc(do_s + wgi * TILE64_BYTES);
+  // this thread's query rows: r0 and r0 + 8, with -lse * log2(e) and di
+  // (rows past n: zero, and never stored)
+  const int row0 = q0 + wgi * 64;  // first row of the warpgroup
+  const int r0 = row0 + frag_row(t128, 0);
+  const float nl0 = r0 < n ? -lse_bh[r0] * LOG2E : 0.0f;
+  const float nl1 = r0 + 8 < n ? -lse_bh[r0 + 8] * LOG2E : 0.0f;
+  const float dd0 = r0 < n ? di_bh[r0] : 0.0f;
+  const float dd1 = r0 + 8 < n ? di_bh[r0 + 8] : 0.0f;
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {  // ascending key order
+    cp_async_wait<DQ_STAGES - 2>();  // this thread's part of tile t has landed
+    fence_async_proxy();
+    __syncthreads();  // tile t complete; every warp is done with tile t - 1
+    {
+      const int tn = t + DQ_STAGES - 1;
+      if (tn < n_tiles) {
+        const uint32_t st = kv_s + (tn % DQ_STAGES) * KV_STAGE_BYTES;
+        load_tile_async<64, NT>(st, kg, ksn, tn * 64, n, tid);
+        load_tile_async<64, NT>(st + TILE64_BYTES, vg, vsn, tn * 64, n, tid);
+      }
+      cp_async_commit();
+    }
+    const uint32_t stage = kv_s + (t % DQ_STAGES) * KV_STAGE_BYTES;
+    const uint64_t k_desc = tile_desc(stage);
+    const uint64_t v_desc = tile_desc(stage + TILE64_BYTES);
+    const int k0 = t * 64;
+
+    float s[32], dp[32];  // S and dP of [64 queries, 64 keys]
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16_ss<0, 0>(s, q_desc + kk * K_SLICE_K_MAJOR,
+                               k_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16_ss<0, 0>(dp, do_desc + kk * K_SLICE_K_MAJOR,
+                               v_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS = exp2(S * scale * log2(e) - lse * log2(e)) * (dP - di) * scale,
+    // keys at or past n at -inf before the exp; registers 4 j, 4 j + 1 are
+    // row r0 at columns c, c + 1, registers 4 j + 2, 4 j + 3 row r0 + 8
+    const bool ragged = k0 + 64 > n;
+    uint32_t ds[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float x00 = fmaf(s[4 * j], scale_log2, nl0);
+      float x01 = fmaf(s[4 * j + 1], scale_log2, nl0);
+      float x10 = fmaf(s[4 * j + 2], scale_log2, nl1);
+      float x11 = fmaf(s[4 * j + 3], scale_log2, nl1);
+      if (ragged) {
+        const int c = k0 + frag_col(t128, 4 * j);
+        if (c >= n) x00 = x10 = -INFINITY;
+        if (c + 1 >= n) x01 = x11 = -INFINITY;
+      }
+      const float p00 = exp2_approx(x00), p01 = exp2_approx(x01);
+      const float p10 = exp2_approx(x10), p11 = exp2_approx(x11);
+      ds[2 * j] = pack_bf16(p00 * (dp[4 * j] - dd0) * scale,
+                            p01 * (dp[4 * j + 1] - dd0) * scale);
+      ds[2 * j + 1] = pack_bf16(p10 * (dp[4 * j + 2] - dd1) * scale,
+                                p11 * (dp[4 * j + 3] - dd1) * scale);
+    }
+
+    fence_regs(acc);
+    fence_regs(ds);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // dQ += dS K
+      wgmma_m64n64k16_rs<1>(acc, ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2],
+                            ds[4 * kk + 3], k_desc + kk * K_SLICE_MN_MAJOR, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ds);
+  }
+  cp_async_wait<0>();
+
+  // each warp stages its 16 rows in its own rows of the Q tile, which only
+  // its own warpgroup's (finished) products read
+  store_acc_rows(acc, q_s + wgi * TILE64_BYTES,
+                 dq + (((long long)b * n + row0) * heads + h) * 64, row_stride,
+                 n - row0);
 }
 
 }  // namespace wg
@@ -792,16 +942,6 @@ __global__ void flash_bwd_di_kernel(const T* __restrict__ o,
   }
 }
 
-__global__ void f32_to_bf16_kernel(const float* __restrict__ src,
-                                   __nv_bfloat16* __restrict__ dst,
-                                   long long count) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < count; i += stride) {
-    dst[i] = __float2bfloat16(src[i]);
-  }
-}
-
 // Which design a call takes: fixed by dtype and head_dim.
 enum Design { DESIGN_FMA = 0, DESIGN_WMMA = 1, DESIGN_WGMMA = 2 };
 
@@ -814,37 +954,6 @@ constexpr bool head_dim_taken(int head_dim) {
   return head_dim % 8 == 0 && head_dim >= 8 && head_dim <= 128;
 }
 
-// The wgmma design's dQ accumulator, [B, H, tiles, 8, 128] slots of four
-// floats (slot [i][t] = accumulator registers 4 i .. 4 i + 3 of warpgroup
-// thread t of a [64, 64] tile), to bf16 rows of dq [B, N, H, 64].
-__global__ void dq_tiles_to_bf16_kernel(const float4* __restrict__ tiles,
-                                        __nv_bfloat16* __restrict__ dq,
-                                        long long slots, int n, int heads,
-                                        int n_tiles) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < slots;
-       s += stride) {
-    const int t128 = (int)(s & 127);
-    const int i = (int)((s >> 7) & 7);
-    const long long tile = s >> 10;
-    const int t = (int)(tile % n_tiles);
-    const long long bh = tile / n_tiles;
-    const int h = (int)(bh % heads);
-    const long long b = bh / heads;
-    const int row = t * 64 + hopper::frag_row(t128, 0);
-    const int col = hopper::frag_col(t128, 4 * i);
-    const float4 v = tiles[s];
-    __nv_bfloat16* out = dq + ((b * n + row) * heads + h) * 64 + col;
-    if (row < n) {
-      *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v.x, v.y);
-    }
-    if (row + 8 < n) {
-      *reinterpret_cast<__nv_bfloat162*>(out + 8LL * heads * 64) =
-          __floats2bfloat162_rn(v.z, v.w);
-    }
-  }
-}
-
 int grid_for(long long work, int threads) {
   const long long want = (work + threads - 1) / threads;
   return (int)(want < (1LL << 30) ? want : (1LL << 30));
@@ -852,28 +961,35 @@ int grid_for(long long work, int threads) {
 
 struct Args {
   const void *q, *k, *v, *o, *lse, *dout;
-  void *dq, *dk, *dv, *dq_acc, *di;
+  void *dq, *dk, *dv, *di;
   int batch, n, heads, head_dim;
   long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh;
   float scale;
   cudaStream_t stream;
 };
 
-// Floats of the dQ accumulator: [B, N, H, D] for the WMMA design, whole
-// [64, 64] tiles for the wgmma design, none for float32 (dq accumulates in
-// place).
-long long scratch_floats(Design design, long long batch, long long n,
-                         long long heads, long long head_dim) {
-  if (design == DESIGN_FMA) return 0;
-  if (design == DESIGN_WGMMA) return batch * heads * ((n + 63) / 64) * 64 * 64;
-  return batch * n * heads * head_dim;
+template <int NWG>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  using bf16 = __nv_bfloat16;
+  auto kern = wg::flash_bwd_dq_wgmma_kernel<NWG>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       wg::dq_smem_bytes<NWG>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + NWG * 64 - 1) / (NWG * 64), a.heads, a.batch);
+  kern<<<grid, NWG * 128, wg::dq_smem_bytes<NWG>(), a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<bf16*>(a.dq), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh,
+      a.vsb, a.vsn, a.vsh, a.scale);
+  return cudaGetLastError();
 }
 
-// bfloat16 at head_dim 64: the warpgroup kernel, then its dQ tiles to bf16
-// rows (the di pass and the zeroed accumulator are the caller's).
-cudaError_t launch_wgmma(const Args& a, long long acc_floats) {
+// bfloat16 at head_dim 64: the two warpgroup passes (the di pass is the
+// caller's).
+cudaError_t launch_wgmma(const Args& a) {
   using bf16 = __nv_bfloat16;
-  auto kern = wg::flash_bwd_wgmma_kernel;
+  auto kern = wg::flash_bwd_dkdv_wgmma_kernel;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        wg::SMEM_BYTES);
   if (e != cudaSuccess) return e;
@@ -882,59 +998,49 @@ cudaError_t launch_wgmma(const Args& a, long long acc_floats) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<float*>(a.dq_acc), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb,
-      a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.n, a.heads, a.qsb, a.qsn,
+      a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dq_tiles_to_bf16_kernel<<<grid_for(acc_floats / 4, 256), 256, 0, a.stream>>>(
-      static_cast<const float4*>(a.dq_acc), static_cast<bf16*>(a.dq),
-      acc_floats / 4, a.n, a.heads, (a.n + 63) / 64);
-  return cudaGetLastError();
+  return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_dq_wgmma<2>(a) : launch_dq_wgmma<1>(a);
 }
 
 // D: the tile width, a.head_dim rounded up to 16.
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
   const int d = a.head_dim;
-  const Design design = design_rule(std::is_same<T, float>::value, d);
   const long long rows = (long long)a.batch * a.n * a.heads;
-  const long long acc_floats = design == DESIGN_FMA
-                                   ? rows * d
-                                   : scratch_floats(design, a.batch, a.n, a.heads, d);
-  cudaError_t e = cudaMemsetAsync(a.dq_acc, 0, sizeof(float) * acc_floats, a.stream);
-  if (e != cudaSuccess) return e;
   flash_bwd_di_kernel<T><<<grid_for(rows * 32, 256), 256, 0, a.stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
       static_cast<float*>(a.di), rows, a.n, a.heads, d);
-  e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 64) {
-    if (design == DESIGN_WGMMA) return launch_wgmma(a, acc_floats);
+    if (design_rule(false, d) == DESIGN_WGMMA) return launch_wgmma(a);
   }
   using P = Plan<T, D>;
-  auto kern = flash_bwd_kernel<T, D>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)P::total);
+  auto dkdv = flash_bwd_dkdv_kernel<T, D>;
+  auto dqk = flash_bwd_dq_kernel<T, D>;
+  e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.n + BK - 1) / BK, a.heads, a.batch);
-  kern<<<grid, THREADS, P::total, a.stream>>>(
+  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
+  if (e != cudaSuccess) return e;
+  dkdv<<<dim3((a.n + BK - 1) / BK, a.heads, a.batch), THREADS, P::total, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<float*>(a.dq_acc), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.n, d, a.heads, a.qsb, a.qsn, a.qsh, a.ksb,
-      a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.n, d, a.heads, a.qsb, a.qsn,
+      a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (design == DESIGN_WMMA) {
-    f32_to_bf16_kernel<<<grid_for(rows * d, 256), 256, 0, a.stream>>>(
-        static_cast<const float*>(a.dq_acc),
-        static_cast<__nv_bfloat16*>(a.dq), rows * d);
-    e = cudaGetLastError();
-  }
-  return e;
+  dqk<<<dim3((a.n + BQ - 1) / BQ, a.heads, a.batch), THREADS, P::total, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<T*>(a.dq), a.n, d, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh,
+      a.vsb, a.vsn, a.vsh, a.scale);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -963,35 +1069,25 @@ extern "C" int clipself_flash_bwd_design(int dtype, int head_dim) {
   return design_rule(dtype == 0, head_dim);
 }
 
-// Floats of the dq_acc scratch that clipself_flash_bwd needs for this call;
-// 0 where dq is its own accumulator (float32), -1 for a pair not taken.
-extern "C" long long clipself_flash_bwd_scratch_floats(int dtype, int batch, int n,
-                                                       int heads, int head_dim) {
-  const int design = clipself_flash_bwd_design(dtype, head_dim);
-  if (design < 0) return -1;
-  return scratch_floats(static_cast<Design>(design), batch, n, heads, head_dim);
-}
-
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, n, heads, head_dim],
 // head_dim a multiple of 8 up to 128, with unit stride on head_dim and the
 // given element strides for batch, token and head (16-byte aligned rows); o,
 // dout: contiguous [batch, n, heads, head_dim]; lse: contiguous float32 [batch,
 // heads, n], natural-log row log-sum-exp of the scaled logits
 // (clipself_flash_fwd writes it). Outputs dq, dk, dv: contiguous [batch, n,
-// heads, head_dim] in dtype. Scratch: dq_acc, float32 of
-// clipself_flash_bwd_scratch_floats elements (dq itself for float32), and di,
-// float32 [batch, heads, n]. Returns the first failing launch's cudaError_t.
+// heads, head_dim] in dtype. Scratch: di, float32 [batch, heads, n]. Returns
+// the first failing launch's cudaError_t.
 extern "C" int clipself_flash_bwd(int dtype, const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* lse, const void* dout, void* dq,
-                                  void* dk, void* dv, void* dq_acc, void* di,
+                                  void* dk, void* dv, void* di,
                                   int batch, int n, int heads, int head_dim,
                                   long long qsb, long long qsn, long long qsh,
                                   long long ksb, long long ksn, long long ksh,
                                   long long vsb, long long vsn, long long vsh,
                                   float scale, void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0) return (int)cudaSuccess;
-  const Args a{q,   k,   v,   o,   lse, dout, dq,  dk,   dv,  dq_acc, di,
+  const Args a{q,   k,   v,   o,   lse, dout, dq,  dk,   dv,  di,
                batch, n, heads, head_dim, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
                scale, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)dispatch<float>(a);

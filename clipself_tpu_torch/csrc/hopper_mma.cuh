@@ -103,29 +103,6 @@ __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// ---- bulk reduction shared -> global ---------------------------------------
-
-// Add `bytes` of f32 at shared address `src` to the same count at `dst` in
-// global memory, element by element (both 16-byte aligned, bytes a multiple
-// of 16). One thread starts it; the copy engine does the additions in the
-// L2, and the shared memory must stay as it is until bulk_wait_read.
-__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src,
-                                                    uint32_t bytes) {
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
-      "r"(src), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until this thread's bulk operations have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
 // 2^x by the special-function unit alone (ex2.approx: two ULP, -inf gives 0).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -251,22 +228,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_shared_f32x4(uint32_t addr, float a, float b,
-                                                float c, float d) {
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a),
-               "f"(b), "f"(c), "f"(d)
-               : "memory");
-}
-
-__device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
 }
 
 __device__ __forceinline__ uint4 ld_shared_u128(uint32_t addr) {

@@ -20,7 +20,7 @@ import collections
 import itertools
 import logging
 import multiprocessing
-from typing import Iterable, Iterator, Optional, Union
+from typing import Callable, Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -48,6 +48,59 @@ class EpochPermutation(Sampler):
         return self.n
 
 
+Rows = Union[slice, Callable[[int], slice]]
+
+
+def rows_of(rows: Rows, size: int) -> slice:
+    """The rows of a global batch of ``size`` that ``rows`` names: a slice,
+    or a function of the batch's size that gives one
+    (`parallel/mesh.py::batch_rows` of a mesh)."""
+    return rows(size) if callable(rows) else rows
+
+
+class GlobalBatches(Sampler):
+    """The index lists of one pass of ``order`` in global batches of
+    ``batch_size`` (consecutive runs of the order; the last partial one
+    dropped with ``drop_last``), each cut to the ``rows`` that this rank of
+    a mesh reads: the other ranks' rows are never read."""
+
+    def __init__(self, order: Sampler, batch_size: int, *, drop_last: bool, rows: Rows = slice(None)):
+        self.order, self.batch_size, self.drop_last, self.rows = order, batch_size, drop_last, rows
+
+    def batches(self) -> list[tuple[list[int], bool]]:
+        """(this rank's indices, whether they are fewer than the global
+        batch's) of each batch of the pass."""
+        order = list(self.order)
+        out = []
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start:start + self.batch_size]
+            if len(idx) < self.batch_size and self.drop_last:
+                break
+            mine = idx[rows_of(self.rows, len(idx))]
+            out.append((mine, len(mine) < len(idx)))
+        return out
+
+    def __iter__(self):
+        return iter([idx for idx, _ in self.batches()])
+
+    def __len__(self):
+        n = len(self.order)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+
+class RankRows(dict):
+    """A batch that holds this rank's rows of a global batch, not all of
+    them (`rank_batches`)."""
+
+
+def rank_batches(loader: DataLoader) -> Iterator[dict]:
+    """The batches of a `make_loader` loader, each one cut to this rank's
+    rows marked as `RankRows`, the others (a batch that does not divide over
+    the ranks, which every rank reads whole) as they are."""
+    for batch, (_, cut) in zip(loader, loader.batch_sampler.batches()):
+        yield RankRows(batch) if cut else batch
+
+
 def make_loader(
     dataset,
     batch_size: int,
@@ -58,6 +111,7 @@ def make_loader(
     num_workers: int = 0,
     drop_last: bool = True,
     pin_memory: bool = False,
+    rows: Rows = slice(None),
 ) -> DataLoader:
     """One pass over ``dataset`` in batches of ``batch_size``: dicts of CPU
     tensors stacked from the items. Training drops the last partial batch;
@@ -70,14 +124,18 @@ def make_loader(
     ``dataset.set_epoch(epoch)``: worker processes copy the dataset when the
     loader starts. ``pin_memory`` is for a CUDA target only.
 
+    ``rows`` (`rows_of`) are the rows of each global batch that this rank
+    of a mesh reads: its loader builds those items alone, in the order the
+    whole batch would hold them (`GlobalBatches`).
+
     Workers are forked from a fork server (`_worker_context`), never from
     the caller: the trainer's process runs CUDA and threads, which a fork
     does not carry safely. The workers use no CUDA. As with `spawn`, a
     script that builds a loader with workers needs the
     ``if __name__ == "__main__"`` guard."""
-    sampler = EpochPermutation(len(dataset), shuffle=shuffle, seed=seed, epoch=epoch)
+    order = EpochPermutation(len(dataset), shuffle=shuffle, seed=seed, epoch=epoch)
     return DataLoader(
-        dataset, batch_size=batch_size, sampler=sampler, drop_last=drop_last,
+        dataset, batch_sampler=GlobalBatches(order, batch_size, drop_last=drop_last, rows=rows),
         num_workers=num_workers, pin_memory=pin_memory,
         multiprocessing_context=_worker_context() if num_workers else None,
     )
@@ -164,7 +222,9 @@ class NativeDistillLoader:
     into the batch buffers; any other row, a decode failure included, is
     built by the dataset's NumPy ``__getitem__``. ``fallback_rows`` counts
     those rows, and the trainer logs it. Yields dicts of NumPy arrays,
-    endlessly, advancing the dataset's epoch after each pass.
+    endlessly, advancing the dataset's epoch after each pass. ``rows``: the
+    rows of each global batch of ``batch_size`` that this rank of a mesh
+    reads; only their items are planned, decoded or built.
     """
 
     def __init__(
@@ -176,9 +236,11 @@ class NativeDistillLoader:
         seed: int = 0,
         num_threads: Optional[int] = None,
         crop_size: Optional[int] = None,
+        rows: slice = slice(None),
     ):
         self.ds = dataset
         self.batch_size = batch_size
+        self.rows = rows
         self.shuffle = shuffle
         self.seed = seed
         self.pool = native_loader.NativePool(num_threads)  # raises without the core
@@ -210,13 +272,13 @@ class NativeDistillLoader:
             )
             b = self.batch_size
             for start in range(0, len(order) - b + 1, b):
-                yield order[start : start + b]
+                yield order[start : start + b][self.rows]
             if int(getattr(self.ds, "epoch", epoch)) == epoch and hasattr(self.ds, "set_epoch"):
                 self.ds.set_epoch(epoch + 1)
             local_epoch = epoch + 1
 
     def _submit(self, pool, idxs):
-        b = self.batch_size
+        b = len(idxs)
         s = self.ds.det_size
         m = self.ds.max_anns
         cs = self.crop_size
@@ -315,12 +377,6 @@ def _forward(stream: Iterator[dict]) -> Iterator[dict]:
         yield next(stream)
 
 
-def _rows(batches: Iterable[dict], rows: slice) -> Iterator[dict]:
-    """Each host batch cut to ``rows`` (a rank's share of a global batch)."""
-    for batch in batches:
-        yield batch if rows == slice(None) else {k: v[rows] for k, v in batch.items()}
-
-
 def synthetic_route(data: "SyntheticDistillData", device, *, rows: slice = slice(None)) -> TrainRoute:
     """`--synthetic`: the one batch (its ``rows``) staged on the device
     once, repeated."""
@@ -333,19 +389,19 @@ def loader_route(
 ) -> TrainRoute:
     """`make_loader` with ``workers`` processes, built afresh each epoch
     after ``set_epoch`` (the worker processes copy the dataset, and its
-    epoch, when they start), each batch's ``rows`` through `device_prefetch`;
-    closing an epoch's generator ends its workers. One pass an epoch:
-    ``steps`` = len(dataset) // batch_size. The order and the items depend
-    on (seed, epoch, index) alone, so every rank of a mesh builds the same
-    global batch and keeps its rows."""
+    epoch, when they start), through `device_prefetch`; closing an epoch's
+    generator ends its workers. One pass an epoch: ``steps`` =
+    len(dataset) // batch_size. The order and the items depend on (seed,
+    epoch, index) alone, so every rank of a mesh takes the seeded global
+    order and reads only the items of its ``rows`` of each global batch."""
     device = torch.device(device)
 
     def batches(epoch):
         dataset.set_epoch(epoch)
-        return device_prefetch(_rows(make_loader(
+        return device_prefetch(make_loader(
             dataset, batch_size, shuffle=True, seed=seed, epoch=epoch,
-            num_workers=workers, pin_memory=device.type == "cuda",
-        ), rows), device)
+            num_workers=workers, pin_memory=device.type == "cuda", rows=rows,
+        ), device)
 
     return TrainRoute(batches, steps=len(dataset) // batch_size)
 
@@ -354,13 +410,13 @@ def native_route(
     dataset, batch_size: int, *, seed: int, workers: int, device, rows: slice = slice(None),
 ) -> TrainRoute:
     """`NativeDistillLoader` (`--native-loader`) with ``workers`` threads:
-    one endless, double-buffered stream over the epochs, each batch's
-    ``rows`` through `device_prefetch`; ``fallback_rows`` counts its rows
-    built by the NumPy route."""
+    one endless, double-buffered stream over the epochs of this rank's
+    ``rows`` of each global batch, through `device_prefetch`;
+    ``fallback_rows`` counts its rows built by the NumPy route."""
     native = NativeDistillLoader(
-        dataset, batch_size, shuffle=True, seed=seed, num_threads=workers,
+        dataset, batch_size, shuffle=True, seed=seed, num_threads=workers, rows=rows,
     )
-    stream = device_prefetch(_rows(native, rows), device)
+    stream = device_prefetch(native, device)
 
     def batches(epoch):
         dataset.set_epoch(epoch)

@@ -43,6 +43,7 @@ from clipself_tpu_torch.detector.rpn import RPNHead, flatten_rpn_outputs, rpn_lo
 from clipself_tpu_torch.detector.targets import SampleNoise
 from clipself_tpu_torch.models.eva_vit import Dense, _lecun_normal
 from clipself_tpu_torch.ops.roi_align import roi_align_1x1, roi_align_nxn
+from clipself_tpu_torch.parallel.mesh import group_sum
 
 
 class FViTDetector(nn.Module):
@@ -118,6 +119,7 @@ class FViTDetector(nn.Module):
         class_weight: Optional[torch.Tensor] = None,
         gt_masks: Optional[torch.Tensor] = None,
         valid_hw: Optional[torch.Tensor] = None,
+        group=None,
     ):
         """Full detection loss (RPN + RCNN [+ mask]): (total, metrics).
 
@@ -125,27 +127,34 @@ class FViTDetector(nn.Module):
         image-space xyxy; gt_labels [B, G]; gt_valid [B, G]. noise: the
         samplers' draws (`targets.SampleNoise`). gt_masks: [B, G, Hm, Wm]
         binary (stride-4 resolution) when with_mask. The loss is the RPN
-        stage followed by the RoI stage on its proposals."""
+        stage followed by the RoI stage on its proposals.
+
+        With ``group`` (the data-parallel ranks of a mesh, each holding its
+        rows of the global batch) every mean is the global batch's, as XLA
+        computes it under `jax.jit` with a sharded batch: the counts that
+        divide (images, sampled rois, mask positives) are summed over the
+        group first, so the loss and each metric are this rank's share, and
+        their sums over the group are the global batch's."""
         feats, l_rpn, metrics, props, pscores = self.rpn_stage(
-            taps, gt_boxes, gt_valid, noise, valid_hw
+            taps, gt_boxes, gt_valid, noise, valid_hw, group
         )
         l_roi, roi_metrics = self.roi_stage(
             feats, props, pscores, gt_boxes, gt_labels, gt_valid, noise, class_embed,
-            class_weight, gt_masks,
+            class_weight, gt_masks, group,
         )
         metrics.update(roi_metrics)
         total = l_rpn + l_roi
         metrics["loss"] = total
         return total, metrics
 
-    def rpn_stage(self, taps, gt_boxes, gt_valid, noise: SampleNoise, valid_hw=None):
+    def rpn_stage(self, taps, gt_boxes, gt_valid, noise: SampleNoise, valid_hw=None, group=None):
         """Features, the RPN loss and its metrics, and the train-time
         proposals [B, P, 4] with their scores [B, P], decoded without
         gradients (the JAX loss's stop_gradient on the RPN outputs)."""
         c = self.cfg
         feats, smap, dmap = self.features(taps)
         rpn = flatten_rpn_outputs(smap, dmap, c)
-        l_rpn, metrics = rpn_loss(rpn, gt_boxes, gt_valid, noise.rpn_pos, noise.rpn_neg, c)
+        l_rpn, metrics = rpn_loss(rpn, gt_boxes, gt_valid, noise.rpn_pos, noise.rpn_neg, c, group)
         p = c.train_proposals
         with torch.no_grad():
             props, pscores = rpn_proposals(
@@ -156,7 +165,7 @@ class FViTDetector(nn.Module):
 
     def roi_stage(
         self, feats, props, pscores, gt_boxes, gt_labels, gt_valid, noise: SampleNoise,
-        class_embed, class_weight=None, gt_masks=None,
+        class_embed, class_weight=None, gt_masks=None, group=None,
     ):
         """The RCNN losses (and the mask loss, with ``cfg.with_mask`` and
         ``gt_masks``) on rois sampled from the proposals: (sum, metrics)."""
@@ -167,19 +176,23 @@ class FViTDetector(nn.Module):
         )
         b = tgt.rois.shape[0]
         logits, deltas, _ = self.bbox_head(self._pool(feats, tgt.rois, c.roi_feat_size), class_embed)
-        l_cls = rcnn_cls_loss(logits, tgt.labels.reshape(-1), tgt.chosen.reshape(-1), class_weight)
+        l_cls = rcnn_cls_loss(
+            logits, tgt.labels.reshape(-1), tgt.chosen.reshape(-1), class_weight, group
+        )
         l_reg = rcnn_reg_loss(
-            deltas, tgt.reg_targets.reshape(-1, 4), tgt.pos.reshape(-1), tgt.chosen.reshape(-1)
+            deltas, tgt.reg_targets.reshape(-1, 4), tgt.pos.reshape(-1), tgt.chosen.reshape(-1),
+            group,
         )
         total = l_cls + l_reg
-        metrics = {"loss_cls": l_cls, "loss_bbox": l_reg, "num_pos_roi": tgt.pos.sum() / b}
+        images = b if group is None else group_sum(logits.new_tensor(float(b)), group)
+        metrics = {"loss_cls": l_cls, "loss_bbox": l_reg, "num_pos_roi": tgt.pos.sum() / images}
         if c.with_mask and gt_masks is not None:
-            l_mask = self._mask_loss(feats, tgt, gt_masks)
+            l_mask = self._mask_loss(feats, tgt, gt_masks, group)
             total = total + l_mask
             metrics["loss_mask"] = l_mask
         return total, metrics
 
-    def _mask_loss(self, feats, tgt: RoITargets, gt_masks: torch.Tensor) -> torch.Tensor:
+    def _mask_loss(self, feats, tgt: RoITargets, gt_masks: torch.Tensor, group=None) -> torch.Tensor:
         """Per-class BCE mask loss on the positive rois (mmdet FCNMaskHead).
 
         The mask targets are the gt masks RoI-aligned themselves: each
@@ -211,7 +224,7 @@ class FViTDetector(nn.Module):
         bce = F.binary_cross_entropy_with_logits(ml.float(), tgt_sel, reduction="none")
         posf = pos.reshape(-1).float()
         per_roi = bce.mean(dim=(1, 2))
-        return (per_roi * posf).sum() / torch.clamp(posf.sum(), min=1.0)
+        return (per_roi * posf).sum() / torch.clamp(group_sum(posf.sum(), group), min=1.0)
 
     # ----- inference ----------------------------------------------------
 

@@ -36,6 +36,7 @@ from clipself_tpu_torch.detector.nms import is_live, multiclass_nms, sorted_desc
 from clipself_tpu_torch.detector.targets import assign_max_iou, random_sample
 from clipself_tpu_torch.models.eva_vit import Dense
 from clipself_tpu_torch.ops.roi_align import roi_align_nxn_levels
+from clipself_tpu_torch.parallel.mesh import group_sum
 
 
 def roi_levels(rois: torch.Tensor, num_levels: int, finest_scale: float = 56.0) -> torch.Tensor:
@@ -221,12 +222,15 @@ def rcnn_cls_loss(
     labels: torch.Tensor,
     chosen: torch.Tensor,
     class_weight: Optional[torch.Tensor],
+    group=None,
 ) -> torch.Tensor:
     """Weighted softmax CE (reference `CustomCrossEntropyLoss`,
     `F-ViT/models/custom_losses.py:62-111`): classes with ~zero weight get
     -inf logits (excluded from the partition function), the loss is scaled by
     the label's class weight, and averaged over the sampled rois.
-    logits [R, K+1] float32, labels [R], chosen [R] bool."""
+    logits [R, K+1] float32, labels [R], chosen [R] bool. With ``group``
+    (the data-parallel ranks of a mesh) the average is over the group's
+    sampled rois, as XLA divides by the sharded batch's count."""
     if class_weight is not None:
         logits = logits.masked_fill(class_weight < 1e-5, float("-inf"))
     logp = torch.log_softmax(logits, dim=-1)
@@ -240,16 +244,18 @@ def rcnn_cls_loss(
         # neither the loss nor a gradient sees inf * 0
         ce = torch.where(w > 1e-5, -ll * w, 0.0)
     ce = torch.where(chosen, ce, 0.0)
-    return ce.sum() / torch.clamp(chosen.sum(), min=1)
+    return ce.sum() / torch.clamp(group_sum(chosen.sum(), group), min=1)
 
 
 def rcnn_reg_loss(
-    deltas: torch.Tensor, targets: torch.Tensor, pos: torch.Tensor, chosen: torch.Tensor
+    deltas: torch.Tensor, targets: torch.Tensor, pos: torch.Tensor, chosen: torch.Tensor,
+    group=None,
 ) -> torch.Tensor:
     """L1 on positive rois, averaged over all sampled rois (mmdet
-    BBoxHead.loss avg_factor semantics)."""
+    BBoxHead.loss avg_factor semantics), of the ``group``'s global batch as
+    in `rcnn_cls_loss`."""
     l1 = (deltas.float() - targets).abs().sum(dim=-1)
-    return (l1 * pos).sum() / torch.clamp(chosen.sum(), min=1)
+    return (l1 * pos).sum() / torch.clamp(group_sum(chosen.sum(), group), min=1)
 
 
 def fuse_vlm_scores(

@@ -22,6 +22,7 @@ from clipself_tpu_torch.detector.config import AnchorCfg, FViTConfig
 from clipself_tpu_torch.detector.layers import Conv2d, ConvNorm
 from clipself_tpu_torch.detector.nms import nms, sorted_desc, take
 from clipself_tpu_torch.detector.targets import assign_max_iou, random_sample
+from clipself_tpu_torch.parallel.mesh import group_sum
 
 
 class RPNHead(nn.Module):
@@ -100,12 +101,17 @@ def rpn_loss(
     pos_noise: torch.Tensor,
     neg_noise: torch.Tensor,
     cfg: FViTConfig,
+    group=None,
 ) -> tuple[torch.Tensor, dict]:
     """BCE objectness + L1 box loss on sampled anchors (mmdet RPNHead.loss),
-    in float32.
+    in float32: a mean over the images of each image's mean over its
+    sampled anchors.
 
     gt_boxes: [B, G, 4]; gt_valid: [B, G] bool; pos_noise, neg_noise: [B, N]
-    uniform draws of the anchor sampler (`targets.random_sample`).
+    uniform draws of the anchor sampler (`targets.random_sample`). With
+    ``group`` (the data-parallel ranks of a mesh, each holding some images
+    of the global batch) the mean is over the group's images: this rank's
+    share of it, which the group sums to the global batch's loss.
     """
     a = assign_max_iou(
         rpn.anchors, gt_boxes, gt_valid,
@@ -124,12 +130,20 @@ def rpn_loss(
     tgt = encode_boxes(rpn.anchors, take(gt_boxes, a.gt_idx))
     l1 = (rpn.deltas.float() - tgt).abs().sum(dim=-1)
     loss_box = (l1 * s.pos_mask).sum(dim=-1) / n_sampled
+    if group is None:
+        image_mean = torch.mean
+    else:
+        images = group_sum(loss_cls.new_tensor(float(loss_cls.shape[0])), group)
+
+        def image_mean(x):
+            return x.sum() / images
+
     metrics = {
-        "rpn_loss_cls": loss_cls.mean(),
-        "rpn_loss_bbox": loss_box.mean(),
-        "rpn_num_pos": s.num_pos.float().mean(),
+        "rpn_loss_cls": image_mean(loss_cls),
+        "rpn_loss_bbox": image_mean(loss_box),
+        "rpn_num_pos": image_mean(s.num_pos.float()),
     }
-    return loss_cls.mean() + loss_box.mean(), metrics
+    return metrics["rpn_loss_cls"] + metrics["rpn_loss_bbox"], metrics
 
 
 def rpn_proposals(

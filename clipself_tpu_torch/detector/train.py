@@ -1,8 +1,9 @@
-"""F-ViT detector training on one device (a port of
-`clipself_tpu/detector/train.py`: mmdet `F-ViT/train.py` + `dist_train.sh`).
+"""F-ViT detector training (a port of `clipself_tpu/detector/train.py`:
+mmdet `F-ViT/train.py` + `dist_train.sh`).
 
     python -m clipself_tpu_torch.detector.train --ann-file <json> --image-root <dir>
     python -m clipself_tpu_torch.detector.train --synthetic --steps-per-epoch 10
+    torchrun --nproc-per-node 8 -m clipself_tpu_torch.detector.train --batch-size 64 ...
 
 Recipe (`configs/ov_coco/...eva_original.py:213-224`): AdamW lr 1e-4, betas
 (0.9, 0.999), wd 0.1 on every parameter, gradient clip 1.0, linear warm-up
@@ -19,9 +20,32 @@ the ragged tail dropped, the items read in this process as the JAX trainer
 reads them; or, with ``--synthetic``, seeded `SyntheticDetectionData`
 batches. ``--clip-checkpoint`` loads a distilled CLIP `.pt` non-strictly, as
 the JAX package's `create_model(pretrained=)` does. ``--device`` defaults to
-`cuda`; without a CUDA device that is an error, not a CPU run. The mesh
-shardings, buffer donation and TPU compiler options of the JAX step are not
-carried (ROADMAP.md queue 1 items 9 and 10).
+`cuda`; without a CUDA device that is an error, not a CPU run.
+
+Under a launcher (`torchrun`, SLURM, OpenMPI: `parallel/mesh.py::
+init_distributed`) the trainer runs on a 1-D `data` mesh over every rank,
+with no flag, as the JAX trainer runs over every device it sees; without
+one it is one process. ``--batch-size`` is the global batch, as in JAX, and
+must divide over the ranks (`check_batch`). Each rank reads only the items
+of its rows of each global batch (`file_batches`; the synthetic route cuts
+its rows of each drawn batch), runs the frozen trunk, replicated, and the
+NMS kernel on them, and computes its share of the global batch's loss: the
+counts that the losses divide by are summed over the group first
+(`FViTDetector.loss(group=)`), as XLA computes the loss of a sharded batch.
+The heads are replicated and `DistributedDataParallel` averages their
+gradients over the group (`data_parallel`); each rank backpropagates its
+share times the number of ranks, so the update follows the global loss's
+gradient, and clipping by the global norm and AdamW then run alike on every
+rank. DDP rather than FSDP2's replicate dimension: the heads are small
+enough to hold whole on every rank, their parameters stay plain tensors
+(the optimizer, the clipping and the JAX-format checkpoint writer run as in
+one process), and DDP reduces the learned temperature, a scalar parameter
+that FSDP2 does not take. The samplers' noise is drawn for the global batch
+from the one seeded generator on every rank and cut to the rank's rows, so
+a mesh run equals the single-process run. The logged metrics are the global
+batch's; rank 0 alone logs them and writes the checkpoints. Buffer donation
+and the TPU compiler options of the JAX step are not carried (ROADMAP.md
+queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -36,15 +60,26 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from clipself_tpu_torch.detector.classes import class_weights, coco_split, lvis_split
 from clipself_tpu_torch.detector.config import PRESETS, FViTConfig
 from clipself_tpu_torch.detector.data import DetectionDataset, SyntheticDetectionData, collate
 from clipself_tpu_torch.detector.fvit import FViTDetector, backbone_taps, create_detector
 from clipself_tpu_torch.detector.rpn import num_anchors
-from clipself_tpu_torch.detector.targets import draw_noise
+from clipself_tpu_torch.detector.targets import SampleNoise, draw_noise
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.models.torch_io import _flatten, detector_state_dict_to_jax, load_pretrained
+from clipself_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_rows,
+    check_batch,
+    create_mesh,
+    init_distributed,
+    num_batch_shards,
+    reduce_sum,
+)
 from clipself_tpu_torch.train.main import _device
 from clipself_tpu_torch.train.optim import clip_by_global_norm
 
@@ -114,11 +149,39 @@ def build_det_optimizer(
     )
 
 
+class _DetectorLoss(nn.Module):
+    """`FViTDetector.loss` as a module's forward: `DistributedDataParallel`
+    reduces the gradients of what runs through its wrapper's forward."""
+
+    def __init__(self, det: FViTDetector):
+        super().__init__()
+        self.det = det
+
+    def forward(self, *args, **kwargs):
+        return self.det.loss(*args, **kwargs)
+
+
+def data_parallel(det: FViTDetector, mesh: Mesh) -> nn.Module:
+    """``det``'s loss under `DistributedDataParallel` over the mesh's batch
+    group: called as `FViTDetector.loss`, its backward averages the heads'
+    gradients over the group. ``det`` keeps its own parameters and names.
+    The mask head takes no gradient in a step whose batch has no gt masks,
+    so with it the wrapper looks for parameters left out of the graph."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    return DistributedDataParallel(
+        _DetectorLoss(det), device_ids=None, process_group=mesh.batch_group,
+        find_unused_parameters=det.cfg.with_mask,
+    )
+
+
 @dataclass
 class DetTrainState:
     model: FViTDetector
     optimizer: DetOptimizer
     step: int = 0
+    # on a data mesh: the model's loss under `data_parallel`
+    data_parallel: Optional[nn.Module] = None
 
 
 def make_det_train_step(
@@ -127,29 +190,62 @@ def make_det_train_step(
     class_embed: torch.Tensor,
     class_weight: Optional[torch.Tensor],
     generator: torch.Generator,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[DetTrainState, dict], dict]:
     """Build ``step_fn(state, batch) -> metrics`` for batches of device
     tensors (`images`, `gt_boxes`, `gt_labels`, `gt_valid`, optional
     `gt_masks`, `valid_hw`). The metrics are device tensors; reading one
     waits for the step. ``generator`` (on the step's device) draws each
-    step's sampler noise."""
+    step's sampler noise. With ``mesh`` (a `data` mesh; ``state`` carries
+    `data_parallel`), ``batch`` holds this rank's rows of the global batch,
+    the noise is the global batch's cut to those rows, and the metrics are
+    the global batch's on every rank."""
     anchors = num_anchors(cfg)
+    shards = num_batch_shards(mesh)
+    group = None if mesh is None else mesh.batch_group
 
     def step_fn(state: DetTrainState, batch: dict) -> dict:
         taps, _ = backbone_taps(clip_model, batch["images"], cfg, False)
         b, g = batch["gt_boxes"].shape[:2]
-        noise = draw_noise(generator, b, anchors, cfg.train_proposals.max_per_img + g)
-        loss, metrics = state.model.loss(
+        noise = draw_noise(generator, b * shards, anchors, cfg.train_proposals.max_per_img + g)
+        if mesh is not None:
+            rows = batch_rows(mesh, b * shards)
+            noise = SampleNoise(*(t[rows] for t in noise))
+        loss_fn = state.model.loss if mesh is None else state.data_parallel
+        loss, metrics = loss_fn(
             taps, batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"], noise, class_embed,
-            class_weight, batch.get("gt_masks"), batch.get("valid_hw"),
+            class_weight, batch.get("gt_masks"), batch.get("valid_hw"), group=group,
         )
-        loss.backward()
+        # this rank's share of the global loss; DDP averages the gradients
+        (loss if shards == 1 else loss * shards).backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            keys = list(metrics)  # the loss builds them in one order on every rank
+            total = reduce_sum(torch.stack([metrics[k].float() for k in keys]), group)
+            metrics = dict(zip(keys, total.unbind()))
         metrics["grad_norm"] = state.optimizer.step(state.step)
         state.step += 1
         return metrics
 
     return step_fn
+
+
+def file_batches(
+    ds: DetectionDataset, batch_size: int, *, seed: int, epoch: int, steps: int,
+    rows: slice = slice(None),
+) -> Iterable[dict]:
+    """One epoch of host batches from ``ds`` in the JAX trainer's order: a
+    `default_rng((seed, epoch))` permutation of the images cut into
+    ``steps`` global batches of ``batch_size`` (a ragged tail dropped), each
+    collated from its ``rows`` alone (this rank's of a mesh): only their
+    items are read."""
+    ds.set_epoch(epoch)
+    order = np.random.default_rng((seed, epoch)).permutation(len(ds))
+    for i in range(steps):
+        idx = order[i * batch_size : (i + 1) * batch_size]
+        if len(idx) < batch_size:
+            return
+        yield collate([ds[int(j)] for j in idx[rows]])
 
 
 def parse_args(argv=None):
@@ -178,8 +274,9 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Train on parsed ``argv``. Returns {"state", "history", "clip"}
-    (``clip``: the frozen CLIP model the taps came from): ``history``
+    """Train on parsed ``argv``. Returns {"state", "history", "clip",
+    "mesh"} (``clip``: the frozen CLIP model the taps came from; ``mesh``:
+    the data mesh's shape under a launcher, else None): ``history``
     holds one entry per logged step (epoch, step, step_ms, data_ms,
     metrics), where step_ms is the host clock from the batch's copy to the
     device to its metrics read back, and data_ms the host clock spent
@@ -189,7 +286,16 @@ def main(argv=None) -> dict:
     if not args.synthetic and not (args.ann_file and args.image_root):
         raise SystemExit("fvit-train: --ann-file and --image-root are required without --synthetic")
     device = _device(args.device)
+    launch = init_distributed(device)
+    mesh = None
+    if launch is not None:
+        device = launch.device
+        mesh = create_mesh((launch.world, 1, 1), device)
+    check_batch(args.batch_size, num_batch_shards(mesh))
+    rows = batch_rows(mesh, args.batch_size)  # this rank's rows of each global batch
+    rank = 0 if launch is None else launch.rank
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    log.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     cfg = PRESETS[args.preset]
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
 
@@ -236,7 +342,8 @@ def main(argv=None) -> dict:
         steps = args.steps_per_epoch or 10
 
         def batches(epoch):
-            return (data.batch(args.batch_size) for _ in range(steps))
+            for _ in range(steps):
+                yield {k: v[rows] for k, v in data.batch(args.batch_size).items()}
     else:
         ds = DetectionDataset(
             args.ann_file, args.image_root, split["all"],
@@ -247,17 +354,16 @@ def main(argv=None) -> dict:
         steps = args.steps_per_epoch or (len(ds) // args.batch_size)
 
         def batches(epoch):
-            ds.set_epoch(epoch)
-            order = np.random.default_rng((args.seed, epoch)).permutation(len(ds))
-            for i in range(steps):
-                idx = order[i * args.batch_size : (i + 1) * args.batch_size]
-                if len(idx) < args.batch_size:
-                    return
-                yield collate([ds[int(j)] for j in idx])
+            return file_batches(
+                ds, args.batch_size, seed=args.seed, epoch=epoch, steps=steps, rows=rows,
+            )
 
-    state = DetTrainState(det, build_det_optimizer(det, args.lr, args.wd))
+    state = DetTrainState(
+        det, build_det_optimizer(det, args.lr, args.wd),
+        data_parallel=None if mesh is None else data_parallel(det, mesh),
+    )
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    step_fn = make_det_train_step(clip_model, cfg, class_embed, cw, generator)
+    step_fn = make_det_train_step(clip_model, cfg, class_embed, cw, generator, mesh)
     history = []
     for epoch in range(args.epochs):
         tick = time.perf_counter()
@@ -278,9 +384,11 @@ def main(argv=None) -> dict:
                 shown = {k2: round(v, 4) for k2, v in m.items()}
                 log.info(f"epoch {epoch} step {i + 1}/{steps} {shown} ({step_ms:.1f} ms)")
             tick = time.perf_counter()
-        save_detector(args.output, det, cfg, epoch)
+        if rank == 0:
+            save_detector(args.output, det, cfg, epoch)
     log.info("done")
-    return {"state": state, "history": history, "clip": clip_model}
+    return {"state": state, "history": history, "clip": clip_model,
+            "mesh": None if mesh is None else mesh.shape}
 
 
 def save_detector(output: str, det: FViTDetector, cfg: FViTConfig, epoch: int) -> str:
@@ -298,4 +406,8 @@ def save_detector(output: str, det: FViTDetector, cfg: FViTConfig, epoch: int) -
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():  # the launched group of `init_distributed`
+            dist.destroy_process_group()

@@ -8,11 +8,17 @@ thing/stuff. Batches are fixed-shape and padded (`COCOPanopticEvalDataset`
 format, or `data/synthetic.py`); the annotation axis is bucketed per batch
 and all crops of a batch are encoded in one call.
 
-On a mesh (`parallel/mesh.py`) every rank reads the whole batch, encodes its
-rows (all of them where the batch does not divide over the batch shards)
-and all-gathers the logits: the metrics are the single-process ones on
-every rank. Every rank runs every forward, as FSDP2's gathers need, and the
-bucket width comes from the whole batch, so the ranks agree on it.
+On a mesh (`parallel/mesh.py`) each rank encodes its rows of a batch and
+all-gathers the logits: the metrics are the single-process ones on every
+rank. Every rank runs every forward, as FSDP2's gathers need. A batch
+that the reader cut to the rank's rows (`data/loader.py::RankRows`: each
+rank read only the items of its rows) comes with the rank's boxes alone, so
+the ranks agree on the bucket width through an all-reduce of each rank's
+highest valid annotation row, and gather the boxes with the logits. A batch
+that does not divide over the batch shards (an uneven tail) is read whole
+by every rank, which encodes all of it, as `put_batch_array` replicates it
+(`clipself_tpu/parallel/mesh.py:132-141`): its rows cannot be dealt out
+evenly, and every rank holds the whole batch anyway.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from typing import Iterable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from clipself_tpu_torch.data.loader import RankRows
 from clipself_tpu_torch.models.clip import CLIP
 from clipself_tpu_torch.parallel.mesh import Mesh, batch_rows, gather_rows
 
@@ -74,15 +82,22 @@ def metrics_json(metrics: dict, **dump_kwargs) -> str:
     return json.dumps(clean, allow_nan=False, **dump_kwargs)
 
 
-def _bucket_width(boxes: np.ndarray, bucket: int) -> int:
+def _valid_rows(boxes: np.ndarray) -> int:
+    """One past the highest valid annotation row of a batch; 0 without one."""
+    rows = np.nonzero(boxes[..., 5] > 0.5)[-1]
+    return int(rows.max()) + 1 if rows.size else 0
+
+
+def _bucket_width(boxes: np.ndarray, bucket: int, hi: Optional[int] = None) -> int:
     """Smallest multiple of ``bucket`` covering the highest valid annotation
-    row (rows past it are pure padding), capped at the padded width."""
+    row (rows past it are pure padding), capped at the padded width. ``hi``:
+    one past that row over the whole batch, where ``boxes`` holds a rank's
+    rows of it; from ``boxes`` otherwise."""
     m = boxes.shape[1]
     if bucket <= 0 or m <= bucket:
         return m
-    rows = np.nonzero(boxes[..., 5] > 0.5)[-1]
-    hi = int(rows.max()) + 1 if rows.size else 1
-    return min(-(-hi // bucket) * bucket, m)
+    hi = _valid_rows(boxes) if hi is None else hi
+    return min(-(-max(hi, 1) // bucket) * bucket, m)
 
 
 def _logits(
@@ -151,8 +166,8 @@ def evaluate_zero_shot(
     crop by its mean dense feature instead of its CLS embedding;
     ``extract_type`` 'v1' scores RoIs and masks by mask-attention pooling
     (the OpenCLIP ViT; the EVA tower has one RoI path). With ``mesh``
-    every rank of it calls this with the same batches and gets the
-    metrics."""
+    every rank of it calls this with the same whole batches, or with its
+    `RankRows` of each (the trainer's reader), and gets the metrics."""
     emb_np = np.array(embeddings, np.float32)
     emb_np /= np.linalg.norm(emb_np, axis=-1, keepdims=True) + 1e-12
     emb = torch.as_tensor(emb_np, device=device)
@@ -164,11 +179,18 @@ def evaluate_zero_shot(
     all_labels, all_is_thing = [], []
     for batch in dataloader:
         boxes = np.asarray(batch["boxes"])
-        if not (boxes[..., 5] > 0.5).any():
+        mine = isinstance(batch, RankRows)  # this rank's rows of the batch, not all of it
+        hi = _valid_rows(boxes)
+        if mine:
+            hi_t = torch.tensor(hi, device=device)
+            dist.all_reduce(hi_t, op=dist.ReduceOp.MAX, group=mesh.batch_group)
+            hi = int(hi_t)
+        if hi == 0:
             continue  # fully padded batch: nothing to score
-        width = _bucket_width(boxes, int(ann_bucket))
+        width = _bucket_width(boxes, int(ann_bucket), hi)
         boxes = boxes[:, :width]
-        rows = batch_rows(mesh, boxes.shape[0])  # this rank's images (all without a mesh)
+        # this rank's images of a whole batch (all of them without a mesh)
+        rows = slice(None) if mine else batch_rows(mesh, boxes.shape[0])
         args = (
             to_device(batch["images"][rows]),
             to_device(boxes[rows, :, :4]),
@@ -184,8 +206,10 @@ def evaluate_zero_shot(
             # call and are trained afterwards
             with torch.no_grad():
                 logits = _logits(model, emb, *args)
-            if rows != slice(None):
+            if mine or rows != slice(None):
                 logits = tuple(gather_rows(lg, mesh.batch_group) for lg in logits)
+            if mine:
+                boxes = gather_rows(to_device(boxes), mesh.batch_group).cpu().numpy()
         valid = boxes[..., 5].reshape(-1) > 0.5
         labels = boxes[..., 4].reshape(-1)[valid].astype(np.int64)
         for key, lg in zip(("rois", "crops", "maskpool"), logits):

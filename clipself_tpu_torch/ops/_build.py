@@ -43,12 +43,11 @@ _SIGNATURES = {
         _I,
     ),
     "clipself_flash_bwd": (
-        (_I,) + (_P,) * 11 + (_I,) * 4 + (_L,) * 9 + (ctypes.c_float, _P),
+        (_I,) + (_P,) * 10 + (_I,) * 4 + (_L,) * 9 + (ctypes.c_float, _P),
         _I,
     ),
     "clipself_flash_fwd_design": ((_I, _I), _I),
     "clipself_flash_bwd_design": ((_I, _I), _I),
-    "clipself_flash_bwd_scratch_floats": ((_I,) * 5, _L),
     "clipself_wgmma_probe": ((_I, _P, _P, _P, _P), _I),
     "clipself_layer_norm_fwd": (
         (_I,) + (_P,) * 6 + (_L, _I, _L, _L, _I, ctypes.c_float, _P),

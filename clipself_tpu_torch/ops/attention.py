@@ -4,7 +4,8 @@
 runs `FlashAttentionFn`, the counterpart of the JAX package's
 `_flash_fused_vjp` (`clipself_tpu/ops/attention.py:275-326`): the forward
 keeps O and a row log-sum-exp `lse` [B, H, N] f32, the backward is the
-one-pass flash backward. Under `torch.no_grad` (the teacher, the evaluator)
+flash backward (a dK / dV pass and a dQ pass, each summing in a fixed
+order). Under `torch.no_grad` (the teacher, the evaluator)
 it runs the forward alone and writes no LSE.
 
 On CUDA tensors both directions are hand-written kernels:
@@ -108,7 +109,7 @@ def attention_bwd_plain(
     scale: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in q's dtype from the forward's O and lse, as the
-    one-pass backward computes them: products accumulate in f32, P and dS are
+    flash backward computes them: products accumulate in f32, P and dS are
     rounded to the input dtype before their products."""
     dt = q.dtype
     p = torch.exp(_logits(q, k, scale) - lse[..., None])         # [B, H, Nq, Nk]
@@ -212,7 +213,10 @@ def flash_attention_bwd(
     scale: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv), contiguous [B, N, H, D] in q's dtype, from the forward's
-    output ``o`` and ``lse`` and the output gradient ``do``."""
+    output ``o`` and ``lse`` and the output gradient ``do``. On a CUDA tensor
+    the kernel's every sum runs in a fixed order (dQ over the key tiles in
+    ascending order, as the TPU kernel's kv grid), so the result repeats bit
+    for bit from call to call."""
     _build.refuse_dtensor("flash_attention_bwd", q, k, v, o, lse, do)
     _check_device(q, "flash_attention_bwd")
     if q.device.type == "cpu":
@@ -225,19 +229,13 @@ def flash_attention_bwd(
     if lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous float32 [{b}, {h}, {n}]")
     dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)  # rowsum(dO * O)
     lib = _build.LIBRARY.get()
-    # dQ accumulates in f32 across the key blocks, in a scratch whose size
-    # and layout are the kernel's own; a float32 dq is its own accumulator
-    floats = lib.clipself_flash_bwd_scratch_floats(_DTYPES[q.dtype], b, n, h, d)
-    if floats < 0:
-        raise ValueError(f"flash_attention_bwd: no kernel for {q.dtype} at head_dim {d}")
-    dq_acc = dq if floats == 0 else torch.empty(floats, dtype=torch.float32, device=q.device)
-    di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.clipself_flash_bwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dq_acc.data_ptr(), di.data_ptr(),
+            di.data_ptr(),
             b, n, h, d, *_strides(q, k, v), float(scale), _build.stream_handle(q),
         )
     _build.check(err, "flash_attention_bwd launch")
@@ -246,7 +244,7 @@ def flash_attention_bwd(
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention with the one-pass backward: the forward keeps (q, k,
+    """Flash attention with the flash backward: the forward keeps (q, k,
     v, O, lse), the backward runs `flash_attention_bwd`."""
 
     @staticmethod

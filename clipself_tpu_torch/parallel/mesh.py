@@ -218,6 +218,11 @@ def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (no gradient); ``x`` itself without one."""
+    return x if group is None else reduce_sum(x, group)
+
+
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' ``x`` concatenated along the first axis, in rank order."""
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]

@@ -1,7 +1,7 @@
-"""The greedy-NMS, rolled-RoPE and LayerNorm-backward kernels of one tree,
-timed at the shapes the main paths give them, on one CUDA card: for
-comparing two trees (an older commit unpacked with `git archive` beside the
-working tree) in one run on one card.
+"""The greedy-NMS, rolled-RoPE, LayerNorm-backward and flash-attention
+backward kernels of one tree, timed at the shapes the main paths give them,
+on one CUDA card: for comparing two trees (an older commit unpacked with
+`git archive` beside the working tree) in one run on one card.
 
     python clipself_tpu_torch/tools/side_by_side.py --root build/parent
     python clipself_tpu_torch/tools/side_by_side.py --root .
@@ -14,10 +14,13 @@ through its `rolled_rope_fwd` on the three tables ("q,k" is then two
 launches of the one-tensor kernel), the LayerNorm backward through
 `ops.layer_norm.layer_norm_bwd` on the forward's statistics (float32 and
 bfloat16, with its time as a multiple of its bytes bound, and the times of
-dx alone and of the sums alone). Times are CUDA-event
-means of 20 calls replayed from a CUDA graph after a warm-up (the NMS also
-as 20 eager calls: its wrapper allocates, which a graph hides). The first
-line names the card and its power limit.
+dx alone and of the sums alone), the flash backward through
+`ops.attention.flash_attention_bwd` on the forward's output and LSE (with
+its time as a multiple of its operations bound, and whether two calls gave
+the same bits of dQ, dK and dV). Times are CUDA-event
+means of 20 calls replayed from a CUDA graph after a warm-up (the NMS and
+the flash backward also as 20 eager calls: their wrappers allocate, which a
+graph hides). The first line names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -44,6 +47,14 @@ LN_SHAPES = (
 )
 LN_VIEWS = {"": lambda t: t, "rows 1:": lambda t: t[:, 1:], "row 0": lambda t: t[:, 0]}
 PEAK_BYTES_S = 3.35e12  # one H100 SXM's device memory
+# (shape [B, N, H, D], dtype) of the flash backward: the B/16 student, the
+# RegionCLIP B/16 step at batch 16, the wide towers' head_dim 88 (WMMA), the
+# HF ViT-B/16 trunk's float32 student (FMA)
+FLASH_BWD_SHAPES = (
+    ((2, 4097, 12, 64), "bfloat16"), ((16, 4097, 12, 64), "bfloat16"),
+    ((1, 4097, 16, 88), "bfloat16"), ((2, 197, 12, 64), "float32"),
+)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16, SIMT f32
 
 
 def device_ms(torch, fn, graph: bool) -> float:
@@ -82,7 +93,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("side_by_side: no CUDA device is available")
     from clipself_tpu_torch.detector.data import synthetic_nms_case
     from clipself_tpu_torch.models.rope import rope_tables
-    from clipself_tpu_torch.ops import layer_norm, nms, rope_roll
+    from clipself_tpu_torch.ops import attention, layer_norm, nms, rope_roll
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -146,6 +157,28 @@ def main(argv=None) -> dict:
                 f"dx alone {dx_ms:.4f} ms, sums alone {sums_ms:.4f} ms",
                 flush=True,
             )
+    for (b, n, h, d), name in FLASH_BWD_SHAPES:
+        dt = getattr(torch, name)
+        q, k, v, do = (torch.randn(b, n, h, d, generator=gen).to(dev, dt) for _ in range(4))
+        scale = d ** -0.5
+        o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+        first = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        second = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        same = all(torch.equal(x, y) for x, y in zip(first, second))
+        del first, second
+        ms = [device_ms(torch, lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale), graph)
+              for graph in (True, False)]
+        # five products of 2 n^2 d flops a (batch, head): S, dP, dV, dK, dQ
+        bound = 10 * b * h * n * n * d / PEAK_FLOPS[name] * 1e3
+        label = f"flash_attention_bwd [{b}, {n}, {h}, {d}] {name}"
+        out[label] = ms + [bound, same]
+        print(
+            f"{label}: {ms[0]:.4f} ms from a graph, {ms[1]:.4f} ms eager, bound {bound:.4f} ms "
+            f"({ms[0] / bound:.2f}x); two calls bitwise equal: {same}",
+            flush=True,
+        )
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
     return out
 
 

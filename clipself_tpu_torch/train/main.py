@@ -100,6 +100,7 @@ from clipself_tpu_torch.data.loader import (
     loader_route,
     make_loader,
     native_route,
+    rank_batches,
     stop_worker_server,
     synthetic_route,
 )
@@ -296,11 +297,14 @@ def _setup_logging(args, out_dir: str, rank: int = 0) -> None:
     root.addHandler(fh)
 
 
-def build_data(args, device: torch.device, crop_size: int, rows: slice = slice(None)) -> dict:
+def build_data(args, device: torch.device, crop_size: int, mesh: Optional[Mesh] = None) -> dict:
     """The run's data (`clipself_tpu/train/main.py::build_data`): "train" a
-    `data/loader.py::TrainRoute` (device batches an epoch, each batch's
-    ``rows``: a rank's share of the global batch), "train_size" with files;
-    "val_ds" and "val" (a loader factory of whole batches) with ``--val-data``."""
+    `data/loader.py::TrainRoute` (device batches an epoch, each of this
+    rank's rows of the global batch), "train_size" with files; "val_ds" and
+    "val" (a factory of the evaluator's batches: on a ``mesh`` each rank's
+    rows of a batch that divides over its batch shards, `RankRows`) with
+    ``--val-data``. A rank reads the items of its own rows alone."""
+    rows = batch_rows(mesh, args.batch_size)
     data = {}
     if args.synthetic:
         data["train"] = synthetic_route(SyntheticDistillData(
@@ -346,11 +350,11 @@ def build_data(args, device: torch.device, crop_size: int, rows: slice = slice(N
             crop_size=crop_size, downsample_factor=args.downsample_factor,
         )
         data["val_ds"] = val_ds
-        data["val"] = lambda: make_loader(
+        data["val"] = lambda: rank_batches(make_loader(
             val_ds, args.val_batch_size, shuffle=False, num_workers=args.workers,
             # never drop tail eval images: mAcc must see the whole val set
-            drop_last=False, pin_memory=pin,
-        )
+            drop_last=False, pin_memory=pin, rows=partial(batch_rows, mesh),
+        ))
     return data
 
 
@@ -444,7 +448,7 @@ def train(args) -> dict:
         device = launch.device
         mesh = create_mesh(shape, device)
     rank = 0 if mesh is None else dist.get_rank()
-    data = build_data(args, device, cfg.vision.image_size, batch_rows(mesh, args.batch_size))
+    data = build_data(args, device, cfg.vision.image_size, mesh)
 
     name = args.name or f"{args.model}-{args.dataset_type}-{time.strftime('%Y%m%d-%H%M%S')}"
     if mesh is not None and not args.name:

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from clipself_tpu_torch.models.clip import CLIP
 from clipself_tpu_torch.models.common import l2_normalize
 from clipself_tpu_torch.ops.interpolate import resize_2d
-from clipself_tpu_torch.parallel.mesh import reduce_sum
+from clipself_tpu_torch.parallel.mesh import group_sum
 
 # multiscale target sizes per det size (reference clipself.py:17-27)
 MULTISCALE_SIZES = {1024: (320, 640, 896, 1024), 896: (336, 448, 672, 896)}
@@ -92,14 +92,9 @@ def clipself_loss(
     cos = (
         l2_normalize(student_feats).float() * l2_normalize(teacher_feats).float()
     ).sum(-1)
-    n_valid = torch.clamp(_group_sum(valid.sum(), group), min=1.0)
+    n_valid = torch.clamp(group_sum(valid.sum(), group), min=1.0)
     loss = ((1.0 - cos) * valid).sum() / n_valid * cosine_weight
     return loss, {"loss_cosine": loss.detach(), "num_boxes": valid.sum()}
-
-
-def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` summed over ``group`` (itself without one); no gradient."""
-    return x if group is None else reduce_sum(x, group)
 
 
 def fed_loss_noise(seed: int, step: int, num_classes: int, device) -> torch.Tensor:
@@ -184,7 +179,7 @@ def regionclip_loss(
     per_elt = F.binary_cross_entropy_with_logits(logits, target, reduction="none") * cls_mask[None, :]
     per_box = per_elt.sum(-1)
     validf = valid.float()
-    n_valid = torch.clamp(_group_sum(validf.sum(), group), min=1.0)
+    n_valid = torch.clamp(group_sum(validf.sum(), group), min=1.0)
     loss = (per_box * validf).sum() / n_valid * contrast_weight
     return loss, {"loss_contrast": loss.detach(), "num_boxes": validf.sum()}
 

@@ -12,7 +12,15 @@ process computes the JAX references:
     whose ranks hold different numbers of valid boxes and different
     classes, against the JAX single-device loss with the same noise;
   - `local_clip_loss` over the 8 ranks against JAX's `clip_loss`;
-  - the evaluator on (2, 2, 2) against the single-process evaluator;
+  - the evaluator on (2, 2, 2) against the single-process evaluator, fed
+    whole batches and fed by the trainer's reader (each rank reads only
+    its rows of a batch that divides over the batch shards);
+  - one F-ViT train step of preset `tiny_test` on an 8-rank `data` mesh
+    against the JAX single-device step and the port's single-process step
+    on the same 8 images of 64^2 with 5 boxes each
+    (`tests/test_detector_model.py:195-231`) and the JAX key-split noise of
+    the global batch (`tests/test_torch_detector_train.py::_loss_noise`),
+    then `detector.train.main` on the mesh against one process;
   - `train.main` on (2, 2, 2) under the launcher's variables, its checkpoint
     resumed in this process;
   - FSDP2's share of the state on each rank, the EVA variants' tensor
@@ -27,11 +35,21 @@ RegionCLIP loss 1e-5 of its value (`tests/test_torch_regionclip.py`); the
 local loss and its feature gradients 1e-6 (a [16, 16] logit matrix); the
 evaluator's metrics, the checkpoint's tensors and the trainer's resumed
 state are EQUAL (top-k decisions and copies); the trainer's losses on the
-mesh against its single-process losses rtol 1e-5.
+mesh against its single-process losses rtol 1e-5. The detector: the loss
+and every metric within 1e-4 relative of the JAX step (the whole-loss bar
+of `tests/test_torch_detector_train.py`: convolutions summed in another
+order than XLA's), the loss rtol 1e-5 and the heads after one AdamW step
+atol 1e-5 against the port's single-process step (the mesh bars above: the
+same products, the counts and the gradients summed over the ranks), the
+trainer's logged metrics rtol 1e-5 against one process. The items a rank
+reads (the distill loaders, the detector's file route, the evaluator's
+reader): exactly its rows' indices, and its rows EQUAL to the whole
+batch's cut to them.
 """
 
 import copy
 import os
+from functools import partial
 
 import numpy as np
 import pytest
@@ -42,6 +60,9 @@ import jax.numpy as jnp
 
 import torch_parallel_cases as cases
 from test_train_step import _batch
+from clipself_tpu.detector import config as jdconfig
+from clipself_tpu.detector import train as jdtrain
+from clipself_tpu.detector.fvit import FViTDetector as JDetector
 from clipself_tpu.models.factory import create_model as jax_create_model
 from clipself_tpu.parallel.mesh import create_mesh as jax_create_mesh
 from clipself_tpu.parallel.mesh import hybrid_shardings, shard_batch as jax_shard_batch
@@ -50,21 +71,31 @@ from clipself_tpu.train import methods as jmethods
 from clipself_tpu.train import optim as joptim
 from clipself_tpu.train import step as jstep
 from clipself_tpu_torch.core.config import get_model_config
+from clipself_tpu_torch.data import loader as dloader
 from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
+from clipself_tpu_torch.detector import classes as dclasses
+from clipself_tpu_torch.detector import config as dconfig
+from clipself_tpu_torch.detector import fvit as dfvit
+from clipself_tpu_torch.detector import rpn as drpn
+from clipself_tpu_torch.detector import train as dtrain
 from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
-from clipself_tpu_torch.models.torch_io import state_dict_from_jax
+from clipself_tpu_torch.models.torch_io import detector_state_dict_from_jax, state_dict_from_jax
 from clipself_tpu_torch.parallel import mesh as pmesh
 from clipself_tpu_torch.parallel import tensor_parallel as tpar
 from clipself_tpu_torch.train import checkpoint as ckpt
 from clipself_tpu_torch.train import main as train_main
 from clipself_tpu_torch.train.optim import Optimizer, make_schedule
 from clipself_tpu_torch.train.step import TrainState
+from test_torch_detector_train import _loss_noise
 
 WORLD = 8
 LAYERS = get_model_config(cases.NAME).vision.layers
 EMBED = get_model_config(cases.NAME).embed_dim
 REGION_C, REGION_SAMPLE = 32, 10
 LOSS_RTOL, W3_ATOL, REGION_REL, CLIP_TOL, TRAINER_RTOL = 1e-5, 1e-5, 1e-5, 1e-6, 1e-5
+DET_JAX_REL, DET_HEADS_ATOL = 1e-4, 1e-5
+DET_ARGV = ["--synthetic", "--preset", "tiny_test", "--device", "cpu", "--precision", "fp32",
+            "--batch-size", "8", "--epochs", "1", "--steps-per-epoch", "2", "--log-every", "1"]
 
 
 def _region_batch():
@@ -91,6 +122,95 @@ def _eval_batches():
     ]
 
 
+def _det_weights(shapes, rng):
+    """Seeded float32 weights on a tree of shapes: a kernel of spread
+    fan_in^-0.5, a norm scale 1 + 0.1 noise, the learned temperature 37,
+    any other leaf 0.1 noise."""
+    def leaf(path, x):
+        z = rng.standard_normal(x.shape).astype(np.float32)
+        name = path[-1].key
+        if name == "kernel":
+            return z * np.float32(np.prod(x.shape[:-1]) ** -0.5)
+        if name == "temperature":
+            return np.full(x.shape, 37.0, np.float32)
+        return 1.0 + 0.1 * z if name == "scale" else 0.1 * z
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _det_case():
+    """The detector step's inputs: preset `tiny_test` with seeded weights on
+    the shapes of the JAX inits (no init compiled), the 8 images of 64^2
+    with 5 boxes each of `tests/test_detector_model.py:195-231`, the coco
+    class weights, and the JAX step's key (4)."""
+    jcfg = jdconfig.PRESETS["tiny_test"]
+    jclip, _ = jax_create_model(jcfg.clip_model, dtype=jnp.float32, init=False)
+    rng = np.random.default_rng(21)
+    clip_params = _det_weights(
+        jax.eval_shape(lambda: jax_create_model(jcfg.clip_model, dtype=jnp.float32, seed=0)[1]), rng,
+    )
+    ce = rng.standard_normal((jcfg.num_classes + 1, jcfg.embed_dim)).astype(np.float32)
+    ce /= np.linalg.norm(ce, axis=-1, keepdims=True)
+    jdet = JDetector(jcfg, dtype=jnp.float32)
+    taps = [jax.ShapeDtypeStruct((1, 8, 8, jcfg.backbone_width), jnp.float32)] * len(jcfg.out_indices)
+    heads = _det_weights(jax.eval_shape(
+        lambda t: jdet.init(jax.random.PRNGKey(1), t, jnp.ones((1, 1, 4)), jnp.asarray(ce))["params"], taps,
+    ), rng)
+    rng = np.random.default_rng(11)
+    b = 8
+    images = rng.normal(size=(b, 64, 64, 3)).astype(np.float32)
+    xy = rng.uniform(0, 30, size=(b, 5, 2)).astype(np.float32)
+    wh = rng.uniform(8, 30, size=(b, 5, 2)).astype(np.float32)
+    batch = {
+        "images": images,
+        "gt_boxes": np.concatenate([xy, np.clip(xy + wh, None, 64)], -1),
+        "gt_labels": rng.integers(0, 6, size=(b, 5)).astype(np.int32),
+        "gt_valid": np.ones((b, 5), bool),
+    }
+    cw = dclasses.class_weights("coco", jcfg.bg_weight).astype(np.float32)
+    cfg = dconfig.PRESETS["tiny_test"]
+    key = jax.random.PRNGKey(4)
+    # the JAX step folds its step count (0) into the key before the loss
+    noise = _loss_noise(jax.random.fold_in(key, 0), b, drpn.num_anchors(cfg),
+                        cfg.train_proposals.max_per_img + cfg.max_gt)
+    return {
+        "jcfg": jcfg, "jclip": jclip, "clip_params": clip_params, "jdet": jdet, "heads": heads,
+        "batch": batch, "ce": ce, "cw": cw, "key": key, "noise": noise,
+        "clip_sd": state_dict_from_jax(clip_params), "heads_sd": detector_state_dict_from_jax(heads),
+    }
+
+
+def _det_references(c: dict) -> dict:
+    """The JAX single-device step (its metrics) and the port's
+    single-process step on the same weights, batch and noise (its metrics
+    and heads after the update)."""
+    tx = jdtrain.build_det_optimizer()
+    step = jdtrain.make_det_train_step(
+        c["jdet"], c["jclip"], tx, c["jcfg"], jnp.asarray(c["ce"]), jnp.asarray(c["cw"]), mesh=None,
+    )
+    jbatch = {k: jnp.asarray(v) for k, v in c["batch"].items()}
+    _, jm = step(jdtrain.DetTrainState.create(c["heads"], tx), c["clip_params"], jbatch, c["key"])
+
+    cfg = dconfig.PRESETS["tiny_test"]
+    det = dfvit.FViTDetector(cfg)
+    det.load_state_dict(c["heads_sd"], strict=True)
+    clip = cases.tiny_model(c["clip_sd"], cfg.clip_model).requires_grad_(False)
+    state = dtrain.DetTrainState(det, dtrain.build_det_optimizer(det))
+    drawn, dtrain.draw_noise = dtrain.draw_noise, lambda *_: c["noise"]
+    try:
+        step = dtrain.make_det_train_step(
+            clip, cfg, torch.from_numpy(c["ce"]), torch.from_numpy(c["cw"]), torch.Generator(),
+        )
+        pm = step(state, {k: torch.from_numpy(v) for k, v in c["batch"].items()})
+    finally:
+        dtrain.draw_noise = drawn
+    return {
+        "jax": {k: float(v) for k, v in jm.items()},
+        "port": {k: float(v) for k, v in pm.items()},
+        "heads": {k: v.clone() for k, v in det.state_dict().items()},
+    }
+
+
 def _trainer_argv(logs, name, epochs, *flags):
     return [
         "--device", "cpu", "--synthetic", "--model", cases.NAME, "--precision", "fp32",
@@ -113,6 +233,8 @@ def run(tmp_path_factory):
     nouns /= np.linalg.norm(nouns, axis=-1, keepdims=True)
     region_key = jax.random.PRNGKey(5)
     logs = tmp_path_factory.mktemp("parallel_logs")
+    det_case = _det_case()
+    det_out = tmp_path_factory.mktemp("detector_out")
     payload = {
         "state_dict": state_dict_from_jax(params),
         "batch": batch,
@@ -130,6 +252,14 @@ def run(tmp_path_factory):
         "trainer_resume_argv": _trainer_argv(
             logs, "mesh", 2, "--fsdp-size", "2", "--tp-size", "2", "--resume", "auto",
         ),
+        "det_clip": det_case["clip_sd"],
+        "det_heads": det_case["heads_sd"],
+        "det_batch": det_case["batch"],
+        "det_ce": det_case["ce"],
+        "det_cw": det_case["cw"],
+        "det_noise": {k: t.numpy() for k, t in det_case["noise"]._asdict().items()},
+        "det_argv": DET_ARGV,
+        "det_out": str(det_out),
     }
     group = cases.Group(WORLD, payload)
 
@@ -182,6 +312,8 @@ def run(tmp_path_factory):
         ann_bucket=payload["eval_bucket"],
     )
     ref["trainer"] = train_main.main(_trainer_argv(logs, "single", 2))
+    ref["detector"] = _det_references(det_case)
+    ref["detector_main"] = dtrain.main(DET_ARGV + ["--output", str(det_out / "single")])
     ranks = group.results()
     return {"ranks": ranks, "ref": ref, "payload": payload, "logs": logs}
 
@@ -251,6 +383,55 @@ def test_sharded_evaluator_equals_the_single_process_one(run):
     assert ref and set(ref) == set(run["ranks"][0]["eval"])
     for r in run["ranks"]:
         assert r["eval"] == pytest.approx(ref, rel=0, abs=0, nan_ok=True)
+
+
+def test_sharded_evaluator_reads_only_its_rows_and_equals_the_single_process_one(run):
+    """The trainer's reader on (2, 2, 2): batch shard i reads image i of
+    each batch of 4 and the whole tail of 3 (3 does not divide over 4
+    shards); the metrics are the single-process ones, EQUAL."""
+    ref = run["ref"]["eval"]
+    for r in run["ranks"]:
+        got = r["eval_reader"]
+        assert got["metrics"] == pytest.approx(ref, rel=0, abs=0, nan_ok=True)
+        i = got["batch_index"]
+        assert got["read"] == [i, 4 + i, 8 + i, 12, 13, 14]
+
+
+def test_detector_step_on_a_data_mesh_matches_jax_and_one_process(run):
+    """One `tiny_test` step over 8 ranks of one image each: every rank logs
+    the global metrics; they match the JAX single-device step (1e-4
+    relative) and the port's single-process step (loss rtol 1e-5), and the
+    heads after the AdamW update match the single-process heads (atol
+    1e-5)."""
+    ref = run["ref"]["detector"]
+    got = run["ranks"][0]["detector"]
+    assert got["metrics"].keys() == ref["jax"].keys() == ref["port"].keys()
+    for k, want in ref["jax"].items():
+        assert abs(got["metrics"][k] - want) <= DET_JAX_REL * abs(want), (k, got["metrics"][k], want)
+    np.testing.assert_allclose(got["metrics"]["loss"], ref["port"]["loss"], rtol=LOSS_RTOL)
+    assert got["metrics"]["num_pos_roi"] > 0 and got["metrics"]["rpn_num_pos"] > 0
+    for r in run["ranks"][1:]:
+        assert r["detector"]["metrics"] == got["metrics"]
+    assert got["heads"].keys() == ref["heads"].keys()
+    for name, want in ref["heads"].items():
+        torch.testing.assert_close(got["heads"][name], want, rtol=0, atol=DET_HEADS_ATOL, msg=name)
+
+
+def test_detector_trainer_on_a_data_mesh_matches_one_process_and_rank_0_alone_writes(run):
+    """`detector.train.main` under the launcher's variables: an (8, 1, 1)
+    mesh with no flag, its logged global metrics within rtol 1e-5 of the
+    single-process run's, and the checkpoint written by rank 0 alone."""
+    single = run["ref"]["detector_main"]
+    assert single["mesh"] is None
+    want = [h["metrics"] for h in single["history"]]
+    for rank, r in enumerate(run["ranks"]):
+        got = r["detector"]
+        assert got["mesh"] == (WORLD, 1, 1)
+        assert got["files"] == (["detector_epoch0.pkl"] if rank == 0 else [])
+        assert len(got["main"]) == len(want) == 2
+        for g, w in zip(got["main"], want):
+            assert g.keys() == w.keys()
+            np.testing.assert_allclose([g[k] for k in w], [w[k] for k in w], rtol=TRAINER_RTOL)
 
 
 def test_trainer_on_a_mesh_matches_one_process_and_its_checkpoint_resumes_in_one(run):
@@ -380,3 +561,108 @@ def test_one_process_launch_repeats_the_unwrapped_run(tmp_path):
     assert sharded["losses"] == plain["losses"]
     assert torch.equal(sharded["grad"], plain["grad"]) and torch.equal(sharded["after"], plain["after"])
     assert "WORLD_SIZE" not in os.environ and not torch.distributed.is_initialized()
+
+
+# ---- each rank reads only its own rows -------------------------------------
+
+READ_SHAPES = [(8, 1, 1), (4, 2, 1), (2, 2, 2)]
+READ_ITEMS, READ_BATCH = 21, 8  # two global batches and a tail of 5
+
+
+def _reading(shape, index: int):
+    """A fake mesh of ``shape`` at batch shard ``index`` (model index 0) and
+    a counting dataset of `READ_ITEMS` rows."""
+    coords = (index // shape[1], index % shape[1], 0)
+    arrays = {"x": np.arange(READ_ITEMS * 3, dtype=np.float32).reshape(READ_ITEMS, 3),
+              "y": np.arange(READ_ITEMS, dtype=np.int64)}
+    return _fake_mesh(shape, coords), cases.CountingRows(arrays), arrays
+
+
+@pytest.mark.parametrize("shape", READ_SHAPES)
+def test_each_rank_reads_only_its_rows_of_the_distill_loader(shape):
+    """`loader_route` (0 workers) on a mesh: each batch shard builds only
+    the items of its `batch_rows` of each global batch of the seeded
+    order, and its batches EQUAL the whole batches cut to its rows."""
+    n = shape[0] * shape[1]
+    for i in range(n):
+        mesh, ds, arrays = _reading(shape, i)
+        rows = pmesh.batch_rows(mesh, READ_BATCH)
+        route = dloader.loader_route(ds, READ_BATCH, seed=3, workers=0, device="cpu", rows=rows)
+        got = list(route.epoch(1))
+        whole = list(dloader.make_loader(cases.CountingRows(arrays), READ_BATCH, seed=3, epoch=1))
+        order = np.random.default_rng((3, 1)).permutation(READ_ITEMS)
+        want = [int(j) for s in range(2) for j in order[s * READ_BATCH:(s + 1) * READ_BATCH][rows]]
+        assert ds.read == want and ds.epoch == 1
+        assert len(got) == len(whole) == route.steps == 2
+        for g, w in zip(got, whole):
+            for k in w:
+                assert torch.equal(g[k], w[k][rows]), k
+
+
+@pytest.mark.parametrize("shape", READ_SHAPES)
+def test_each_rank_reads_only_its_rows_of_the_native_loader(shape):
+    """`NativeDistillLoader` plans the items of its rows alone: each global
+    batch of its order, cut to the rank's `batch_rows`."""
+    class Items:  # what `_indices` reads of a dataset
+        crop_size, epoch = 8, 0
+
+        def __len__(self):
+            return READ_ITEMS
+
+    n = shape[0] * shape[1]
+    order = np.random.default_rng((3, 0)).permutation(READ_ITEMS)
+    for i in range(n):
+        rows = pmesh.batch_rows(_reading(shape, i)[0], READ_BATCH)
+        native = dloader.NativeDistillLoader(Items(), READ_BATCH, seed=3, num_threads=1, rows=rows)
+        try:
+            it = native._indices()
+            for s in range(2):
+                assert next(it).tolist() == order[s * READ_BATCH:(s + 1) * READ_BATCH][rows].tolist()
+        finally:
+            native.close()
+
+
+@pytest.mark.parametrize("shape", READ_SHAPES)
+def test_each_rank_reads_only_its_rows_of_the_detector_files(shape):
+    """`detector/train.py::file_batches` on a mesh: the rank reads the items
+    of its rows of each global batch alone; its batches EQUAL the whole
+    batches cut to them."""
+    n = shape[0] * shape[1]
+    whole = list(dtrain.file_batches(cases.CountingRows(_reading(shape, 0)[2]), READ_BATCH,
+                                     seed=5, epoch=2, steps=3))
+    order = np.random.default_rng((5, 2)).permutation(READ_ITEMS)
+    assert len(whole) == 2  # the tail of 5 is dropped
+    for i in range(n):
+        mesh, ds, _ = _reading(shape, i)
+        rows = pmesh.batch_rows(mesh, READ_BATCH)
+        got = list(dtrain.file_batches(ds, READ_BATCH, seed=5, epoch=2, steps=3, rows=rows))
+        assert ds.read == [int(j) for s in range(2) for j in order[s * READ_BATCH:(s + 1) * READ_BATCH][rows]]
+        assert ds.epoch == 2 and len(got) == 2
+        for g, w in zip(got, whole):
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k][rows])
+
+
+@pytest.mark.parametrize("shape", READ_SHAPES)
+def test_each_rank_reads_only_its_rows_of_the_evaluator(shape):
+    """The evaluator's reader (`make_loader` with `batch_rows` of the mesh,
+    `rank_batches`): each global batch that divides over the batch shards
+    is read as the rank's rows, marked `RankRows`; the tail of 5, which
+    does not divide, is read whole by every rank. Rows EQUAL the whole
+    batch's."""
+    n = shape[0] * shape[1]
+    whole = list(dloader.make_loader(cases.CountingRows(_reading(shape, 0)[2]), READ_BATCH,
+                                     shuffle=False, drop_last=False))
+    for i in range(n):
+        mesh, ds, _ = _reading(shape, i)
+        reader = dloader.rank_batches(dloader.make_loader(
+            ds, READ_BATCH, shuffle=False, drop_last=False, rows=partial(pmesh.batch_rows, mesh),
+        ))
+        got = list(reader)
+        rows = pmesh.batch_rows(mesh, READ_BATCH)
+        want = [j for s in range(2) for j in list(range(s * READ_BATCH, (s + 1) * READ_BATCH))[rows]]
+        assert ds.read == want + [16, 17, 18, 19, 20]
+        assert [isinstance(b, dloader.RankRows) for b in got] == [True, True, False]
+        for g, w, r in zip(got, whole, (rows, rows, slice(None))):
+            for k in w:
+                assert torch.equal(g[k], w[k][r]), k

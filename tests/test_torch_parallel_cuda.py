@@ -9,26 +9,38 @@ skipped without a card.
     python -m pytest --noconftest -m cuda tests/test_torch_parallel_cuda.py -q
 
 Tolerances: float32 kernels and products summed in other groupings (a
-row-parallel sum, a two-rank gradient average), and the flash backward's dQ
-and the RoI-align backward summed by atomics, in no fixed order even in one
-process: the losses of both steps 1e-5 relative, the first step's gradient
-of `mlp.w3` 1e-5 of its largest entry. The weights after AdamW are not
-compared: Adam divides by sqrt(v) + eps, so an entry whose gradient is near
-zero turns that noise into a visible update (a single process does not
-repeat them either). Each rank launches the flash, RoPE and LayerNorm
-kernels."""
+row-parallel sum, a two-rank gradient average): the losses of both steps
+1e-5 relative, the first step's gradient of `mlp.w3` 1e-5 of its largest
+entry. The weights after AdamW are not compared: Adam divides by sqrt(v) +
+eps, so an entry whose gradient is near zero turns a last-bit difference of
+the average into a visible update. Each rank launches the flash, RoPE and
+LayerNorm kernels.
+
+The detector trainer: `detector.train.main --synthetic` at `ov_coco_vitb16`
+(the B/16 trunk at 640^2), global batch 8, float32, on a `data` mesh of the
+two ranks (the launcher's variables set, the group started over gloo or
+NCCL as above) against one process, cuDNN's TF32 off in both (a float32
+convolution would otherwise round its inputs to TF32, differently for
+batches of 4 and of 8): the first loss within 1e-6 relative (the same
+float32 operations on 4 images a rank; each rank's share of the loss summed
+over the two), the heads after the two steps within 1e-5 (the CPU mesh bar
+of `tests/test_torch_parallel.py`); rank 0 alone writes the checkpoint."""
 
 import copy
 import dataclasses
 import socket
 import traceback
 
+import numpy as np
 import pytest
 import torch
 
 STEPS, BATCH, IMAGE, CROPS, LAYERS = 2, 2, 448, 4, 2
 W3 = "visual.blocks.1.mlp.w3.weight"
 LOSS_REL, GRAD_REL = 1e-5, 1e-5
+DET_FIRST_LOSS_REL, DET_HEADS_ATOL = 1e-6, 1e-5
+DET_ARGV = ["--synthetic", "--preset", "ov_coco_vitb16", "--batch-size", "8", "--epochs", "1",
+            "--steps-per-epoch", "2", "--log-every", "1", "--precision", "fp32"]
 
 
 def _cfg():
@@ -137,3 +149,80 @@ def test_two_ranks_match_one_process(single, mesh_shape):
             assert abs(a - b) <= LOSS_REL * abs(b), (rank, r_losses, losses)
         assert abs(r_w3 - w3).max() <= GRAD_REL * abs(w3).max(), rank
         assert all(r_launches), (rank, r_launches)
+
+
+def _det_run(device, out: str):
+    """`detector.train.main` on ``DET_ARGV``: the logged losses, the heads
+    after the run on the host, the mesh's shape and the files written."""
+    import os
+
+    from clipself_tpu_torch.detector import train
+
+    torch.backends.cudnn.allow_tf32 = False
+    run = train.main(DET_ARGV + ["--device", str(device), "--output", out])
+    # as NumPy arrays: a tensor sent from a rank lives in its shared memory
+    heads = {k: v.detach().cpu().numpy() for k, v in run["state"].model.state_dict().items()}
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    return [h["metrics"]["loss"] for h in run["history"]], heads, run["mesh"], files
+
+
+def _det_rank(rank, port, backend, out, queue):
+    import os
+
+    import torch.distributed as dist
+
+    local = rank if backend == "nccl" else 0
+    device = torch.device("cuda", local)
+    torch.cuda.set_device(device)
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(local), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    try:
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=2)
+        queue.put((rank, _det_run(device, os.path.join(out, f"rank{rank}"))))
+    except Exception:  # handed to the test process, which raises it
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_detector_trainer_on_two_ranks_matches_one_process(tmp_path):
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        single = _det_run(torch.device("cuda", 0), str(tmp_path / "single"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_det_rank, args=(r, port, backend, str(tmp_path), queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(queue.get(timeout=600) for _ in range(2))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    errors = [v for v in got.values() if isinstance(v, str)]
+    assert not errors, errors[0]
+    losses, heads, mesh, files = single
+    assert mesh is None and files == ["detector_epoch0.pkl"] and len(losses) == 2
+    for rank in (0, 1):
+        r_losses, r_heads, r_mesh, r_files = got[rank]
+        assert r_mesh == (2, 1, 1)
+        assert r_files == (["detector_epoch0.pkl"] if rank == 0 else [])
+        assert abs(r_losses[0] - losses[0]) <= DET_FIRST_LOSS_REL * abs(losses[0]), (rank, r_losses, losses)
+        assert r_heads.keys() == heads.keys()
+        for name, want in heads.items():
+            np.testing.assert_allclose(r_heads[name], want, rtol=0, atol=DET_HEADS_ATOL, err_msg=name)

@@ -130,9 +130,11 @@ def test_kernel_timing_tools_refuse_to_run_without_a_card(capsys):
 def test_side_by_side_times_the_main_paths_shapes():
     """The shapes it times are the ones `chip_smoke.py` checks the
     kernels at: 2000 candidates an image, the towers' token counts and
-    widths at head_dim 64, and the LayerNorm backward at the four widths of
+    widths at head_dim 64, the LayerNorm backward at the four widths of
     the B/16 and L/14 students, the L/14 teacher's crops and the final
-    norm's two views."""
+    norm's two views, and the flash backward at the B/16 student's and the
+    RegionCLIP step's shapes, head_dim 88 (WMMA) and the HF trunk's float32
+    student (FMA)."""
     assert {(b, n) for _, b, n, _ in side_by_side.NMS_SHAPES} == {(8, 2000), (1, 2000)}
     tokens = {(b, 1 + g * g, w) for b, g, w in side_by_side.ROPE_SHAPES}
     assert {(2, 4097, 768), (2, 4097, 1024), (40, 577, 1024), (8, 1601, 768)} <= tokens
@@ -140,3 +142,7 @@ def test_side_by_side_times_the_main_paths_shapes():
     main = {shape for shape, view in side_by_side.LN_SHAPES if not view}
     assert {(2, 4097, 768), (2, 4097, 2048), (2, 4097, 1024), (2, 4097, 2730), (40, 577, 1024)} == main
     assert {view for _, view in side_by_side.LN_SHAPES} == set(side_by_side.LN_VIEWS)
+    assert dict(side_by_side.FLASH_BWD_SHAPES) == {
+        (2, 4097, 12, 64): "bfloat16", (16, 4097, 12, 64): "bfloat16", (1, 4097, 16, 88): "bfloat16",
+        (2, 197, 12, 64): "float32",
+    }

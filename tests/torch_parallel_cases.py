@@ -1,7 +1,8 @@
 """The ranks of `tests/test_torch_parallel.py`: one gloo group of processes,
 spawned once, runs every mesh case of the port on `EVA02-CLIP-Tiny-Test`
-and hands the results back to the test process. This module imports
-nothing of JAX: each spawned rank imports it (and the port) afresh."""
+(the detector's on preset `tiny_test`) and hands the results back to the
+test process. This module imports nothing of JAX: each spawned rank imports
+it (and the port) afresh."""
 
 from __future__ import annotations
 
@@ -124,12 +125,39 @@ def _tensors(batch: dict) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
 
 
+class CountingRows(torch.utils.data.Dataset):
+    """The rows of ``arrays`` (a dict of arrays with one leading axis) as
+    items; ``read`` lists the index of every item built, in order."""
+
+    def __init__(self, arrays: dict):
+        self.arrays = arrays
+        self.read = []
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(next(iter(self.arrays.values())))
+
+    def __getitem__(self, i):
+        self.read.append(int(i))
+        return {k: v[i] for k, v in self.arrays.items()}
+
+
+def eval_rows(batches: list) -> dict:
+    """The evaluator batches' arrays joined along the image axis."""
+    return {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+
+
 def run_cases(payload: dict) -> dict:
     """Every case, in the same order on every rank (their collectives pair up)."""
     out = {name: distill_case(payload, shape) for name, shape in DISTILL_MESHES.items()}
     out["region"] = region_case(payload)
     out["local_clip"] = local_clip_case(payload)
     out["eval"] = eval_case(payload)
+    out["eval_reader"] = eval_reader_case(payload)
+    out["detector"] = detector_case(payload)
     out["trainer"] = trainer_case(payload)
     out["dtensor"] = dtensor_case()
     out["variants"] = {name: variant_case(flags) for name, flags in VARIANTS.items()}
@@ -234,6 +262,75 @@ def eval_case(payload: dict) -> dict:
         model, payload["eval_batches"], payload["eval_embeddings"], device="cpu",
         ann_bucket=payload["eval_bucket"], mesh=mesh,
     )
+
+
+def eval_reader_case(payload: dict) -> dict:
+    """The evaluator on the (2, 2, 2) mesh fed by the trainer's reader: each
+    rank reads only its rows of a batch that divides over the 4 batch
+    shards, the whole tail of 3 otherwise; the metrics and the items read."""
+    from functools import partial
+
+    from clipself_tpu_torch.data.loader import make_loader, rank_batches
+    from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
+    from clipself_tpu_torch.parallel.mesh import batch_rows
+
+    _, mesh, model, _ = _layout(payload, EVAL_MESH)
+    ds = CountingRows(eval_rows(payload["eval_batches"]))
+    batch = len(payload["eval_batches"][0]["boxes"])
+    reader = rank_batches(make_loader(
+        ds, batch, shuffle=False, drop_last=False, rows=partial(batch_rows, mesh),
+    ))
+    metrics = evaluate_zero_shot(
+        model, reader, payload["eval_embeddings"], device="cpu", ann_bucket=payload["eval_bucket"],
+        mesh=mesh,
+    )
+    return {"metrics": metrics, "read": ds.read, "batch_index": mesh.batch_index}
+
+
+def detector_case(payload: dict) -> dict:
+    """One F-ViT train step of preset `tiny_test` on an 8-rank `data` mesh
+    (`detector/train.py::make_det_train_step` under `data_parallel`), with
+    the global batch's sampler noise given in place of the generator's
+    draws: the global metrics and (rank 0) the heads after the step. Then
+    `detector.train.main` under the launcher's variables, each rank with an
+    output directory of its own: its logged metrics and its files."""
+    from clipself_tpu_torch.detector import config, fvit, targets, train
+    from clipself_tpu_torch.parallel.mesh import batch_rows, create_mesh
+
+    cfg = config.PRESETS["tiny_test"]
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = create_mesh((world, 1, 1), torch.device("cpu"))
+    clip = tiny_model(payload["det_clip"], cfg.clip_model).requires_grad_(False)
+    det = fvit.FViTDetector(cfg)
+    det.load_state_dict({k: v.clone() for k, v in payload["det_heads"].items()}, strict=True)
+    state = train.DetTrainState(det, train.build_det_optimizer(det), data_parallel=train.data_parallel(det, mesh))
+    noise = targets.SampleNoise(**{k: torch.from_numpy(v) for k, v in payload["det_noise"].items()})
+    batch = payload["det_batch"]
+    size = len(batch["images"])
+
+    def given(generator, b, anchors, rois):
+        assert (b, anchors, rois) == tuple(noise.rpn_pos.shape) + (noise.roi_pos.shape[1],)
+        return noise
+
+    drawn, train.draw_noise = train.draw_noise, given
+    try:
+        step = train.make_det_train_step(
+            clip, cfg, torch.from_numpy(payload["det_ce"]), torch.from_numpy(payload["det_cw"]),
+            torch.Generator(), mesh,
+        )
+        rows = batch_rows(mesh, size)
+        metrics = step(state, {k: torch.from_numpy(v[rows]) for k, v in batch.items()})
+    finally:
+        train.draw_noise = drawn
+    out_dir = os.path.join(payload["det_out"], f"rank{rank}")
+    run = train.main(payload["det_argv"] + ["--output", out_dir])
+    return {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "heads": {k: v.clone() for k, v in det.state_dict().items()} if rank == 0 else None,
+        "main": [h["metrics"] for h in run["history"]],
+        "mesh": run["mesh"],
+        "files": sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else [],
+    }
 
 
 def trainer_case(payload: dict) -> dict:
