@@ -121,6 +121,19 @@ then for each model, B/16 first:
    ViT-B-16 with `--force-quick-gelu` (batch 2, 20 boxes, 12 blocks
    unlocked, 3 + 5 steps, 2 profiled), one `--extract-type v1` run (1 + 1
    steps, its peak memory) and one step's parity at batch 1;
+7d'. ViT-B-16's distill step at tensor parallelism 2 (`phase_vit_tp`): the
+   card is one GPU, so two spawned ranks share it over gloo with CUDA tensors
+   on a (1, 1, 2) mesh, each holding 6 of the 12 heads and half of each MLP
+   (1024^2, batch 2, 20 crops at 224^2, every block unlocked, v2), against
+   the same step in one process: one float32 step (the first loss within
+   1e-5, the first gradient of block 11's `mlp.c_proj.weight`, gathered
+   whole, within 1e-4 of its largest entry), then 1 + 2 bf16 steps (losses
+   within 2e-3, that gradient's cosine at least 0.9996 against the
+   one-process bf16 and float32 gradients, its worst row printed beside the
+   one-process bf16 gradient's own against float32; the timed steps' ms and
+   kernel ms under the profiler); every rank's launches equal to the
+   one-process run's (`vitb16_train_tp2` in the kernels line); the kernel
+   rows of phase 2 include a rank's [2, 4097, 6, 64] and [40, 197, 6, 64];
 7e. the ModifiedResNet and the EVA01 variant (`phase_towers`): RN50 and
    EVA01-CLIP-B-16 at 1024^2 (crops 224^2) through `evaluate_zero_shot` at
    v2 (2 + 4 batches of 2, 2 profiled; RN50 also one v1 call), the dense map
@@ -262,6 +275,18 @@ RECOMPUTE_WARMUP, RECOMPUTE_STEPS = 1, 2
 PARALLEL_WARMUP, PARALLEL_TIMED, PARALLEL_PROFILED = 2, 3, 1
 PARALLEL_WEIGHT = "visual.blocks.11.mlp.w3.weight"
 PARALLEL_MAX_REL, PARALLEL_LATER_LOSS_MAX_REL, PARALLEL_WEIGHT_MAX_ABS = 0.0, 0.0, 0.0
+# the OpenCLIP ViT-B-16 distill step on a (1, 1, 2) mesh, two ranks on the one
+# card over gloo, against the same step in one process: float32 steps, then
+# bf16 warm-up and timed steps (the timed ones under the profiler); the weight
+# whose first gradient is compared, gathered whole; the bars. The bf16
+# gradient is held by its cosine as a whole, against the one-process bf16 and
+# float32 gradients: its rows of near-zero norm are bf16 rounding (the
+# one-process bf16 gradient's worst row reads 0.73 against float32), so
+# their cosine says nothing of the layout; each row's is printed
+TP_MESH, TP_F32_STEPS, TP_WARMUP, TP_TIMED = (1, 1, 2), 1, 1, 2
+TP_WEIGHT = "visual.transformer.resblocks.11.mlp.c_proj.weight"
+TP_F32_LOSS_MAX_REL, TP_F32_GRAD_MAX_REL = 1e-5, 1e-4
+TP_BF16_LOSS_MAX_REL, TP_BF16_GRAD_MIN_COS = 2e-3, 0.9996
 # the detector trainer at DET_PRESET on a (1, 1, 1) data mesh (the heads under
 # DistributedDataParallel) against the same run without a launcher: warm-up
 # and timed steps; the logged losses and the heads after the run EQUAL
@@ -1181,6 +1206,14 @@ def phase_kernels(torch, dev, records):
     # student's rows with their backward, and the RoBERTa text tower's 64
     # rows of 77 with their backward
     check_attention(torch, dev, records, gen, (TRAIN_BATCH, 197, 12, 64), train=True, graph=True)
+    # ViT-B-16's step at tensor parallelism 2 (`phase_vit_tp`): a rank's 6 of
+    # the 12 heads, the student's dense pass with its backward and the
+    # teacher's 40 crops
+    vit = VIT_MODELS[0]
+    half = (vit.heads // 2, vit.vision.head_width)
+    check_attention(torch, dev, records, gen, (TRAIN_BATCH, vit.tokens(vit.image)) + half, train=True)
+    check_attention(torch, dev, records, gen, (TRAIN_BATCH * TRAIN_BOXES, vit.tokens(vit.crop)) + half, train=False)
+    torch.cuda.empty_cache()
     for shape, backward in (((2 * BUCKET, 197, 768), False), ((TRAIN_BATCH, 197, 768), True),
                             ((HF_TEXT_ROWS, 77, 768), True)):
         check_layer_norm(torch, dev, records, gen, shape, "", backward=backward, eps=1e-12, tag=" eps 1e-12")
@@ -1990,6 +2023,210 @@ def phase_open_clip_vit(torch, dev, logs_dir) -> dict:
     torch.cuda.empty_cache()
     print(f"open_clip_vit phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
+
+
+def vit_tp_steps(torch, dev, dtype, steps: int, profile_from=None, mesh_shape=None, weights=None) -> dict:
+    """``steps`` distill steps of ViT-B-16 at the B/16 recipe's shapes (batch
+    2 at 1024^2, 20 crops at 224^2, every block unlocked, extract type v2) in
+    ``dtype`` on the seeded weights (or on ``weights``, their state dict), in
+    one process or, with ``mesh_shape``, on this rank of that mesh: the
+    losses, the first step's gradient of `TP_WEIGHT` (gathered whole, on the
+    host), the launches of the run, and from step ``profile_from`` on, under
+    the profiler, the ms a step and the kernels' ms a step."""
+    from functools import partial
+
+    from clipself_tpu_torch.data.loader import SyntheticDistillData
+    from clipself_tpu_torch.models.factory import create_model, model_class
+    from clipself_tpu_torch.parallel.mesh import create_mesh, full_leaf, shard_batch, shard_model
+    from clipself_tpu_torch.train.methods import clipself_loss
+    from clipself_tpu_torch.train.optim import Optimizer, make_schedule, set_trainable
+    from clipself_tpu_torch.train.step import TrainState, make_train_step
+
+    s = VIT_MODELS[0]
+    cfg = s.vision
+    layers = cfg.layers
+    if weights is None:
+        model = create_model(s.model, device=dev, dtype=dtype, seed=SEED)
+    else:
+        from clipself_tpu_torch.core.config import get_model_config
+
+        full = get_model_config(s.model)
+        model = model_class(full)(full, dtype)
+        model.load_state_dict(weights)
+        model = model.to(dev)
+    teacher = copy.deepcopy(model).requires_grad_(False)
+    host = SyntheticDistillData(TRAIN_BATCH, s.image, s.crop, TRAIN_BOXES).batch
+    set_trainable(model, layers, layers)
+    mesh = None
+    if mesh_shape is not None:
+        mesh = create_mesh(mesh_shape, dev)
+        from clipself_tpu_torch.core.config import get_model_config
+
+        for m in (model, teacher):
+            shard_model(m, get_model_config(s.model), mesh)
+        host = shard_batch(mesh, host)
+    opt = Optimizer(model, make_schedule("const", 1e-5, 0, steps), unlocked_groups=layers,
+                    num_layers=layers, mesh=mesh)
+    grads, update = [], opt.step
+
+    def step_after_reading_the_gradient(count):
+        if not grads:
+            g = dict(zip(opt.names, opt.params))[TP_WEIGHT].grad
+            grads.append((g if mesh is None else full_leaf(TP_WEIGHT, g, mesh)).float().cpu().numpy().copy())
+        update(count)
+
+    opt.step = step_after_reading_the_gradient
+    step = make_train_step(partial(clipself_loss, group=None if mesh is None else mesh.batch_group), teacher,
+                           mesh=mesh)
+    state = TrainState(model, opt)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, out = [], {}
+    for i in range(steps):
+        if i == profile_from:
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            t0 = time.perf_counter()
+        losses.append(float(step(state, batch)["loss"]))
+    torch.cuda.synchronize()
+    if profile_from is not None:
+        timed = steps - profile_from
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / timed
+        prof.stop()
+        out["kernel_ms"] = kernel_ms(torch, prof) / timed
+        out["top"] = top_kernels(torch, prof)
+    out.update(losses=losses, grad=grads[0], launches=read_counts())
+    return out
+
+
+def vit_tp_rank(rank: int, port: int, path: str, queue) -> None:
+    """One of the two ranks of `phase_vit_tp` (a spawned process on card 0):
+    its float32 and bf16 runs of `vit_tp_steps` on `TP_MESH` over gloo, on
+    the weights the script drew, read from ``path`` (a host draw in each
+    rank took seconds)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2)
+        weights = torch.load(path, map_location="cpu")
+        out = {
+            "f32": vit_tp_steps(torch, dev, torch.float32, TP_F32_STEPS, mesh_shape=TP_MESH, weights=weights),
+            "bf16": vit_tp_steps(torch, dev, torch.bfloat16, TP_WARMUP + TP_TIMED, TP_WARMUP, TP_MESH, weights),
+        }
+        queue.put((rank, out))
+    except Exception:  # handed to the script's process, which fails with it
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_vit_tp(torch, dev) -> dict:
+    """ViT-B-16's distill step at tensor parallelism 2 (`vit_tp_steps`): the
+    one-process runs, then two spawned ranks on the one card over gloo with
+    CUDA tensors (a (1, 1, 2) mesh: each rank holds 6 of the 12 heads and
+    half of each MLP); float32: the first loss and gradient against one
+    process; bf16: the losses, the first gradient's cosine against the
+    one-process bf16 and float32 gradients (each row's printed), step ms and
+    kernel ms; every rank's launches equal to the one-process run's.
+    Returns the launches of rank 0's bf16 run (`vitb16_train_tp2`)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from clipself_tpu_torch.models.factory import create_model
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    single = {
+        "f32": vit_tp_steps(torch, dev, torch.float32, TP_F32_STEPS),
+        "bf16": vit_tp_steps(torch, dev, torch.bfloat16, TP_WARMUP + TP_TIMED, TP_WARMUP),
+    }
+    torch.cuda.empty_cache()
+    s = VIT_MODELS[0]
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    path = os.path.join(root, "weights.pt")
+    torch.save(create_model(s.model, device="cpu", dtype=torch.float32, seed=SEED).state_dict(), path)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=vit_tp_rank, args=(r, port, path, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(queue.get(timeout=600) for _ in range(2))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    errors = [v for v in got.values() if isinstance(v, str)]
+    if errors:
+        fail(f"vit_b16 train tp2: a rank failed:\n{errors[0]}")
+    tag = f"{s.key} train tp2"
+    expect = vit_expected_launches(s.vision.layers, steps=TP_WARMUP + TP_TIMED)
+
+    def cosines(a, b) -> tuple[float, float]:
+        """(cosine of the whole gradients, their worst row's)."""
+        a, b = torch.from_numpy(a).double(), torch.from_numpy(b).double()
+        whole = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+        return whole, min_row_cos(a, b)
+
+    g32 = single["f32"]["grad"]
+    print(f"{tag}: yardstick, the one-process bf16 gradient against the float32 one: cosine %.7f, worst row "
+          f"%.6f" % cosines(single["bf16"]["grad"], g32), flush=True)
+    for prec in ("f32", "bf16"):
+        one = single[prec]
+        for rank in (0, 1):
+            r = got[rank][prec]
+            rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], one["losses"])]
+            g, w = r["grad"], one["grad"]
+            g_rel = float(abs(g - w).max() / abs(w).max())
+            cos, row_cos = cosines(g, w)
+            line = (f"{tag}: {prec} rank {rank} losses {json.dumps([round(x, 7) for x in r['losses']])} against "
+                    f"{json.dumps([round(x, 7) for x in one['losses']])} (max rel {max(rel):.3e}); {TP_WEIGHT} "
+                    f"first gradient max rel {g_rel:.3e}, cosine {cos:.7f}, worst row {row_cos:.7f}; launches "
+                    f"{json.dumps(r['launches'])}")
+            if prec == "bf16":
+                cos32, row32 = cosines(g, g32)
+                line += (f"; against the float32 gradient: cosine {cos32:.7f}, worst row {row32:.6f}; "
+                         f"{r['step_ms']:.3f} ms a step, kernels {r['kernel_ms']:.3f} ms a step under the "
+                         f"profiler (one process {one['step_ms']:.3f} / {one['kernel_ms']:.3f})")
+            print(line, flush=True)
+            if r["launches"] != one["launches"]:
+                fail(f"{tag}: rank {rank} {prec} launches {r['launches']}, one process {one['launches']}")
+            if not all(map(math.isfinite, r["losses"])):
+                fail(f"{tag}: rank {rank} {prec} losses {r['losses']}")
+            if prec == "f32" and not (rel[0] <= TP_F32_LOSS_MAX_REL and g_rel <= TP_F32_GRAD_MAX_REL):
+                fail(f"{tag}: rank {rank} f32 first loss rel {rel[0]}, gradient max rel {g_rel} (bars "
+                     f"{TP_F32_LOSS_MAX_REL}, {TP_F32_GRAD_MAX_REL})")
+            if prec == "bf16" and not (max(rel) <= TP_BF16_LOSS_MAX_REL and min(cos, cos32) >= TP_BF16_GRAD_MIN_COS):
+                fail(f"{tag}: rank {rank} bf16 losses rel {max(rel)}, gradient cosine {cos} / {cos32} against "
+                     f"one process in bf16 / float32 (bars {TP_BF16_LOSS_MAX_REL}, {TP_BF16_GRAD_MIN_COS})")
+    if single["bf16"]["launches"] != expect:
+        fail(f"{tag}: one-process launches {single['bf16']['launches']}, expected {expect}")
+    one = single["bf16"]
+    for name, r in (("one process", one), ("rank 0", got[0]["bf16"]), ("rank 1", got[1]["bf16"])):
+        print(f"{tag}: {name} {s.model} distill step, batch {TRAIN_BATCH} at {s.image}px, {TRAIN_BOXES} crops at "
+              f"{s.crop}px, bf16, mean of {TP_TIMED} after {TP_WARMUP} warm-up, under the profiler: "
+              f"{r['step_ms']:.3f} ms, kernels {r['kernel_ms']:.3f} ms, idle {1 - r['kernel_ms'] / r['step_ms']:.1%}; "
+              f"over the {TP_TIMED} steps: {r['top']}", flush=True)
+    print(f"{tag} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"vitb16_train_tp2": got[0]["bf16"]["launches"]}
 
 
 def timm_norms(s: Model) -> int:
@@ -4423,6 +4660,8 @@ def run_phases(torch, dev, t0) -> int:
         print(f"{s.key} RegionCLIP done at {time.perf_counter() - t0:.1f} s", flush=True)
     paths.update(phase_open_clip_vit(torch, dev, logs_dir))
     print(f"OpenCLIP ViT done at {time.perf_counter() - t0:.1f} s", flush=True)
+    paths.update(phase_vit_tp(torch, dev))
+    print(f"OpenCLIP ViT at tp 2 done at {time.perf_counter() - t0:.1f} s", flush=True)
     paths.update(phase_towers(torch, dev, logs_dir))
     print(f"RN50, EVA01-B/16, ConvNeXt-B and Swin-B done at {time.perf_counter() - t0:.1f} s", flush=True)
     paths.update(phase_coca(torch, dev))

@@ -122,10 +122,16 @@ def _resize_u8(img: np.ndarray, size: tuple[int, int], kind: str, window=None) -
     w, h = size
     _check_size(img, size)
     x0, y0, x1, y1 = window or (0, 0, w, h)
-    if img.size == 0:
+    # the part of the window inside the resize; Pillow's crop fills the rest with 0
+    ix0, iy0, ix1, iy1 = max(x0, 0), max(y0, 0), min(x1, w), min(y1, h)
+    if img.size == 0 or ix1 <= ix0 or iy1 <= iy0:
         return np.zeros((y1 - y0, x1 - x0) + img.shape[2:], np.uint8)
-    out = _pass_u8(img, w, 1, kind, x0, x1) if w != img.shape[1] else img[:, x0:x1]
-    out = _pass_u8(out, h, 0, kind, y0, y1) if h != img.shape[0] else out[y0:y1]
+    out = _pass_u8(img, w, 1, kind, ix0, ix1) if w != img.shape[1] else img[:, ix0:ix1]
+    out = _pass_u8(out, h, 0, kind, iy0, iy1) if h != img.shape[0] else out[iy0:iy1]
+    if (ix0, iy0, ix1, iy1) != (x0, y0, x1, y1):
+        whole = np.zeros((y1 - y0, x1 - x0) + img.shape[2:], np.uint8)
+        whole[iy0 - y0:iy1 - y0, ix0 - x0:ix1 - x0] = out
+        return whole
     return out.copy() if np.may_share_memory(out, img) else out
 
 
@@ -143,9 +149,10 @@ def resize_bilinear(img: np.ndarray, size: tuple[int, int], window=None) -> np.n
     ``Image.fromarray(img).resize(size, Image.BILINEAR)`` (the detector's
     resizes): Pillow's triangle filter, widened by the shrink factor, in
     the same 8-bit passes as `resize_bicubic`. ``window`` = (x0, y0, x1, y1)
-    within ``size``: only that crop of the resized image is computed and
-    returned, equal to ``.crop(window)`` of Pillow's whole resize (each
-    output pixel depends on its own taps alone)."""
+    in the resized image's pixels: only that crop of the resized image is
+    computed and returned, equal to ``.crop(window)`` of Pillow's whole
+    resize (each output pixel depends on its own taps alone), the part
+    outside ``size`` zero-filled as Pillow's crop fills it."""
     return _resize_u8(img, size, "bilinear", window)
 
 

@@ -182,7 +182,10 @@ class CLIP(nn.Module):
             rois = roi_align_1x1(dense, denormalize_boxes(normed_boxes, gh, gw))
             mp = mask_pool(dense, masks)
         else:
-            rois = self.encode_pseudo_boxes(image, normed_boxes, extract_type=extract_type)
+            # the tower's own call, not `encode_pseudo_boxes`: on a mesh that
+            # method is an FSDP2 forward of its own, which would give the
+            # root's parameters back before `_mask_feats` reads them
+            rois = self.visual.extract_roi_features(image, normed_boxes, extract_type)
             mp = self._mask_feats(image, masks, mask_attn)
         if normalize:
             rois = l2_normalize(rois)

@@ -32,7 +32,12 @@ dense protocol, `transformer.py:550-589, 659-834`):
     and OpenAI checkpoints;
   - `grad_checkpointing` recomputes each block in the backward pass, as the
     EVA tower's does (the JAX tower takes `remat` and does not apply it;
-    the results are the same either way).
+    the results are the same either way);
+  - under tensor parallelism (`parallel/tensor_parallel.py`) a rank holds
+    its heads' rows of each third of `in_proj_weight` and its slice of the
+    MLP's hidden width; `out_proj` and `c_proj` are row-parallel, the
+    LayerNorms and the mask of mask-attention pooling (broadcast over the
+    rank's heads) stay whole.
 
 With `attentional_pool` (the CoCa towers) `attn_pool`, a
 `models/common.py::AttentionalPooler` of `n_queries` queries in embed_dim
@@ -57,6 +62,7 @@ from clipself_tpu_torch.ops.attention import multi_head_attention
 from clipself_tpu_torch.ops.interpolate import resize_2d
 from clipself_tpu_torch.ops.patchify import patchify
 from clipself_tpu_torch.ops.roi_align import denormalize_boxes, roi_align_1x1
+from clipself_tpu_torch.parallel.tensor_parallel import TensorParallel
 
 # the JAX tower's `_layer_norm` keeps flax's default epsilon
 LN_EPS = 1e-5
@@ -66,7 +72,12 @@ _NEG = -1e9
 
 class Attention(nn.Module):
     """Self-attention with the packed q/k/v projection of
-    `torch.nn.MultiheadAttention` (`in_proj_weight` [3W, W], `in_proj_bias`)."""
+    `torch.nn.MultiheadAttention` (`in_proj_weight` [3W, W], `in_proj_bias`).
+    ``heads`` and ``width`` are this rank's: all of them, or under tensor
+    parallelism (``tp``, `parallel/tensor_parallel.py`) its share of the
+    heads, whose q, k and v rows it holds; `out_proj` is then row-parallel."""
+
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -76,7 +87,10 @@ class Attention(nn.Module):
         self.out_proj = Dense(width, width)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, n, w = x.shape
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        b, n, _ = x.shape
+        w = self.width
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
         heads = (b, n, self.heads, w // self.heads)
         # strided views of the packed rows: the flash kernel reads them as they are
@@ -87,12 +101,19 @@ class Attention(nn.Module):
     def value_path(self, x: torch.Tensor) -> torch.Tensor:
         """The V rows of the packed projection, then `out_proj`: the branch
         without token mixing (reference `proj_without_attn`)."""
+        if self.tp is not None:
+            x = self.tp.enter(x)
         w = self.width
         v = F.linear(x, self.in_proj_weight[2 * w:].to(x.dtype), self.in_proj_bias[2 * w:].to(x.dtype))
         return self.out_proj(v)
 
 
 class Mlp(nn.Module):
+    """The GELU MLP; under tensor parallelism (``tp``) this rank holds a
+    slice of the hidden width and `c_proj` is row-parallel."""
+
+    tp: Optional[TensorParallel] = None
+
     def __init__(self, cfg: VisionConfig):
         super().__init__()
         self.quick_gelu = cfg.quick_gelu
@@ -101,6 +122,8 @@ class Mlp(nn.Module):
         self.c_proj = Dense(hidden, cfg.width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         return self.c_proj(gelu(self.c_fc(x), self.quick_gelu))
 
 

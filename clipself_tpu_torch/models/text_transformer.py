@@ -20,7 +20,10 @@ the EOT token (the argmax of the token ids) projected by `text_projection`.
   - module and parameter names follow the reference state dict
     (`transformer.resblocks.{i}.attn.in_proj_weight`, `mlp.c_fc`, `ls_1.gamma`,
     `ln_final`, `text_projection`, ...), so `models/torch_io.py` loads
-    reference checkpoints with `strict=True`.
+    reference checkpoints with `strict=True`;
+  - under tensor parallelism (`parallel/tensor_parallel.py`) `TextAttention`
+    and `TextMlp` take the group as the OpenCLIP ViT's branches do (CoCa's
+    decoder self-attention blocks with them).
 
 The CoCa text tower (`embed_cls`) appends a learned `cls_emb` after the
 text, so the positional table has context_length + 1 rows; `forward_coca`
@@ -41,31 +44,44 @@ from clipself_tpu_torch.core.config import TextConfig
 from clipself_tpu_torch.models.common import LayerScale, gelu
 from clipself_tpu_torch.models.eva_vit import Dense, LayerNorm, _lecun_normal
 from clipself_tpu_torch.ops.attention import attention_masked
+from clipself_tpu_torch.parallel.tensor_parallel import TensorParallel
 
 
 class TextAttention(nn.Module):
     """Self-attention with the packed q/k/v projection of
-    `torch.nn.MultiheadAttention` (`in_proj_weight` [3W, W], `in_proj_bias`)."""
+    `torch.nn.MultiheadAttention` (`in_proj_weight` [3W, W], `in_proj_bias`).
+    ``heads`` and ``width`` are this rank's: all of them, or under tensor
+    parallelism (``tp``, `parallel/tensor_parallel.py`) its share of the
+    heads, whose q, k and v rows it holds; `out_proj` is then row-parallel."""
+
+    tp: Optional[TensorParallel] = None
 
     def __init__(self, cfg: TextConfig):
         super().__init__()
-        self.cfg = cfg
         w = cfg.width
+        self.width, self.heads = w, cfg.heads
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * w, w))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * w))
         self.out_proj = Dense(w, w)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        c = self.cfg
-        b, n, w = x.shape
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        b, n, _ = x.shape
+        w = self.width
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
-        heads = (b, n, c.heads, w // c.heads)
+        heads = (b, n, self.heads, w // self.heads)
         q, k, v = (t.reshape(heads) for t in qkv.split(w, dim=-1))
-        out = attention_masked(q, k, v, (w // c.heads) ** -0.5, mask)
+        out = attention_masked(q, k, v, (w // self.heads) ** -0.5, mask)
         return self.out_proj(out.reshape(b, n, w))
 
 
 class TextMlp(nn.Module):
+    """The GELU MLP; under tensor parallelism (``tp``) this rank holds a
+    slice of the hidden width and `c_proj` is row-parallel."""
+
+    tp: Optional[TensorParallel] = None
+
     def __init__(self, cfg: TextConfig):
         super().__init__()
         self.cfg = cfg
@@ -73,6 +89,8 @@ class TextMlp(nn.Module):
         self.c_proj = Dense(4 * cfg.width, cfg.width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         return self.c_proj(gelu(self.c_fc(x), self.cfg.quick_gelu))
 
 

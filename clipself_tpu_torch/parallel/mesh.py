@@ -10,10 +10,10 @@ JAX mesh lays out its devices:
     holds rows [i b / n, (i + 1) b / n) of the global batch, i = d fsdp + f,
     n = data fsdp; the ranks of one `model` group hold the same rows;
   - FSDP2's `fully_shard` over the (data, fsdp) sub-mesh replicates the
-    parameters over `data` and shards them over `fsdp` (HSDP): each EVA
-    block is one unit, the text tower one, the root the rest; its gradient
-    reduction averages over the data-like ranks, which is DDP's all-reduce
-    where `fsdp` is 1. `DistributedDataParallel` is not used: its wrapper
+    parameters over `data` and shards them over `fsdp` (HSDP): each EVA or
+    OpenCLIP ViT block is one unit, the text tower one, the root the rest;
+    its gradient reduction averages over the data-like ranks, which is
+    DDP's all-reduce where `fsdp` is 1. `DistributedDataParallel` is not used: its wrapper
     needs the forward through itself (the losses call the tower's encode
     methods) and renames the parameters (`module.`), which the lock groups
     and decay masks read;
@@ -37,10 +37,8 @@ from torch import nn
 from clipself_tpu_torch.parallel.tensor_parallel import (
     Split,
     TensorParallel,
-    check_tower,
-    is_eva_tower,
-    shard_eva_tower,
     shard_tensor,
+    shard_tensor_parallel,
     unshard_tensor,
 )
 
@@ -158,17 +156,18 @@ class Mesh:
         return self.coords[0] * self.shape[1] + self.coords[1]
 
 
-def create_mesh(shape: tuple[int, int, int], device: torch.device) -> Mesh:
-    """The mesh of ``shape`` (data, fsdp, model) over the whole process group
-    (every rank calls it, in the same order)."""
-    from torch.distributed.device_mesh import init_device_mesh
+def create_mesh(shape: tuple[int, int, int], device: torch.device) -> Optional[Mesh]:
+    """The mesh of ``shape`` (data, fsdp, model) over the first ranks of the
+    process group, all of them where its size is the group's (every rank
+    calls it, in the same order). A rank past the mesh gets None."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     world, rank = dist.get_world_size(), dist.get_rank()
-    if int(np.prod(shape)) != world:
-        raise ValueError(f"mesh {shape} needs {int(np.prod(shape))} ranks, the group has {world}")
+    n = int(np.prod(shape))
+    if n > world:
+        raise ValueError(f"mesh {shape} needs {n} ranks, the group has {world}")
     d, f, t = shape
-    ranks = np.arange(world).reshape(shape)
-    coords = tuple(int(c) for c in np.argwhere(ranks == rank)[0])
+    ranks = np.arange(n).reshape(shape)
 
     def my_group(lists):
         mine = None
@@ -181,7 +180,13 @@ def create_mesh(shape: tuple[int, int, int], device: torch.device) -> Mesh:
     batch_group = my_group(ranks.transpose(2, 0, 1).reshape(t, d * f))
     model_group = my_group(ranks.reshape(d * f, t))
     shard_group = my_group(ranks.reshape(d, f * t))
-    device_mesh = init_device_mesh(device.type, shape, mesh_dim_names=AXES)
+    if n == world:
+        device_mesh = init_device_mesh(device.type, shape, mesh_dim_names=AXES)
+    else:  # every rank builds it; a rank outside holds no coordinate
+        device_mesh = DeviceMesh(device.type, torch.from_numpy(ranks), mesh_dim_names=AXES)
+    if rank >= n:
+        return None
+    coords = tuple(int(c) for c in np.argwhere(ranks == rank)[0])
     return Mesh(
         shape=tuple(shape), coords=coords, device=device, device_mesh=device_mesh,
         batch_group=batch_group, shard_group=shard_group,
@@ -231,22 +236,24 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def shard_model(model: nn.Module, cfg, mesh: Mesh) -> None:
-    """Lay ``model`` out on ``mesh`` in place: the tensor-parallel plan on an
-    EVA image tower (at every `model` size; other towers only at size 1),
-    then FSDP2 over the (data, fsdp) sub-mesh, one unit an EVA block, one
-    the text tower, the root the rest, with the encode methods registered as
-    forwards. Scalar parameters (`logit_scale`, always frozen) are left to
-    every rank whole: `fully_shard` takes none. Set ``requires_grad`` before:
-    FSDP2 reduces the gradients of the trainable parameters only."""
+    """Lay ``model`` out on ``mesh`` in place: the tensor-parallel plan over
+    `model` (`tensor_parallel.py`: the EVA and OpenCLIP ViT blocks, the CLIP
+    text tower's and CoCa's decoder self-attention blocks; every other
+    tower replicated), then FSDP2 over the (data, fsdp) sub-mesh, one unit
+    an EVA or OpenCLIP ViT block, one the text tower, the root the rest,
+    with the encode methods registered as forwards. Scalar parameters
+    (`logit_scale`, always frozen) are left to every rank whole:
+    `fully_shard` takes none. Set ``requires_grad`` before: FSDP2 reduces
+    the gradients of the trainable parameters only."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
-    if is_eva_tower(cfg):
-        mesh.plan = shard_eva_tower(model, cfg, mesh.tp)
-    else:
-        check_tower(cfg, mesh.tp.size)
+    from clipself_tpu_torch.models.eva_vit import EvaViT
+    from clipself_tpu_torch.models.open_clip_vit import OpenCLIPViT
+
+    mesh.plan = shard_tensor_parallel(model, mesh.tp)
     sub = mesh.device_mesh["data", "fsdp"]
     scalars = {p for p in model.parameters() if p.dim() == 0} or None
-    if is_eva_tower(cfg):
+    if isinstance(getattr(model, "visual", None), (EvaViT, OpenCLIPViT)):
         for blk in model.visual.blocks:
             fully_shard(blk, mesh=sub, ignored_params=scalars)
             register_fsdp_forward_method(blk, "forward_without_attn")

@@ -1,35 +1,64 @@
-"""Megatron tensor parallelism for the EVA towers over the mesh's `model`
-axis (the port of `clipself_tpu/parallel/mesh.py::_TP_RULES` /
-`tp_shardings`).
+"""Megatron tensor parallelism over the mesh's `model` axis (the port of
+`clipself_tpu/parallel/mesh.py::_TP_RULES`, `_tp_spec` and `tp_shardings`).
 
 The JAX package gives XLA a layout per leaf and lets its SPMD partitioner
 insert the collectives. Here each rank holds its slice of a sharded leaf as
 an ordinary parameter, and the blocks call the collectives themselves, in
-autograd functions (Megatron's f / g operators):
+autograd functions (Megatron's f / g operators).
 
-  - `q_proj` / `k_proj` / `v_proj` (or the fused `qkv`, split by heads in
-    each of q, k and v), `q_bias`, `v_bias`, a rel-pos table's head columns
-    and `inner_attn_ln` are column-parallel: a rank computes its heads;
-  - `proj` is row-parallel: the partial products are summed over the group
-    and its bias is added once, after the sum;
-  - `w1` / `w2` (or `fc1`) with their biases and `ffn_ln` are
-    column-parallel, `w3` (or `fc2`) row-parallel.
+One rule table (`RULES`) over the port's parameter names mirrors
+`_TP_RULES`. As `_tp_spec` does, it touches only the branches of a block:
+the `attn` and `mlp` modules under `blocks.{i}` or `resblocks.{i}` whose
+class takes a group (a `tp` attribute: the EVA blocks, the OpenCLIP ViT's
+`CLIPBlock` and the CLIP text tower's `TextBlock`, which CoCa's text tower
+and decoder reuse). That covers the EVA and OpenCLIP image towers, the text
+tower of every model and CoCa's decoder self-attention blocks, as the JAX
+rules do over the whole tree. Every other tower stays whole on every rank,
+as JAX replicates it: CoCa's `cross_attn.{i}`, the attentional pooler, the
+ModifiedResNet, ConvNeXt, Swin and the timm ViT (their blocks' classes take
+no group), the HF trunks and HF text towers.
+
+  - `q_proj` / `k_proj` / `v_proj`, `q_bias`, `v_bias` and `inner_attn_ln`
+    are column-parallel: a rank computes its heads. The packed projections,
+    the EVA `qkv` and the OpenCLIP `in_proj_weight` / `in_proj_bias` [3W, W],
+    are split by heads within each of q, k and v (`Split(0, 3)`). JAX
+    instead shards `in_proj`'s packed output dimension and lets XLA reshard
+    across the q / k / v boundaries: the result is the same, only the layout
+    differs;
+  - `proj` / `out_proj` are row-parallel: the partial products are summed
+    over the group and the bias is added once, after the sum;
+  - `w1` / `w2` / `fc1` / `c_fc` with their biases and `ffn_ln` are
+    column-parallel, `w3` / `fc2` / `c_proj` row-parallel.
 
 A branch whose heads (attention) or hidden width (MLP) does not divide by
-the group's size stays replicated, as `_tp_spec` leaves such a leaf
-(`clipself_tpu/parallel/mesh.py:224-229`). A sub-LN LayerNorm over a sharded
-width needs the statistics of the whole row (XLA reduces them across the
-`model` axis): the row is all-gathered across the group, normalised whole by
-the port's LayerNorm kernel with the gathered weight and bias, and the rank
-keeps its slice; the backward is the autograd transpose (an all-reduce of
-the row's gradient, then the slice). Every collective is the identity on a
-group of one, so at `--tp-size 1` the plan launches what the unsharded tower
-launches. Only the EVA towers are sharded; the others wait for ROADMAP.md
-queue 1, item 9.2.
+the group's size stays replicated, as `_tp_spec` leaves a leaf whose
+sharded dimension does not divide (`clipself_tpu/parallel/mesh.py:224-229`).
+Two layouts differ from JAX's on purpose:
+
+  - JAX shards `in_proj` whenever 3W divides by the group's size, and
+    `out_proj` whenever W does; the port shards an attention branch when its
+    heads divide, and keeps it whole otherwise;
+  - the EVA rel-pos tables (a block's `relative_position_bias_table` and the
+    shared `rel_pos_bias.relative_position_bias_table`, [rows, heads]) are
+    split by heads with their attention; JAX has no rule for them and
+    replicates them.
+
+A sub-LN LayerNorm over a sharded width needs the statistics of the whole
+row (XLA reduces them across the `model` axis): the row is all-gathered
+across the group, normalised whole by the port's LayerNorm kernel with the
+gathered weight and bias, and the rank keeps its slice; the backward is the
+autograd transpose (an all-reduce of the row's gradient, then the slice).
+Every collective is the identity on a group of one, so at `--tp-size 1`
+every branch takes its group and the model launches what the unsharded one
+launches. Where nothing of a model matches at a size above 1, the plan is
+empty, every leaf is replicated and a warning says so, as `tp_shardings`
+logs one.
 """
 
 from __future__ import annotations
 
+import logging
+import re
 from dataclasses import dataclass
 from typing import Optional
 
@@ -37,8 +66,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-# where the rules for the other towers are queued
-ROADMAP_ITEM = "ROADMAP.md queue 1, item 9.2"
+log = logging.getLogger("clipself_tpu_torch")
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -140,84 +168,105 @@ def unshard_tensor(parts: list[torch.Tensor], split: Split) -> torch.Tensor:
     return stacked.flatten(split.dim, split.dim + 2)
 
 
-def is_eva_tower(cfg) -> bool:
-    """Whether the tensor-parallel plan covers the image tower of ``cfg``
-    (a CLIP config; CoCa and the HF, timm, ResNet and plain ViT towers are
-    not covered)."""
-    v = cfg.vision
-    return bool(v.eva_model_name) and not (v.hf_trunk_name or v.timm_model_name or cfg.multimodal)
+# (the name below a block, from its branch on; how that leaf is split when
+# its branch is), in the order of `_TP_RULES`
+RULES = (
+    (r"attn\.(q_proj|k_proj|v_proj)\.weight", Split(0)),
+    (r"attn\.(qkv\.weight|in_proj_weight|in_proj_bias)", Split(0, 3)),
+    (r"attn\.(q_bias|v_bias)", Split(0)),
+    (r"attn\.inner_attn_ln\.(weight|bias)", Split(0)),
+    (r"attn\.relative_position_bias_table", Split(1)),  # the port's own layout
+    (r"attn\.(proj|out_proj)\.weight", Split(1)),
+    (r"mlp\.(w1|w2|fc1|c_fc)\.(weight|bias)", Split(0)),
+    (r"mlp\.ffn_ln\.(weight|bias)", Split(0)),
+    (r"mlp\.(w3|fc2|c_proj)\.weight", Split(1)),
+)
+_BRANCH = re.compile(r"(?:^|\.)(?:res)?blocks\.\d+\.(attn|mlp)$")
+# a tower's rel-pos table shared by its blocks (split with their heads)
+SHARED_TABLE = "rel_pos_bias.relative_position_bias_table"
 
 
-def check_tower(cfg, tp_size: int) -> None:
-    if tp_size > 1 and not is_eva_tower(cfg):
-        raise ValueError(
-            f"--tp-size {tp_size}: tensor parallelism covers the EVA image towers; the rules "
-            f"for the tower of {cfg.name} wait in {ROADMAP_ITEM}"
-        )
+def leaf_split(name: str) -> Optional[Split]:
+    """The Split of a leaf named ``name`` below its block (``attn.qkv.weight``,
+    ``mlp.c_fc.bias``, ...), None where no rule matches (the leaf stays
+    whole: a row-parallel bias, a LayerScale, a norm outside the branch)."""
+    for pattern, split in RULES:
+        if re.fullmatch(pattern, name):
+            return split
+    return None
 
 
-def eva_plan(cfg, size: int, prefix: str = "visual.") -> dict[str, Split]:
-    """{parameter name: Split} of an EVA tower's sharded leaves at group size
-    ``size`` (empty when ``size`` is 1: nothing is split)."""
-    v = cfg.vision
-    if size == 1:
-        return {}
+def branches(model: nn.Module, size: int) -> list[tuple[str, nn.Module, dict[str, Split]]]:
+    """(name, module, {parameter name: Split}) of each branch of ``model``
+    that splits over a group of ``size``: an `attn` or `mlp` module of a
+    block (`blocks.{i}` / `resblocks.{i}`) whose class takes a group, whose
+    heads (attention) or hidden width (MLP, the split dimension of its
+    leaves) divide by ``size``."""
+    out = []
+    for name, m in model.named_modules():
+        found = _BRANCH.search(name)
+        if found is None or not hasattr(type(m), "tp"):
+            continue
+        kind = found.group(1)
+        leaves = {}
+        for leaf, p in m.named_parameters():
+            split = leaf_split(f"{kind}.{leaf}")
+            if split is not None:
+                leaves[f"{name}.{leaf}"] = (split, p.shape[split.dim] // split.groups)
+        units = [m.heads] if kind == "attn" else [n for _, n in leaves.values()]
+        if leaves and all(u % size == 0 for u in units):
+            out.append((name, m, {k: s for k, (s, _) in leaves.items()}))
+    return out
+
+
+def _plan(model: nn.Module, split: list) -> dict[str, Split]:
+    """The leaves of the branches ``split`` and the shared rel-pos tables of
+    the towers whose attention they split."""
     plan = {}
-    hidden = int(v.width * v.mlp_ratio)
-    attn_split = v.num_heads % size == 0
-    if attn_split and v.use_shared_rel_pos_bias:
-        plan[f"{prefix}rel_pos_bias.relative_position_bias_table"] = Split(1)
-    for i in range(v.layers):
-        a, m = f"{prefix}blocks.{i}.attn.", f"{prefix}blocks.{i}.mlp."
-        if attn_split:
-            if v.subln:
-                plan.update({f"{a}{p}_proj.weight": Split(0) for p in "qkv"})
-                plan.update({f"{a}inner_attn_ln.{p}": Split(0) for p in ("weight", "bias")})
-            else:
-                plan[f"{a}qkv.weight"] = Split(0, 3)
-            if v.qkv_bias:
-                plan.update({f"{a}q_bias": Split(0), f"{a}v_bias": Split(0)})
-            if v.use_rel_pos_bias:
-                plan[f"{a}relative_position_bias_table"] = Split(1)
-            plan[f"{a}proj.weight"] = Split(1)
-        if hidden % size == 0:
-            ups = ("w1", "w2") if v.naiveswiglu else ("fc1",)
-            for up in ups:
-                plan.update({f"{m}{up}.weight": Split(0), f"{m}{up}.bias": Split(0)})
-            if v.subln:
-                plan.update({f"{m}ffn_ln.{p}": Split(0) for p in ("weight", "bias")})
-            plan[f"{m}{'w3' if v.naiveswiglu else 'fc2'}.weight"] = Split(1)
+    for _, _, leaves in split:
+        plan.update(leaves)
+    attn = [name for name, _, _ in split if name.endswith(".attn")]
+    for name, _ in model.named_parameters():
+        if name.endswith(SHARED_TABLE) and any(a.startswith(name[: -len(SHARED_TABLE)]) for a in attn):
+            plan[name] = Split(1)
     return plan
 
 
-def shard_eva_tower(model: nn.Module, cfg, tp: TensorParallel) -> dict[str, Split]:
-    """Apply the tensor-parallel plan to ``model``'s EVA image tower in
-    place: each sharded leaf becomes this rank's slice (a new parameter with
-    the same ``requires_grad``), and the attention, MLP, row-parallel
-    projections and sub-LN norms of the sharded branches get ``tp``. Returns
-    the plan. At group size 1 every branch gets ``tp`` and no leaf changes."""
-    check_tower(cfg, tp.size)
-    v = cfg.vision
-    plan = eva_plan(cfg, tp.size)
-    for name, split in plan.items():
+def tp_plan(model: nn.Module, size: int) -> dict[str, Split]:
+    """{parameter name: Split} of the leaves of ``model`` that a group of
+    ``size`` shards (empty when ``size`` is 1: nothing is split)."""
+    return {} if size == 1 else _plan(model, branches(model, size))
+
+
+def shard_tensor_parallel(model: nn.Module, tp: TensorParallel) -> dict[str, Split]:
+    """Apply the tensor-parallel plan to ``model`` in place: each sharded
+    leaf becomes this rank's slice (a new parameter with the same
+    ``requires_grad``); each branch that splits gets ``tp``, an attention
+    branch this rank's heads and width, and its row-parallel projection and
+    sub-LN norms get ``tp`` too. Returns the plan. At group size 1 every
+    branch gets ``tp`` and no leaf changes; above 1, a model of which no
+    leaf matches is left whole, with a warning."""
+    split = branches(model, tp.size)
+    plan = {} if tp.size == 1 else _plan(model, split)
+    if tp.size > 1 and not plan:
+        log.warning(
+            "tensor parallelism: no parameter matched the tensor-parallel rules: the 'model' "
+            "axis replicates everything (check block naming and divisibility by %d)", tp.size,
+        )
+    for name, s in plan.items():
         owner, leaf = name.rsplit(".", 1)
         module = model.get_submodule(owner)
         p = getattr(module, leaf)
         setattr(module, leaf, nn.Parameter(
-            shard_tensor(p.detach(), split, tp.rank, tp.size), requires_grad=p.requires_grad,
+            shard_tensor(p.detach(), s, tp.rank, tp.size), requires_grad=p.requires_grad,
         ))
-    hidden = int(v.width * v.mlp_ratio)
-    for blk in model.visual.blocks:
-        if v.num_heads % tp.size == 0:
-            attn = blk.attn
-            attn.tp, attn.heads, attn.width = tp, v.num_heads // tp.size, v.width // tp.size
-            attn.proj.tp = tp
-            if attn.inner_attn_ln is not None:
-                attn.inner_attn_ln.tp = tp
-        if hidden % tp.size == 0:
-            mlp = blk.mlp
-            mlp.tp = tp
-            (mlp.w3 if v.naiveswiglu else mlp.fc2).tp = tp
-            if mlp.ffn_ln is not None:
-                mlp.ffn_ln.tp = tp
+    for name, branch, leaves in split:
+        branch.tp = tp
+        if name.endswith(".attn"):
+            branch.heads, branch.width = branch.heads // tp.size, branch.width // tp.size
+        for child_name, child in branch.named_children():
+            s = leaves.get(f"{name}.{child_name}.weight")
+            # a row-parallel projection, or a norm over the sharded width
+            if s is not None and (s.dim == 1 or child.weight.dim() == 1):
+                child.tp = tp
     return plan

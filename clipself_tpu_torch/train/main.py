@@ -59,10 +59,13 @@ Under a launcher, one process a GPU, the JAX trainer's dp / fsdp / tp mesh
 gives a (data 2, fsdp 2, model 2) mesh: each rank takes its rows of the
 global batch (every rank builds the global batch from the seed, or from the
 files in the seeded order), FSDP2 shards the student and the frozen teacher
-over (data, fsdp), the EVA towers' blocks are tensor-parallel over `model`,
-the losses are those of the global batch, rank 0 writes the run's files and
-the checkpoints (in the single-process format, so they resume under any
-mesh), and the evaluator splits each batch over the ranks. `--n-devices`
+over (data, fsdp), the transformer blocks that the JAX package lays out
+over `model` are tensor-parallel over it (the EVA and OpenCLIP ViT image
+towers, the CLIP text tower of every model; the ModifiedResNet, timm, HF
+and CoCa cross-attention parts are replicated, as in JAX), the losses are
+those of the global batch, rank 0 writes the run's files and the
+checkpoints (in the single-process format, so they resume under any mesh),
+and the evaluator splits each batch over the ranks. `--n-devices`
 must equal the launched world size; without a launcher the run is the
 single-process one, and `--fsdp-size` / `--tp-size` above 1 are refused
 with the JAX trainer's error. `--device cpu` runs the group over gloo.
@@ -124,7 +127,6 @@ from clipself_tpu_torch.parallel.mesh import (
     mesh_shape,
     shard_model,
 )
-from clipself_tpu_torch.parallel.tensor_parallel import check_tower
 from clipself_tpu_torch.train import checkpoint as ckpt
 from clipself_tpu_torch.train.methods import (
     clipself_loss,
@@ -434,7 +436,6 @@ def train(args) -> dict:
         # config's patch) and ConvNeXt / Swin (32), where masks on the
         # patch_size grid do not fit the dense map (ROADMAP.md queue 3, Watch)
         args.downsample_factor = dense_stride(cfg.vision)
-    check_tower(cfg, args.tp_size)
     launch = init_distributed(device)
     world = 1 if launch is None else launch.world
     if args.n_devices is not None and args.n_devices != world:

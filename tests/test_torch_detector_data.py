@@ -16,7 +16,7 @@ import os
 
 import numpy as np
 import pytest
-from hypothesis import HealthCheck, given, settings
+from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 from PIL import Image, ImageDraw
 
@@ -99,6 +99,8 @@ def test_rectangle_equals_pillow():
 @settings(max_examples=40, deadline=None, suppress_health_check=list(HealthCheck))
 @given(st.integers(1, 640), st.integers(1, 640), st.floats(0.1, 2.0), st.floats(0.1, 2.0),
        st.integers(0, 2**31), st.tuples(*[st.floats(0, 1)] * 4))
+# a window (0, 1, 1, 2) below a 1x1 resize: Pillow's crop is one zero pixel
+@example(h=1, w=1, rh=1.0, rw=1.0, seed=0, corners=(0.0, 0.0, 1.0, 1.0))
 def test_resize_bilinear_equals_pillow(h, w, rh, rw, seed, corners):
     img = np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
     size = (max(int(round(w * rw)), 1), max(int(round(h * rh)), 1))

@@ -25,7 +25,17 @@ process computes the JAX references:
     resumed in this process;
   - FSDP2's share of the state on each rank, the EVA variants' tensor
     parallelism against the unsharded tower, and the kernel wrappers'
-    refusal of a DTensor.
+    refusal of a DTensor;
+  - the OpenCLIP ViT and CLIP text towers tensor-parallel (`ViT-Tiny-Test`,
+    seeded weights on the JAX init's shapes): two clipself steps on dp4 x
+    tp2 and dp2 x fsdp2 x tp2 against the JAX single-device step and the
+    JAX (2, 2, 2) hybrid loss; on (4, 1, 2) against the unsharded model
+    (image, v2 dense map, v1 RoIs, text, every sharded leaf's gradient) and
+    the checkpoint's round trip; the evaluator at v1 on (2, 1, 2) over four
+    of the ranks against one process; `RN-Tiny-Test`'s replicated ResNet
+    with its text tower sharded against one process;
+  - with no ranks, the plan of every tower family the port builds against
+    the leaves JAX's `tp_shardings` shards, and a tree that matches nothing.
 
 Tolerances, with their reasons: the mesh sums the same float32 products in
 other groupings (row-parallel partial sums, per-rank box sums, FSDP2's
@@ -35,7 +45,9 @@ RegionCLIP loss 1e-5 of its value (`tests/test_torch_regionclip.py`); the
 local loss and its feature gradients 1e-6 (a [16, 16] logit matrix); the
 evaluator's metrics, the checkpoint's tensors and the trainer's resumed
 state are EQUAL (top-k decisions and copies); the trainer's losses on the
-mesh against its single-process losses rtol 1e-5. The detector: the loss
+mesh against its single-process losses rtol 1e-5; the tensor-parallel ViT
+against the unsharded model: outputs 1e-5, gradients 1e-4 of each
+tensor's largest entry (the EVA variants' bars). The detector: the loss
 and every metric within 1e-4 relative of the JAX step (the whole-loss bar
 of `tests/test_torch_detector_train.py`: convolutions summed in another
 order than XLA's), the loss rtol 1e-5 and the heads after one AdamW step
@@ -47,7 +59,10 @@ reader): exactly its rows' indices, and its rows EQUAL to the whole
 batch's cut to them.
 """
 
+import contextlib
 import copy
+import dataclasses
+import logging
 import os
 from functools import partial
 
@@ -59,17 +74,22 @@ import jax
 import jax.numpy as jnp
 
 import torch_parallel_cases as cases
+import torch_coca_cases
+import test_torch_timm_towers as timm_cases
+from jax.sharding import PartitionSpec
 from test_train_step import _batch
+from clipself_tpu.core import config as jconfig
 from clipself_tpu.detector import config as jdconfig
 from clipself_tpu.detector import train as jdtrain
 from clipself_tpu.detector.fvit import FViTDetector as JDetector
 from clipself_tpu.models.factory import create_model as jax_create_model
 from clipself_tpu.parallel.mesh import create_mesh as jax_create_mesh
-from clipself_tpu.parallel.mesh import hybrid_shardings, shard_batch as jax_shard_batch
+from clipself_tpu.parallel.mesh import hybrid_shardings, shard_batch as jax_shard_batch, tp_shardings
 from clipself_tpu.train import contrastive as jcontrastive
 from clipself_tpu.train import methods as jmethods
 from clipself_tpu.train import optim as joptim
 from clipself_tpu.train import step as jstep
+from clipself_tpu_torch.core import config as pmodel_config
 from clipself_tpu_torch.core.config import get_model_config
 from clipself_tpu_torch.data import loader as dloader
 from clipself_tpu_torch.data.synthetic import class_embeddings, synthetic_panoptic_batch
@@ -79,6 +99,8 @@ from clipself_tpu_torch.detector import fvit as dfvit
 from clipself_tpu_torch.detector import rpn as drpn
 from clipself_tpu_torch.detector import train as dtrain
 from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
+from clipself_tpu_torch.models import torch_io
+from clipself_tpu_torch.models.factory import create_model, model_class
 from clipself_tpu_torch.models.torch_io import detector_state_dict_from_jax, state_dict_from_jax
 from clipself_tpu_torch.parallel import mesh as pmesh
 from clipself_tpu_torch.parallel import tensor_parallel as tpar
@@ -122,7 +144,7 @@ def _eval_batches():
     ]
 
 
-def _det_weights(shapes, rng):
+def _seeded_weights(shapes, rng):
     """Seeded float32 weights on a tree of shapes: a kernel of spread
     fan_in^-0.5, a norm scale 1 + 0.1 noise, the learned temperature 37,
     any other leaf 0.1 noise."""
@@ -146,14 +168,14 @@ def _det_case():
     jcfg = jdconfig.PRESETS["tiny_test"]
     jclip, _ = jax_create_model(jcfg.clip_model, dtype=jnp.float32, init=False)
     rng = np.random.default_rng(21)
-    clip_params = _det_weights(
+    clip_params = _seeded_weights(
         jax.eval_shape(lambda: jax_create_model(jcfg.clip_model, dtype=jnp.float32, seed=0)[1]), rng,
     )
     ce = rng.standard_normal((jcfg.num_classes + 1, jcfg.embed_dim)).astype(np.float32)
     ce /= np.linalg.norm(ce, axis=-1, keepdims=True)
     jdet = JDetector(jcfg, dtype=jnp.float32)
     taps = [jax.ShapeDtypeStruct((1, 8, 8, jcfg.backbone_width), jnp.float32)] * len(jcfg.out_indices)
-    heads = _det_weights(jax.eval_shape(
+    heads = _seeded_weights(jax.eval_shape(
         lambda t: jdet.init(jax.random.PRNGKey(1), t, jnp.ones((1, 1, 4)), jnp.asarray(ce))["params"], taps,
     ), rng)
     rng = np.random.default_rng(11)
@@ -235,9 +257,18 @@ def run(tmp_path_factory):
     logs = tmp_path_factory.mktemp("parallel_logs")
     det_case = _det_case()
     det_out = tmp_path_factory.mktemp("detector_out")
+    vit_model, _ = jax_create_model(cases.VIT, dtype=jnp.float32, init=False)
+    vit_params = _seeded_weights(jax.eval_shape(
+        lambda: jax_create_model(cases.VIT, dtype=jnp.float32, seed=0)[1]), np.random.default_rng(3),
+    )
+    rn = create_model(cases.RN, device="cpu", dtype=torch.float32, seed=0)
     payload = {
         "state_dict": state_dict_from_jax(params),
+        "vit_state_dict": state_dict_from_jax(vit_params),
+        "rn_state_dict": {k: v.clone() for k, v in rn.state_dict().items()},
         "batch": batch,
+        "rn_batch": {k: np.asarray(v) for k, v in _batch(np.random.default_rng(1), s=64, crop=64).items()},
+        "tp_text": np.random.default_rng(6).integers(1, 512, (2, 16)).astype(np.int64),
         "region_batch": _region_batch(),
         "nouns": nouns,
         "region_noise": np.asarray(jax.random.uniform(region_key, (REGION_C,))),
@@ -267,10 +298,10 @@ def run(tmp_path_factory):
     ref = {}
     sched = joptim.make_schedule("cosine", cases.LR, warmup=cases.WARMUP, total_steps=cases.TOTAL)
 
-    def jax_run(mesh, shard):
-        tx = joptim.build_optimizer(params, sched, wd=cases.WD, unlocked_groups=LAYERS, num_layers=LAYERS)
-        state = jstep.TrainState.create(jax.tree.map(jnp.array, params), tx)
-        teacher = jax.tree.map(jnp.array, params)
+    def jax_run(mesh, shard, jm=jmodel, p=params):
+        tx = joptim.build_optimizer(p, sched, wd=cases.WD, unlocked_groups=LAYERS, num_layers=LAYERS)
+        state = jstep.TrainState.create(jax.tree.map(jnp.array, p), tx)
+        teacher = jax.tree.map(jnp.array, p)
         state_sh = teacher_sh = None
         if shard:
             state_sh = hybrid_shardings(mesh, state, min_size=128)
@@ -278,21 +309,28 @@ def run(tmp_path_factory):
             state = jax.tree.map(jax.device_put, state, state_sh)
             teacher = jax.tree.map(jax.device_put, teacher, teacher_sh)
         step = jstep.make_train_step(
-            jmodel, tx, jmethods.clipself_loss, mesh=mesh,
+            jm, tx, jmethods.clipself_loss, mesh=mesh,
             state_sharding=state_sh, teacher_sharding=teacher_sh,
         )
         jb = jax_shard_batch(mesh, batch) if mesh is not None else {k: jnp.asarray(v) for k, v in batch.items()}
         return step, state, teacher, jb
 
-    step, state, teacher, jb = jax_run(None, False)
-    ref["losses"] = []
-    for _ in range(2):
-        state, metrics = step(state, teacher, jb, jax.random.PRNGKey(0))
-        ref["losses"].append(float(metrics["loss"]))
-    ref["w3"] = np.asarray(state.params["visual"]["blocks_1"]["mlp"]["w3"]["kernel"]).T
-    hy_mesh = jax_create_mesh(8, axis_names=("data", "fsdp", "model"), shape=(2, 2, 2))
-    step, state, teacher, jb = jax_run(hy_mesh, True)
-    ref["hybrid_loss"] = float(step(state, teacher, jb, jax.random.PRNGKey(0))[1]["loss"])
+    def distill_refs(jm, p, weight):
+        """Two single-device steps (the losses, ``weight`` after them) and
+        the first (2, 2, 2) hybrid step's loss."""
+        step, state, teacher, jb = jax_run(None, False, jm, p)
+        out = {"losses": []}
+        for _ in range(2):
+            state, metrics = step(state, teacher, jb, jax.random.PRNGKey(0))
+            out["losses"].append(float(metrics["loss"]))
+        out["weight"] = np.asarray(weight(state.params)).T
+        hy_mesh = jax_create_mesh(8, axis_names=("data", "fsdp", "model"), shape=(2, 2, 2))
+        step, state, teacher, jb = jax_run(hy_mesh, True, jm, p)
+        out["hybrid_loss"] = float(step(state, teacher, jb, jax.random.PRNGKey(0))[1]["loss"])
+        return out
+
+    ref["eva"] = distill_refs(jmodel, params, lambda p: p["visual"]["blocks_1"]["mlp"]["w3"]["kernel"])
+    ref["vit"] = distill_refs(vit_model, vit_params, lambda p: p["visual"]["resblocks_1"]["c_proj"]["kernel"])
 
     rb = {k: jnp.asarray(v) for k, v in payload["region_batch"].items()}
     ref["region_loss"] = float(jax.jit(
@@ -311,6 +349,11 @@ def run(tmp_path_factory):
         model, payload["eval_batches"], payload["eval_embeddings"], device="cpu",
         ann_bucket=payload["eval_bucket"],
     )
+    vit = cases.tiny_model(payload["vit_state_dict"], cases.VIT).requires_grad_(False)
+    ref["vit_eval"] = evaluate_zero_shot(
+        vit, payload["eval_batches"], payload["eval_embeddings"], device="cpu",
+        ann_bucket=payload["eval_bucket"], extract_type="v1",
+    )
     ref["trainer"] = train_main.main(_trainer_argv(logs, "single", 2))
     ref["detector"] = _det_references(det_case)
     ref["detector_main"] = dtrain.main(DET_ARGV + ["--output", str(det_out / "single")])
@@ -320,11 +363,11 @@ def run(tmp_path_factory):
 
 @pytest.mark.parametrize("mesh", list(cases.DISTILL_MESHES))
 def test_distill_steps_on_a_mesh_match_the_jax_single_device_step(run, mesh):
-    ref = run["ref"]
+    ref = run["ref"]["eva"]
     got = run["ranks"][0][mesh]
     np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LOSS_RTOL)
     np.testing.assert_allclose(got["losses"][0], ref["hybrid_loss"], rtol=LOSS_RTOL)
-    np.testing.assert_allclose(got["w3"], ref["w3"], rtol=0, atol=W3_ATOL)
+    np.testing.assert_allclose(got["w3"], ref["weight"], rtol=0, atol=W3_ATOL)
     assert got["losses"][1] < got["losses"][0]
     for r in run["ranks"][1:]:  # every rank logs the global loss
         assert r[mesh]["losses"] == got["losses"]
@@ -486,6 +529,178 @@ def test_tensor_parallel_eva_variants_match_the_unsharded_tower(run, variant):
         np.testing.assert_allclose(
             got["sharded"]["grads"][name], want, rtol=0, atol=1e-4 * np.abs(want).max() + 1e-8, err_msg=name,
         )
+
+
+@pytest.mark.parametrize("mesh", list(cases.VIT_MESHES))
+def test_vit_distill_steps_on_a_tp_mesh_match_the_jax_single_device_step(run, mesh):
+    """`ViT-Tiny-Test`, its resblocks and text tower tensor-parallel: two
+    clipself steps on dp4 x tp2 and dp2 x fsdp2 x tp2 against the JAX
+    single-device step of the same weights and the first against the JAX
+    (2, 2, 2) hybrid step, at the EVA meshes' bars; block 1's `c_proj`
+    after two AdamW steps."""
+    ref = run["ref"]["vit"]
+    got = run["ranks"][0][mesh]
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["losses"][0], ref["hybrid_loss"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["w3"], ref["weight"], rtol=0, atol=W3_ATOL)
+    assert got["losses"][1] < got["losses"][0]
+    for r in run["ranks"][1:]:
+        assert r[mesh]["losses"] == got["losses"]
+    assert "visual.transformer.resblocks.1.attn.in_proj_weight" in got["plan"] and cases.C_PROJ in got["plan"]
+    assert {f"text.transformer.resblocks.{i}.{leaf}" for i in range(2)
+            for leaf in ("attn.in_proj_weight", "mlp.c_proj.weight")} <= set(got["plan"])
+
+
+@pytest.mark.parametrize("output", ["image", "dense", "v1", "text"])
+def test_tensor_parallel_vit_matches_the_unsharded_model(run, output):
+    """`ViT-Tiny-Test` laid out on (4, 1, 2) against the same model
+    unsharded on the same rank: the image embedding, the dense map (v2), the
+    v1 RoI features (mask-attention pooling over the rank's heads) and the
+    text embedding within 1e-5 (float32, the row-parallel sums in other
+    groupings), and the gradients of their squares' sum at every sharded
+    leaf, gathered whole, within 1e-4 of each tensor's largest entry."""
+    got = run["ranks"][0]["vit_tp"]
+    np.testing.assert_allclose(got["sharded"][output], got["plain"][output], rtol=0, atol=1e-5)
+    if output == "image":
+        assert got["plain"]["grads"].keys() == got["sharded"]["grads"].keys() == set(got["plan"])
+        for name, want in got["plain"]["grads"].items():
+            np.testing.assert_allclose(
+                got["sharded"]["grads"][name], want, rtol=0, atol=1e-4 * np.abs(want).max() + 1e-8, err_msg=name,
+            )
+
+
+def test_full_state_dict_of_a_tensor_parallel_vit_round_trips(run):
+    """On the ranks, `full_state_dict` of the sharded ViT model (the
+    checkpoint's format) is the unsharded state dict, EQUAL, and stays so
+    after `load_full_state_dict` of it."""
+    for r in run["ranks"]:
+        assert r["vit_tp"]["state_equal"] and r["vit_tp"]["round_trip_equal"]
+
+
+def test_replicated_resnet_tower_on_a_tp_mesh_matches_one_process(run):
+    """`RN-Tiny-Test` on (4, 1, 2): the plan shards its text tower alone (the
+    ResNet matches no rule and stays whole on every rank, as in JAX); two
+    clipself steps equal the one-process steps (rtol 1e-5) and the text
+    embedding the unsharded tower's (1e-5)."""
+    for r in run["ranks"]:
+        got = r["rn_tp"]
+        assert got["plan"] and all(n.startswith("text.transformer.resblocks.") for n in got["plan"])
+        np.testing.assert_allclose(got["sharded"], got["plain"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["sharded_text"], got["plain_text"], rtol=0, atol=1e-5)
+
+
+def test_tensor_parallel_vit_evaluator_at_v1_equals_the_single_process_one(run):
+    """The evaluator of `ViT-Tiny-Test` at extract type v1 on a (2, 1, 2) mesh
+    over four of the ranks: EQUAL to the single-process evaluator."""
+    ref = run["ref"]["vit_eval"]
+    assert ref
+    for rank, r in enumerate(run["ranks"]):
+        if rank < 4:
+            assert r["vit_eval"] == pytest.approx(ref, rel=0, abs=0, nan_ok=True)
+        else:
+            assert r["vit_eval"] is None
+
+
+# ---- the plan against JAX's tp_shardings, no ranks -------------------------
+
+@contextlib.contextmanager
+def _tiny_timm_archs():
+    """The tiny timm arch entries of `test_torch_timm_towers.py` in both
+    packages' tables, taken out after."""
+    for jtable, ttable, tiny in timm_cases.TABLES:
+        jtable.update(tiny)
+        ttable.update(tiny)
+    try:
+        yield
+    finally:
+        for jtable, ttable, tiny in timm_cases.TABLES:
+            for name in tiny:
+                jtable.pop(name, None)
+                ttable.pop(name, None)
+
+
+def _rel_pos_cfg(pkg):
+    cfg = pkg.get_model_config(cases.NAME)
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, **cases.VARIANTS["eva01_rel_pos"]))
+
+
+# family -> (JAX config, port config) at the tiny test size
+PLAN_FAMILIES = {
+    "eva02": lambda: (jconfig.get_model_config(cases.NAME), get_model_config(cases.NAME)),
+    "eva01_rel_pos": lambda: (_rel_pos_cfg(jconfig), _rel_pos_cfg(pmodel_config)),
+    "vit": lambda: (jconfig.get_model_config(cases.VIT), get_model_config(cases.VIT)),
+    "rn": lambda: (jconfig.get_model_config(cases.RN), get_model_config(cases.RN)),
+    "hf_vit": lambda: (jconfig.get_model_config("hf-vit-tiny-test"), get_model_config("hf-vit-tiny-test")),
+    "coca_eva": lambda: (torch_coca_cases.coca_config("eva", jconfig), torch_coca_cases.coca_config("eva")),
+    "coca_vit": lambda: (torch_coca_cases.coca_config("vit", jconfig), torch_coca_cases.coca_config("vit")),
+    "convnext": lambda: (timm_cases.jcfg("convnext"), timm_cases.tcfg("convnext")),
+    "swin": lambda: (timm_cases.jcfg("swin"), timm_cases.tcfg("swin")),
+    "timm_vit": lambda: (timm_cases.jcfg("vit_relpos"), timm_cases.tcfg("vit_relpos")),
+}
+
+
+def _jax_sharded(jcfg, cfg, part=None, size=2) -> set:
+    """The port's names of the leaves that JAX's `tp_shardings` shards on a
+    ('data', 'model') = (8 / size, size) mesh, over the whole tree (or its
+    ``part``)."""
+    shapes = jax.eval_shape(lambda: jax_create_model(jcfg, dtype=jnp.float32, seed=0)[1])
+    tree = shapes if part is None else {part: shapes[part]}
+    mesh = jax_create_mesh(8, axis_names=("data", "model"), shape=(8 // size, size))
+    specs = torch_io._flatten(tp_shardings(mesh, tree))
+    return {torch_io.flax_to_torch_key(path, cfg)[0] for path, s in specs.items() if s.spec != PartitionSpec()}
+
+
+@pytest.mark.parametrize("family", list(PLAN_FAMILIES))
+def test_tp_plan_shards_the_leaves_jax_tp_shardings_shards(family):
+    """For each tower family the port builds, at its tiny size, the plan at
+    group size 2 shards exactly the leaves that JAX's `tp_shardings` shards
+    on a (4, 2) mesh, but for the port's own layout of the EVA rel-pos
+    tables (split by heads with their attention; JAX replicates them). An
+    `in_proj` whose heads do not divide would be the other difference: no
+    tiny config has one. The timm towers, the ResNet, the HF trunk and
+    CoCa's cross-attention and pooler stay whole, as in JAX."""
+    with _tiny_timm_archs():
+        jcfg, cfg = PLAN_FAMILIES[family]()
+        want = _jax_sharded(jcfg, cfg)
+        model = model_class(cfg)(cfg, torch.float32)
+    got = set(tpar.tp_plan(model, 2))
+    tables = {n for n in got if n.endswith("relative_position_bias_table")}
+    assert got - tables == want
+    assert bool(tables) == (family == "eva01_rel_pos")
+    assert not any(".cross_attn." in n or "attn_pool" in n for n in got)
+    if family in ("convnext", "swin", "timm_vit", "rn", "hf_vit"):
+        assert got and not any(n.startswith("visual.") for n in got)
+
+
+def test_tp_plan_keeps_an_attention_whose_heads_do_not_divide_whole():
+    """`ViT-Tiny-Test` (2 heads) at group size 4: JAX shards `in_proj` (3W
+    divides) and `out_proj` (W divides); the port keeps each attention
+    branch whole, since its heads do not divide, and shards the MLPs (hidden
+    256) as JAX does."""
+    jcfg, cfg = PLAN_FAMILIES["vit"]()
+    want = _jax_sharded(jcfg, cfg, size=4)
+    got = set(tpar.tp_plan(model_class(cfg)(cfg, torch.float32), 4))
+    assert got and not any(".attn." in n for n in got)
+    assert want - got == {n for n in want if ".attn." in n} != set()
+
+
+def test_tp_plan_of_a_tree_that_matches_nothing_is_empty_and_warns(caplog):
+    """A tree without a block that takes a group (the ConvNeXt tower alone):
+    JAX's `tp_shardings` shards nothing and warns; the port's plan is empty,
+    nothing is sliced, and it warns too."""
+    with _tiny_timm_archs():
+        jcfg, cfg = PLAN_FAMILIES["convnext"]()
+        with caplog.at_level(logging.WARNING, logger="clipself_tpu"):
+            assert _jax_sharded(jcfg, cfg, part="visual") == set()
+        assert "no parameter matched" in caplog.text
+        caplog.clear()
+        tower = model_class(cfg)(cfg, torch.float32).visual
+    before = {n: p.shape for n, p in tower.named_parameters()}
+    with caplog.at_level(logging.WARNING, logger="clipself_tpu_torch"):
+        plan = tpar.shard_tensor_parallel(tower, tpar.TensorParallel(None, 0, 2))
+    assert plan == {} and "no parameter matched" in caplog.text
+    assert {n: p.shape for n, p in tower.named_parameters()} == before
+    assert not any(getattr(m, "tp", None) for m in tower.modules())
 
 
 def test_kernel_wrappers_refuse_a_dtensor(run):

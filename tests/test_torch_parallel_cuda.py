@@ -1,6 +1,8 @@
 """The mesh paths on the card, two ranks at EVA02-CLIP-B/16's full width (2
 of its 12 blocks, 448^2 images, 4 crops an image at 224^2, float32): dp 2
-and tp 2 against the same step in one process. Over NCCL where the machine
+and tp 2 against the same step in one process; the OpenCLIP ViT at tp 2:
+ViT-L-14-336's step at 896^2 (2 of its 24 blocks, 8 of its 16 heads a
+rank) and ViT-B-16's v1 evaluator batch at 1024^2. Over NCCL where the machine
 has two cards; on one card the two ranks share it over gloo (two processes
 on one H100 run every collective FSDP2 needs over gloo with CUDA tensors:
 `python -m clipself_tpu_torch.tools.collectives_probe`). Marked `cuda`:
@@ -43,16 +45,24 @@ DET_ARGV = ["--synthetic", "--preset", "ov_coco_vitb16", "--batch-size", "8", "-
             "--steps-per-epoch", "2", "--log-every", "1", "--precision", "fp32"]
 
 
-def _cfg():
+# the tensor-parallel OpenCLIP ViT step: ViT-L-14-336 at 896^2 (8 of its 16
+# heads on each rank), 4 crops at its 336^2, and the weight whose first
+# gradient is compared; ViT-B-16's v1 evaluator batch at 1024^2
+VIT_L14 = ("ViT-L-14-336", 896, 336, "visual.transformer.resblocks.1.mlp.c_proj.weight")
+V1_IMAGE, V1_BOXES, V1_REL = 1024, 20, 1e-5
+
+
+def _cfg(name="EVA02-CLIP-B-16"):
     from clipself_tpu_torch.core.config import get_model_config
 
-    cfg = get_model_config("EVA02-CLIP-B-16")
+    cfg = get_model_config(name)
     return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=LAYERS))
 
 
-def _run(device, mesh_shape=None):
-    """Two distill steps; the losses, the first step's full w3 gradient and
-    the kernel launches."""
+def _run(device, mesh_shape=None, case=("EVA02-CLIP-B-16", IMAGE, 224, W3)):
+    """Two distill steps of ``case`` (model, image size, crop size, the
+    weight read); the losses, the first step's full gradient of that weight
+    and the kernel launches."""
     from functools import partial
 
     from clipself_tpu_torch.data.loader import SyntheticDistillData
@@ -63,10 +73,11 @@ def _run(device, mesh_shape=None):
     from clipself_tpu_torch.train.optim import Optimizer, make_schedule, set_trainable
     from clipself_tpu_torch.train.step import TrainState, make_train_step
 
-    cfg = _cfg()
+    name, image, crop, weight = case
+    cfg = _cfg(name)
     model = create_model(cfg, device=device, dtype=torch.float32, seed=0)
     teacher = copy.deepcopy(model).requires_grad_(False)
-    host = SyntheticDistillData(batch_size=BATCH, det_size=IMAGE, crop_size=224, max_anns=CROPS).batch
+    host = SyntheticDistillData(batch_size=BATCH, det_size=image, crop_size=crop, max_anns=CROPS).batch
     mesh = None
     if mesh_shape is not None:
         mesh = create_mesh(mesh_shape, device)
@@ -81,8 +92,8 @@ def _run(device, mesh_shape=None):
 
     def step_after_reading_the_gradient(count):
         if count == 0:
-            g = dict(zip(opt.names, opt.params))[W3].grad
-            grads.append((g if mesh is None else full_leaf(W3, g, mesh)).detach().cpu().numpy().copy())
+            g = dict(zip(opt.names, opt.params))[weight].grad
+            grads.append((g if mesh is None else full_leaf(weight, g, mesh)).detach().cpu().numpy().copy())
         update(count)
 
     opt.step = step_after_reading_the_gradient
@@ -97,14 +108,43 @@ def _run(device, mesh_shape=None):
     return losses, grads[0], [c.count for c in counters]
 
 
-def _rank(rank, port, mesh_shape, backend, queue):
+def _v1_batch(device, mesh_shape=None):
+    """ViT-B-16's evaluator call at extract type v1 on one batch of 2 images
+    at 1024^2 with 20 boxes and masks (`encode_rois_and_masks` with
+    mask-attention pooling, as `eval/zero_shot.py` calls it), then its crops'
+    embeddings, in float32; the features on the host and the launches."""
+    from clipself_tpu_torch.data.synthetic import synthetic_panoptic_batch
+    from clipself_tpu_torch.models.factory import create_model
+    from clipself_tpu_torch.ops import attention, layer_norm
+    from clipself_tpu_torch.parallel.mesh import create_mesh, shard_model
+
+    from clipself_tpu_torch.core.config import get_model_config
+
+    cfg = get_model_config("ViT-B-16")
+    model = create_model(cfg, device=device, dtype=torch.float32, seed=0).requires_grad_(False)
+    if mesh_shape is not None:
+        shard_model(model, cfg, create_mesh(mesh_shape, device))
+    grid = V1_IMAGE // cfg.vision.patch_size
+    b = synthetic_panoptic_batch(0, batch=2, image_size=V1_IMAGE, max_anns=V1_BOXES, valid_anns=V1_BOXES,
+                                 crop_size=224, mask_hw=grid, n_classes=8)
+    images, boxes, masks, crops = (torch.as_tensor(b[k], device=device) for k in ("images", "boxes", "gt_masks", "crops"))
+    for c in (attention.LAUNCHES, layer_norm.LAUNCHES):
+        c.reset()
+    with torch.no_grad():
+        rois, pooled = model.encode_rois_and_masks(images, boxes[..., :4], masks, extract_type="v1", mask_attn=True)
+        emb = model.encode_image(crops.flatten(0, 1), normalize=True)
+    out = {k: t.float().cpu().numpy() for k, t in (("rois", rois), ("masks", pooled), ("crops", emb))}
+    return out, [attention.LAUNCHES.count, layer_norm.LAUNCHES.count]
+
+
+def _rank(rank, port, mesh_shape, backend, queue, fn=_run, *args):
     import torch.distributed as dist
 
     device = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(device)
     try:
         dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=2)
-        queue.put((rank, _run(device, mesh_shape)))
+        queue.put((rank, fn(device, mesh_shape, *args)))
     except Exception:  # handed to the test process, which raises it
         queue.put((rank, traceback.format_exc()))
     finally:
@@ -112,16 +152,8 @@ def _rank(rank, port, mesh_shape, backend, queue):
             dist.destroy_process_group()
 
 
-@pytest.fixture(scope="module")
-def single():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return _run(torch.device("cuda", 0))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (1, 1, 2)], ids=["dp2", "tp2"])
-def test_two_ranks_match_one_process(single, mesh_shape):
+def _two_ranks(mesh_shape, fn=_run, *args) -> dict:
+    """``fn(device, mesh_shape, *args)`` on two spawned ranks: rank -> result."""
     import torch.multiprocessing as mp
 
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
@@ -130,7 +162,7 @@ def test_two_ranks_match_one_process(single, mesh_shape):
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=_rank, args=(r, port, mesh_shape, backend, queue)) for r in range(2)]
+    procs = [ctx.Process(target=_rank, args=(r, port, mesh_shape, backend, queue, fn) + args) for r in range(2)]
     for p in procs:
         p.start()
     try:
@@ -142,13 +174,65 @@ def test_two_ranks_match_one_process(single, mesh_shape):
                 p.kill()
     errors = [v for v in got.values() if isinstance(v, str)]
     assert not errors, errors[0]
+    return got
+
+
+@pytest.fixture(scope="module")
+def single():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return _run(torch.device("cuda", 0))
+
+
+def _match(got, single):
     losses, w3, launches = single
     for rank in (0, 1):
         r_losses, r_w3, r_launches = got[rank]
         for a, b in zip(r_losses, losses):
             assert abs(a - b) <= LOSS_REL * abs(b), (rank, r_losses, losses)
         assert abs(r_w3 - w3).max() <= GRAD_REL * abs(w3).max(), rank
-        assert all(r_launches), (rank, r_launches)
+        assert all(r_launches[:2] + r_launches[3:]), (rank, r_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (1, 1, 2)], ids=["dp2", "tp2"])
+def test_two_ranks_match_one_process(single, mesh_shape):
+    _match(_two_ranks(mesh_shape), single)
+    assert all(single[2])
+
+
+@pytest.mark.cuda
+def test_vit_l14_336_step_at_tp2_matches_one_process():
+    """ViT-L-14-336 (2 of its blocks) at 896^2 on a (1, 1, 2) mesh, 8 of its
+    16 heads of 64 on each rank, against one process: the distill bars
+    above; each rank launches what the one process launches (no RoPE)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    single = _run(torch.device("cuda", 0), case=VIT_L14)
+    torch.cuda.empty_cache()
+    got = _two_ranks((1, 1, 2), _run, VIT_L14)
+    _match(got, single)
+    for rank in (0, 1):
+        assert got[rank][2] == single[2] and single[2][2] == 0, (rank, got[rank][2], single[2])
+
+
+@pytest.mark.cuda
+def test_vit_b16_v1_evaluator_batch_at_tp2_matches_one_process():
+    """ViT-B-16's v1 evaluator batch (mask-attention pooling over a rank's 6
+    of the 12 heads, its crops through the flash kernel at 6 heads) on a
+    (1, 1, 2) mesh against one process, float32: the RoI, mask and crop
+    features within 1e-5 of each tensor's largest entry (the row-parallel
+    sums in another grouping); each rank launches what one process does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    want, launches = _v1_batch(torch.device("cuda", 0))
+    torch.cuda.empty_cache()
+    got = _two_ranks((1, 1, 2), _v1_batch)
+    for rank in (0, 1):
+        feats, r_launches = got[rank]
+        assert r_launches == launches and all(launches), (rank, r_launches, launches)
+        for k, w in want.items():
+            np.testing.assert_allclose(feats[k], w, rtol=0, atol=V1_REL * np.abs(w).max(), err_msg=f"{rank} {k}")
 
 
 def _det_run(device, out: str):

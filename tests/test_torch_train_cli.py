@@ -107,9 +107,10 @@ def test_mesh_flags_parse_and_are_checked_as_the_jax_trainer_checks_them(tmp_pat
     divide the device count and a batch that does not divide over the batch
     shards raise the JAX trainer's errors in its words; without a launcher
     the run has one process, so `--n-devices 2` and `--fsdp-size 2` are
-    refused before anything is written; `--tp-size 2` on a tower that the
-    tensor-parallel plan does not cover names the ROADMAP item where its
-    rules wait. The mesh runs themselves are in test_torch_parallel.py."""
+    refused before anything is written; `--tp-size 2` on the OpenCLIP ViT,
+    a tower the tensor-parallel plan now covers, meets the same check as on
+    the EVA tower, with the JAX trainer's words. The mesh runs themselves
+    are in test_torch_parallel.py."""
     from clipself_tpu.train import main as jax_main
     from clipself_tpu_torch.parallel.mesh import check_batch, mesh_shape
 
@@ -141,8 +142,12 @@ def test_mesh_flags_parse_and_are_checked_as_the_jax_trainer_checks_them(tmp_pat
     with pytest.raises(ValueError, match="--n-devices 2: the launch has 1 process"):
         train_main.main(_argv(tmp_path, "mesh", 1, "--n-devices", "2"))
     argv = [a if a != "EVA02-CLIP-Tiny-Test" else "ViT-Tiny-Test" for a in _argv(tmp_path, "vit", 1)]
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1, item 9.2"):
+    vit_jax_argv = [a if a != "EVA02-CLIP-Tiny-Test" else "ViT-Tiny-Test" for a in jax_argv]
+    with pytest.raises(AssertionError) as jax_err:
+        jax_main.main(vit_jax_argv + ["--n-devices", "1", "--tp-size", "2"])
+    with pytest.raises(ValueError) as port_err:
         train_main.main(argv + ["--tp-size", "2"])
+    assert str(port_err.value) == str(jax_err.value)
     assert not {"mesh", "vit"} & set(os.listdir(tmp_path))  # the port wrote nothing
 
 

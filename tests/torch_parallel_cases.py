@@ -1,7 +1,8 @@
 """The ranks of `tests/test_torch_parallel.py`: one gloo group of processes,
 spawned once, runs every mesh case of the port on `EVA02-CLIP-Tiny-Test`
-(the detector's on preset `tiny_test`) and hands the results back to the
-test process. This module imports nothing of JAX: each spawned rank imports
+(the detector's on preset `tiny_test`; the tensor-parallel OpenCLIP ViT
+and text towers on `ViT-Tiny-Test`, a replicated image tower on
+`RN-Tiny-Test`) and hands the results back to the test process. This module imports nothing of JAX: each spawned rank imports
 it (and the port) afresh."""
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import copy
 import io
 import os
+import shutil
 import socket
 import time
 import traceback
@@ -20,6 +22,14 @@ import torch.distributed as dist
 
 NAME = "EVA02-CLIP-Tiny-Test"
 W3 = "visual.blocks.1.mlp.w3.weight"
+VIT, RN = "ViT-Tiny-Test", "RN-Tiny-Test"
+C_PROJ = "visual.transformer.resblocks.1.mlp.c_proj.weight"
+# the payload's state dict and distill batch of each model
+STATE = {NAME: "state_dict", VIT: "vit_state_dict", RN: "rn_state_dict"}
+BATCH = {NAME: "batch", VIT: "batch", RN: "rn_batch"}
+VIT_MESHES = {"vit_dp4_tp2": (4, 1, 2), "vit_dp2_fsdp2_tp2": (2, 2, 2)}
+TP_MESH = (4, 1, 2)  # the sharded-against-unsharded cases
+VIT_EVAL_MESH = (2, 1, 2)  # over ranks 0-3; the others wait
 DISTILL_MESHES = {"dp8": (8, 1, 1), "dp4_fsdp2": (4, 2, 1), "dp4_tp2": (4, 1, 2), "dp2_fsdp2_tp2": (2, 2, 2)}
 REGION_MESH = (4, 1, 2)  # 4 batch shards, each a tensor-parallel pair
 EVAL_MESH = (2, 2, 2)
@@ -46,13 +56,20 @@ class Group:
     process can work meanwhile, and read with `results`."""
 
     def __init__(self, world: int, payload: dict, cases: str = "run_cases"):
+        import tempfile
+
         import torch.multiprocessing as mp
 
         ctx = mp.get_context("spawn")
         self.world, self.queue = world, ctx.Queue()
         port = free_port()
+        # the payload goes by file: handed to `Process` it is written down
+        # each rank's pipe, which holds `start` until that rank has booted
+        self.dir = tempfile.mkdtemp(prefix="torch_parallel_")
+        path = os.path.join(self.dir, "payload.pt")
+        torch.save(payload, path)
         self.procs = [
-            ctx.Process(target=_rank_main, args=(r, world, port, payload, self.queue, cases))
+            ctx.Process(target=_rank_main, args=(r, world, port, path, self.queue, cases))
             for r in range(world)
         ]
         for p in self.procs:
@@ -86,12 +103,14 @@ class Group:
                 if p.is_alive():
                     p.kill()
                     p.join()
+            shutil.rmtree(self.dir, ignore_errors=True)
         return [torch.load(io.BytesIO(got[r]), weights_only=False) for r in range(self.world)]
 
 
-def _rank_main(rank: int, world: int, port: int, payload: dict, queue, cases: str) -> None:
+def _rank_main(rank: int, world: int, port: int, path: str, queue, cases: str) -> None:
     torch.set_num_threads(1)
     try:
+        payload = torch.load(path, weights_only=False)
         dist.init_process_group(
             "gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world
         )
@@ -161,19 +180,24 @@ def run_cases(payload: dict) -> dict:
     out["trainer"] = trainer_case(payload)
     out["dtensor"] = dtensor_case()
     out["variants"] = {name: variant_case(flags) for name, flags in VARIANTS.items()}
+    out.update({name: distill_case(payload, shape, VIT, C_PROJ) for name, shape in VIT_MESHES.items()})
+    out["vit_tp"] = vit_tp_case(payload)
+    out["rn_tp"] = rn_tp_case(payload)
+    out["vit_eval"] = vit_eval_case(payload)
     return out
 
 
-def _layout(payload, shape):
-    """Student and frozen teacher laid out on a fresh mesh of ``shape``."""
+def _layout(payload, shape, name: str = NAME):
+    """Student and frozen teacher of model ``name`` laid out on a fresh mesh
+    of ``shape``."""
     from clipself_tpu_torch.core.config import get_model_config
     from clipself_tpu_torch.parallel.mesh import create_mesh, shard_model
     from clipself_tpu_torch.train.optim import set_trainable
 
-    cfg = get_model_config(NAME)
+    cfg = get_model_config(name)
     layers = cfg.vision.layers
     mesh = create_mesh(shape, torch.device("cpu"))
-    model = tiny_model(payload["state_dict"])
+    model = tiny_model(payload[STATE[name]], name)
     teacher = copy.deepcopy(model).requires_grad_(False)
     set_trainable(model, layers, layers)
     shard_model(model, cfg, mesh)
@@ -187,15 +211,16 @@ def _numel(tensors) -> int:
     return sum(local_tensor(t).numel() for t in tensors)
 
 
-def distill_case(payload: dict, shape) -> dict:
-    """Two clipself steps on the mesh: the global losses, block 1's w3 after
-    them, and this rank's share of the student, teacher and AdamW state."""
+def distill_case(payload: dict, shape, name: str = NAME, weight: str = W3) -> dict:
+    """Two clipself steps of model ``name`` on the mesh: the global losses,
+    ``weight`` (block 1's down projection) after them, and this rank's share
+    of the student, teacher and AdamW state."""
     from clipself_tpu_torch.parallel.mesh import full_leaf, shard_batch
     from clipself_tpu_torch.train.methods import clipself_loss
     from clipself_tpu_torch.train.optim import Optimizer, make_schedule
     from clipself_tpu_torch.train.step import TrainState, make_train_step
 
-    cfg, mesh, model, teacher = _layout(payload, shape)
+    cfg, mesh, model, teacher = _layout(payload, shape, name)
     layers = cfg.vision.layers
     opt = Optimizer(
         model, make_schedule("cosine", LR, WARMUP, TOTAL), wd=WD, unlocked_groups=layers,
@@ -203,9 +228,9 @@ def distill_case(payload: dict, shape) -> dict:
     )
     state = TrainState(model, opt)
     step_fn = make_train_step(partial(clipself_loss, group=mesh.batch_group), teacher, mesh=mesh)
-    batch = _tensors(shard_batch(mesh, payload["batch"]))
+    batch = _tensors(shard_batch(mesh, payload[BATCH[name]]))
     losses = [float(step_fn(state, batch)["loss"]) for _ in range(2)]
-    w3 = full_leaf(W3, dict(model.named_parameters())[W3], mesh)
+    w3 = full_leaf(weight, dict(model.named_parameters())[weight], mesh)
     opt_state = [t for s in opt.opt.state.values() for t in s.values() if torch.is_tensor(t) and t.dim()]
     return {
         "losses": losses,
@@ -447,3 +472,106 @@ def variant_case(flags: dict) -> dict:
                     "grads": {n: g.numpy() for n, g in grads.items()}}
     out["plan"] = sorted(mesh.plan)
     return out
+
+
+def _encodings(model, x, boxes, text) -> dict:
+    """The image embedding, the dense map (v2), the v1 RoI features and the
+    text embedding of ``model``, and one backward of their squares' sum (the
+    text last: FSDP2 takes its root from the first forward)."""
+    out = {
+        "image": model.encode_image(x),
+        "dense": model.encode_dense(x, keep_shape=True),
+        "v1": model.encode_pseudo_boxes(x, boxes, extract_type="v1"),
+        "text": model.encode_text(text),
+    }
+    sum(t.square().sum() for t in out.values()).backward()
+    return {k: t.detach().numpy() for k, t in out.items()}
+
+
+def vit_tp_case(payload: dict) -> dict:
+    """`ViT-Tiny-Test` laid out on (4, 1, 2) against the same model unsharded
+    on the same rank: its full state dict against the unsharded one and
+    after a round trip through `load_full_state_dict`; the image embedding,
+    the dense map, the v1 RoI features, the text embedding and the
+    gradients of every sharded leaf (gathered whole) of one backward."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.parallel.mesh import create_mesh, full_leaf, full_state_dict, load_full_state_dict, shard_model
+
+    model = tiny_model(payload["vit_state_dict"], VIT)
+    sharded = copy.deepcopy(model)
+    mesh = create_mesh(TP_MESH, torch.device("cpu"))
+    shard_model(sharded, get_model_config(VIT), mesh)
+    want = model.state_dict()
+
+    def equal(state):
+        return state.keys() == want.keys() and all(torch.equal(state[k], want[k]) for k in want)
+
+    state = full_state_dict(sharded, mesh)
+    saved = equal(state)
+    load_full_state_dict(sharded, state, mesh)
+    out = {"plan": sorted(mesh.plan), "state_equal": saved, "round_trip_equal": equal(full_state_dict(sharded, mesh))}
+    x = torch.from_numpy(payload["batch"]["images"][:2])
+    boxes = torch.from_numpy(payload["batch"]["boxes"][:2, :, :4])
+    text = torch.from_numpy(payload["tp_text"])
+    for tag, m in (("plain", model), ("sharded", sharded)):
+        got = _encodings(m, x, boxes, text)
+        named = dict(m.named_parameters())
+        got["grads"] = {
+            n: (named[n].grad if tag == "plain" else full_leaf(n, named[n].grad, mesh)).numpy()
+            for n in mesh.plan
+        }
+        out[tag] = got
+    return out
+
+
+def rn_tp_case(payload: dict) -> dict:
+    """`RN-Tiny-Test` on (4, 1, 2), its ResNet replicated over `model` and its
+    text tower sharded: two clipself steps against the same two steps in one
+    process on this rank (the whole batch, no mesh), and the text
+    embedding against the unsharded tower's (after the steps: FSDP2 takes
+    its root from the first forward)."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.parallel.mesh import shard_batch
+    from clipself_tpu_torch.train.methods import clipself_loss
+    from clipself_tpu_torch.train.optim import Optimizer, make_schedule, set_trainable
+    from clipself_tpu_torch.train.step import TrainState, make_train_step
+
+    layers = get_model_config(RN).vision.layers
+    text = torch.from_numpy(payload["tp_text"])
+    out = {}
+    for tag in ("plain", "sharded"):
+        if tag == "sharded":
+            _, mesh, model, teacher = _layout(payload, TP_MESH, RN)
+            batch = _tensors(shard_batch(mesh, payload["rn_batch"]))
+            out["plan"] = sorted(mesh.plan)
+        else:
+            mesh, model = None, tiny_model(payload["rn_state_dict"], RN)
+            teacher = copy.deepcopy(model).requires_grad_(False)
+            set_trainable(model, layers, layers)
+            batch = _tensors(payload["rn_batch"])
+        opt = Optimizer(model, make_schedule("cosine", LR, WARMUP, TOTAL), wd=WD, unlocked_groups=layers,
+                        num_layers=layers, mesh=mesh)
+        group = None if mesh is None else mesh.batch_group
+        step_fn = make_train_step(partial(clipself_loss, group=group), teacher, mesh=mesh)
+        out[tag] = [float(step_fn(TrainState(model, opt), batch)["loss"]) for _ in range(2)]
+        with torch.no_grad():  # the text tower is frozen: after the steps as before
+            out[f"{tag}_text"] = model.encode_text(text).numpy()
+    return out
+
+
+def vit_eval_case(payload: dict):
+    """The zero-shot evaluator of `ViT-Tiny-Test` at extract type v1 on a
+    (2, 1, 2) mesh over ranks 0-3 (None on the others)."""
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
+    from clipself_tpu_torch.parallel.mesh import create_mesh, shard_model
+
+    mesh = create_mesh(VIT_EVAL_MESH, torch.device("cpu"))
+    if mesh is None:
+        return None
+    model = tiny_model(payload["vit_state_dict"], VIT).requires_grad_(False)
+    shard_model(model, get_model_config(VIT), mesh)
+    return evaluate_zero_shot(
+        model, payload["eval_batches"], payload["eval_embeddings"], device="cpu",
+        ann_bucket=payload["eval_bucket"], extract_type="v1", mesh=mesh,
+    )
