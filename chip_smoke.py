@@ -128,9 +128,10 @@ then for each model, B/16 first:
    the same step in one process: one float32 step (the first loss within
    1e-5, the first gradient of block 11's `mlp.c_proj.weight`, gathered
    whole, within 1e-4 of its largest entry), then 1 + 2 bf16 steps (losses
-   within 2e-3, that gradient's cosine at least 0.9996 against the
-   one-process bf16 and float32 gradients, its worst row printed beside the
-   one-process bf16 gradient's own against float32; the timed steps' ms and
+   within 2e-3; that gradient's cosine at least 0.99995 against the
+   one-process bf16 gradient and 0.9999 against the float32 one; its worst
+   row, and its worst of at least 1% of the median row norm, printed beside
+   the one-process bf16 gradient's own against float32; the timed steps' ms and
    kernel ms under the profiler); every rank's launches equal to the
    one-process run's (`vitb16_train_tp2` in the kernels line); the kernel
    rows of phase 2 include a rank's [2, 4097, 6, 64] and [40, 197, 6, 64];
@@ -279,14 +280,18 @@ PARALLEL_MAX_REL, PARALLEL_LATER_LOSS_MAX_REL, PARALLEL_WEIGHT_MAX_ABS = 0.0, 0.
 # card over gloo, against the same step in one process: float32 steps, then
 # bf16 warm-up and timed steps (the timed ones under the profiler); the weight
 # whose first gradient is compared, gathered whole; the bars. The bf16
-# gradient is held by its cosine as a whole, against the one-process bf16 and
-# float32 gradients: its rows of near-zero norm are bf16 rounding (the
-# one-process bf16 gradient's worst row reads 0.73 against float32), so
-# their cosine says nothing of the layout; each row's is printed
+# gradient is held by its cosine as a whole: against the one-process bf16
+# gradient (read 0.9999937, 1 - cos 6.3e-6 against the 5e-5 allowed) and
+# against the float32 one (read 0.9999743; the one-process bf16 gradient's own
+# 0.9999751). No row bar: bf16 rounding alone moves rows far, the one-process
+# bf16 gradient's worst row reads 0.73 against float32 and its worst row of
+# at least TP_ROW_FLOOR of the median row norm 0.88 (the tp-2 gradient's
+# 0.986 against one process); both worst rows are printed
 TP_MESH, TP_F32_STEPS, TP_WARMUP, TP_TIMED = (1, 1, 2), 1, 1, 2
 TP_WEIGHT = "visual.transformer.resblocks.11.mlp.c_proj.weight"
 TP_F32_LOSS_MAX_REL, TP_F32_GRAD_MAX_REL = 1e-5, 1e-4
-TP_BF16_LOSS_MAX_REL, TP_BF16_GRAD_MIN_COS = 2e-3, 0.9996
+TP_BF16_LOSS_MAX_REL, TP_BF16_GRAD_MIN_COS, TP_BF16_GRAD_F32_MIN_COS = 2e-3, 0.99995, 0.9999
+TP_ROW_FLOOR = 0.01
 # the detector trainer at DET_PRESET on a (1, 1, 1) data mesh (the heads under
 # DistributedDataParallel) against the same run without a launcher: warm-up
 # and timed steps; the logged losses and the heads after the run EQUAL
@@ -2060,10 +2065,8 @@ def vit_tp_steps(torch, dev, dtype, steps: int, profile_from=None, mesh_shape=No
     mesh = None
     if mesh_shape is not None:
         mesh = create_mesh(mesh_shape, dev)
-        from clipself_tpu_torch.core.config import get_model_config
-
         for m in (model, teacher):
-            shard_model(m, get_model_config(s.model), mesh)
+            shard_model(m, mesh)
         host = shard_batch(mesh, host)
     opt = Optimizer(model, make_schedule("const", 1e-5, 0, steps), unlocked_groups=layers,
                     num_layers=layers, mesh=mesh)
@@ -2180,15 +2183,21 @@ def phase_vit_tp(torch, dev) -> dict:
     tag = f"{s.key} train tp2"
     expect = vit_expected_launches(s.vision.layers, steps=TP_WARMUP + TP_TIMED)
 
-    def cosines(a, b) -> tuple[float, float]:
-        """(cosine of the whole gradients, their worst row's)."""
+    def cosines(a, b) -> tuple[float, float, float, int]:
+        """(cosine of the whole gradients, their worst row's, the worst row's
+        among the rows of ``b`` whose norm is at least `TP_ROW_FLOOR` of its
+        median row norm, the number of rows below that floor)."""
         a, b = torch.from_numpy(a).double(), torch.from_numpy(b).double()
         whole = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
-        return whole, min_row_cos(a, b)
+        rows = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+        norms = b.norm(dim=-1)
+        kept = norms >= TP_ROW_FLOOR * norms.median()
+        return whole, rows.min().item(), rows[kept].min().item(), int((~kept).sum())
 
     g32 = single["f32"]["grad"]
     print(f"{tag}: yardstick, the one-process bf16 gradient against the float32 one: cosine %.7f, worst row "
-          f"%.6f" % cosines(single["bf16"]["grad"], g32), flush=True)
+          f"%.6f, worst row above the norm floor %.6f (%d rows below it)" % cosines(single["bf16"]["grad"], g32),
+          flush=True)
     for prec in ("f32", "bf16"):
         one = single[prec]
         for rank in (0, 1):
@@ -2196,14 +2205,15 @@ def phase_vit_tp(torch, dev) -> dict:
             rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], one["losses"])]
             g, w = r["grad"], one["grad"]
             g_rel = float(abs(g - w).max() / abs(w).max())
-            cos, row_cos = cosines(g, w)
+            cos, row_cos, floored, low = cosines(g, w)
             line = (f"{tag}: {prec} rank {rank} losses {json.dumps([round(x, 7) for x in r['losses']])} against "
                     f"{json.dumps([round(x, 7) for x in one['losses']])} (max rel {max(rel):.3e}); {TP_WEIGHT} "
-                    f"first gradient max rel {g_rel:.3e}, cosine {cos:.7f}, worst row {row_cos:.7f}; launches "
-                    f"{json.dumps(r['launches'])}")
+                    f"first gradient max rel {g_rel:.3e}, cosine {cos:.7f}, worst row {row_cos:.7f}, worst row "
+                    f"above the norm floor {floored:.7f} ({low} rows below it); launches {json.dumps(r['launches'])}")
             if prec == "bf16":
-                cos32, row32 = cosines(g, g32)
-                line += (f"; against the float32 gradient: cosine {cos32:.7f}, worst row {row32:.6f}; "
+                cos32, row32, floored32, low32 = cosines(g, g32)
+                line += (f"; against the float32 gradient: cosine {cos32:.7f}, worst row {row32:.6f}, worst row "
+                         f"above the norm floor {floored32:.6f} ({low32} rows below it); "
                          f"{r['step_ms']:.3f} ms a step, kernels {r['kernel_ms']:.3f} ms a step under the "
                          f"profiler (one process {one['step_ms']:.3f} / {one['kernel_ms']:.3f})")
             print(line, flush=True)
@@ -2214,9 +2224,11 @@ def phase_vit_tp(torch, dev) -> dict:
             if prec == "f32" and not (rel[0] <= TP_F32_LOSS_MAX_REL and g_rel <= TP_F32_GRAD_MAX_REL):
                 fail(f"{tag}: rank {rank} f32 first loss rel {rel[0]}, gradient max rel {g_rel} (bars "
                      f"{TP_F32_LOSS_MAX_REL}, {TP_F32_GRAD_MAX_REL})")
-            if prec == "bf16" and not (max(rel) <= TP_BF16_LOSS_MAX_REL and min(cos, cos32) >= TP_BF16_GRAD_MIN_COS):
-                fail(f"{tag}: rank {rank} bf16 losses rel {max(rel)}, gradient cosine {cos} / {cos32} against "
-                     f"one process in bf16 / float32 (bars {TP_BF16_LOSS_MAX_REL}, {TP_BF16_GRAD_MIN_COS})")
+            if prec == "bf16" and not (max(rel) <= TP_BF16_LOSS_MAX_REL and cos >= TP_BF16_GRAD_MIN_COS
+                                       and cos32 >= TP_BF16_GRAD_F32_MIN_COS):
+                fail(f"{tag}: rank {rank} bf16 losses rel {max(rel)}, gradient cosine {cos} against one process "
+                     f"in bf16 and {cos32} against float32 (bars {TP_BF16_LOSS_MAX_REL}, {TP_BF16_GRAD_MIN_COS}, "
+                     f"{TP_BF16_GRAD_F32_MIN_COS})")
     if single["bf16"]["launches"] != expect:
         fail(f"{tag}: one-process launches {single['bf16']['launches']}, expected {expect}")
     one = single["bf16"]

@@ -58,6 +58,8 @@ _ROOT_METHODS = (
     "encode_image", "encode_dense", "encode_pseudo_boxes", "encode_masks",
     "encode_rois_and_masks",
 )
+# the text tower's methods that CoCa's forward calls in place of its forward
+_TEXT_METHODS = ("forward_coca", "forward_tokens")
 
 
 @dataclass(frozen=True)
@@ -156,18 +158,17 @@ class Mesh:
         return self.coords[0] * self.shape[1] + self.coords[1]
 
 
-def create_mesh(shape: tuple[int, int, int], device: torch.device) -> Optional[Mesh]:
-    """The mesh of ``shape`` (data, fsdp, model) over the first ranks of the
-    process group, all of them where its size is the group's (every rank
-    calls it, in the same order). A rank past the mesh gets None."""
-    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+def create_mesh(shape: tuple[int, int, int], device: torch.device) -> Mesh:
+    """The mesh of ``shape`` (data, fsdp, model) over the whole process group
+    (every rank calls it, in the same order)."""
+    from torch.distributed.device_mesh import init_device_mesh
 
     world, rank = dist.get_world_size(), dist.get_rank()
-    n = int(np.prod(shape))
-    if n > world:
-        raise ValueError(f"mesh {shape} needs {n} ranks, the group has {world}")
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh {shape} needs {int(np.prod(shape))} ranks, the group has {world}")
     d, f, t = shape
-    ranks = np.arange(n).reshape(shape)
+    ranks = np.arange(world).reshape(shape)
+    coords = tuple(int(c) for c in np.argwhere(ranks == rank)[0])
 
     def my_group(lists):
         mine = None
@@ -180,13 +181,7 @@ def create_mesh(shape: tuple[int, int, int], device: torch.device) -> Optional[M
     batch_group = my_group(ranks.transpose(2, 0, 1).reshape(t, d * f))
     model_group = my_group(ranks.reshape(d * f, t))
     shard_group = my_group(ranks.reshape(d, f * t))
-    if n == world:
-        device_mesh = init_device_mesh(device.type, shape, mesh_dim_names=AXES)
-    else:  # every rank builds it; a rank outside holds no coordinate
-        device_mesh = DeviceMesh(device.type, torch.from_numpy(ranks), mesh_dim_names=AXES)
-    if rank >= n:
-        return None
-    coords = tuple(int(c) for c in np.argwhere(ranks == rank)[0])
+    device_mesh = init_device_mesh(device.type, shape, mesh_dim_names=AXES)
     return Mesh(
         shape=tuple(shape), coords=coords, device=device, device_mesh=device_mesh,
         batch_group=batch_group, shard_group=shard_group,
@@ -235,13 +230,14 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def shard_model(model: nn.Module, cfg, mesh: Mesh) -> None:
+def shard_model(model: nn.Module, mesh: Mesh) -> None:
     """Lay ``model`` out on ``mesh`` in place: the tensor-parallel plan over
     `model` (`tensor_parallel.py`: the EVA and OpenCLIP ViT blocks, the CLIP
     text tower's and CoCa's decoder self-attention blocks; every other
     tower replicated), then FSDP2 over the (data, fsdp) sub-mesh, one unit
     an EVA or OpenCLIP ViT block, one the text tower, the root the rest,
-    with the encode methods registered as forwards. Scalar parameters
+    with the encode methods (and the text tower's CoCa methods) registered
+    as forwards. Scalar parameters
     (`logit_scale`, always frozen) are left to every rank whole:
     `fully_shard` takes none. Set ``requires_grad`` before: FSDP2 reduces
     the gradients of the trainable parameters only."""
@@ -259,6 +255,9 @@ def shard_model(model: nn.Module, cfg, mesh: Mesh) -> None:
             register_fsdp_forward_method(blk, "forward_without_attn")
     if isinstance(getattr(model, "text", None), nn.Module):
         fully_shard(model.text, mesh=sub, ignored_params=scalars)
+        for name in _TEXT_METHODS:
+            if hasattr(model.text, name):
+                register_fsdp_forward_method(model.text, name)
     # the root too gives its gathered parameters back after each forward: a
     # frozen teacher or an evaluator's model runs no backward that would
     fully_shard(model, mesh=sub, reshard_after_forward=True, ignored_params=scalars)

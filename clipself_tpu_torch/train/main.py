@@ -490,7 +490,7 @@ def train(args) -> dict:
         )
         for m in (model, teacher, eval_model):
             if m is not None:
-                shard_model(m, cfg, mesh)
+                shard_model(m, mesh)
 
     def run_eval(params, epoch) -> None:
         """Zero-shot eval of ``model`` with ``params`` (a state dict; None =

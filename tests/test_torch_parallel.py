@@ -262,6 +262,8 @@ def run(tmp_path_factory):
         lambda: jax_create_model(cases.VIT, dtype=jnp.float32, seed=0)[1]), np.random.default_rng(3),
     )
     rn = create_model(cases.RN, device="cpu", dtype=torch.float32, seed=0)
+    _, _, coca, coca_cfg, _ = torch_coca_cases.build("vit")
+    coca_image, coca_text = torch_coca_cases.inputs()
     payload = {
         "state_dict": state_dict_from_jax(params),
         "vit_state_dict": state_dict_from_jax(vit_params),
@@ -269,6 +271,10 @@ def run(tmp_path_factory):
         "batch": batch,
         "rn_batch": {k: np.asarray(v) for k, v in _batch(np.random.default_rng(1), s=64, crop=64).items()},
         "tp_text": np.random.default_rng(6).integers(1, 512, (2, 16)).astype(np.int64),
+        "coca_cfg": coca_cfg,
+        "coca_state_dict": {k: v.clone() for k, v in coca.state_dict().items()},
+        "coca_image": coca_image,
+        "coca_text": coca_text,
         "region_batch": _region_batch(),
         "nouns": nouns,
         "region_noise": np.asarray(jax.random.uniform(region_key, (REGION_C,))),
@@ -590,15 +596,40 @@ def test_replicated_resnet_tower_on_a_tp_mesh_matches_one_process(run):
 
 
 def test_tensor_parallel_vit_evaluator_at_v1_equals_the_single_process_one(run):
-    """The evaluator of `ViT-Tiny-Test` at extract type v1 on a (2, 1, 2) mesh
-    over four of the ranks: EQUAL to the single-process evaluator."""
+    """The evaluator of `ViT-Tiny-Test` at extract type v1 on a (4, 1, 2)
+    mesh: EQUAL to the single-process evaluator."""
     ref = run["ref"]["vit_eval"]
     assert ref
-    for rank, r in enumerate(run["ranks"]):
-        if rank < 4:
-            assert r["vit_eval"] == pytest.approx(ref, rel=0, abs=0, nan_ok=True)
+    for r in run["ranks"]:
+        assert r["vit_eval"] == pytest.approx(ref, rel=0, abs=0, nan_ok=True)
+
+
+@pytest.mark.parametrize("output", ["image_features", "text_features", "logits", "loss"])
+def test_tensor_parallel_coca_matches_the_unsharded_model(run, output):
+    """The tiny CoCa ("vit": the OpenCLIP ViT with the attentional pooler,
+    the `embed_cls` text tower, a 2-layer decoder) laid out on (4, 1, 2)
+    against the same model unsharded on the same rank: the forward's
+    features and caption logits within 1e-5, `coca_loss` rtol 1e-5, and the
+    loss's gradients at every sharded leaf (the decoder's self-attention
+    blocks among them, its cross-attention whole), gathered whole, within
+    1e-4 of each tensor's largest entry."""
+    for r in run["ranks"]:
+        got = r["coca_tp"]
+        if output == "loss":
+            np.testing.assert_allclose(got["sharded"]["loss"], got["plain"]["loss"], rtol=LOSS_RTOL)
         else:
-            assert r["vit_eval"] is None
+            np.testing.assert_allclose(got["sharded"][output], got["plain"][output], rtol=0, atol=1e-5)
+    got = run["ranks"][0]["coca_tp"]
+    plan = set(got["plan"])
+    assert {f"text_decoder.resblocks.{i}.{leaf}" for i in range(2)
+            for leaf in ("attn.in_proj_weight", "mlp.c_proj.weight")} <= plan
+    assert not any(".cross_attn." in n or "attn_pool" in n for n in plan)
+    if output == "loss":
+        assert got["plain"]["grads"].keys() == got["sharded"]["grads"].keys() == plan
+        for name, want in got["plain"]["grads"].items():
+            np.testing.assert_allclose(
+                got["sharded"]["grads"][name], want, rtol=0, atol=1e-4 * np.abs(want).max() + 1e-8, err_msg=name,
+            )
 
 
 # ---- the plan against JAX's tp_shardings, no ranks -------------------------

@@ -2,7 +2,7 @@
 spawned once, runs every mesh case of the port on `EVA02-CLIP-Tiny-Test`
 (the detector's on preset `tiny_test`; the tensor-parallel OpenCLIP ViT
 and text towers on `ViT-Tiny-Test`, a replicated image tower on
-`RN-Tiny-Test`) and hands the results back to the test process. This module imports nothing of JAX: each spawned rank imports
+`RN-Tiny-Test`, CoCa's decoder on the tiny CoCa of `torch_coca_cases.py`) and hands the results back to the test process. This module imports nothing of JAX: each spawned rank imports
 it (and the port) afresh."""
 
 from __future__ import annotations
@@ -28,8 +28,7 @@ C_PROJ = "visual.transformer.resblocks.1.mlp.c_proj.weight"
 STATE = {NAME: "state_dict", VIT: "vit_state_dict", RN: "rn_state_dict"}
 BATCH = {NAME: "batch", VIT: "batch", RN: "rn_batch"}
 VIT_MESHES = {"vit_dp4_tp2": (4, 1, 2), "vit_dp2_fsdp2_tp2": (2, 2, 2)}
-TP_MESH = (4, 1, 2)  # the sharded-against-unsharded cases
-VIT_EVAL_MESH = (2, 1, 2)  # over ranks 0-3; the others wait
+TP_MESH = (4, 1, 2)  # the sharded-against-unsharded cases and the ViT evaluator
 DISTILL_MESHES = {"dp8": (8, 1, 1), "dp4_fsdp2": (4, 2, 1), "dp4_tp2": (4, 1, 2), "dp2_fsdp2_tp2": (2, 2, 2)}
 REGION_MESH = (4, 1, 2)  # 4 batch shards, each a tensor-parallel pair
 EVAL_MESH = (2, 2, 2)
@@ -184,6 +183,7 @@ def run_cases(payload: dict) -> dict:
     out["vit_tp"] = vit_tp_case(payload)
     out["rn_tp"] = rn_tp_case(payload)
     out["vit_eval"] = vit_eval_case(payload)
+    out["coca_tp"] = coca_tp_case(payload)
     return out
 
 
@@ -200,8 +200,8 @@ def _layout(payload, shape, name: str = NAME):
     model = tiny_model(payload[STATE[name]], name)
     teacher = copy.deepcopy(model).requires_grad_(False)
     set_trainable(model, layers, layers)
-    shard_model(model, cfg, mesh)
-    shard_model(teacher, cfg, mesh)
+    shard_model(model, mesh)
+    shard_model(teacher, mesh)
     return cfg, mesh, model, teacher
 
 
@@ -427,8 +427,8 @@ def dryrun_case(payload: dict) -> dict:
     model = tiny_model(payload["state_dict"], payload["model"])
     teacher = copy.deepcopy(model).requires_grad_(False)
     set_trainable(model, layers, layers)
-    shard_model(model, cfg, mesh)
-    shard_model(teacher, cfg, mesh)
+    shard_model(model, mesh)
+    shard_model(teacher, mesh)
     opt = Optimizer(model, make_schedule("cosine", 1e-5, 2, 10), wd=0.1, unlocked_groups=layers,
                     num_layers=layers, mesh=mesh)
     step = make_train_step(partial(clipself_loss, group=mesh.batch_group), teacher, mesh=mesh)
@@ -460,7 +460,7 @@ def variant_case(flags: dict) -> dict:
     x = torch.randn((2, 32, 32, 3), generator=gen)
     sharded = copy.deepcopy(model)
     mesh = create_mesh((4, 1, 2), torch.device("cpu"))
-    shard_model(sharded, cfg, mesh)
+    shard_model(sharded, mesh)
     out = {}
     for tag, m in (("plain", model), ("sharded", sharded)):
         img, dense = m.encode_image(x), m.encode_dense(x)
@@ -494,13 +494,12 @@ def vit_tp_case(payload: dict) -> dict:
     after a round trip through `load_full_state_dict`; the image embedding,
     the dense map, the v1 RoI features, the text embedding and the
     gradients of every sharded leaf (gathered whole) of one backward."""
-    from clipself_tpu_torch.core.config import get_model_config
     from clipself_tpu_torch.parallel.mesh import create_mesh, full_leaf, full_state_dict, load_full_state_dict, shard_model
 
     model = tiny_model(payload["vit_state_dict"], VIT)
     sharded = copy.deepcopy(model)
     mesh = create_mesh(TP_MESH, torch.device("cpu"))
-    shard_model(sharded, get_model_config(VIT), mesh)
+    shard_model(sharded, mesh)
     want = model.state_dict()
 
     def equal(state):
@@ -559,19 +558,49 @@ def rn_tp_case(payload: dict) -> dict:
     return out
 
 
-def vit_eval_case(payload: dict):
+def vit_eval_case(payload: dict) -> dict:
     """The zero-shot evaluator of `ViT-Tiny-Test` at extract type v1 on a
-    (2, 1, 2) mesh over ranks 0-3 (None on the others)."""
-    from clipself_tpu_torch.core.config import get_model_config
+    (4, 1, 2) mesh."""
     from clipself_tpu_torch.eval.zero_shot import evaluate_zero_shot
     from clipself_tpu_torch.parallel.mesh import create_mesh, shard_model
 
-    mesh = create_mesh(VIT_EVAL_MESH, torch.device("cpu"))
-    if mesh is None:
-        return None
+    mesh = create_mesh(TP_MESH, torch.device("cpu"))
     model = tiny_model(payload["vit_state_dict"], VIT).requires_grad_(False)
-    shard_model(model, get_model_config(VIT), mesh)
+    shard_model(model, mesh)
     return evaluate_zero_shot(
         model, payload["eval_batches"], payload["eval_embeddings"], device="cpu",
         ann_bucket=payload["eval_bucket"], extract_type="v1", mesh=mesh,
     )
+
+
+def coca_tp_case(payload: dict) -> dict:
+    """The tiny CoCa of `torch_coca_cases.py` ("vit": the OpenCLIP ViT with
+    the attentional pooler, the `embed_cls` text tower, a 2-layer decoder)
+    laid out on (4, 1, 2) against the same model unsharded on the same rank:
+    the forward's image and text features and caption logits, `coca_loss`,
+    and the gradients of every sharded leaf (gathered whole) of one backward
+    of that loss."""
+    from clipself_tpu_torch.models.coca import CoCa, coca_loss
+    from clipself_tpu_torch.parallel.mesh import create_mesh, full_leaf, shard_model
+
+    model = CoCa(payload["coca_cfg"], torch.float32)
+    model.load_state_dict({k: v.clone() for k, v in payload["coca_state_dict"].items()})
+    sharded = copy.deepcopy(model)
+    mesh = create_mesh(TP_MESH, torch.device("cpu"))
+    shard_model(sharded, mesh)
+    img = torch.from_numpy(payload["coca_image"])
+    txt = torch.from_numpy(payload["coca_text"]).long()
+    out = {"plan": sorted(mesh.plan)}
+    for tag, m in (("plain", model), ("sharded", sharded)):
+        fwd = m(img, txt)
+        loss, _ = coca_loss(fwd, txt)
+        loss.backward()
+        named = dict(m.named_parameters())
+        got = {k: fwd[k].detach().numpy() for k in ("image_features", "text_features", "logits")}
+        got["loss"] = loss.item()
+        got["grads"] = {
+            n: (named[n].grad if tag == "plain" else full_leaf(n, named[n].grad, mesh)).numpy()
+            for n in mesh.plan
+        }
+        out[tag] = got
+    return out
