@@ -135,6 +135,19 @@ then for each model, B/16 first:
    kernel ms under the profiler); every rank's launches equal to the
    one-process run's (`vitb16_train_tp2` in the kernels line); the kernel
    rows of phase 2 include a rank's [2, 4097, 6, 64] and [40, 197, 6, 64];
+   then, in the same two ranks, a `pp` group and an `sp` group of the two
+   (`pipeline_ring_rank`): the GPipe pipeline over EVA02-CLIP-B/16's 12
+   blocks at 1024^2 on the script's seeded weights (batch 2 in 2
+   microbatches of one image, 2 stages of 6 blocks) and ring attention at
+   [2, 4096, 12, 64] over a ring of 2 (B/16's 4096 patch tokens at
+   1024^2), each in float32 then bf16, forward and the gradient of a
+   sum-of-squares loss, against the blocks in turn and the plain full
+   attention in float32 in the script's process: float32 outputs within
+   1e-5 and gradients within 1e-4 of each tensor's largest entry, bf16
+   outputs' min row cosine at least 0.9996; each rank's launches equal to
+   `pipeline_expected_launches` (the ring launches none), and each run's ms
+   and kernel ms under the profiler (`b16_pipeline_pp2`, `ring_sp2` in the
+   kernels line);
 7e. the ModifiedResNet and the EVA01 variant (`phase_towers`): RN50 and
    EVA01-CLIP-B-16 at 1024^2 (crops 224^2) through `evaluate_zero_shot` at
    v2 (2 + 4 batches of 2, 2 profiled; RN50 also one v1 call), the dense map
@@ -292,6 +305,17 @@ TP_WEIGHT = "visual.transformer.resblocks.11.mlp.c_proj.weight"
 TP_F32_LOSS_MAX_REL, TP_F32_GRAD_MAX_REL = 1e-5, 1e-4
 TP_BF16_LOSS_MAX_REL, TP_BF16_GRAD_MIN_COS, TP_BF16_GRAD_F32_MIN_COS = 2e-3, 0.99995, 0.9999
 TP_ROW_FLOOR = 0.01
+# the GPipe pipeline and ring attention in the same two ranks, over a `pp` and
+# an `sp` group of the two: EVA02-CLIP-B/16's 12 blocks at 1024^2, batch 2 in
+# 2 microbatches of one image over 2 stages; the ring at B/16's 4096 patch
+# tokens at 1024^2 (4097 does not divide by 2) and 12 heads of 64. The bars,
+# of each tensor's largest entry: float32 outputs (the repository's mesh bar)
+# and gradients (its gradient bar); bf16 outputs by their min row cosine
+# against float32, as the dense maps
+PP_BATCH, PP_MICROBATCHES, PP_STAGES = 2, 2, 2
+RING_SHAPE = (2, 4096, 12, 64)
+PP_OUT_MAX_REL, PP_GRAD_MAX_REL, PP_BF16_MIN_COS = 1e-5, 1e-4, 0.9996
+RING_MAX_REL, RING_BF16_MIN_COS = 1e-5, 0.9996
 # the detector trainer at DET_PRESET on a (1, 1, 1) data mesh (the heads under
 # DistributedDataParallel) against the same run without a launcher: warm-up
 # and timed steps; the logged losses and the heads after the run EQUAL
@@ -1218,6 +1242,15 @@ def phase_kernels(torch, dev, records):
     half = (vit.heads // 2, vit.vision.head_width)
     check_attention(torch, dev, records, gen, (TRAIN_BATCH, vit.tokens(vit.image)) + half, train=True)
     check_attention(torch, dev, records, gen, (TRAIN_BATCH * TRAIN_BOXES, vit.tokens(vit.crop)) + half, train=False)
+    # the pipeline's microbatch, one B/16 image at 1024^2 (`phase_vit_tp`'s
+    # `pipeline_ring_rank`), forward and backward
+    b16 = MODELS[0]
+    micro = (PP_BATCH // PP_MICROBATCHES, b16.tokens(b16.image))
+    check_rope(torch, dev, records, gen, micro + (b16.vision.width,), b16.grid(b16.image), b16.vision.head_width,
+               backward=True)
+    check_attention(torch, dev, records, gen, micro + (b16.heads, b16.vision.head_width), train=True)
+    for width in (b16.vision.width, b16.hidden):
+        check_layer_norm(torch, dev, records, gen, micro + (width,), "", backward=True)
     torch.cuda.empty_cache()
     for shape, backward in (((2 * BUCKET, 197, 768), False), ((TRAIN_BATCH, 197, 768), True),
                             ((HF_TEXT_ROWS, 77, 768), True)):
@@ -2105,11 +2138,175 @@ def vit_tp_steps(torch, dev, dtype, steps: int, profile_from=None, mesh_shape=No
     return out
 
 
+def pipeline_expected_launches(blocks: int, ticks: int) -> dict:
+    """A stage's launches in one forward and backward of the pipeline: each
+    of its ``blocks`` EVA02 blocks on each of the ``ticks`` microbatch ticks
+    it computes (a bubble tick skips them) launches one flash forward and one
+    flash backward, one RoPE launch each way (q and k together) and four
+    LayerNorms each way (`norm1`, `norm2` and the two sub-LNs). No NMS."""
+    n = blocks * ticks
+    return {"nms": 0, "flash_attention": n, "flash_attention_bwd": n, "rope_roll": n, "rope_roll_bwd": n,
+            "layer_norm": 4 * n, "layer_norm_bwd": 4 * n}
+
+
+def eva_block_fn(torch, dev, s: Model):
+    """(one block's {name: tensor}, x) -> x: an EVA block of ``s``'s tower at
+    its image size, called with the given tensors (`torch.func.functional_call`)."""
+    from torch.func import functional_call
+
+    from clipself_tpu_torch.models.eva_vit import EvaBlock
+
+    block = EvaBlock(s.vision).to(dev)
+    grid = (s.grid(s.image), s.grid(s.image))
+    return lambda blk, x: functional_call(block, blk, (x, grid))
+
+
+def pipeline_inputs(torch, dev) -> tuple:
+    """The pipeline's float32 tokens [PP_BATCH, 4097, 768] and the ring's
+    float32 q, k, v [RING_SHAPE], drawn on the card from seeded CUDA
+    generators (the same values in every process)."""
+    s = MODELS[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((PP_BATCH, s.tokens(s.image), s.vision.width), generator=gen, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    return x, [torch.randn(RING_SHAPE, generator=gen, device=dev) for _ in range(3)]
+
+
+def pipeline_ring_rank(torch, dev, eva_blocks: dict) -> dict:
+    """This rank's runs of the pipeline (`parallel/pipeline.py`) over a `pp`
+    group of the two ranks, EVA02-CLIP-B/16's blocks ``eva_blocks``
+    ({name: [12, ...]}) cut to its stage, and of ring attention
+    (`ops/ring_attention.py`) over an `sp` group of the two, each in float32
+    then bf16: one forward and backward of a sum-of-squares loss (the
+    output, the float32 gradients on the host, the launches, whether every
+    gradient is finite), then one under the profiler (ms and kernel ms)."""
+    import torch.distributed as dist
+
+    from clipself_tpu_torch.ops.ring_attention import ring_attention, sequence_shard
+    from clipself_tpu_torch.parallel.pipeline import pipeline_apply, stage_params
+
+    pp, sp = dist.new_group([0, 1]), dist.new_group([0, 1])
+    stacked = {k: v.to(dev) for k, v in eva_blocks.items()}
+    block = eva_block_fn(torch, dev, MODELS[0])
+    x, qkv = pipeline_inputs(torch, dev)
+    scale = RING_SHAPE[-1] ** -0.5
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def pipeline(dtype):
+        st = {k: v.clone().requires_grad_() for k, v in stage_params(stacked, pp).items()}
+        y = pipeline_apply(st, block, x.to(dtype), PP_MICROBATCHES, pp)
+        y.float().square().sum().backward()
+        return y, st
+
+    def ring(dtype):
+        shards = dict(zip("qkv", (sequence_shard(t.to(dtype), sp).clone().requires_grad_() for t in qkv)))
+        y = ring_attention(*shards.values(), scale, sp)
+        y.float().square().sum().backward()
+        return y, shards
+
+    out = {}
+    for prec, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for name, fn in (("pipeline", pipeline), ("ring", ring)):
+            torch.cuda.synchronize()
+            reset_counts()
+            y, leaves = fn(dtype)
+            torch.cuda.synchronize()
+            r = {"launches": read_counts(), "out": y.detach().float().cpu().numpy(),
+                 "finite": all(bool(t.grad.isfinite().all()) for t in leaves.values())}
+            if prec == "f32":
+                r["grads"] = {k: t.grad.cpu().numpy() for k, t in leaves.items()}
+            del y, leaves
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            t0 = time.perf_counter()
+            fn(dtype)
+            torch.cuda.synchronize()
+            r["ms"] = (time.perf_counter() - t0) * 1e3
+            prof.stop()
+            r["kernel_ms"], r["top"] = kernel_ms(torch, prof), top_kernels(torch, prof)
+            out[name, prec] = r
+    return out
+
+
+def pipeline_ring_refs(torch, dev, eva_blocks: dict) -> dict:
+    """The one-process references of `pipeline_ring_rank`, float32 on the
+    card: the 12 blocks in turn on the whole batch and the plain full
+    attention (`attention_plain`), each output and its sum-of-squares
+    gradients, on the host."""
+    from clipself_tpu_torch.ops.attention import attention_plain
+
+    s = MODELS[0]
+    block = eva_block_fn(torch, dev, s)
+    x, qkv = pipeline_inputs(torch, dev)
+    whole = {k: v.to(dev).requires_grad_() for k, v in eva_blocks.items()}
+    for i in range(s.vision.layers):
+        x = block({k: v[i] for k, v in whole.items()}, x)
+    x.square().sum().backward()
+    ref = {"pipeline": x.detach().cpu().numpy(), "pipeline_grads": {k: v.grad.cpu().numpy() for k, v in whole.items()}}
+    qkv = dict(zip("qkv", (t.requires_grad_() for t in qkv)))
+    y = attention_plain(*qkv.values(), RING_SHAPE[-1] ** -0.5)
+    y.square().sum().backward()
+    ref["ring"] = y.detach().cpu().numpy()
+    ref["ring_grads"] = {k: t.grad.cpu().numpy() for k, t in qkv.items()}
+    return ref
+
+
+def check_pipeline_ring(torch, ref: dict, got: dict) -> dict:
+    """Each rank's pipeline and ring runs (`pipeline_ring_rank`) against the
+    one-process references at the bars; prints every run's numbers with the
+    card's name and power limit. Returns rank 0's bf16 launches of each
+    (`b16_pipeline_pp2`, `ring_sp2`)."""
+    import numpy as np
+
+    s, where = MODELS[0], card()
+    per, rows = s.vision.layers // PP_STAGES, RING_SHAPE[1] // 2
+    checks = {  # tag, launches expected, rank's share of a reference, bars (f32 output, f32 gradients, bf16 cosine)
+        "pipeline": (f"{s.key} pipeline pp2", pipeline_expected_launches(per, PP_MICROBATCHES),
+                     lambda t, rank: t[rank * per:(rank + 1) * per], (PP_OUT_MAX_REL, PP_GRAD_MAX_REL, PP_BF16_MIN_COS)),
+        "ring": ("ring sp2", dict.fromkeys(_counters(), 0), lambda t, rank: t[:, rank * rows:(rank + 1) * rows],
+                 (RING_MAX_REL, RING_MAX_REL, RING_BF16_MIN_COS)),
+    }
+
+    def rel(a, b) -> float:
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    for name, (tag, expect, share, (out_bar, grad_bar, cos_bar)) in checks.items():
+        for prec in ("f32", "bf16"):
+            for rank in (0, 1):
+                r = got[rank][name, prec]
+                # the pipeline's output is whole on every rank; the ring's is the rank's rows
+                out_ref = ref[name] if name == "pipeline" else share(ref[name], rank)
+                line = f"{tag}: {prec} rank {rank}"
+                if prec == "f32":
+                    want = {k: share(g, rank) for k, g in ref[f"{name}_grads"].items()}
+                    out_rel = rel(r["out"], out_ref)
+                    grad_rel = max(rel(r["grads"][k], w) for k, w in want.items())
+                    line += (f" output max rel {out_rel:.3e} (bar {out_bar}), gradients of {len(want)} tensors "
+                             f"max rel {grad_rel:.3e} (bar {grad_bar})")
+                    if r["grads"].keys() != want.keys() or not (out_rel <= out_bar and grad_rel <= grad_bar):
+                        fail(f"{tag}: f32 rank {rank} output rel {out_rel}, gradients rel {grad_rel} (bars "
+                             f"{out_bar}, {grad_bar}), tensors {sorted(r['grads'])}")
+                else:
+                    cos = min_row_cos(torch.from_numpy(r["out"]), torch.from_numpy(out_ref))
+                    line += f" output min row cosine against float32 {cos:.7f} (bar {cos_bar})"
+                    if not cos >= cos_bar:
+                        fail(f"{tag}: bf16 rank {rank} output min row cosine {cos} (bar {cos_bar})")
+                print(f"{line}; gradients finite {r['finite']}; launches {json.dumps(r['launches'])} (expected "
+                      f"{json.dumps(expect)}); forward + backward under the profiler {r['ms']:.3f} ms, "
+                      f"kernels {r['kernel_ms']:.3f} ms ({r['top']}); {where}", flush=True)
+                if not r["finite"]:
+                    fail(f"{tag}: {prec} rank {rank} gradients not finite")
+                if r["launches"] != expect:
+                    fail(f"{tag}: {prec} rank {rank} launches {r['launches']}, expected {expect}")
+    return {"b16_pipeline_pp2": got[0]["pipeline", "bf16"]["launches"], "ring_sp2": got[0]["ring", "bf16"]["launches"]}
+
+
 def vit_tp_rank(rank: int, port: int, path: str, queue) -> None:
     """One of the two ranks of `phase_vit_tp` (a spawned process on card 0):
-    its float32 and bf16 runs of `vit_tp_steps` on `TP_MESH` over gloo, on
-    the weights the script drew, read from ``path`` (a host draw in each
-    rank took seconds)."""
+    its float32 and bf16 runs of `vit_tp_steps` on `TP_MESH` over gloo, then
+    the pipeline and the ring (`pipeline_ring_rank`), on the weights the
+    script drew, read from ``path`` (a host draw in each rank took
+    seconds)."""
     import traceback
 
     import torch
@@ -2121,11 +2318,15 @@ def vit_tp_rank(rank: int, port: int, path: str, queue) -> None:
     torch.cuda.set_device(dev)
     try:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2)
-        weights = torch.load(path, map_location="cpu")
+        saved = torch.load(path, map_location="cpu")
         out = {
-            "f32": vit_tp_steps(torch, dev, torch.float32, TP_F32_STEPS, mesh_shape=TP_MESH, weights=weights),
-            "bf16": vit_tp_steps(torch, dev, torch.bfloat16, TP_WARMUP + TP_TIMED, TP_WARMUP, TP_MESH, weights),
+            "f32": vit_tp_steps(torch, dev, torch.float32, TP_F32_STEPS, mesh_shape=TP_MESH, weights=saved["vit"]),
+            "bf16": vit_tp_steps(torch, dev, torch.bfloat16, TP_WARMUP + TP_TIMED, TP_WARMUP, TP_MESH,
+                                 saved["vit"]),
         }
+        del saved["vit"]
+        torch.cuda.empty_cache()
+        out["pipeline_ring"] = pipeline_ring_rank(torch, dev, saved["eva_blocks"])
         queue.put((rank, out))
     except Exception:  # handed to the script's process, which fails with it
         queue.put((rank, traceback.format_exc()))
@@ -2141,13 +2342,17 @@ def phase_vit_tp(torch, dev) -> dict:
     half of each MLP); float32: the first loss and gradient against one
     process; bf16: the losses, the first gradient's cosine against the
     one-process bf16 and float32 gradients (each row's printed), step ms and
-    kernel ms; every rank's launches equal to the one-process run's.
-    Returns the launches of rank 0's bf16 run (`vitb16_train_tp2`)."""
+    kernel ms; every rank's launches equal to the one-process run's. Then
+    the pipeline and the ring in the same ranks (`pipeline_ring_rank`),
+    their references computed here while the ranks boot
+    (`pipeline_ring_refs`, `check_pipeline_ring`). Returns the launches of
+    rank 0's bf16 runs (`vitb16_train_tp2`, `b16_pipeline_pp2`, `ring_sp2`)."""
     import socket
 
     import torch.multiprocessing as mp
 
     from clipself_tpu_torch.models.factory import create_model
+    from clipself_tpu_torch.parallel.pipeline import stack_block_params
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -2159,7 +2364,11 @@ def phase_vit_tp(torch, dev) -> dict:
     s = VIT_MODELS[0]
     root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     path = os.path.join(root, "weights.pt")
-    torch.save(create_model(s.model, device="cpu", dtype=torch.float32, seed=SEED).state_dict(), path)
+    eva = create_model(MODELS[0].model, device="cpu", dtype=torch.float32, seed=SEED)
+    eva_blocks, _ = stack_block_params(eva.visual.state_dict())
+    del eva
+    torch.save({"vit": create_model(s.model, device="cpu", dtype=torch.float32, seed=SEED).state_dict(),
+                "eva_blocks": eva_blocks}, path)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2169,6 +2378,10 @@ def phase_vit_tp(torch, dev) -> dict:
     for p in procs:
         p.start()
     try:
+        # the pipeline's and the ring's references while the ranks boot
+        ref = pipeline_ring_refs(torch, dev, eva_blocks)
+        del eva_blocks
+        torch.cuda.empty_cache()
         got = dict(queue.get(timeout=600) for _ in range(2))
     finally:
         for p in procs:
@@ -2237,8 +2450,9 @@ def phase_vit_tp(torch, dev) -> dict:
               f"{s.crop}px, bf16, mean of {TP_TIMED} after {TP_WARMUP} warm-up, under the profiler: "
               f"{r['step_ms']:.3f} ms, kernels {r['kernel_ms']:.3f} ms, idle {1 - r['kernel_ms'] / r['step_ms']:.1%}; "
               f"over the {TP_TIMED} steps: {r['top']}", flush=True)
-    print(f"{tag} phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"vitb16_train_tp2": got[0]["bf16"]["launches"]}
+    paths = check_pipeline_ring(torch, ref, {rank: got[rank]["pipeline_ring"] for rank in (0, 1)})
+    print(f"{tag} phase, with the pipeline and the ring: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"vitb16_train_tp2": got[0]["bf16"]["launches"], **paths}
 
 
 def timm_norms(s: Model) -> int:

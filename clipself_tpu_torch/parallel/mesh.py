@@ -21,6 +21,11 @@ JAX mesh lays out its devices:
 
 `full_state_dict` / `load_full_state_dict` move between this layout and the
 single-process one (the checkpoint's format), whatever the mesh.
+
+`ppermute` (the ring exchange of JAX's ``ppermute``, differentiable) and
+`all_sum` (JAX's ``psum`` of a replicated value) carry the pipeline over a
+`pp` group (`pipeline.py`) and ring attention over an `sp` group
+(`ops/ring_attention.py`); those groups are the caller's `dist.new_group`s.
 """
 
 from __future__ import annotations
@@ -221,6 +226,74 @@ def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def group_sum(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group`` (no gradient); ``x`` itself without one."""
     return x if group is None else reduce_sum(x, group)
+
+
+def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Rank i's ``x`` goes to rank (i + shift) mod S of ``group`` and rank i
+    receives rank (i - shift)'s, S the group's size (no gradient). Every rank
+    of the group calls it with tensors of one shape and dtype; the send and
+    the receive are one batch, so no rank waits on the other's order. A
+    gloo group carries host memory only: a CUDA ``x`` is staged through the
+    host there (a copy each way) and the received tensor comes back to
+    ``x``'s device. NCCL takes CUDA tensors as they are."""
+    ranks = dist.get_process_group_ranks(dist.group.WORLD if group is None else group)
+    size, rank = len(ranks), dist.get_rank(group)
+    if size == 1:
+        return x
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    send = x.detach().contiguous()
+    if staged:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    ops = [
+        dist.P2POp(dist.isend, send, ranks[(rank + shift) % size], group),
+        dist.P2POp(dist.irecv, recv, ranks[(rank - shift) % size], group),
+    ]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(x.device) if staged else recv
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ring_shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ring_shift(grad, ctx.group, -1), None
+
+
+def ppermute(x: torch.Tensor, group) -> torch.Tensor:
+    """JAX's ``ppermute`` with perm ``[(i, (i + 1) % S)]`` over ``group``,
+    differentiable: the forward sends to rank i + 1 and receives from rank
+    i - 1 (`ring_shift`), the backward sends the gradient the other way.
+    Autograd runs a backward only for a tensor that reaches the loss, so the
+    exchange pairs up in the backward only where every rank's received
+    tensor reaches its loss and every rank's ``x`` requires grad alike:
+    the callers (`parallel/pipeline.py`, `ops/ring_attention.py`) see to
+    that. Staged through the host over gloo, as `ring_shift` is."""
+    return _Ppermute.apply(x, group)
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, differentiable as JAX's ``psum`` of a
+    value every rank then uses alike: the backward passes each rank's
+    gradient through as it is. Every rank computes the same loss from the
+    same sum, so the loss's gradient reaches each rank's ``x`` once; a
+    backward that summed again would count it S times."""
+    return _AllSum.apply(x, group)
 
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:

@@ -26,7 +26,17 @@ convolution would otherwise round its inputs to TF32, differently for
 batches of 4 and of 8): the first loss within 1e-6 relative (the same
 float32 operations on 4 images a rank; each rank's share of the loss summed
 over the two), the heads after the two steps within 1e-5 (the CPU mesh bar
-of `tests/test_torch_parallel.py`); rank 0 alone writes the checkpoint."""
+of `tests/test_torch_parallel.py`); rank 0 alone writes the checkpoint.
+
+The GPipe pipeline (`parallel/pipeline.py`): EVA02-CLIP-L-14-336's 24 blocks
+at 896^2 over 2 stages of 12, batch 2 in 2 microbatches of one image,
+float32, its weights and tokens drawn on the card from seeded CUDA
+generators in each process, against the 24 blocks in turn in one process:
+the output within 1e-5 and every stage leaf's gradient of a sum-of-squares
+loss within 1e-4 of each tensor's largest entry (the same float32 kernels;
+the products' row counts and the two microbatches' gradient sums differ);
+each rank launches each kernel once a block and microbatch it computes,
+four LayerNorms a block, each way."""
 
 import copy
 import dataclasses
@@ -44,6 +54,10 @@ DET_FIRST_LOSS_REL, DET_HEADS_ATOL = 1e-6, 1e-5
 DET_ARGV = ["--synthetic", "--preset", "ov_coco_vitb16", "--batch-size", "8", "--epochs", "1",
             "--steps-per-epoch", "2", "--log-every", "1", "--precision", "fp32"]
 
+
+# the pipeline: the model and image size, stages and microbatches, the bars
+PP_CASE, PP_STAGES, PP_MICROBATCHES = ("EVA02-CLIP-L-14-336", 896), 2, 2
+PP_OUT_REL, PP_GRAD_REL = 1e-5, 1e-4
 
 # the tensor-parallel OpenCLIP ViT step: ViT-L-14-336 at 896^2 (8 of its 16
 # heads on each rank), 4 crops at its 336^2, and the weight whose first
@@ -316,3 +330,68 @@ def test_detector_trainer_on_two_ranks_matches_one_process(tmp_path):
         assert r_heads.keys() == heads.keys()
         for name, want in heads.items():
             np.testing.assert_allclose(r_heads[name], want, rtol=0, atol=DET_HEADS_ATOL, err_msg=name)
+
+
+def _pp_run(device, mesh_shape=None):
+    """The pipeline's inputs on ``device`` and, in a process group, this
+    rank's stage through `pipeline_apply` (otherwise every block in turn):
+    the output and the gradients of a sum-of-squares loss on the host, and
+    the kernel launches."""
+    from torch.func import functional_call
+
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.models.eva_vit import EvaBlock, EvaViT
+    from clipself_tpu_torch.ops import attention, layer_norm, rope_roll
+    from clipself_tpu_torch.parallel.pipeline import pipeline_apply, stack_block_params, stage_params
+
+    name, image = PP_CASE
+    cfg = get_model_config(name)
+    tower = EvaViT(cfg.vision, cfg.embed_dim).to(device)
+    tower.init_weights(torch.Generator(device=device).manual_seed(0))
+    stacked, layers = stack_block_params({k: v.detach() for k, v in tower.state_dict().items()})
+    del tower
+    grid = image // cfg.vision.patch_size
+    block = EvaBlock(cfg.vision).to(device)
+
+    def apply_block(blk, x):
+        return functional_call(block, blk, (x, (grid, grid)))
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn((2, grid * grid + 1, cfg.vision.width), generator=gen, device=device)
+    counters = (attention.LAUNCHES, attention.BWD_LAUNCHES, rope_roll.LAUNCHES, rope_roll.BWD_LAUNCHES,
+                layer_norm.LAUNCHES, layer_norm.BWD_LAUNCHES)
+    for c in counters:
+        c.reset()
+    if torch.distributed.is_initialized():
+        leaves = {k: v.clone().requires_grad_() for k, v in stage_params(stacked).items()}
+        y = pipeline_apply(leaves, apply_block, x, PP_MICROBATCHES)
+    else:
+        leaves = {k: v.requires_grad_() for k, v in stacked.items()}
+        y = x
+        for i in range(layers):
+            y = apply_block({k: v[i] for k, v in leaves.items()}, y)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    grads = {k: v.grad.cpu().numpy() for k, v in leaves.items()}
+    return y.detach().cpu().numpy(), grads, [c.count for c in counters]
+
+
+@pytest.mark.cuda
+def test_pipeline_of_eva02_l14_336_on_two_ranks_matches_one_process():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out, grads, _ = _pp_run(torch.device("cuda", 0))
+    torch.cuda.empty_cache()
+    got = _two_ranks(None, _pp_run)
+    layers = next(iter(grads.values())).shape[0]
+    per = layers // PP_STAGES
+    n = per * PP_MICROBATCHES  # each block of the stage on each microbatch's tick
+    for rank in (0, 1):
+        r_out, r_grads, r_launches = got[rank]
+        assert r_launches == [n, n, n, n, 4 * n, 4 * n], (rank, r_launches)
+        np.testing.assert_allclose(r_out, out, rtol=0, atol=PP_OUT_REL * np.abs(out).max(), err_msg=str(rank))
+        assert r_grads.keys() == grads.keys()
+        for k, g in grads.items():
+            want = g[rank * per:(rank + 1) * per]
+            np.testing.assert_allclose(r_grads[k], want, rtol=0, atol=PP_GRAD_REL * np.abs(want).max(),
+                                       err_msg=f"{rank} {k}")

@@ -2,7 +2,7 @@
 spawned once, runs every mesh case of the port on `EVA02-CLIP-Tiny-Test`
 (the detector's on preset `tiny_test`; the tensor-parallel OpenCLIP ViT
 and text towers on `ViT-Tiny-Test`, a replicated image tower on
-`RN-Tiny-Test`, CoCa's decoder on the tiny CoCa of `torch_coca_cases.py`) and hands the results back to the test process. This module imports nothing of JAX: each spawned rank imports
+`RN-Tiny-Test`, CoCa's decoder on the tiny CoCa of `torch_coca_cases.py`) and hands the results back to the test process; `pipeline_ring_cases` are the ranks of `tests/test_torch_pipeline_ring.py`. This module imports nothing of JAX: each spawned rank imports
 it (and the port) afresh."""
 
 from __future__ import annotations
@@ -603,4 +603,130 @@ def coca_tp_case(payload: dict) -> dict:
             for n in mesh.plan
         }
         out[tag] = got
+    return out
+
+
+# the pipeline and ring cases of tests/test_torch_pipeline_ring.py: (stages,
+# microbatches) of the toy pipelines, the stages of the gradient and EVA
+# cases, the ring sizes, and the (data, sp) mesh of the ring beside a data axis
+PIPELINES, GRAD_STAGES, EVA_STAGES = ((2, 4), (4, 8), (8, 8)), 4, 2
+RINGS, GRAD_RING, DATA_SP = (2, 4, 8), 4, (2, 4)
+
+
+def consecutive_groups(sizes) -> dict:
+    """For each size, the world cut into groups of that many consecutive
+    ranks: this rank's group (every rank creates every group, in order)."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mine = {}
+    for size in sizes:
+        for first in range(0, world, size):
+            g = dist.new_group(list(range(first, first + size)))
+            if first <= rank < first + size:
+                mine[size] = g
+    return mine
+
+
+def toy_block(blk, x):
+    """`tests/test_pipeline.py::_apply_toy`."""
+    return torch.tanh(x @ blk["w"] + blk["b"])
+
+
+def _grads(leaves: dict) -> dict:
+    return {k: None if t.grad is None else t.grad.numpy() for k, t in leaves.items()}
+
+
+def pipeline_ring_cases(payload: dict) -> dict:
+    """Every pipeline and ring case, in the same order on every rank: the
+    toy pipelines, their gradients (every stage trainable, then stage 0
+    frozen with an input that needs no gradient), the tiny EVA tower's
+    blocks with their gradients against the same blocks in turn on this
+    rank, the rings and their gradients, the ring beside a data axis, the
+    shape errors and one `ppermute` of the rank's index."""
+    from torch.func import functional_call
+
+    from clipself_tpu_torch.core.config import get_model_config
+    from clipself_tpu_torch.models.eva_vit import EvaBlock
+    from clipself_tpu_torch.ops.ring_attention import ring_attention, sequence_shard
+    from clipself_tpu_torch.parallel.mesh import ppermute
+    from clipself_tpu_torch.parallel.pipeline import pipeline_apply, stack_block_params, stage_params
+
+    rank = dist.get_rank()
+    groups = consecutive_groups(sorted({s for s, _ in PIPELINES} | {EVA_STAGES, GRAD_STAGES, *RINGS}))
+    t = {k: torch.from_numpy(v) for k, v in payload["toy"].items()}
+    toy, _ = stack_block_params(t)
+    out = {"pipeline": {}}
+    with torch.no_grad():
+        for stages, mb in PIPELINES:
+            st = stage_params(toy, groups[stages])
+            out["pipeline"][stages, mb] = pipeline_apply(
+                st, toy_block, torch.from_numpy(payload["pipe_x"]), mb, groups[stages]).numpy()
+
+    def toy_grads(frozen_first: bool) -> dict:
+        g = groups[GRAD_STAGES]
+        frozen = frozen_first and dist.get_rank(g) == 0
+        st = {k: v.clone().requires_grad_(not frozen) for k, v in stage_params(toy, g).items()}
+        x = torch.from_numpy(payload["grad_x"]).requires_grad_(not frozen_first)
+        (pipeline_apply(st, toy_block, x, GRAD_STAGES, g) ** 2).sum().backward()
+        return {"grads": _grads(st), "x": None if x.grad is None else x.grad.numpy()}
+
+    out["toy_grads"], out["frozen_first_grads"] = toy_grads(False), toy_grads(True)
+
+    cfg = get_model_config(NAME).vision
+    block = EvaBlock(cfg)
+    grid = (cfg.grid_size, cfg.grid_size)
+
+    def eva_block(blk, x):
+        return functional_call(block, blk, (x, grid))
+
+    eva, _ = stack_block_params({k: v.clone() for k, v in payload["state_dict"].items()}, "visual.blocks.")
+    g = groups[EVA_STAGES]
+    tokens = torch.from_numpy(payload["tokens"])
+    with torch.no_grad():
+        out["eva"] = pipeline_apply(stage_params(eva, g), eva_block, tokens, EVA_STAGES, g).numpy()
+    st = {k: v.clone().requires_grad_() for k, v in stage_params(eva, g).items()}
+    (pipeline_apply(st, eva_block, tokens, EVA_STAGES, g) ** 2).sum().backward()
+    whole = {k: v.clone().requires_grad_() for k, v in eva.items()}
+    h = tokens
+    for i in range(next(iter(eva.values())).shape[0]):
+        h = eva_block({k: v[i] for k, v in whole.items()}, h)
+    (h ** 2).sum().backward()
+    per, s = next(iter(st.values())).shape[0], dist.get_rank(g)
+    out["eva_grads"] = {k: (st[k].grad.numpy(), whole[k].grad[s * per:(s + 1) * per].numpy()) for k in st}
+
+    q, k, v = (torch.from_numpy(payload["ring_qkv"][n]) for n in "qkv")
+    scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        out["ring"] = {
+            size: ring_attention(*(sequence_shard(x, groups[size]) for x in (q, k, v)), scale, groups[size]).numpy()
+            for size in RINGS
+        }
+    g = groups[GRAD_RING]
+    shards = [sequence_shard(torch.from_numpy(payload["ring_grad_qkv"][n]), g).clone().requires_grad_()
+              for n in "qkv"]
+    (ring_attention(*shards, scale, g) ** 2).sum().backward()
+    out["ring_grads"] = [x.grad.numpy() for x in shards]
+    data, sp = DATA_SP
+    rows = len(payload["ring_data_qkv"]["q"]) // data
+    d = rank // sp
+    with torch.no_grad():
+        local = [sequence_shard(torch.from_numpy(payload["ring_data_qkv"][n][d * rows:(d + 1) * rows]), groups[sp])
+                 for n in "qkv"]
+        out["ring_data"] = ring_attention(*local, scale, groups[sp]).numpy()
+
+    errors = {}
+    for name, call in (
+        ("blocks", lambda: stage_params({"w": torch.zeros(6, 2)}, groups[4])),
+        ("batch", lambda: pipeline_apply(stage_params(toy, groups[2]), toy_block, torch.zeros(16, 16), 3,
+                                         groups[2])),
+        ("sequence", lambda: sequence_shard(torch.zeros(1, 63, 1, 1), groups[2])),
+    ):
+        try:
+            call()
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    x = torch.full((3,), float(rank), requires_grad=True)
+    y = ppermute(x, None)
+    (y * (rank + 1)).sum().backward()
+    out["ppermute"] = (y.detach().numpy(), x.grad.numpy())
     return out
