@@ -15,11 +15,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    the towers call it; also at the detector's [8, 1601, 768]), the
    flash-attention forward with and without its
    LSE (also at the detector's [8, 1601, 12, 64], and at [1, 4097, 16, d]
-   for the large towers' head dims d = 80, 88, 104, 112, which the WMMA and
-   FMA designs take on zero-filled 16-wide tiles), the flash backward (each
-   row says which of the kernel's designs its shape and type took: "wgmma"
-   for bfloat16 at head_dim 64, "wmma" for bfloat16 at the others, "fma"
-   for float32; each is called twice on the same inputs and must give the
+   for the large towers' head dims d = 80, 88, 104, 112, which every design
+   takes on tiles of d rounded up to 16 columns, zero-filled past d), the
+   flash backward (each row says which of the kernel's designs its shape and
+   type took: "wgmma" for bfloat16 at head_dim 64-128, on two 64-column
+   panels past 64, "wmma" for bfloat16 below 64, "fma" for float32; each is
+   called twice on the same inputs and must give the
    same bits: every sum of the kernel runs in a fixed order), and the fused LayerNorm
    forward (with and
    without statistics; also at the text towers' [64, 77, 512] and
@@ -1255,10 +1256,11 @@ def phase_kernels(torch, dev, records):
     for shape, backward in (((2 * BUCKET, 197, 768), False), ((TRAIN_BATCH, 197, 768), True),
                             ((HF_TEXT_ROWS, 77, 768), True)):
         check_layer_norm(torch, dev, records, gen, shape, "", backward=backward, eps=1e-12, tag=" eps 1e-12")
-    # the large towers' head dims, which the WMMA and FMA designs take on
-    # zero-filled 16-wide tiles (88: ViT-g-14, EVA01-CLIP-g-14; 104:
-    # ViT-bigG-14) or exactly (80; 112: EVA02-CLIP-bigE-14), over the
-    # L/14-size grid at 896^2 (also g-14's): one image, 16 heads
+    # the large towers' head dims, which the bf16 wgmma design takes on two
+    # 64-column panels and the f32 FMA design on 16-wide tiles, zero-filled
+    # past the head_dim (88: ViT-g-14, EVA01-CLIP-g-14; 104: ViT-bigG-14)
+    # or exactly (80: ViT-H-14; 112: EVA02-CLIP-bigE-14, ViT-e-14), over
+    # the L/14-size grid at 896^2 (also g-14's): one image, 16 heads
     l14 = MODELS[-1]
     for d in WIDE_HEAD_DIMS:
         check_attention(torch, dev, records, gen, (1, l14.tokens(l14.image), 16, d), train=True)

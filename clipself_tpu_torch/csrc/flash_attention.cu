@@ -30,28 +30,30 @@
 //
 // Three designs, picked by dtype and head_dim alone (clipself_flash_fwd_design):
 //
-//  * bfloat16 at head_dim 64, every attention call of the EVA02 towers: the
-//    warpgroup design in namespace `wg` below. Both products run as wgmma
-//    (csrc/hopper_mma.cuh); K/V tiles arrive through a
-//    three-stage cp.async ring in the tensor cores' 128-byte-swizzled layout,
-//    one block barrier a tile; the scores stay in the accumulator registers,
-//    the softmax runs there (a row lives in a quad of lanes) with ex2.approx,
+//  * bfloat16 at head_dim 64-128 (64: every attention call of the EVA02
+//    towers; 80: ViT-H-14; 88: ViT-g-14, EVA01-CLIP-g-14; 104: ViT-bigG-14;
+//    112: EVA02-CLIP-bigE-14, ViT-e-14): the warpgroup design in namespace
+//    `wg` below. Both products run as wgmma (csrc/hopper_mma.cuh); K/V
+//    tiles arrive through a cp.async ring (three stages at head_dim 64, two
+//    past it) in the tensor cores' 128-byte-swizzled layout, one block
+//    barrier a tile; the scores stay in the accumulator registers, the
+//    softmax runs there (a row lives in a quad of lanes) with ex2.approx,
 //    and P goes to the second product as a register operand, never through
-//    shared memory. One or two warpgroups (64 or 128 query rows) a block,
-//    by N.
-//  * bfloat16 at the other head dims (8-56, 72-128): 4 warps of 16 rows,
-//    WMMA 16x16x16 tiles with f32 accumulation, scores and P staged in
-//    shared memory, tiles loaded with plain vector loads, one buffer.
+//    shared memory. One or two warpgroups (64 or 128 query rows) a block, by
+//    N. Past head_dim 64 a tile is two 64-column panels.
+//  * bfloat16 below head_dim 64 (8-56: the tiny test towers): 4 warps of 16
+//    rows, WMMA 16x16x16 tiles with f32 accumulation, scores and P staged
+//    in shared memory, tiles loaded with plain vector loads, one buffer.
 //  * float32 (the parity path): the same blocking with f32 FMAs, so that it
 //    keeps full f32 precision (tensor cores would round the inputs to TF32).
 //
-// The two older designs take every head_dim d that is a multiple of 8 up to
-// 128 by zero-fill: each is instantiated at the tile width DP = d rounded up
-// to 16 (ViT-g-14's 88 runs the 96-wide tiles, ViT-bigG-14's 104 the
-// 112-wide ones) and takes the true d at run time. The loads fill columns d
-// to DP - 1 of every Q, K and V tile with zeros, which add nothing to
-// Q K^T, and P V's extra output columns (zero too) are never stored. The
-// softmax scale is the caller's, d ** -0.5 of the true d.
+// Every design takes every head_dim d that is a multiple of 8 up to 128 by
+// zero-fill: it is instantiated at the tile width DP = d rounded up to 16
+// (ViT-g-14's 88 runs 96-wide tiles, ViT-bigG-14's 104 112-wide ones) and
+// takes the true d at run time. The loads fill columns d to DP - 1 of every
+// Q, K and V tile with zeros, which add nothing to Q K^T, and P V's extra
+// output columns (zero too) are never stored. The softmax scale is the
+// caller's, d ** -0.5 of the true d.
 //
 // The shared-memory tile loader and the Pad/Plan conventions of the two older
 // designs are repeated in flash_attention_bwd.cu: each .cu file is compiled
@@ -73,7 +75,7 @@ constexpr int BK = 64;  // keys per K/V tile
 constexpr int WARPS = 4;
 constexpr int WROWS = BQ / WARPS;  // query rows per warp
 constexpr int THREADS = WARPS * 32;
-// bf16 head_dim 64: sequences up to this length take one warpgroup a block
+// bf16 head_dim 64-128: sequences up to this length take one warpgroup a block
 constexpr int WGMMA_ONE_WARPGROUP_MAX_N = 384;
 
 template <typename T>
@@ -318,43 +320,57 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ---- bf16, head_dim 64: the warpgroup design --------------------------------
+// ---- bf16, head_dim 64-128: the warpgroup design ---------------------------
 //
 // A block owns NWG * 64 query rows of one (batch, head), 64 for each of its
 // NWG warpgroups. Q is loaded once; 64-key K and V tiles come through a ring
 // of STAGES swizzled shared-memory stages filled by cp.async, tile
 // t + STAGES - 1 in flight while tile t is computed, with one block barrier a
 // tile (it publishes tile t and frees the stage of tile t - 1). S = Q K^T is
-// one wgmma group with both operands in shared memory and the scores in
-// registers; the online softmax runs on the accumulator fragment (a row
-// lives in the four lanes of a quad: two shuffles for its max, the sum is
-// reduced once at the end); P is packed to bf16 in registers and is the
-// register A operand of O += P V, with V read as an MN-major tile.
+// one wgmma group of DP / 16 k-slices with both operands in shared memory
+// and the scores in registers; the online softmax runs on the accumulator
+// fragment (a row lives in the four lanes of a quad: two shuffles for its
+// max, the sum is reduced once at the end); P is packed to bf16 in registers
+// and is the register A operand of O += P V, with V read as an MN-major
+// tile: one product a k-slice at DP 64, two past it (N = 64 on the first
+// panel, N = DP - 64 on the second). The tile width DP is the head_dim
+// rounded up to 16; a tile's Q, K and V columns at or past the true head_dim
+// load as zeros (they add nothing to S), and the output's are not stored.
 
 namespace wg {
 
 using namespace hopper;
 
-constexpr int STAGES = 3;
-constexpr int KV_STAGE_BYTES = 2 * TILE64_BYTES;  // one K and one V tile
+// K/V stages of the ring. Past DP 64 two: a block of two warpgroups then
+// takes 99 KB of shared memory and (__launch_bounds__) at most 128
+// registers a thread, so that two blocks share an SM (three stages and more
+// registers gave one block and 1.2-1.3x the time at head_dim 80-128 on an
+// H100 SXM).
+__host__ __device__ constexpr int stages(int dp) { return dp > 64 ? 2 : 3; }
 
-template <int NWG>
+template <int DP, int NWG>
 constexpr int smem_bytes() {
-  return ATOM_BYTES + NWG * TILE64_BYTES + STAGES * KV_STAGE_BYTES;
+  return ATOM_BYTES + tile_bytes(NWG * 64, DP) + stages(DP) * 2 * tile_bytes(64, DP);
 }
+static_assert(smem_bytes<128, 2>() <= 232448, "shared-memory plan too large");
 
-template <int NWG>
-__global__ void __launch_bounds__(NWG * 128)
+template <int DP, int NWG>
+__global__ void __launch_bounds__(NWG * 128, 2)
     flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ lse, int n, int heads,
+                           float* __restrict__ lse, int n, int d, int heads,
                            long long qsb, long long qsn, long long qsh,
                            long long ksb, long long ksn, long long ksh,
                            long long vsb, long long vsn, long long vsh,
                            float scale_log2) {
   constexpr int THREADS = NWG * 128;
+  constexpr int STAGES = stages(DP);
+  if (DP == 64) d = 64;  // the head_dim a tile of 64 takes: strides fold to shifts
+  constexpr uint32_t Q_PANEL = NWG * TILE64_BYTES;  // bytes between Q's panels
+  constexpr uint32_t KV_PANEL = TILE64_BYTES;       // ... a K or a V tile's
+  constexpr uint32_t KV_TILE = tile_bytes(64, DP);
   extern __shared__ unsigned char smem[];
   const int tid = threadIdx.x;
   const int wgi = tid >> 7;   // warpgroup of the block
@@ -368,27 +384,26 @@ __global__ void __launch_bounds__(NWG * 128)
   const __nv_bfloat16* vg = v + b * vsb + h * vsh;
 
   const uint32_t q_s = align_1024(smem_u32(smem));
-  const uint32_t kv_s = q_s + NWG * TILE64_BYTES;
+  const uint32_t kv_s = q_s + tile_bytes(NWG * 64, DP);
   const int n_tiles = (n + 63) / 64;
 
-  load_tile_async<NWG * 64, THREADS>(q_s, qg, qsn, q0, n, tid);
+  load_tile_async<NWG * 64, DP, THREADS>(q_s, qg, qsn, q0, n, d, tid);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_tiles) {
-      load_tile_async<64, THREADS>(kv_s + s * KV_STAGE_BYTES, kg, ksn, s * 64, n, tid);
-      load_tile_async<64, THREADS>(kv_s + s * KV_STAGE_BYTES + TILE64_BYTES, vg, vsn,
-                                   s * 64, n, tid);
+      load_tile_async<64, DP, THREADS>(kv_s + s * 2 * KV_TILE, kg, ksn, s * 64, n, d, tid);
+      load_tile_async<64, DP, THREADS>(kv_s + s * 2 * KV_TILE + KV_TILE, vg, vsn, s * 64, n,
+                                       d, tid);
     }
     cp_async_commit();
   }
 
-  const uint64_t q_desc = tile_desc(q_s + wgi * TILE64_BYTES);
+  const uint32_t q_rows = q_s + wgi * TILE64_BYTES;  // the warpgroup's rows
   // this thread's rows of the warpgroup's 64: r0 and r0 + 8
   float m0 = -INFINITY, m1 = -INFINITY;  // running row max, log2 domain
   float l0 = 0.0f, l1 = 0.0f;            // this thread's share of the row sums
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  WideAcc<DP> acc;
+  acc.zero();
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<STAGES - 2>();  // this thread's part of tile t has landed
@@ -397,23 +412,28 @@ __global__ void __launch_bounds__(NWG * 128)
     {
       const int tn = t + STAGES - 1;
       if (tn < n_tiles) {
-        const uint32_t st = kv_s + (tn % STAGES) * KV_STAGE_BYTES;
-        load_tile_async<64, THREADS>(st, kg, ksn, tn * 64, n, tid);
-        load_tile_async<64, THREADS>(st + TILE64_BYTES, vg, vsn, tn * 64, n, tid);
+        const uint32_t st = kv_s + (tn % STAGES) * 2 * KV_TILE;
+        // past DP 96 the loader's per-thread offsets are formed here, each
+        // tile, not held across the loop: within 128 registers they spill
+        const int ltid = DP > 96 ? (int)opaque(tid) : tid;
+        load_tile_async<64, DP, THREADS>(st, kg, ksn, tn * 64, n, d, ltid);
+        load_tile_async<64, DP, THREADS>(st + KV_TILE, vg, vsn, tn * 64, n, d, ltid);
       }
       cp_async_commit();
     }
-    const uint32_t stage = kv_s + (t % STAGES) * KV_STAGE_BYTES;
-    const uint64_t k_desc = tile_desc(stage);
-    const uint64_t v_desc = tile_desc(stage + TILE64_BYTES);
+    const uint32_t k_s = kv_s + (t % STAGES) * 2 * KV_TILE;
+    const uint64_t v_desc = tile_desc(k_s + KV_TILE);
     const int k0 = t * 64;
+    // past DP 64 Q's descriptors are formed here, each tile, not held
+    // across the loop: the registers go to the accumulator
+    const uint32_t q_at = DP > 64 ? opaque(q_rows) : q_rows;
 
     float s[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_m64n64k16_ss<0, 0>(s, q_desc + kk * K_SLICE_K_MAJOR,
-                               k_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss<64, 0, 0>(s, k_slice_desc(q_at, kk, Q_PANEL),
+                         k_slice_desc(k_s, kk, KV_PANEL), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -461,25 +481,19 @@ __global__ void __launch_bounds__(NWG * 128)
     }
     l0 = l0 * alpha0 + ps0;
     l1 = l1 * alpha1 + ps1;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc[4 * j] *= alpha0;
-      acc[4 * j + 1] *= alpha0;
-      acc[4 * j + 2] *= alpha1;
-      acc[4 * j + 3] *= alpha1;
-    }
+    acc.scale_rows(alpha0, alpha1);
 
-    fence_regs(acc);
+    acc.fence();
     fence_regs(p);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_m64n64k16_rs<1>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                            p[4 * kk + 3], v_desc + kk * K_SLICE_MN_MAJOR, 1);
+      acc.add_rs(p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                 v_desc + kk * K_SLICE_MN_MAJOR, KV_PANEL);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(acc);
+    acc.fence();
     fence_regs(p);
   }
   cp_async_wait<0>();
@@ -488,21 +502,12 @@ __global__ void __launch_bounds__(NWG * 128)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.0f / l0;
-  const float inv1 = 1.0f / l1;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[4 * j] *= inv0;
-    acc[4 * j + 1] *= inv0;
-    acc[4 * j + 2] *= inv1;
-    acc[4 * j + 3] *= inv1;
-  }
+  acc.scale_rows(1.0f / l0, 1.0f / l1);
   // each warp stages its 16 rows in its own rows of the Q tile, which only
   // its own (finished) products read
   const int row0 = q0 + wgi * 64;  // first row of the warpgroup
-  store_acc_rows(acc, q_s + wgi * TILE64_BYTES,
-                 o + (((long long)b * n + row0) * heads + h) * 64,
-                 (long long)heads * 64, n - row0);
+  store_wide_rows(acc, q_rows, Q_PANEL, o + (((long long)b * n + row0) * heads + h) * d,
+                  (long long)heads * d, n - row0, d);
   if (lse != nullptr && (lane & 3) == 0) {
     const int r = row0 + frag_row(t128, 0);
     float* lse_bh = lse + ((long long)b * heads + h) * n;
@@ -517,7 +522,7 @@ __global__ void __launch_bounds__(NWG * 128)
 enum Design { DESIGN_FMA = 0, DESIGN_WMMA = 1, DESIGN_WGMMA = 2 };
 
 constexpr Design design_rule(bool is_f32, int head_dim) {
-  return is_f32 ? DESIGN_FMA : head_dim == 64 ? DESIGN_WGMMA : DESIGN_WMMA;
+  return is_f32 ? DESIGN_FMA : head_dim >= 64 ? DESIGN_WGMMA : DESIGN_WMMA;
 }
 
 // The head dims taken: multiples of 8 up to 128.
@@ -535,31 +540,32 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int NWG>
-cudaError_t launch_wgmma(const Args& a) {
-  auto kern = wg::flash_fwd_wgmma_kernel<NWG>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::smem_bytes<NWG>());
+template <int DP, int NWG>
+cudaError_t launch_wgmma_blocks(const Args& a) {
+  auto kern = wg::flash_fwd_wgmma_kernel<DP, NWG>;
+  constexpr int bytes = wg::smem_bytes<DP, NWG>();
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.n + NWG * 64 - 1) / (NWG * 64), a.heads, a.batch);
-  kern<<<grid, NWG * 128, wg::smem_bytes<NWG>(), a.stream>>>(
+  kern<<<grid, NWG * 128, bytes, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse,
-      a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh,
-      a.scale_log2);
+      a.n, a.head_dim, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn,
+      a.vsh, a.scale_log2);
   return cudaGetLastError();
 }
 
-// D: the tile width, a.head_dim rounded up to 16.
+// rows a block, from the shape: short sequences (the crop passes) give few
+// blocks a (batch, head), so they take 64-row blocks
+template <int DP>
+cudaError_t launch_wgmma(const Args& a) {
+  return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_wgmma_blocks<DP, 2>(a)
+                                         : launch_wgmma_blocks<DP, 1>(a);
+}
+
+// The WMMA and FMA designs. D: the tile width, a.head_dim rounded up to 16.
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 64) {
-    if (design_rule(false, a.head_dim) == DESIGN_WGMMA) {
-      // rows a block, from the shape: short sequences (the crop passes) give
-      // few blocks a (batch, head), so they take 64-row blocks
-      return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_wgmma<2>(a) : launch_wgmma<1>(a);
-    }
-  }
   using P = Plan<T, D>;
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -576,15 +582,34 @@ cudaError_t launch(const Args& a) {
 template <typename T>
 cudaError_t dispatch(const Args& a) {
   if (!head_dim_taken(a.head_dim)) return cudaErrorInvalidValue;
-  switch ((a.head_dim + 15) / 16 * 16) {
-    case 16: return launch<T, 16>(a);
-    case 32: return launch<T, 32>(a);
-    case 48: return launch<T, 48>(a);
-    case 64: return launch<T, 64>(a);
-    case 80: return launch<T, 80>(a);
-    case 96: return launch<T, 96>(a);
-    case 112: return launch<T, 112>(a);
-    default: return launch<T, 128>(a);
+  const int dp = (a.head_dim + 15) / 16 * 16;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (design_rule(false, a.head_dim) == DESIGN_WGMMA) {
+      switch (dp) {
+        case 64: return launch_wgmma<64>(a);
+        case 80: return launch_wgmma<80>(a);
+        case 96: return launch_wgmma<96>(a);
+        case 112: return launch_wgmma<112>(a);
+        default: return launch_wgmma<128>(a);
+      }
+    }
+    switch (dp) {  // head_dim 8-56
+      case 16: return launch<T, 16>(a);
+      case 32: return launch<T, 32>(a);
+      case 48: return launch<T, 48>(a);
+      default: return launch<T, 64>(a);
+    }
+  } else {
+    switch (dp) {
+      case 16: return launch<T, 16>(a);
+      case 32: return launch<T, 32>(a);
+      case 48: return launch<T, 48>(a);
+      case 64: return launch<T, 64>(a);
+      case 80: return launch<T, 80>(a);
+      case 96: return launch<T, 96>(a);
+      case 112: return launch<T, 112>(a);
+      default: return launch<T, 128>(a);
+    }
   }
 }
 
@@ -615,8 +640,8 @@ extern "C" int clipself_flash_fwd(int dtype, const void* q, const void* k,
 }
 
 // The design that clipself_flash_fwd runs for this dtype and head_dim:
-// 0 = f32 FMA, 1 = WMMA tiles, 2 = wgmma (bf16 at head_dim 64); -1 if the
-// pair is not taken.
+// 0 = f32 FMA, 1 = WMMA tiles (bf16 below head_dim 64), 2 = wgmma (bf16 at
+// head_dim 64-128); -1 if the pair is not taken.
 extern "C" int clipself_flash_fwd_design(int dtype, int head_dim) {
   if (!head_dim_taken(head_dim)) return -1;
   if (dtype != 0 && dtype != 1) return -1;

@@ -44,33 +44,36 @@
 // [B, N, H, D] strides the forward takes, write dQ, dK and dV as contiguous
 // [B, N, H, D] and mask the ragged tail (-inf before the exp):
 //
-//  * bfloat16 at head_dim 64, every backward of the EVA02 towers: the
-//    warpgroup kernels in namespace `wg` below (their own note says how).
-//    Every product runs as wgmma (csrc/hopper_mma.cuh); the scores, P and
-//    dS live in registers, and the streamed tiles arrive through cp.async
-//    rings.
-//  * bfloat16 at the other head dims: a block of 4 warps owns 64 keys (64
-//    queries in the dQ pass), keeps its accumulators in WMMA fragments and
-//    loops over the other side's 64-row tiles staged with plain loads;
-//    every product's result passes through shared memory in f32.
+//  * bfloat16 at head_dim 64-128 (the EVA02 towers' 64; ViT-H-14's 80,
+//    ViT-g-14's and EVA01-g-14's 88, ViT-bigG-14's 104, bigE-14's and
+//    ViT-e-14's 112): the warpgroup kernels in namespace `wg` below (their
+//    own note says how). Every product runs as wgmma (csrc/hopper_mma.cuh)
+//    on tiles of one or two 64-column panels; the scores, P and dS live in
+//    registers, and the streamed tiles arrive through cp.async rings.
+//  * bfloat16 below head_dim 64 (the tiny test towers): a block of 4 warps
+//    owns 64 keys (64 queries in the dQ pass), keeps its accumulators in
+//    WMMA fragments and loops over the other side's 64-row tiles staged
+//    with plain loads; every product's result passes through shared memory
+//    in f32.
 //  * float32 (the parity path): the same blocking with f32 FMAs, so that it
 //    keeps full f32 precision (tensor cores would round the inputs to TF32).
 //
-// The two older designs take every head_dim d that is a multiple of 8 up to
-// 128 by zero-fill, as the forward does: instantiated at the tile width
-// DP = d rounded up to 16, the true d at run time. Columns d to DP - 1 of
-// the K, V, Q and dO tiles load as zeros, which add nothing to S, dP, dS^T Q
-// or dS K; the extra columns of dQ, dK and dV (zero too) are never stored;
+// Every design takes every head_dim d that is a multiple of 8 up to 128 by
+// zero-fill, as the forward does: instantiated at the tile width DP = d
+// rounded up to 16, the true d at run time. Columns d to DP - 1 of the K, V,
+// Q and dO tiles load as zeros, which add nothing to S, dP, dS^T Q or dS K;
+// the extra columns of dQ, dK and dV (zero too) are never stored;
 // di = rowsum(dO * O) runs over the true d.
 //
-// Bound on the H100: at N = 4097, D = 64 a (key, query) pair costs 14 * D
-// flops in the two passes against tiles that every block reads again from
-// the L2, so the kernels are bound by operations. What holds the warpgroup
-// kernels below the tensor cores' rate is the elementwise work between the
-// products (the exponentials, dS and bf16 packing take about as long as a
-// tile's wgmma operations), shared-memory bandwidth (m64n64k16 with both
+// Bound on the H100: at N = 4097 a (key, query) pair costs 14 * d flops in
+// the two passes against tiles that every block reads again from the L2,
+// so the kernels are bound by operations. What holds the warpgroup kernels
+// below the tensor cores' rate is the elementwise work between the products
+// (the exponentials, dS and bf16 packing take about as long as a tile's
+// wgmma operations at d = 64), shared-memory bandwidth (m64n64k16 with both
 // operands in shared memory reads 4 KB for 32 tensor-core cycles) and, in
-// the dK / dV kernel, the registers that leave one block of 8 warps an SM.
+// the dK / dV kernel, the registers: dK and dV's accumulators take d floats
+// a thread, which leaves one block of 8 warps an SM (232-255 registers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,8 +93,8 @@ constexpr int WROWS = 16;  // a warp's rows: keys in the dK / dV pass, queries i
 constexpr int THREADS = WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of one H100 block
-// bf16 head_dim 64: sequences up to this length take one warpgroup a block
-// in the dQ pass (the forward's rule: short sequences give few blocks)
+// bf16 head_dim 64-128: sequences up to this length take one warpgroup a
+// block in the dQ pass (the forward's rule: short sequences give few blocks)
 constexpr int WGMMA_ONE_WARPGROUP_MAX_N = 384;
 
 template <typename T>
@@ -493,26 +496,37 @@ __global__ void __launch_bounds__(THREADS)
   dq_acc.store(outw, dq + head_off, row_stride, q0 + wq, n, d);
 }
 
-// ---- bf16, head_dim 64: the warpgroup design --------------------------------
+// ---- bf16, head_dim 64-128: the warpgroup design ---------------------------
+//
+// The tile width DP is the head_dim rounded up to 16: a tile of DP columns is
+// one or two 64-column panels (csrc/hopper_mma.cuh), its columns at or past
+// the true head_dim load as zeros (they add nothing to S, dP, dS^T Q or
+// dS K), and the outputs' are not stored. A product that contracts over the
+// head_dim runs DP / 16 k-slices; one whose N is the head_dim runs one
+// product a k-slice at DP 64, two past it (N = 64, then N = DP - 64).
 //
 // The dK / dV pass. A block of two warpgroups owns 128 keys of one (batch,
 // head), 64 a warpgroup, and keeps their dK and dV in wgmma accumulators for
 // the whole kernel. 64-row Q and dO tiles with their lse and di come through
 // a ring of STAGES shared-memory stages filled by cp.async, tile t + AHEAD
 // in flight while tile t is computed, with one block barrier a tile. A
-// warpgroup's work on a tile has two phases:
+// warpgroup takes a tile in rounds of QW queries (the whole 64 up to DP 96;
+// 32 past it, so that S^T, dP^T, P^T and dS^T of a round take half the
+// registers beside dK and dV's DP floats a thread); a round has two phases:
 //
 //   phase 1: S^T = K Q^T and dP^T = V dO^T in registers (one wgmma group),
 //            P^T and dS^T formed there and rounded to bf16;
 //   phase 2: dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A
-//            operands against the dO and Q tiles read MN-major (one wgmma
+//            operands against the dO and Q rows read MN-major (one wgmma
 //            group).
 //
 // The tensor cores idle while a warpgroup does phase 1's elementwise work, so
-// the two warpgroups run half a tile apart: between two block barriers
-// warpgroup 0 runs phase 1 then phase 2 of tile t, warpgroup 1 phase 2 of
-// tile t - 1 then phase 1 of tile t, and one's products overlap the other's
-// exponentials.
+// the two warpgroups run half a round apart: between two block barriers
+// warpgroup 0 runs phase 1 then phase 2 of each round of tile t, warpgroup 1
+// phase 2 of the last round of tile t - 1, then the rounds of tile t with
+// the last one's phase 2 left for after the next barrier, and one's products
+// overlap the other's exponentials. Each dK and dV element sums its query
+// k-slices in ascending order.
 //
 // The dQ pass has the forward's shape: a block of one or two warpgroups owns
 // 64 query rows a warpgroup, with their Q and dO tiles resident, and walks
@@ -528,24 +542,33 @@ using namespace hopper;
 constexpr int STAGES = 4;  // tiles t - 1 (warpgroup 1), t, t + 1, t + 2
 constexpr int AHEAD = 2;   // tiles in flight beyond the current one
 constexpr int THREADS = 256;
-constexpr int KEYS = 128;                           // keys a block
-constexpr int QDO_STAGE_BYTES = 2 * TILE64_BYTES;   // one Q and one dO tile
-constexpr int ROWVEC_BYTES = 2 * 64 * 4;            // lse and di of a tile
-constexpr int O_K = 0;
-constexpr int O_V = O_K + KEYS * ROW_BYTES;
-constexpr int O_RING = O_V + KEYS * ROW_BYTES;
-constexpr int O_VEC = O_RING + STAGES * QDO_STAGE_BYTES;
-constexpr int SMEM_BYTES = ATOM_BYTES + O_VEC + STAGES * ROWVEC_BYTES;
-static_assert(SMEM_BYTES <= SMEM_LIMIT, "shared-memory plan too large");
+constexpr int KEYS = 128;                 // keys a block
+constexpr int ROWVEC_BYTES = 2 * 64 * 4;  // lse and di of a tile
 
-constexpr int DQ_STAGES = 3;                       // K / V tiles of the dQ pass
-constexpr int KV_STAGE_BYTES = 2 * TILE64_BYTES;   // one K and one V tile
+// queries a round of the dK / dV pass: 64 up to DP 96 (252-255 registers,
+// no spills; on an H100 SXM 32 there took 1.14-1.20x the time), 32 past it
+// (64 would not fit beside dK and dV's DP floats a thread)
+__host__ __device__ constexpr int round_queries(int dp) { return dp <= 96 ? 64 : 32; }
 
-template <int NWG>
+template <int DP>
+struct DkdvPlan {
+  static constexpr int KV = tile_bytes(KEYS, DP);  // the resident K (or V)
+  static constexpr int QDO = tile_bytes(64, DP);   // a Q (or dO) tile of the ring
+  static constexpr int O_K = 0;
+  static constexpr int O_V = KV;
+  static constexpr int O_RING = 2 * KV;
+  static constexpr int O_VEC = O_RING + STAGES * 2 * QDO;
+  static constexpr int SMEM = ATOM_BYTES + O_VEC + STAGES * ROWVEC_BYTES;
+  static_assert(SMEM <= SMEM_LIMIT, "shared-memory plan too large");
+};
+
+constexpr int DQ_STAGES = 3;  // K / V tiles of the dQ pass
+
+template <int DP, int NWG>
 constexpr int dq_smem_bytes() {
-  return ATOM_BYTES + 2 * NWG * TILE64_BYTES + DQ_STAGES * KV_STAGE_BYTES;
+  return ATOM_BYTES + 2 * tile_bytes(NWG * 64, DP) + DQ_STAGES * 2 * tile_bytes(64, DP);
 }
-static_assert(dq_smem_bytes<2>() <= SMEM_LIMIT, "shared-memory plan too large");
+static_assert(dq_smem_bytes<128, 2>() <= SMEM_LIMIT, "shared-memory plan too large");
 
 __device__ __forceinline__ void block_barrier() {
   // by number, not by place in the code: the two warpgroups meet it from
@@ -557,6 +580,7 @@ __device__ __forceinline__ void warpgroup_barrier(int wgi) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
 }
 
+template <int DP>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dkdv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
@@ -565,11 +589,17 @@ __global__ void __launch_bounds__(THREADS)
                                 const float* __restrict__ lse,
                                 const float* __restrict__ di,
                                 __nv_bfloat16* __restrict__ dk,
-                                __nv_bfloat16* __restrict__ dv, int n, int heads,
+                                __nv_bfloat16* __restrict__ dv, int n, int d, int heads,
                                 long long qsb, long long qsn, long long qsh,
                                 long long ksb, long long ksn, long long ksh,
                                 long long vsb, long long vsn, long long vsh,
                                 float scale) {
+  using P = DkdvPlan<DP>;
+  constexpr int QW = round_queries(DP);
+  constexpr int ROUNDS = 64 / QW;
+  constexpr uint32_t K_PANEL = KEYS * ROW_BYTES;  // bytes between K's (V's) panels
+  constexpr uint32_t R_PANEL = TILE64_BYTES;      // ... a ring tile's
+  if (DP == 64) d = 64;  // the head_dim a tile of 64 takes: strides fold to shifts
   extern __shared__ unsigned char smem[];
   const int tid = threadIdx.x;
   const int wgi = tid >> 7;
@@ -579,16 +609,16 @@ __global__ void __launch_bounds__(THREADS)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const float scale_log2 = scale * LOG2E;
-  const long long row_stride = (long long)heads * 64;  // contiguous tensors
-  const long long head_off = ((long long)b * n * heads + h) * 64;
+  const long long row_stride = (long long)heads * d;  // contiguous tensors
+  const long long head_off = ((long long)b * n * heads + h) * d;
   const __nv_bfloat16* qg = q + b * qsb + h * qsh;
   const __nv_bfloat16* dog = dout + head_off;
   const float* lse_bh = lse + ((long long)b * heads + h) * n;
   const float* di_bh = di + ((long long)b * heads + h) * n;
 
   const uint32_t base = align_1024(smem_u32(smem));
-  const uint32_t ring_s = base + O_RING;
-  const uint32_t vec_s = base + O_VEC;
+  const uint32_t ring_s = base + P::O_RING;
+  const uint32_t vec_s = base + P::O_VEC;
   const unsigned char* smem_base = smem + (base - smem_u32(smem));
   const int n_tiles = (n + 63) / 64;
 
@@ -598,9 +628,9 @@ __global__ void __launch_bounds__(THREADS)
   auto load_stage = [&](int tile, int st) {
     if (wgi == 0) {
       const int row0 = tile * 64;
-      load_tile_async<64, 128>(ring_s + st * QDO_STAGE_BYTES, qg, qsn, row0, n, tid);
-      load_tile_async<64, 128>(ring_s + st * QDO_STAGE_BYTES + TILE64_BYTES, dog,
-                               row_stride, row0, n, tid);
+      load_tile_async<64, DP, 128>(ring_s + st * 2 * P::QDO, qg, qsn, row0, n, d, tid);
+      load_tile_async<64, DP, 128>(ring_s + st * 2 * P::QDO + P::QDO, dog, row_stride, row0,
+                                   n, d, tid);
       const int r = row0 + (tid & 63);
       const bool ok = r < n;
       const float* src = tid < 64 ? lse_bh : di_bh;
@@ -619,8 +649,8 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_commit();
   };
 
-  load_tile_async<KEYS, THREADS>(base + O_K, k + b * ksb + h * ksh, ksn, k0, n, tid);
-  load_tile_async<KEYS, THREADS>(base + O_V, v + b * vsb + h * vsh, vsn, k0, n, tid);
+  load_tile_async<KEYS, DP, THREADS>(base + P::O_K, k + b * ksb + h * ksh, ksn, k0, n, d, tid);
+  load_tile_async<KEYS, DP, THREADS>(base + P::O_V, v + b * vsb + h * vsh, vsn, k0, n, d, tid);
 #pragma unroll
   for (int s = 0; s < AHEAD; ++s) {
     if (s < n_tiles) load_stage(s, s);
@@ -629,44 +659,43 @@ __global__ void __launch_bounds__(THREADS)
 
   const int key_base = k0 + wgi * 64;  // the warpgroup's first key
   const bool pair = k0 + 64 < n;       // warpgroup 1 holds keys too
-  const uint32_t k_s = base + O_K + wgi * TILE64_BYTES;
-  const uint32_t v_s = base + O_V + wgi * TILE64_BYTES;
-  const uint64_t k_desc = tile_desc(k_s);
-  const uint64_t v_desc = tile_desc(v_s);
+  const uint32_t k_rows = base + P::O_K + wgi * TILE64_BYTES;
+  const uint32_t v_rows = base + P::O_V + wgi * TILE64_BYTES;
   // this thread's key rows of the warpgroup's 64: r0 and r0 + 8
   const int r0 = frag_row(t128, 0);
   const bool key_ok0 = key_base + r0 < n;
   const bool key_ok1 = key_base + r0 + 8 < n;
 
-  float dk_acc[32], dv_acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    dk_acc[i] = 0.0f;
-    dv_acc[i] = 0.0f;
-  }
+  WideAcc<DP> dk_acc, dv_acc;
+  dk_acc.zero();
+  dv_acc.zero();
 
-  // Phase 1 of tile t: P^T and dS^T of [64 keys, 64 queries] as bf16 pairs
-  // in the A-fragment order.
-  auto phase1 = [&](int t, uint32_t (&pt)[16], uint32_t (&dst)[16]) {
+  // Phase 1 of round rd of tile t: P^T and dS^T of [64 keys, QW queries] as
+  // bf16 pairs in the A-fragment order.
+  auto phase1 = [&](int t, int rd, uint32_t (&pt)[QW / 4], uint32_t (&dst)[QW / 4]) {
     const int st = t % STAGES;
-    const int q0 = t * 64;
-    const uint64_t q_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES);
-    const uint64_t do_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES + TILE64_BYTES);
-    const float* lse_s =
-        reinterpret_cast<const float*>(smem_base + O_VEC + st * ROWVEC_BYTES);
+    const int q0 = t * 64 + rd * QW;  // the round's first query
+    const uint32_t q_rows = ring_s + st * 2 * P::QDO + rd * QW * ROW_BYTES;
+    const uint32_t do_rows = q_rows + P::QDO;
+    const float* lse_s = reinterpret_cast<const float*>(smem_base + P::O_VEC +
+                                                        st * ROWVEC_BYTES) + rd * QW;
     const float* di_s = lse_s + 64;
+    // past DP 64 the resident K and V descriptors are formed here, each
+    // round, not held across the loop: the registers go to dK and dV
+    const uint32_t k_at = DP > 64 ? opaque(k_rows) : k_rows;
+    const uint32_t v_at = DP > 64 ? opaque(v_rows) : v_rows;
 
-    float st_acc[32], dp_acc[32];  // S^T and dP^T
+    float st_acc[QW / 2], dp_acc[QW / 2];  // S^T and dP^T
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_m64n64k16_ss<0, 0>(st_acc, k_desc + kk * K_SLICE_K_MAJOR,
-                               q_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss<QW, 0, 0>(st_acc, k_slice_desc(k_at, kk, K_PANEL),
+                         k_slice_desc(q_rows, kk, R_PANEL), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_m64n64k16_ss<0, 0>(dp_acc, v_desc + kk * K_SLICE_K_MAJOR,
-                               do_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss<QW, 0, 0>(dp_acc, k_slice_desc(v_at, kk, K_PANEL),
+                         k_slice_desc(do_rows, kk, R_PANEL), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -675,10 +704,10 @@ __global__ void __launch_bounds__(THREADS)
 
     // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) and
     // dS^T = P^T * (dP^T - di) * scale
-    const bool ragged = q0 + 64 > n || key_base + 64 > n;
+    const bool ragged = q0 + QW > n || key_base + 64 > n;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * (lane & 3);  // query column of the tile
+    for (int j = 0; j < QW / 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);  // query column of the round
       const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
       const float2 dd = *reinterpret_cast<const float2*>(di_s + c);
       const float nl0 = -ls.x * LOG2E;
@@ -708,30 +737,31 @@ __global__ void __launch_bounds__(THREADS)
     }
   };
 
-  // Phase 2 of tile t: dV and dK grow.
-  auto phase2 = [&](int t, uint32_t (&pt)[16], uint32_t (&dst)[16]) {
+  // Phase 2 of round rd of tile t: dV and dK grow.
+  auto phase2 = [&](int t, int rd, uint32_t (&pt)[QW / 4], uint32_t (&dst)[QW / 4]) {
     const int st = t % STAGES;
-    const uint64_t q_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES);
-    const uint64_t do_desc = tile_desc(ring_s + st * QDO_STAGE_BYTES + TILE64_BYTES);
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
+    const uint32_t q_rows = ring_s + st * 2 * P::QDO + rd * QW * ROW_BYTES;
+    const uint64_t q_desc = tile_desc(q_rows);
+    const uint64_t do_desc = tile_desc(q_rows + P::QDO);
+    dv_acc.fence();
+    dk_acc.fence();
     fence_regs(pt);
     fence_regs(dst);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // dV += P^T dO
-      wgmma_m64n64k16_rs<1>(dv_acc, pt[4 * kk], pt[4 * kk + 1], pt[4 * kk + 2],
-                            pt[4 * kk + 3], do_desc + kk * K_SLICE_MN_MAJOR, 1);
+    for (int kk = 0; kk < QW / 16; ++kk) {  // dV += P^T dO
+      dv_acc.add_rs(pt[4 * kk], pt[4 * kk + 1], pt[4 * kk + 2], pt[4 * kk + 3],
+                    do_desc + kk * K_SLICE_MN_MAJOR, R_PANEL);
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // dK += dS^T Q
-      wgmma_m64n64k16_rs<1>(dk_acc, dst[4 * kk], dst[4 * kk + 1], dst[4 * kk + 2],
-                            dst[4 * kk + 3], q_desc + kk * K_SLICE_MN_MAJOR, 1);
+    for (int kk = 0; kk < QW / 16; ++kk) {  // dK += dS^T Q
+      dk_acc.add_rs(dst[4 * kk], dst[4 * kk + 1], dst[4 * kk + 2], dst[4 * kk + 3],
+                    q_desc + kk * K_SLICE_MN_MAJOR, R_PANEL);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
+    dv_acc.fence();
+    dk_acc.fence();
     fence_regs(pt);
     fence_regs(dst);
   };
@@ -739,35 +769,42 @@ __global__ void __launch_bounds__(THREADS)
   if (wgi == 0) {
     for (int t = 0; t < n_tiles; ++t) {
       ring_step(t);
-      uint32_t pt[16], dst[16];
-      phase1(t, pt, dst);
-      phase2(t, pt, dst);
-    }
-    block_barrier();
-  } else {
-    uint32_t pt[16], dst[16];
-    for (int t = 0; t < n_tiles; ++t) {
-      ring_step(t);
-      if (pair) {
-        if (t > 0) phase2(t - 1, pt, dst);
-        phase1(t, pt, dst);
+#pragma unroll
+      for (int rd = 0; rd < ROUNDS; ++rd) {
+        uint32_t pt[QW / 4], dst[QW / 4];
+        phase1(t, rd, pt, dst);
+        phase2(t, rd, pt, dst);
       }
     }
     block_barrier();
-    if (pair) phase2(n_tiles - 1, pt, dst);
+  } else {
+    uint32_t pt[QW / 4], dst[QW / 4];
+    for (int t = 0; t < n_tiles; ++t) {
+      ring_step(t);
+      if (pair) {
+        if (t > 0) phase2(t - 1, ROUNDS - 1, pt, dst);
+#pragma unroll
+        for (int rd = 0; rd < ROUNDS; ++rd) {
+          phase1(t, rd, pt, dst);
+          if (rd < ROUNDS - 1) phase2(t, rd, pt, dst);
+        }
+      }
+    }
+    block_barrier();
+    if (pair) phase2(n_tiles - 1, ROUNDS - 1, pt, dst);
   }
   cp_async_wait<0>();
   warpgroup_barrier(wgi);  // every product that reads this warpgroup's K and V is done
 
   if (key_base < n) {  // each warp stages its 16 keys in its own rows of K, then V
-    store_acc_rows(dk_acc, k_s, dk + head_off + (long long)key_base * row_stride,
-                   row_stride, n - key_base);
-    store_acc_rows(dv_acc, v_s, dv + head_off + (long long)key_base * row_stride,
-                   row_stride, n - key_base);
+    store_wide_rows(dk_acc, k_rows, K_PANEL, dk + head_off + (long long)key_base * row_stride,
+                    row_stride, n - key_base, d);
+    store_wide_rows(dv_acc, v_rows, K_PANEL, dv + head_off + (long long)key_base * row_stride,
+                    row_stride, n - key_base, d);
   }
 }
 
-template <int NWG>
+template <int DP, int NWG>
 __global__ void __launch_bounds__(NWG * 128)
     flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
@@ -775,12 +812,16 @@ __global__ void __launch_bounds__(NWG * 128)
                               const __nv_bfloat16* __restrict__ dout,
                               const float* __restrict__ lse,
                               const float* __restrict__ di,
-                              __nv_bfloat16* __restrict__ dq, int n, int heads,
+                              __nv_bfloat16* __restrict__ dq, int n, int d, int heads,
                               long long qsb, long long qsn, long long qsh,
                               long long ksb, long long ksn, long long ksh,
                               long long vsb, long long vsn, long long vsh,
                               float scale) {
   constexpr int NT = NWG * 128;
+  constexpr uint32_t Q_PANEL = NWG * TILE64_BYTES;  // bytes between Q's (dO's) panels
+  constexpr uint32_t KV_PANEL = TILE64_BYTES;       // ... a K or a V tile's
+  constexpr uint32_t KV_TILE = tile_bytes(64, DP);
+  if (DP == 64) d = 64;  // the head_dim a tile of 64 takes: strides fold to shifts
   extern __shared__ unsigned char smem[];
   const int tid = threadIdx.x;
   const int wgi = tid >> 7;   // warpgroup of the block
@@ -789,8 +830,8 @@ __global__ void __launch_bounds__(NWG * 128)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const float scale_log2 = scale * LOG2E;
-  const long long row_stride = (long long)heads * 64;  // contiguous dO and dQ
-  const long long head_off = ((long long)b * n * heads + h) * 64;
+  const long long row_stride = (long long)heads * d;  // contiguous dO and dQ
+  const long long head_off = ((long long)b * n * heads + h) * d;
   const __nv_bfloat16* qg = q + b * qsb + h * qsh;
   const __nv_bfloat16* kg = k + b * ksb + h * ksh;
   const __nv_bfloat16* vg = v + b * vsb + h * vsh;
@@ -798,25 +839,25 @@ __global__ void __launch_bounds__(NWG * 128)
   const float* di_bh = di + ((long long)b * heads + h) * n;
 
   const uint32_t q_s = align_1024(smem_u32(smem));
-  const uint32_t do_s = q_s + NWG * TILE64_BYTES;
-  const uint32_t kv_s = do_s + NWG * TILE64_BYTES;
+  const uint32_t do_s = q_s + tile_bytes(NWG * 64, DP);
+  const uint32_t kv_s = do_s + tile_bytes(NWG * 64, DP);
   const int n_tiles = (n + 63) / 64;
 
   // Q and dO ride in the first group with the first K / V stage
-  load_tile_async<NWG * 64, NT>(q_s, qg, qsn, q0, n, tid);
-  load_tile_async<NWG * 64, NT>(do_s, dout + head_off, row_stride, q0, n, tid);
+  load_tile_async<NWG * 64, DP, NT>(q_s, qg, qsn, q0, n, d, tid);
+  load_tile_async<NWG * 64, DP, NT>(do_s, dout + head_off, row_stride, q0, n, d, tid);
 #pragma unroll
   for (int s = 0; s < DQ_STAGES - 1; ++s) {
     if (s < n_tiles) {
-      load_tile_async<64, NT>(kv_s + s * KV_STAGE_BYTES, kg, ksn, s * 64, n, tid);
-      load_tile_async<64, NT>(kv_s + s * KV_STAGE_BYTES + TILE64_BYTES, vg, vsn,
-                              s * 64, n, tid);
+      load_tile_async<64, DP, NT>(kv_s + s * 2 * KV_TILE, kg, ksn, s * 64, n, d, tid);
+      load_tile_async<64, DP, NT>(kv_s + s * 2 * KV_TILE + KV_TILE, vg, vsn, s * 64, n, d,
+                                  tid);
     }
     cp_async_commit();
   }
 
-  const uint64_t q_desc = tile_desc(q_s + wgi * TILE64_BYTES);
-  const uint64_t do_desc = tile_desc(do_s + wgi * TILE64_BYTES);
+  const uint32_t q_rows = q_s + wgi * TILE64_BYTES;  // the warpgroup's rows
+  const uint32_t do_rows = do_s + wgi * TILE64_BYTES;
   // this thread's query rows: r0 and r0 + 8, with -lse * log2(e) and di
   // (rows past n: zero, and never stored)
   const int row0 = q0 + wgi * 64;  // first row of the warpgroup
@@ -826,9 +867,8 @@ __global__ void __launch_bounds__(NWG * 128)
   const float dd0 = r0 < n ? di_bh[r0] : 0.0f;
   const float dd1 = r0 + 8 < n ? di_bh[r0 + 8] : 0.0f;
 
-  float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  WideAcc<DP> acc;
+  acc.zero();
 
   for (int t = 0; t < n_tiles; ++t) {  // ascending key order
     cp_async_wait<DQ_STAGES - 2>();  // this thread's part of tile t has landed
@@ -837,28 +877,27 @@ __global__ void __launch_bounds__(NWG * 128)
     {
       const int tn = t + DQ_STAGES - 1;
       if (tn < n_tiles) {
-        const uint32_t st = kv_s + (tn % DQ_STAGES) * KV_STAGE_BYTES;
-        load_tile_async<64, NT>(st, kg, ksn, tn * 64, n, tid);
-        load_tile_async<64, NT>(st + TILE64_BYTES, vg, vsn, tn * 64, n, tid);
+        const uint32_t st = kv_s + (tn % DQ_STAGES) * 2 * KV_TILE;
+        load_tile_async<64, DP, NT>(st, kg, ksn, tn * 64, n, d, tid);
+        load_tile_async<64, DP, NT>(st + KV_TILE, vg, vsn, tn * 64, n, d, tid);
       }
       cp_async_commit();
     }
-    const uint32_t stage = kv_s + (t % DQ_STAGES) * KV_STAGE_BYTES;
-    const uint64_t k_desc = tile_desc(stage);
-    const uint64_t v_desc = tile_desc(stage + TILE64_BYTES);
+    const uint32_t k_s = kv_s + (t % DQ_STAGES) * 2 * KV_TILE;
+    const uint32_t v_s = k_s + KV_TILE;
     const int k0 = t * 64;
 
     float s[32], dp[32];  // S and dP of [64 queries, 64 keys]
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_m64n64k16_ss<0, 0>(s, q_desc + kk * K_SLICE_K_MAJOR,
-                               k_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss<64, 0, 0>(s, k_slice_desc(q_rows, kk, Q_PANEL), k_slice_desc(k_s, kk, KV_PANEL),
+                         kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_m64n64k16_ss<0, 0>(dp, do_desc + kk * K_SLICE_K_MAJOR,
-                               v_desc + kk * K_SLICE_K_MAJOR, kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss<64, 0, 0>(dp, k_slice_desc(do_rows, kk, Q_PANEL),
+                         k_slice_desc(v_s, kk, KV_PANEL), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -889,26 +928,26 @@ __global__ void __launch_bounds__(NWG * 128)
                                 p11 * (dp[4 * j + 3] - dd1) * scale);
     }
 
-    fence_regs(acc);
+    acc.fence();
     fence_regs(ds);
     wgmma_fence();
+    const uint64_t k_desc = tile_desc(k_s);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // dQ += dS K
-      wgmma_m64n64k16_rs<1>(acc, ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2],
-                            ds[4 * kk + 3], k_desc + kk * K_SLICE_MN_MAJOR, 1);
+      acc.add_rs(ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3],
+                 k_desc + kk * K_SLICE_MN_MAJOR, KV_PANEL);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(acc);
+    acc.fence();
     fence_regs(ds);
   }
   cp_async_wait<0>();
 
   // each warp stages its 16 rows in its own rows of the Q tile, which only
   // its own warpgroup's (finished) products read
-  store_acc_rows(acc, q_s + wgi * TILE64_BYTES,
-                 dq + (((long long)b * n + row0) * heads + h) * 64, row_stride,
-                 n - row0);
+  store_wide_rows(acc, q_rows, Q_PANEL, dq + (((long long)b * n + row0) * heads + h) * d,
+                  row_stride, n - row0, d);
 }
 
 }  // namespace wg
@@ -946,7 +985,7 @@ __global__ void flash_bwd_di_kernel(const T* __restrict__ o,
 enum Design { DESIGN_FMA = 0, DESIGN_WMMA = 1, DESIGN_WGMMA = 2 };
 
 constexpr Design design_rule(bool is_f32, int head_dim) {
-  return is_f32 ? DESIGN_FMA : head_dim == 64 ? DESIGN_WGMMA : DESIGN_WMMA;
+  return is_f32 ? DESIGN_FMA : head_dim >= 64 ? DESIGN_WGMMA : DESIGN_WMMA;
 }
 
 // The head dims taken: multiples of 8 up to 128.
@@ -968,61 +1007,63 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int NWG>
-cudaError_t launch_dq_wgmma(const Args& a) {
-  using bf16 = __nv_bfloat16;
-  auto kern = wg::flash_bwd_dq_wgmma_kernel<NWG>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       wg::dq_smem_bytes<NWG>());
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.n + NWG * 64 - 1) / (NWG * 64), a.heads, a.batch);
-  kern<<<grid, NWG * 128, wg::dq_smem_bytes<NWG>(), a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(a.dq), a.n, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh,
-      a.vsb, a.vsn, a.vsh, a.scale);
-  return cudaGetLastError();
-}
-
-// bfloat16 at head_dim 64: the two warpgroup passes (the di pass is the
-// caller's).
-cudaError_t launch_wgmma(const Args& a) {
-  using bf16 = __nv_bfloat16;
-  auto kern = wg::flash_bwd_dkdv_wgmma_kernel;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       wg::SMEM_BYTES);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.n + wg::KEYS - 1) / wg::KEYS, a.heads, a.batch);
-  kern<<<grid, wg::THREADS, wg::SMEM_BYTES, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.n, a.heads, a.qsb, a.qsn,
-      a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_dq_wgmma<2>(a) : launch_dq_wgmma<1>(a);
-}
-
-// D: the tile width, a.head_dim rounded up to 16.
-template <typename T, int D>
-cudaError_t launch(const Args& a) {
-  const int d = a.head_dim;
+template <typename T>
+cudaError_t launch_di(const Args& a) {
   const long long rows = (long long)a.batch * a.n * a.heads;
   flash_bwd_di_kernel<T><<<grid_for(rows * 32, 256), 256, 0, a.stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
-      static_cast<float*>(a.di), rows, a.n, a.heads, d);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+      static_cast<float*>(a.di), rows, a.n, a.heads, a.head_dim);
+  return cudaGetLastError();
+}
 
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 64) {
-    if (design_rule(false, d) == DESIGN_WGMMA) return launch_wgmma(a);
-  }
+template <int DP, int NWG>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  using bf16 = __nv_bfloat16;
+  auto kern = wg::flash_bwd_dq_wgmma_kernel<DP, NWG>;
+  constexpr int bytes = wg::dq_smem_bytes<DP, NWG>();
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + NWG * 64 - 1) / (NWG * 64), a.heads, a.batch);
+  kern<<<grid, NWG * 128, bytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<bf16*>(a.dq), a.n, a.head_dim, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn,
+      a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+  return cudaGetLastError();
+}
+
+// bfloat16 at head_dim 64-128: the two warpgroup passes at tile width DP
+// (the di pass is the caller's).
+template <int DP>
+cudaError_t launch_wgmma(const Args& a) {
+  using bf16 = __nv_bfloat16;
+  auto kern = wg::flash_bwd_dkdv_wgmma_kernel<DP>;
+  constexpr int bytes = wg::DkdvPlan<DP>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + wg::KEYS - 1) / wg::KEYS, a.heads, a.batch);
+  kern<<<grid, wg::THREADS, bytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.n, a.head_dim, a.heads, a.qsb,
+      a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_dq_wgmma<DP, 2>(a) : launch_dq_wgmma<DP, 1>(a);
+}
+
+// The WMMA and FMA designs' two passes. D: the tile width, a.head_dim
+// rounded up to 16.
+template <typename T, int D>
+cudaError_t launch(const Args& a) {
+  const int d = a.head_dim;
   using P = Plan<T, D>;
   auto dkdv = flash_bwd_dkdv_kernel<T, D>;
   auto dqk = flash_bwd_dq_kernel<T, D>;
-  e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
+  cudaError_t e =
+      cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::total);
   if (e != cudaSuccess) return e;
@@ -1046,23 +1087,44 @@ cudaError_t launch(const Args& a) {
 template <typename T>
 cudaError_t dispatch(const Args& a) {
   if (!head_dim_taken(a.head_dim)) return cudaErrorInvalidValue;
-  switch ((a.head_dim + 15) / 16 * 16) {
-    case 16: return launch<T, 16>(a);
-    case 32: return launch<T, 32>(a);
-    case 48: return launch<T, 48>(a);
-    case 64: return launch<T, 64>(a);
-    case 80: return launch<T, 80>(a);
-    case 96: return launch<T, 96>(a);
-    case 112: return launch<T, 112>(a);
-    default: return launch<T, 128>(a);
+  const cudaError_t e = launch_di<T>(a);
+  if (e != cudaSuccess) return e;
+  const int dp = (a.head_dim + 15) / 16 * 16;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (design_rule(false, a.head_dim) == DESIGN_WGMMA) {
+      switch (dp) {
+        case 64: return launch_wgmma<64>(a);
+        case 80: return launch_wgmma<80>(a);
+        case 96: return launch_wgmma<96>(a);
+        case 112: return launch_wgmma<112>(a);
+        default: return launch_wgmma<128>(a);
+      }
+    }
+    switch (dp) {  // head_dim 8-56
+      case 16: return launch<T, 16>(a);
+      case 32: return launch<T, 32>(a);
+      case 48: return launch<T, 48>(a);
+      default: return launch<T, 64>(a);
+    }
+  } else {
+    switch (dp) {
+      case 16: return launch<T, 16>(a);
+      case 32: return launch<T, 32>(a);
+      case 48: return launch<T, 48>(a);
+      case 64: return launch<T, 64>(a);
+      case 80: return launch<T, 80>(a);
+      case 96: return launch<T, 96>(a);
+      case 112: return launch<T, 112>(a);
+      default: return launch<T, 128>(a);
+    }
   }
 }
 
 }  // namespace
 
 // The design that clipself_flash_bwd runs for this dtype and head_dim:
-// 0 = f32 FMA, 1 = WMMA tiles, 2 = wgmma (bf16 at head_dim 64); -1 if the
-// pair is not taken.
+// 0 = f32 FMA, 1 = WMMA tiles (bf16 below head_dim 64), 2 = wgmma (bf16 at
+// head_dim 64-128); -1 if the pair is not taken.
 extern "C" int clipself_flash_bwd_design(int dtype, int head_dim) {
   if (!head_dim_taken(head_dim)) return -1;
   if (dtype != 0 && dtype != 1) return -1;

@@ -3,13 +3,16 @@
 // the asynchronous tile loader that writes that layout, and the map from a
 // thread's accumulator registers to (row, column).
 //
-// Tile layout. Every shared-memory operand is a [rows][64] bf16 tile: one row
-// is 128 bytes, eight 16-byte chunks. Chunk c of row r lies at byte
-// r * 128 + ((c ^ (r & 7)) << 4) from the tile's base, which must be aligned
-// to 1024 bytes (the 8-row swizzle atom). This is the layout the tensor
-// cores' "128-byte swizzle" descriptor mode reads, and it keeps both the
-// row-wise 16-byte stores of the loader and the column-wise reads of the
-// tensor cores free of bank conflicts.
+// Tile layout. Every shared-memory operand is built from [rows][64] bf16
+// panels: one panel row is 128 bytes, eight 16-byte chunks. Chunk c of row r
+// lies at byte r * 128 + ((c ^ (r & 7)) << 4) from the panel's base, which
+// must be aligned to 1024 bytes (the 8-row swizzle atom). This is the layout
+// the tensor cores' "128-byte swizzle" descriptor mode reads, and it keeps
+// both the row-wise 16-byte stores of the loader and the column-wise reads of
+// the tensor cores free of bank conflicts. A tile wider than 64 columns
+// (head_dim 72-128: DP = head_dim rounded up to 16) is two panels, one after
+// the other: columns 0-63, then columns 64 to DP - 1 in the first chunks of
+// the second panel's rows (the rest of those rows is never read).
 //
 // One descriptor form serves both operand orientations of such a tile:
 //   K-major  (the product contracts over the tile's 64 columns): eight-row
@@ -20,7 +23,10 @@
 //            columns are one swizzled row, eight k-rows are one atom, the
 //            next eight are 1024 bytes on (SBO); a k-slice of 16 rows is
 //            2048 bytes on: descriptor + K_SLICE_MN_MAJOR.
-// LBO is not used by either at a width of 64 elements.
+// LBO is not used by either: a product never spans two panels. A K-major
+// operand of DP columns is DP / 16 k-slices, four in panel 0 and the rest
+// in panel 1; an MN-major operand of N = DP columns is two products, N = 64
+// on panel 0 and N = DP - 64 on panel 1, each with its own descriptor.
 //
 // Accumulator layout of an m64nNk16 product (f32, N / 2 registers a
 // thread): warp w of the warpgroup owns rows 16 w .. 16 w + 15; register i
@@ -41,6 +47,12 @@ namespace hopper {
 constexpr int ROW_BYTES = 128;          // one tile row: 64 bf16
 constexpr int ATOM_BYTES = 1024;        // eight rows: the swizzle atom
 constexpr int TILE64_BYTES = 64 * ROW_BYTES;
+
+// 64-column panels of a DP-wide tile, and the bytes of a ROWS-row tile
+__host__ __device__ constexpr int panels(int dp) { return (dp + 63) / 64; }
+__host__ __device__ constexpr int tile_bytes(int rows, int dp) {
+  return panels(dp) * rows * ROW_BYTES;
+}
 constexpr uint64_t K_SLICE_K_MAJOR = 32 >> 4;      // descriptor units of 16 bytes
 constexpr uint64_t K_SLICE_MN_MAJOR = 2048 >> 4;
 
@@ -65,6 +77,23 @@ __device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
   d |= static_cast<uint64_t>(ATOM_BYTES >> 4) << 32;           // SBO
   d |= static_cast<uint64_t>(1) << 62;                         // 128-byte swizzle
   return d;
+}
+
+// The same value, opaque to the compiler: descriptors formed from it are
+// recomputed where they are used instead of being held in registers across
+// a loop (sixteen 64-bit descriptors of a two-panel K and V tile would take
+// 32 registers).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// Descriptor of k-slice kk (columns 16 kk .. 16 kk + 15) of a K-major tile
+// whose panels are `panel_bytes` apart, from the address of the rows it
+// starts at in panel 0.
+__device__ __forceinline__ uint64_t k_slice_desc(uint32_t addr, int kk,
+                                                 uint32_t panel_bytes) {
+  return tile_desc(addr + (kk >> 2) * panel_bytes) + (kk & 3) * K_SLICE_K_MAJOR;
 }
 
 // ---- asynchronous copies (cp.async) ---------------------------------------
@@ -110,24 +139,30 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Start the copy of rows [row0, row0 + ROWS) of a [*, 64] bf16 matrix with
-// row stride `stride` (elements) into the swizzled tile at `dst`; rows at or
-// past `n` are zero-filled. Eight neighbouring threads copy one row.
-template <int ROWS, int THREADS>
+// Start the copy of rows [row0, row0 + ROWS) of a [*, d] bf16 matrix with
+// row stride `stride` (elements) into the DP-wide tile of panels at `dst`
+// (DP / 8 chunks a row, chunk c in panel c / 8); rows at or past `n` and
+// chunks at or past the true width `d` (a multiple of 8, so a chunk is wholly
+// in or out) are zero-filled. Neighbouring threads copy neighbouring chunks
+// of a row. At DP 64 every chunk is below d.
+template <int ROWS, int DP, int THREADS>
 __device__ __forceinline__ void load_tile_async(uint32_t dst,
                                                 const __nv_bfloat16* src,
                                                 long long stride, int row0,
-                                                int n, int tid) {
-  static_assert((ROWS * 8) % THREADS == 0, "whole chunks for every thread");
+                                                int n, int d, int tid) {
+  constexpr int CH = DP / 8;
+  constexpr int TOTAL = ROWS * CH;
 #pragma unroll
-  for (int it = 0; it < ROWS * 8 / THREADS; ++it) {
+  for (int it = 0; it < (TOTAL + THREADS - 1) / THREADS; ++it) {
     const int i = tid + it * THREADS;
-    const int r = i >> 3;
-    const int c = i & 7;
-    const int g = row0 + r;
-    const bool ok = g < n;
-    const __nv_bfloat16* p = ok ? src + (long long)g * stride + c * 8 : src;
-    cp_async_16(dst + swizzle_offset(r, c), p, ok);
+    if (TOTAL % THREADS == 0 || i < TOTAL) {
+      const int r = i / CH;
+      const int c = i % CH;
+      const int g = row0 + r;
+      const bool ok = g < n && (DP == 64 || c * 8 < d);
+      const __nv_bfloat16* p = ok ? src + (long long)g * stride + c * 8 : src;
+      cp_async_16(dst + (c >> 3) * (ROWS * ROW_BYTES) + swizzle_offset(r, c & 7), p, ok);
+    }
   }
 }
 
@@ -163,51 +198,120 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #define HOPPER_ACC8(d, o)                                              \
   "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
       "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define HOPPER_ACC32(d) \
-  HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16), HOPPER_ACC8(d, 24)
-#define HOPPER_ACC32_LIST                                               \
+#define HOPPER_ACC16(d) HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8)
+#define HOPPER_ACC24(d) HOPPER_ACC16(d), HOPPER_ACC8(d, 16)
+#define HOPPER_ACC32(d) HOPPER_ACC24(d), HOPPER_ACC8(d, 24)
+#define HOPPER_LIST8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOPPER_LIST16                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15}"
+#define HOPPER_LIST24                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23}"
+#define HOPPER_LIST32                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
   "%28, %29, %30, %31}"
 
-// d[64, 64] (+)= A[64, 16] . B[16, 64], bf16 in, f32 out, both operands in
-// shared memory. TRANS_A / TRANS_B: 0 for a K-major tile, 1 for MN-major.
-// `accumulate` 0 overwrites d.
-template <int TRANS_A, int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_ACC32_LIST
-      ", %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : HOPPER_ACC32(d)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+// One m64nNk16 product with both operands in shared memory; LIST and ACCS
+// name the N / 2 accumulator registers, the numbers the operands after them.
+#define HOPPER_WGMMA_SS(SHAPE, LIST, ACCS, DA, DB, ACC, TA, TB)              \
+  asm volatile("{\n"                                                         \
+               ".reg .pred p;\n"                                             \
+               "setp.ne.b32 p, %" #ACC ", 0;\n"                              \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32.bf16.bf16 " LIST  \
+               ", %" #DA ", %" #DB ", p, 1, 1, %" #TA ", %" #TB ";\n"         \
+               "}\n"                                                         \
+               : ACCS                                                        \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A),    \
+                 "n"(TRANS_B))
+
+// The same with A from registers.
+#define HOPPER_WGMMA_RS(SHAPE, LIST, ACCS, A0, A1, A2, A3, DB, ACC, TB)      \
+  asm volatile("{\n"                                                         \
+               ".reg .pred p;\n"                                             \
+               "setp.ne.b32 p, %" #ACC ", 0;\n"                              \
+               "wgmma.mma_async.sync.aligned." SHAPE ".f32.bf16.bf16 " LIST  \
+               ", {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB            \
+               ", p, 1, 1, %" #TB ";\n"                                      \
+               "}\n"                                                         \
+               : ACCS                                                        \
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b),            \
+                 "r"(accumulate), "n"(TRANS_B))
+
+// d[64, N] (+)= A[64, 16] . B[16, N], bf16 in, f32 out, both operands in
+// shared memory; N = 16, 32, 48 or 64 (one panel). TRANS_A / TRANS_B: 0 for
+// a K-major tile, 1 for MN-major. `accumulate` 0 overwrites d.
+template <int N, int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "one panel: N <= 64");
+  if constexpr (N == 16) {
+    HOPPER_WGMMA_SS("m64n16k16", HOPPER_LIST8, HOPPER_ACC8(d, 0), 8, 9, 10, 11, 12);
+  } else if constexpr (N == 32) {
+    HOPPER_WGMMA_SS("m64n32k16", HOPPER_LIST16, HOPPER_ACC16(d), 16, 17, 18, 19, 20);
+  } else if constexpr (N == 48) {
+    HOPPER_WGMMA_SS("m64n48k16", HOPPER_LIST24, HOPPER_ACC24(d), 24, 25, 26, 27, 28);
+  } else {
+    HOPPER_WGMMA_SS("m64n64k16", HOPPER_LIST32, HOPPER_ACC32(d), 32, 33, 34, 35, 36);
+  }
 }
 
-// The same product with A from registers: a[0..3] is this thread's A
+// The same product with A from registers: a0..a3 is this thread's A
 // fragment of the k-slice (see the accumulator layout above).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0,
-                                                   uint32_t a1, uint32_t a2,
-                                                   uint32_t a3,
-                                                   uint64_t desc_b,
-                                                   int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_ACC32_LIST
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
-      "}\n"
-      : HOPPER_ACC32(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate),
-        "n"(TRANS_B));
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "one panel: N <= 64");
+  if constexpr (N == 16) {
+    HOPPER_WGMMA_RS("m64n16k16", HOPPER_LIST8, HOPPER_ACC8(d, 0), 8, 9, 10, 11, 12, 13, 14);
+  } else if constexpr (N == 32) {
+    HOPPER_WGMMA_RS("m64n32k16", HOPPER_LIST16, HOPPER_ACC16(d), 16, 17, 18, 19, 20, 21, 22);
+  } else if constexpr (N == 48) {
+    HOPPER_WGMMA_RS("m64n48k16", HOPPER_LIST24, HOPPER_ACC24(d), 24, 25, 26, 27, 28, 29, 30);
+  } else {
+    HOPPER_WGMMA_RS("m64n64k16", HOPPER_LIST32, HOPPER_ACC32(d), 32, 33, 34, 35, 36, 37, 38);
+  }
 }
+
+// The accumulator of a [64, DP] result: panel 0's 64 columns, and panel 1's
+// DP - 64 when DP > 64 (a one-register stand-in, never used, at DP 64).
+template <int DP>
+struct WideAcc {
+  static constexpr int N1 = DP > 64 ? DP - 64 : 0;
+  float p0[32];
+  float p1[N1 > 0 ? N1 / 2 : 1];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) p0[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < (N1 > 0 ? N1 / 2 : 1); ++i) p1[i] = 0.0f;
+  }
+  __device__ __forceinline__ void fence() {
+    fence_regs(p0);
+    if constexpr (N1 > 0) fence_regs(p1);
+  }
+  __device__ __forceinline__ void scale_rows(float s0, float s1) {
+    // registers 4 j, 4 j + 1 are the thread's first row, 4 j + 2, 4 j + 3
+    // its second (the accumulator layout above)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) p0[i] *= ((i >> 1) & 1) ? s1 : s0;
+    if constexpr (N1 > 0) {
+#pragma unroll
+      for (int i = 0; i < N1 / 2; ++i) p1[i] *= ((i >> 1) & 1) ? s1 : s0;
+    }
+  }
+  // += A[64, 16] . B[16, DP], A from registers, B an MN-major tile of
+  // panels `panel_bytes` apart (desc: panel 0's descriptor of the k-slice)
+  __device__ __forceinline__ void add_rs(uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t desc,
+                                         uint32_t panel_bytes) {
+    wgmma_rs<64, 1>(p0, a0, a1, a2, a3, desc, 1);
+    if constexpr (N1 > 0) wgmma_rs<N1, 1>(p1, a0, a1, a2, a3, desc + (panel_bytes >> 4), 1);
+  }
+};
 
 // ---- accumulator fragment -------------------------------------------------
 
@@ -239,22 +343,25 @@ __device__ __forceinline__ uint4 ld_shared_u128(uint32_t addr) {
   return v;
 }
 
-// Store this warp's 16 rows of a 64-wide f32 accumulator as bf16 rows of
-// 128 bytes: the fragment goes to the warp's own 16 rows of the swizzled
-// tile at `stage` (which no pending product may still read) and comes back
-// as whole 16-byte chunks, so that a warp writes four full rows at a time.
-// `dst` points at row 0 of the 64-row tile in global memory, `row_stride`
-// is in elements, rows at or past `rows_valid` are skipped.
-__device__ __forceinline__ void store_acc_rows(const float (&acc)[32],
+// Store this warp's 16 rows of an N-wide f32 accumulator (one panel's
+// product, N / 2 registers) as bf16 rows: the fragment goes to the warp's own
+// 16 rows of the swizzled panel at `stage` (which no pending product may
+// still read) and comes back as whole 16-byte chunks, so that a warp writes
+// whole rows at a time. `dst` points at row 0, column 0 of the panel's
+// columns in global memory, `row_stride` is in elements; rows at or past
+// `rows_valid` and chunks at or past `cols_valid` are skipped.
+template <int N>
+__device__ __forceinline__ void store_acc_rows(const float (&acc)[N / 2],
                                                uint32_t stage,
                                                __nv_bfloat16* dst,
                                                long long row_stride,
-                                               int rows_valid) {
+                                               int rows_valid, int cols_valid) {
+  constexpr int CH = N / 8;  // chunks a row
   const int t = threadIdx.x & 127;
   const int lane = t & 31;
   const int wrow = (t >> 5) * 16;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < CH; ++j) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int r = wrow + (lane >> 2) + 8 * hr;
@@ -264,15 +371,33 @@ __device__ __forceinline__ void store_acc_rows(const float (&acc)[32],
   }
   __syncwarp();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = wrow + 4 * i + (lane >> 3);
-    const int c = lane & 7;
+  for (int it = 0; it < CH / 2; ++it) {
+    const int i = it * 32 + lane;
+    const int r = wrow + i / CH;
+    const int c = i % CH;
     const uint4 v = ld_shared_u128(stage + swizzle_offset(r, c));
-    if (r < rows_valid) {
+    if (r < rows_valid && c * 8 < cols_valid) {
       *reinterpret_cast<uint4*>(dst + (long long)r * row_stride + c * 8) = v;
     }
   }
   __syncwarp();
+}
+
+// Both panels of a [64, DP] accumulator, staged in the two panels of a tile
+// (`panel_bytes` apart) whose rows 0-63 start at `stage`; `d` is the true
+// row length (the columns past it are not stored).
+template <int DP>
+__device__ __forceinline__ void store_wide_rows(const WideAcc<DP>& acc,
+                                                uint32_t stage,
+                                                uint32_t panel_bytes,
+                                                __nv_bfloat16* dst,
+                                                long long row_stride,
+                                                int rows_valid, int d) {
+  store_acc_rows<64>(acc.p0, stage, dst, row_stride, rows_valid, 64);
+  if constexpr (DP > 64) {
+    store_acc_rows<DP - 64>(acc.p1, stage + panel_bytes, dst + 64, row_stride,
+                            rows_valid, d - 64);
+  }
 }
 
 }  // namespace hopper

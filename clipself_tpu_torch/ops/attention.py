@@ -16,14 +16,16 @@ Both mask the ragged tail in the kernel (no padding to a block multiple, no
 segment row) and read q, k and v through their strides, so the per-head
 views of a [B, N, H * D] projection need no copy. Each file holds three
 designs and its C entry point picks one from dtype and head_dim alone
-(`kernel_design` reports which): bfloat16 at head_dim 64, every attention
-call of the EVA02 towers, runs `wgmma` products on swizzled tiles fed by a
+(`kernel_design` reports which): bfloat16 at head_dim 64-128 (64: every
+attention call of the EVA02 towers; 80: ViT-H-14; 88: ViT-g-14 and
+EVA01-g-14; 104: ViT-bigG-14; 112: EVA02-CLIP-bigE-14 and ViT-e-14) runs
+`wgmma` products on swizzled tiles of one or two 64-column panels fed by a
 `cp.async` ring with the softmax, P and dS in registers
-(`csrc/hopper_mma.cuh` holds the shared pieces); bfloat16 at the other head
-dims runs WMMA tiles; float32, the parity path, f32 FMAs. The WMMA and FMA
-designs take any head_dim that is a multiple of 8 up to 128 (ViT-g-14 and
-EVA01-g-14 have 88, ViT-bigG-14 104): tiles 16 columns wide, the columns
-past the head_dim loaded as zeros and never stored.
+(`csrc/hopper_mma.cuh` holds the shared pieces); bfloat16 below head_dim 64
+(the tiny test towers) runs WMMA tiles; float32, the parity path, f32 FMAs.
+Every design takes any head_dim that is a multiple of 8 up to 128: tiles
+are the head_dim rounded up to 16 columns, the columns past the head_dim
+loaded as zeros and never stored.
 
 On CPU tensors they run the plain versions below: `attention_plain` (the
 f32-softmax semantics of `_xla_attention`), `attention_lse_plain`, and
@@ -158,8 +160,8 @@ _DESIGNS = {0: "fma", 1: "wmma", 2: "wgmma"}
 def kernel_design(dtype: torch.dtype, head_dim: int, backward: bool = False) -> str:
     """Which hand-written kernel the C entry point runs for this dtype and
     head_dim, as the library itself reports it: "wgmma" (bfloat16 at
-    head_dim 64), "wmma" (bfloat16 at the other head dims) or "fma"
-    (float32). The shape fixes it; no argument chooses."""
+    head_dim 64-128), "wmma" (bfloat16 below 64) or "fma" (float32). The
+    shape fixes it; no argument chooses."""
     lib = _build.LIBRARY.get()
     fn = lib.clipself_flash_bwd_design if backward else lib.clipself_flash_fwd_design
     code = fn(_DTYPES.get(dtype, -1), int(head_dim))

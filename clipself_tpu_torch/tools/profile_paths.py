@@ -5,8 +5,8 @@
     python -m clipself_tpu_torch.tools.profile_paths --path detector
 
 ``--path clip`` (the default) runs the distill step (batch 2, 20 boxes, every block unlocked, bf16, AdamW,
-seeded random weights, one synthetic batch staged on the device) and the
-zero-shot evaluator (13 valid of 100 annotations, bucket 25) of one model
+seeded random weights, one synthetic batch staged on the device; not with
+``--eval-only``) and the zero-shot evaluator (13 valid of 100 annotations, bucket 25) of one model
 (an EVA02 config, a plain OpenCLIP / OpenAI ViT: `--extract-type v1`
 pools its RoI features, and the evaluator's masks, by mask attention, whose
 plain attention's device time is reported under its own host range; a
@@ -79,7 +79,7 @@ from clipself_tpu_torch.train.step import TrainState, make_train_step
 
 # kernel class: substrings of the kernel's name, first match wins
 CLASSES = (
-    ("flash_attention_bwd kernel", ("flash_bwd_kernel", "flash_bwd_wgmma_kernel")),
+    ("flash_attention_bwd kernel", ("flash_bwd_kernel", "flash_bwd_dkdv_", "flash_bwd_dq_")),
     (
         "flash backward di pass, dQ cast",
         ("flash_bwd_di_kernel", "f32_to_bf16_kernel", "dq_tiles_to_bf16_kernel"),
@@ -229,6 +229,8 @@ def main(argv=None) -> dict:
     p.add_argument("--valid-anns", type=int, default=13)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--grad-checkpointing", action="store_true")
+    p.add_argument("--eval-only", action="store_true",
+                   help="--path clip: the evaluator alone, no distill step")
     p.add_argument("--extract-type", default="v2", choices=["v1", "v2"],
                    help="the OpenCLIP ViT's RoI features (and the evaluator's masks at v1)")
     p.add_argument("--device", default="cuda")
@@ -300,37 +302,37 @@ def _profile_clip(args, device: torch.device) -> dict:
     v = cfg.vision
     out = {"model": args.model, "image": args.det_image_size}
 
-    # the distill step
     model = create_model(cfg, device=device, dtype=torch.bfloat16, seed=args.seed,
                          grad_checkpointing=args.grad_checkpointing)
-    teacher = create_model(cfg, device=device, dtype=torch.bfloat16, seed=args.seed)
-    teacher.requires_grad_(False)
-    # every lock group: a ResNet has five (stem, layer1..4), a ViT a block
-    # each; a timm tower trains only unlocked (`--no-lock-image`)
-    unlocked = 5 if v.resnet_layers else v.layers
-    optimizer = build_optimizer(
-        model, make_schedule("cosine", 1e-5, 1, 1000), wd=0.1,
-        unlocked_groups=unlocked, num_layers=v.layers, lock_image=not v.timm_model_name,
-    )
-    state = TrainState(model, optimizer)
-    step_fn = make_train_step(
-        partial(clipself_loss, cosine_weight=1.0, extract_type=args.extract_type), teacher
-    )
-    host = SyntheticDistillData(
-        batch_size=args.batch_size, det_size=args.det_image_size, crop_size=v.image_size,
-        max_anns=args.max_boxes, seed=args.seed,
-    ).batch
-    batch = {k: torch.as_tensor(a, device=device) for k, a in host.items()}
-    out["train"] = measure(lambda: step_fn(state, batch), args.steps, device, args.batch_size)
-    report(
-        f"{args.model} distill step, batch {args.batch_size} at {args.det_image_size}px, "
-        f"{args.max_boxes} boxes, crops {v.image_size}px, "
-        f"{'the image tower' if v.timm_model_name else f'{unlocked} lock groups'} unlocked, bf16, "
-        f"extract type {args.extract_type}"
-        + (", block recomputation" if args.grad_checkpointing else ""),
-        "step", out["train"],
-    )
-    del state, optimizer, step_fn, teacher, batch
+    if not args.eval_only:  # the distill step
+        teacher = create_model(cfg, device=device, dtype=torch.bfloat16, seed=args.seed)
+        teacher.requires_grad_(False)
+        # every lock group: a ResNet has five (stem, layer1..4), a ViT a block
+        # each; a timm tower trains only unlocked (`--no-lock-image`)
+        unlocked = 5 if v.resnet_layers else v.layers
+        optimizer = build_optimizer(
+            model, make_schedule("cosine", 1e-5, 1, 1000), wd=0.1,
+            unlocked_groups=unlocked, num_layers=v.layers, lock_image=not v.timm_model_name,
+        )
+        state = TrainState(model, optimizer)
+        step_fn = make_train_step(
+            partial(clipself_loss, cosine_weight=1.0, extract_type=args.extract_type), teacher
+        )
+        host = SyntheticDistillData(
+            batch_size=args.batch_size, det_size=args.det_image_size, crop_size=v.image_size,
+            max_anns=args.max_boxes, seed=args.seed,
+        ).batch
+        batch = {k: torch.as_tensor(a, device=device) for k, a in host.items()}
+        out["train"] = measure(lambda: step_fn(state, batch), args.steps, device, args.batch_size)
+        report(
+            f"{args.model} distill step, batch {args.batch_size} at {args.det_image_size}px, "
+            f"{args.max_boxes} boxes, crops {v.image_size}px, "
+            f"{'the image tower' if v.timm_model_name else f'{unlocked} lock groups'} unlocked, bf16, "
+            f"extract type {args.extract_type}"
+            + (", block recomputation" if args.grad_checkpointing else ""),
+            "step", out["train"],
+        )
+        del state, optimizer, step_fn, teacher, batch
     model.requires_grad_(False)
 
     # the evaluator

@@ -1,5 +1,5 @@
 """The greedy-NMS, rolled-RoPE, LayerNorm-backward and flash-attention
-backward kernels of one tree, timed at the shapes the main paths give them,
+forward and backward kernels of one tree, timed at the shapes the main paths give them,
 on one CUDA card: for comparing two trees (an older commit unpacked with
 `git archive` beside the working tree) in one run on one card.
 
@@ -14,13 +14,15 @@ through its `rolled_rope_fwd` on the three tables ("q,k" is then two
 launches of the one-tensor kernel), the LayerNorm backward through
 `ops.layer_norm.layer_norm_bwd` on the forward's statistics (float32 and
 bfloat16, with its time as a multiple of its bytes bound, and the times of
-dx alone and of the sums alone), the flash backward through
-`ops.attention.flash_attention_bwd` on the forward's output and LSE (with
-its time as a multiple of its operations bound, and whether two calls gave
-the same bits of dQ, dK and dV). Times are CUDA-event
-means of 20 calls replayed from a CUDA graph after a warm-up (the NMS and
-the flash backward also as 20 eager calls: their wrappers allocate, which a
-graph hides). The first line names the card and its power limit.
+dx alone and of the sums alone), the flash forward through
+`ops.attention.flash_attention_fwd` with and without its LSE, and the flash
+backward through `ops.attention.flash_attention_bwd` on the forward's
+output and LSE (each with its time as a multiple of its operations bound,
+the backward with whether two calls gave the same bits of dQ, dK and dV).
+Times are CUDA-event means of 20 calls replayed from a CUDA graph after a
+warm-up (the NMS and the flash kernels also as 20 eager calls: their
+wrappers allocate, which a graph hides). The first line names the card and
+its power limit.
 """
 
 from __future__ import annotations
@@ -47,13 +49,20 @@ LN_SHAPES = (
 )
 LN_VIEWS = {"": lambda t: t, "rows 1:": lambda t: t[:, 1:], "row 0": lambda t: t[:, 0]}
 PEAK_BYTES_S = 3.35e12  # one H100 SXM's device memory
-# (shape [B, N, H, D], dtype) of the flash backward: the B/16 student, the
-# RegionCLIP B/16 step at batch 16, the wide towers' head_dim 88 (WMMA), the
-# HF ViT-B/16 trunk's float32 student (FMA)
-FLASH_BWD_SHAPES = (
-    ((2, 4097, 12, 64), "bfloat16"), ((16, 4097, 12, 64), "bfloat16"),
-    ((1, 4097, 16, 88), "bfloat16"), ((2, 197, 12, 64), "float32"),
+# (shape [B, N, H, D], dtype) of the flash forward: the HF ViT-B/16 trunk's
+# float32 student (FMA), the B/16 student, one 896^2 image of the wide
+# towers at their head dims (80: ViT-H-14; 88: ViT-g-14, EVA01-g-14; 104:
+# ViT-bigG-14; 112: bigE-14, ViT-e-14). Each shape's forward and backward
+# are timed before the next shape's, the wide ones last, so that two trees
+# time the rows they share after the same work.
+WIDE_HEAD_DIMS = (80, 88, 104, 112)
+FLASH_FWD_SHAPES = (
+    ((2, 197, 12, 64), "float32"),
+    ((2, 4097, 12, 64), "bfloat16"),
+    *(((1, 4097, 16, d), "bfloat16") for d in WIDE_HEAD_DIMS),
 )
+# ... of the flash backward: the same, and the RegionCLIP B/16 step at batch 16
+FLASH_BWD_SHAPES = FLASH_FWD_SHAPES[:2] + (((16, 4097, 12, 64), "bfloat16"),) + FLASH_FWD_SHAPES[2:]
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16, SIMT f32
 
 
@@ -157,10 +166,22 @@ def main(argv=None) -> dict:
                 f"dx alone {dx_ms:.4f} ms, sums alone {sums_ms:.4f} ms",
                 flush=True,
             )
-    for (b, n, h, d), name in FLASH_BWD_SHAPES:
+    for (b, n, h, d), name in FLASH_BWD_SHAPES:  # each shape's forward, then its backward
         dt = getattr(torch, name)
         q, k, v, do = (torch.randn(b, n, h, d, generator=gen).to(dev, dt) for _ in range(4))
         scale = d ** -0.5
+        # the two products Q K^T and P V
+        bound = 4 * b * h * n * n * d / PEAK_FLOPS[name] * 1e3
+        for lse in (False, True) if ((b, n, h, d), name) in FLASH_FWD_SHAPES else ():
+            ms = [device_ms(torch, lambda: attention.flash_attention_fwd(q, k, v, scale, return_lse=lse), graph)
+                  for graph in (True, False)]
+            label = f"flash_attention_fwd{' with lse' if lse else ''} [{b}, {n}, {h}, {d}] {name}"
+            out[label] = ms + [bound]
+            print(
+                f"{label}: {ms[0]:.4f} ms from a graph, {ms[1]:.4f} ms eager, bound {bound:.4f} ms "
+                f"({ms[0] / bound:.2f}x)",
+                flush=True,
+            )
         o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
         first = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
         second = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
@@ -169,7 +190,7 @@ def main(argv=None) -> dict:
         ms = [device_ms(torch, lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale), graph)
               for graph in (True, False)]
         # five products of 2 n^2 d flops a (batch, head): S, dP, dV, dK, dQ
-        bound = 10 * b * h * n * n * d / PEAK_FLOPS[name] * 1e3
+        bound *= 2.5
         label = f"flash_attention_bwd [{b}, {n}, {h}, {d}] {name}"
         out[label] = ms + [bound, same]
         print(

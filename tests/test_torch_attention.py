@@ -15,10 +15,16 @@ TOL = 1e-5
 
 
 # 127, 128, 129: the edges of the CUDA kernels' 128-row blocks, where the
-# plain version is the bar they are held to on the card
-@pytest.mark.parametrize("n", [65, 127, 128, 129, 197, 257])
-@pytest.mark.parametrize("d", [32, 64])
-def test_plain_matches_xla_attention(n, d):
+# plain version is the bar they are held to on the card; the large towers'
+# head dims 80 (ViT-H-14), 88 (ViT-g-14, EVA01-g-14), 104 (ViT-bigG-14) and
+# 112 (bigE-14, ViT-e-14), which the wgmma kernels take on two panels, at a
+# full tile plus one row and at the block edge
+@pytest.mark.parametrize(
+    "d,n",
+    [(d, n) for d in (32, 64) for n in (65, 127, 128, 129, 197, 257)]
+    + [(d, n) for d in (80, 88, 104, 112) for n in (65, 129)],
+)
+def test_plain_matches_xla_attention(d, n):
     rng = np.random.default_rng(n + d)
     q, k, v = (rng.standard_normal((2, n, 3, d)).astype(np.float32) for _ in range(3))
     scale = d ** -0.5

@@ -55,7 +55,9 @@ def _jax_bwd(q, k, v, o, m, l, do, scale, seg=None):
     return [np.swapaxes(np.asarray(g), 1, 2) for g in grads]
 
 
-@pytest.mark.parametrize("d", [32, 64])
+# 80, 88, 104, 112: the large towers' head dims, which the wgmma kernels
+# take on two panels
+@pytest.mark.parametrize("d", [32, 64, 80, 88, 104, 112])
 def test_plain_backward_matches_pallas_interpret_unsegmented(d):
     b, n, h = 2, 256, 2
     scale = d ** -0.5
@@ -133,9 +135,12 @@ def test_lse_plain_matches_numpy_and_the_plain_forward():
     )
 
 
-@pytest.mark.parametrize("n", [65, 127, 128, 129, 197])
-@pytest.mark.parametrize("d", [32, 64])
-def test_function_gradients_match_jax_vjp(monkeypatch, n, d):
+@pytest.mark.parametrize(
+    "d,n",
+    [(d, n) for d in (32, 64) for n in (65, 127, 128, 129, 197)]
+    + [(d, 129) for d in (80, 88, 104, 112)],
+)
+def test_function_gradients_match_jax_vjp(monkeypatch, d, n):
     """On the CPU the gradient through `flash_attention` is produced by
     `FlashAttentionFn.backward` (its plain backward runs once), not by
     autograd of the plain forward, and equals `jax.vjp` of `_xla_attention`."""

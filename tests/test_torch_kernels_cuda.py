@@ -10,12 +10,13 @@ dy with the rolled tables, so it keeps the forward's bars; one launch on two
 tensors (q and k) must give each the bits of a launch of its own. Attention float32
 differs by summation order (1e-4), bfloat16 by the bf16 rounding of the
 probabilities (min row cosine 0.9999 against float32); bfloat16 at head_dim
-64 runs the wgmma kernels (the other head dims the WMMA ones, float32 the FMA
+64-128 runs the wgmma kernels (below 64 the WMMA ones, float32 the FMA
 ones), whose exponentials are `ex2.approx` (two ULP of float32, far below a
 bfloat16 rounding), held to the same bars at their tile edges: 64-row
-warpgroups, 128-row and 128-key blocks. The header's 64 x 64 x 64 probe sums
-64 exact products of bfloat16 values in float32 in another order than
-`torch.matmul`: 1e-4 absolute on sums of ~8. The LSE is a sum of
+warpgroups, 128-row and 128-key blocks, and at head dims 80-112 on tiles of
+two 64-column panels. The header's probe sums up to 128 exact products of
+bfloat16 values in float32 in another order than `torch.matmul`: 1e-4
+absolute on sums of ~8-11. The LSE is a sum of
 f32 exponentials in another order: 1e-4 absolute on values of ~log(N). The
 flash backward float32 sums up to N products per entry in another order
 (a fixed one: two calls give the same bits in every design): max abs error 1e-4 of
@@ -277,10 +278,10 @@ def test_flash_backward_bf16_matches_f32(dev, n, d):
         assert _min_row_cos(g, w) >= 0.999
 
 
-# the head dims that are not a multiple of 16 run the 16-wide tiles with
-# zero-filled columns (88: ViT-g-14 and EVA01-g-14; 104: ViT-bigG-14), beside
-# the multiples of 16 around them (80: the L/14-size towers' 1280 / 16, 96,
-# 112: bigE-14)
+# the head dims that are not a multiple of 16 run tiles 16 columns wider
+# with zero-filled columns (88: ViT-g-14 and EVA01-g-14; 104: ViT-bigG-14),
+# beside the multiples of 16 around them (80: ViT-H-14's 1280 / 16, 96, 112:
+# bigE-14); in bfloat16 all of them take the wgmma kernels' two-panel tiles
 _PAD_DIMS = (80, 88, 96, 104, 112)
 
 
@@ -294,7 +295,8 @@ def test_flash_forward_and_backward_at_every_head_dim(dev, n, d, dtype):
     the kernel."""
     scale = d ** -0.5
     q, k, v, do = _bwd_inputs(dev, 1, n, 2, d, dtype, n + d)
-    assert attention.kernel_design(dtype, d) == ("fma" if dtype == torch.float32 else "wmma")
+    design = "fma" if dtype == torch.float32 else "wgmma"
+    assert attention.kernel_design(dtype, d) == attention.kernel_design(dtype, d, backward=True) == design
     before = (attention.LAUNCHES.count, attention.BWD_LAUNCHES.count)
     o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
     got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
@@ -324,12 +326,12 @@ _WG_NS = [1, 63, 64, 65, 127, 128, 129, 197, 577, 1601, 4097]
 _WG_LAYOUTS = ["separate", "fused", "offset"]
 
 
-def _wg_qkv(dev, layout, b, n, h, seed):
-    """bfloat16 [B, N, H, 64] q, k, v: per-head views of three separate
+def _wg_qkv(dev, layout, b, n, h, seed, d=64):
+    """bfloat16 [B, N, H, d] q, k, v: per-head views of three separate
     [B, N, W] projections (the towers' layout), slices of one fused
     [B, N, 3 W] projection (other strides), or views into one buffer at a
     non-zero storage offset."""
-    d, gen = 64, torch.Generator().manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
     w = h * d
     if layout == "separate":
         return tuple(
@@ -387,6 +389,35 @@ def test_wgmma_backward_matches_f32(dev, n, layout):
             assert _min_row_cos(g, w) >= 0.999
 
 
+@pytest.mark.parametrize("layout", ["separate", "offset"])
+@pytest.mark.parametrize("n", [63, 64, 127, 128, 129, 385])
+@pytest.mark.parametrize("d", [72, 104, 120, 128])
+def test_wgmma_wide_heads_at_tile_edges(dev, d, n, layout):
+    """Head dims past 64 on two-panel tiles (72 and 120 zero-fill a chunk
+    of the second panel, 104 two, 128 fills it) at the edges of the
+    warpgroups' 64 rows, the 128-row and 128-key blocks and the one- to
+    two-warpgroup switch past 384 rows: forward with and without its LSE,
+    and the backward twice, equal bit for bit, at the bars above."""
+    b, h = 3, 5
+    scale = d ** -0.5
+    q, k, v = _wg_qkv(dev, layout, b, n, h, seed=n + d, d=d)
+    do = torch.randn(b, n, h, d, generator=torch.Generator().manual_seed(n * d)).to(dev, torch.bfloat16)
+    assert attention.kernel_design(q.dtype, d) == attention.kernel_design(q.dtype, d, backward=True) == "wgmma"
+    out, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    assert torch.equal(out, attention.flash_attention_fwd(q, k, v, scale))
+    f = [t.float() for t in (q, k, v)]
+    want, want_lse = attention.attention_lse_plain(*f, scale)
+    assert out.is_contiguous() and out.shape == q.shape
+    assert _min_row_cos(out, want) >= 0.9999
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    first = attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    second = attention.flash_attention_bwd(q, k, v, out, lse, do, scale)
+    grads = attention.attention_bwd_plain(*f, want, want_lse, do.float(), scale)
+    for g, again, w in zip(first, second, grads):
+        assert torch.equal(g, again) and g.is_contiguous() and torch.isfinite(g).all()
+        assert _min_row_cos(g, w) >= 0.999
+
+
 def test_wgmma_backward_twice_bounds_the_dq_difference(dev):
     """dQ sums its key tiles in ascending order inside one block (the dQ
     pass), so two runs on the same inputs differ by nothing: dQ, dK and dV
@@ -401,11 +432,13 @@ def test_wgmma_backward_twice_bounds_the_dq_difference(dev):
 
 
 # (shape, dtype, design): the B/16 student's backward, the wide towers' head
-# dim 88 on zero-filled tiles, the HF trunk's float32 student, each also at
-# n = 65 (one full 64-row tile and a ragged one)
+# dims 88 (zero-filled tiles), 112 and 80 on two-panel tiles, the HF trunk's
+# float32 student, each also at n = 65 (one full 64-row tile and a ragged
+# one)
 _REPEAT_CASES = [
     ((2, 4097, 12, 64), torch.bfloat16, "wgmma"), ((2, 65, 12, 64), torch.bfloat16, "wgmma"),
-    ((1, 4097, 16, 88), torch.bfloat16, "wmma"), ((1, 65, 16, 88), torch.bfloat16, "wmma"),
+    ((1, 4097, 16, 88), torch.bfloat16, "wgmma"), ((1, 65, 16, 88), torch.bfloat16, "wgmma"),
+    ((1, 4097, 16, 112), torch.bfloat16, "wgmma"), ((1, 65, 16, 80), torch.bfloat16, "wgmma"),
     ((2, 197, 12, 64), torch.float32, "fma"), ((2, 65, 12, 64), torch.float32, "fma"),
 ]
 
@@ -438,27 +471,34 @@ def test_flash_backward_repeats_bit_for_bit(dev, shape, dtype, design):
             assert _min_row_cos(g, w) >= 0.999
 
 
-@pytest.mark.parametrize("mode", sorted(hopper_mma_probe.MODES))
-def test_hopper_mma_header_product_matches_matmul(dev, mode):
-    """One 64 x 64 x 64 product through each operand form of
-    `csrc/hopper_mma.cuh`: descriptors, transpose flags, the swizzled loader
-    and the fragment map, apart from any attention logic."""
-    gen = torch.Generator().manual_seed(mode)
-    a, b = (torch.randn(64, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+@pytest.mark.parametrize("mode,k,n", hopper_mma_probe.PRODUCTS)
+def test_hopper_mma_header_product_matches_matmul(dev, mode, k, n):
+    """One product through each operand form of `csrc/hopper_mma.cuh` at
+    the widths the attention kernels run it (K-major A and B of one or two
+    64-column panels; N from 16 to 128, two products past 64):
+    descriptors, transpose flags, the swizzled loader and the fragment map,
+    apart from any attention logic."""
+    gen = torch.Generator().manual_seed(1000 * mode + k + n)
+    a, b = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+            for shape in hopper_mma_probe.shapes(mode, k, n))
     got = hopper_mma_probe.wgmma_probe(a, b, mode)
     a32, b32 = a.float(), b.float()
     want = torch.matmul(*((a32, b32.T), (a32, b32), (a32.T, b32))[mode])
+    assert got.shape == want.shape == (64, n)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     torch.testing.assert_close(hopper_mma_probe.wgmma_probe_plain(a, b, mode), want, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize(
-    "dtype,d,design", [(torch.bfloat16, 32, "wmma"), (torch.bfloat16, 128, "wmma"), (torch.float32, 64, "fma")]
+    "dtype,d,design",
+    [(torch.bfloat16, 32, "wmma"), (torch.bfloat16, 56, "wmma"), (torch.bfloat16, 72, "wgmma"),
+     (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "fma")],
 )
 def test_other_head_dims_and_float32_keep_their_kernels(dev, dtype, d, design):
-    """The shape alone picks the kernel: bfloat16 away from head_dim 64 and
-    float32 go on through the WMMA and FMA kernels, forward, LSE and
-    backward."""
+    """The shape alone picks the kernel: bfloat16 below head_dim 64 goes on
+    through the WMMA kernels, 64-128 through the wgmma ones (72 on a tile of
+    80 columns, 128 on two full panels), float32 through the FMA kernels,
+    forward, LSE and backward."""
     assert attention.kernel_design(dtype, d) == design
     assert attention.kernel_design(dtype, d, backward=True) == design
     scale = d ** -0.5

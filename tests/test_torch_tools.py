@@ -14,6 +14,10 @@ from clipself_tpu_torch.tools import profile_paths, side_by_side
     "name,label",
     [
         ("void (anonymous namespace)::flash_bwd_kernel<__nv_bfloat16, 64>(...)", "flash_attention_bwd kernel"),
+        ("void (anonymous namespace)::wg::flash_bwd_dkdv_wgmma_kernel<80>(...)", "flash_attention_bwd kernel"),
+        ("void (anonymous namespace)::wg::flash_bwd_dq_wgmma_kernel<112, 2>(...)", "flash_attention_bwd kernel"),
+        ("void (anonymous namespace)::flash_bwd_dq_kernel<float, 64>(...)", "flash_attention_bwd kernel"),
+        ("void (anonymous namespace)::wg::flash_fwd_wgmma_kernel<96, 1>(...)", "flash_attention forward kernel"),
         ("void (anonymous namespace)::flash_bwd_di_kernel<float>(...)", "flash backward di pass, dQ cast"),
         ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(...)", "flash_attention forward kernel"),
         ("void (anonymous namespace)::layer_norm_fwd_kernel<__nv_bfloat16, 8>(...)", "layer_norm forward kernel"),
@@ -51,6 +55,16 @@ def test_cpu_run_reports_no_device_time(capsys):
         assert "classes" not in out[path] and "kernel_ms" not in out[path]
     printed = capsys.readouterr().out
     assert printed.count("not measured") == 2 and "images/s" not in printed
+
+
+def test_cpu_eval_only_run_skips_the_step(capsys):
+    out = profile_paths.main([
+        "--device", "cpu", "--model", "EVA02-CLIP-Tiny-Test", "--det-image-size", "64",
+        "--max-anns", "8", "--valid-anns", "3", "--steps", "1", "--eval-only",
+    ])
+    assert "train" not in out and out["eval"]["device"].startswith("not measured")
+    printed = capsys.readouterr().out
+    assert printed.count("not measured") == 1 and "distill step" not in printed
 
 
 def test_cpu_detector_run_reports_no_device_time(capsys):
@@ -132,9 +146,11 @@ def test_side_by_side_times_the_main_paths_shapes():
     kernels at: 2000 candidates an image, the towers' token counts and
     widths at head_dim 64, the LayerNorm backward at the four widths of
     the B/16 and L/14 students, the L/14 teacher's crops and the final
-    norm's two views, and the flash backward at the B/16 student's and the
-    RegionCLIP step's shapes, head_dim 88 (WMMA) and the HF trunk's float32
-    student (FMA)."""
+    norm's two views, the flash forward (with and without its LSE) at the
+    B/16 student's shape, one 896^2 image of the wide towers at head dims
+    80, 88, 104 and 112 (wgmma on two-panel tiles) and the HF trunk's
+    float32 student (FMA), and the flash backward at the same shapes and
+    the RegionCLIP step's."""
     assert {(b, n) for _, b, n, _ in side_by_side.NMS_SHAPES} == {(8, 2000), (1, 2000)}
     tokens = {(b, 1 + g * g, w) for b, g, w in side_by_side.ROPE_SHAPES}
     assert {(2, 4097, 768), (2, 4097, 1024), (40, 577, 1024), (8, 1601, 768)} <= tokens
@@ -142,7 +158,11 @@ def test_side_by_side_times_the_main_paths_shapes():
     main = {shape for shape, view in side_by_side.LN_SHAPES if not view}
     assert {(2, 4097, 768), (2, 4097, 2048), (2, 4097, 1024), (2, 4097, 2730), (40, 577, 1024)} == main
     assert {view for _, view in side_by_side.LN_SHAPES} == set(side_by_side.LN_VIEWS)
+    wide = {(1, 4097, 16, d): "bfloat16" for d in (80, 88, 104, 112)}
+    assert dict(side_by_side.FLASH_FWD_SHAPES) == {
+        (2, 4097, 12, 64): "bfloat16", **wide, (2, 197, 12, 64): "float32",
+    }
     assert dict(side_by_side.FLASH_BWD_SHAPES) == {
-        (2, 4097, 12, 64): "bfloat16", (16, 4097, 12, 64): "bfloat16", (1, 4097, 16, 88): "bfloat16",
+        (2, 4097, 12, 64): "bfloat16", (16, 4097, 12, 64): "bfloat16", **wide,
         (2, 197, 12, 64): "float32",
     }

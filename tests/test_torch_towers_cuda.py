@@ -4,10 +4,11 @@ present. Run on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_towers_cuda.py -q
 
-ViT-g-14 and EVA01-CLIP-g-14 have head_dim 88 and ViT-bigG-14 104, which the
-flash kernels take by zero-filling their 16-wide tiles; EVA02-CLIP-bigE-14
-has 112 and post-norm blocks; EVA01-CLIP-g-14 the fused `qkv` projection and
-the GELU MLP. Each takes one evaluator batch of one image at 896^2 (a 64x64
+ViT-H-14 has head_dim 80, ViT-g-14 and EVA01-CLIP-g-14 88 and ViT-bigG-14
+104, which the bfloat16 flash kernels take on wgmma tiles of two 64-column
+panels (88 and 104 zero-filling the columns up to the next multiple of 16);
+EVA02-CLIP-bigE-14 has 112 and post-norm blocks; EVA01-CLIP-g-14 the fused
+`qkv` projection and the GELU MLP. Each takes one evaluator batch of one image at 896^2 (a 64x64
 grid, 4097 tokens; 25 crops at the tower's 224^2), which must launch the
 flash forward and give finite metrics, and the bf16 dense map of that image
 must stay at a min row cosine >= 0.9996 against the plain float32 path (the
@@ -175,7 +176,7 @@ def _evaluate_and_compare(name, side, dev):
 
 
 @pytest.mark.parametrize("name,head_dim,whole_map", [
-    ("ViT-g-14", 88, True), ("ViT-bigG-14", 104, True), ("EVA01-CLIP-g-14", 88, True),
+    ("ViT-H-14", 80, True), ("ViT-g-14", 88, True), ("ViT-bigG-14", 104, True), ("EVA01-CLIP-g-14", 88, True),
     ("EVA02-CLIP-bigE-14", 112, False),  # random-weight post-norm: see the module's docstring
 ])
 def test_large_tower_evaluator_batch_at_896(dev, name, head_dim, whole_map):
@@ -185,7 +186,7 @@ def test_large_tower_evaluator_batch_at_896(dev, name, head_dim, whole_map):
     bf16 bar."""
     v = get_model_config(name).vision
     assert v.head_width == head_dim
-    assert attention.kernel_design(torch.bfloat16, head_dim) == "wmma"
+    assert attention.kernel_design(torch.bfloat16, head_dim) == "wgmma"
     launched, cos, block_cos, block_rel = _evaluate_and_compare(name, 896, dev)
     assert launched["flash"] == 2 * v.layers - 1 and launched["rope"] == 0, launched
     assert launched["layer_norm"] > 0, launched
