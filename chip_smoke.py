@@ -19,7 +19,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    takes on tiles of d rounded up to 16 columns, zero-filled past d), the
    flash backward (each row says which of the kernel's designs its shape and
    type took: "wgmma" for bfloat16 at head_dim 64-128, on two 64-column
-   panels past 64, "wmma" for bfloat16 below 64, "fma" for float32; each is
+   panels past 64, "wmma" for bfloat16 below 64, "tf32x3" for float32, the
+   three-product TF32 split on the tensor cores; each is
    called twice on the same inputs and must give the
    same bits: every sum of the kernel runs in a fixed order), and the fused LayerNorm
    forward (with and
@@ -471,8 +472,15 @@ HF_EVAL_BATCHES, HF_TRAIN_WARMUP, HF_TRAIN_TIMED, HF_TRAIN_PROFILED = 2, 2, 3, 2
 HF_TEXT_MODEL, HF_TEXT_TYPE, HF_TEXT_ROWS, HF_TEXT_TIMED = "roberta-ViT-B-32", "roberta", 64, 3
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
-# device memory, dense bf16 tensor cores, float32 outside the tensor cores.
-PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
+# device memory, dense bf16 tensor cores, and float32 at float32 accuracy.
+# The least time for a float32 matrix product (the flash kernels) is the
+# tensor cores' three TF32 products of the split x = hi + lo (lo_a hi_b +
+# hi_a lo_b + hi_a hi_b) at the dense TF32 rate, 494.7 TFLOP/s: an
+# effective 164.9 TFLOP/s, above the 67 TFLOP/s of float32 outside the
+# tensor cores, which stays the peak of the float32 work that is no matrix
+# product (the NMS's IoUs; RoPE and LayerNorm are bound by their bytes).
+PEAK_BYTES_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
+PEAK_F32_FLOPS, PEAK_F32_SIMT_FLOPS = 494.7e12 / 3, 67e12
 # Its L2 cache: a timing loop repeats on the same tensors, so a kernel whose
 # bytes fit here is fed from the L2 after the first call and may read under
 # its device-memory bound; such records say "l2_resident".
@@ -503,6 +511,14 @@ LSE_MAX_ABS = 1e-4
 BWD_F32_MAX_REL = 1e-4
 # Flash backward bf16: P and dS are rounded to bf16 before their products.
 BWD_BF16_MIN_COS = 0.999
+# The float32 flash kernels' TF32 split: every product form they run
+# (`ops/hopper_mma_probe.py::TF32_PRODUCTS`, at every width they take)
+# through the three-product split within 2e-6 of sum |a_k b_k| of the
+# float64 product, and one TF32 product through the same loads at least 50
+# times further off. The attention bars above do not tell them apart on the
+# wide rows (one TF32 product errs ~7e-5 at [4097, 128]), so a kernel that
+# lost its lo terms would pass those.
+TF32_SPLIT_MAX_REL, TF32_ONE_MIN_RATIO = 2e-6, 50
 # LayerNorm y and dx: kernel and plain version compute the same float32
 # formulas; only the order of the row sums differs (and an FMA where the
 # plain version rounds twice). Measured in float32 ULPs of the magnitude at
@@ -801,14 +817,17 @@ class Records:
         self.rows: dict[str, list[dict]] = {}
 
     def add(self, name, what, shape, dtype, *, err, ms, plain_ms, library_ms, moved, flops,
-            note="", design=None):
+            note="", design=None, peak=None):
         """``moved``: bytes of every input read once and every output written
-        once; ``flops``: operations on these inputs; ``design``: which of a
-        kernel's hand-written designs the shape and type took. ``bound_ms``
-        is the function's, whatever the design does on top."""
+        once; ``flops``: operations on these inputs; ``peak``: the card's rate
+        for them (by default the dense bf16 tensor cores for bfloat16, float32
+        outside the tensor cores otherwise); ``design``: which of a kernel's
+        hand-written designs the shape and type took. ``bound_ms`` is the
+        function's, whatever the design does on top."""
         import torch
 
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        if peak is None:
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_SIMT_FLOPS
         by_bytes, by_ops = moved / PEAK_BYTES_S * 1e3, flops / peak * 1e3
         rec = dict(
             what=what, shape=list(shape), dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
@@ -912,6 +931,8 @@ def check_attention(torch, dev, records, gen, shape, train, graph=False):
     flops = 4 * b * h * n * n * d  # the two products Q K^T and P V
     for dt in (torch.float32, torch.bfloat16):
         iters = 5 if dt == torch.float32 else 10
+        # matrix products: float32 at float32 accuracy is the TF32 split's
+        peak = PEAK_F32_FLOPS if dt == torch.float32 else PEAK_BF16_FLOPS
         q, k, v = (
             torch.randn(b, n, h * d, generator=gen, device=dev).to(dt).view(b, n, h, d) for _ in range(3)
         )
@@ -927,7 +948,7 @@ def check_attention(torch, dev, records, gen, shape, train, graph=False):
             plain_ms=cuda_ms(lambda: attention.attention_plain(q, k, v, scale), iters, graph=graph),
             library_ms=cuda_ms(lambda: sdpa(torch, q, k, v, scale), iters, graph=graph),
             moved=4 * nbytes(q), flops=flops, note=f"min_row_cos {cos:.7f} ",
-            design=attention.kernel_design(dt, d),
+            design=attention.kernel_design(dt, d), peak=peak,
         )
         if dt == torch.float32 and not max_abs <= ATTN_F32_MAX_ABS:
             fail(f"flash_attention f32 {shape} max abs {max_abs}")
@@ -943,7 +964,7 @@ def check_attention(torch, dev, records, gen, shape, train, graph=False):
             ms=cuda_ms(lambda: attention.flash_attention_fwd(q, k, v, scale, return_lse=True), iters, graph=graph),
             plain_ms=cuda_ms(lambda: attention.attention_lse_plain(q, k, v, scale), iters, graph=graph),
             library_ms=None, moved=4 * nbytes(q) + nbytes(lse), flops=flops,
-            note=f"(of the lse, bar {LSE_MAX_ABS}) ", design=attention.kernel_design(dt, d),
+            note=f"(of the lse, bar {LSE_MAX_ABS}) ", design=attention.kernel_design(dt, d), peak=peak,
         )
         if not lse_err <= LSE_MAX_ABS:
             fail(f"flash_attention lse {dt} {shape} max abs {lse_err}")
@@ -975,7 +996,7 @@ def check_attention(torch, dev, records, gen, shape, train, graph=False):
             moved=8 * nbytes(q) + nbytes(lse), flops=flops * 5 // 2,
             note=f"rel {rel:.3e} min_row_cos {min(coss):.6f} second call {'EQUAL' if repeats else 'DIFFERS'} "
             + ("(library eager) " if graph else ""),
-            design=attention.kernel_design(dt, d, backward=True),
+            design=attention.kernel_design(dt, d, backward=True), peak=peak,
         )
         del lib_out, leaves
         if not finite:
@@ -1163,7 +1184,32 @@ def check_nms(torch, dev, records):
             fail(f"nms {what}: an invalid slot was kept")
 
 
+def check_tf32_split(torch, dev):
+    """Each TF32 product form of the float32 flash kernels (the probe's
+    `tf32_probe`, through the kernels' own fragment loads, split tiles and
+    products) against the float64 product, split and as one TF32 product."""
+    from clipself_tpu_torch.ops import hopper_mma_probe as probe
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst, ratio = 0.0, float("inf")
+    for mode, k, n in probe.TF32_PRODUCTS:
+        a, b = (torch.randn(shape, generator=gen, device=dev) for shape in probe.tf32_shapes(mode, k, n))
+        want = probe.tf32_probe_plain(a, b, mode)
+        mag = probe.tf32_probe_plain(a.abs(), b.abs(), mode)
+        split = ((probe.tf32_probe(a, b, mode) - want).abs() / mag).max().item()
+        one = ((probe.tf32_probe(a, b, mode, split=False) - want).abs() / mag).max().item()
+        if not (split <= TF32_SPLIT_MAX_REL and one >= TF32_ONE_MIN_RATIO * split):
+            fail(f"tf32 split form {(mode, k, n)}: split {split:.3e}, one TF32 product {one:.3e} of sum |a b|")
+        worst, ratio = max(worst, split), min(ratio, one / max(split, 1e-30))
+    print(
+        f"tf32 split: {len(probe.TF32_PRODUCTS)} forms, worst {worst:.3e} of sum |a b| (bar "
+        f"{TF32_SPLIT_MAX_REL}); one TF32 product at least {ratio:.0f}x that (bar {TF32_ONE_MIN_RATIO}x)",
+        flush=True,
+    )
+
+
 def phase_kernels(torch, dev, records):
+    check_tf32_split(torch, dev)
     # the rows' inputs are drawn on the card: a host draw of their ~4 G
     # values took ~35 s
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1257,7 +1303,7 @@ def phase_kernels(torch, dev, records):
                             ((HF_TEXT_ROWS, 77, 768), True)):
         check_layer_norm(torch, dev, records, gen, shape, "", backward=backward, eps=1e-12, tag=" eps 1e-12")
     # the large towers' head dims, which the bf16 wgmma design takes on two
-    # 64-column panels and the f32 FMA design on 16-wide tiles, zero-filled
+    # 64-column panels and the f32 tf32x3 design on 16-wide tiles, zero-filled
     # past the head_dim (88: ViT-g-14, EVA01-CLIP-g-14; 104: ViT-bigG-14)
     # or exactly (80: ViT-H-14; 112: EVA02-CLIP-bigE-14, ViT-e-14), over
     # the L/14-size grid at 896^2 (also g-14's): one image, 16 heads
@@ -4757,6 +4803,8 @@ def kernel_rows(records: Records, paths: dict) -> list:
             **{k: v for k, v in records.primary(name, *primary).items() if k != "what"},
             "checked_at": records.rows[name],
         }
+        if name.startswith("flash"):  # the designs its rows took, by dtype and head_dim
+            row["designs"] = sorted({r["design"] for r in records.rows[name] if "design" in r})
         if name == "rope_roll":  # its backward is the same kernel on the packed backward table
             row["backward_launches_by_path"] = {k: p["rope_roll_bwd"] for k, p in paths.items()}
         if row["launches"] == 0:

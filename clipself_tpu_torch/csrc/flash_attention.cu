@@ -23,10 +23,12 @@
 // Bound on the H100: at N = 4097, D = 64 a query row does 4 * D flops per key
 // against K/V tiles that every query tile of the head reads again from the
 // L2, so the kernel is bound by operations (the card's bound is the products
-// at the bf16 tensor-core peak), and on the way there by what feeds the
-// tensor cores: shared-memory traffic, the exponentials (one SFU result per
-// score against 4 * D tensor-core flops: at D = 64 the two take about as
-// long) and the waits between a product and the code that needs it.
+// at the bf16 tensor-core peak; in float32, three TF32 products a float32
+// product at the TF32 peak, 494.7 / 3 TFLOP/s), and on the way there by what
+// feeds the tensor cores: shared-memory traffic, the exponentials (one SFU
+// result per score against 4 * D tensor-core flops: at D = 64 the two take
+// about as long), in float32 the split of every loaded operand, and the
+// waits between a product and the code that needs it.
 //
 // Three designs, picked by dtype and head_dim alone (clipself_flash_fwd_design):
 //
@@ -44,19 +46,32 @@
 //  * bfloat16 below head_dim 64 (8-56: the tiny test towers): 4 warps of 16
 //    rows, WMMA 16x16x16 tiles with f32 accumulation, scores and P staged
 //    in shared memory, tiles loaded with plain vector loads, one buffer.
-//  * float32 (the parity path): the same blocking with f32 FMAs, so that it
-//    keeps full f32 precision (tensor cores would round the inputs to TF32).
+//  * float32 (the HF trunks, which compute in float32 in every model, and
+//    every parity path): "tf32x3", the design in namespace `x3` below. Both
+//    products run on the tensor cores at float32 accuracy as three TF32
+//    products of a split x = hi + lo of each operand (csrc/hopper_mma.cuh;
+//    one TF32 product alone keeps three decimal digits): S = Q K^T as wgmma
+//    with Q's fragments split in registers and K landing as a split tile
+//    (hi and lo planes in shared memory, split once a block); P V as
+//    mma.sync with P split in the softmax's registers and V's fragments by
+//    32-bit loads under a renumbered contraction, so that V is never
+//    transposed. The tensor cores sum each tile's P V apart and the running
+//    O is rescaled and added in float32, since their own sums cut low bits.
+//    What bounds it on this card: the split's instructions beside the
+//    products and the value product on mma.sync; see the kernel's note for
+//    what was measured.
 //
 // Every design takes every head_dim d that is a multiple of 8 up to 128 by
 // zero-fill: it is instantiated at the tile width DP = d rounded up to 16
 // (ViT-g-14's 88 runs 96-wide tiles, ViT-bigG-14's 104 112-wide ones) and
 // takes the true d at run time. The loads fill columns d to DP - 1 of every
 // Q, K and V tile with zeros, which add nothing to Q K^T, and P V's extra
-// output columns (zero too) are never stored. The softmax scale is the
-// caller's, d ** -0.5 of the true d.
+// output columns (zero too) are never stored; the float32 design, whose
+// k-slices are 8 wide, skips the slice and the output tile that lie wholly
+// past d. The softmax scale is the caller's, d ** -0.5 of the true d.
 //
-// The shared-memory tile loader and the Pad/Plan conventions of the two older
-// designs are repeated in flash_attention_bwd.cu: each .cu file is compiled
+// The shared-memory tile loader and the Pad/Plan conventions of the WMMA
+// design are repeated in flash_attention_bwd.cu: each .cu file is compiled
 // on its own.
 
 #include <cuda_bf16.h>
@@ -81,10 +96,6 @@ constexpr int WGMMA_ONE_WARPGROUP_MAX_N = 384;
 template <typename T>
 struct Pad;  // shared-memory row padding, in elements (keeps 16-byte rows)
 template <>
-struct Pad<float> {
-  static constexpr int v = 4;
-};
-template <>
 struct Pad<__nv_bfloat16> {
   static constexpr int v = 8;
 };
@@ -103,7 +114,6 @@ struct Plan {
   static constexpr size_t total = q_bytes + 2 * kv_bytes + s_bytes + p_bytes;
 };
 
-__device__ __forceinline__ float to_out(float v, float) { return v; }
 __device__ __forceinline__ __nv_bfloat16 to_out(float v, __nv_bfloat16) {
   return __float2bfloat16(v);
 }
@@ -173,42 +183,6 @@ struct Products<__nv_bfloat16, D> {
         wmma::mma_sync(c, a, b, c);
       }
       wmma::store_matrix_sync(o + dt * 16, c, P::LDS, wmma::mem_row_major);
-    }
-  }
-};
-
-template <int D>
-struct Products<float, D> {
-  using P = Plan<float, D>;
-
-  // each lane computes the entries its softmax step owns: row lane / 2,
-  // columns (lane % 2) * 32 .. + 32
-  __device__ static void qk(const float* q, const float* k, float* s) {
-    const int lane = threadIdx.x & 31;
-    const int r = lane >> 1;
-    const int c0 = (lane & 1) * (BK / 2);
-    const float* qr = q + r * P::LD;
-    for (int j = 0; j < BK / 2; ++j) {
-      const float* kr = k + (c0 + j) * P::LD;
-      float acc = 0.0f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      s[r * P::LDS + c0 + j] = acc;
-    }
-  }
-
-  // row lane / 2, output columns (lane % 2) * D / 2 .. + D / 2
-  __device__ static void pv(const float* p, const float* v, float* o) {
-    const int lane = threadIdx.x & 31;
-    const int r = lane >> 1;
-    const int c0 = (lane & 1) * (D / 2);
-    for (int j = 0; j < D / 2; ++j) {
-      float acc = 0.0f;
-#pragma unroll 16
-      for (int kk = 0; kk < BK; ++kk) {
-        acc = fmaf(p[r * P::LDP + kk], v[kk * P::LD + c0 + j], acc);
-      }
-      o[r * P::LDS + c0 + j] = acc;
     }
   }
 };
@@ -518,11 +492,260 @@ __global__ void __launch_bounds__(NWG * 128, 2)
 
 }  // namespace wg
 
+// ---- float32, every head_dim: the TF32 three-product design ----------------
+//
+// A block of W warps owns 16 W query rows of one (batch, head), 16 a warp,
+// with its Q rows resident in shared memory (row-major, DP + 4 floats a
+// row); K and V tiles of 64 or 32 keys come through a two-stage cp.async
+// ring, tile t + 1 in flight while tile t is computed, one block barrier a
+// tile. Every product is three TF32 products of the split x = hi + lo
+// (hopper_mma.cuh). S = Q K^T is wgmma m64nNk8 on each warpgroup (N = the
+// tile's keys): Q's A fragment of a k-slice comes by ldmatrix and is split
+// in registers, two k-slices a commit group; K lands as a split tile, its
+// hi and lo planes in the swizzled K-major layout, split once a block by
+// the threads that copied it, before the barrier that publishes it. The
+// online softmax runs on S's accumulator fragment (a row lives in a quad of
+// lanes) with exp2f. P V contracts over the keys, so wgmma would need V
+// transposed (TF32 takes no transposed shared-memory operand) and stored
+// twice: it is mma.sync m16n8k8 with P split in registers as the A operand
+// under the renumbered contraction and V's B fragments two 32-bit loads
+// from its row-major tile, split in registers. The tile's P V goes to fresh
+// accumulators and O = O * alpha + P V is a float32 FMA (the tensor cores'
+// sums would drift over 65 tiles).
+//
+// wgmma or mma.sync for S, timed in one call (tools/side_by_side.py, the
+// trees in the order FMA parent, an mma.sync build, a build with the
+// backward's scores on wgmma at every width, this, this and back, H100 80GB
+// HBM3 at 700 W; the mma.sync build read K's B fragments by ldmatrix and
+// split them in every warp, on 64-key tiles), f32 ms on mma.sync -> here:
+// [2,197,12,64] 0.0225-0.0229 -> 0.0166-0.0169, [50,197,12,64]
+// 0.2580-0.2603 -> 0.1730-0.1747, [2,4097,12,64] 1.8187-1.8313 ->
+// 1.6975-1.7035, [1,4097,16,d] d = 80: 1.6717-1.6720 -> 1.3500-1.3504, 88:
+// 1.7737-1.7852 -> 1.5241-1.5283, 104: 2.0532-2.0584 -> 2.0406-2.0431, 112:
+// 2.2136-2.2195 -> 2.1243. S is on wgmma at every width.
+//
+// The tile width DP is the head_dim rounded up to 16; columns d to DP - 1
+// of Q, K and V load as zeros, and the k-slice or output n-tile wholly past
+// the true d (d = 8 modulo 16) is skipped at run time, so no product runs on
+// zero-filled columns.
+
+namespace x3 {
+
+using namespace hopper;
+
+// W warps a block: 4 (64 rows, one warpgroup) up to
+// WGMMA_ONE_WARPGROUP_MAX_N tokens, 8 (128 rows: each K and V tile feeds
+// twice the rows) past it. Keys a K/V tile: 64 in the 8-warp blocks up to
+// DP 96, else 32 (shared memory: past DP 96 two stages of 64-key tiles do
+// not fit beside 128 Q rows; a 4-warp block on 64-key tiles leaves one
+// block an SM, where 32-key tiles leave three: the crops' [50, 197] ran
+// 2.4x slower on 64 keys). Shared memory: two ring stages of the split K
+// tile, then two of the row-major V tile, then the Q rows (1024 bytes more
+// for the split tiles' alignment).
+template <int DP, int W>
+struct Plan {
+  static constexpr int BKT = W == 8 && DP <= 96 ? 64 : 32;
+  static constexpr int LD = DP + F32_PAD;
+  static constexpr uint32_t K_SPLIT = 2 * f32_plane_bytes(BKT, DP);
+  static constexpr uint32_t V_TILE = BKT * LD * 4;
+  static constexpr int SMEM = ATOM_BYTES + 2 * (K_SPLIT + V_TILE) + W * 16 * LD * 4;
+};
+static_assert(Plan<128, 8>::SMEM <= 232448 && Plan<96, 8>::SMEM <= 232448,
+              "shared-memory plan too large");
+
+template <int DP, int W>
+__global__ void __launch_bounds__(W * 32)
+    flash_fwd_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int n, int d, int heads,
+                        long long qsb, long long qsn, long long qsh,
+                        long long ksb, long long ksn, long long ksh,
+                        long long vsb, long long vsn, long long vsh,
+                        float scale_log2) {
+  using P = Plan<DP, W>;
+  constexpr int BKT = P::BKT;
+  constexpr int THREADS = W * 32;
+  constexpr int LD = P::LD;
+  constexpr int ROWS = W * 16;
+  constexpr int KT = DP / 8;  // k-slices of the head_dim, n-tiles of the output
+  constexpr int NJ = BKT / 8;  // n-tiles of S, k-slices of P V
+  constexpr uint32_t LO_UNITS = f32_plane_bytes(BKT, DP) >> 4;
+  extern __shared__ unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // the fragment's row (of 8) and column pair
+  const int c = lane & 3;
+  const int q0 = blockIdx.x * ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float* kg = k + b * ksb + h * ksh;
+  const float* vg = v + b * vsb + h * vsh;
+
+  const uint32_t base = align_1024(smem_u32(smem));
+  const uint32_t k_split = base;                   // two stages
+  const uint32_t v_s = base + 2 * P::K_SPLIT;      // two stages
+  const uint32_t q_s = v_s + 2 * P::V_TILE;
+  const float* smem_f = reinterpret_cast<const float*>(smem + (base - smem_u32(smem)));
+  const int n_tiles = (n + BKT - 1) / BKT;
+
+  load_rows_f32<ROWS, DP, THREADS>(q_s, q + b * qsb + h * qsh, qsn, q0, n, d, tid);
+  load_split_async<BKT, DP, THREADS>(k_split, kg, ksn, 0, n, d, tid);
+  load_rows_f32<BKT, DP, THREADS>(v_s, vg, vsn, 0, n, d, tid);
+  cp_async_commit();
+
+  const uint32_t qa = q_s + warp * 16 * LD * 4 + a_lane_offset<LD>(lane);
+  const int vb = b_rows_lane<LD>(lane);
+
+  float acc[KT][4];
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+  }
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8, log2 domain
+  float l0 = 0.0f, l1 = 0.0f;            // this thread's share of their sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    cp_async_wait<0>();  // this thread's part of tile t has landed
+    split_tile<BKT, DP, THREADS>(k_split + st * P::K_SPLIT, tid);
+    fence_async_proxy();
+    __syncthreads();     // tile t complete and split; every warp is done with tile t - 1
+    if (t + 1 < n_tiles) {
+      load_split_async<BKT, DP, THREADS>(k_split + (st ^ 1) * P::K_SPLIT, kg, ksn, (t + 1) * BKT,
+                                         n, d, tid);
+      load_rows_f32<BKT, DP, THREADS>(v_s + (st ^ 1) * P::V_TILE, vg, vsn, (t + 1) * BKT, n, d,
+                                      tid);
+    }
+    cp_async_commit();
+    const uint32_t k_t = k_split + st * P::K_SPLIT;
+    const int k0 = t * BKT;
+
+    // S = Q K^T of the warpgroup's 64 rows and the tile's keys: per k-slice
+    // the warp's Q fragment split in registers, K's planes by descriptor.
+    // Register 4 j + i is an mma.sync C fragment: n-tile j is keys 8 j .. 8 j + 7
+    float s[BKT / 2];
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      if (kk + 1 < KT || 8 * kk < d) {
+        SplitA a;
+        a_frag(a, qa, kk);
+        wgmma_fence();
+        wgmma_tf32x3<BKT>(s, a, k_slice_desc(k_t, kk, BKT * ROW_BYTES), LO_UNITS, kk > 0);
+      }
+      // two k-slices a commit group, at most two groups in flight, so that
+      // only their A fragments hold registers, as in the backward's scores
+      // (where every slice's held to the end spilled)
+      if (kk & 1) {
+        wgmma_commit();
+        if (kk + 1 < KT) wgmma_wait<1>();
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // scaled logits in the log2 domain; keys at or past n get -inf. Every
+    // tile holds at least one key below n, so the new max is finite and the
+    // first tile's alpha is exp2(-inf) = 0.
+    const bool ragged = k0 + BKT > n;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < BKT / 2; ++i) {
+      float x = s[i] * scale_log2;
+      if (ragged && k0 + 8 * (i >> 2) + 2 * c + (i & 1) >= n) x = -INFINITY;
+      s[i] = x;
+      if ((i >> 1) & 1) {
+        mx1 = fmaxf(mx1, x);
+      } else {
+        mx0 = fmaxf(mx0, x);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0);
+    const float alpha1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // O = O * alpha + P V, the tile's P V summed apart (a fresh accumulator
+    // a column tile). k-slice kk of the value product is S's n-tile kk, P's
+    // slots renumbered (c0, c2, c1, c3 are a0..a3), V's rows 8 kk + 2 c and
+    // 8 kk + 2 c + 1 its B fragment.
+    const float* v_rows = smem_f + (v_s - base) / 4 + st * (P::V_TILE / 4) + vb;
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      s[4 * kk] = exp2f(s[4 * kk] - mn0);
+      s[4 * kk + 1] = exp2f(s[4 * kk + 1] - mn0);
+      s[4 * kk + 2] = exp2f(s[4 * kk + 2] - mn1);
+      s[4 * kk + 3] = exp2f(s[4 * kk + 3] - mn1);
+      ps0 += s[4 * kk] + s[4 * kk + 1];
+      ps1 += s[4 * kk + 2] + s[4 * kk + 3];
+    }
+    l0 = l0 * alpha0 + ps0;
+    l1 = l1 * alpha1 + ps1;
+    float pv[KT][4];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[j][i] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      SplitA p;
+      p.set(s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3]);
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        if (j + 1 < KT || 8 * j < d) {
+          SplitB bv;
+          b_rows<LD>(bv, v_rows, kk, j);
+          mma_tf32x3(pv[j], p, bv);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      acc[j][0] = fmaf(acc[j][0], alpha0, pv[j][0]);
+      acc[j][1] = fmaf(acc[j][1], alpha0, pv[j][1]);
+      acc[j][2] = fmaf(acc[j][2], alpha1, pv[j][2]);
+      acc[j][3] = fmaf(acc[j][3], alpha1, pv[j][3]);
+    }
+  }
+  cp_async_wait<0>();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  float* o0 = o + (((long long)b * n + r0) * heads + h) * d + 2 * c;
+  float* o1 = o0 + 8LL * heads * d;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j + 1 < KT || 8 * j < d) {  // the zero-filled columns are not stored
+      if (r0 < n) *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(acc[j][0] * inv0, acc[j][1] * inv0);
+      if (r0 + 8 < n) *reinterpret_cast<float2*>(o1 + 8 * j) = make_float2(acc[j][2] * inv1, acc[j][3] * inv1);
+    }
+  }
+  if (lse != nullptr && c == 0) {
+    float* lse_bh = lse + ((long long)b * heads + h) * n;
+    if (r0 < n) lse_bh[r0] = (m0 + log2f(l0)) * 0.6931471805599453f;
+    if (r0 + 8 < n) lse_bh[r0 + 8] = (m1 + log2f(l1)) * 0.6931471805599453f;
+  }
+}
+
+}  // namespace x3
+
 // Which design a call takes: fixed by dtype and head_dim.
-enum Design { DESIGN_FMA = 0, DESIGN_WMMA = 1, DESIGN_WGMMA = 2 };
+enum Design { DESIGN_WMMA = 1, DESIGN_WGMMA = 2, DESIGN_TF32X3 = 3 };
 
 constexpr Design design_rule(bool is_f32, int head_dim) {
-  return is_f32 ? DESIGN_FMA : head_dim >= 64 ? DESIGN_WGMMA : DESIGN_WMMA;
+  return is_f32 ? DESIGN_TF32X3 : head_dim >= 64 ? DESIGN_WGMMA : DESIGN_WMMA;
 }
 
 // The head dims taken: multiples of 8 up to 128.
@@ -563,7 +786,29 @@ cudaError_t launch_wgmma(const Args& a) {
                                          : launch_wgmma_blocks<DP, 1>(a);
 }
 
-// The WMMA and FMA designs. D: the tile width, a.head_dim rounded up to 16.
+template <int DP, int W>
+cudaError_t launch_x3_blocks(const Args& a) {
+  auto kern = x3::flash_fwd_x3_kernel<DP, W>;
+  constexpr int bytes = x3::Plan<DP, W>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + W * 16 - 1) / (W * 16), a.heads, a.batch);
+  kern<<<grid, W * 32, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.n, a.head_dim,
+      a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale_log2);
+  return cudaGetLastError();
+}
+
+// float32: rows a block from the shape, as the bf16 warpgroup design does
+// (short sequences take 64-row blocks)
+template <int DP>
+cudaError_t launch_x3(const Args& a) {
+  return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_x3_blocks<DP, 8>(a) : launch_x3_blocks<DP, 4>(a);
+}
+
+// The WMMA design (bf16 below head_dim 64). D: the tile width, a.head_dim
+// rounded up to 16.
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
   using P = Plan<T, D>;
@@ -601,14 +846,14 @@ cudaError_t dispatch(const Args& a) {
     }
   } else {
     switch (dp) {
-      case 16: return launch<T, 16>(a);
-      case 32: return launch<T, 32>(a);
-      case 48: return launch<T, 48>(a);
-      case 64: return launch<T, 64>(a);
-      case 80: return launch<T, 80>(a);
-      case 96: return launch<T, 96>(a);
-      case 112: return launch<T, 112>(a);
-      default: return launch<T, 128>(a);
+      case 16: return launch_x3<16>(a);
+      case 32: return launch_x3<32>(a);
+      case 48: return launch_x3<48>(a);
+      case 64: return launch_x3<64>(a);
+      case 80: return launch_x3<80>(a);
+      case 96: return launch_x3<96>(a);
+      case 112: return launch_x3<112>(a);
+      default: return launch_x3<128>(a);
     }
   }
 }
@@ -640,8 +885,9 @@ extern "C" int clipself_flash_fwd(int dtype, const void* q, const void* k,
 }
 
 // The design that clipself_flash_fwd runs for this dtype and head_dim:
-// 0 = f32 FMA, 1 = WMMA tiles (bf16 below head_dim 64), 2 = wgmma (bf16 at
-// head_dim 64-128); -1 if the pair is not taken.
+// 1 = WMMA tiles (bf16 below head_dim 64), 2 = wgmma (bf16 at head_dim
+// 64-128), 3 = the TF32 three-product split (float32); -1 if the pair is not
+// taken.
 extern "C" int clipself_flash_fwd_design(int dtype, int head_dim) {
   if (!head_dim_taken(head_dim)) return -1;
   if (dtype != 0 && dtype != 1) return -1;

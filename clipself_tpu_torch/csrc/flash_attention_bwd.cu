@@ -55,25 +55,40 @@
 //    WMMA fragments and loops over the other side's 64-row tiles staged
 //    with plain loads; every product's result passes through shared memory
 //    in f32.
-//  * float32 (the parity path): the same blocking with f32 FMAs, so that it
-//    keeps full f32 precision (tensor cores would round the inputs to TF32).
+//  * float32 (the HF trunks and every parity path): "tf32x3", namespace
+//    `x3` below: a block of 8 warps owns 128 keys (128 queries in the dQ
+//    pass) and walks the other side's 32-row tiles through a cp.async ring,
+//    with every product on the tensor cores at float32 accuracy: three TF32
+//    products of a hi + lo split of each operand (csrc/hopper_mma.cuh), the
+//    scores on wgmma against split tiles up to tile width 96 and on
+//    mma.sync past it, the value products on mma.sync from registers, no
+//    tile transposed; each tile's share of dQ, dK and dV is summed apart and
+//    added in float32.
 //
 // Every design takes every head_dim d that is a multiple of 8 up to 128 by
 // zero-fill, as the forward does: instantiated at the tile width DP = d
 // rounded up to 16, the true d at run time. Columns d to DP - 1 of the K, V,
 // Q and dO tiles load as zeros, which add nothing to S, dP, dS^T Q or dS K;
-// the extra columns of dQ, dK and dV (zero too) are never stored;
+// the extra columns of dQ, dK and dV (zero too) are never stored (the
+// float32 design skips the 8-wide slices past d altogether);
 // di = rowsum(dO * O) runs over the true d.
 //
 // Bound on the H100: at N = 4097 a (key, query) pair costs 14 * d flops in
 // the two passes against tiles that every block reads again from the L2,
-// so the kernels are bound by operations. What holds the warpgroup kernels
-// below the tensor cores' rate is the elementwise work between the products
-// (the exponentials, dS and bf16 packing take about as long as a tile's
-// wgmma operations at d = 64), shared-memory bandwidth (m64n64k16 with both
-// operands in shared memory reads 4 KB for 32 tensor-core cycles) and, in
-// the dK / dV kernel, the registers: dK and dV's accumulators take d floats
-// a thread, which leaves one block of 8 warps an SM (232-255 registers).
+// so the kernels are bound by operations (in float32, three TF32 products a
+// float32 product at the TF32 peak). What holds the float32 kernels below
+// it: the split of the operands in registers (three instructions a float),
+// the value products on mma.sync and, in the dK / dV pass, the registers (dK and dV's DP floats a
+// thread beside the tile's scores: 224-255 a thread from head_dim 48, so one
+// block of 8 warps an SM, whose other warps are a warp's only latency
+// cover). What holds the warpgroup kernels below the tensor cores' rate is
+// the elementwise work
+// between the products (the exponentials, dS and bf16 packing take about as
+// long as a tile's wgmma operations at d = 64), shared-memory bandwidth
+// (m64n64k16 with both operands in shared memory reads 4 KB for 32
+// tensor-core cycles) and, in the dK / dV kernel, the registers: dK and dV's
+// accumulators take d floats a thread, which leaves one block of 8 warps an
+// SM (232-255 registers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,10 +114,6 @@ constexpr int WGMMA_ONE_WARPGROUP_MAX_N = 384;
 
 template <typename T>
 struct Pad;  // shared-memory row padding, in elements (keeps 16-byte rows)
-template <>
-struct Pad<float> {
-  static constexpr int v = 4;
-};
 template <>
 struct Pad<__nv_bfloat16> {
   static constexpr int v = 8;
@@ -143,7 +154,6 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ float to_t(float v, float) { return v; }
 __device__ __forceinline__ __nv_bfloat16 to_t(float v, __nv_bfloat16) {
   return __float2bfloat16(v);
 }
@@ -169,24 +179,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
   }
 }
 
-// float32 products, one warp, lane pair (2r, 2r+1) on output row r of 16:
-//   acc[j] += sum_k a[r * a_r + k * a_k] * b[k * b_k + (c0 + j) * b_c]
-// with c0 = (lane % 2) * NC / 2, for the NC / 2 columns the lane owns.
-template <int NC, int KD>
-__device__ __forceinline__ void fma_rows(const float* a, int a_r, int a_k,
-                                         const float* b, int b_k, int b_c,
-                                         float (&acc)[NC / 2]) {
-  const int lane = threadIdx.x & 31;
-  const float* ar = a + (lane >> 1) * a_r;
-  const float* bc = b + (lane & 1) * (NC / 2) * b_c;
-  for (int k = 0; k < KD; ++k) {
-    const float av = ar[k * a_k];
-    const float* bk = bc + k * b_k;
-#pragma unroll
-    for (int j = 0; j < NC / 2; ++j) acc[j] = fmaf(av, bk[j * b_c], acc[j]);
-  }
-}
-
 // out[16, 64] (f32, row stride LDS) = a[16, D] . b[64, D]^T, both row-major
 // with row stride LD: the warp's 16 own rows against the streamed tile
 // (keys against queries give S^T and values against dO give dP^T in the
@@ -196,41 +188,27 @@ template <typename T, int D>
 __device__ __forceinline__ void rows_by_tile_t(const T* a, const T* b,
                                                float* out) {
   using P = Plan<T, D>;
-  if constexpr (std::is_same<T, float>::value) {
-    float acc[BQ / 2];
+  using namespace nvcuda;
 #pragma unroll
-    for (int j = 0; j < BQ / 2; ++j) acc[j] = 0.0f;
-    fma_rows<BQ, D>(a, P::LD, 1, b, 1, P::LD, acc);
-    const int lane = threadIdx.x & 31;
-    float* o = out + (lane >> 1) * P::LDS + (lane & 1) * (BQ / 2);
+  for (int nt = 0; nt < BQ / 16; ++nt) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+    wmma::fill_fragment(c, 0.0f);
 #pragma unroll
-    for (int j = 0; j < BQ / 2; ++j) o[j] = acc[j];
-  } else {
-    using namespace nvcuda;
-#pragma unroll
-    for (int nt = 0; nt < BQ / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, a + kk * 16, P::LD);
-        wmma::load_matrix_sync(fb, b + nt * 16 * P::LD + kk * 16, P::LD);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(out + nt * 16, c, P::LDS, wmma::mem_row_major);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
+      wmma::load_matrix_sync(fa, a + kk * 16, P::LD);
+      wmma::load_matrix_sync(fb, b + nt * 16 * P::LD + kk * 16, P::LD);
+      wmma::mma_sync(c, fa, fb, c);
     }
+    wmma::store_matrix_sync(out + nt * 16, c, P::LDS, wmma::mem_row_major);
   }
 }
 
-// A warp's [16, D] accumulator in f32: dK and dV in the dK / dV pass, dQ in
-// the dQ pass.
-template <typename T, int D, bool IS_F32 = std::is_same<T, float>::value>
-struct Acc;
-
+// A warp's [16, D] accumulator in f32 WMMA fragments: dK and dV in the
+// dK / dV pass, dQ in the dQ pass.
 template <typename T, int D>
-struct Acc<T, D, false> {  // bf16: WMMA accumulator fragments
+struct Acc {
   using P = Plan<T, D>;
   nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[D / 16];
 
@@ -274,33 +252,6 @@ struct Acc<T, D, false> {  // bf16: WMMA accumulator fragments
       }
     }
     __syncwarp();
-  }
-};
-
-template <typename T, int D>
-struct Acc<T, D, true> {  // float32: lane pair per row, D / 2 columns each
-  using P = Plan<T, D>;
-  float f[D / 2];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) f[j] = 0.0f;
-  }
-  __device__ void add(const float* a, const float* b) {
-    fma_rows<D, BQ>(a, P::LDP, 1, b, P::LD, 1, f);
-  }
-  __device__ void store(float*, float* dst_base, long long row_stride,
-                        int row0, int n, int d) {
-    const int lane = threadIdx.x & 31;
-    const int r = lane >> 1;
-    if (row0 + r < n) {
-      float* o = dst_base + (long long)(row0 + r) * row_stride;
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) {
-        const int c = (lane & 1) * (D / 2) + j;
-        if (c < d) o[c] = f[j];
-      }
-    }
   }
 };
 
@@ -952,6 +903,515 @@ __global__ void __launch_bounds__(NWG * 128)
 
 }  // namespace wg
 
+// ---- float32, every head_dim: the TF32 three-product design ----------------
+//
+// Every product is three TF32 products of the split x = hi + lo
+// (hopper_mma.cuh). The products contracted over the head_dim, the scores
+// (S^T = K Q^T and dP^T = V dO^T in the dK / dV pass, S = Q K^T and
+// dP = dO V^T in the dQ pass), take the block's resident rows as the A side
+// (ldmatrix from row-major tiles of DP + 4 floats, split in registers) and
+// the streamed tile as the B side; up to DP 96 they are wgmma m64n32k8 on
+// each warpgroup (two k-slices a commit group), the streamed tiles landing
+// as split tiles (hi and lo planes in the swizzled K-major layout, split
+// once a block by the threads that copied them, before the barrier that
+// publishes them); past DP 96 they are mma.sync m16n8k8 with the streamed
+// tiles row-major and their B fragments read by ldmatrix and split in every
+// warp. The value products (dV, dK, dQ), contracted over the streamed
+// tile's rows, are mma.sync: TF32 wgmma takes no transposed shared-memory
+// operand, so their B operand would need the tile stored again transposed;
+// they take P^T, dS^T or dS from registers as the A fragment under the
+// renumbered contraction and the B fragment from the tile's rows (its hi
+// and lo planes as stored, or two 32-bit loads split in registers). dK, dV
+// and dQ sum over every tile of the other side: each tile's (or round's)
+// share goes to a fresh accumulator first and is added to the float32 sum
+// with an ordinary add (the tensor cores' own sums would drift). The tile
+// width DP is the head_dim rounded up to 16; the k-slice or output n-tile
+// wholly past the true d is skipped at run time.
+//
+// Why past DP 96 the scores stay on mma.sync: two ring stages of two
+// 32-row split tiles beside the 128 resident rows pass a block's shared
+// memory there, and on 16-row split tiles (m64n16k8) the backward ran
+// slower than on mma.sync. Timed in one call (tools/side_by_side.py, the
+// trees in the order FMA parent, an mma.sync build (the scores on mma.sync
+// at every width, the value products' B split in registers), a build with
+// the scores on wgmma at every width (16-row tiles past DP 96), this, this
+// and back, H100 80GB HBM3 at 700 W), f32 backward ms, mma.sync / wgmma
+// everywhere / this: [2,197,12,64] 0.0686-0.0688 / 0.0633-0.0634 /
+// 0.0633-0.0635, [2,4097,12,64] 6.1232-6.1265 / 5.7911-5.8021 /
+// 5.7933-5.7945, [1,4097,16,d] d = 80: 5.6612-5.6628 / 5.4065-5.4366 /
+// 5.4340-5.4365, 88: 5.8845-5.8855 / 5.4553-5.4631 / 5.4623-5.4629, 104:
+// 7.4625-7.4788 / 8.3815-8.4379 / 7.4249-7.4254, 112: 7.9432-7.9589 /
+// 8.8328-8.8818 / 7.9085-7.9268.
+//
+// The dK / dV pass: a block of 8 warps owns 128 keys of one (batch, head),
+// 16 a warp, with their K and V rows resident and dK, dV in registers, and
+// walks the 32-row Q and dO tiles with their lse and di through a two-stage
+// cp.async ring, one block barrier a tile (S^T, dP^T and the split P^T,
+// dS^T of a tile beside dK and dV's DP floats a thread): S^T = K Q^T and
+// dP^T = V dO^T, P^T and dS^T in registers, then dV += P^T dO and
+// dK += dS^T Q. The dQ pass: a block of 8 warps owns 128 query rows, with Q
+// and dO resident, and walks the 32-key K and V tiles in ascending order the
+// same way: S = Q K^T and dP = dO V^T, dS in registers, dQ += dS K. Each
+// output element sums its k-slices, each k-slice its three split products,
+// and its tiles, in one fixed order.
+//
+// Why 8 warps and 32-row tiles: the dK / dV pass's registers allow one
+// block an SM from head_dim 48 up, so the block is the SM's only source of
+// warps. 4 warps over 64-row tiles left one warp to each scheduler and ran
+// slower on an H100 at every long-sequence shape (most at head_dim
+// 104-112); 128 resident rows and 64-row tiles do not fit in shared memory
+// past DP 96.
+
+namespace x3 {
+
+using namespace hopper;
+
+constexpr int W = 8;         // warps a block: 128 own rows, 16 a warp
+constexpr int THREADS = W * 32;
+
+// The scores' products on wgmma up to DP 96, on mma.sync past it (see the
+// note above for the times that chose it)
+__host__ __device__ constexpr bool scores_on_wgmma(int dp) { return dp <= 96; }
+
+// Shared memory of both passes: two ring stages, each the streamed pair of
+// TR-row tiles (K and V, or Q and dO: split tiles where the scores run on
+// wgmma, else row-major) and, in the dK / dV pass, TR lse and TR di values
+// (the dQ pass keeps its rows' in registers), then the block's resident
+// pair of W * 16-row row-major tiles (Q and dO, or K and V); 1024 bytes
+// more for the split tiles' alignment.
+template <int DP>
+struct Plan {
+  static constexpr bool WG = scores_on_wgmma(DP);
+  static constexpr int TR = 32;      // rows of a streamed tile
+  static constexpr int NJ = TR / 8;  // its 8-row slices
+  static constexpr int LD = DP + F32_PAD;
+  static constexpr int OWN = W * 16 * LD * 4;  // a resident tile
+  static constexpr int TILE = WG ? 2 * f32_plane_bytes(TR, DP) : TR * LD * 4;  // a streamed tile
+  static constexpr int STAGE = (2 * TILE + 2 * TR * 4 + ATOM_BYTES - 1) / ATOM_BYTES * ATOM_BYTES;
+  static constexpr int SMEM = ATOM_BYTES + 2 * STAGE + 2 * OWN;
+  static_assert(SMEM <= SMEM_LIMIT, "shared-memory plan too large");
+};
+
+// The streamed pair of a stage: start their copies, and (split tiles) split
+// what this thread copied once it has landed.
+template <int DP>
+__device__ __forceinline__ void load_pair(uint32_t at, const float* a, long long a_stride,
+                                          const float* b, long long b_stride, int row0, int n,
+                                          int d, int tid) {
+  constexpr int TR = Plan<DP>::TR;
+  if constexpr (Plan<DP>::WG) {
+    load_split_async<TR, DP, THREADS>(at, a, a_stride, row0, n, d, tid);
+    load_split_async<TR, DP, THREADS>(at + Plan<DP>::TILE, b, b_stride, row0, n, d, tid);
+  } else {
+    load_rows_f32<TR, DP, THREADS>(at, a, a_stride, row0, n, d, tid);
+    load_rows_f32<TR, DP, THREADS>(at + Plan<DP>::TILE, b, b_stride, row0, n, d, tid);
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void split_pair(uint32_t at, int tid) {
+  constexpr int TR = Plan<DP>::TR;
+  if constexpr (Plan<DP>::WG) {
+    split_tile<TR, DP, THREADS>(at, tid);
+    split_tile<TR, DP, THREADS>(at + Plan<DP>::TILE, tid);
+    fence_async_proxy();
+  }
+}
+
+// x[16 rows, TR] = a[16, DP] . b[TR, DP]^T and y = c . e^T for this warp
+// (x, y: n-tile j in x[j], the mma.sync C layout), a and c the warp's rows
+// of resident row-major tiles (`a_rows`, `c_rows` as `a_frag` takes them),
+// b and e the stage's streamed pair at `b_tile`. On wgmma the warpgroup's
+// four warps form the [64, TR] product together; the k-slice past the true
+// width d is skipped.
+template <int DP, int NJ = Plan<DP>::NJ>
+__device__ __forceinline__ void score_pair(float (&x)[NJ][4], float (&y)[NJ][4], uint32_t a_rows,
+                                           uint32_t c_rows, uint32_t b_tile, int d, int lane) {
+  constexpr int TR = Plan<DP>::TR;
+  constexpr int KT = DP / 8;
+  constexpr uint32_t E = Plan<DP>::TILE;
+  if constexpr (Plan<DP>::WG) {
+    constexpr uint32_t LO_UNITS = f32_plane_bytes(TR, DP) >> 4;
+    float(&xf)[TR / 2] = reinterpret_cast<float(&)[TR / 2]>(x);
+    float(&yf)[TR / 2] = reinterpret_cast<float(&)[TR / 2]>(y);
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      if (kk + 1 < KT || 8 * kk < d) {
+        SplitA a, c;
+        a_frag(a, a_rows, kk);
+        a_frag(c, c_rows, kk);
+        wgmma_fence();
+        wgmma_tf32x3<TR>(xf, a, k_slice_desc(b_tile, kk, TR * ROW_BYTES), LO_UNITS, kk > 0);
+        wgmma_tf32x3<TR>(yf, c, k_slice_desc(b_tile + E, kk, TR * ROW_BYTES), LO_UNITS, kk > 0);
+      }
+      // two k-slices a commit group, at most two in flight, so that only
+      // their A fragments hold registers (every slice's held to the end
+      // spilled at DP 80-96)
+      if (kk & 1) {
+        wgmma_commit();
+        if (kk + 1 < KT) wgmma_wait<1>();
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(xf);
+    fence_regs(yf);
+  } else {
+    constexpr int LD = Plan<DP>::LD;
+    const uint32_t bl = b_tile + b_lane_offset<LD>(lane);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[j][i] = y[j][i] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      if (kk + 1 < KT || 8 * kk < d) {
+        SplitA a, c;
+        a_frag(a, a_rows, kk);
+        a_frag(c, c_rows, kk);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint32_t at = bl + 8 * j * LD * 4;
+          SplitB b, e;
+          b_frag(b, at, kk);
+          mma_tf32x3(x[j], a, b);
+          b_frag(e, at + E, kk);
+          mma_tf32x3(y[j], c, e);
+        }
+      }
+    }
+  }
+}
+
+// The B fragment of k-slice kk, n-tile j of a value product from a streamed
+// tile (`tile` its start in shared memory, as floats), split or row-major
+template <int DP>
+__device__ __forceinline__ void value_b(SplitB& b, const float* tile, int kk, int j, int lane) {
+  if constexpr (Plan<DP>::WG) {
+    b_rows_split<Plan<DP>::TR, DP>(b, tile, kk, j, lane);
+  } else {
+    b_rows<Plan<DP>::LD>(b, tile + b_rows_lane<Plan<DP>::LD>(lane), kk, j);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkdv_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ di,
+                             float* __restrict__ dk, float* __restrict__ dv, int n, int d,
+                             int heads, long long qsb, long long qsn, long long qsh,
+                             long long ksb, long long ksn, long long ksh,
+                             long long vsb, long long vsn, long long vsh, float scale) {
+  using P = Plan<DP>;
+  constexpr int TR = P::TR;
+  constexpr int NJ = P::NJ;
+  constexpr int LD = P::LD;
+  constexpr int KT = DP / 8;
+  // column tiles of dK and dV a group of the value products: all of them up
+  // to DP 64; past it four, so that the group's fresh sums fit beside dK and
+  // dV's DP floats a thread; at DP 112 seven (two groups, each splitting P^T
+  // and dS^T once), which ran faster on an H100 than four though it spills
+  // more (`tools/kernel_resources.py`)
+  constexpr int G = DP <= 64 ? KT : DP == 112 ? 7 : 4;
+  extern __shared__ unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c = lane & 3;
+  const int k0 = blockIdx.x * W * 16;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float scale_log2 = scale * LOG2E;
+  const long long row_stride = (long long)heads * d;  // contiguous tensors
+  const long long head_off = ((long long)b * n * heads + h) * d;
+  const float* qg = q + b * qsb + h * qsh;
+  const float* dog = dout + head_off;
+  const float* lse_bh = lse + ((long long)b * heads + h) * n;
+  const float* di_bh = di + ((long long)b * heads + h) * n;
+
+  const uint32_t ring = align_1024(smem_u32(smem));
+  const uint32_t k_s = ring + 2 * P::STAGE;
+  const float* ring_f = reinterpret_cast<const float*>(smem + (ring - smem_u32(smem)));
+  const int n_tiles = (n + TR - 1) / TR;
+
+  // tile `tile` of Q, dO, lse and di into stage `st`
+  auto load_stage = [&](int tile, int st) {
+    const uint32_t at = ring + st * P::STAGE;
+    const int row0 = tile * TR;
+    load_pair<DP>(at, qg, qsn, dog, row_stride, row0, n, d, tid);
+    if (tid < 2 * TR) {
+      const int r = row0 + tid % TR;
+      const bool ok = r < n;
+      const float* src = tid < TR ? lse_bh : di_bh;
+      cp_async_4(at + 2 * P::TILE + tid * 4, ok ? src + r : src, ok);
+    }
+  };
+
+  load_rows_f32<W * 16, DP, THREADS>(k_s, k + b * ksb + h * ksh, ksn, k0, n, d, tid);
+  load_rows_f32<W * 16, DP, THREADS>(k_s + P::OWN, v + b * vsb + h * vsh, vsn, k0, n, d, tid);
+  load_stage(0, 0);
+  cp_async_commit();
+
+  const uint32_t ka = k_s + warp * 16 * LD * 4 + a_lane_offset<LD>(lane);  // the warp's keys
+  const uint32_t va = ka + P::OWN;
+  // this thread's keys r0 and r0 + 8
+  const int r0 = k0 + warp * 16 + (lane >> 2);
+  const bool key_ok0 = r0 < n;
+  const bool key_ok1 = r0 + 8 < n;
+
+  float dk_acc[KT][4], dv_acc[KT][4];
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stg = t & 1;
+    const uint32_t q_t = ring + stg * P::STAGE;
+    cp_async_wait<0>();  // this thread's part of tile t has landed
+    split_pair<DP>(q_t, tid);
+    __syncthreads();     // tile t complete; every warp is done with tile t - 1
+    if (t + 1 < n_tiles) load_stage(t + 1, stg ^ 1);
+    cp_async_commit();
+    const float* q_f = ring_f + stg * (P::STAGE / 4);
+    const float* do_f = q_f + P::TILE / 4;
+    const float* vec = q_f + 2 * P::TILE / 4;
+
+    // S^T = K Q^T and dP^T = V dO^T of [16 keys, TR queries]: registers
+    // 0, 1 of n-tile j are key r0 at queries 8 j + 2 c, 8 j + 2 c + 1,
+    // registers 2, 3 key r0 + 8
+    float st[NJ][4], dpt[NJ][4];
+    score_pair<DP>(st, dpt, ka, va, q_t, d, lane);
+
+    // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) and
+    // dS^T = P^T * (dP^T - di) * scale, in place
+    const bool ragged = t * TR + TR > n || k0 + W * 16 > n;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = 8 * j + 2 * c;
+      const float2 ls = *reinterpret_cast<const float2*>(vec + col);
+      const float2 dd = *reinterpret_cast<const float2*>(vec + TR + col);
+      float x[4] = {fmaf(st[j][0], scale_log2, -ls.x * LOG2E),
+                    fmaf(st[j][1], scale_log2, -ls.y * LOG2E),
+                    fmaf(st[j][2], scale_log2, -ls.x * LOG2E),
+                    fmaf(st[j][3], scale_log2, -ls.y * LOG2E)};
+      if (ragged) {
+        // masked pairs get -inf BEFORE the exp: exp of a logit without its
+        // row's lse could be inf, and inf * 0 is NaN
+        const bool q_ok0 = t * TR + col < n;
+        const bool q_ok1 = t * TR + col + 1 < n;
+        if (!(key_ok0 && q_ok0)) x[0] = -INFINITY;
+        if (!(key_ok0 && q_ok1)) x[1] = -INFINITY;
+        if (!(key_ok1 && q_ok0)) x[2] = -INFINITY;
+        if (!(key_ok1 && q_ok1)) x[3] = -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        st[j][i] = exp2f(x[i]);
+        dpt[j][i] = st[j][i] * (dpt[j][i] - ((i & 1) ? dd.y : dd.x)) * scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries, each summed
+    // apart first, G column tiles at a time (2 G independent sums); P^T
+    // and dS^T are split as A fragments once a group (slots renumbered:
+    // c0, c2, c1, c3), and the Q and dO rows of the tile are the B side
+#pragma unroll
+    for (int j0 = 0; j0 < KT; j0 += G) {
+      float pv[G][4], pk[G][4];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[j][i] = pk[j][i] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        SplitA pa, da;
+        pa.set(st[kk][0], st[kk][2], st[kk][1], st[kk][3]);
+        da.set(dpt[kk][0], dpt[kk][2], dpt[kk][1], dpt[kk][3]);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (j0 + j < KT && (j0 + j + 1 < KT || 8 * (j0 + j) < d)) {
+            SplitB bb;
+            value_b<DP>(bb, do_f, kk, j0 + j, lane);
+            mma_tf32x3(pv[j], pa, bb);
+            value_b<DP>(bb, q_f, kk, j0 + j, lane);
+            mma_tf32x3(pk[j], da, bb);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (j0 + j < KT) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dv_acc[j0 + j][i] += pv[j][i];
+            dk_acc[j0 + j][i] += pk[j][i];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dk0 = dk + head_off + (long long)r0 * row_stride + 2 * c;
+  float* dv0 = dv + head_off + (long long)r0 * row_stride + 2 * c;
+  const long long eight = 8 * row_stride;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j + 1 < KT || 8 * j < d) {  // the zero-filled columns are not stored
+      if (key_ok0) {
+        *reinterpret_cast<float2*>(dk0 + 8 * j) = make_float2(dk_acc[j][0], dk_acc[j][1]);
+        *reinterpret_cast<float2*>(dv0 + 8 * j) = make_float2(dv_acc[j][0], dv_acc[j][1]);
+      }
+      if (key_ok1) {
+        *reinterpret_cast<float2*>(dk0 + eight + 8 * j) = make_float2(dk_acc[j][2], dk_acc[j][3]);
+        *reinterpret_cast<float2*>(dv0 + eight + 8 * j) = make_float2(dv_acc[j][2], dv_acc[j][3]);
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ di,
+                           float* __restrict__ dq, int n, int d, int heads,
+                           long long qsb, long long qsn, long long qsh,
+                           long long ksb, long long ksn, long long ksh,
+                           long long vsb, long long vsn, long long vsh, float scale) {
+  using P = Plan<DP>;
+  constexpr int TR = P::TR;
+  constexpr int NJ = P::NJ;
+  constexpr int LD = P::LD;
+  constexpr int KT = DP / 8;
+  constexpr int G = DP <= 64 ? KT : 8;  // column tiles of dQ a group of fresh sums
+  extern __shared__ unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c = lane & 3;
+  const int q0 = blockIdx.x * W * 16;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float scale_log2 = scale * LOG2E;
+  const long long row_stride = (long long)heads * d;  // contiguous dO and dQ
+  const long long head_off = ((long long)b * n * heads + h) * d;
+  const float* kg = k + b * ksb + h * ksh;
+  const float* vg = v + b * vsb + h * vsh;
+  const float* lse_bh = lse + ((long long)b * heads + h) * n;
+  const float* di_bh = di + ((long long)b * heads + h) * n;
+
+  const uint32_t ring = align_1024(smem_u32(smem));
+  const uint32_t q_s = ring + 2 * P::STAGE;
+  const float* ring_f = reinterpret_cast<const float*>(smem + (ring - smem_u32(smem)));
+  const int n_tiles = (n + TR - 1) / TR;
+
+  load_rows_f32<W * 16, DP, THREADS>(q_s, q + b * qsb + h * qsh, qsn, q0, n, d, tid);
+  load_rows_f32<W * 16, DP, THREADS>(q_s + P::OWN, dout + head_off, row_stride, q0, n, d, tid);
+  load_pair<DP>(ring, kg, ksn, vg, vsn, 0, n, d, tid);
+  cp_async_commit();
+
+  const uint32_t qa = q_s + warp * 16 * LD * 4 + a_lane_offset<LD>(lane);  // the warp's queries
+  const uint32_t doa = qa + P::OWN;
+  // this thread's query rows r0 and r0 + 8, with -lse * log2(e) and di
+  // (rows past n: zero, and never stored)
+  const int r0 = q0 + warp * 16 + (lane >> 2);
+  const float nl0 = r0 < n ? -lse_bh[r0] * LOG2E : 0.0f;
+  const float nl1 = r0 + 8 < n ? -lse_bh[r0 + 8] * LOG2E : 0.0f;
+  const float dd0 = r0 < n ? di_bh[r0] : 0.0f;
+  const float dd1 = r0 + 8 < n ? di_bh[r0 + 8] : 0.0f;
+
+  float acc[KT][4];
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {  // ascending key order
+    const int stg = t & 1;
+    const uint32_t k_t = ring + stg * P::STAGE;
+    cp_async_wait<0>();
+    split_pair<DP>(k_t, tid);
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      load_pair<DP>(ring + (stg ^ 1) * P::STAGE, kg, ksn, vg, vsn, (t + 1) * TR, n, d, tid);
+    }
+    cp_async_commit();
+    const float* k_f = ring_f + stg * (P::STAGE / 4);
+    const int k0 = t * TR;
+
+    float s[NJ][4], dp[NJ][4];  // S and dP of [16 queries, TR keys]
+    score_pair<DP>(s, dp, qa, doa, k_t, d, lane);
+
+    // dS = exp2(S * scale * log2(e) - lse * log2(e)) * (dP - di) * scale in
+    // place, keys at or past n at -inf before the exp
+    const bool ragged = k0 + TR > n;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = fmaf(s[j][i], scale_log2, i < 2 ? nl0 : nl1);
+        if (ragged && k0 + 8 * j + 2 * c + (i & 1) >= n) x = -INFINITY;
+        s[j][i] = exp2f(x) * (dp[j][i] - (i < 2 ? dd0 : dd1)) * scale;
+      }
+    }
+
+    // dQ += dS K, the tile's share summed apart first, G column tiles at a
+    // time; dS split as the A fragment of k-slice kk (S's n-tile kk, slots
+    // renumbered: c0, c2, c1, c3), K's rows 8 kk + 2 c and 8 kk + 2 c + 1
+    // its B fragment
+#pragma unroll
+    for (int j0 = 0; j0 < KT; j0 += G) {
+      float part[G][4];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[j][i] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        SplitA a;
+        a.set(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (j0 + j < KT && (j0 + j + 1 < KT || 8 * (j0 + j) < d)) {
+            SplitB bk;
+            value_b<DP>(bk, k_f, kk, j0 + j, lane);
+            mma_tf32x3(part[j], a, bk);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (j0 + j < KT) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j0 + j][i] += part[j][i];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dq0 = dq + head_off + (long long)r0 * row_stride + 2 * c;
+  const long long eight = 8 * row_stride;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    if (j + 1 < KT || 8 * j < d) {
+      if (r0 < n) *reinterpret_cast<float2*>(dq0 + 8 * j) = make_float2(acc[j][0], acc[j][1]);
+      if (r0 + 8 < n) {
+        *reinterpret_cast<float2*>(dq0 + eight + 8 * j) = make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+  }
+}
+
+}  // namespace x3
+
 // di[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] in f32; one warp per
 // (b, t, h) row of the contiguous [B, N, H, D] tensors.
 template <typename T>
@@ -982,10 +1442,10 @@ __global__ void flash_bwd_di_kernel(const T* __restrict__ o,
 }
 
 // Which design a call takes: fixed by dtype and head_dim.
-enum Design { DESIGN_FMA = 0, DESIGN_WMMA = 1, DESIGN_WGMMA = 2 };
+enum Design { DESIGN_WMMA = 1, DESIGN_WGMMA = 2, DESIGN_TF32X3 = 3 };
 
 constexpr Design design_rule(bool is_f32, int head_dim) {
-  return is_f32 ? DESIGN_FMA : head_dim >= 64 ? DESIGN_WGMMA : DESIGN_WMMA;
+  return is_f32 ? DESIGN_TF32X3 : head_dim >= 64 ? DESIGN_WGMMA : DESIGN_WMMA;
 }
 
 // The head dims taken: multiples of 8 up to 128.
@@ -1054,8 +1514,37 @@ cudaError_t launch_wgmma(const Args& a) {
   return a.n > WGMMA_ONE_WARPGROUP_MAX_N ? launch_dq_wgmma<DP, 2>(a) : launch_dq_wgmma<DP, 1>(a);
 }
 
-// The WMMA and FMA designs' two passes. D: the tile width, a.head_dim
-// rounded up to 16.
+// float32: the two TF32 three-product passes at tile width DP (the di pass
+// is the caller's).
+template <int DP>
+cudaError_t launch_x3(const Args& a) {
+  auto dkdv = x3::flash_bwd_dkdv_x3_kernel<DP>;
+  auto dqk = x3::flash_bwd_dq_x3_kernel<DP>;
+  constexpr int bytes = x3::Plan<DP>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.n + x3::W * 16 - 1) / (x3::W * 16), a.heads, a.batch);
+  dkdv<<<grid, x3::THREADS, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.n, a.head_dim, a.heads, a.qsb,
+      a.qsn, a.qsh, a.ksb, a.ksn, a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dqk<<<grid, x3::THREADS, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
+      static_cast<float*>(a.dq), a.n, a.head_dim, a.heads, a.qsb, a.qsn, a.qsh, a.ksb, a.ksn,
+      a.ksh, a.vsb, a.vsn, a.vsh, a.scale);
+  return cudaGetLastError();
+}
+
+// The WMMA design's two passes (bf16 below head_dim 64). D: the tile width,
+// a.head_dim rounded up to 16.
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
   const int d = a.head_dim;
@@ -1108,14 +1597,14 @@ cudaError_t dispatch(const Args& a) {
     }
   } else {
     switch (dp) {
-      case 16: return launch<T, 16>(a);
-      case 32: return launch<T, 32>(a);
-      case 48: return launch<T, 48>(a);
-      case 64: return launch<T, 64>(a);
-      case 80: return launch<T, 80>(a);
-      case 96: return launch<T, 96>(a);
-      case 112: return launch<T, 112>(a);
-      default: return launch<T, 128>(a);
+      case 16: return launch_x3<16>(a);
+      case 32: return launch_x3<32>(a);
+      case 48: return launch_x3<48>(a);
+      case 64: return launch_x3<64>(a);
+      case 80: return launch_x3<80>(a);
+      case 96: return launch_x3<96>(a);
+      case 112: return launch_x3<112>(a);
+      default: return launch_x3<128>(a);
     }
   }
 }
@@ -1123,8 +1612,9 @@ cudaError_t dispatch(const Args& a) {
 }  // namespace
 
 // The design that clipself_flash_bwd runs for this dtype and head_dim:
-// 0 = f32 FMA, 1 = WMMA tiles (bf16 below head_dim 64), 2 = wgmma (bf16 at
-// head_dim 64-128); -1 if the pair is not taken.
+// 1 = WMMA tiles (bf16 below head_dim 64), 2 = wgmma (bf16 at head_dim
+// 64-128), 3 = the TF32 three-product split (float32); -1 if the pair is not
+// taken.
 extern "C" int clipself_flash_bwd_design(int dtype, int head_dim) {
   if (!head_dim_taken(head_dim)) return -1;
   if (dtype != 0 && dtype != 1) return -1;

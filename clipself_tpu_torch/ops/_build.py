@@ -49,6 +49,7 @@ _SIGNATURES = {
     "clipself_flash_fwd_design": ((_I, _I), _I),
     "clipself_flash_bwd_design": ((_I, _I), _I),
     "clipself_wgmma_probe": ((_I, _I, _I, _P, _P, _P, _P), _I),
+    "clipself_tf32_probe": ((_I, _I, _I, _I, _P, _P, _P, _P), _I),
     "clipself_layer_norm_fwd": (
         (_I,) + (_P,) * 6 + (_L, _I, _L, _L, _I, ctypes.c_float, _P),
         _I,

@@ -22,10 +22,18 @@ EVA01-g-14; 104: ViT-bigG-14; 112: EVA02-CLIP-bigE-14 and ViT-e-14) runs
 `wgmma` products on swizzled tiles of one or two 64-column panels fed by a
 `cp.async` ring with the softmax, P and dS in registers
 (`csrc/hopper_mma.cuh` holds the shared pieces); bfloat16 below head_dim 64
-(the tiny test towers) runs WMMA tiles; float32, the parity path, f32 FMAs.
-Every design takes any head_dim that is a multiple of 8 up to 128: tiles
-are the head_dim rounded up to 16 columns, the columns past the head_dim
-loaded as zeros and never stored.
+(the tiny test towers) runs WMMA tiles; float32 (the HF trunks and every
+parity path) runs "tf32x3": every product on the tensor cores as three TF32
+products of a split x = hi + lo of each operand (lo_a hi_b + hi_a lo_b +
+hi_a hi_b, lo_a lo_b dropped), which keeps float32 accuracy where one TF32
+product keeps three digits, at three tensor-core products a float32 one:
+the scores (products over the head_dim) on `wgmma` against tiles stored
+split in shared memory (in the backward up to tile width 96; past it on
+`mma.sync`), the value products on `mma.sync` from registers. Its bound on
+the card is those products at the TF32 rate. Every
+design takes any head_dim that is a multiple of 8 up to 128: tiles are the
+head_dim rounded up to 16 columns, the columns past the head_dim loaded as
+zeros and never stored.
 
 On CPU tensors they run the plain versions below: `attention_plain` (the
 f32-softmax semantics of `_xla_attention`), `attention_lse_plain`, and
@@ -154,14 +162,16 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> 
             )
 
 
-_DESIGNS = {0: "fma", 1: "wmma", 2: "wgmma"}
+_DESIGNS = {1: "wmma", 2: "wgmma", 3: "tf32x3"}
 
 
 def kernel_design(dtype: torch.dtype, head_dim: int, backward: bool = False) -> str:
     """Which hand-written kernel the C entry point runs for this dtype and
     head_dim, as the library itself reports it: "wgmma" (bfloat16 at
-    head_dim 64-128), "wmma" (bfloat16 below 64) or "fma" (float32). The
-    shape fixes it; no argument chooses."""
+    head_dim 64-128), "wmma" (bfloat16 below 64) or "tf32x3" (float32 at
+    every head_dim: the three-product TF32 split, its scores on `wgmma` up
+    to tile width 96 in the backward and at every width in the forward, the
+    rest on `mma.sync`). The shape fixes it; no argument chooses."""
     lib = _build.LIBRARY.get()
     fn = lib.clipself_flash_bwd_design if backward else lib.clipself_flash_fwd_design
     code = fn(_DTYPES.get(dtype, -1), int(head_dim))

@@ -10,7 +10,10 @@ seeded random weights, one synthetic batch staged on the device; not with
 (an EVA02 config, a plain OpenCLIP / OpenAI ViT: `--extract-type v1`
 pools its RoI features, and the evaluator's masks, by mask attention, whose
 plain attention's device time is reported under its own host range; a
-ResNet; a timm tower, trained with the image tower unlocked),
+ResNet; a timm tower or an HF trunk, trained with the image tower
+unlocked; `--model hf-vit-b16-224` is `chip_smoke.py`'s HF ViT-B/16: the
+`hf-vit-tiny-test` adapter with its trunk at ViTConfig's defaults, 224^2
+crops, embed 512, float32 trunk: run it with `--det-image-size 224`),
 each first without the profiler (host clock around a synchronised window:
 ms per step or batch, images/s, peak memory) and then under
 `torch.profiler` for ``--steps`` steps or batches, and prints for each a
@@ -49,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import time
@@ -84,7 +88,7 @@ CLASSES = (
         "flash backward di pass, dQ cast",
         ("flash_bwd_di_kernel", "f32_to_bf16_kernel", "dq_tiles_to_bf16_kernel"),
     ),
-    ("flash_attention forward kernel", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
+    ("flash_attention forward kernel", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_x3_kernel")),
     ("layer_norm forward kernel", ("layer_norm_fwd_kernel",)),
     ("layer_norm backward kernel and its reduce", ("layer_norm_bwd",)),
     ("rope_roll kernel", ("rope_roll_kernel",)),
@@ -297,8 +301,23 @@ def profile_clip(args, device: torch.device) -> dict:
         return _profile_clip(args, device)
 
 
+# `chip_smoke.py`'s HF ViT-B/16 (`hf_vit_config` there): no registry entry
+HF_VIT_B16 = "hf-vit-b16-224"
+
+
+def model_config(name: str):
+    """The registry's config, or `HF_VIT_B16`: `hf-vit-tiny-test` with its
+    trunk at ViTConfig's defaults (ViT-B/16: 12 layers of 12 heads, width
+    768) at 224^2 and embed 512."""
+    if name != HF_VIT_B16:
+        return get_model_config(name)
+    cfg = get_model_config("hf-vit-tiny-test")
+    vision = dataclasses.replace(cfg.vision, image_size=224, hf_trunk_kwargs="{}")
+    return dataclasses.replace(cfg, name=HF_VIT_B16, embed_dim=512, vision=vision)
+
+
 def _profile_clip(args, device: torch.device) -> dict:
-    cfg = get_model_config(args.model)
+    cfg = model_config(args.model)
     v = cfg.vision
     out = {"model": args.model, "image": args.det_image_size}
 
@@ -308,11 +327,13 @@ def _profile_clip(args, device: torch.device) -> dict:
         teacher = create_model(cfg, device=device, dtype=torch.bfloat16, seed=args.seed)
         teacher.requires_grad_(False)
         # every lock group: a ResNet has five (stem, layer1..4), a ViT a block
-        # each; a timm tower trains only unlocked (`--no-lock-image`)
+        # each; a timm tower or an HF trunk trains only unlocked
+        # (`--no-lock-image`)
         unlocked = 5 if v.resnet_layers else v.layers
+        whole = bool(v.timm_model_name or v.hf_trunk_name)
         optimizer = build_optimizer(
             model, make_schedule("cosine", 1e-5, 1, 1000), wd=0.1,
-            unlocked_groups=unlocked, num_layers=v.layers, lock_image=not v.timm_model_name,
+            unlocked_groups=unlocked, num_layers=v.layers, lock_image=not whole,
         )
         state = TrainState(model, optimizer)
         step_fn = make_train_step(
@@ -327,7 +348,7 @@ def _profile_clip(args, device: torch.device) -> dict:
         report(
             f"{args.model} distill step, batch {args.batch_size} at {args.det_image_size}px, "
             f"{args.max_boxes} boxes, crops {v.image_size}px, "
-            f"{'the image tower' if v.timm_model_name else f'{unlocked} lock groups'} unlocked, bf16, "
+            f"{'the image tower' if whole else f'{unlocked} lock groups'} unlocked, bf16, "
             f"extract type {args.extract_type}"
             + (", block recomputation" if args.grad_checkpointing else ""),
             "step", out["train"],

@@ -50,20 +50,35 @@ LN_SHAPES = (
 LN_VIEWS = {"": lambda t: t, "rows 1:": lambda t: t[:, 1:], "row 0": lambda t: t[:, 0]}
 PEAK_BYTES_S = 3.35e12  # one H100 SXM's device memory
 # (shape [B, N, H, D], dtype) of the flash forward: the HF ViT-B/16 trunk's
-# float32 student (FMA), the B/16 student, one 896^2 image of the wide
-# towers at their head dims (80: ViT-H-14; 88: ViT-g-14, EVA01-g-14; 104:
-# ViT-bigG-14; 112: bigE-14, ViT-e-14). Each shape's forward and backward
-# are timed before the next shape's, the wide ones last, so that two trees
-# time the rows they share after the same work.
+# float32 student and its crops, the B/16 student in bfloat16 and the trunk
+# at 1024^2 in float32, the pipeline's float32 microbatch (one image at
+# 1024^2), one 896^2 image of the wide towers at their head dims (80:
+# ViT-H-14; 88: ViT-g-14, EVA01-g-14; 104: ViT-bigG-14; 112: bigE-14,
+# ViT-e-14) in bfloat16, then in float32 (the parity paths).
 WIDE_HEAD_DIMS = (80, 88, 104, 112)
 FLASH_FWD_SHAPES = (
     ((2, 197, 12, 64), "float32"),
+    ((50, 197, 12, 64), "float32"),
     ((2, 4097, 12, 64), "bfloat16"),
+    ((2, 4097, 12, 64), "float32"),
+    ((1, 4097, 12, 64), "float32"),
     *(((1, 4097, 16, d), "bfloat16") for d in WIDE_HEAD_DIMS),
+    *(((1, 4097, 16, d), "float32") for d in WIDE_HEAD_DIMS),
 )
-# ... of the flash backward: the same, and the RegionCLIP B/16 step at batch 16
-FLASH_BWD_SHAPES = FLASH_FWD_SHAPES[:2] + (((16, 4097, 12, 64), "bfloat16"),) + FLASH_FWD_SHAPES[2:]
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16, SIMT f32
+# ... of the flash backward: the same but the crops (no gradient), and the
+# RegionCLIP B/16 step at batch 16
+FLASH_BWD_SHAPES = tuple(
+    s for s in FLASH_FWD_SHAPES[:5] if s != ((50, 197, 12, 64), "float32")
+) + (((16, 4097, 12, 64), "bfloat16"),) + FLASH_FWD_SHAPES[5:]
+# Each shape's forward and backward are timed before the next shape's, in
+# this order, the wide ones last, so that two trees time the rows they share
+# after the same work.
+FLASH_SHAPES = tuple(dict.fromkeys(FLASH_FWD_SHAPES[:5] + FLASH_BWD_SHAPES))
+# dense tensor-core bf16; float32 at float32 accuracy: three TF32 tensor-core
+# products a float32 product (the split x = hi + lo, lo_a hi_b + hi_a lo_b +
+# hi_a hi_b) at the dense TF32 rate of 494.7 TFLOP/s, above the 67 TFLOP/s of
+# float32 outside the tensor cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
 
 
 def device_ms(torch, fn, graph: bool) -> float:
@@ -166,7 +181,7 @@ def main(argv=None) -> dict:
                 f"dx alone {dx_ms:.4f} ms, sums alone {sums_ms:.4f} ms",
                 flush=True,
             )
-    for (b, n, h, d), name in FLASH_BWD_SHAPES:  # each shape's forward, then its backward
+    for (b, n, h, d), name in FLASH_SHAPES:  # each shape's forward, then its backward
         dt = getattr(torch, name)
         q, k, v, do = (torch.randn(b, n, h, d, generator=gen).to(dev, dt) for _ in range(4))
         scale = d ** -0.5
@@ -182,6 +197,9 @@ def main(argv=None) -> dict:
                 f"({ms[0] / bound:.2f}x)",
                 flush=True,
             )
+        if ((b, n, h, d), name) not in FLASH_BWD_SHAPES:
+            del q, k, v, do
+            continue
         o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
         first = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
         second = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)

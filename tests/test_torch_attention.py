@@ -11,6 +11,8 @@ import jax.numpy as jnp
 from clipself_tpu.ops import attention as jattention
 from clipself_tpu_torch.ops import attention
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-5
 
 

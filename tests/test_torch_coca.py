@@ -38,6 +38,8 @@ from clipself_tpu_torch.ops import attention
 from clipself_tpu_torch.train import contrastive
 from torch_coca_cases import CASES, EOT, build, coca_config, inputs
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-4
 GRAD_REL = 1e-4
 

@@ -34,6 +34,8 @@ from clipself_tpu_torch.models.factory import get_tokenizer, model_class
 from clipself_tpu_torch.ops import attention, layer_norm, rope_roll
 from clipself_tpu_torch.tokenizer import tokenize
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 pytestmark = pytest.mark.cuda
 
 PATH_BF16_MIN_COS = 0.9996

@@ -18,6 +18,8 @@ from clipself_tpu.models import coca as jcoca
 from clipself_tpu_torch.models import coca
 from torch_coca_cases import CASES, EOT, SOT, build, inputs
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 MAX_LEN = 10
 KEY = 3
 # name -> generate's options; "noise" marks the sampling runs

@@ -37,6 +37,8 @@ from clipself_tpu_torch.core import constants
 from clipself_tpu_torch.data import coco, datasets, image_io, loader, native_loader, transforms
 from conftest import write_micro_coco
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 DET, CROP, ANNS = 96, 32, 4
 
 

@@ -46,6 +46,8 @@ from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.models.torch_io import detector_state_dict_to_jax, load_pretrained
 from clipself_tpu_torch.tools import detector_seed_sweep, synth_det_data
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 CFG = PRESETS["tiny_test"]
 SEED, BATCH = 3, 2
 

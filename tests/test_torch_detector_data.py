@@ -27,6 +27,8 @@ from clipself_tpu_torch.data.image_io import decode_image
 from clipself_tpu_torch.detector import data
 from clipself_tpu_torch.tools import synth_det_data as synth
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAMES = ["person", "skateboard", "dog"]
 SIZE, MAX_GT = 64, 4
 

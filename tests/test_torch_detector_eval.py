@@ -35,6 +35,8 @@ from clipself_tpu_torch.models.torch_io import (
     state_dict_from_jax,
 )
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 
 def test_class_splits_equal_original():
     assert classes.coco_split() == jclasses.coco_split()

@@ -23,6 +23,8 @@ from clipself_tpu.ops.interpolate import resize_nhwc as jresize_nhwc
 from clipself_tpu_torch.detector import anchors, boxes, config, rpn
 from clipself_tpu_torch.ops.interpolate import resize_nhwc
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-5
 
 

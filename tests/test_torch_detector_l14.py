@@ -41,6 +41,8 @@ from clipself_tpu_torch.models.torch_io import (
 from test_torch_detector_model import CONV_TOL, _noisy
 from test_torch_detector_train import GRAD_REL, LOSS_REL, MASK_CFG, _gt, _loss_noise
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 SIDE, PATCH = 112, 14
 STRIDES = (3.5, 7, 14, 28, 56)
 

@@ -46,6 +46,8 @@ from clipself_tpu_torch.models.torch_io import (
 from test_lvis_eval import FREQS, NUM_CATS, _make_dataset
 from test_torch_detector_model import _noisy
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 METRIC_TOL = 1e-6
 MASK_CFG = dict(with_mask=True, num_classes=20, mask_convs=1, mask_channels=16, mask_roi_size=6)
 

@@ -36,6 +36,8 @@ from clipself_tpu_torch.models.torch_io import (
     state_dict_from_jax,
 )
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 CONV_TOL, TOL = 1e-4, 1e-5
 
 

@@ -44,6 +44,8 @@ from clipself_tpu_torch.detector.evaluate import load_detector
 from clipself_tpu_torch.models.torch_io import detector_state_dict_from_jax, detector_state_dict_to_jax
 from test_torch_detector_model import _noisy
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL, LOSS_REL, GRAD_REL, OPT_TOL = 1e-5, 1e-4, 1e-4, 1e-6
 MASK_CFG = dict(with_mask=True, mask_convs=1, mask_channels=16, mask_roi_size=6)
 

@@ -17,6 +17,8 @@ from clipself_tpu_torch.models.clip import CLIP
 from clipself_tpu_torch.models.factory import create_model
 from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "EVA02-CLIP-Tiny-Test"
 TOL = 1e-4
 

@@ -35,6 +35,8 @@ from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.train import main as train_main
 from clipself_tpu_torch.train import methods, optim
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "EVA02-CLIP-Tiny-Test"
 LAYERS = 2
 TOL = 1e-4

@@ -21,6 +21,8 @@ from clipself_tpu.ops import attention as jattention
 from clipself_tpu.ops.flash_bwd import flash_attention_bwd as jflash_bwd
 from clipself_tpu_torch.ops import attention
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-5
 
 

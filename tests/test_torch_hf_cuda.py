@@ -40,6 +40,8 @@ from clipself_tpu_torch.models.factory import model_class
 from clipself_tpu_torch.models.hf_text import HFTextTower
 from clipself_tpu_torch.ops import attention, layer_norm
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 pytestmark = pytest.mark.cuda
 
 PATH_F32_MAX_ABS = 1e-4

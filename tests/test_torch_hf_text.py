@@ -45,6 +45,8 @@ from clipself_tpu_torch.models.hf_text import HFTextTower, load_hf_trunk_params
 from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.train.contrastive import clip_loss
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-4
 GRAD_REL, GRAD_FLOOR = 1e-4, 1e-6
 EMBED, N = 16, 12

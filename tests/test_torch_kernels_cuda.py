@@ -10,13 +10,19 @@ dy with the rolled tables, so it keeps the forward's bars; one launch on two
 tensors (q and k) must give each the bits of a launch of its own. Attention float32
 differs by summation order (1e-4), bfloat16 by the bf16 rounding of the
 probabilities (min row cosine 0.9999 against float32); bfloat16 at head_dim
-64-128 runs the wgmma kernels (below 64 the WMMA ones, float32 the FMA
-ones), whose exponentials are `ex2.approx` (two ULP of float32, far below a
-bfloat16 rounding), held to the same bars at their tile edges: 64-row
-warpgroups, 128-row and 128-key blocks, and at head dims 80-112 on tiles of
-two 64-column panels. The header's probe sums up to 128 exact products of
-bfloat16 values in float32 in another order than `torch.matmul`: 1e-4
-absolute on sums of ~8-11. The LSE is a sum of
+64-128 runs the wgmma kernels (below 64 the WMMA ones), whose exponentials
+are `ex2.approx` (two ULP of float32, far below a bfloat16 rounding), held to
+the same bars at their tile edges: 64-row warpgroups, 128-row and 128-key
+blocks, and at head dims 80-112 on tiles of two 64-column panels; float32
+runs the "tf32x3" kernels (every product as three TF32 tensor-core products
+of a hi + lo split), held to the float32 bars at every head_dim from 8 to
+128. The header's probe sums up to 128 exact products of bfloat16 values in
+float32 in another order than `torch.matmul`: 1e-4 absolute on sums of
+~8-11; its float32 forms (the split products the tf32x3 kernels run) are
+held against the float64 product at 2e-6 of sum |a_k b_k| (the split drops
+terms of 2^-21 of each product and the tensor cores cut the low bits of
+their sums: the first card run read at most 5.2e-7), and one TF32 product
+must err at least 50 times as much (it read 1.3e-4 to 4.2e-4). The LSE is a sum of
 f32 exponentials in another order: 1e-4 absolute on values of ~log(N). The
 flash backward float32 sums up to N products per entry in another order
 (a fixed one: two calls give the same bits in every design): max abs error 1e-4 of
@@ -48,6 +54,8 @@ from clipself_tpu_torch.models.rope import (
 )
 from clipself_tpu_torch.detector.data import synthetic_nms_case
 from clipself_tpu_torch.ops import attention, hopper_mma_probe, layer_norm, nms, rope_roll
+
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
 
 pytestmark = pytest.mark.cuda
 
@@ -295,7 +303,7 @@ def test_flash_forward_and_backward_at_every_head_dim(dev, n, d, dtype):
     the kernel."""
     scale = d ** -0.5
     q, k, v, do = _bwd_inputs(dev, 1, n, 2, d, dtype, n + d)
-    design = "fma" if dtype == torch.float32 else "wgmma"
+    design = "tf32x3" if dtype == torch.float32 else "wgmma"
     assert attention.kernel_design(dtype, d) == attention.kernel_design(dtype, d, backward=True) == design
     before = (attention.LAUNCHES.count, attention.BWD_LAUNCHES.count)
     o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
@@ -439,7 +447,7 @@ _REPEAT_CASES = [
     ((2, 4097, 12, 64), torch.bfloat16, "wgmma"), ((2, 65, 12, 64), torch.bfloat16, "wgmma"),
     ((1, 4097, 16, 88), torch.bfloat16, "wgmma"), ((1, 65, 16, 88), torch.bfloat16, "wgmma"),
     ((1, 4097, 16, 112), torch.bfloat16, "wgmma"), ((1, 65, 16, 80), torch.bfloat16, "wgmma"),
-    ((2, 197, 12, 64), torch.float32, "fma"), ((2, 65, 12, 64), torch.float32, "fma"),
+    ((2, 197, 12, 64), torch.float32, "tf32x3"), ((2, 65, 12, 64), torch.float32, "tf32x3"),
 ]
 
 
@@ -489,15 +497,61 @@ def test_hopper_mma_header_product_matches_matmul(dev, mode, k, n):
     torch.testing.assert_close(hopper_mma_probe.wgmma_probe_plain(a, b, mode), want, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("n", [1, 65, 197, 4097])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+def test_float32_flash_at_every_head_dim(dev, n, d):
+    """The float32 design (tf32x3) at every head_dim it takes, on strided
+    per-head views of a packed [B, N, 3, H, D] projection: the forward with
+    and without its LSE within 1e-4 of the plain version (the LSE within
+    1e-4), the backward within 1e-4 of the largest gradient entry plus 1e-5
+    (the bars above), and two backward calls equal bit for bit."""
+    scale = d ** -0.5
+    q, k, v, do = _bwd_inputs(dev, 1 if n == 4097 else 2, n, 2, d, torch.float32, seed=1000 + n + d)
+    assert not q.is_contiguous()
+    assert attention.kernel_design(torch.float32, d) == "tf32x3"
+    assert attention.kernel_design(torch.float32, d, backward=True) == "tf32x3"
+    o, lse = attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    alone = attention.flash_attention_fwd(q, k, v, scale)
+    want, want_lse = attention.attention_lse_plain(q, k, v, scale)
+    assert o.is_contiguous() and torch.equal(o, alone)
+    torch.testing.assert_close(o, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    first = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    second = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    grads = attention.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for g, again, w in zip(first, second, grads):
+        assert torch.equal(g, again) and g.is_contiguous() and g.shape == q.shape
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("mode,k,n", hopper_mma_probe.TF32_PRODUCTS)
+def test_tf32_split_products_match_float64(dev, mode, k, n):
+    """Each float32 form the tf32x3 kernels run (`csrc/hopper_mma_probe.cu`
+    modes 3 to 5: the scores' wgmma of a split ldmatrix A fragment against a
+    split tile, and a register A fragment under the renumbered contraction
+    against B rows of a row-major or a split tile) through the three-product
+    split, held against the float64 product at
+    2e-6 of sum |a_k b_k|; one TF32 product through the same loads errs at
+    least 50 times as much."""
+    gen = torch.Generator().manual_seed(5000 + 1000 * mode + k + n)
+    a, b = (torch.randn(shape, generator=gen).to(dev) for shape in hopper_mma_probe.tf32_shapes(mode, k, n))
+    want = hopper_mma_probe.tf32_probe_plain(a, b, mode)
+    mag = hopper_mma_probe.tf32_probe_plain(a.abs(), b.abs(), mode)
+    split = ((hopper_mma_probe.tf32_probe(a, b, mode) - want).abs() / mag).max().item()
+    one = ((hopper_mma_probe.tf32_probe(a, b, mode, split=False) - want).abs() / mag).max().item()
+    assert split <= 2e-6
+    assert one >= 50 * split
+
+
 @pytest.mark.parametrize(
     "dtype,d,design",
     [(torch.bfloat16, 32, "wmma"), (torch.bfloat16, 56, "wmma"), (torch.bfloat16, 72, "wgmma"),
-     (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "fma")],
+     (torch.bfloat16, 128, "wgmma"), (torch.float32, 64, "tf32x3")],
 )
 def test_other_head_dims_and_float32_keep_their_kernels(dev, dtype, d, design):
     """The shape alone picks the kernel: bfloat16 below head_dim 64 goes on
     through the WMMA kernels, 64-128 through the wgmma ones (72 on a tile of
-    80 columns, 128 on two full panels), float32 through the FMA kernels,
+    80 columns, 128 on two full panels), float32 through the tf32x3 kernels,
     forward, LSE and backward."""
     assert attention.kernel_design(dtype, d) == design
     assert attention.kernel_design(dtype, d, backward=True) == design

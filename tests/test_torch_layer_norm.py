@@ -26,6 +26,8 @@ from clipself_tpu.ops import layer_norm as jln
 from clipself_tpu_torch.models import eva_vit
 from clipself_tpu_torch.ops import layer_norm as ln
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 EPS = 1e-6
 F32_ABS = 1e-5
 SUM_REL = 1e-5

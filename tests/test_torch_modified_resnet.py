@@ -47,6 +47,8 @@ from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.train import main as train_main
 from clipself_tpu_torch.train import methods, optim, step
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "RN-Tiny-Test"
 GROUPS = 5  # stem, layer1 .. layer4
 TOL = 1e-4

@@ -23,6 +23,8 @@ from clipself_tpu.ops.nms_pallas import nms_keep_mask as pallas_keep_mask
 from clipself_tpu_torch.detector import nms as tnms
 from clipself_tpu_torch.ops import nms as ops_nms
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 
 def _boxes(rng, n, size=100.0, lo_wh=1.0):
     lo = rng.uniform(0, size * 0.8, (n, 2))

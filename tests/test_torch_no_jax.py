@@ -35,6 +35,8 @@ import sys
 
 from conftest import write_micro_coco
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 _SCRIPT = r"""
 import json, math, sys
 import torch
@@ -45,6 +47,7 @@ import clipself_tpu_torch.models.factory as factory
 import clipself_tpu_torch.models.torch_io
 import clipself_tpu_torch.ops._build
 import clipself_tpu_torch.ops.attention
+import clipself_tpu_torch.ops.hopper_mma_probe
 import clipself_tpu_torch.ops.layer_norm
 import clipself_tpu_torch.ops.rope_roll
 import clipself_tpu_torch.parallel.mesh
@@ -59,6 +62,7 @@ import clipself_tpu_torch.data.transforms
 import clipself_tpu_torch.tools.detector_seed_sweep
 import clipself_tpu_torch.tools.profile_paths
 import clipself_tpu_torch.tools.side_by_side
+import clipself_tpu_torch.tools.kernel_resources
 import clipself_tpu_torch.train.checkpoint
 import clipself_tpu_torch.train.ensemble
 import clipself_tpu_torch.train.main as train_main

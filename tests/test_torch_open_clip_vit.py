@@ -42,6 +42,8 @@ from clipself_tpu_torch.ops.attention import multi_head_attention
 from clipself_tpu_torch.train import main as train_main
 from clipself_tpu_torch.train import methods, optim
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "ViT-Tiny-Test"
 LAYERS = get_model_config(NAME).vision.layers
 TOL = 1e-4

@@ -24,6 +24,8 @@ from clipself_tpu_torch.models import openai, pretrained, torch_io
 from clipself_tpu_torch.models.factory import create_model, create_model_and_transforms
 from clipself_tpu_torch.train import main as train_main
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-4
 # what `config_from_openai_state_dict` infers for the archive below: head
 # width 64, QuickGELU, eps 1e-5 (the OpenAI releases' fixed choices)

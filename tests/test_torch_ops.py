@@ -19,6 +19,8 @@ from clipself_tpu.ops.patchify import PatchEmbed as JPatchEmbed
 from clipself_tpu_torch.core import config
 from clipself_tpu_torch.ops import interpolate, mask_pool, patchify, roi_align
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-5
 
 

@@ -110,6 +110,8 @@ from clipself_tpu_torch.train.optim import Optimizer, make_schedule
 from clipself_tpu_torch.train.step import TrainState
 from test_torch_detector_train import _loss_noise
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 WORLD = 8
 LAYERS = get_model_config(cases.NAME).vision.layers
 EMBED = get_model_config(cases.NAME).embed_dim

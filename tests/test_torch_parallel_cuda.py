@@ -47,6 +47,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 STEPS, BATCH, IMAGE, CROPS, LAYERS = 2, 2, 448, 4, 2
 W3 = "visual.blocks.1.mlp.w3.weight"
 LOSS_REL, GRAD_REL = 1e-5, 1e-5

@@ -29,6 +29,8 @@ from clipself_tpu.train import step as jstep
 from clipself_tpu_torch.core.config import get_model_config
 from clipself_tpu_torch.models.torch_io import state_dict_from_jax
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 MODEL, IMAGE, CROPS, CROP, BATCH = "EVA02-CLIP-B-16", 512, 20, 224, 4
 LOSS_REL = 1e-5
 

@@ -41,6 +41,8 @@ from clipself_tpu.parallel.pipeline import pipeline_apply, stack_block_params, u
 from clipself_tpu_torch.models.torch_io import state_dict_from_jax
 from clipself_tpu_torch.parallel import pipeline as ppipeline
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 WORLD = 8
 PIPE_TOL, EVA_TOL, GRAD_TOL = 1e-6, 1e-5, 1e-5
 RING_TOL, RING_GRAD_TOL = 2e-5, 5e-5

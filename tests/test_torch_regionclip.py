@@ -40,6 +40,8 @@ from clipself_tpu_torch.models.clip import CLIP
 from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.train import methods, optim, step
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "EVA02-CLIP-Tiny-Test"
 LAYERS = get_model_config(NAME).vision.layers
 C, SAMPLE, SEED = 64, 10, 3

@@ -17,6 +17,8 @@ from clipself_tpu.ops import roi_align as jroi
 from clipself_tpu_torch.detector import roi_head
 from clipself_tpu_torch.ops import roi_align
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-5
 
 

@@ -23,6 +23,8 @@ from clipself_tpu.ops import rope_roll as jrope_roll
 from clipself_tpu_torch.models import rope
 from clipself_tpu_torch.ops import rope_roll
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-6
 
 

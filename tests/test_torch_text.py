@@ -24,6 +24,8 @@ from clipself_tpu_torch.models.text_transformer import TextTransformer
 from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.ops.attention import attention_masked
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "EVA02-CLIP-Tiny-Test"
 TOL = 1e-4
 

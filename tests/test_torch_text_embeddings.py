@@ -23,6 +23,8 @@ from clipself_tpu_torch.models.clip import CLIP
 from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.tools import text_embeddings as te
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-4
 CATEGORIES = ["traffic light", "person", "hot dog", "teddy_bear", "sign/board.", "apple", "background"]
 

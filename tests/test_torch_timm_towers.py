@@ -43,6 +43,8 @@ from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.ops.mask_pool import mask_pool
 from clipself_tpu_torch.train import methods, optim
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 TOL = 1e-4
 GRAD_REL, GRAD_FLOOR = 1e-4, 1e-6
 

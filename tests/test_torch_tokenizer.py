@@ -16,6 +16,8 @@ from clipself_tpu_torch import tokenizer as ptok
 from clipself_tpu_torch.detector.classes import coco_split, lvis_split
 from clipself_tpu_torch.tools.text_embeddings import category_prompts
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 # pieces where the two splitters could part: the separators that `str.isspace`
 # takes and the White_Space property does not, upper-case contractions and
 # their case-folded spellings, the special tokens, U+0345 (folded to a letter)

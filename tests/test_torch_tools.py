@@ -9,6 +9,8 @@ import torch
 
 from clipself_tpu_torch.tools import profile_paths, side_by_side
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 
 @pytest.mark.parametrize(
     "name,label",
@@ -20,6 +22,9 @@ from clipself_tpu_torch.tools import profile_paths, side_by_side
         ("void (anonymous namespace)::wg::flash_fwd_wgmma_kernel<96, 1>(...)", "flash_attention forward kernel"),
         ("void (anonymous namespace)::flash_bwd_di_kernel<float>(...)", "flash backward di pass, dQ cast"),
         ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(...)", "flash_attention forward kernel"),
+        ("void (anonymous namespace)::x3::flash_fwd_x3_kernel<64, 4>(...)", "flash_attention forward kernel"),
+        ("void (anonymous namespace)::x3::flash_bwd_dkdv_x3_kernel<112>(...)", "flash_attention_bwd kernel"),
+        ("void (anonymous namespace)::x3::flash_bwd_dq_x3_kernel<64>(...)", "flash_attention_bwd kernel"),
         ("void (anonymous namespace)::layer_norm_fwd_kernel<__nv_bfloat16, 8>(...)", "layer_norm forward kernel"),
         ("void (anonymous namespace)::layer_norm_bwd_kernel<float, 4>(...)", "layer_norm backward kernel and its reduce"),
         ("(anonymous namespace)::layer_norm_bwd_reduce_kernel(...)", "layer_norm backward kernel and its reduce"),
@@ -148,9 +153,11 @@ def test_side_by_side_times_the_main_paths_shapes():
     the B/16 and L/14 students, the L/14 teacher's crops and the final
     norm's two views, the flash forward (with and without its LSE) at the
     B/16 student's shape, one 896^2 image of the wide towers at head dims
-    80, 88, 104 and 112 (wgmma on two-panel tiles) and the HF trunk's
-    float32 student (FMA), and the flash backward at the same shapes and
-    the RegionCLIP step's."""
+    80, 88, 104 and 112 (wgmma on two-panel tiles), the HF trunk's float32
+    student and its crops and the float32 rows at the student's, the
+    pipeline microbatch's and the wide towers' shapes (tf32x3), and the
+    flash backward at the same shapes but the crops and at the RegionCLIP
+    step's, every shape once, forward before backward."""
     assert {(b, n) for _, b, n, _ in side_by_side.NMS_SHAPES} == {(8, 2000), (1, 2000)}
     tokens = {(b, 1 + g * g, w) for b, g, w in side_by_side.ROPE_SHAPES}
     assert {(2, 4097, 768), (2, 4097, 1024), (40, 577, 1024), (8, 1601, 768)} <= tokens
@@ -158,11 +165,51 @@ def test_side_by_side_times_the_main_paths_shapes():
     main = {shape for shape, view in side_by_side.LN_SHAPES if not view}
     assert {(2, 4097, 768), (2, 4097, 2048), (2, 4097, 1024), (2, 4097, 2730), (40, 577, 1024)} == main
     assert {view for _, view in side_by_side.LN_SHAPES} == set(side_by_side.LN_VIEWS)
-    wide = {(1, 4097, 16, d): "bfloat16" for d in (80, 88, 104, 112)}
-    assert dict(side_by_side.FLASH_FWD_SHAPES) == {
-        (2, 4097, 12, 64): "bfloat16", **wide, (2, 197, 12, 64): "float32",
-    }
-    assert dict(side_by_side.FLASH_BWD_SHAPES) == {
-        (2, 4097, 12, 64): "bfloat16", (16, 4097, 12, 64): "bfloat16", **wide,
-        (2, 197, 12, 64): "float32",
-    }
+    wide = {((1, 4097, 16, d), dt) for d in (80, 88, 104, 112) for dt in ("bfloat16", "float32")}
+    fwd = {((2, 4097, 12, 64), "bfloat16"), ((2, 4097, 12, 64), "float32"), ((2, 197, 12, 64), "float32"),
+           ((1, 4097, 12, 64), "float32")}
+    crops = ((50, 197, 12, 64), "float32")
+    assert set(side_by_side.FLASH_FWD_SHAPES) == fwd | wide | {crops}
+    assert set(side_by_side.FLASH_BWD_SHAPES) == fwd | wide | {((16, 4097, 12, 64), "bfloat16")}
+    assert len(set(side_by_side.FLASH_BWD_SHAPES)) == len(side_by_side.FLASH_BWD_SHAPES)
+    assert set(side_by_side.FLASH_SHAPES) == set(side_by_side.FLASH_FWD_SHAPES) | set(side_by_side.FLASH_BWD_SHAPES)
+    assert len(set(side_by_side.FLASH_SHAPES)) == len(side_by_side.FLASH_SHAPES)
+
+
+def test_profile_paths_builds_the_hf_vit_b16_of_chip_smoke():
+    """`--model hf-vit-b16-224` is the HF ViT-B/16 that `chip_smoke.py`'s HF
+    phase runs: `hf-vit-tiny-test`'s adapter with its trunk at ViTConfig's
+    defaults, crops at 224^2, embed 512; other names come from the registry."""
+    cfg = profile_paths.model_config(profile_paths.HF_VIT_B16)
+    assert (cfg.name, cfg.embed_dim) == ("hf-vit-b16-224", 512)
+    assert (cfg.vision.hf_trunk_name, cfg.vision.hf_trunk_kwargs, cfg.vision.image_size) == ("vit", "{}", 224)
+    assert profile_paths.model_config("hf-vit-tiny-test").embed_dim == 16
+
+
+def test_port_test_modules_run_on_their_share_of_the_cores(capped_threads):
+    """Under pytest-xdist each worker's port test modules run on
+    ``cpu_count // workers`` torch threads (`tests/torch_threads.py`), so
+    that the workers do not contend for the cores; alone, on all of them."""
+    import torch_threads
+
+    assert capped_threads == torch.get_num_threads() <= torch_threads.thread_share()
+
+
+def test_kernel_resources_reads_ptxas_output():
+    """`tools/kernel_resources.py` takes each kernel's registers, stack and
+    spill bytes from `ptxas -v`'s lines, in order, a kernel without spills
+    at zero."""
+    from clipself_tpu_torch.tools import kernel_resources
+
+    text = (
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPf\n"
+        "    24 bytes stack frame, 24 bytes spill stores, 20 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers, 24 bytes cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers\n"
+    )
+    rows = kernel_resources.parse(text)
+    assert [(r["kernel"], r["registers"], r["stack"], r["spill_stores"], r["spill_loads"]) for r in rows] == [
+        ("_Z3fooPf", 255, 24, 24, 20), ("_Z3barv", 40, 0, 0, 0),
+    ]

@@ -54,6 +54,8 @@ from clipself_tpu_torch.models.clip import CLIP, dense_stride
 from clipself_tpu_torch.models.convnext import CONVNEXT_ARCHS, ConvNeXtBlock
 from clipself_tpu_torch.ops import attention, layer_norm, rope_roll
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 pytestmark = pytest.mark.cuda
 
 PATH_BF16_MIN_COS = 0.9996

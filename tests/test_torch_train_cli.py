@@ -11,6 +11,8 @@ import torch
 from clipself_tpu_torch.train import checkpoint as ckpt
 from clipself_tpu_torch.train import main as train_main
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 ALPHA = 0.7
 
 

@@ -26,6 +26,8 @@ from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.train import main as train_main
 from conftest import write_micro_coco
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "EVA02-CLIP-Tiny-Test"
 N_CLASSES = 7  # 4 things, 3 stuff
 EVAL_KEYS = sorted(

@@ -31,6 +31,8 @@ from clipself_tpu_torch.train import checkpoint as ckpt
 from clipself_tpu_torch.train import main as train_main
 from conftest import write_micro_coco
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "EVA02-CLIP-Tiny-Test"
 NOUNS = 128  # above the loss's 100 sampled classes (top_k needs k <= C)
 

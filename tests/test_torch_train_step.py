@@ -43,6 +43,8 @@ from clipself_tpu_torch.models.torch_io import (
 )
 from clipself_tpu_torch.train import ensemble, methods, optim, step
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "EVA02-CLIP-Tiny-Test"
 LAYERS = get_model_config(NAME).vision.layers
 LOSS_TOL, GRAD_REL = 1e-6, 1e-5

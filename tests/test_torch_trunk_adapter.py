@@ -40,6 +40,8 @@ from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 from clipself_tpu_torch.train import main as train_main
 from clipself_tpu_torch.train import methods, optim
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "hf-vit-tiny-test"
 TOL = 1e-4
 GRAD_REL, GRAD_FLOOR = 1e-4, 1e-6

@@ -18,6 +18,8 @@ from clipself_tpu_torch.eval import zero_shot
 from clipself_tpu_torch.models.clip import CLIP
 from clipself_tpu_torch.models.torch_io import load_weights, state_dict_from_jax
 
+from torch_threads import capped_threads  # noqa: F401  (module fixture)
+
 NAME = "EVA02-CLIP-Tiny-Test"
 TOL = 1e-4
 N_CLASSES = 11
